@@ -1,0 +1,8 @@
+from .paged_cache import (PageAllocator, PagedKVState, PrefixEvictionPolicy,
+                          gather_kv, init_kv_state, kv_page_bytes,
+                          num_pages_for_budget, write_decode_kv,
+                          write_prefill_kv)
+
+__all__ = ["PageAllocator", "PagedKVState", "PrefixEvictionPolicy",
+           "gather_kv", "init_kv_state", "kv_page_bytes",
+           "num_pages_for_budget", "write_decode_kv", "write_prefill_kv"]

@@ -1,0 +1,369 @@
+"""Paged KV cache in device memory.
+
+A fixed pool of pages [L, num_pages, page_size, KV, hd] and a block table
+[slots, max_pages_per_slot] int32 that maps decode slots to pages, so cache
+memory scales with tokens in use, not slots x max context. Page 0 is the
+trash page: masked and padding writes land there.
+
+Unlike the JAX package's functional state, the writers here update the
+pages IN PLACE (``index_put_``) and return the same state object: copying
+the pool per layer per step would double the bytes the step moves.
+Only bf16/f32 pools are served; int8 pages are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..models.configs import LlamaConfig
+
+
+@dataclass
+class PagedKVState:
+    k_pages: torch.Tensor        # [L, num_pages, page_size, KV, hd]
+    v_pages: torch.Tensor        # [L, num_pages, page_size, KV, hd]
+    block_tables: torch.Tensor   # [slots, max_pages_per_slot] int32 (0 = unassigned)
+
+    @property
+    def page_size(self) -> int:
+        return self.k_pages.shape[2]
+
+
+def _no_int8(quant: str) -> None:
+    if quant:
+        raise NotImplementedError(f"KV quant mode {quant!r}: only bf16/f32 "
+                                  "pages are served by this port so far")
+
+
+def init_kv_state(config: LlamaConfig, num_pages: int, page_size: int,
+                  max_slots: int, max_pages_per_slot: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: torch.device | str = "cuda",
+                  quant: str = "") -> PagedKVState:
+    _no_int8(quant)
+    shape = (config.n_layers, num_pages, page_size, config.n_kv_heads,
+             config.head_dim)
+    return PagedKVState(
+        k_pages=torch.zeros(shape, dtype=dtype, device=device),
+        v_pages=torch.zeros(shape, dtype=dtype, device=device),
+        block_tables=torch.zeros((max_slots, max_pages_per_slot),
+                                 dtype=torch.int32, device=device))
+
+
+def kv_page_bytes(config: LlamaConfig, page_size: int,
+                  dtype: torch.dtype = torch.bfloat16, quant: str = "") -> int:
+    """Device bytes ONE page (K and V, all layers) costs."""
+    _no_int8(quant)
+    elems = (2 * config.n_layers * page_size * config.n_kv_heads
+             * config.head_dim)
+    return elems * torch.empty((), dtype=dtype).element_size()
+
+
+def num_pages_for_budget(config: LlamaConfig, page_size: int,
+                         budget_bytes: int,
+                         dtype: torch.dtype = torch.bfloat16,
+                         quant: str = "") -> int:
+    """Pages a fixed device byte budget holds."""
+    return max(2, int(budget_bytes
+                      // kv_page_bytes(config, page_size, dtype, quant)))
+
+
+def write_prefill_kv(kv: PagedKVState, layer: int, k: torch.Tensor,
+                     v: torch.Tensor, slot_ids: torch.Tensor,
+                     positions: torch.Tensor,
+                     valid: torch.Tensor) -> PagedKVState:
+    """Scatter a [B,S] block of K/V into pages, in place.
+
+    k/v: [B,S,KV,hd]; slot_ids: [B]; positions: [B,S] (>= 0); valid:
+    [B,S] bool — invalid entries go to page 0, offset 0."""
+    B, S = positions.shape
+    page_size = kv.page_size
+    rows = kv.block_tables[slot_ids.long()]                       # [B, P]
+    pages = torch.gather(rows, 1, (positions // page_size).long())
+    pages = torch.where(valid, pages, 0).reshape(-1).long()
+    offset = torch.where(valid, positions % page_size, 0).reshape(-1).long()
+    dtype = kv.k_pages.dtype
+    kv.k_pages[layer].index_put_((pages, offset),
+                                 k.reshape(B * S, *k.shape[2:]).to(dtype))
+    kv.v_pages[layer].index_put_((pages, offset),
+                                 v.reshape(B * S, *v.shape[2:]).to(dtype))
+    return kv
+
+
+def write_decode_kv(kv: PagedKVState, layer: int, k: torch.Tensor,
+                    v: torch.Tensor, slot_ids: torch.Tensor,
+                    positions: torch.Tensor,
+                    valid: torch.Tensor | None = None) -> PagedKVState:
+    """Scatter one token per slot, in place. k/v: [B,KV,hd]; positions: [B];
+    valid: [B] bool — False rows write to the trash page."""
+    page_size = kv.page_size
+    rows = kv.block_tables[slot_ids.long()]                       # [B, P]
+    pages = torch.gather(rows, 1, (positions // page_size)[:, None].long())[:, 0]
+    offset = positions % page_size
+    if valid is not None:
+        pages = torch.where(valid, pages, 0)
+        offset = torch.where(valid, offset, 0)
+    index = (pages.long(), offset.long())
+    kv.k_pages[layer].index_put_(index, k.to(kv.k_pages.dtype))
+    kv.v_pages[layer].index_put_(index, v.to(kv.v_pages.dtype))
+    return kv
+
+
+def gather_kv(kv: PagedKVState, layer: int, slot_ids: torch.Tensor,
+              ctx_pages: int | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Materialize each slot's context: -> ([B, C, KV, hd], [B, C, KV, hd])
+    with C = ctx_pages * page_size (default: the full table width). The
+    plain attention path uses it; the kernels read the pages in place."""
+    rows = kv.block_tables[slot_ids.long()]
+    if ctx_pages is not None:
+        rows = rows[:, :ctx_pages]
+    k = kv.k_pages[layer][rows.long()]                            # [B,P,page,KV,hd]
+    v = kv.v_pages[layer][rows.long()]
+    B, P, page, KV, hd = k.shape
+    return k.reshape(B, P * page, KV, hd), v.reshape(B, P * page, KV, hd)
+
+
+class PrefixEvictionPolicy:
+    """Eviction order over the ref==0 resident prefix pages: LRU by LAST
+    MATCH. A page leaves the policy when a match re-references it and
+    re-enters at the MRU end when its last reference drops, so the victim
+    is always the resident page whose prefix went unmatched the longest."""
+
+    def __init__(self) -> None:
+        self._order: dict[int, None] = {}
+
+    def add(self, page: int) -> None:
+        """(Re-)admit a ref==0 resident page at the MRU end."""
+        self._order.pop(page, None)
+        self._order[page] = None
+
+    def discard(self, page: int) -> None:
+        self._order.pop(page, None)
+
+    def pop(self, page: int, default=None):
+        return self._order.pop(page, default)
+
+    def victim(self) -> int | None:
+        """The LRU-by-last-match page, or None when nothing is evictable."""
+        return next(iter(self._order)) if self._order else None
+
+    def __len__(self) -> int:
+        return len(self._order)
+
+
+class PageAllocator:
+    """Host-side page bookkeeping: refcounted free list + per-slot
+    assignment + prefix cache.
+
+    Page 0 is reserved (trash). The device block table is refreshed from
+    ``tables()`` whenever assignments change.
+
+    Prefix cache: FULL pages of prompt tokens are registered under a
+    chained key (parent_key, page_tokens), so a later prompt sharing the
+    prefix reuses the resident pages and only its suffix is prefilled.
+    Pages are refcounted across slots; cached pages whose refcount drops to
+    0 stay resident under the eviction policy until allocation pressure
+    reclaims them. A matched page is immutable by construction — matches
+    cover only positions strictly before the new prompt's last token, and
+    decode writes start at the prompt's end. (The JAX package's spill tiers
+    are not ported yet.)"""
+
+    def __init__(self, num_pages: int, page_size: int, max_slots: int,
+                 max_pages_per_slot: int):
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.max_slots = max_slots
+        self.max_pages_per_slot = max_pages_per_slot
+        self._free = list(range(num_pages - 1, 0, -1))  # page 0 reserved
+        self._slots: dict[int, list[int]] = {}
+        self._ref: dict[int, int] = {}                  # page -> live refs
+        self._cached: dict[tuple, int] = {}             # chain key -> page
+        self._page_key: dict[int, tuple] = {}           # page -> chain key
+        self._lru = PrefixEvictionPolicy()              # ref==0 resident pages
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self.peak_pages_in_use = 0
+        # rows whose page list changed since tables() was last read: steady
+        # decode leaves this empty and the engine skips the table upload
+        self._dirty: set[int] = set()
+        self._table = np.zeros((max_slots, max_pages_per_slot), dtype=np.int32)
+
+    @property
+    def dirty(self) -> bool:
+        """True iff some block-table row changed since the last tables()."""
+        return bool(self._dirty)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free) + len(self._lru)
+
+    @property
+    def pages_in_use(self) -> int:
+        return (self.num_pages - 1) - self.free_pages
+
+    def _track_peak(self) -> None:
+        self.peak_pages_in_use = max(self.peak_pages_in_use,
+                                     self.pages_in_use)
+
+    @property
+    def cached_pages(self) -> int:
+        return len(self._cached)
+
+    def pages_needed(self, n_tokens: int) -> int:
+        return (n_tokens + self.page_size - 1) // self.page_size
+
+    def _take_page(self) -> int:
+        """A writable page: prefer truly free, else reclaim the eviction
+        policy's victim (dropping its prefix-cache registration)."""
+        if self._free:
+            return self._free.pop()
+        page = self._lru.victim()
+        if page is None:  # callers gate on free_pages; this is a bug trap
+            raise RuntimeError("page pool exhausted with nothing evictable")
+        self._lru.discard(page)
+        key = self._page_key.pop(page, None)
+        if key is not None and self._cached.get(key) == page:
+            del self._cached[key]
+        return page
+
+    def _release_page(self, page: int) -> None:
+        current = self._ref.get(page, 1)
+        self._ref[page] = current - 1
+        if self._ref[page] > 0:
+            return
+        del self._ref[page]
+        if page in self._page_key:       # registered prefix page: keep warm
+            self._lru.add(page)
+        else:
+            self._free.append(page)
+
+    # ------------------------------------------------------------ prefix cache
+
+    def _chain_keys(self, prompt_ids: list[int], full: bool = False):
+        """Chain keys of the prompt's full pages, in depth order: the
+        MATCHABLE pages by default (a match never covers the last token),
+        or every full page with ``full=True`` (the registration walk)."""
+        if full:
+            max_pages = len(prompt_ids) // self.page_size
+        else:
+            max_pages = max(0, (len(prompt_ids) - 1) // self.page_size)
+        key: tuple = ()
+        for i in range(max_pages):
+            key = (key, tuple(prompt_ids[i * self.page_size:
+                                         (i + 1) * self.page_size]))
+            yield key
+
+    def _walk_prefix(self, prompt_ids: list[int]) -> list[int]:
+        """Pages of the longest cached full-page prefix."""
+        pages: list[int] = []
+        for key in self._chain_keys(prompt_ids):
+            page = self._cached.get(key)
+            if page is None:
+                break
+            pages.append(page)
+        return pages
+
+    def probe_prefix(self, prompt_ids: list[int]) -> int:
+        """Read-only: tokens a match WOULD cover. Takes no references."""
+        return len(self._walk_prefix(prompt_ids)) * self.page_size
+
+    def match_prefix(self, prompt_ids: list[int]) -> tuple[int, list[int]]:
+        """Longest cached full-page prefix of ``prompt_ids``: returns
+        (n_tokens_matched, pages) and takes a REFERENCE on every matched
+        page (the caller assigns them to a slot or calls release_prefix)."""
+        pages = self._walk_prefix(prompt_ids)
+        for page in pages:
+            self._ref[page] = self._ref.get(page, 0) + 1
+            self._lru.pop(page, None)
+        self._track_peak()
+        return len(pages) * self.page_size, pages
+
+    def release_prefix(self, pages: list[int]) -> None:
+        """Drop the references taken by match_prefix (request not admitted)."""
+        for page in reversed(pages):
+            self._release_page(page)
+
+    def register_prefix(self, slot: int, prompt_ids: list[int]) -> None:
+        """Register the slot's full prompt pages for future reuse. First
+        registration of a chain key wins; later identical pages stay
+        private and simply free when their slot does."""
+        pages = self._slots.get(slot, [])
+        for i, key in enumerate(self._chain_keys(prompt_ids, full=True)):
+            if i >= len(pages):
+                break
+            page = pages[i]
+            if key not in self._cached and page not in self._page_key:
+                self._cached[key] = page
+                self._page_key[page] = key
+
+    # -------------------------------------------------------------- slot pages
+
+    def allocate_slot(self, slot: int, n_tokens: int,
+                      prefix_pages: list[int] | None = None) -> bool:
+        """Assign pages for a sequence of n_tokens to ``slot``; the first
+        ``prefix_pages`` (already referenced via match_prefix) are shared."""
+        shared = prefix_pages or []
+        needed = self.pages_needed(n_tokens)
+        fresh = needed - len(shared)
+        if (fresh > len(self._free) + len(self._lru)
+                or needed > self.max_pages_per_slot or fresh < 0):
+            return False
+        if shared:  # hits are counted when the match is CONSUMED
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += len(shared) * self.page_size
+        pages = list(shared)
+        for _ in range(fresh):
+            page = self._take_page()
+            self._ref[page] = self._ref.get(page, 0) + 1
+            pages.append(page)
+        self._slots[slot] = pages
+        self._dirty.add(slot)
+        self._track_peak()
+        return True
+
+    def grow_slot(self, slot: int, n_tokens: int) -> int:
+        """Best-effort growth toward ``n_tokens`` total capacity; returns
+        the slot's token capacity (pages * page_size) after growth."""
+        pages = self._slots.get(slot)
+        missing = pages is None
+        if missing:
+            pages = []
+        needed = self.pages_needed(n_tokens)
+        grew = False
+        while len(pages) < needed:
+            if not (self._free or self._lru) \
+                    or len(pages) >= self.max_pages_per_slot:
+                break
+            page = self._take_page()
+            self._ref[page] = self._ref.get(page, 0) + 1
+            pages.append(page)
+            grew = True
+        if grew:
+            if missing:
+                self._slots[slot] = pages
+            self._dirty.add(slot)
+            self._track_peak()
+        return len(pages) * self.page_size
+
+    def free_slot(self, slot: int) -> None:
+        pages = self._slots.pop(slot, [])
+        if pages:
+            self._dirty.add(slot)
+        for page in reversed(pages):
+            self._release_page(page)
+
+    def tables(self) -> torch.Tensor:
+        """The block table as a fresh CPU int32 tensor. Only dirty rows are
+        rebuilt in the cached host table; reading clears the dirty set."""
+        for slot in self._dirty:
+            row = self._table[slot]
+            row[:] = 0
+            pages = self._slots.get(slot)
+            if pages:
+                row[:len(pages)] = pages
+        self._dirty.clear()
+        return torch.from_numpy(self._table.copy())

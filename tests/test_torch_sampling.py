@@ -1,0 +1,96 @@
+"""The port's sampler against the JAX package's: greedy is exact, the
+top-k/top-p masks are the same masks, and the draw follows the masked
+softmax (a seeded chi-square test; the two packages' random streams
+differ by construction, so draws are compared by distribution)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mcp_context_forge_tpu.tpu_local import sampling as jax_sampling
+from mcp_context_forge_tpu_torch.tpu_local.sampling import (
+    SamplingParams, sample_tokens, sampling_mask)
+
+
+def _params(temperature, top_k, top_p):
+    return SamplingParams(torch.tensor(temperature, dtype=torch.float32),
+                          torch.tensor(top_k, dtype=torch.int32),
+                          torch.tensor(top_p, dtype=torch.float32))
+
+
+def test_greedy_is_argmax():
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal((6, 300)).astype(np.float32)
+    logits[2, 7] = logits[2, 9] = logits[2].max() + 1.0   # tie: first index
+    gen = torch.Generator().manual_seed(0)
+    out = sample_tokens(torch.from_numpy(logits),
+                        _params([0.0] * 6, [0] * 6, [1.0] * 6), gen)
+    np.testing.assert_array_equal(out.numpy(), np.argmax(logits, axis=-1))
+    jax_out = jax_sampling.sample_tokens(
+        jnp.asarray(logits), jax_sampling.default_sampling(6),
+        jax.random.PRNGKey(0))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jax_out))
+
+
+def test_mask_matches_jax(monkeypatch):
+    """Capture the masked logits JAX's sample_tokens hands to its draw and
+    compare the drawable sets exactly."""
+    rng = np.random.default_rng(1)
+    B, V = 8, 64
+    # unit-scale logits: no token's probability sits below f32 rounding of
+    # the cumulative sum, where top_p = 1.0 would hinge on summation order
+    logits = rng.standard_normal((B, V)).astype(np.float32)
+    temperature = [1.0, 0.7, 1.3, 1.0, 0.5, 2.0, 1.0, 0.9]
+    top_k = [0, 5, 0, 1, 20, 3, 64, 70]
+    top_p = [1.0, 1.0, 0.9, 0.5, 0.8, 1.0, 0.3, 0.95]
+    captured = {}
+    real = jax.random.categorical
+
+    def spy(key, masked, axis=-1):
+        captured["masked"] = np.asarray(masked)
+        return real(key, masked, axis=axis)
+
+    monkeypatch.setattr(jax.random, "categorical", spy)
+    jax_sampling.sample_tokens(
+        jnp.asarray(logits),
+        jax_sampling.SamplingParams(jnp.asarray(temperature, jnp.float32),
+                                    jnp.asarray(top_k, jnp.int32),
+                                    jnp.asarray(top_p, jnp.float32)),
+        jax.random.PRNGKey(0))
+    jax_mask = np.isfinite(captured["masked"])
+    temp = torch.tensor(temperature)[:, None]
+    mask = sampling_mask(torch.from_numpy(logits) / temp,
+                         torch.tensor(top_k, dtype=torch.int32),
+                         torch.tensor(top_p))
+    np.testing.assert_array_equal(mask.numpy(), jax_mask)
+
+
+def test_top_k_one_is_argmax():
+    rng = np.random.default_rng(2)
+    logits = torch.from_numpy(rng.standard_normal((16, 50)).astype(np.float32))
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(5):
+        out = sample_tokens(logits, _params([1.0] * 16, [1] * 16, [1.0] * 16),
+                            gen)
+        assert torch.equal(out, logits.argmax(dim=-1))
+
+
+@pytest.mark.parametrize("top_k,top_p", [(0, 1.0), (3, 1.0), (0, 0.7)])
+def test_draw_distribution_chi_square(top_k, top_p):
+    """20000 seeded draws over a 6-token vocab against the masked softmax:
+    the chi-square statistic stays under the 0.999 quantile of its
+    distribution (df <= 5: 20.5)."""
+    logits = torch.tensor([[1.0, 0.5, 0.0, -0.5, 1.5, -1.0]])
+    N = 20000
+    gen = torch.Generator().manual_seed(1234)
+    params = _params([1.0] * N, [top_k] * N, [top_p] * N)
+    draws = sample_tokens(logits.expand(N, -1).contiguous(), params, gen)
+    mask = sampling_mask(logits, torch.tensor([top_k]), torch.tensor([top_p]))[0]
+    probs = torch.softmax(torch.where(mask, logits[0], -torch.inf), dim=-1)
+    counts = torch.bincount(draws, minlength=6).double()
+    assert counts[~mask].sum() == 0
+    expected = probs[mask].double() * N
+    chi2 = float(((counts[mask] - expected) ** 2 / expected).sum())
+    assert chi2 < 20.5
