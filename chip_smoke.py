@@ -6,21 +6,34 @@
 Run from the root of a checkout. Phases, each printing one JSON line:
 
 1. device: the card (nvidia-smi name and power limit); TF32 off.
-2. build: nvcc builds the three attention kernels from ``csrc/`` for
-   sm_90a, in parallel, into ``build/kernels/``.
-3. kernels: each kernel against its plain PyTorch version at Llama-3-8B
-   serving shapes in bf16 (atol = rtol = 2e-2 on the rows anyone reads: both
-   sides accumulate in f32; the order of the sums and the bf16 rounding of
-   the output differ), with CUDA-event times (median of 25 runs, L2 flushed
-   before each) and each kernel's bound on this card.
+2. build: nvcc builds every kernel from ``csrc/`` for sm_90a, one process
+   per source, all started together, into ``build/kernels/``.
+3. kernels: each kernel against its plain PyTorch version in bf16 (atol =
+   rtol = 2e-2 on the rows anyone reads: both sides accumulate in f32; the
+   order of the sums and the bf16 rounding of the output differ), with
+   CUDA-event times (median of 25 runs, L2 flushed before each) and each
+   kernel's bound on this card.
 4. model: a tiny f32 model on the card (kernels) against the same model on
    the CPU (plain versions): prefill, prefix-hit suffix prefill, decode.
-5. engine: ``TorchEngine`` at the full width of llama3-8b (32 layers,
-   seeded random weights, bf16) behind ``TorchLocalProvider.chat``: six
-   concurrent greedy requests (two share a 300+ token system prompt, so the
-   second hits the prefix cache; one is ~1500 tokens), then one request sent
-   twice must give the same tokens. Every kernel's launch count is reset
-   just before this phase and must be > 0 after it.
+5. engine: ``TorchLocalProvider.chat`` with seeded random weights in bf16:
+   six concurrent greedy requests (two share a 300+ token system prompt,
+   so the second hits the prefix cache; one is ~1450 tokens), then one
+   request sent twice must give the same tokens. Every kernel's launch
+   count is reset just before the six requests, and each kernel the phase
+   runs must show > 0 launches after them. Each engine is freed before the
+   next is built.
+
+The attention path runs first, on a card the MoE phases have not loaded:
+kernels (Llama-3-8B serving shapes), model (llama3-tiny), engine (llama3-8b
+at full width, 32 layers: the three attention kernels). Then the MoE path:
+kernels (both grouped-expert kernels at Mixtral-8x7B widths on a
+2048-token batch routed by a seeded random router, NB = 40 blocks of 128
+rows, plus the cost of one expert-scan ``qmm`` over an int8 expert
+matrix), model (mixtral-test through the grouped path, full-precision and
+int8 weights), and two engine phases: mixtral-8x7b at full width and depth
+with int8 weights (``moe_impl="grouped_pallas"``: attention and
+``expert_blocks_q8``), and mixtral-8x7b in bf16 cut to 8 layers (32 do not
+fit the card in bf16: attention and ``expert_blocks``).
 
 Then the card line, the kernel table (JSON), and last the contract line.
 Any failure raises: the exit code is non-zero and the last line is absent.
@@ -30,7 +43,10 @@ Exits 1 at once when CUDA is not available.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -70,6 +86,41 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+REPLACES = {
+    "flash_attention": "mcp_context_forge_tpu/tpu_local/ops/attention.py:88",
+    "paged_chunk_attention": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:148",
+    "paged_decode_attention": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:199",
+    "expert_blocks": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:164",
+    "expert_blocks_q8": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:225",
+}
+SOURCES = {
+    "flash_attention": "flash_attention.cu",
+    "paged_chunk_attention": "paged_chunk_attention.cu",
+    "paged_decode_attention": "paged_decode_attention.cu",
+    "expert_blocks": "grouped_moe.cu",
+    "expert_blocks_q8": "grouped_moe.cu",
+}
+ATTENTION = ("flash_attention", "paged_chunk_attention", "paged_decode_attention")
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, which carries its ``launches`` count."""
+    from mcp_context_forge_tpu_torch.tpu_local.ops import attention as attn
+    from mcp_context_forge_tpu_torch.tpu_local.ops import grouped_moe as gm
+    from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
+    return {"flash_attention": attn.flash_attention,
+            "paged_chunk_attention": paged.paged_chunk_attention,
+            "paged_decode_attention": paged.paged_decode_attention,
+            "expert_blocks": gm.expert_blocks,
+            "expert_blocks_q8": gm.expert_blocks_q8}
+
+
+def free_device(torch) -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -78,8 +129,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from mcp_context_forge_tpu_torch.tpu_local.ops import _build
-    from mcp_context_forge_tpu_torch.tpu_local.ops import attention as attn
-    from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
 
     # ---------------------------------------------------------------- device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -100,28 +149,41 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
           "ptxas": usage})
 
-    # --------------------------------------------------------------- kernels
-    results = kernel_phase(torch, dev, attn, paged)
-    torch.cuda.empty_cache()
+    # ------------------------------------------- attention: kernels, model, engine
+    timer = Timer(torch, dev)
+    results = kernel_phase(torch, dev, timer)
+    free_device(torch)
+    model_check(torch, dev, "llama3-tiny")
+    launches, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION)
+    emit({"phase": "engine", **stats})
+    free_device(torch)
 
-    # ----------------------------------------------------------------- model
-    model_check(torch, dev)
+    # ------------------------------------------------- MoE: kernels, model, engine
+    results.update(moe_kernel_phase(torch, dev, timer))
+    del timer
+    free_device(torch)
+    for quant in ("", "int8"):
+        model_check(torch, dev, "mixtral-test", quant=quant,
+                    moe=dict(moe_impl="grouped_pallas", moe_block=8))
+    counts, stats = engine_phase(
+        torch, dev, "mixtral-8x7b", ATTENTION + ("expert_blocks_q8",),
+        quant="int8", moe_impl="grouped_pallas")
+    emit({"phase": "engine_mixtral_int8", **stats})
+    launches["expert_blocks_q8"] = counts["expert_blocks_q8"]
+    free_device(torch)
+    counts, stats = engine_phase(
+        torch, dev, "mixtral-8x7b", ATTENTION + ("expert_blocks",),
+        moe_impl="grouped_pallas", n_layers=8)
+    emit({"phase": "engine_mixtral_bf16_8_layers", **stats})
+    launches["expert_blocks"] = counts["expert_blocks"]
+    free_device(torch)
 
-    # ---------------------------------------------------------------- engine
-    launches, engine_stats = engine_phase(torch, dev, (attn, paged))
-    emit({"phase": "engine", **engine_stats})
-
-    replaces = {
-        "flash_attention": "mcp_context_forge_tpu/tpu_local/ops/attention.py:88",
-        "paged_chunk_attention": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:148",
-        "paged_decode_attention": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:199",
-    }
     table = []
-    for name, tpu_kernel in replaces.items():
+    for name, tpu_kernel in REPLACES.items():
         r = results[name]
         table.append({
             "name": name, "route": "cuda",
-            "source": f"mcp_context_forge_tpu_torch/tpu_local/csrc/{name}.cu",
+            "source": f"mcp_context_forge_tpu_torch/tpu_local/csrc/{SOURCES[name]}",
             "replaces": tpu_kernel, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -134,19 +196,23 @@ def main() -> int:
     return 0
 
 
-def kernel_phase(torch, dev, attn, paged) -> dict:
-    """Each kernel against its plain version at Llama-3-8B serving shapes
-    in bf16; times, bounds. Returns the per-kernel results."""
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+class Timer:
+    """CUDA-event time of a call: median of RUNS runs after 3 warm-ups,
+    with a 64 MB buffer written before each run so the inputs are cold in
+    L2, as the real caller finds them."""
 
-    def time_ms(fn) -> float:
+    def __init__(self, torch, dev):
+        self.torch = torch
+        self.flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+
+    def __call__(self, fn) -> float:
         for _ in range(3):
             fn()
         times = []
         for _ in range(RUNS):
-            flush.zero_()  # the real caller finds these pages cold in L2
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
+            self.flush.zero_()
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
             end.record()
@@ -154,11 +220,19 @@ def kernel_phase(torch, dev, attn, paged) -> dict:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    def compare(out, ref, rows) -> float:
-        out, ref = out[rows].float(), ref[rows].float()
-        check(torch.isfinite(out).all(), "non-finite kernel output")
-        torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
-        return float((out - ref).abs().max())
+
+def compare(torch, out, ref, rows) -> float:
+    out, ref = out[rows].float(), ref[rows].float()
+    check(torch.isfinite(out).all(), "non-finite kernel output")
+    torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
+    return float((out - ref).abs().max())
+
+
+def kernel_phase(torch, dev, time_ms) -> dict:
+    """Each attention kernel against its plain version at Llama-3-8B
+    serving shapes in bf16; times, bounds. Returns the per-kernel results."""
+    from mcp_context_forge_tpu_torch.tpu_local.ops import attention as attn
+    from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
@@ -192,7 +266,7 @@ def kernel_phase(torch, dev, attn, paged) -> dict:
     ref = paged.paged_decode_attention_ref(q, k_pages, v_pages, tables, seq_lens)
     torch.cuda.synchronize()
     active = seq_lens > 0
-    err = compare(out, ref, active)
+    err = compare(torch, out, ref, active)
     check(torch.count_nonzero(out[~active]) == 0, "seq_len 0 row is not zero")
     tokens = sum(seq_lens_list)
     nbytes = 2 * tokens * KV * hd * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + 8 * 4
@@ -217,7 +291,7 @@ def kernel_phase(torch, dev, attn, paged) -> dict:
     ref = paged.paged_chunk_attention_ref(qc, k_pages, v_pages, ctables, pos)
     torch.cuda.synchronize()
     valid = pos >= 0
-    err = compare(out, ref, valid)
+    err = compare(torch, out, ref, valid)
     keys = sum(int(p.max()) + 1 for p in pos)
     pairs = int((pos[valid].long() + 1).sum())
     nbytes = 2 * keys * KV * hd * 2 + 2 * qc.numel() * 2 + ctables.numel() * 4 + pos.numel() * 4
@@ -238,7 +312,7 @@ def kernel_phase(torch, dev, attn, paged) -> dict:
         out = attn.flash_attention(qf, kf, vf, validf)
         ref = attn.attention_reference(qf, kf, vf, validf)
         torch.cuda.synchronize()
-        err = compare(out, ref, validf)
+        err = compare(torch, out, ref, validf)
         del ref
         qt = qf.transpose(1, 2).contiguous()
         kt = kf.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
@@ -265,18 +339,120 @@ def kernel_phase(torch, dev, attn, paged) -> dict:
     return results
 
 
+def moe_kernel_phase(torch, dev, time_ms) -> dict:
+    """Both grouped-expert kernels against their plain versions at
+    Mixtral-8x7B widths (D 4096, F 14336, E 8, top-2, Bt 128) on T = 2048
+    bf16 tokens routed by a seeded random router: NB = 40 blocks. bf16
+    stacks [8, 4096, 14336] (2.8 GB), then the same stacks in int8 with
+    bf16 scales. Also times one expert-scan ``qmm`` (an [8, D] decode
+    batch through one int8 [D, F] expert matrix) beside the bf16 matmul."""
+    from mcp_context_forge_tpu_torch.tpu_local.ops import grouped_moe as gm
+    from mcp_context_forge_tpu_torch.tpu_local.parallel.moe import router_probs
+    from mcp_context_forge_tpu_torch.tpu_local.quantize import qmm, quantize_leaf
 
-def model_check(torch, dev) -> None:
+    D, F, E, K, T, Bt = 4096, 14336, 8, 2, 2048, 128
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, fan_in=1):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (w / math.sqrt(fan_in)).to(bf16)
+
+    def stack(shape, fan_in):
+        out = torch.empty((E, *shape), dtype=bf16, device=dev)
+        for e in range(E):
+            out[e] = randn(*shape, fan_in=fan_in)
+        return out
+
+    w1, w3, w2 = stack((D, F), D), stack((D, F), D), stack((F, D), F)
+    router = randn(D, E, fan_in=D)
+    x = randn(T, D)
+    plan = gm.route_sorted_blocks(router_probs(router, x), K, Bt)
+    be = plan["block_expert"]
+    NB = be.numel()
+    check(NB == -(-T * K // Bt) + E, f"NB is {NB}")
+    x_pad = (x[plan["sorted_token"].long()]
+             * plan["row_valid"][:, None].to(bf16)).reshape(NB, Bt, D)
+    rows = torch.ones((NB, Bt), dtype=torch.bool, device=dev)
+    NP = NB * Bt
+    flops = 6 * NP * D * F
+    act_bytes = 2 * NP * D * 2 + NB * 4          # x_pad in, out out, owners
+    shape = {"x_pad": [NB, Bt, D], "w1": [E, D, F], "w2": [E, F, D],
+             "tokens": T, "top_k": K,
+             "padded_rows_per_expert": torch.bincount(
+                 be.long(), minlength=E).mul(Bt).tolist()}
+    results = {}
+
+    out = gm.expert_blocks(x_pad, w1, w3, w2, be)
+    ref = gm.expert_blocks_ref(x_pad, w1, w3, w2, be)
+    torch.cuda.synchronize()
+    err = compare(torch, out, ref, rows)
+    check(torch.equal(out, gm.expert_blocks(x_pad, w1, w3, w2, be)),
+          "expert_blocks is not deterministic")
+    del ref
+    results["expert_blocks"] = dict(
+        shape=shape, dtype="bfloat16", max_abs_err=err,
+        kernel_ms=time_ms(lambda: gm.expert_blocks(x_pad, w1, w3, w2, be)),
+        plain_ms=time_ms(lambda: gm.expert_blocks_ref(x_pad, w1, w3, w2, be)),
+        library_ms=None, flops=flops,
+        bytes=act_bytes + 3 * E * D * F * 2)
+
+    def quantize(w):   # per expert, as the engine's int8 init does
+        q = torch.empty(w.shape, dtype=torch.int8, device=dev)
+        s = torch.empty((E, w.shape[2]), dtype=bf16, device=dev)
+        for e in range(E):
+            leaf = quantize_leaf(w[e], 0, bf16)
+            q[e], s[e] = leaf["q"], leaf["s"]
+        return {"q": q, "s": s}
+
+    q1, q3, q2 = quantize(w1), quantize(w3), quantize(w2)
+    x8 = x[:8].contiguous()
+    w_one, q_one = w1[0].contiguous(), {"q": q1["q"][0], "s": q1["s"][0]}
+    qmm_cost = {"x": [8, D], "w": [D, F],
+                "int8_qmm_ms": time_ms(lambda: qmm(x8, q_one)),
+                "bf16_matmul_ms": time_ms(lambda: x8 @ w_one),
+                "int8_bound_ms": bound(D * F + F * 2 + 2 * 8 * (D + F) * 2,
+                                       2 * 8 * D * F)[0]}
+    del w1, w3, w2, w_one
+    free_device(torch)
+
+    out = gm.expert_blocks_q8(x_pad, q1, q3, q2, be)
+    ref = gm.expert_blocks_q8_ref(x_pad, q1, q3, q2, be)
+    torch.cuda.synchronize()
+    err = compare(torch, out, ref, rows)
+    check(torch.equal(out, gm.expert_blocks_q8(x_pad, q1, q3, q2, be)),
+          "expert_blocks_q8 is not deterministic")
+    del ref
+    results["expert_blocks_q8"] = dict(
+        shape=shape, dtype="bfloat16 activations, int8 stacks, bf16 scales",
+        max_abs_err=err,
+        kernel_ms=time_ms(lambda: gm.expert_blocks_q8(x_pad, q1, q3, q2, be)),
+        plain_ms=time_ms(lambda: gm.expert_blocks_q8_ref(x_pad, q1, q3, q2, be)),
+        library_ms=None, flops=flops,
+        bytes=act_bytes + 3 * E * D * F + (2 * E * F + E * D) * 2)
+    for run in results.values():
+        run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
+    emit({"phase": "moe_kernels", "tolerance": {"atol": TOL, "rtol": TOL},
+          **results, "dense_scan_qmm": qmm_cost})
+    return results
+
+
+def model_check(torch, dev, name: str, quant: str = "",
+                moe: dict | None = None) -> None:
     """A tiny f32 model, the same weights on the card (kernels) and on the
     CPU (plain versions): cold prefill, prefix-hit suffix prefill and decode
-    logits agree within 1e-3 (f32 both sides; summation order differs)."""
+    logits agree within 1e-3 (f32 both sides; summation order differs).
+    ``moe`` overrides the MoE formulation; the grouped kernels must then
+    launch on the card."""
     from mcp_context_forge_tpu_torch.tpu_local.kv import init_kv_state
     from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
     from mcp_context_forge_tpu_torch.tpu_local.models import llama
 
-    cfg = MODEL_CONFIGS["llama3-tiny"]
+    cfg = dataclasses.replace(MODEL_CONFIGS[name], **(moe or {}))
     params_cpu = llama.init_params(cfg, torch.Generator().manual_seed(0),
-                                   torch.float32, "cpu")
+                                   torch.float32, "cpu", quant=quant)
+    wrappers = kernel_wrappers()
+    expert_kernel = wrappers["expert_blocks_q8" if quant else "expert_blocks"]
 
     def to(tree, device):
         if isinstance(tree, dict):
@@ -297,6 +473,7 @@ def model_check(torch, dev) -> None:
         pos = torch.arange(64, dtype=torch.int32).repeat(2, 1)
         pos[1, 50:] = -1
         slots = torch.tensor([0, 1])
+        launched = expert_kernel.launches
         a, _ = llama.prefill(params, cfg, ids[:, :64].to(device), pos.to(device),
                              kv, slots.to(device))
         hpos = torch.arange(64, 96, dtype=torch.int32).repeat(2, 1)
@@ -307,29 +484,47 @@ def model_check(torch, dev) -> None:
                                  torch.tensor([96, 82], dtype=torch.int32).to(device),
                                  kv, slots.to(device),
                                  torch.tensor([97, 83], dtype=torch.int32).to(device))
+        if moe and device != "cpu":
+            check(expert_kernel.launches > launched,
+                  f"{name}: the grouped expert kernel never launched")
         valid = (pos >= 0)
         outs[str(device)] = (a[valid].cpu(), b.reshape(-1, b.shape[-1]).cpu(), c.cpu())
     cpu, card = outs["cpu"], outs[str(dev)]
-    for name, x, y in zip(("prefill", "history", "decode"), card, cpu):
-        check(torch.isfinite(x).all(), f"non-finite {name} logits on the card")
+    for part, x, y in zip(("prefill", "history", "decode"), card, cpu):
+        check(torch.isfinite(x).all(), f"non-finite {part} logits on the card")
         torch.testing.assert_close(x, y, atol=1e-3, rtol=1e-3)
-        errs[name] = float((x - y).abs().max())
-    emit({"phase": "model", "config": cfg.name, "dtype": "float32",
-          "max_abs_err": errs})
+        errs[part] = float((x - y).abs().max())
+    emit({"phase": "model", "config": name, "dtype": "float32",
+          "quant": quant or "none", "moe": moe, "max_abs_err": errs})
 
 
-def engine_phase(torch, dev, modules):
+def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
+                 n_layers: int = 0, **engine_kwargs):
+    """Six concurrent greedy chat requests and one repeated request through
+    ``TorchLocalProvider.chat`` on ``model`` (random weights, bf16).
+    ``n_layers`` cuts the depth. Every kernel's count is reset just before
+    the six requests and read just after; each of ``kernels`` must have
+    launched."""
     from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngine
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
     from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
 
-    attn, paged = modules
+    name = model
+    if n_layers:
+        name = f"{model}-{n_layers}-layers"
+        MODEL_CONFIGS[name] = dataclasses.replace(MODEL_CONFIGS[model],
+                                                  name=name, n_layers=n_layers)
+    wrappers = kernel_wrappers()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     engine = TorchEngine(EngineConfig(
-        model="llama3-8b", dtype="bfloat16", device="cuda", max_batch=8,
+        model=name, dtype="bfloat16", device="cuda", max_batch=8,
         max_seq_len=2048, page_size=128, num_pages=512,
-        prefill_buckets=(128, 512, 2048), prefill_max_batch=4, seed=0))
+        prefill_buckets=(128, 512, 2048), prefill_max_batch=4, seed=0,
+        **engine_kwargs))
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
+    build_peak = torch.cuda.max_memory_allocated()
     provider = TorchLocalProvider("tpu_local", engine)
     seen = []
     submit = engine.submit
@@ -353,7 +548,7 @@ def engine_phase(torch, dev, modules):
         messages = [{"role": "user", "content": user}]
         if system_prompt:
             messages.insert(0, {"role": "system", "content": system_prompt})
-        return {"model": "llama3-8b", "max_tokens": 32, "temperature": 0,
+        return {"model": model, "max_tokens": 32, "temperature": 0,
                 "messages": messages}
 
     long_doc = " ".join(f"line {i}: the tool returned status ok." for i in range(37))
@@ -366,10 +561,8 @@ def engine_phase(torch, dev, modules):
     async def run():
         await engine.start()
         try:
-            for mod, name in ((attn, "flash_attention"),
-                              (paged, "paged_chunk_attention"),
-                              (paged, "paged_decode_attention")):
-                getattr(mod, name).launches = 0
+            for fn in wrappers.values():
+                fn.launches = 0
             torch.cuda.reset_peak_memory_stats()
             stats0 = dict(engine.stats.__dict__)
             t_start = time.monotonic()
@@ -380,9 +573,7 @@ def engine_phase(torch, dev, modules):
             rest = [asyncio.ensure_future(provider.chat(r)) for r in requests[1:]]
             replies = await asyncio.wait_for(asyncio.gather(first, *rest), 600)
             wall = time.monotonic() - t_start
-            counts = {"flash_attention": attn.flash_attention.launches,
-                      "paged_chunk_attention": paged.paged_chunk_attention.launches,
-                      "paged_decode_attention": paged.paged_decode_attention.launches}
+            counts = {k: fn.launches for k, fn in wrappers.items()}
             peak = torch.cuda.max_memory_allocated()
             served = list(seen)
             delta = {k: v - stats0[k] for k, v in engine.stats.__dict__.items()}
@@ -393,6 +584,9 @@ def engine_phase(torch, dev, modules):
             await engine.stop()
 
     replies, wall, counts, peak, served, delta = asyncio.run(run())
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    check(max(peak, build_peak) < card_bytes,
+          f"peak memory {max(peak, build_peak)} exceeds the card's {card_bytes}")
     check(len(replies) == 6 and len(served) == 6, "not every request was served")
     for request in served:
         check(request.finish_reason in ("stop", "length"),
@@ -403,12 +597,15 @@ def engine_phase(torch, dev, modules):
     check(served[2].bucket == 2048, f"the long prompt took bucket {served[2].bucket}")
     tokens_a, tokens_b = (seen[-2].generated, seen[-1].generated)
     check(tokens_a == tokens_b, "repeated greedy request changed its tokens")
-    for name, n in counts.items():
-        check(n > 0, f"{name} never launched on the main path")
+    for kernel in kernels:
+        check(counts[kernel] > 0, f"{kernel} never launched on the {name} path")
     ttft = [(r.first_token_ts - r.created) * 1e3 for r in served]
     decode_tokens = sum(len(r.generated) - 1 for r in served)
-    return counts, {
-        "model": "llama3-8b", "weights": "random (seed 0)", "dtype": "bfloat16",
+    cfg = engine.model_config
+    stats = {
+        "model": name, "layers": cfg.n_layers, "weights": "random (seed 0)",
+        "dtype": "bfloat16", "quant": engine.config.quant or "none",
+        "moe_impl": cfg.moe_impl if cfg.n_experts else None,
         "engine_build_s": build_s, "requests": len(served),
         "prompt_tokens": [len(r.prompt_ids) for r in served],
         "buckets": [r.bucket for r in served],
@@ -423,8 +620,11 @@ def engine_phase(torch, dev, modules):
         "prefill_batches": delta["prefill_batches"],
         "prefill_ms_total": delta["prefill_ms_total"],
         "total_s": wall, "peak_memory_bytes": peak,
+        "build_peak_memory_bytes": build_peak,
         "repeat_tokens_equal": True, "repeat_tokens": len(tokens_a),
         "launches": counts}
+    del engine, provider, seen, served
+    return counts, stats
 
 
 if __name__ == "__main__":

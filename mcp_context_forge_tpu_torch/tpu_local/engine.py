@@ -20,12 +20,15 @@ stall the caller's event loop; tokens hop back with one
 The engine runs on ``config.device`` ("cuda" by default) and raises at
 construction when that device is absent; it never moves to the CPU by
 itself. Prompts longer than the largest prefill bucket are refused
-(chunked prefill is not ported yet).
+(chunked prefill is not ported yet). ``quant="int8"`` serves int8 weights;
+MoE models (Mixtral) pick their FFN formulation with ``moe_impl`` and
+``moe_block``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import queue
 import threading
@@ -65,6 +68,14 @@ class EngineConfig:
     prefix_cache: bool = True
     device: str = "cuda"
     seed: int = 0                   # random weights and the sampler
+    # weight-only quantization: "" (full precision) or "int8" (quantize.py;
+    # random weights quantize as they are drawn, one expert at a time)
+    quant: str = ""
+    # MoE FFN formulation (models/configs.py moe_impl): dense | grouped |
+    # grouped_pallas; moe_block overrides the kernel row-block AND the
+    # T*k >= E*block gate. "" / 0 keep the model config's.
+    moe_impl: str = ""
+    moe_block: int = 0
 
 
 @dataclass
@@ -122,8 +133,9 @@ class TorchEngine:
     """Owns params + the KV pool on one device; device work runs on the
     dispatch thread, token emission hops back to the asyncio loop.
 
-    ``params``: a parameter tree to serve (e.g. from
-    ``models.convert.params_from_jax``); seeded random weights otherwise."""
+    ``params``: a parameter tree to serve as given, full precision or
+    already quantized (e.g. from ``models.convert.params_from_jax``);
+    seeded random weights otherwise, quantized when ``config.quant``."""
 
     def __init__(self, config: EngineConfig,
                  params: dict[str, Any] | None = None):
@@ -132,16 +144,29 @@ class TorchEngine:
         if config.dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {config.dtype!r}")
         self.dtype = _DTYPES[config.dtype]
+        if config.quant not in ("", "int8"):
+            raise ValueError(f"unsupported quant mode {config.quant!r}")
+        if config.moe_impl not in ("", "dense", "grouped", "grouped_pallas"):
+            # a typo must not silently serve the dense path
+            raise ValueError(
+                f"moe_impl must be dense|grouped|grouped_pallas, "
+                f"got {config.moe_impl!r}")
         self.model_config: LlamaConfig = MODEL_CONFIGS[config.model]
-        if self.model_config.n_experts:
-            raise NotImplementedError("MoE models are not ported yet")
+        overrides: dict[str, Any] = {}
+        if config.moe_impl:
+            overrides["moe_impl"] = config.moe_impl
+        if config.moe_block:
+            overrides["moe_block"] = config.moe_block
+        if overrides:
+            self.model_config = dataclasses.replace(self.model_config,
+                                                    **overrides)
         self.tokenizer = load_tokenizer(vocab_size=self.model_config.vocab_size)
         self.stats = EngineStats()
         if params is None:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(config.seed)
             params = init_params(self.model_config, init_gen, self.dtype,
-                                 self.device)
+                                 self.device, quant=config.quant)
         self.params = params
         max_pages_per_slot = config.max_seq_len // config.page_size
         self.kv = init_kv_state(self.model_config, config.num_pages,

@@ -1,6 +1,7 @@
 """Llama-3-class decoder in PyTorch: GQA attention, RoPE (split halves),
-RMSNorm, SwiGLU/GeGLU; one trunk for Llama-3, Mistral, Qwen2 (q/k/v biases)
-and Gemma (decoupled head_dim, GeGLU, scaled embeddings, (1+w) norms).
+RMSNorm, SwiGLU/GeGLU; one trunk for Llama-3, Mistral, Qwen2 (q/k/v biases),
+Gemma (decoupled head_dim, GeGLU, scaled embeddings, (1+w) norms) and
+Mixtral (top-k routed expert FFN, ``_ffn_block``).
 
 Parameters are a plain dict tree with the JAX package's names and layouts
 (weights [in, out], applied as ``x @ w``), so ``convert.params_from_jax``
@@ -12,7 +13,10 @@ kernels on CUDA tensors and the plain versions on CPU tensors:
   plus the suffix just written (``ops.paged_attention``);
 - ``decode_step``: the paged decode kernel, one token per row.
 
-The KV writes update the pages in place (``kv/paged_cache.py``).
+MoE layers run the grouped expert kernels (``ops.grouped_moe``) when a
+batch clears the grouped gate and the expert scan otherwise. Weights may
+be int8 (``{"q", "s"}`` leaves, ``quantize.py``). The KV writes update the
+pages in place (``kv/paged_cache.py``).
 """
 
 from __future__ import annotations
@@ -27,8 +31,10 @@ from .configs import LlamaConfig
 from ..kv.paged_cache import (PagedKVState, gather_kv, write_decode_kv,
                               write_prefill_kv)
 from ..ops.attention import NEG_INF, causal_attention
+from ..ops.grouped_moe import moe_ffn_grouped
 from ..ops.paged_attention import paged_chunk_attention, paged_decode_attention
-from ..quantize import embed_rows, qmm, qmm_t
+from ..parallel.moe import MoEConfig, moe_ffn_dense_mask
+from ..quantize import embed_rows, qmm, qmm_t, quantize_leaf, reduction_axis
 
 
 # ------------------------------------------------------------------ building blocks
@@ -67,36 +73,75 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def init_params(config: LlamaConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
-                device: torch.device | str = "cuda") -> dict[str, Any]:
+                device: torch.device | str = "cuda",
+                quant: str = "") -> dict[str, Any]:
     """Seeded random weights with the JAX package's shapes and scales
     (normal / sqrt(fan_in); unit norms; zero biases). The draws differ from
     jax.random's: a test that needs both packages on the same weights
-    carries them across with ``convert.params_from_jax``."""
-    if config.n_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
+    carries them across with ``convert.params_from_jax``.
 
-    def dense(shape: tuple[int, ...], fan_in: int) -> torch.Tensor:
+    ``quant="int8"`` quantizes each weight as soon as it is drawn (in
+    ``dtype`` first, as the JAX engine quantizes its ``dtype`` tree), one
+    expert at a time for the [E, ...] stacks, so the full-precision tree
+    never exists: Mixtral-8x7B is ~93 GB in bf16 and ~47 GB in int8. The
+    draws are the same either way, so the result equals
+    ``quantize_tree(init_params(...), params_logical(config), dtype)``."""
+    if quant not in ("", "int8"):
+        raise ValueError(f"unsupported quant mode {quant!r}")
+    logical = params_logical(config)
+
+    def draw(shape: tuple[int, ...], fan_in: int) -> torch.Tensor:
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=device)
         return (w * (1.0 / math.sqrt(fan_in))).to(dtype)
 
+    def dense(name: str, shape: tuple[int, ...], fan_in: int) -> Any:
+        axis = reduction_axis(name) if quant else None
+        w = draw(shape, fan_in)
+        return w if axis is None else quantize_leaf(w, axis, dtype)
+
+    def stack(name: str, shape: tuple[int, ...], fan_in: int) -> Any:
+        """[E, *shape], drawn (and quantized) one expert at a time."""
+        E = config.n_experts
+        axis = reduction_axis(name) if quant else None
+        if axis is None:
+            out = torch.empty((E, *shape), dtype=dtype, device=device)
+            for e in range(E):
+                out[e] = draw(shape, fan_in)
+            return out
+        axis -= 1   # the stack's reduction axis, within one expert
+        q = torch.empty((E, *shape), dtype=torch.int8, device=device)
+        s = torch.empty((E, shape[1 - axis]), dtype=dtype, device=device)
+        for e in range(E):
+            leaf = quantize_leaf(draw(shape, fan_in), axis, dtype)
+            q[e], s[e] = leaf["q"], leaf["s"]
+        return {"q": q, "s": s}
+
     def norm() -> torch.Tensor:
         return torch.ones((config.dim,), dtype=torch.float32, device=device)
 
-    hd = config.head_dim
+    hd, D, Fh = config.head_dim, config.dim, config.ffn_hidden
+    names = logical["layers"][0] if config.n_layers else {}
     layers = []
     for _ in range(config.n_layers):
         layer = {
             "attn_norm": norm(),
-            "wq": dense((config.dim, config.n_heads * hd), config.dim),
-            "wk": dense((config.dim, config.n_kv_heads * hd), config.dim),
-            "wv": dense((config.dim, config.n_kv_heads * hd), config.dim),
-            "wo": dense((config.n_heads * hd, config.dim), config.n_heads * hd),
+            "wq": dense(names["wq"], (D, config.n_heads * hd), D),
+            "wk": dense(names["wk"], (D, config.n_kv_heads * hd), D),
+            "wv": dense(names["wv"], (D, config.n_kv_heads * hd), D),
+            "wo": dense(names["wo"], (config.n_heads * hd, D),
+                        config.n_heads * hd),
             "ffn_norm": norm(),
-            "w1": dense((config.dim, config.ffn_hidden), config.dim),
-            "w3": dense((config.dim, config.ffn_hidden), config.dim),
-            "w2": dense((config.ffn_hidden, config.dim), config.ffn_hidden),
         }
+        if config.n_experts:  # Mixtral: router + stacked expert FFN
+            layer["router"] = dense(names["router"], (D, config.n_experts), D)
+            layer["w1"] = stack(names["w1"], (D, Fh), D)
+            layer["w3"] = stack(names["w3"], (D, Fh), D)
+            layer["w2"] = stack(names["w2"], (Fh, D), Fh)
+        else:
+            layer["w1"] = dense(names["w1"], (D, Fh), D)
+            layer["w3"] = dense(names["w3"], (D, Fh), D)
+            layer["w2"] = dense(names["w2"], (Fh, D), Fh)
         if config.attn_bias:  # Qwen2-style q/k/v projection biases
             for name, width in (("bq", config.n_heads), ("bk", config.n_kv_heads),
                                 ("bv", config.n_kv_heads)):
@@ -104,13 +149,58 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
                                           device=device)
         layers.append(layer)
     params = {
-        "embed": dense((config.vocab_size, config.dim), config.dim),
+        "embed": dense(logical["embed"], (config.vocab_size, D), D),
         "layers": layers,
         "final_norm": norm(),
     }
     if not config.tie_embeddings:
-        params["lm_head"] = dense((config.dim, config.vocab_size), config.dim)
+        params["lm_head"] = dense(logical["lm_head"], (D, config.vocab_size),
+                                  D)
     return params
+
+
+def params_logical(config: LlamaConfig) -> dict[str, Any]:
+    """Logical names matching init_params' tree (the JAX package's; they
+    select the quantization rule of each leaf)."""
+    layer = {
+        "attn_norm": "replicated",
+        "wq": "attn_qkv", "wk": "attn_qkv", "wv": "attn_qkv",
+        "wo": "attn_out",
+        "ffn_norm": "replicated",
+    }
+    if config.n_experts:
+        layer.update({"router": "replicated", "w1": "moe_up",
+                      "w3": "moe_up", "w2": "moe_down"})
+    else:
+        layer.update({"w1": "ffn_up", "w3": "ffn_up", "w2": "ffn_down"})
+    if config.attn_bias:
+        layer.update({"bq": "replicated", "bk": "replicated",
+                      "bv": "replicated"})
+    tree = {
+        "embed": "vocab_in",
+        "layers": [dict(layer) for _ in range(config.n_layers)],
+        "final_norm": "replicated",
+    }
+    if not config.tie_embeddings:
+        tree["lm_head"] = "vocab_out"
+    return tree
+
+
+def param_count(config: LlamaConfig) -> int:
+    hd = config.head_dim
+    if config.n_experts:
+        ffn = (config.n_experts * 3 * config.dim * config.ffn_hidden
+               + config.dim * config.n_experts)   # experts + router
+    else:
+        ffn = 3 * config.dim * config.ffn_hidden
+    per_layer = (config.dim * (config.n_heads + 2 * config.n_kv_heads) * hd
+                 + config.n_heads * hd * config.dim
+                 + ffn + 2 * config.dim)
+    if config.attn_bias:
+        per_layer += (config.n_heads + 2 * config.n_kv_heads) * hd
+    embeddings = config.vocab_size * config.dim * (
+        1 if config.tie_embeddings else 2)
+    return embeddings + config.dim + config.n_layers * per_layer
 
 
 def lm_logits(params: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
@@ -149,9 +239,31 @@ def _ffn(layer: dict[str, Any], x: torch.Tensor,
     return qmm(gate * qmm(x, layer["w3"]), layer["w2"])
 
 
-def _check_dense(layer: dict[str, Any]) -> None:
-    if "router" in layer:
-        raise NotImplementedError("MoE layers are not ported yet")
+def _ffn_block(layer: dict[str, Any], config: LlamaConfig,
+               x: torch.Tensor) -> torch.Tensor:
+    """Dense SwiGLU/GeGLU, or the top-k routed MoE FFN when the layer has a
+    router (Mixtral family).
+
+    MoE layers take the grouped path (``ops.grouped_moe``: the hand-written
+    kernels on CUDA tensors) only when ``T*k >= E*moe_block``, T = B*S
+    INCLUDING padding rows: its padded rows are bounded by T*k + E*block
+    against the expert scan's E*T. Prefill clears the gate; decode
+    (T = batch width) never does and runs the expert scan. ``grouped`` and
+    ``grouped_pallas`` take the same kernels here: the JAX package's
+    ``grouped`` (XLA-gathered weights) exists only because XLA cannot
+    express the kernel."""
+    if "router" not in layer:
+        return _ffn(layer, x, config.hidden_act)
+    moe_cfg = MoEConfig(dim=config.dim, n_experts=config.n_experts,
+                        expert_hidden=config.ffn_hidden,
+                        top_k=config.moe_top_k)
+    moe_params = {k: layer[k] for k in ("router", "w1", "w3", "w2")}
+    T = x.shape[0] * x.shape[1]
+    if (config.moe_impl.startswith("grouped")
+            and T * config.moe_top_k >= config.n_experts * config.moe_block):
+        return moe_ffn_grouped(moe_params, x, moe_cfg, act=config.hidden_act,
+                               block=config.moe_block)
+    return moe_ffn_dense_mask(moe_params, x, moe_cfg, act=config.hidden_act)
 
 
 def prefill(params: dict[str, Any], config: LlamaConfig, tokens: torch.Tensor,
@@ -169,14 +281,13 @@ def prefill(params: dict[str, Any], config: LlamaConfig, tokens: torch.Tensor,
     mask_valid = positions >= 0
     safe_positions = positions.clamp(min=0)
     for idx, layer in enumerate(params["layers"]):
-        _check_dense(layer)
         h = rms_norm(x, layer["attn_norm"], config.norm_eps, config.norm_plus_one)
         q, k, v = _attention_block(layer, config, h, safe_positions)
         write_prefill_kv(kv, idx, k, v, slot_ids, safe_positions, mask_valid)
         attn = causal_attention(q, k, v, mask_valid)              # [B,S,H,hd]
         x = x + qmm(attn.reshape(*attn.shape[:2], -1), layer["wo"])
         h = rms_norm(x, layer["ffn_norm"], config.norm_eps, config.norm_plus_one)
-        x = x + _ffn(layer, h, config.hidden_act)
+        x = x + _ffn_block(layer, config, h)
     x = rms_norm(x, params["final_norm"], config.norm_eps, config.norm_plus_one)
     if last_idx is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_idx.long()]
@@ -207,7 +318,6 @@ def prefill_with_history(params: dict[str, Any], config: LlamaConfig,
     on_card = kv.k_pages.is_cuda
     tables = kv.block_tables[slot_ids.long()]
     for idx, layer in enumerate(params["layers"]):
-        _check_dense(layer)
         h = rms_norm(x, layer["attn_norm"], config.norm_eps, config.norm_plus_one)
         q, k, v = _attention_block(layer, config, h, safe_positions)
         write_prefill_kv(kv, idx, k, v, slot_ids, safe_positions, mask_valid)
@@ -230,7 +340,7 @@ def prefill_with_history(params: dict[str, Any], config: LlamaConfig,
         attn = tiles[0] if len(tiles) == 1 else torch.cat(tiles, dim=1)
         x = x + qmm(attn.reshape(B, S, -1), layer["wo"])
         h = rms_norm(x, layer["ffn_norm"], config.norm_eps, config.norm_plus_one)
-        x = x + _ffn(layer, h, config.hidden_act)
+        x = x + _ffn_block(layer, config, h)
     x = rms_norm(x, params["final_norm"], config.norm_eps, config.norm_plus_one)
     if last_idx is not None:
         x = x[torch.arange(B, device=x.device), last_idx.long()]
@@ -289,7 +399,6 @@ def decode_step(params: dict[str, Any], config: LlamaConfig,
     on_card = kv.k_pages.is_cuda
     tables = kv.block_tables[slot_ids.long()]
     for idx, layer in enumerate(params["layers"]):
-        _check_dense(layer)
         h = rms_norm(x, layer["attn_norm"], config.norm_eps, config.norm_plus_one)
         q, k, v = _attention_block(layer, config, h, pos)
         write_decode_kv(kv, idx, k[:, 0], v[:, 0], slot_ids, positions,
@@ -304,7 +413,7 @@ def decode_step(params: dict[str, Any], config: LlamaConfig,
                                            config)
         x = x + qmm(attn.reshape(B, 1, -1), layer["wo"])
         h = rms_norm(x, layer["ffn_norm"], config.norm_eps, config.norm_plus_one)
-        x = x + _ffn(layer, h, config.hidden_act)
+        x = x + _ffn_block(layer, config, h)
     x = rms_norm(x, params["final_norm"], config.norm_eps, config.norm_plus_one)
     return lm_logits(params, x[:, 0]), kv
 

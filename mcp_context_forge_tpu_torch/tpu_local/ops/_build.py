@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "paged_chunk_attention", "paged_decode_attention")
+KERNELS = ("flash_attention", "paged_chunk_attention", "paged_decode_attention",
+           "grouped_moe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -117,20 +118,24 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-# dtype codes of the C entries (attention_tile.cuh kBF16 / kF32)
+# dtype codes of the C entries (attention_tile.cuh kBF16 / kF32, and the
+# same codes in grouped_moe.cu)
 DTYPE_CODES = {"torch.bfloat16": 0, "torch.float32": 1}
 
 
-def check_inputs(name: str, data: dict, ints: dict) -> int:
+def check_inputs(name: str, data: dict, ints: dict,
+                 int8: dict | None = None) -> int:
     """Validate the tensors handed to a kernel: one CUDA device, contiguous,
     16-byte aligned (the kernels load 8 elements at a time), ``data`` all of
-    one supported float dtype, ``ints`` int32 (bool for ``valid``). Returns
-    the dtype code."""
-    tensors = {**data, **ints}
+    one supported float dtype, ``ints`` int32 (bool for ``valid``),
+    ``int8`` (quantized weights, whose scales go in ``data``) int8.
+    Returns the dtype code."""
+    int8 = int8 or {}
+    tensors = {**data, **ints, **int8}
     device = next(iter(tensors.values())).device
     dtypes = {str(t.dtype) for t in data.values()}
     if len(dtypes) != 1 or next(iter(dtypes)) not in DTYPE_CODES:
-        raise TypeError(f"{name}: q/k/v/pages must share one dtype of "
+        raise TypeError(f"{name}: {'/'.join(data)} must share one dtype of "
                         f"{sorted(DTYPE_CODES)}, got {sorted(dtypes)}")
     for arg, t in tensors.items():
         if t.device != device or device.type != "cuda":
@@ -138,13 +143,16 @@ def check_inputs(name: str, data: dict, ints: dict) -> int:
                              f"device), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    for arg, t in data.items():
+    for arg, t in {**data, **int8}.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
     for arg, t in ints.items():
         want = "torch.bool" if arg == "valid" else "torch.int32"
         if str(t.dtype) != want:
             raise TypeError(f"{name}: {arg} must be {want}, got {t.dtype}")
+    for arg, t in int8.items():
+        if str(t.dtype) != "torch.int8":
+            raise TypeError(f"{name}: {arg} must be torch.int8, got {t.dtype}")
     return DTYPE_CODES[next(iter(dtypes))]
 
 

@@ -1,8 +1,19 @@
-"""Weight application for the model: embedding gather and matmuls.
+"""Int8 weight-only quantization and weight application (embedding gather,
+matmuls) for the model.
 
-Only full-precision weights are served so far. A quantized leaf (the JAX
-package's ``{"q": int8, "s": scale}`` dict) raises: int8 serving needs a
-hand-written W8A16 GEMM, which comes in a later slice.
+Scheme (the JAX package's, ``quantize.py``): every 2D matmul weight W
+becomes ``{"q": int8, "s": scale}`` with per-output-channel scales,
+``W ≈ q * s`` with ``s[o] = max|W[:, o]| / 127``; the embedding table
+quantizes per ROW; MoE expert stacks ``[E, D, F]`` / ``[E, F, D]``
+quantize per (expert, out-channel); norms, biases and the router stay in
+full precision. ``s`` is stored in ``scale_dtype`` (the engine's compute
+dtype), which doubles as the activation dtype of ``embed_rows``.
+
+``qmm`` is ``(x @ q) * s``: a plain product, which the JAX package leaves
+to XLA and the port to ``torch.matmul``. XLA fuses the int8 -> bf16
+convert into the dot's operand load; eager PyTorch cannot, so on the card
+each call first writes a dequantized copy of ``q`` (see PERF.md). A
+hand-written W8A16 GEMM is later performance work.
 """
 
 from __future__ import annotations
@@ -11,33 +22,120 @@ from typing import Any
 
 import torch
 
+# logical weight name -> (reduction axis, scale logical name); the scale
+# lives on the axis that survives the reduction
+_QUANT_RULES: dict[str, tuple[int, str]] = {
+    "vocab_in": (1, "scale_model"),    # embed (vocab, dim): per-row scale
+    "vocab_out": (0, "scale_model"),   # lm head (dim, vocab): per-col scale
+    "attn_qkv": (0, "scale_model"),    # (dim, H*hd)
+    "attn_out": (0, "replicated"),     # (H*hd, dim)
+    "ffn_up": (0, "scale_model"),      # (dim, hidden)
+    "ffn_down": (0, "replicated"),     # (hidden, dim)
+    # MoE expert stacks reduce the middle (contraction) axis of
+    # [E, D, F] / [E, F, D]: one scale per (expert, out-channel)
+    "moe_up": (1, "scale_moe_model"),
+    "moe_down": (1, "scale_moe"),
+}
+
+
+def _map_tree(fn, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to the leaves of a dict/list tree (and the matching
+    leaves of ``rest``); a ``{"q","s"}`` dict counts as one leaf."""
+    if isinstance(tree, dict) and not is_quant(tree):
+        return {k: _map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def _leaves(tree: Any) -> list[Any]:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def reduction_axis(name: str) -> int | None:
+    """The axis a weight with logical name ``name`` quantizes over (its
+    scales live on the others), or None when it stays full precision."""
+    rule = _QUANT_RULES.get(name)
+    return None if rule is None else rule[0]
+
+
+def quantize_logical(tree: Any) -> Any:
+    """Map a params_logical tree to its int8 twin: quantizable leaf names
+    become {"q": name, "s": scale_name} sub-dicts."""
+    def one(name: str):
+        rule = _QUANT_RULES.get(name)
+        return name if rule is None else {"q": name, "s": rule[1]}
+
+    return _map_tree(one, tree)
+
+
+def quantize_leaf(w: torch.Tensor, axis: int,
+                  scale_dtype: torch.dtype = torch.float32
+                  ) -> dict[str, torch.Tensor]:
+    """W -> {"q": int8, "s": scale} with scales on the non-reduced axis.
+    q is computed from the f32 scale (round half to even, as
+    ``jnp.round``); s is then stored in ``scale_dtype``."""
+    wf = w.float()
+    s = wf.abs().amax(dim=axis) / 127.0
+    s = torch.clamp(s, min=1e-8)
+    q = torch.round(wf / s.unsqueeze(axis)).to(torch.int8)
+    return {"q": q, "s": s.to(scale_dtype)}
+
+
+def quantize_tree(params: Any, logical: Any,
+                  scale_dtype: torch.dtype = torch.float32) -> Any:
+    """Quantize every rule-covered leaf of a full-precision tree.
+    ``logical`` is the ORIGINAL (unquantized) params_logical tree."""
+    def one(w, name):
+        axis = reduction_axis(name)
+        return w if axis is None else quantize_leaf(w, axis, scale_dtype)
+
+    return _map_tree(one, params, logical)
+
+
+def param_bytes(tree: Any) -> int:
+    """Resident bytes of a param tree (quantized leaves count q and s)."""
+    return sum(leaf.numel() * leaf.element_size() for leaf in _leaves(tree))
+
 
 def is_quant(w: Any) -> bool:
     return isinstance(w, dict) and "q" in w and "s" in w
 
 
-def _plain(w: Any) -> torch.Tensor:
-    if is_quant(w):
-        raise NotImplementedError("int8 weights ({'q', 's'} leaves) are not "
-                                  "served by this port yet")
-    return w
-
-
 def qmm(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """x @ W, W stored [in, out] as in the JAX package."""
-    return x @ _plain(w)
+    """x @ W for a plain or quantized weight ([in, out] as in the JAX
+    package): (x @ q) * s, the scale applied to the output."""
+    if not is_quant(w):
+        return x @ w
+    return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
 
 
 def qmm_t(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """x @ W.T (tied lm head: embed is [vocab, dim])."""
-    return x @ _plain(w).T
+    """x @ W.T (tied lm head: embed is [vocab, dim]). Per-row scales of the
+    embedding are per-column scales of the head: (x @ q.T) * s."""
+    if not is_quant(w):
+        return x @ w.T
+    return (x @ w["q"].T.to(x.dtype)) * w["s"].to(x.dtype)
 
 
 def embed_rows(embed: Any, tokens: torch.Tensor,
                multiplier: float = 1.0) -> torch.Tensor:
-    """Embedding gather; ``multiplier`` (Gemma's sqrt(dim)) is rounded to
-    the table's dtype before it scales, as in the JAX package."""
-    rows = _plain(embed)[tokens.long()]
+    """Embedding gather for a plain or per-row-quantized table; quantized
+    tables come back in the scale's dtype. ``multiplier`` (Gemma's
+    sqrt(dim)) is rounded to the rows' dtype before it scales, as in the
+    JAX package."""
+    idx = tokens.long()
+    if not is_quant(embed):
+        rows = embed[idx]
+    else:
+        s = embed["s"]
+        rows = embed["q"][idx].to(s.dtype) * s[idx][..., None]
     if multiplier != 1.0:
         rows = rows * torch.tensor(multiplier, dtype=rows.dtype,
                                    device=rows.device)

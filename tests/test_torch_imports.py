@@ -51,6 +51,9 @@ def test_kernel_modules_import_without_toolchain():
         "import sys\n"
         "import mcp_context_forge_tpu_torch.tpu_local.ops.paged_attention\n"
         "import mcp_context_forge_tpu_torch.tpu_local.ops.attention\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.ops.grouped_moe\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.parallel.moe\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.quantize\n"
         "import mcp_context_forge_tpu_torch.tpu_local.engine\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('triton', 'jax', 'jaxlib', 'mcp_context_forge_tpu')]\n"

@@ -62,7 +62,8 @@ def _close(port: torch.Tensor, ref, **kw):
                                rtol=0, **kw)
 
 
-@pytest.mark.parametrize("name", ["llama3-test", "qwen2-tiny", "gemma-test"])
+@pytest.mark.parametrize("name", ["llama3-test", "qwen2-tiny", "gemma-test",
+                                  "mixtral-test"])
 def test_model_matches_jax(name):
     """prefill (full logits and last_idx), then prefill_with_history on a
     suffix over the cached prefix, then decode steps — each against the
