@@ -25,7 +25,16 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 
 The attention path runs first, on a card the MoE phases have not loaded:
 kernels (Llama-3-8B serving shapes), model (llama3-tiny), engine (llama3-8b
-at full width, 32 layers: the three attention kernels). Then the MoE path:
+at full width, 32 layers: the three attention kernels). Then the long-
+context path on int8 KV pages: the int8-page chunk and decode kernels at
+Llama-3-8B shapes over a 1024-page int8 pool (seq_lens up to ~8000; 512-
+query chunks over up to 48 history pages), the llama3-tiny model check on
+int8 pages, and ``engine_llama3_8b_int8_kv_long``: llama3-8b at full width
+and depth with ``kv_quant="int8"``, max_seq_len 8192 and a 512-page byte
+budget (1023 int8 pages), serving a ~6000-token and a ~3000-token prompt
+by chunked prefill beside a prefix hit and two short chats (flash and the
+two int8-page kernels; the bf16 paged kernels must not launch). Then the
+MoE path:
 kernels (both grouped-expert kernels at Mixtral-8x7B widths on a
 2048-token batch routed by a seeded random router, NB = 40 blocks of 128
 rows, plus the cost of one expert-scan ``qmm`` over an int8 expert
@@ -54,6 +63,7 @@ import time
 from pathlib import Path
 
 TOL = 2e-2
+ROW_REL = 1e-2   # paged kernels: max|out - ref| within a row over max|ref| of that row
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, dense peak
 BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 tensor cores
 RUNS = 25
@@ -89,18 +99,24 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 REPLACES = {
     "flash_attention": "mcp_context_forge_tpu/tpu_local/ops/attention.py:88",
     "paged_chunk_attention": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:148",
+    "paged_chunk_attention_q8": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:111",
     "paged_decode_attention": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:199",
+    "paged_decode_attention_q8": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:59",
     "expert_blocks": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:164",
     "expert_blocks_q8": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:225",
 }
 SOURCES = {
     "flash_attention": "flash_attention.cu",
     "paged_chunk_attention": "paged_chunk_attention.cu",
+    "paged_chunk_attention_q8": "paged_chunk_attention.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
+    "paged_decode_attention_q8": "paged_decode_attention.cu",
     "expert_blocks": "grouped_moe.cu",
     "expert_blocks_q8": "grouped_moe.cu",
 }
 ATTENTION = ("flash_attention", "paged_chunk_attention", "paged_decode_attention")
+ATTENTION_Q8 = ("flash_attention", "paged_chunk_attention_q8",
+                "paged_decode_attention_q8")
 
 
 def kernel_wrappers() -> dict:
@@ -110,7 +126,9 @@ def kernel_wrappers() -> dict:
     from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
     return {"flash_attention": attn.flash_attention,
             "paged_chunk_attention": paged.paged_chunk_attention,
+            "paged_chunk_attention_q8": paged.paged_chunk_attention_q8,
             "paged_decode_attention": paged.paged_decode_attention,
+            "paged_decode_attention_q8": paged.paged_decode_attention_q8,
             "expert_blocks": gm.expert_blocks,
             "expert_blocks_q8": gm.expert_blocks_q8}
 
@@ -154,8 +172,24 @@ def main() -> int:
     results = kernel_phase(torch, dev, timer)
     free_device(torch)
     model_check(torch, dev, "llama3-tiny")
-    launches, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION)
+    launches, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION,
+                                   chat_requests("llama3-8b"), hit=1)
+    check(stats["buckets"][2] == 2048,
+          f"the ~1450-token prompt took bucket {stats['buckets'][2]}")
     emit({"phase": "engine", **stats})
+    free_device(torch)
+
+    # ------------------------- long context on int8 KV: kernels, model, engine
+    results.update(q8_kernel_phase(torch, dev, timer))
+    free_device(torch)
+    model_check(torch, dev, "llama3-tiny", kv_quant="int8")
+    counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION_Q8,
+                                 long_context_requests("llama3-8b"), hit=3,
+                                 kv_quant="int8", max_seq_len=8192)
+    check_long_context(stats, counts)
+    emit({"phase": "engine_llama3_8b_int8_kv_long", **stats})
+    for name in ATTENTION_Q8[1:]:
+        launches[name] = counts[name]
     free_device(torch)
 
     # ------------------------------------------------- MoE: kernels, model, engine
@@ -167,13 +201,15 @@ def main() -> int:
                     moe=dict(moe_impl="grouped_pallas", moe_block=8))
     counts, stats = engine_phase(
         torch, dev, "mixtral-8x7b", ATTENTION + ("expert_blocks_q8",),
-        quant="int8", moe_impl="grouped_pallas")
+        chat_requests("mixtral-8x7b"), hit=1, quant="int8",
+        moe_impl="grouped_pallas")
     emit({"phase": "engine_mixtral_int8", **stats})
     launches["expert_blocks_q8"] = counts["expert_blocks_q8"]
     free_device(torch)
     counts, stats = engine_phase(
         torch, dev, "mixtral-8x7b", ATTENTION + ("expert_blocks",),
-        moe_impl="grouped_pallas", n_layers=8)
+        chat_requests("mixtral-8x7b"), hit=1, moe_impl="grouped_pallas",
+        n_layers=8)
     emit({"phase": "engine_mixtral_bf16_8_layers", **stats})
     launches["expert_blocks"] = counts["expert_blocks"]
     free_device(torch)
@@ -228,6 +264,39 @@ def compare(torch, out, ref, rows) -> float:
     return float((out - ref).abs().max())
 
 
+def row_error(torch, out, ref, rows) -> float:
+    """The largest over ``rows`` of max|out - ref| / max|ref| within the
+    row. An attention output over n keys is ~1/sqrt(n) in size, below the
+    absolute tolerance at thousands of keys, so each row of a paged kernel
+    is held to its own size as well. Both sides round one f32 result to
+    bf16, so a right row reads at most one bf16 step: 2**-7 of its largest
+    value."""
+    out, ref = out[rows].float().flatten(1), ref[rows].float().flatten(1)
+    err = (out - ref).abs().amax(1) / ref.abs().amax(1).clamp_min(1e-30)
+    return float(err.max())
+
+
+def compare_paged(torch, name: str, out, ref, rows) -> tuple[float, float]:
+    """``compare`` plus each row within ROW_REL of its own size."""
+    err = compare(torch, out, ref, rows)
+    rel = row_error(torch, out, ref, rows)
+    check(rel <= ROW_REL, f"{name}: a row is off by {rel:.3g} of its largest value")
+    return err, rel
+
+
+def planted_faults(torch, name: str, faults: dict, ref, rows) -> dict:
+    """Each fault's output (the kernel on corrupted inputs) against the
+    right plain output: the row check must reject every one. Returns each
+    fault's row error and whether atol = rtol = TOL alone would pass it."""
+    readings = {}
+    for fault, out in faults.items():
+        rel = row_error(torch, out, ref, rows)
+        check(rel > ROW_REL, f"{name}: the row check passes the planted fault {fault}")
+        readings[fault] = {"row_error": rel, "passes_atol_rtol": bool(torch.allclose(
+            out[rows].float(), ref[rows].float(), atol=TOL, rtol=TOL))}
+    return readings
+
+
 def kernel_phase(torch, dev, time_ms) -> dict:
     """Each attention kernel against its plain version at Llama-3-8B
     serving shapes in bf16; times, bounds. Returns the per-kernel results."""
@@ -266,14 +335,14 @@ def kernel_phase(torch, dev, time_ms) -> dict:
     ref = paged.paged_decode_attention_ref(q, k_pages, v_pages, tables, seq_lens)
     torch.cuda.synchronize()
     active = seq_lens > 0
-    err = compare(torch, out, ref, active)
+    err, rel = compare_paged(torch, "paged_decode_attention", out, ref, active)
     check(torch.count_nonzero(out[~active]) == 0, "seq_len 0 row is not zero")
     tokens = sum(seq_lens_list)
     nbytes = 2 * tokens * KV * hd * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + 8 * 4
     results["paged_decode_attention"] = dict(
         shape={"q": list(q.shape), "pages": list(k_pages.shape),
                "seq_lens": seq_lens_list},
-        max_abs_err=err,
+        max_abs_err=err, max_row_error=rel,
         kernel_ms=time_ms(lambda: paged.paged_decode_attention(q, k_pages, v_pages, tables, seq_lens)),
         plain_ms=time_ms(lambda: paged.paged_decode_attention_ref(q, k_pages, v_pages, tables, seq_lens)),
         library_ms=None, bytes=nbytes, flops=4 * hd * G * KV * tokens)
@@ -291,14 +360,14 @@ def kernel_phase(torch, dev, time_ms) -> dict:
     ref = paged.paged_chunk_attention_ref(qc, k_pages, v_pages, ctables, pos)
     torch.cuda.synchronize()
     valid = pos >= 0
-    err = compare(torch, out, ref, valid)
+    err, rel = compare_paged(torch, "paged_chunk_attention", out, ref, valid)
     keys = sum(int(p.max()) + 1 for p in pos)
     pairs = int((pos[valid].long() + 1).sum())
     nbytes = 2 * keys * KV * hd * 2 + 2 * qc.numel() * 2 + ctables.numel() * 4 + pos.numel() * 4
     results["paged_chunk_attention"] = dict(
         shape={"q": list(qc.shape), "pages": list(k_pages.shape),
                "history_pages": hist_pages, "valid_queries": n_valid},
-        max_abs_err=err,
+        max_abs_err=err, max_row_error=rel,
         kernel_ms=time_ms(lambda: paged.paged_chunk_attention(qc, k_pages, v_pages, ctables, pos)),
         plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(qc, k_pages, v_pages, ctables, pos)),
         library_ms=None, bytes=nbytes, flops=4 * hd * G * KV * pairs)
@@ -332,10 +401,144 @@ def kernel_phase(torch, dev, time_ms) -> dict:
     results["flash_attention"] = flash_runs[-1]
     for run in [results["paged_decode_attention"], results["paged_chunk_attention"]] + flash_runs:
         run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
-    emit({"phase": "kernels", "tolerance": {"atol": TOL, "rtol": TOL},
+    emit({"phase": "kernels",
+          "tolerance": {"atol": TOL, "rtol": TOL, "paged_row_relative": ROW_REL},
           "decode": results["paged_decode_attention"],
           "chunk": results["paged_chunk_attention"],
           "flash": flash_runs})
+    return results
+
+
+def q8_kernel_phase(torch, dev, time_ms) -> dict:
+    """Both int8-page kernels against their plain versions at Llama-3-8B
+    serving shapes over a pool of 1024 int8 pages of 128 with bf16 scales
+    [1024, 8]; times, bounds (1 byte per K/V element plus the scales of the
+    pages walked). Each is also timed beside its bf16-page kernel on the
+    same pages dequantized to bf16 (the same shape, twice the bytes).
+    Planted faults in row 0 past its 32nd page (a wrong page, wrong K
+    scales, a dropped tail tile) show that the row check sees a kernel
+    that misreads part of a long walk."""
+    from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
+    from mcp_context_forge_tpu_torch.tpu_local.quantize import kv_dequantize
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf16 = torch.bfloat16
+    KV, G, hd, PAGE, NUM_PAGES, P = 8, 4, 128, 128, 1024, 64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf16)
+
+    def int8_pages():
+        return torch.randint(-127, 128, (NUM_PAGES, PAGE, KV, hd), generator=gen,
+                             device=dev, dtype=torch.int8)
+
+    def scales():
+        return (torch.rand((NUM_PAGES, KV), generator=gen, device=dev) * 1.5 + 0.5).div(127).to(bf16)
+
+    k8, v8, ks, vs = int8_pages(), int8_pages(), scales(), scales()
+    k16 = kv_dequantize(k8, ks[:, None, :, None], bf16)
+    v16 = kv_dequantize(v8, vs[:, None, :, None], bf16)
+
+    def tables_for(n_tokens: list[int]) -> torch.Tensor:
+        tables = torch.zeros((len(n_tokens), P), dtype=torch.int32)
+        nxt = 1
+        for b, n in enumerate(n_tokens):
+            pages = -(-n // PAGE)
+            tables[b, :pages] = torch.arange(nxt, nxt + pages)
+            nxt += pages
+        check(nxt <= NUM_PAGES, "the test tables overflow the page pool")
+        return tables.to(dev)
+
+    def page_bytes(n_tokens: list[int]) -> int:
+        """K and V at 1 byte per element, plus both scales of each page walked."""
+        pages = sum(-(-n // PAGE) for n in n_tokens)
+        return 2 * sum(n_tokens) * KV * hd + 2 * pages * KV * 2
+
+    results = {}
+
+    # decode: one query token per row, seq_lens up to ~8000, one row at 0
+    seq_lens_list = [8000, 1, 0, 6032, 3000, 129, 4100, 7777]
+    q = randn(8, KV, G, hd)
+    tables = tables_for(seq_lens_list)
+    seq_lens = torch.tensor(seq_lens_list, dtype=torch.int32, device=dev)
+    args = (q, k8, v8, tables, seq_lens, ks, vs)
+    out = paged.paged_decode_attention_q8(*args)
+    ref = paged.paged_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    active = seq_lens > 0
+    err, rel = compare_paged(torch, "paged_decode_attention_q8", out, ref, active)
+    check(torch.count_nonzero(out[~active]) == 0, "seq_len 0 row is not zero")
+    spare = NUM_PAGES - 1    # a page no row's table holds
+    check(not bool((tables == spare).any()), "the spare page is in use")
+    wrong_page, wrong_scales = tables.clone(), ks.clone()
+    wrong_page[0, 40] = spare
+    wrong_scales[tables[0, 33:63].long()] *= 1.25
+    short = seq_lens.clone()
+    short[0] -= 64
+    faults = planted_faults(torch, "paged_decode_attention_q8", {
+        "row 0: page 40 of 63 read from a wrong page": paged.paged_decode_attention_q8(
+            q, k8, v8, wrong_page, seq_lens, ks, vs),
+        "row 0: K scales of pages 33-62 read 1.25x": paged.paged_decode_attention_q8(
+            q, k8, v8, tables, seq_lens, wrong_scales, vs),
+        "row 0: last 64-key tile of 8000 dropped": paged.paged_decode_attention_q8(
+            q, k8, v8, tables, short, ks, vs)}, ref, active)
+    tokens = sum(seq_lens_list)
+    results["paged_decode_attention_q8"] = dict(
+        shape={"q": list(q.shape), "pages": list(k8.shape), "page_dtype": "int8",
+               "scales": list(ks.shape), "seq_lens": seq_lens_list},
+        max_abs_err=err, max_row_error=rel, planted_faults=faults,
+        kernel_ms=time_ms(lambda: paged.paged_decode_attention_q8(*args)),
+        plain_ms=time_ms(lambda: paged.paged_decode_attention_ref(*args)),
+        bf16_pages_kernel_ms=time_ms(lambda: paged.paged_decode_attention(
+            q, k16, v16, tables, seq_lens)),
+        library_ms=None,
+        bytes=page_bytes(seq_lens_list) + 2 * q.numel() * 2 + tables.numel() * 4 + 8 * 4,
+        flops=4 * hd * G * KV * tokens)
+    del ref
+
+    # chunk: 4 rows x 512 queries (the history tile at G = 4) over 48, 24, 8
+    # and 0 history pages; row 3 is half padding
+    hist_pages, S = [48, 24, 8, 0], 512
+    n_valid = [512, 512, 512, 256]
+    qc = randn(4, S, KV, G, hd)
+    pos = torch.full((4, S), -1, dtype=torch.int32)
+    for b, (hp, n) in enumerate(zip(hist_pages, n_valid)):
+        pos[b, :n] = torch.arange(hp * PAGE, hp * PAGE + n)
+    pos = pos.to(dev)
+    ctables = tables_for([hp * PAGE + S for hp in hist_pages])
+    cargs = (qc, k8, v8, ctables, pos, ks, vs)
+    out = paged.paged_chunk_attention_q8(*cargs)
+    ref = paged.paged_chunk_attention_ref(*cargs)
+    torch.cuda.synchronize()
+    valid = pos >= 0
+    err, rel = compare_paged(torch, "paged_chunk_attention_q8", out, ref, valid)
+    wrong_page = ctables.clone()
+    wrong_page[0, 40] = spare
+    check(not bool((ctables == spare).any()), "the spare page is in use")
+    faults = planted_faults(torch, "paged_chunk_attention_q8", {
+        "row 0: history page 40 of 52 read from a wrong page": paged.paged_chunk_attention_q8(
+            qc, k8, v8, wrong_page, pos, ks, vs)}, ref, valid)
+    del ref, out
+    keys = [int(p.max()) + 1 for p in pos]
+    pairs = int((pos[valid].long() + 1).sum())
+    results["paged_chunk_attention_q8"] = dict(
+        shape={"q": list(qc.shape), "pages": list(k8.shape), "page_dtype": "int8",
+               "scales": list(ks.shape), "history_pages": hist_pages,
+               "valid_queries": n_valid},
+        max_abs_err=err, max_row_error=rel, planted_faults=faults,
+        kernel_ms=time_ms(lambda: paged.paged_chunk_attention_q8(*cargs)),
+        plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*cargs)),
+        bf16_pages_kernel_ms=time_ms(lambda: paged.paged_chunk_attention(
+            qc, k16, v16, ctables, pos)),
+        library_ms=None,
+        bytes=page_bytes(keys) + 2 * qc.numel() * 2 + ctables.numel() * 4 + pos.numel() * 4,
+        flops=4 * hd * G * KV * pairs)
+    for run in results.values():
+        run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
+    emit({"phase": "kernels_int8_pages",
+          "tolerance": {"atol": TOL, "rtol": TOL, "paged_row_relative": ROW_REL},
+          "decode": results["paged_decode_attention_q8"],
+          "chunk": results["paged_chunk_attention_q8"]})
     return results
 
 
@@ -438,12 +641,23 @@ def moe_kernel_phase(torch, dev, time_ms) -> dict:
 
 
 def model_check(torch, dev, name: str, quant: str = "",
-                moe: dict | None = None) -> None:
+                moe: dict | None = None, kv_quant: str = "") -> None:
     """A tiny f32 model, the same weights on the card (kernels) and on the
     CPU (plain versions): cold prefill, prefix-hit suffix prefill and decode
     logits agree within 1e-3 (f32 both sides; summation order differs).
     ``moe`` overrides the MoE formulation; the grouped kernels must then
-    launch on the card."""
+    launch on the card. ``kv_quant="int8"`` stores the KV pool as int8
+    pages (the CPU side reads them through ``gather_kv``); both int8-page
+    kernels must then launch on the card. Quantization is not continuous:
+    the two sides' int8 pools may differ by isolated one-step rounding
+    flips (checked: never more), and a stage's logits read the pages that
+    stage writes, so the logits are compared against the plain path
+    replayed on the pages the card stored: before each stage the CPU pool
+    is loaded with the card's pool after it, and the model's KV writers
+    are replaced for the stage by ones that write nothing (checked: the
+    pool is unchanged after it)."""
+    from unittest import mock
+
     from mcp_context_forge_tpu_torch.tpu_local.kv import init_kv_state
     from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
     from mcp_context_forge_tpu_torch.tpu_local.models import llama
@@ -453,6 +667,8 @@ def model_check(torch, dev, name: str, quant: str = "",
                                    torch.float32, "cpu", quant=quant)
     wrappers = kernel_wrappers()
     expert_kernel = wrappers["expert_blocks_q8" if quant else "expert_blocks"]
+    paged_kernels = [wrappers[k] for k in (ATTENTION_Q8[1:] if kv_quant
+                                           else ATTENTION[1:])]
 
     def to(tree, device):
         if isinstance(tree, dict):
@@ -461,50 +677,153 @@ def model_check(torch, dev, name: str, quant: str = "",
             return [to(v, device) for v in tree]
         return tree.to(device)
 
-    errs = {}
-    outs = {}
-    for device in ("cpu", dev):
+    ids = torch.arange(2 * 96, dtype=torch.int64).reshape(2, 96) % cfg.vocab_size
+    pos = torch.arange(64, dtype=torch.int32).repeat(2, 1)
+    pos[1, 50:] = -1
+    hpos = torch.arange(64, 96, dtype=torch.int32).repeat(2, 1)
+    hpos[1] = torch.arange(50, 82)
+    slots = torch.tensor([0, 1])
+    stages = (   # (part, fn(params, kv, device) -> logits)
+        ("prefill", lambda w, kv, d: llama.prefill(
+            w, cfg, ids[:, :64].to(d), pos.to(d), kv, slots.to(d))[0][(pos >= 0).to(d)]),
+        ("history", lambda w, kv, d: llama.prefill_with_history(
+            w, cfg, ids[:, 64:].to(d), hpos.to(d), kv, slots.to(d))[0].flatten(0, 1)),
+        ("decode", lambda w, kv, d: llama.decode_step(
+            w, cfg, ids[:, 0].to(d), torch.tensor([96, 82], dtype=torch.int32).to(d),
+            kv, slots.to(d), torch.tensor([97, 83], dtype=torch.int32).to(d))[0]))
+    pool_names = ("k_pages", "v_pages", "k_scales", "v_scales") if kv_quant else ()
+
+    def run(device, replay=None):
+        """The three stages on ``device``; the logits and the pool after
+        each stage. ``replay``: load the card's pool after each stage and
+        do not write, so the plain path reads the pages the card stored."""
         params = params_cpu if device == "cpu" else to(params_cpu, device)
-        kv = init_kv_state(cfg, 16, 16, 2, 8, dtype=torch.float32, device=device)
+        kv = init_kv_state(cfg, 16, 16, 2, 8, dtype=torch.float32, device=device,
+                           quant=kv_quant)
         kv.block_tables.copy_(torch.tensor([[1, 2, 3, 4, 5, 6, 7, 8],
                                             [9, 10, 11, 12, 13, 14, 15, 0]],
                                            dtype=torch.int32))
-        ids = torch.arange(2 * 96, dtype=torch.int64).reshape(2, 96) % cfg.vocab_size
-        pos = torch.arange(64, dtype=torch.int32).repeat(2, 1)
-        pos[1, 50:] = -1
-        slots = torch.tensor([0, 1])
-        launched = expert_kernel.launches
-        a, _ = llama.prefill(params, cfg, ids[:, :64].to(device), pos.to(device),
-                             kv, slots.to(device))
-        hpos = torch.arange(64, 96, dtype=torch.int32).repeat(2, 1)
-        hpos[1] = torch.arange(50, 82)
-        b, _ = llama.prefill_with_history(params, cfg, ids[:, 64:].to(device),
-                                          hpos.to(device), kv, slots.to(device))
-        c, _ = llama.decode_step(params, cfg, ids[:, 0].to(device),
-                                 torch.tensor([96, 82], dtype=torch.int32).to(device),
-                                 kv, slots.to(device),
-                                 torch.tensor([97, 83], dtype=torch.int32).to(device))
-        if moe and device != "cpu":
-            check(expert_kernel.launches > launched,
-                  f"{name}: the grouped expert kernel never launched")
-        valid = (pos >= 0)
-        outs[str(device)] = (a[valid].cpu(), b.reshape(-1, b.shape[-1]).cpu(), c.cpu())
-    cpu, card = outs["cpu"], outs[str(dev)]
-    for part, x, y in zip(("prefill", "history", "decode"), card, cpu):
+        outs, pools = {}, []
+        for i, (part, fn) in enumerate(stages):
+            if replay is None:
+                outs[part] = fn(params, kv, device).cpu()
+            else:
+                for key in pool_names:
+                    getattr(kv, key).copy_(replay[i][key])
+                # mock.patch raises if llama no longer holds these names
+                with mock.patch.object(llama, "write_prefill_kv", lambda kv, *a: kv), \
+                        mock.patch.object(llama, "write_decode_kv", lambda kv, *a, **k: kv):
+                    outs[part] = fn(params, kv, device).cpu()
+                check(all(torch.equal(getattr(kv, key), replay[i][key]) for key in pool_names),
+                      f"{name}: the {part} replay wrote to the pool")
+            pools.append({key: getattr(kv, key).to("cpu", copy=True) for key in pool_names})
+        return outs, pools
+
+    launched = expert_kernel.launches
+    paged_launched = [fn.launches for fn in paged_kernels]
+    card, card_pools = run(dev)
+    if moe:
+        check(expert_kernel.launches > launched,
+              f"{name}: the grouped expert kernel never launched")
+    check(all(fn.launches > n for fn, n in zip(paged_kernels, paged_launched)),
+          f"{name}: a paged attention kernel never launched")
+    cpu, cpu_pools = run("cpu")
+    stored = {}
+    if kv_quant:
+        # the writers: the card's and the CPU's f32 GEMMs differ in the last
+        # bits, so a key within that of a rounding boundary is stored one
+        # int8 step apart; nothing may differ by more, and the scales (page
+        # maxima) agree. The trash page 0 is not compared.
+        for key in pool_names:
+            x, y = card_pools[-1][key][:, 1:], cpu_pools[-1][key][:, 1:]
+            if key.endswith("pages"):
+                diff = (x.int() - y.int()).abs()
+                check(int(diff.max()) <= 1, f"{key} differ by more than one step")
+                stored[key + "_one_step_flips"] = int(diff.count_nonzero())
+                stored[key + "_elements"] = diff.numel()
+            else:
+                torch.testing.assert_close(x, y, atol=1e-6, rtol=1e-3)
+        # the kernels: the plain path on the pages the card stored
+        cpu, _ = run("cpu", replay=card_pools)
+    errs = {}
+    for part in card:
+        x, y = card[part], cpu[part]
         check(torch.isfinite(x).all(), f"non-finite {part} logits on the card")
         torch.testing.assert_close(x, y, atol=1e-3, rtol=1e-3)
         errs[part] = float((x - y).abs().max())
     emit({"phase": "model", "config": name, "dtype": "float32",
-          "quant": quant or "none", "moe": moe, "max_abs_err": errs})
+          "quant": quant or "none", "kv_quant": kv_quant or "none", "moe": moe,
+          "max_abs_err": errs, **({"int8_storage": stored} if kv_quant else {})})
+
+
+SYSTEM = ("You are the assistant of an MCP gateway. Use only the tools "
+          "listed for this conversation and follow their JSON schemas exactly. "
+          "Name the server that answered each tool call. Keep answers "
+          "short and plain. Never invent a tool, a server or a result. "
+          "When a tool fails, say which one failed and why, then stop. "
+          "Ask before any call that writes, deletes or sends data. "
+          "Prefer read-only tools when two tools can answer.")
+
+
+def chat(model: str, user: str, system_prompt: str | None = None) -> dict:
+    messages = [{"role": "user", "content": user}]
+    if system_prompt:
+        messages.insert(0, {"role": "system", "content": system_prompt})
+    return {"model": model, "max_tokens": 32, "temperature": 0,
+            "messages": messages}
+
+
+def chat_requests(model: str) -> list[dict]:
+    """Two share SYSTEM (the second, index 1, hits the prefix cache), a
+    ~1450-token log summary (the 2048 bucket), three short chats."""
+    long_doc = " ".join(f"line {i}: the tool returned status ok." for i in range(37))
+    return [chat(model, "Which tools can read files?", SYSTEM),
+            chat(model, "Summarize the last failure.", SYSTEM),
+            chat(model, "Summarize this log:\n" + long_doc),
+            chat(model, "Hello!"), chat(model, "List three MCP servers."),
+            chat(model, "What is 2 + 2?")]
+
+
+def long_context_requests(model: str) -> list[dict]:
+    """Summaries of a ~6000- and a ~3000-token log at indices 1 and 2, led
+    only by the first SYSTEM request so that one admission takes both into
+    the chunk rounds; the SYSTEM prefix hit at index 3; two short chats."""
+    def log(lines: int) -> str:
+        return "\n".join(f"line {i}: tool call {i % 17} on server s{i % 5} "
+                         f"returned status ok in {i % 97} ms." for i in range(lines))
+
+    return [chat(model, "Which tools can read files?", SYSTEM),
+            chat(model, "Summarize this log:\n" + log(95)),
+            chat(model, "Summarize this log:\n" + log(48)),
+            chat(model, "Summarize the last failure.", SYSTEM),
+            chat(model, "Hello!"), chat(model, "What is 2 + 2?")]
+
+
+def check_long_context(stats: dict, counts: dict) -> None:
+    """The int8-KV long-context phase: both summaries chunked, the pool
+    holds 1023 int8 pages, and the bf16 paged kernels never launched."""
+    lengths = stats["prompt_tokens"][1:3]
+    check(lengths[0] >= 6000 and 3000 <= lengths[1] < 4096,
+          f"the long prompts have {lengths} tokens")
+    check(all(stats["chunked"][1:3]), "a long prompt was not chunked")
+    check(stats["kv_pages"] == stats["kv_pool_pages"] == 1023
+          and stats["kv_page_dtype"] == "torch.int8",
+          f"the int8 pool holds {stats['kv_pool_pages']} {stats['kv_page_dtype']} pages")
+    for kernel in ATTENTION[1:]:
+        check(counts[kernel] == 0, f"{kernel} launched on int8 pages")
 
 
 def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
-                 n_layers: int = 0, **engine_kwargs):
-    """Six concurrent greedy chat requests and one repeated request through
-    ``TorchLocalProvider.chat`` on ``model`` (random weights, bf16).
-    ``n_layers`` cuts the depth. Every kernel's count is reset just before
-    the six requests and read just after; each of ``kernels`` must have
-    launched."""
+                 requests: list[dict], hit: int, n_layers: int = 0,
+                 **engine_kwargs):
+    """``requests`` sent concurrently as greedy chats through
+    ``TorchLocalProvider.chat`` on ``model`` (random weights, bf16), then
+    ``requests[hit]`` twice more, which must give the same tokens. The
+    first request runs alone until its prefix is registered, so that
+    ``requests[hit]``, which shares its system prompt, hits the cache.
+    ``n_layers`` cuts the depth; ``engine_kwargs`` override the engine
+    config. Every kernel's count is reset just before the concurrent
+    requests and read just after; each of ``kernels`` must have launched."""
     from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngine
     from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
     from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
@@ -517,11 +836,10 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     wrappers = kernel_wrappers()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    engine = TorchEngine(EngineConfig(
-        model=name, dtype="bfloat16", device="cuda", max_batch=8,
-        max_seq_len=2048, page_size=128, num_pages=512,
-        prefill_buckets=(128, 512, 2048), prefill_max_batch=4, seed=0,
-        **engine_kwargs))
+    config = dict(model=name, dtype="bfloat16", device="cuda", max_batch=8,
+                  max_seq_len=2048, page_size=128, num_pages=512,
+                  prefill_buckets=(128, 512, 2048), prefill_max_batch=4, seed=0)
+    engine = TorchEngine(EngineConfig(**{**config, **engine_kwargs}))
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
     build_peak = torch.cuda.max_memory_allocated()
@@ -534,29 +852,8 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         return await submit(request)
 
     engine.submit = recording_submit
-    system = ("You are the assistant of an MCP gateway. Use only the tools "
-              "listed for this conversation and follow their JSON schemas exactly. "
-              "Name the server that answered each tool call. Keep answers "
-              "short and plain. Never invent a tool, a server or a result. "
-              "When a tool fails, say which one failed and why, then stop. "
-              "Ask before any call that writes, deletes or sends data. "
-              "Prefer read-only tools when two tools can answer.")
-    check(len(engine.tokenizer.encode(system)) >= 300,
+    check(len(engine.tokenizer.encode(SYSTEM)) >= 300,
           "the shared system prompt is under 300 tokens")
-
-    def chat(user, system_prompt=None):
-        messages = [{"role": "user", "content": user}]
-        if system_prompt:
-            messages.insert(0, {"role": "system", "content": system_prompt})
-        return {"model": model, "max_tokens": 32, "temperature": 0,
-                "messages": messages}
-
-    long_doc = " ".join(f"line {i}: the tool returned status ok." for i in range(37))
-    requests = [chat("Which tools can read files?", system),
-                chat("Summarize the last failure.", system),
-                chat("Summarize this log:\n" + long_doc),
-                chat("Hello!"), chat("List three MCP servers."),
-                chat("What is 2 + 2?")]
 
     async def run():
         await engine.start()
@@ -578,7 +875,7 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
             served = list(seen)
             delta = {k: v - stats0[k] for k, v in engine.stats.__dict__.items()}
             for _ in range(2):
-                await provider.chat(requests[3])
+                await provider.chat(requests[hit])
             return replies, wall, counts, peak, served, delta
         finally:
             await engine.stop()
@@ -587,14 +884,15 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     check(max(peak, build_peak) < card_bytes,
           f"peak memory {max(peak, build_peak)} exceeds the card's {card_bytes}")
-    check(len(replies) == 6 and len(served) == 6, "not every request was served")
+    n = len(requests)
+    check(len(replies) == n and len(served) == n, "not every request was served")
     for request in served:
         check(request.finish_reason in ("stop", "length"),
               f"a request ended with {request.finish_reason!r}")
         check(all(0 <= t < engine.model_config.vocab_size for t in request.generated),
               "a generated token id is outside the vocabulary")
-    check(served[1].hist > 0 and engine.allocator.prefix_hits >= 1, "no prefix hit")
-    check(served[2].bucket == 2048, f"the long prompt took bucket {served[2].bucket}")
+    check(engine.allocator.prefix_hits >= 1, "no prefix hit")
+    check(served[hit].hist > 0, "the request sharing the system prompt missed the cache")
     tokens_a, tokens_b = (seen[-2].generated, seen[-1].generated)
     check(tokens_a == tokens_b, "repeated greedy request changed its tokens")
     for kernel in kernels:
@@ -605,10 +903,16 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     stats = {
         "model": name, "layers": cfg.n_layers, "weights": "random (seed 0)",
         "dtype": "bfloat16", "quant": engine.config.quant or "none",
+        "kv_quant": engine.config.kv_quant or "none",
+        "max_seq_len": engine.config.max_seq_len,
+        "kv_pages": engine.num_kv_pages,
+        "kv_pool_pages": engine.kv.k_pages.shape[1],
+        "kv_page_dtype": str(engine.kv.k_pages.dtype),
         "moe_impl": cfg.moe_impl if cfg.n_experts else None,
         "engine_build_s": build_s, "requests": len(served),
         "prompt_tokens": [len(r.prompt_ids) for r in served],
         "buckets": [r.bucket for r in served],
+        "chunked": [r.chunked for r in served],
         "prefix_hit_tokens": [r.hist for r in served],
         "finish_reasons": [r.finish_reason for r in served],
         "completion_tokens": [len(r.generated) for r in served],

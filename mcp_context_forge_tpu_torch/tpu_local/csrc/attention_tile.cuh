@@ -1,9 +1,11 @@
-// Tile engine shared by the port's three attention kernels (flash prefill,
-// paged chunk, paged decode). Each is the same computation: a tile of query
-// rows, each with an absolute position, attends with an f32 online softmax
-// over keys c <= position, where the keys come either from a contiguous
-// [B, Sk, KV, hd] tensor (flash) or from a paged pool [N, page, KV, hd]
-// through a block table (chunk, decode).
+// Tile engine shared by the port's attention kernels (flash prefill, paged
+// chunk, paged decode, and the int8-page chunk and decode variants). Each is
+// the same computation: a tile of query rows, each with an absolute
+// position, attends with an f32 online softmax over keys c <= position,
+// where the keys come either from a contiguous [B, Sk, KV, hd] tensor
+// (flash) or from a paged pool [N, page, KV, hd] through a block table
+// (chunk, decode). Paged K/V are stored in the query's type, or in int8
+// with one scale per (page, kv head) ([N, KV] in the query's type).
 //
 // Query and output layout is [B, S, KV*G, hd]; one CTA owns BQ = NT/4 rows
 // r = s*G + g of one (batch row, kv head), so every key tile it stages in
@@ -11,9 +13,11 @@
 //
 // Per key tile of TK keys:
 //   1. the block resolves each key's address (block-table lookup for pages,
-//      done by the block itself: there is no scalar prefetch on this card);
+//      done by the block itself: there is no scalar prefetch on this card)
+//      and, for int8 pages, loads that page's K and V scales of this head;
 //   2. K and V are staged in shared memory as f32 (one 16-byte load per
-//      thread per 8 elements);
+//      thread per 8 elements; 8 bytes for int8, each value multiplied by
+//      its page's scale in f32, the Pallas kernel's dequantization);
 //   3. scores: each thread owns a 4 x TK/16 micro-tile of (row, key) pairs;
 //   4. softmax: one warp per row updates the running max m and sum l and
 //      turns the scores into probabilities;
@@ -27,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mcf {
 
@@ -42,6 +48,8 @@ struct AttnParams {
   const int32_t* tables;      // paged keys: [B, P]
   const int32_t* q_pos;       // [B, S] absolute positions (-1 = padding), or nullptr
   const int32_t* seq_lens;    // [B]: every row sits at seq_len - 1 (decode), or nullptr
+  const void* k_scales;       // int8 pages: [N, KV] dequant scales in the query's type
+  const void* v_scales;
   int B, S, KV, G, hd;
   int Sk;                     // contiguous keys per batch row
   int page_size, P;           // paged keys
@@ -66,6 +74,17 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
+// 8 int8 values with one 8-byte load
+__device__ __forceinline__ void load8(const int8_t* p, float* out) {
+  uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = (float)b[i];
+}
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 
@@ -82,16 +101,21 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Dynamic shared memory of one CTA, in bytes (layout as in the kernel).
-inline size_t attn_smem_bytes(int BQ, int TK, int hd) {
+inline size_t attn_smem_bytes(int BQ, int TK, int hd, bool q8) {
   const size_t ld = (size_t)hd + 1;
   return (size_t)TK * 8 + (size_t)TK * 4 + (size_t)BQ * 4   // key_off, key_ok, row_pos
+         + (q8 ? (size_t)TK * 2 * 4 : 0)                     // key_ks, key_vs (int8 pages)
          + (size_t)BQ * 3 * 4                                // row_m, row_l, row_c
          + ((size_t)BQ + 2 * (size_t)TK) * ld * 4            // Qs, Ks, Vs
          + (size_t)BQ * (TK + 1) * 4;                        // Ps
 }
 
-template <typename T, int NT, int TK, bool PAGED>
+// T: query, output and scale type; KT: K/V storage (T, or int8_t for int8
+// pages, which only the paged kernels take)
+template <typename T, typename KT, int NT, int TK, bool PAGED>
 __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
+  constexpr bool Q8 = std::is_same<KT, int8_t>::value;
+  static_assert(!Q8 || PAGED, "int8 K/V are paged");
   constexpr int BQ = NT / 4;    // query rows per CTA
   constexpr int TQ = NT / 16;   // a thread owns rows tq + TQ*i, i < 4
   constexpr int CK = TK / 16;   // keys per thread in the score micro-tile
@@ -103,7 +127,9 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   long long* key_off = reinterpret_cast<long long*>(smem_raw);  // [TK], -1 = no key
   int* key_ok = reinterpret_cast<int*>(key_off + TK);            // [TK]
-  int* row_pos = key_ok + TK;                                     // [BQ]
+  float* key_ks = reinterpret_cast<float*>(key_ok + TK);          // [TK] int8 only: page scales
+  float* key_vs = key_ks + (Q8 ? TK : 0);                         // [TK] int8 only
+  int* row_pos = reinterpret_cast<int*>(key_vs + (Q8 ? TK : 0));  // [BQ]
   float* row_m = reinterpret_cast<float*>(row_pos + BQ);          // [BQ]
   float* row_l = row_m + BQ;
   float* row_c = row_l + BQ;
@@ -123,8 +149,8 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
   const int H = p.KV * G;
   const int chunks = hd / 8;
   const T* __restrict__ q = static_cast<const T*>(p.q);
-  const T* __restrict__ kp = static_cast<const T*>(p.k);
-  const T* __restrict__ vp = static_cast<const T*>(p.v);
+  const KT* __restrict__ kp = static_cast<const KT*>(p.k);
+  const KT* __restrict__ vp = static_cast<const KT*>(p.v);
 
   for (int r = tid; r < BQ; r += NT) {
     const int gr = r0 + r;
@@ -178,11 +204,17 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
       const int c = c0 + j;
       long long off = -1;
       int ok = 0;
+      float ks = 0.f, vs = 0.f;
       if (c < n_keys) {
         if (PAGED) {
           const int page = p.tables[(long long)b * p.P + c / p.page_size];
           off = (((long long)page * p.page_size + c % p.page_size) * p.KV + kvh) * hd;
           ok = 1;
+          if (Q8) {
+            const long long s = (long long)page * p.KV + kvh;
+            ks = to_float(static_cast<const T*>(p.k_scales)[s]);
+            vs = to_float(static_cast<const T*>(p.v_scales)[s]);
+          }
         } else {
           off = (((long long)b * p.Sk + c) * p.KV + kvh) * hd;
           ok = p.key_valid == nullptr ? 1 : (p.key_valid[(long long)b * p.Sk + c] != 0);
@@ -190,6 +222,10 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
       }
       key_off[j] = off;
       key_ok[j] = ok;
+      if (Q8) {
+        key_ks[j] = ks;
+        key_vs[j] = vs;
+      }
     }
     __syncthreads();
     for (int i = tid; i < TK * chunks; i += NT) {
@@ -201,6 +237,14 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
       if (off >= 0) {
         load8(kp + off + c8, kv8);
         load8(vp + off + c8, vv8);
+        if (Q8) {
+          const float ks = key_ks[j], vs = key_vs[j];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            kv8[e] *= ks;
+            vv8[e] *= vs;
+          }
+        }
       }
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -311,11 +355,11 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
 }
 
 // Launches one tile kernel on ``stream``; returns cudaGetLastError().
-template <typename T, int NT, int TK, bool PAGED>
+template <typename T, typename KT, int NT, int TK, bool PAGED>
 int launch_attn(const AttnParams& p, cudaStream_t stream) {
   constexpr int BQ = NT / 4;
-  const size_t smem = attn_smem_bytes(BQ, TK, p.hd);
-  auto kernel = attn_tile_kernel<T, NT, TK, PAGED>;
+  const size_t smem = attn_smem_bytes(BQ, TK, p.hd, std::is_same<KT, int8_t>::value);
+  auto kernel = attn_tile_kernel<T, KT, NT, TK, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -331,11 +375,16 @@ int launch_attn(const AttnParams& p, cudaStream_t stream) {
 constexpr int kBF16 = 0;
 constexpr int kF32 = 1;
 
-template <int NT, int TK, bool PAGED>
+// Q8: int8 K/V pages with scales in the query's type (``dtype``), both
+// non-null
+template <int NT, int TK, bool PAGED, bool Q8 = false>
 int launch_attn_dtype(const AttnParams& p, int dtype, cudaStream_t stream) {
   if (p.hd <= 0 || p.hd > kMaxHeadDim || p.hd % 8 != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == kBF16) return launch_attn<__nv_bfloat16, NT, TK, PAGED>(p, stream);
-  if (dtype == kF32) return launch_attn<float, NT, TK, PAGED>(p, stream);
+  if (Q8 && (p.k_scales == nullptr || p.v_scales == nullptr)) return (int)cudaErrorInvalidValue;
+  using KB = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
+  using KF = typename std::conditional<Q8, int8_t, float>::type;
+  if (dtype == kBF16) return launch_attn<__nv_bfloat16, KB, NT, TK, PAGED>(p, stream);
+  if (dtype == kF32) return launch_attn<float, KF, NT, TK, PAGED>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 

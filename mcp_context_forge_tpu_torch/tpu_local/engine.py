@@ -10,6 +10,13 @@ stall the caller's event loop; tokens hop back with one
   up to ``prefill_max_batch`` rows padded to the bucket, in one call. A hit
   row prefills only its suffix, through the paged chunk kernel; the first
   token is sampled on the device.
+- Chunked prefill (``_chunk_round``): a prompt longer than every bucket
+  (but within ``max_seq_len - 1``) is admitted to ``_chunking`` and
+  prefills one bucket-sized chunk per loop iteration through the history
+  path, each chunk attending over the pages the earlier ones wrote. Rows
+  carry absolute positions, so long prompts at different offsets share
+  one round of up to ``prefill_max_batch`` rows. Decode never touches a
+  chunking slot.
 - Decode is serial: one step per dispatch over the active slots, retired
   before the next dispatch. The JAX engine's overlapped pipeline and
   super-steps are defined to give the same greedy streams as this.
@@ -19,10 +26,11 @@ stall the caller's event loop; tokens hop back with one
 
 The engine runs on ``config.device`` ("cuda" by default) and raises at
 construction when that device is absent; it never moves to the CPU by
-itself. Prompts longer than the largest prefill bucket are refused
-(chunked prefill is not ported yet). ``quant="int8"`` serves int8 weights;
-MoE models (Mixtral) pick their FFN formulation with ``moe_impl`` and
-``moe_block``.
+itself. ``quant="int8"`` serves int8 weights; ``kv_quant="int8"`` stores
+the KV pool as int8 pages with per-page scales (``num_pages`` is then a
+byte budget counted in compute-dtype pages, which holds about twice as
+many int8 pages: ``num_kv_pages``). MoE models (Mixtral) pick their FFN
+formulation with ``moe_impl`` and ``moe_block``.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ import numpy as np
 import torch
 
 from ..utils import new_id
-from .kv import PageAllocator, init_kv_state
+from .kv import PageAllocator, init_kv_state, kv_page_bytes, num_pages_for_budget
 from .models import MODEL_CONFIGS, LlamaConfig
 from .models.llama import decode_step, init_params, prefill, prefill_with_history
 from .sampling import SamplingParams, sample_tokens
@@ -76,6 +84,10 @@ class EngineConfig:
     # T*k >= E*block gate. "" / 0 keep the model config's.
     moe_impl: str = ""
     moe_block: int = 0
+    # KV pool storage: "" (the compute dtype) or "int8" (int8 pages with
+    # per-(layer, page, kv-head) scales); under int8, num_pages is a byte
+    # budget in compute-dtype pages
+    kv_quant: str = ""
 
 
 @dataclass
@@ -98,7 +110,11 @@ class GenRequest:
     finish_reason: str | None = None
     first_token_ts: float = 0.0
     # prefix-cache admission state: probed cached-history length and the
-    # (suffix) bucket; bucket -1 means not yet probed
+    # (suffix) bucket; bucket -1 means not yet probed. ``chunked``: the
+    # prompt (or its suffix after ``hist``) exceeds every bucket and
+    # prefills in chunk rounds; ``chunk_pos`` counts the tokens prefilled
+    chunked: bool = False
+    chunk_pos: int = 0
     hist: int = 0
     bucket: int = -1
 
@@ -112,6 +128,7 @@ class EngineStats:
         self.prefill_batches = 0
         self.prefill_requests = 0
         self.queue_depth = 0
+        self.chunking = 0             # long prompts mid-chunk-prefill
         self.prefill_ms_total = 0.0   # host wall of prefill dispatches (synced)
         self.decode_ms_total = 0.0    # host wall of decode dispatches (synced)
 
@@ -146,6 +163,8 @@ class TorchEngine:
         self.dtype = _DTYPES[config.dtype]
         if config.quant not in ("", "int8"):
             raise ValueError(f"unsupported quant mode {config.quant!r}")
+        if config.kv_quant not in ("", "int8"):
+            raise ValueError(f"unsupported kv_quant mode {config.kv_quant!r}")
         if config.moe_impl not in ("", "dense", "grouped", "grouped_pallas"):
             # a typo must not silently serve the dense path
             raise ValueError(
@@ -169,17 +188,25 @@ class TorchEngine:
                                  self.device, quant=config.quant)
         self.params = params
         max_pages_per_slot = config.max_seq_len // config.page_size
-        self.kv = init_kv_state(self.model_config, config.num_pages,
+        self.num_kv_pages = config.num_pages
+        if config.kv_quant:
+            budget = config.num_pages * kv_page_bytes(
+                self.model_config, config.page_size, self.dtype)
+            self.num_kv_pages = num_pages_for_budget(
+                self.model_config, config.page_size, budget, self.dtype,
+                config.kv_quant)
+        self.kv = init_kv_state(self.model_config, self.num_kv_pages,
                                 config.page_size, config.max_batch,
                                 max_pages_per_slot, dtype=self.dtype,
-                                device=self.device)
-        self.allocator = PageAllocator(config.num_pages, config.page_size,
+                                device=self.device, quant=config.kv_quant)
+        self.allocator = PageAllocator(self.num_kv_pages, config.page_size,
                                        config.max_batch, max_pages_per_slot)
         self._sample_gen = torch.Generator(device=self.device)
         self._sample_gen.manual_seed(config.seed + 1)
         self._work: queue.Queue[GenRequest] = queue.Queue(maxsize=config.max_queue)
         self._pending: deque[GenRequest] = deque()   # dispatch thread only
         self._running: dict[int, GenRequest] = {}    # slot -> request
+        self._chunking: dict[int, GenRequest] = {}   # slot -> mid-chunk-prefill
         self._emit_buf: list[list[Any]] = []
         self._cancels: set[str] = set()
         self._cancel_lock = threading.Lock()
@@ -227,7 +254,8 @@ class TorchEngine:
             try:
                 known = any(r.request_id == request_id
                             for bucket in (list(self._pending),
-                                           list(self._running.values()))
+                                           list(self._running.values()),
+                                           list(self._chunking.values()))
                             for r in bucket)
                 break
             except RuntimeError:  # a table changed mid-snapshot: retry
@@ -247,12 +275,6 @@ class TorchEngine:
         if self._started and (self._thread is None
                               or not self._thread.is_alive()):
             raise RuntimeError("engine dispatch thread is not running")
-        largest = max(self.config.prefill_buckets)
-        if len(request.prompt_ids) > largest:
-            raise ValueError(
-                f"prompt of {len(request.prompt_ids)} tokens exceeds the "
-                f"largest prefill bucket ({largest}); chunked prefill is not "
-                "supported by this engine yet")
         self.stats.requests += 1
         self.stats.prompt_tokens += len(request.prompt_ids)
         while True:
@@ -281,8 +303,9 @@ class TorchEngine:
 
     def _device_loop(self) -> None:
         """Owns every device call. Each iteration: take new work, apply
-        cancels, admit one prefill group when a slot is free, run one decode
-        step over the running slots, then flush the emitted tokens."""
+        cancels, admit one prefill group when a slot is free, advance every
+        chunking prompt by one chunk round, run one decode step over the
+        running slots, then flush the emitted tokens."""
         try:
             with torch.inference_mode():
                 if self.device.type == "cuda":
@@ -293,13 +316,18 @@ class TorchEngine:
                     if self._cancels:
                         self._apply_cancels()
                         did_work = True
-                    if self._pending and len(self._running) < self.config.max_batch:
+                    occupied = len(self._running) + len(self._chunking)
+                    if self._pending and occupied < self.config.max_batch:
                         did_work = self._admit_batch() or did_work
+                    if self._chunking:
+                        self._chunk_round()
+                        did_work = True
                     if self._running:
                         self._decode_step()
                         did_work = True
                     self.stats.queue_depth = (self._work.qsize()
                                               + len(self._pending))
+                    self.stats.chunking = len(self._chunking)
                     self._flush_emits()
                     if not did_work:
                         self._wait_for_work()
@@ -330,6 +358,10 @@ class TorchEngine:
             if request.finish_reason is None:
                 request.finish_reason = reason
             self._finish(request)
+        for request in list(self._chunking.values()):
+            if request.finish_reason is None:
+                request.finish_reason = reason
+            self._finish(request)
         while self._pending:
             request = self._pending.popleft()
             if request.finish_reason is None:
@@ -339,7 +371,7 @@ class TorchEngine:
     def _apply_cancels(self) -> None:
         with self._cancel_lock:
             ids, self._cancels = self._cancels, set()
-        for request in list(self._running.values()):
+        for request in [*self._running.values(), *self._chunking.values()]:
             if request.request_id in ids and request.finish_reason is None:
                 request.finish_reason = "cancelled"
                 self._finish(request)
@@ -364,38 +396,48 @@ class TorchEngine:
         """Request's prefill bucket (0 = cannot be served). A prefix-cache
         hit buckets by SUFFIX length, and only when that lands a strictly
         smaller bucket than a dense prefill of the whole prompt (the history
-        path costs more per padded token). The probe takes no page
+        path costs more per padded token). A prompt (or a hit's suffix)
+        longer than every bucket is ``chunked``, from its cached history
+        on, and takes the largest bucket. The probe takes no page
         references; the real match happens at admission."""
         if request.bucket != -1:
             return request.bucket
+        config = self.config
         ids = request.prompt_ids
         request.hist = 0
-        if len(ids) + 1 > self.config.max_seq_len:
+        request.chunked = False
+        if len(ids) + 1 > config.max_seq_len:
             # the prompt plus >= 1 generated token must fit the block table
             request.bucket = 0
             return 0
         dense_bucket = self._bucket_for(len(ids))
-        if self.config.prefix_cache:
+        if config.prefix_cache:
             hist = self.allocator.probe_prefix(ids)
             bucket = self._bucket_for(len(ids) - hist) if hist else None
-            if bucket is not None:
-                if dense_bucket is None or bucket < dense_bucket:
-                    request.hist = hist
-                    request.bucket = bucket
-                    return bucket
-        request.bucket = dense_bucket or 0
+            if hist and (bucket is None or dense_bucket is None
+                         or bucket < dense_bucket):
+                request.hist = hist
+                request.chunked = bucket is None
+                request.bucket = bucket or max(config.prefill_buckets)
+                return request.bucket
+        request.chunked = dense_bucket is None
+        request.bucket = dense_bucket or max(config.prefill_buckets)
         return request.bucket
 
     def _admit_batch(self) -> bool:
-        """Admit up to prefill_max_batch requests that share the head's
-        bucket and hit posture, in ONE prefill call."""
+        """Admit up to prefill_max_batch requests in ONE prefill call: the
+        head's bucket and hit posture, or (a chunked head) other chunked
+        requests, which then prefill in ``_chunk_round``. At most
+        prefill_max_batch prompts chunk at once: a chunked request beyond
+        that steps aside so the requests behind it can still admit."""
         config = self.config
         if len({r.priority for r in self._pending}) > 1:
             # stable sort: FIFO holds within each priority class
             self._pending = deque(sorted(self._pending,
                                          key=lambda r: r.priority))
         free_slots = [s for s in range(config.max_batch)
-                      if s not in self._running]
+                      if s not in self._running and s not in self._chunking]
+        deferred: list[GenRequest] = []
         head: GenRequest | None = None
         while self._pending:
             candidate = self._pending[0]
@@ -404,24 +446,35 @@ class TorchEngine:
                 candidate.finish_reason = "length"
                 self._post_tokens(candidate, [], done=True)
                 continue
+            if (candidate.chunked
+                    and len(self._chunking) >= config.prefill_max_batch):
+                deferred.append(self._pending.popleft())
+                continue
             head = candidate
             break
         if head is None or not free_slots:
+            self._pending.extendleft(reversed(deferred))
             return False
         bucket = head.bucket
         with_hist = head.hist > 0
         group: list[GenRequest] = []
         skipped: list[GenRequest] = []
         limit = min(len(free_slots), config.prefill_max_batch)
+        if head.chunked:
+            limit = min(limit, config.prefill_max_batch - len(self._chunking))
         while self._pending and len(group) < limit:
             request = self._pending.popleft()
-            if (self._assign_bucket(request) == bucket
-                    and (request.hist > 0) == with_hist):
-                group.append(request)
+            if head.chunked:
+                # chunk rounds batch rows at any offset, hit or not
+                ok = self._assign_bucket(request) != 0 and request.chunked
             else:
-                skipped.append(request)
-        for request in reversed(skipped):  # FIFO for other buckets
-            self._pending.appendleft(request)
+                ok = (self._assign_bucket(request) == bucket
+                      and (request.hist > 0) == with_hist
+                      and not request.chunked)
+            (group if ok else skipped).append(request)
+        # FIFO for other buckets; capacity-blocked chunkers go first
+        self._pending.extendleft(reversed(skipped))
+        self._pending.extendleft(reversed(deferred))
 
         admitted: list[GenRequest] = []
         for request in group:
@@ -445,15 +498,22 @@ class TorchEngine:
                 self._pending.appendleft(request)
                 continue
             request.slot = slot
-            self._running[slot] = request
+            if request.chunked:
+                # the chunk rounds own it until its prompt is prefilled
+                request.chunk_pos = request.hist
+                self._chunking[slot] = request
+            else:
+                self._running[slot] = request
             admitted.append(request)
         if not admitted:
             return False
         self._sync_tables()
+        if head.chunked:
+            return True   # the device work happens in _chunk_round
 
         started = time.monotonic()
         tokens, positions, last_idx, slot_ids, sampling = self._pack_rows(
-            admitted, bucket)
+            [(r, r.hist, len(r.prompt_ids)) for r in admitted], bucket)
         step = prefill_with_history if with_hist else prefill
         logits, self.kv = step(self.params, self.model_config, tokens,
                                positions, self.kv, slot_ids,
@@ -472,23 +532,63 @@ class TorchEngine:
             self._emit(request, int(token))
         return True
 
-    def _pack_rows(self, rows: list[GenRequest], S: int):
-        """Pack each request's prompt span (from its cached history on) into
-        [B, S] device tensors, padded to the bucket: padding has position
-        -1 (its KV write goes to the trash page) and the pad token."""
+    def _chunk_round(self) -> None:
+        """Advance every chunking prompt by ONE chunk, in one batched call
+        of the history path: chunk i attends over chunks 0..i-1 (and any
+        cached prefix) already in the slot's pages. S is the smallest
+        bucket that covers the widest remaining span. Samples taken
+        mid-prompt predict known prompt tokens and are discarded; a row
+        whose prompt completes registers its prefix, moves to decode and
+        emits its first token."""
+        config = self.config
+        batch = list(self._chunking.values())[:config.prefill_max_batch]
+        widest = max(len(r.prompt_ids) - r.chunk_pos for r in batch)
+        S = self._bucket_for(widest) or max(config.prefill_buckets)
+        started = time.monotonic()
+        rows = []
+        for request in batch:
+            start = request.chunk_pos
+            end = min(start + S, len(request.prompt_ids))
+            rows.append((request, start, end))
+            request.chunk_pos = end
+        tokens, positions, last_idx, slot_ids, sampling = self._pack_rows(
+            rows, S)
+        logits, self.kv = prefill_with_history(
+            self.params, self.model_config, tokens, positions, self.kv,
+            slot_ids, last_idx=last_idx)
+        sampled = sample_tokens(logits, sampling, self._sample_gen).tolist()
+        self.stats.prefill_ms_total += (time.monotonic() - started) * 1000
+        self.stats.prefill_batches += 1
+        for request, token in zip(batch, sampled):
+            if request.chunk_pos < len(request.prompt_ids):
+                continue
+            del self._chunking[request.slot]
+            # register BEFORE emitting: a first token that ends the request
+            # frees the slot's pages, and registration would cache nothing
+            if config.prefix_cache:
+                self.allocator.register_prefix(request.slot,
+                                               request.prompt_ids)
+            self.stats.prefill_requests += 1
+            self._running[request.slot] = request
+            self._emit(request, int(token))
+
+    def _pack_rows(self, rows: list[tuple[GenRequest, int, int]], S: int):
+        """Pack each (request, start, end) prompt span into [B, S] device
+        tensors at absolute positions, padded to S: padding has position -1
+        (its KV write goes to the trash page) and the pad token."""
         B = len(rows)
         tokens = np.full((B, S), self.tokenizer.pad_id, dtype=np.int64)
         positions = np.full((B, S), -1, dtype=np.int32)
         last_idx = np.zeros((B,), dtype=np.int64)
-        for i, request in enumerate(rows):
-            start, end = request.hist, len(request.prompt_ids)
+        for i, (request, start, end) in enumerate(rows):
             tokens[i, :end - start] = request.prompt_ids[start:end]
             positions[i, :end - start] = np.arange(start, end)
             last_idx[i] = end - start - 1
+        requests = [r for r, _, _ in rows]
         return (self._to_device(tokens), self._to_device(positions),
                 self._to_device(last_idx),
-                self._to_device(np.array([r.slot for r in rows], np.int64)),
-                self._sampling(rows))
+                self._to_device(np.array([r.slot for r in requests], np.int64)),
+                self._sampling(requests))
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self.device)
@@ -558,6 +658,7 @@ class TorchEngine:
 
     def _finish(self, request: GenRequest) -> None:
         self._running.pop(request.slot, None)
+        self._chunking.pop(request.slot, None)
         self.allocator.free_slot(request.slot)
         self._post_tokens(request, [], done=True)
 

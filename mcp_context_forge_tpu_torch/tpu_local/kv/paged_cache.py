@@ -8,7 +8,18 @@ trash page: masked and padding writes land there.
 Unlike the JAX package's functional state, the writers here update the
 pages IN PLACE (``index_put_``) and return the same state object: copying
 the pool per layer per step would double the bytes the step moves.
-Only bf16/f32 pools are served; int8 pages are not ported yet.
+
+Int8 storage (``quant="int8"``): pages hold int8 values plus per-(layer,
+page, kv-head) scales [L, num_pages, KV] in the compute dtype, which halves
+the pool's bytes per token. Scales are RUNNING MAXIMA over a page's
+tenancy: a write at offset 0 begins a new tenancy and resets the page's
+scale; later appends grow it and requantize the page's resident values, so
+every live value dequantizes under the scale it is stored under. Each
+row's valid positions within one call must form one contiguous ascending
+span (true of prefill, chunk and suffix prefill, and decode): then only
+the page under each row's first written token can hold earlier tokens of
+that row, and only it is requantized. The arithmetic is the JAX writers',
+step for step (``_quant_store``).
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models.configs import LlamaConfig
+from ..quantize import KV_SCALE_EPS, kv_dequantize, kv_int8_scale, kv_quantize
 
 
 @dataclass
@@ -26,16 +38,22 @@ class PagedKVState:
     k_pages: torch.Tensor        # [L, num_pages, page_size, KV, hd]
     v_pages: torch.Tensor        # [L, num_pages, page_size, KV, hd]
     block_tables: torch.Tensor   # [slots, max_pages_per_slot] int32 (0 = unassigned)
+    # int8 pools only: dequant scales [L, num_pages, KV] in the compute dtype
+    k_scales: torch.Tensor | None = None
+    v_scales: torch.Tensor | None = None
 
     @property
     def page_size(self) -> int:
         return self.k_pages.shape[2]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scales is not None
 
-def _no_int8(quant: str) -> None:
-    if quant:
-        raise NotImplementedError(f"KV quant mode {quant!r}: only bf16/f32 "
-                                  "pages are served by this port so far")
+
+def _check_quant(quant: str) -> None:
+    if quant not in ("", "int8"):
+        raise ValueError(f"unsupported KV quant mode {quant!r}")
 
 
 def init_kv_state(config: LlamaConfig, num_pages: int, page_size: int,
@@ -43,39 +61,88 @@ def init_kv_state(config: LlamaConfig, num_pages: int, page_size: int,
                   dtype: torch.dtype = torch.bfloat16,
                   device: torch.device | str = "cuda",
                   quant: str = "") -> PagedKVState:
-    _no_int8(quant)
+    """A zeroed pool. ``quant="int8"`` stores int8 pages with scales in
+    ``dtype``; otherwise pages are ``dtype``."""
+    _check_quant(quant)
     shape = (config.n_layers, num_pages, page_size, config.n_kv_heads,
              config.head_dim)
-    return PagedKVState(
-        k_pages=torch.zeros(shape, dtype=dtype, device=device),
-        v_pages=torch.zeros(shape, dtype=dtype, device=device),
+    page_dtype = torch.int8 if quant else dtype
+    state = PagedKVState(
+        k_pages=torch.zeros(shape, dtype=page_dtype, device=device),
+        v_pages=torch.zeros(shape, dtype=page_dtype, device=device),
         block_tables=torch.zeros((max_slots, max_pages_per_slot),
                                  dtype=torch.int32, device=device))
+    if quant:
+        scale_shape = (config.n_layers, num_pages, config.n_kv_heads)
+        state.k_scales = torch.zeros(scale_shape, dtype=dtype, device=device)
+        state.v_scales = torch.zeros(scale_shape, dtype=dtype, device=device)
+    return state
 
 
 def kv_page_bytes(config: LlamaConfig, page_size: int,
                   dtype: torch.dtype = torch.bfloat16, quant: str = "") -> int:
-    """Device bytes ONE page (K and V, all layers) costs."""
-    _no_int8(quant)
+    """Device bytes ONE page (K and V, all layers) costs: int8 values plus
+    the per-(layer, head) scale sliver under ``quant="int8"``."""
+    _check_quant(quant)
     elems = (2 * config.n_layers * page_size * config.n_kv_heads
              * config.head_dim)
-    return elems * torch.empty((), dtype=dtype).element_size()
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if quant:
+        return elems + 2 * config.n_layers * config.n_kv_heads * itemsize
+    return elems * itemsize
 
 
 def num_pages_for_budget(config: LlamaConfig, page_size: int,
                          budget_bytes: int,
                          dtype: torch.dtype = torch.bfloat16,
                          quant: str = "") -> int:
-    """Pages a fixed device byte budget holds."""
+    """Pages a fixed device byte budget holds (about twice as many under
+    int8 as under bf16)."""
     return max(2, int(budget_bytes
                       // kv_page_bytes(config, page_size, dtype, quant)))
+
+
+def _quant_store(pages: torch.Tensor, scales: torch.Tensor,
+                 values: torch.Tensor, flat_pages: torch.Tensor,
+                 flat_offset: torch.Tensor, first_pages: torch.Tensor,
+                 first_mask: torch.Tensor) -> None:
+    """Quantize ``values`` [N, KV, hd] into one layer's int8 ``pages``
+    [num_pages, page, KV, hd] under running-max ``scales`` [num_pages, KV],
+    in place. ``first_pages``/``first_mask`` [R]: the page under each row's
+    first written token, masked to rows whose span starts mid-page (the
+    only pages that can hold earlier tokens of the spans being written).
+
+    The order is the JAX writer's: read the old scales, reset the scales of
+    pages written at offset 0 (a new tenancy), take the running max of
+    this call's tokens (each token's scale cast to the scale dtype first),
+    requantize the first pages' resident values by s_old / s_new, then
+    write the new tokens under the settled scales. Only page 0 (the trash
+    page) ever sees duplicate indices."""
+    KV = scales.shape[1]
+    safe_first = torch.where(first_mask, first_pages, 0)
+    s_old = scales[safe_first].float()                       # [R, KV] (a copy)
+    scales[torch.where(flat_offset == 0, flat_pages, 0)] = 0
+    amax = values.float().abs().amax(dim=-1)                 # [N, KV]
+    tok_scale = kv_int8_scale(amax).to(scales.dtype)
+    scales.scatter_reduce_(0, flat_pages[:, None].expand(-1, KV), tok_scale,
+                           "amax", include_self=True)
+    resident = pages[safe_first]                             # [R, page, KV, hd]
+    s_new = scales[safe_first].float()
+    ratio = s_old / torch.clamp(s_new, min=KV_SCALE_EPS)
+    requant = torch.round(resident.float() * ratio[:, None, :, None])
+    requant = requant.clamp(-127.0, 127.0).to(torch.int8)
+    requant = torch.where(first_mask[:, None, None, None], requant, resident)
+    pages.index_put_((safe_first,), requant)
+    s_final = scales[flat_pages][..., None].float()          # [N, KV, 1]
+    pages.index_put_((flat_pages, flat_offset), kv_quantize(values, s_final))
 
 
 def write_prefill_kv(kv: PagedKVState, layer: int, k: torch.Tensor,
                      v: torch.Tensor, slot_ids: torch.Tensor,
                      positions: torch.Tensor,
                      valid: torch.Tensor) -> PagedKVState:
-    """Scatter a [B,S] block of K/V into pages, in place.
+    """Scatter a [B,S] block of K/V into pages, in place (quantizing under
+    int8; each row's valid span must be contiguous).
 
     k/v: [B,S,KV,hd]; slot_ids: [B]; positions: [B,S] (>= 0); valid:
     [B,S] bool — invalid entries go to page 0, offset 0."""
@@ -83,13 +150,27 @@ def write_prefill_kv(kv: PagedKVState, layer: int, k: torch.Tensor,
     page_size = kv.page_size
     rows = kv.block_tables[slot_ids.long()]                       # [B, P]
     pages = torch.gather(rows, 1, (positions // page_size).long())
-    pages = torch.where(valid, pages, 0).reshape(-1).long()
-    offset = torch.where(valid, positions % page_size, 0).reshape(-1).long()
+    pages = torch.where(valid, pages, 0).long()                   # [B, S]
+    offset = torch.where(valid, positions % page_size, 0).long()
+    k_flat = k.reshape(B * S, *k.shape[2:])
+    v_flat = v.reshape(B * S, *v.shape[2:])
+    if kv.quantized:
+        # the page under each row's first valid token (a row with none
+        # picks column 0, which is masked), as JAX's argmax over ``valid``
+        cols = torch.arange(S, device=valid.device)
+        first = torch.where(valid, cols, S).amin(dim=1, keepdim=True) % S
+        first_pages = torch.gather(pages, 1, first)[:, 0]
+        first_mask = (torch.gather(valid, 1, first)[:, 0]
+                      & (torch.gather(offset, 1, first)[:, 0] > 0))
+        for pool, scales, vals in ((kv.k_pages, kv.k_scales, k_flat),
+                                   (kv.v_pages, kv.v_scales, v_flat)):
+            _quant_store(pool[layer], scales[layer], vals, pages.reshape(-1),
+                         offset.reshape(-1), first_pages, first_mask)
+        return kv
+    index = (pages.reshape(-1), offset.reshape(-1))
     dtype = kv.k_pages.dtype
-    kv.k_pages[layer].index_put_((pages, offset),
-                                 k.reshape(B * S, *k.shape[2:]).to(dtype))
-    kv.v_pages[layer].index_put_((pages, offset),
-                                 v.reshape(B * S, *v.shape[2:]).to(dtype))
+    kv.k_pages[layer].index_put_(index, k_flat.to(dtype))
+    kv.v_pages[layer].index_put_(index, v_flat.to(dtype))
     return kv
 
 
@@ -106,9 +187,20 @@ def write_decode_kv(kv: PagedKVState, layer: int, k: torch.Tensor,
     if valid is not None:
         pages = torch.where(valid, pages, 0)
         offset = torch.where(valid, offset, 0)
-    index = (pages.long(), offset.long())
-    kv.k_pages[layer].index_put_(index, k.to(kv.k_pages.dtype))
-    kv.v_pages[layer].index_put_(index, v.to(kv.v_pages.dtype))
+    pages, offset = pages.long(), offset.long()
+    if kv.quantized:
+        # a one-token span: the written page is its own first page, and
+        # holds earlier tokens of the row when the offset is past 0
+        first_mask = offset > 0
+        if valid is not None:
+            first_mask = first_mask & valid
+        for pool, scales, vals in ((kv.k_pages, kv.k_scales, k),
+                                   (kv.v_pages, kv.v_scales, v)):
+            _quant_store(pool[layer], scales[layer], vals, pages, offset,
+                         pages, first_mask)
+        return kv
+    kv.k_pages[layer].index_put_((pages, offset), k.to(kv.k_pages.dtype))
+    kv.v_pages[layer].index_put_((pages, offset), v.to(kv.v_pages.dtype))
     return kv
 
 
@@ -117,12 +209,21 @@ def gather_kv(kv: PagedKVState, layer: int, slot_ids: torch.Tensor,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Materialize each slot's context: -> ([B, C, KV, hd], [B, C, KV, hd])
     with C = ctx_pages * page_size (default: the full table width). The
-    plain attention path uses it; the kernels read the pages in place."""
+    plain attention path uses it; the kernels read the pages in place.
+    Int8 pools dequantize per page into the scales' dtype (the compute
+    dtype), as the JAX gather does."""
     rows = kv.block_tables[slot_ids.long()]
     if ctx_pages is not None:
         rows = rows[:, :ctx_pages]
-    k = kv.k_pages[layer][rows.long()]                            # [B,P,page,KV,hd]
-    v = kv.v_pages[layer][rows.long()]
+    rows = rows.long()
+    k = kv.k_pages[layer][rows]                                   # [B,P,page,KV,hd]
+    v = kv.v_pages[layer][rows]
+    if kv.quantized:
+        dtype = kv.k_scales.dtype
+        k = kv_dequantize(k, kv.k_scales[layer][rows][:, :, None, :, None],
+                          dtype)
+        v = kv_dequantize(v, kv.v_scales[layer][rows][:, :, None, :, None],
+                          dtype)
     B, P, page, KV, hd = k.shape
     return k.reshape(B, P * page, KV, hd), v.reshape(B, P * page, KV, hd)
 

@@ -10,8 +10,14 @@ kernels on CUDA tensors and the plain versions on CPU tensors:
 
 - ``prefill``: flash attention over the prompt (``ops.attention``);
 - ``prefill_with_history``: the paged chunk kernel over the cached prefix
-  plus the suffix just written (``ops.paged_attention``);
+  (or the chunks of a long prompt already written) plus the span just
+  written (``ops.paged_attention``);
 - ``decode_step``: the paged decode kernel, one token per row.
+
+On an int8 KV pool the two paged kernels are their int8-page variants,
+handed each layer's page scales; cold ``prefill`` attends over its own
+fresh k/v and only stores them quantized. The CPU path reads int8 pages
+through ``gather_kv``, which dequantizes into the compute dtype.
 
 MoE layers run the grouped expert kernels (``ops.grouped_moe``) when a
 batch clears the grouped gate and the expert scan otherwise. Weights may
@@ -330,7 +336,8 @@ def prefill_with_history(params: dict[str, Any], config: LlamaConfig,
                 at = paged_chunk_attention(
                     qs.reshape(B, -1, KV, G, hd).contiguous(),
                     kv.k_pages[idx], kv.v_pages[idx], tables,
-                    positions[:, t0:t0 + tile].contiguous())
+                    positions[:, t0:t0 + tile].contiguous(),
+                    *_layer_scales(kv, idx))
                 at = at.reshape(B, -1, config.n_heads, hd)
             else:
                 at = _history_attention(qs, keys, values,
@@ -345,6 +352,14 @@ def prefill_with_history(params: dict[str, Any], config: LlamaConfig,
     if last_idx is not None:
         x = x[torch.arange(B, device=x.device), last_idx.long()]
     return lm_logits(params, x), kv
+
+
+def _layer_scales(kv: PagedKVState, idx: int) -> tuple:
+    """One layer's page scales for the paged kernels, (k, v) [N, KV] each,
+    on an int8 pool; () otherwise."""
+    if not kv.quantized:
+        return ()
+    return kv.k_scales[idx], kv.v_scales[idx]
 
 
 def _history_tile(S: int, G: int) -> int:
@@ -406,7 +421,7 @@ def decode_step(params: dict[str, Any], config: LlamaConfig,
         if on_card:
             attn = paged_decode_attention(
                 q[:, 0].reshape(B, KV, G, hd), kv.k_pages[idx],
-                kv.v_pages[idx], tables, seq_lens)
+                kv.v_pages[idx], tables, seq_lens, *_layer_scales(kv, idx))
         else:
             keys, values = gather_kv(kv, idx, slot_ids)
             attn = _paged_decode_attention(q[:, 0], keys, values, seq_lens,

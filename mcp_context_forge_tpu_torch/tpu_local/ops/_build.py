@@ -124,19 +124,22 @@ DTYPE_CODES = {"torch.bfloat16": 0, "torch.float32": 1}
 
 
 def check_inputs(name: str, data: dict, ints: dict,
-                 int8: dict | None = None) -> int:
+                 int8: dict | None = None, scales: dict | None = None) -> int:
     """Validate the tensors handed to a kernel: one CUDA device, contiguous,
     16-byte aligned (the kernels load 8 elements at a time), ``data`` all of
     one supported float dtype, ``ints`` int32 (bool for ``valid``),
-    ``int8`` (quantized weights, whose scales go in ``data``) int8.
-    Returns the dtype code."""
+    ``int8`` (quantized weights or KV pages) int8. ``scales`` share the
+    ``data`` dtype but are read one element at a time, so they need only
+    element alignment: one layer's slice of a pool's [L, N, KV] scales is
+    rarely 16-byte aligned. Returns the dtype code."""
     int8 = int8 or {}
-    tensors = {**data, **ints, **int8}
+    scales = scales or {}
+    tensors = {**data, **ints, **int8, **scales}
     device = next(iter(tensors.values())).device
-    dtypes = {str(t.dtype) for t in data.values()}
+    dtypes = {str(t.dtype) for t in [*data.values(), *scales.values()]}
     if len(dtypes) != 1 or next(iter(dtypes)) not in DTYPE_CODES:
-        raise TypeError(f"{name}: {'/'.join(data)} must share one dtype of "
-                        f"{sorted(DTYPE_CODES)}, got {sorted(dtypes)}")
+        raise TypeError(f"{name}: {'/'.join([*data, *scales])} must share one "
+                        f"dtype of {sorted(DTYPE_CODES)}, got {sorted(dtypes)}")
     for arg, t in tensors.items():
         if t.device != device or device.type != "cuda":
             raise ValueError(f"{name}: {arg} must be on {device} (a CUDA "
@@ -146,6 +149,9 @@ def check_inputs(name: str, data: dict, ints: dict,
     for arg, t in {**data, **int8}.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+    for arg, t in scales.items():
+        if t.data_ptr() % t.element_size():
+            raise ValueError(f"{name}: {arg} must be element aligned")
     for arg, t in ints.items():
         want = "torch.bool" if arg == "valid" else "torch.int32"
         if str(t.dtype) != want:

@@ -7,6 +7,14 @@ hand-written CUDA kernel (``csrc/paged_decode_attention.cu``,
 ``csrc/paged_chunk_attention.cu``) for CUDA tensors. The kernels walk only
 the pages a row uses, loading the block table themselves.
 
+Pages are bf16/f32, or int8 with per-(page, kv-head) scales ``k_scales`` /
+``v_scales`` [num_pages, KV] in the query's dtype (one layer's slice of the
+pool's scales). Int8 pages run their own kernels (``mcf_*_q8``, wrappers
+``paged_decode_attention_q8`` / ``paged_chunk_attention_q8``, each with its
+own launch count), which dequantize each key in f32 as they stage it, as
+the Pallas kernels do (``k * k_scale``). The plain versions do the same
+inside the gather.
+
 Layouts are the JAX package's: q [B, KV, G, hd] (decode) or
 [B, S, KV, G, hd] (chunk); pages [num_pages, page, KV, hd]; block tables
 [B, P] int32; seq_lens [B] and q_positions [B, S] int32.
@@ -23,20 +31,24 @@ from . import _build
 NEG_INF = -1e30
 
 
-def _gather_pages(pages: torch.Tensor, block_tables: torch.Tensor
-                  ) -> torch.Tensor:
-    """[num_pages, page, KV, hd] x [B, P] -> [B, P*page, KV, hd] f32."""
+def _gather_pages(pages: torch.Tensor, block_tables: torch.Tensor,
+                  scales: torch.Tensor | None = None) -> torch.Tensor:
+    """[num_pages, page, KV, hd] x [B, P] -> [B, P*page, KV, hd] f32; int8
+    pages are multiplied by their page's scale ([num_pages, KV]) in f32."""
     B, P = block_tables.shape
-    rows = pages[block_tables.long()]  # [B, P, page, KV, hd]
-    return rows.reshape(B, P * pages.shape[1], *pages.shape[2:]).float()
+    rows = pages[block_tables.long()].float()  # [B, P, page, KV, hd]
+    if scales is not None:
+        rows = rows * scales[block_tables.long()].float()[:, :, None, :, None]
+    return rows.reshape(B, P * pages.shape[1], *pages.shape[2:])
 
 
-def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens):
-    """Plain version of the decode kernel: keys c < seq_lens[b] attend; a
-    row with seq_len 0 gives zeros (as the kernel does)."""
+def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens,
+                               k_scales=None, v_scales=None):
+    """Plain version of the decode kernels: keys c < seq_lens[b] attend; a
+    row with seq_len 0 gives zeros (as the kernels do)."""
     hd = q.shape[-1]
-    keys = _gather_pages(k_pages, block_tables)
-    values = _gather_pages(v_pages, block_tables)
+    keys = _gather_pages(k_pages, block_tables, k_scales)
+    values = _gather_pages(v_pages, block_tables, v_scales)
     scores = torch.einsum("bkgh,bckh->bkgc", q.float(), keys) / math.sqrt(hd)
     cache_pos = torch.arange(keys.shape[1], device=q.device)
     valid = cache_pos[None, :] < seq_lens[:, None]                 # [B, C]
@@ -48,12 +60,12 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens):
 
 
 def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables,
-                              q_positions):
-    """Plain version of the chunk kernel: cache position c attends iff
+                              q_positions, k_scales=None, v_scales=None):
+    """Plain version of the chunk kernels: cache position c attends iff
     c <= q_positions[b, s]; padding rows (position -1) come out finite."""
     hd = q.shape[-1]
-    keys = _gather_pages(k_pages, block_tables)
-    values = _gather_pages(v_pages, block_tables)
+    keys = _gather_pages(k_pages, block_tables, k_scales)
+    values = _gather_pages(v_pages, block_tables, v_scales)
     scores = torch.einsum("bskgh,bckh->bkgsc", q.float(), keys) / math.sqrt(hd)
     cache_pos = torch.arange(keys.shape[1], device=q.device)
     ok = cache_pos[None, None, :] <= q_positions[:, :, None]      # [B, S, C]
@@ -63,77 +75,153 @@ def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables,
     return out.to(q.dtype)
 
 
-def _check_pages(name: str, k_pages, v_pages, KV: int, hd: int) -> None:
+def _checked(name: str, q: torch.Tensor, k_pages: torch.Tensor,
+             v_pages: torch.Tensor, k_scales, v_scales, KV: int, hd: int,
+             ints: dict) -> tuple[list[int], int]:
+    """Validate a kernel's tensors; returns the data pointers of q, the
+    pages and (int8) the scales, and the dtype code."""
+    _build.check_head_dim(name, hd)
     if (k_pages.dim() != 4 or k_pages.shape[2:] != (KV, hd)
             or v_pages.shape != k_pages.shape):
         raise ValueError(f"{name}: pages must be [num_pages, page, {KV}, {hd}]"
                          f", got k {tuple(k_pages.shape)}, "
                          f"v {tuple(v_pages.shape)}")
+    pages = {"k_pages": k_pages, "v_pages": v_pages}
+    if k_scales is None:
+        dtype = _build.check_inputs(name, {"q": q, **pages}, ints)
+        return [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()], dtype
+    want = (k_pages.shape[0], KV)
+    if k_scales.shape != want or v_scales.shape != want:
+        raise ValueError(f"{name}: scales must be {list(want)}, got k "
+                         f"{tuple(k_scales.shape)}, v {tuple(v_scales.shape)}")
+    dtype = _build.check_inputs(name, {"q": q}, ints, int8=pages,
+                                scales={"k_scales": k_scales,
+                                        "v_scales": v_scales})
+    return [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr()], dtype
+
+
+def _check_scale_pair(k_scales, v_scales) -> None:
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales go together")
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
-                           seq_lens: torch.Tensor) -> torch.Tensor:
-    """q: [B, KV, G, hd] -> [B, KV, G, hd]. CPU tensors run the plain
-    version; CUDA tensors launch the kernel (or raise)."""
+                           seq_lens: torch.Tensor, k_scales=None,
+                           v_scales=None) -> torch.Tensor:
+    """q: [B, KV, G, hd] -> [B, KV, G, hd]. With scales, int8 pages go to
+    ``paged_decode_attention_q8``. CPU tensors run the plain version; CUDA
+    tensors launch the kernel (or raise)."""
+    _check_scale_pair(k_scales, v_scales)
+    if k_scales is not None:
+        return paged_decode_attention_q8(q, k_pages, v_pages, block_tables,
+                                         seq_lens, k_scales, v_scales)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           seq_lens)
-    name = "paged_decode_attention"
-    B, KV, G, hd = q.shape
-    _build.check_head_dim(name, hd)
-    _check_pages(name, k_pages, v_pages, KV, hd)
-    if block_tables.dim() != 2 or block_tables.shape[0] != B \
-            or seq_lens.shape != (B,):
-        raise ValueError(f"{name}: block_tables must be [B, P] and seq_lens "
-                         f"[B] for B={B}")
-    dtype = _build.check_inputs(
-        name, {"q": q, "k_pages": k_pages, "v_pages": v_pages},
-        {"block_tables": block_tables, "seq_lens": seq_lens})
-    out = torch.empty_like(q)
-    fn = _build.kernel_fn(name, "mcf_paged_decode_attention",
-                          [_build.PTR] * 6 + [_build.INT] * 7 + [_build.PTR])
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, KV, G, hd, k_pages.shape[1], block_tables.shape[1], dtype,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, name)
+    out = _decode_launch("paged_decode_attention", "mcf_paged_decode_attention",
+                         q, k_pages, v_pages, block_tables, seq_lens, None, None)
     paged_decode_attention.launches += 1
     return out
 
 
-paged_decode_attention.launches = 0
+def paged_decode_attention_q8(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, block_tables: torch.Tensor,
+                              seq_lens: torch.Tensor, k_scales: torch.Tensor,
+                              v_scales: torch.Tensor) -> torch.Tensor:
+    """Decode attention over int8 pages with [num_pages, KV] scales."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
+                                          seq_lens, k_scales, v_scales)
+    out = _decode_launch("paged_decode_attention_q8",
+                         "mcf_paged_decode_attention_q8", q, k_pages, v_pages,
+                         block_tables, seq_lens, k_scales, v_scales)
+    paged_decode_attention_q8.launches += 1
+    return out
+
+
+def _decode_launch(name, symbol, q, k_pages, v_pages, block_tables, seq_lens,
+                   k_scales, v_scales) -> torch.Tensor:
+    B, KV, G, hd = q.shape
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or seq_lens.shape != (B,):
+        raise ValueError(f"{name}: block_tables must be [B, P] and seq_lens "
+                         f"[B] for B={B}")
+    ptrs, dtype = _checked(name, q, k_pages, v_pages, k_scales, v_scales, KV,
+                           hd, {"block_tables": block_tables,
+                                "seq_lens": seq_lens})
+    out = torch.empty_like(q)
+    fn = _build.kernel_fn("paged_decode_attention", symbol,
+                          [_build.PTR] * (len(ptrs) + 3) + [_build.INT] * 7
+                          + [_build.PTR])
+    rc = fn(*ptrs, block_tables.data_ptr(), seq_lens.data_ptr(),
+            out.data_ptr(), B, KV, G, hd, k_pages.shape[1],
+            block_tables.shape[1], dtype,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, name)
+    return out
 
 
 def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, block_tables: torch.Tensor,
-                          q_positions: torch.Tensor) -> torch.Tensor:
-    """q: [B, S, KV, G, hd] -> [B, S, KV, G, hd]. CPU tensors run the plain
-    version; CUDA tensors launch the kernel (or raise)."""
+                          q_positions: torch.Tensor, k_scales=None,
+                          v_scales=None) -> torch.Tensor:
+    """q: [B, S, KV, G, hd] -> [B, S, KV, G, hd]. With scales, int8 pages
+    go to ``paged_chunk_attention_q8``. CPU tensors run the plain version;
+    CUDA tensors launch the kernel (or raise)."""
+    _check_scale_pair(k_scales, v_scales)
+    if k_scales is not None:
+        return paged_chunk_attention_q8(q, k_pages, v_pages, block_tables,
+                                        q_positions, k_scales, v_scales)
     if q.device.type == "cpu":
         return paged_chunk_attention_ref(q, k_pages, v_pages, block_tables,
                                          q_positions)
-    name = "paged_chunk_attention"
-    B, S, KV, G, hd = q.shape
-    _build.check_head_dim(name, hd)
-    _check_pages(name, k_pages, v_pages, KV, hd)
-    if block_tables.dim() != 2 or block_tables.shape[0] != B \
-            or q_positions.shape != (B, S):
-        raise ValueError(f"{name}: block_tables must be [B, P] and "
-                         f"q_positions [B, S] for B={B}, S={S}")
-    dtype = _build.check_inputs(
-        name, {"q": q, "k_pages": k_pages, "v_pages": v_pages},
-        {"block_tables": block_tables, "q_positions": q_positions})
-    out = torch.empty_like(q)
-    fn = _build.kernel_fn(name, "mcf_paged_chunk_attention",
-                          [_build.PTR] * 6 + [_build.INT] * 8 + [_build.PTR])
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), q_positions.data_ptr(), out.data_ptr(),
-            B, S, KV, G, hd, k_pages.shape[1], block_tables.shape[1], dtype,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, name)
+    out = _chunk_launch("paged_chunk_attention", "mcf_paged_chunk_attention",
+                        q, k_pages, v_pages, block_tables, q_positions, None,
+                        None)
     paged_chunk_attention.launches += 1
     return out
 
 
+def paged_chunk_attention_q8(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, block_tables: torch.Tensor,
+                             q_positions: torch.Tensor, k_scales: torch.Tensor,
+                             v_scales: torch.Tensor) -> torch.Tensor:
+    """Chunk attention over int8 pages with [num_pages, KV] scales."""
+    if q.device.type == "cpu":
+        return paged_chunk_attention_ref(q, k_pages, v_pages, block_tables,
+                                         q_positions, k_scales, v_scales)
+    out = _chunk_launch("paged_chunk_attention_q8",
+                        "mcf_paged_chunk_attention_q8", q, k_pages, v_pages,
+                        block_tables, q_positions, k_scales, v_scales)
+    paged_chunk_attention_q8.launches += 1
+    return out
+
+
+def _chunk_launch(name, symbol, q, k_pages, v_pages, block_tables,
+                  q_positions, k_scales, v_scales) -> torch.Tensor:
+    B, S, KV, G, hd = q.shape
+    if block_tables.dim() != 2 or block_tables.shape[0] != B \
+            or q_positions.shape != (B, S):
+        raise ValueError(f"{name}: block_tables must be [B, P] and "
+                         f"q_positions [B, S] for B={B}, S={S}")
+    ptrs, dtype = _checked(name, q, k_pages, v_pages, k_scales, v_scales, KV,
+                           hd, {"block_tables": block_tables,
+                                "q_positions": q_positions})
+    out = torch.empty_like(q)
+    fn = _build.kernel_fn("paged_chunk_attention", symbol,
+                          [_build.PTR] * (len(ptrs) + 3) + [_build.INT] * 8
+                          + [_build.PTR])
+    rc = fn(*ptrs, block_tables.data_ptr(), q_positions.data_ptr(),
+            out.data_ptr(), B, S, KV, G, hd, k_pages.shape[1],
+            block_tables.shape[1], dtype,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, name)
+    return out
+
+
+paged_decode_attention.launches = 0
+paged_decode_attention_q8.launches = 0
 paged_chunk_attention.launches = 0
+paged_chunk_attention_q8.launches = 0

@@ -1,5 +1,6 @@
 """Int8 weight-only quantization and weight application (embedding gather,
-matmuls) for the model.
+matmuls) for the model, and the int8 primitives of the KV pages
+(``kv_int8_scale``, ``kv_quantize``, ``kv_dequantize``).
 
 Scheme (the JAX package's, ``quantize.py``): every 2D matmul weight W
 becomes ``{"q": int8, "s": scale}`` with per-output-channel scales,
@@ -140,3 +141,34 @@ def embed_rows(embed: Any, tokens: torch.Tensor,
         rows = rows * torch.tensor(multiplier, dtype=rows.dtype,
                                    device=rows.device)
     return rows
+
+
+# ------------------------------------------------------------------- KV cache
+#
+# The paged KV cache quantizes per PAGE per kv-head (kv/paged_cache.py):
+# symmetric int8 under a running-max scale, so every value of a page shares
+# one scale and the int8-page attention kernels dequantize with one scalar
+# per (page, head). The writers, the gather and the kernels all use these
+# three primitives, as in the JAX package.
+
+KV_SCALE_EPS = 1e-8  # floor under scales: all-zero pages must not divide by 0
+
+
+def kv_int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """Per-(page, head) scale from a max-|value| statistic: round(x / s)
+    stays inside [-127, 127] for every |x| <= amax."""
+    return amax.float() / 127.0
+
+
+def kv_quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x -> int8 under ``scale`` (broadcast against x): f32 division by the
+    floored scale, round half to even, saturate at +-127."""
+    q = torch.round(x.float() / torch.clamp(scale.float(), min=KV_SCALE_EPS))
+    return q.clamp(-127.0, 127.0).to(torch.int8)
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """int8 page values -> ``dtype`` (the compute dtype; scales are stored
+    in it): the product is taken in f32, then rounded once."""
+    return (q.float() * scale.float()).to(dtype)

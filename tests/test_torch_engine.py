@@ -114,13 +114,29 @@ def test_provider_chat_matches_jax_provider(engines):
 
 
 def test_refusals(engines):
+    """No silent move to the CPU, no unknown storage mode, and a prompt
+    that leaves no room for one generated token ends "length" at once (a
+    prompt merely longer than every bucket is chunked instead)."""
     _, port = engines
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TorchEngine(EngineConfig(model="llama3-test", device="cuda"))
-    too_long = GenRequest(request_id="long", prompt_ids=[1] * 65)
-    with pytest.raises(ValueError, match="largest prefill bucket"):
-        asyncio.run(port.submit(too_long))
+    with pytest.raises(ValueError, match="kv_quant"):
+        TorchEngine(EngineConfig(model="llama3-test", device="cpu",
+                                 kv_quant="int4"))
+    too_long = GenRequest(request_id="long",
+                          prompt_ids=[1] * SHAPE["max_seq_len"])
+
+    async def main():
+        await port.start()
+        try:
+            await port.submit(too_long)
+            return await asyncio.wait_for(too_long.stream.get(), 60)
+        finally:
+            await port.stop()
+
+    assert asyncio.run(main()) is None
+    assert too_long.finish_reason == "length" and too_long.generated == []
 
 
 def test_cancel_pending_and_running(engines):

@@ -3,7 +3,9 @@ interpret mode on the CPU, as the JAX package's own tests run them) and its
 plain references, on the same seeded numpy inputs, in f32.
 
 Tolerance: rtol = atol = 2e-5. Both sides accumulate in f32; only the order
-of the sums differs (blockwise online softmax against one softmax).
+of the sums differs (blockwise online softmax against one softmax). Int8
+pages dequantize exactly alike on both sides (int8 x f32 scale in f32), so
+they keep the same tolerance.
 """
 
 import math
@@ -140,12 +142,77 @@ def test_chunk_matches_pallas_and_reference(KV, G, hd, page):
     assert np.isfinite(out).all()
 
 
+def _int8_pages(rng, B, P, page, KV, hd):
+    """Random int8 pages over distinct pages, with per-(page, kv-head)
+    positive f32 scales [num_pages, KV]."""
+    num_pages = B * P + 1
+    k_pages, v_pages = (rng.integers(-127, 128, (num_pages, page, KV, hd),
+                                     dtype=np.int8) for _ in range(2))
+    k_scales, v_scales = (rng.uniform(0.2, 2.0, (num_pages, KV))
+                          .astype(np.float32) / 127 for _ in range(2))
+    tables = (1 + rng.permutation(B * P)).reshape(B, P).astype(np.int32)
+    return k_pages, v_pages, k_scales, v_scales, tables
+
+
+@pytest.mark.parametrize("kind", ["decode", "chunk"])
+@pytest.mark.parametrize("KV,G,hd,page", [(2, 2, 16, 8), (8, 4, 64, 16)])
+def test_int8_pages_match_pallas(kind, KV, G, hd, page):
+    """Both wrappers with scales against the Pallas kernels' quantized
+    bodies (``k_scales``/``v_scales``, interpret mode) and the plain
+    version; the CPU call runs the q8 plain version, not a launch."""
+    rng = np.random.default_rng(5)
+    B, P = 3, 4
+    kp, vp, ks, vs, tables = _int8_pages(rng, B, P, page, KV, hd)
+    scales = dict(k_scales=ks, v_scales=vs)
+    if kind == "decode":
+        q = rng.standard_normal((B, KV, G, hd), dtype=np.float32)
+        lens = np.asarray([P * page, 5, 0], dtype=np.int32)
+        out = port_paged.paged_decode_attention(
+            *(_t(a) for a in (q, kp, vp, tables, lens, ks, vs))).numpy()
+        pallas = np.asarray(paged_decode_attention_pallas(
+            q, kp, vp, tables, lens, page_size=page, interpret=True, **scales))
+        ref = port_paged.paged_decode_attention_q8(
+            *(_t(a) for a in (q, kp, vp, tables, lens, ks, vs))).numpy()
+        assert not out[2].any()
+        rows = slice(None)
+    else:
+        S = 8
+        q = rng.standard_normal((B, S, KV, G, hd), dtype=np.float32)
+        pos = np.full((B, S), -1, dtype=np.int32)
+        for b, (start, n) in enumerate([(5, 8), (0, 4), (P * page - 8, 8)]):
+            pos[b, :n] = np.arange(start, start + n)
+        out = port_paged.paged_chunk_attention(
+            *(_t(a) for a in (q, kp, vp, tables, pos, ks, vs))).numpy()
+        pallas = np.asarray(paged_chunk_attention_pallas(
+            q, kp, vp, tables, pos, page_size=page, interpret=True, **scales))
+        ref = port_paged.paged_chunk_attention_q8(
+            *(_t(a) for a in (q, kp, vp, tables, pos, ks, vs))).numpy()
+        assert np.isfinite(out).all()
+        rows = pos >= 0
+    np.testing.assert_allclose(out[rows], pallas[rows], **TOL)
+    np.testing.assert_array_equal(out, ref)
+    assert port_paged.paged_decode_attention_q8.launches == 0
+    assert port_paged.paged_chunk_attention_q8.launches == 0
+
+
+def test_scales_come_in_pairs():
+    rng = np.random.default_rng(6)
+    kp, vp, ks, _, tables = (_t(a) for a in _int8_pages(rng, 1, 1, 8, 2, 16))
+    q = torch.zeros((1, 2, 2, 16))
+    with pytest.raises(ValueError, match="together"):
+        port_paged.paged_decode_attention(q, kp, vp, tables,
+                                          torch.tensor([3], dtype=torch.int32),
+                                          k_scales=ks)
+
+
 def test_cpu_tensors_run_the_plain_versions():
     """A wrapper handed CPU tensors runs its plain version, bit for bit,
     and never counts a kernel launch."""
     rng = np.random.default_rng(4)
     counters = (port_attn.flash_attention, port_paged.paged_decode_attention,
-                port_paged.paged_chunk_attention)
+                port_paged.paged_chunk_attention,
+                port_paged.paged_decode_attention_q8,
+                port_paged.paged_chunk_attention_q8)
     before = [fn.launches for fn in counters]
     q = _t(rng.standard_normal((1, 8, 4, 16), dtype=np.float32))
     k = _t(rng.standard_normal((1, 8, 2, 16), dtype=np.float32))
@@ -163,7 +230,20 @@ def test_cpu_tensors_run_the_plain_versions():
     assert torch.equal(
         port_paged.paged_chunk_attention(qc, kp, vp, tables, pos),
         port_paged.paged_chunk_attention_ref(qc, kp, vp, tables, pos))
-    assert [fn.launches for fn in counters] == before == [0, 0, 0]
+    scales = torch.full((kp.shape[0], 2), 0.5)
+    k8, v8 = (torch.round(p * 20).clamp(-127, 127).to(torch.int8)
+              for p in (kp, vp))
+    assert torch.equal(
+        port_paged.paged_decode_attention(qd, k8, v8, tables, lens,
+                                          scales, scales),
+        port_paged.paged_decode_attention_ref(qd, k8, v8, tables, lens,
+                                              scales, scales))
+    assert torch.equal(
+        port_paged.paged_chunk_attention(qc, k8, v8, tables, pos, scales,
+                                         scales),
+        port_paged.paged_chunk_attention_ref(qc, k8, v8, tables, pos, scales,
+                                             scales))
+    assert [fn.launches for fn in counters] == before == [0] * 5
 
 
 def test_scale_is_inverse_sqrt_head_dim():
