@@ -11,10 +11,14 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 3. kernels: each kernel against its plain PyTorch version in bf16 (atol =
    rtol = 2e-2 on the rows anyone reads: both sides accumulate in f32; the
    order of the sums and the bf16 rounding of the output differ), with
-   CUDA-event times (median of 25 runs, L2 flushed before each) and each
-   kernel's bound on this card.
+   CUDA-event times (median of 25 runs, L2 flushed before each; see
+   ``Timer`` for the card's time against the call's) and each kernel's
+   bound on this card. Flash runs both of its kernels: the tensor-core one
+   (bf16 at hd 128 and 64, G = 4 and the qwen2 G = 7) and the FMA one (f32).
 4. model: a tiny f32 model on the card (kernels) against the same model on
    the CPU (plain versions): prefill, prefix-hit suffix prefill, decode.
+   Then ``engine_llama3_tiny_f32``: the engine phase below on llama3-tiny in
+   f32, the path of the FMA flash kernel.
 5. engine: ``TorchLocalProvider.chat`` with seeded random weights in bf16:
    six concurrent greedy requests (two share a 300+ token system prompt,
    so the second hits the prefix cache; one is ~1450 tokens), then one
@@ -25,15 +29,17 @@ Run from the root of a checkout. Phases, each printing one JSON line:
 
 The attention path runs first, on a card the MoE phases have not loaded:
 kernels (Llama-3-8B serving shapes), model (llama3-tiny), engine (llama3-8b
-at full width, 32 layers: the three attention kernels). Then the long-
+at full width, 32 layers: the three attention kernels; every flash launch
+must take the tensor-core kernel). Then the long-
 context path on int8 KV pages: the int8-page chunk and decode kernels at
 Llama-3-8B shapes over a 1024-page int8 pool (seq_lens up to ~8000; 512-
 query chunks over up to 48 history pages), the llama3-tiny model check on
 int8 pages, and ``engine_llama3_8b_int8_kv_long``: llama3-8b at full width
 and depth with ``kv_quant="int8"``, max_seq_len 8192 and a 512-page byte
 budget (1023 int8 pages), serving a ~6000-token and a ~3000-token prompt
-by chunked prefill beside a prefix hit and two short chats (flash and the
-two int8-page kernels; the bf16 paged kernels must not launch). Then the
+by chunked prefill beside a prefix hit and two short chats (tensor-core
+flash and the two int8-page kernels; the bf16 paged kernels and the FMA
+flash kernel must not launch). Then the
 MoE path:
 kernels (both grouped-expert kernels at Mixtral-8x7B widths on a
 2048-token batch routed by a seeded random router, NB = 40 blocks of 128
@@ -63,10 +69,12 @@ import time
 from pathlib import Path
 
 TOL = 2e-2
-ROW_REL = 1e-2   # paged kernels: max|out - ref| within a row over max|ref| of that row
+ROW_REL = 1e-2   # attention kernels: max|out - ref| within a row over max|ref| of that row
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, dense peak
 BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 tensor cores
+F32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 RUNS = 25
+SPIN_CYCLES = 5_000_000       # ~2.5 ms of a spinning kernel ahead of a timed call
 
 
 class SmokeFailure(RuntimeError):
@@ -90,14 +98,16 @@ def card_line() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 REPLACES = {
-    "flash_attention": "mcp_context_forge_tpu/tpu_local/ops/attention.py:88",
+    "flash_attention_tc": "mcp_context_forge_tpu/tpu_local/ops/attention.py:88",
+    "flash_attention_fma": "mcp_context_forge_tpu/tpu_local/ops/attention.py:88",
     "paged_chunk_attention": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:148",
     "paged_chunk_attention_q8": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:111",
     "paged_decode_attention": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:199",
@@ -106,7 +116,8 @@ REPLACES = {
     "expert_blocks_q8": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:225",
 }
 SOURCES = {
-    "flash_attention": "flash_attention.cu",
+    "flash_attention_tc": "flash_attention_tc.cu",
+    "flash_attention_fma": "flash_attention.cu",
     "paged_chunk_attention": "paged_chunk_attention.cu",
     "paged_chunk_attention_q8": "paged_chunk_attention.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
@@ -114,9 +125,10 @@ SOURCES = {
     "expert_blocks": "grouped_moe.cu",
     "expert_blocks_q8": "grouped_moe.cu",
 }
-ATTENTION = ("flash_attention", "paged_chunk_attention", "paged_decode_attention")
-ATTENTION_Q8 = ("flash_attention", "paged_chunk_attention_q8",
+ATTENTION = ("flash_attention_tc", "paged_chunk_attention", "paged_decode_attention")
+ATTENTION_Q8 = ("flash_attention_tc", "paged_chunk_attention_q8",
                 "paged_decode_attention_q8")
+ATTENTION_F32 = ("flash_attention_fma", "paged_chunk_attention", "paged_decode_attention")
 
 
 def kernel_wrappers() -> dict:
@@ -124,7 +136,8 @@ def kernel_wrappers() -> dict:
     from mcp_context_forge_tpu_torch.tpu_local.ops import attention as attn
     from mcp_context_forge_tpu_torch.tpu_local.ops import grouped_moe as gm
     from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
-    return {"flash_attention": attn.flash_attention,
+    return {"flash_attention_tc": attn.flash_attention_tc,
+            "flash_attention_fma": attn.flash_attention_fma,
             "paged_chunk_attention": paged.paged_chunk_attention,
             "paged_chunk_attention_q8": paged.paged_chunk_attention_q8,
             "paged_decode_attention": paged.paged_decode_attention,
@@ -172,8 +185,15 @@ def main() -> int:
     results = kernel_phase(torch, dev, timer)
     free_device(torch)
     model_check(torch, dev, "llama3-tiny")
+    counts, stats = engine_phase(torch, dev, "llama3-tiny", ATTENTION_F32,
+                                 chat_requests("llama3-tiny"), hit=1,
+                                 absent=("flash_attention_tc",), dtype="float32")
+    emit({"phase": "engine_llama3_tiny_f32", **stats})
+    free_device(torch)
     launches, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION,
-                                   chat_requests("llama3-8b"), hit=1)
+                                   chat_requests("llama3-8b"), hit=1,
+                                   absent=("flash_attention_fma",))
+    launches["flash_attention_fma"] = counts["flash_attention_fma"]
     check(stats["buckets"][2] == 2048,
           f"the ~1450-token prompt took bucket {stats['buckets'][2]}")
     emit({"phase": "engine", **stats})
@@ -185,8 +205,9 @@ def main() -> int:
     model_check(torch, dev, "llama3-tiny", kv_quant="int8")
     counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION_Q8,
                                  long_context_requests("llama3-8b"), hit=3,
+                                 absent=ATTENTION[1:] + ("flash_attention_fma",),
                                  kv_quant="int8", max_seq_len=8192)
-    check_long_context(stats, counts)
+    check_long_context(stats)
     emit({"phase": "engine_llama3_8b_int8_kv_long", **stats})
     for name in ATTENTION_Q8[1:]:
         launches[name] = counts[name]
@@ -201,15 +222,15 @@ def main() -> int:
                     moe=dict(moe_impl="grouped_pallas", moe_block=8))
     counts, stats = engine_phase(
         torch, dev, "mixtral-8x7b", ATTENTION + ("expert_blocks_q8",),
-        chat_requests("mixtral-8x7b"), hit=1, quant="int8",
-        moe_impl="grouped_pallas")
+        chat_requests("mixtral-8x7b"), hit=1, absent=("flash_attention_fma",),
+        quant="int8", moe_impl="grouped_pallas")
     emit({"phase": "engine_mixtral_int8", **stats})
     launches["expert_blocks_q8"] = counts["expert_blocks_q8"]
     free_device(torch)
     counts, stats = engine_phase(
         torch, dev, "mixtral-8x7b", ATTENTION + ("expert_blocks",),
-        chat_requests("mixtral-8x7b"), hit=1, moe_impl="grouped_pallas",
-        n_layers=8)
+        chat_requests("mixtral-8x7b"), hit=1, absent=("flash_attention_fma",),
+        moe_impl="grouped_pallas", n_layers=8)
     emit({"phase": "engine_mixtral_bf16_8_layers", **stats})
     launches["expert_blocks"] = counts["expert_blocks"]
     free_device(torch)
@@ -233,20 +254,29 @@ def main() -> int:
 
 
 class Timer:
-    """CUDA-event time of a call: median of RUNS runs after 3 warm-ups,
+    """CUDA-event times of a call: medians of RUNS runs after 3 warm-ups,
     with a 64 MB buffer written before each run so the inputs are cold in
-    L2, as the real caller finds them."""
+    L2, as the real caller finds them. Two times per call:
+
+    - the card's (``ms``): a kernel that spins ~2.5 ms is queued ahead of
+      the start event, so the host has enqueued the whole call before the
+      card reaches it and the events bracket the call's kernels back to
+      back, without the host's launch overhead;
+    - the call's (``call_ms``): no spin, so a call shorter than its host
+      overhead reads that overhead too (how kernel times were taken
+      before ``ms`` existed).
+    """
 
     def __init__(self, torch, dev):
         self.torch = torch
         self.flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
 
-    def __call__(self, fn) -> float:
-        for _ in range(3):
-            fn()
+    def _median(self, fn, spin: bool) -> float:
         times = []
         for _ in range(RUNS):
             self.flush.zero_()
+            if spin:
+                self.torch.cuda._sleep(SPIN_CYCLES)
             start = self.torch.cuda.Event(enable_timing=True)
             end = self.torch.cuda.Event(enable_timing=True)
             start.record()
@@ -255,6 +285,19 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+    def __call__(self, fn) -> float:
+        """The card's time of ``fn``."""
+        for _ in range(3):
+            fn()
+        return self._median(fn, spin=True)
+
+    def both(self, prefix: str, fn) -> dict:
+        """``{prefix}_ms`` (the card's time) and ``{prefix}_call_ms``."""
+        for _ in range(3):
+            fn()
+        return {f"{prefix}_ms": self._median(fn, spin=True),
+                f"{prefix}_call_ms": self._median(fn, spin=False)}
 
 
 def compare(torch, out, ref, rows) -> float:
@@ -297,9 +340,52 @@ def planted_faults(torch, name: str, faults: dict, ref, rows) -> dict:
     return readings
 
 
+def split_grid(torch, dev, name: str, ws, B: int, KV: int) -> dict:
+    """The decode kernel's grid from its workspace; it must hold at least
+    two CTAs per SM (the plan asks for DECODE_CTAS_PER_SM where the table
+    has the slots)."""
+    splits = ws.ml.shape[2]
+    ctas = splits * KV * B
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    check(ctas >= 2 * sms, f"{name}: {ctas} CTAs for {sms} SMs")
+    return {"pages_per_split": ws.pps, "splits": splits, "ctas": ctas, "sms": sms}
+
+
+def drop_split(torch, paged, ws, seq_lens, q, row: int, split: int) -> dict:
+    """The combine over the kernel's own partials with one split of ``row``
+    dropped (m = -1e30, l = 0, o = 0): a planted fault, by its name."""
+    pages = -(-int(seq_lens[row]) // ws.page_size)
+    check(split * ws.pps < pages, f"split {split} of row {row} holds no key")
+    name = (f"row {row}: split {split} of {ws.ml.shape[2]} (pages {split * ws.pps}-"
+            f"{min(pages, (split + 1) * ws.pps) - 1} of {pages}) dropped")
+    ws.ml[row, :, split, :, 0] = paged.NEG_INF
+    ws.ml[row, :, split, :, 1] = 0.0
+    ws.o[row, :, split] = 0.0
+    return {name: paged.paged_decode_combine(ws, seq_lens, torch.empty_like(q))}
+
+
+def flash_faults(torch, attn, q, k, v, valid, out) -> dict:
+    """The tensor-core kernel on inputs that plant two faults: row 0's last
+    64-key tile dropped (its keys marked invalid), and a causal off-by-one
+    (each query moved one position later, so query s sees key s + 1; the
+    last position keeps its right output)."""
+    S = q.shape[1]
+    short = valid.clone()
+    short[0, (S - 1) // 64 * 64:] = False
+    later = torch.zeros_like(q)
+    later[:, 1:] = q[:, :-1]
+    shifted = attn.flash_attention_tc(later, k, v, valid).roll(-1, dims=1)
+    shifted[:, -1] = out[:, -1]
+    return {f"row 0: last 64-key tile of {S} dropped":
+            attn.flash_attention_tc(q, k, v, short),
+            "causal off by one: query s sees key s + 1": shifted}
+
+
 def kernel_phase(torch, dev, time_ms) -> dict:
     """Each attention kernel against its plain version at Llama-3-8B
-    serving shapes in bf16; times, bounds. Returns the per-kernel results."""
+    serving shapes in bf16; times, bounds. Flash also at the qwen2-7b
+    (G = 7) and qwen2-0.5b (G = 7, hd 64) geometries, and its FMA kernel in
+    f32 at the llama3-tiny geometry. Returns the per-kernel results."""
     from mcp_context_forge_tpu_torch.tpu_local.ops import attention as attn
     from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
 
@@ -308,8 +394,8 @@ def kernel_phase(torch, dev, time_ms) -> dict:
     KV, G, hd, PAGE, NUM_PAGES, P = 8, 4, 128, 128, 512, 16
     H = KV * G
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf16)
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
     k_pages = randn(NUM_PAGES, PAGE, KV, hd)
     v_pages = randn(NUM_PAGES, PAGE, KV, hd)
@@ -337,13 +423,20 @@ def kernel_phase(torch, dev, time_ms) -> dict:
     active = seq_lens > 0
     err, rel = compare_paged(torch, "paged_decode_attention", out, ref, active)
     check(torch.count_nonzero(out[~active]) == 0, "seq_len 0 row is not zero")
+    again, ws = paged._decode_launch("paged_decode_attention", "mcf_paged_decode_attention",
+                                     q, k_pages, v_pages, tables, seq_lens, None, None)
+    check(torch.equal(again, out), "paged_decode_attention is not deterministic")
+    grid = split_grid(torch, dev, "paged_decode_attention", ws, 8, KV)
+    faults = planted_faults(torch, "paged_decode_attention",
+                            drop_split(torch, paged, ws, seq_lens, q, 0, 1), ref, active)
     tokens = sum(seq_lens_list)
     nbytes = 2 * tokens * KV * hd * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + 8 * 4
     results["paged_decode_attention"] = dict(
         shape={"q": list(q.shape), "pages": list(k_pages.shape),
                "seq_lens": seq_lens_list},
-        max_abs_err=err, max_row_error=rel,
-        kernel_ms=time_ms(lambda: paged.paged_decode_attention(q, k_pages, v_pages, tables, seq_lens)),
+        grid=grid, max_abs_err=err, max_row_error=rel, planted_faults=faults,
+        **time_ms.both("kernel", lambda: paged.paged_decode_attention(
+            q, k_pages, v_pages, tables, seq_lens)),
         plain_ms=time_ms(lambda: paged.paged_decode_attention_ref(q, k_pages, v_pages, tables, seq_lens)),
         library_ms=None, bytes=nbytes, flops=4 * hd * G * KV * tokens)
 
@@ -368,41 +461,63 @@ def kernel_phase(torch, dev, time_ms) -> dict:
         shape={"q": list(qc.shape), "pages": list(k_pages.shape),
                "history_pages": hist_pages, "valid_queries": n_valid},
         max_abs_err=err, max_row_error=rel,
-        kernel_ms=time_ms(lambda: paged.paged_chunk_attention(qc, k_pages, v_pages, ctables, pos)),
+        **time_ms.both("kernel", lambda: paged.paged_chunk_attention(
+            qc, k_pages, v_pages, ctables, pos)),
         plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(qc, k_pages, v_pages, ctables, pos)),
         library_ms=None, bytes=nbytes, flops=4 * hd * G * KV * pairs)
 
-    # flash: B=4 at S=512 and S=2048, with padded rows
+    # flash: the tensor-core kernel at B=4, S=512 and S=2048 (llama3-8b),
+    # at the qwen2-7b and qwen2-0.5b geometries, then the FMA kernel in f32
+    # at the llama3-tiny geometry; rows padded to the lengths given
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_runs = []
-    for S in (512, 2048):
-        lens = [S, S - 37, S // 2 + 5, 1]
-        qf, kf, vf = randn(4, S, H, hd), randn(4, S, KV, hd), randn(4, S, KV, hd)
+    for name, B, S, KVf, Gf, hdf, dtype, lens in (
+            ("flash_attention_tc", 4, 512, KV, G, hd, bf16, [512, 475, 261, 1]),
+            ("flash_attention_tc", 4, 2048, KV, G, hd, bf16, [2048, 2011, 1029, 1]),
+            ("flash_attention_tc", 2, 1024, 4, 7, 128, bf16, [1024, 700]),
+            ("flash_attention_tc", 2, 1024, 2, 7, 64, bf16, [1024, 333]),
+            ("flash_attention_fma", 2, 256, 4, 2, 32, torch.float32, [256, 100])):
+        kernel = getattr(attn, name)
+        check(attn.flash_route(dtype, hdf) == name.rsplit("_", 1)[1],
+              f"{dtype} at hd {hdf} does not route to {name}")
+        Hf, size = KVf * Gf, torch.finfo(dtype).bits // 8
+        qf, kf, vf = (randn(B, S, Hf, hdf, dtype=dtype), randn(B, S, KVf, hdf, dtype=dtype),
+                      randn(B, S, KVf, hdf, dtype=dtype))
         validf = torch.arange(S, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
-        out = attn.flash_attention(qf, kf, vf, validf)
+        out = kernel(qf, kf, vf, validf)
         ref = attn.attention_reference(qf, kf, vf, validf)
         torch.cuda.synchronize()
-        err = compare(torch, out, ref, validf)
+        check(torch.equal(attn.flash_attention(qf, kf, vf, validf), out),
+              f"flash_attention does not dispatch to {name}")
+        err, rel = compare_paged(torch, name, out, ref, validf)
+        run = dict(kernel=name, shape={"q": list(qf.shape), "kv": list(kf.shape),
+                                       "dtype": str(dtype), "valid_lens": lens},
+                   max_abs_err=err, max_row_error=rel)
+        if name == "flash_attention_tc" and KVf == KV:
+            run["planted_faults"] = planted_faults(
+                torch, name, flash_faults(torch, attn, qf, kf, vf, validf, out), ref, validf)
         del ref
         qt = qf.transpose(1, 2).contiguous()
-        kt = kf.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-        vt = vf.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+        kt = kf.repeat_interleave(Gf, dim=2).transpose(1, 2).contiguous()
+        vt = vf.repeat_interleave(Gf, dim=2).transpose(1, 2).contiguous()
         pairs = sum(n * (n + 1) // 2 for n in lens)
-        nbytes = (qf.numel() * 2 * 2 + kf.numel() * 2 * 2 + validf.numel())
-        run = dict(
-            shape={"q": list(qf.shape), "kv": list(kf.shape), "valid_lens": lens},
-            max_abs_err=err,
-            kernel_ms=time_ms(lambda: attn.flash_attention(qf, kf, vf, validf)),
+        run.update(
+            **time_ms.both("kernel", lambda: kernel(qf, kf, vf, validf)),
             plain_ms=time_ms(lambda: attn.attention_reference(qf, kf, vf, validf)),
             library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True)),
-            bytes=nbytes, flops=4 * hd * H * pairs)
+            bytes=(qf.numel() * 2 + kf.numel() * 2) * size + validf.numel(),
+            flops=4 * hdf * Hf * pairs)
+        run["bound_ms"], run["bound_by"] = bound(
+            run["bytes"], run["flops"],
+            BF16_FLOPS_PER_S if dtype == bf16 else F32_FLOPS_PER_S)
         flash_runs.append(run)
         del qt, kt, vt
-    results["flash_attention"] = flash_runs[-1]
-    for run in [results["paged_decode_attention"], results["paged_chunk_attention"]] + flash_runs:
+    results["flash_attention_tc"] = flash_runs[1]
+    results["flash_attention_fma"] = flash_runs[-1]
+    for run in [results["paged_decode_attention"], results["paged_chunk_attention"]]:
         run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
     emit({"phase": "kernels",
-          "tolerance": {"atol": TOL, "rtol": TOL, "paged_row_relative": ROW_REL},
+          "tolerance": {"atol": TOL, "rtol": TOL, "row_relative": ROW_REL},
           "decode": results["paged_decode_attention"],
           "chunk": results["paged_chunk_attention"],
           "flash": flash_runs})
@@ -416,8 +531,8 @@ def q8_kernel_phase(torch, dev, time_ms) -> dict:
     pages walked). Each is also timed beside its bf16-page kernel on the
     same pages dequantized to bf16 (the same shape, twice the bytes).
     Planted faults in row 0 past its 32nd page (a wrong page, wrong K
-    scales, a dropped tail tile) show that the row check sees a kernel
-    that misreads part of a long walk."""
+    scales, a dropped tail tile, a dropped split) show that the row check
+    sees a kernel that misreads part of a long walk."""
     from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
     from mcp_context_forge_tpu_torch.tpu_local.quantize import kv_dequantize
 
@@ -475,19 +590,24 @@ def q8_kernel_phase(torch, dev, time_ms) -> dict:
     wrong_scales[tables[0, 33:63].long()] *= 1.25
     short = seq_lens.clone()
     short[0] -= 64
+    again, ws = paged._decode_launch("paged_decode_attention_q8",
+                                     "mcf_paged_decode_attention_q8", *args)
+    check(torch.equal(again, out), "paged_decode_attention_q8 is not deterministic")
+    grid = split_grid(torch, dev, "paged_decode_attention_q8", ws, 8, KV)
     faults = planted_faults(torch, "paged_decode_attention_q8", {
         "row 0: page 40 of 63 read from a wrong page": paged.paged_decode_attention_q8(
             q, k8, v8, wrong_page, seq_lens, ks, vs),
         "row 0: K scales of pages 33-62 read 1.25x": paged.paged_decode_attention_q8(
             q, k8, v8, tables, seq_lens, wrong_scales, vs),
-        "row 0: last 64-key tile of 8000 dropped": paged.paged_decode_attention_q8(
-            q, k8, v8, tables, short, ks, vs)}, ref, active)
+        "row 0: last 64 keys of 8000 dropped": paged.paged_decode_attention_q8(
+            q, k8, v8, tables, short, ks, vs),
+        **drop_split(torch, paged, ws, seq_lens, q, 0, 2)}, ref, active)
     tokens = sum(seq_lens_list)
     results["paged_decode_attention_q8"] = dict(
         shape={"q": list(q.shape), "pages": list(k8.shape), "page_dtype": "int8",
                "scales": list(ks.shape), "seq_lens": seq_lens_list},
-        max_abs_err=err, max_row_error=rel, planted_faults=faults,
-        kernel_ms=time_ms(lambda: paged.paged_decode_attention_q8(*args)),
+        grid=grid, max_abs_err=err, max_row_error=rel, planted_faults=faults,
+        **time_ms.both("kernel", lambda: paged.paged_decode_attention_q8(*args)),
         plain_ms=time_ms(lambda: paged.paged_decode_attention_ref(*args)),
         bf16_pages_kernel_ms=time_ms(lambda: paged.paged_decode_attention(
             q, k16, v16, tables, seq_lens)),
@@ -526,7 +646,7 @@ def q8_kernel_phase(torch, dev, time_ms) -> dict:
                "scales": list(ks.shape), "history_pages": hist_pages,
                "valid_queries": n_valid},
         max_abs_err=err, max_row_error=rel, planted_faults=faults,
-        kernel_ms=time_ms(lambda: paged.paged_chunk_attention_q8(*cargs)),
+        **time_ms.both("kernel", lambda: paged.paged_chunk_attention_q8(*cargs)),
         plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*cargs)),
         bf16_pages_kernel_ms=time_ms(lambda: paged.paged_chunk_attention(
             qc, k16, v16, ctables, pos)),
@@ -536,7 +656,7 @@ def q8_kernel_phase(torch, dev, time_ms) -> dict:
     for run in results.values():
         run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
     emit({"phase": "kernels_int8_pages",
-          "tolerance": {"atol": TOL, "rtol": TOL, "paged_row_relative": ROW_REL},
+          "tolerance": {"atol": TOL, "rtol": TOL, "row_relative": ROW_REL},
           "decode": results["paged_decode_attention_q8"],
           "chunk": results["paged_chunk_attention_q8"]})
     return results
@@ -595,7 +715,7 @@ def moe_kernel_phase(torch, dev, time_ms) -> dict:
     del ref
     results["expert_blocks"] = dict(
         shape=shape, dtype="bfloat16", max_abs_err=err,
-        kernel_ms=time_ms(lambda: gm.expert_blocks(x_pad, w1, w3, w2, be)),
+        **time_ms.both("kernel", lambda: gm.expert_blocks(x_pad, w1, w3, w2, be)),
         plain_ms=time_ms(lambda: gm.expert_blocks_ref(x_pad, w1, w3, w2, be)),
         library_ms=None, flops=flops,
         bytes=act_bytes + 3 * E * D * F * 2)
@@ -629,7 +749,7 @@ def moe_kernel_phase(torch, dev, time_ms) -> dict:
     results["expert_blocks_q8"] = dict(
         shape=shape, dtype="bfloat16 activations, int8 stacks, bf16 scales",
         max_abs_err=err,
-        kernel_ms=time_ms(lambda: gm.expert_blocks_q8(x_pad, q1, q3, q2, be)),
+        **time_ms.both("kernel", lambda: gm.expert_blocks_q8(x_pad, q1, q3, q2, be)),
         plain_ms=time_ms(lambda: gm.expert_blocks_q8_ref(x_pad, q1, q3, q2, be)),
         library_ms=None, flops=flops,
         bytes=act_bytes + 3 * E * D * F + (2 * E * F + E * D) * 2)
@@ -646,7 +766,8 @@ def model_check(torch, dev, name: str, quant: str = "",
     CPU (plain versions): cold prefill, prefix-hit suffix prefill and decode
     logits agree within 1e-3 (f32 both sides; summation order differs).
     ``moe`` overrides the MoE formulation; the grouped kernels must then
-    launch on the card. ``kv_quant="int8"`` stores the KV pool as int8
+    launch on the card. The FMA flash kernel (f32) and the paged kernels
+    must launch on the card. ``kv_quant="int8"`` stores the KV pool as int8
     pages (the CPU side reads them through ``gather_kv``); both int8-page
     kernels must then launch on the card. Quantization is not continuous:
     the two sides' int8 pools may differ by isolated one-step rounding
@@ -669,6 +790,7 @@ def model_check(torch, dev, name: str, quant: str = "",
     expert_kernel = wrappers["expert_blocks_q8" if quant else "expert_blocks"]
     paged_kernels = [wrappers[k] for k in (ATTENTION_Q8[1:] if kv_quant
                                            else ATTENTION[1:])]
+    paged_kernels.append(wrappers["flash_attention_fma"])
 
     def to(tree, device):
         if isinstance(tree, dict):
@@ -726,7 +848,7 @@ def model_check(torch, dev, name: str, quant: str = "",
         check(expert_kernel.launches > launched,
               f"{name}: the grouped expert kernel never launched")
     check(all(fn.launches > n for fn, n in zip(paged_kernels, paged_launched)),
-          f"{name}: a paged attention kernel never launched")
+          f"{name}: the FMA flash kernel or a paged kernel never launched")
     cpu, cpu_pools = run("cpu")
     stored = {}
     if kv_quant:
@@ -799,9 +921,9 @@ def long_context_requests(model: str) -> list[dict]:
             chat(model, "Hello!"), chat(model, "What is 2 + 2?")]
 
 
-def check_long_context(stats: dict, counts: dict) -> None:
-    """The int8-KV long-context phase: both summaries chunked, the pool
-    holds 1023 int8 pages, and the bf16 paged kernels never launched."""
+def check_long_context(stats: dict) -> None:
+    """The int8-KV long-context phase: both summaries chunked and the pool
+    holds 1023 int8 pages."""
     lengths = stats["prompt_tokens"][1:3]
     check(lengths[0] >= 6000 and 3000 <= lengths[1] < 4096,
           f"the long prompts have {lengths} tokens")
@@ -809,13 +931,11 @@ def check_long_context(stats: dict, counts: dict) -> None:
     check(stats["kv_pages"] == stats["kv_pool_pages"] == 1023
           and stats["kv_page_dtype"] == "torch.int8",
           f"the int8 pool holds {stats['kv_pool_pages']} {stats['kv_page_dtype']} pages")
-    for kernel in ATTENTION[1:]:
-        check(counts[kernel] == 0, f"{kernel} launched on int8 pages")
 
 
 def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
-                 requests: list[dict], hit: int, n_layers: int = 0,
-                 **engine_kwargs):
+                 requests: list[dict], hit: int, absent: tuple[str, ...] = (),
+                 n_layers: int = 0, **engine_kwargs):
     """``requests`` sent concurrently as greedy chats through
     ``TorchLocalProvider.chat`` on ``model`` (random weights, bf16), then
     ``requests[hit]`` twice more, which must give the same tokens. The
@@ -823,7 +943,8 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     ``requests[hit]``, which shares its system prompt, hits the cache.
     ``n_layers`` cuts the depth; ``engine_kwargs`` override the engine
     config. Every kernel's count is reset just before the concurrent
-    requests and read just after; each of ``kernels`` must have launched."""
+    requests and read just after; each of ``kernels`` must have launched,
+    and none of ``absent``."""
     from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngine
     from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
     from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
@@ -897,12 +1018,14 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     check(tokens_a == tokens_b, "repeated greedy request changed its tokens")
     for kernel in kernels:
         check(counts[kernel] > 0, f"{kernel} never launched on the {name} path")
+    for kernel in absent:
+        check(counts[kernel] == 0, f"{kernel} launched on the {name} path")
     ttft = [(r.first_token_ts - r.created) * 1e3 for r in served]
     decode_tokens = sum(len(r.generated) - 1 for r in served)
     cfg = engine.model_config
     stats = {
         "model": name, "layers": cfg.n_layers, "weights": "random (seed 0)",
-        "dtype": "bfloat16", "quant": engine.config.quant or "none",
+        "dtype": engine.config.dtype, "quant": engine.config.quant or "none",
         "kv_quant": engine.config.kv_quant or "none",
         "max_seq_len": engine.config.max_seq_len,
         "kv_pages": engine.num_kv_pages,

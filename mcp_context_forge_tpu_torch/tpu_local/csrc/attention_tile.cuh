@@ -1,11 +1,12 @@
-// Tile engine shared by the port's attention kernels (flash prefill, paged
-// chunk, paged decode, and the int8-page chunk and decode variants). Each is
-// the same computation: a tile of query rows, each with an absolute
-// position, attends with an f32 online softmax over keys c <= position,
-// where the keys come either from a contiguous [B, Sk, KV, hd] tensor
-// (flash) or from a paged pool [N, page, KV, hd] through a block table
-// (chunk, decode). Paged K/V are stored in the query's type, or in int8
-// with one scale per (page, kv head) ([N, KV] in the query's type).
+// Tile engine shared by the FMA flash prefill kernel (f32, and bf16 at the
+// head dims the tensor-core kernel does not take) and the paged chunk
+// kernels (bf16/f32 and int8 pages). Each is the same computation: a tile
+// of query rows, each with an absolute position, attends with an f32
+// online softmax over keys c <= position, where the keys come either from a
+// contiguous [B, Sk, KV, hd] tensor (flash) or from a paged pool
+// [N, page, KV, hd] through a block table (chunk). Paged K/V are stored in
+// the query's type, or in int8 with one scale per (page, kv head) ([N, KV]
+// in the query's type).
 //
 // Query and output layout is [B, S, KV*G, hd]; one CTA owns BQ = NT/4 rows
 // r = s*G + g of one (batch row, kv head), so every key tile it stages in
@@ -47,7 +48,6 @@ struct AttnParams {
   const uint8_t* key_valid;   // contiguous keys: [B, Sk] (nullptr = all valid)
   const int32_t* tables;      // paged keys: [B, P]
   const int32_t* q_pos;       // [B, S] absolute positions (-1 = padding), or nullptr
-  const int32_t* seq_lens;    // [B]: every row sits at seq_len - 1 (decode), or nullptr
   const void* k_scales;       // int8 pages: [N, KV] dequant scales in the query's type
   const void* v_scales;
   int B, S, KV, G, hd;
@@ -157,9 +157,7 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
     int pos = -1;
     if (gr < R) {
       const int s = gr / G;
-      if (p.seq_lens != nullptr) pos = p.seq_lens[b] - 1;
-      else if (p.q_pos != nullptr) pos = p.q_pos[(long long)b * p.S + s];
-      else pos = s;
+      pos = p.q_pos != nullptr ? p.q_pos[(long long)b * p.S + s] : s;
     }
     row_pos[r] = pos;
     row_m[r] = kNegInf;

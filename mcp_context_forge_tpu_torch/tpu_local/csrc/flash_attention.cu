@@ -8,11 +8,13 @@
 // head) against bytes growing as S; at Llama-3-8B's 32 query / 8 KV heads
 // the FLOP bound passes the byte bound near S = 740, so the 2048 bucket is
 // FLOP-bound and the 512 bucket is just on the byte side.
-// This first version runs the FLOPs on the f32 FMA pipes (no tensor cores)
-// and keeps the S x S scores out of device memory: each CTA walks key tiles
-// up to its causal frontier only, staging K/V once for all G query heads of
-// a KV group (the JAX kernel repeated K/V to H heads before the call).
-// wgmma tiles are the next step.
+// This kernel runs the FLOPs on the f32 FMA pipes (no tensor cores) and
+// keeps the S x S scores out of device memory: each CTA walks key tiles up
+// to its causal frontier only, staging K/V once for all G query heads of a
+// KV group (the JAX kernel repeated K/V to H heads before the call). It
+// serves f32 inputs and the head dims the tensor-core kernel
+// (flash_attention_tc.cu: bf16 at hd 64 and 128) does not take; the
+// wrapper's flash_route chooses by dtype and hd.
 //
 // Semantics: out[b, s, h] = softmax_c(q.k_c / sqrt(hd)) @ v over keys
 // c <= s with valid[b, c]; masked scores are -1e30, so a padding row stays

@@ -20,8 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "paged_chunk_attention", "paged_decode_attention",
-           "grouped_moe")
+KERNELS = ("flash_attention", "flash_attention_tc", "paged_chunk_attention",
+           "paged_decode_attention", "grouped_moe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -119,7 +119,7 @@ def check(rc: int, name: str) -> None:
 
 
 # dtype codes of the C entries (attention_tile.cuh kBF16 / kF32, and the
-# same codes in grouped_moe.cu)
+# same codes in paged_decode_attention.cu and grouped_moe.cu)
 DTYPE_CODES = {"torch.bfloat16": 0, "torch.float32": 1}
 
 

@@ -2,9 +2,13 @@
 
 - ``attention_reference``: the plain PyTorch version (f32 scores, masked
   softmax); what CPU tensors run.
-- ``flash_attention``: the wrapper of the hand-written CUDA kernel
-  (``csrc/flash_attention.cu``) for CUDA tensors. It reads each KV head
-  directly: GQA K/V are never repeated to H heads.
+- ``flash_attention``: the wrapper of the hand-written CUDA kernels for
+  CUDA tensors. ``flash_route`` picks one by dtype and head dim:
+  ``flash_attention_tc`` (``csrc/flash_attention_tc.cu``: wgmma tensor-core
+  tiles, K/V by TMA) for bf16 at hd 64 and 128, ``flash_attention_fma``
+  (``csrc/flash_attention.cu``: the f32 FMA tile engine) for everything
+  else. Both read each KV head directly: GQA K/V are never repeated to H
+  heads. Each carries its own launch count.
 - ``causal_attention``: the dispatcher the model calls.
 """
 
@@ -36,14 +40,29 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
+TC_HEAD_DIMS = (64, 128)
+
+
+def flash_route(dtype: torch.dtype, hd: int) -> str:
+    """Which kernel a CUDA call takes: ``"tc"`` (tensor cores) for bf16 at
+    hd 64 or 128, ``"fma"`` otherwise. A static choice by dtype and hd,
+    never a reaction to a failed build or launch."""
+    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "fma"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid: torch.Tensor) -> torch.Tensor:
     """Causal attention with key validity. q: [B,S,H,hd]; k/v: [B,S,KV,hd];
     valid: [B,S] bool -> [B,S,H,hd]. CPU tensors run the plain version; CUDA
-    tensors launch the kernel (or raise)."""
+    tensors launch the kernel ``flash_route`` names (or raise)."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, valid)
-    name = "flash_attention"
+    kernel = (flash_attention_tc if flash_route(q.dtype, q.shape[-1]) == "tc"
+              else flash_attention_fma)
+    return kernel(q, k, v, valid)
+
+
+def _flash_launch(name: str, symbol: str, q, k, v, valid) -> torch.Tensor:
     B, S, H, hd = q.shape
     KV = k.shape[2]
     _build.check_head_dim(name, hd)
@@ -56,17 +75,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype = _build.check_inputs(name, {"q": q, "k": k, "v": v},
                                 {"valid": valid})
     out = torch.empty_like(q)
-    fn = _build.kernel_fn(name, "mcf_flash_attention",
+    fn = _build.kernel_fn(name, symbol,
                           [_build.PTR] * 5 + [_build.INT] * 6 + [_build.PTR])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
             out.data_ptr(), B, S, H, KV, hd, dtype,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, name)
-    flash_attention.launches += 1
     return out
 
 
-flash_attention.launches = 0
+def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel (CUDA tensors, bf16, hd 64 or 128)."""
+    if flash_route(q.dtype, q.shape[-1]) != "tc":
+        raise ValueError(f"flash_attention_tc takes bf16 at hd "
+                         f"{TC_HEAD_DIMS}, got {q.dtype} at hd {q.shape[-1]}")
+    out = _flash_launch("flash_attention_tc", "mcf_flash_attention_tc",
+                        q, k, v, valid)
+    flash_attention_tc.launches += 1
+    return out
+
+
+def flash_attention_fma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        valid: torch.Tensor) -> torch.Tensor:
+    """The FMA tile kernel (CUDA tensors, bf16 or f32, any hd <= 256
+    divisible by 8)."""
+    out = _flash_launch("flash_attention", "mcf_flash_attention",
+                        q, k, v, valid)
+    flash_attention_fma.launches += 1
+    return out
+
+
+flash_attention_tc.launches = 0
+flash_attention_fma.launches = 0
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -7,6 +7,12 @@ hand-written CUDA kernel (``csrc/paged_decode_attention.cu``,
 ``csrc/paged_chunk_attention.cu``) for CUDA tensors. The kernels walk only
 the pages a row uses, loading the block table themselves.
 
+The decode kernel splits each row's key walk across CTAs (flash-decoding):
+``decode_split_plan`` picks whole-page splits on the host, one launch
+writes each split's f32 partials (m, l, o) to a workspace and a second
+combines them in a fixed order. ``decode_partials_ref`` and
+``decode_combine_ref`` are the plain model of that arithmetic.
+
 Pages are bf16/f32, or int8 with per-(page, kv-head) scales ``k_scales`` /
 ``v_scales`` [num_pages, KV] in the query's dtype (one layer's slice of the
 pool's scales). Int8 pages run their own kernels (``mcf_*_q8``, wrappers
@@ -22,6 +28,8 @@ Layouts are the JAX package's: q [B, KV, G, hd] (decode) or
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 
 import torch
@@ -29,6 +37,8 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
+DECODE_MAX_G = 16   # query heads per KV head the decode kernel holds
 
 
 def _gather_pages(pages: torch.Tensor, block_tables: torch.Tensor,
@@ -73,6 +83,77 @@ def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables,
     out = torch.einsum("bkgsc,bckh->bskgh", torch.softmax(scores, dim=-1),
                        values)
     return out.to(q.dtype)
+
+
+DECODE_CTAS_PER_SM = 4   # more splits shorten the longest walk; past ~4 the
+                         # CTAs that exit at once and the combine cost more
+
+
+def decode_split_plan(P: int, B: int, KV: int, sms: int) -> tuple[int, int]:
+    """(pages per split, splits) for the decode kernel's grid (splits, KV,
+    B): each split is a run of whole table slots, enough splits for
+    DECODE_CTAS_PER_SM CTAs per SM where the table has the slots (one slot
+    per split at most), and none past the table
+    (splits * pps >= P > (splits - 1) * pps)."""
+    if min(P, B, KV, sms) < 1:
+        raise ValueError(f"decode_split_plan needs P, B, KV, sms >= 1, got "
+                         f"{P}, {B}, {KV}, {sms}")
+    want = -(-DECODE_CTAS_PER_SM * sms // (B * KV))
+    pps = max(1, P // want)
+    return pps, -(-P // pps)
+
+
+def decode_partials_ref(q, k_pages, v_pages, block_tables, seq_lens, pps,
+                        k_scales=None, v_scales=None):
+    """Plain model of the decode kernel's split launch: for split i over
+    table slots [i*pps, (i+1)*pps), the f32 partials over its keys
+    c < seq_len: m (base-2 units: max of q.k * log2(e) / sqrt(hd)), l (sum
+    of 2^(s - m)) and o (sum of 2^(s - m) v). Int8 pages multiply each
+    page's q.k sums by its K scale and its P @ V sums by its V scale, as
+    the kernel does. A split holding no key gives m = -1e30, l = 0, o = 0.
+    Returns ml [B, KV, splits, G, 2] and o [B, KV, splits, G, hd]."""
+    B, KV, G, hd = q.shape
+    P, page = block_tables.shape[1], k_pages.shape[1]
+    idx = block_tables.long()
+    keys = k_pages[idx].float()                       # [B, P, page, KV, hd]
+    values = v_pages[idx].float()
+    ones = torch.ones((B, P, KV), device=q.device)
+    ks = ones if k_scales is None else k_scales[idx].float()   # [B, P, KV]
+    vs = ones if v_scales is None else v_scales[idx].float()
+    scores = torch.einsum("bkgh,bpckh->bkgpc", q.float(), keys)
+    scores = scores * (ks.permute(0, 2, 1)[:, :, None, :, None]
+                       * (LOG2E / math.sqrt(hd)))
+    pos = torch.arange(P * page, device=q.device).reshape(P, page)
+    valid = pos[None] < seq_lens[:, None, None]       # [B, P, page]
+    ml, outs = [], []
+    for start in range(0, P, pps):
+        sl = slice(start, min(start + pps, P))
+        ok = valid[:, sl][:, None, None]              # [B, 1, 1, n, page]
+        s = scores[..., sl, :]
+        m = torch.where(ok, s, NEG_INF).amax((-2, -1))  # [B, KV, G]
+        p = torch.where(ok, torch.exp2(s - m[..., None, None]), 0.0)
+        pv = torch.einsum("bkgpc,bpckh->bkgph", p, values[:, sl])
+        pv = pv * vs[:, sl].permute(0, 2, 1)[:, :, None, :, None]
+        ml.append(torch.stack([m, p.sum((-2, -1))], -1))
+        outs.append(pv.sum(-2))
+    return torch.stack(ml, 2), torch.stack(outs, 2)
+
+
+def decode_combine_ref(ml, o, seq_lens, page_size, pps, P):
+    """Plain model of the combine launch: over the row's active splits (the
+    first ceil(ceil(seq_len / page) / pps)), M = max m_i and
+    out = sum 2^(m_i - M) o_i / sum 2^(m_i - M) l_i; zeros where the
+    denominator is 0 (seq_len 0). Returns f32 [B, KV, G, hd]."""
+    pages = -(-seq_lens.long().clamp(max=P * page_size) // page_size)
+    active = -(-pages // pps)                                       # [B]
+    keep = (torch.arange(ml.shape[2], device=ml.device)[None]
+            < active[:, None])[:, None, :, None]                     # [B,1,S,1]
+    m = torch.where(keep, ml[..., 0], NEG_INF)
+    w = torch.where(keep, torch.exp2(m - m.amax(2, keepdim=True)), 0.0)
+    den = (w * ml[..., 1]).sum(2)
+    num = (w[..., None] * o).sum(2)
+    return torch.where(den[..., None] > 0, num / den.clamp_min(1e-30)[..., None],
+                       0.0)
 
 
 def _checked(name: str, q: torch.Tensor, k_pages: torch.Tensor,
@@ -120,8 +201,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           seq_lens)
-    out = _decode_launch("paged_decode_attention", "mcf_paged_decode_attention",
-                         q, k_pages, v_pages, block_tables, seq_lens, None, None)
+    out, _ = _decode_launch("paged_decode_attention",
+                            "mcf_paged_decode_attention", q, k_pages, v_pages,
+                            block_tables, seq_lens, None, None)
     paged_decode_attention.launches += 1
     return out
 
@@ -134,31 +216,82 @@ def paged_decode_attention_q8(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
                                           seq_lens, k_scales, v_scales)
-    out = _decode_launch("paged_decode_attention_q8",
-                         "mcf_paged_decode_attention_q8", q, k_pages, v_pages,
-                         block_tables, seq_lens, k_scales, v_scales)
+    out, _ = _decode_launch("paged_decode_attention_q8",
+                            "mcf_paged_decode_attention_q8", q, k_pages,
+                            v_pages, block_tables, seq_lens, k_scales,
+                            v_scales)
     paged_decode_attention_q8.launches += 1
     return out
 
 
+@dataclasses.dataclass
+class DecodeWorkspace:
+    """The split launch's partials: ml [B, KV, splits, G, 2] (m, l) and
+    o [B, KV, splits, G, hd], f32, with the plan that produced them."""
+    ml: torch.Tensor
+    o: torch.Tensor
+    page_size: int
+    P: int
+    pps: int
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _decode_launch(name, symbol, q, k_pages, v_pages, block_tables, seq_lens,
-                   k_scales, v_scales) -> torch.Tensor:
+                   k_scales, v_scales) -> tuple[torch.Tensor, DecodeWorkspace]:
+    """Both launches (split, combine) of one decode call; returns the output
+    and the workspace that holds the partials."""
     B, KV, G, hd = q.shape
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
             or seq_lens.shape != (B,):
         raise ValueError(f"{name}: block_tables must be [B, P] and seq_lens "
                          f"[B] for B={B}")
+    if G > DECODE_MAX_G:
+        raise ValueError(f"{name}: at most {DECODE_MAX_G} query heads per KV "
+                         f"head, got {G}")
+    if hd * k_pages.element_size() % 16:
+        raise ValueError(f"{name}: a key's {hd} elements must fill whole "
+                         f"16-byte chunks (int8 pages need hd % 16 == 0)")
     ptrs, dtype = _checked(name, q, k_pages, v_pages, k_scales, v_scales, KV,
                            hd, {"block_tables": block_tables,
                                 "seq_lens": seq_lens})
+    P, page = block_tables.shape[1], k_pages.shape[1]
+    pps, splits = decode_split_plan(P, B, KV, _sm_count(q.device.index or 0))
+    ws = DecodeWorkspace(
+        torch.empty((B, KV, splits, G, 2), dtype=torch.float32, device=q.device),
+        torch.empty((B, KV, splits, G, hd), dtype=torch.float32, device=q.device),
+        page, P, pps)
     out = torch.empty_like(q)
     fn = _build.kernel_fn("paged_decode_attention", symbol,
-                          [_build.PTR] * (len(ptrs) + 3) + [_build.INT] * 7
+                          [_build.PTR] * (len(ptrs) + 5) + [_build.INT] * 9
                           + [_build.PTR])
     rc = fn(*ptrs, block_tables.data_ptr(), seq_lens.data_ptr(),
-            out.data_ptr(), B, KV, G, hd, k_pages.shape[1],
-            block_tables.shape[1], dtype,
+            ws.ml.data_ptr(), ws.o.data_ptr(), out.data_ptr(), B, KV, G, hd,
+            page, P, pps, splits, dtype,
             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, name)
+    return out, ws
+
+
+def paged_decode_combine(ws: DecodeWorkspace, seq_lens: torch.Tensor,
+                         out: torch.Tensor) -> torch.Tensor:
+    """The combine launch alone, over the partials in ``ws``, into ``out``
+    ([B, KV, G, hd], the query's dtype). Not a decode launch of its own: a
+    caller that rewrites partials (a planted fault) recombines with it."""
+    name = "paged_decode_combine"
+    B, KV, splits, G, hd = ws.o.shape
+    dtype = _build.check_inputs(name, {"out": out}, {"seq_lens": seq_lens})
+    if out.shape != (B, KV, G, hd) or seq_lens.shape != (B,):
+        raise ValueError(f"{name}: out must be {[B, KV, G, hd]} and seq_lens "
+                         f"[{B}]")
+    fn = _build.kernel_fn("paged_decode_attention", "mcf_paged_decode_combine",
+                          [_build.PTR] * 4 + [_build.INT] * 9 + [_build.PTR])
+    rc = fn(seq_lens.data_ptr(), ws.ml.data_ptr(), ws.o.data_ptr(),
+            out.data_ptr(), B, KV, G, hd, ws.page_size, ws.P, ws.pps, splits,
+            dtype, torch.cuda.current_stream(out.device).cuda_stream)
     _build.check(rc, name)
     return out
 

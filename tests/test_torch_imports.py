@@ -1,5 +1,6 @@
 """Import hygiene of the PyTorch port: no module of
-``mcp_context_forge_tpu_torch`` (nor ``chip_smoke.py``) imports JAX or
+``mcp_context_forge_tpu_torch`` (nor ``chip_smoke.py`` or
+``profile_torch_engine.py``, which run on the card) imports JAX or
 anything of the JAX package, and the kernel modules import without
 ``nvcc`` or ``triton`` (kernels build at first launch, on the card)."""
 
@@ -14,7 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mcp_context_forge_tpu"}
 SOURCES = sorted((ROOT / "mcp_context_forge_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "profile_torch_engine.py"]
 
 
 def _imported_roots(source: str) -> set[str]:

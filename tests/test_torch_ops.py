@@ -209,7 +209,8 @@ def test_cpu_tensors_run_the_plain_versions():
     """A wrapper handed CPU tensors runs its plain version, bit for bit,
     and never counts a kernel launch."""
     rng = np.random.default_rng(4)
-    counters = (port_attn.flash_attention, port_paged.paged_decode_attention,
+    counters = (port_attn.flash_attention_tc, port_attn.flash_attention_fma,
+                port_paged.paged_decode_attention,
                 port_paged.paged_chunk_attention,
                 port_paged.paged_decode_attention_q8,
                 port_paged.paged_chunk_attention_q8)
@@ -243,7 +244,7 @@ def test_cpu_tensors_run_the_plain_versions():
                                          scales),
         port_paged.paged_chunk_attention_ref(qc, k8, v8, tables, pos, scales,
                                              scales))
-    assert [fn.launches for fn in counters] == before == [0] * 5
+    assert [fn.launches for fn in counters] == before == [0] * 6
 
 
 def test_scale_is_inverse_sqrt_head_dim():
