@@ -13,32 +13,45 @@ Run from the root of a checkout. Phases, each printing one JSON line:
    order of the sums and the bf16 rounding of the output differ), with
    CUDA-event times (median of 25 runs, L2 flushed before each; see
    ``Timer`` for the card's time against the call's) and each kernel's
-   bound on this card. Flash runs both of its kernels: the tensor-core one
-   (bf16 at hd 128 and 64, G = 4 and the qwen2 G = 7) and the FMA one (f32).
+   bound on this card, and one PyTorch call computing the same function
+   (``library_ms``: SDPA over K/V gathered, expanded and dequantized in
+   advance). Flash runs both of its kernels: the wgmma one (bf16 at hd 128
+   and 64, G = 4 and the qwen2 G = 7) and the mma.sync one (f32 at the
+   llama3-tiny geometry, held per row to 1e-4; bf16 at gemma-2b's; every
+   head-dim template in both dtypes at small shapes). The paged chunk
+   kernel runs its wgmma route (bf16 pages; int8 below) and its tile-engine
+   route (f32 pages and int8 pages at the llama3-tiny geometry). Planted
+   faults show that the checks see a kernel that misreads part of a walk.
 4. model: a tiny f32 model on the card (kernels) against the same model on
    the CPU (plain versions): prefill, prefix-hit suffix prefill, decode.
    Then ``engine_llama3_tiny_f32``: the engine phase below on llama3-tiny in
-   f32, the path of the FMA flash kernel.
+   f32, the path of the mma.sync flash kernel and the tile-engine chunk
+   kernel.
 5. engine: ``TorchLocalProvider.chat`` with seeded random weights in bf16:
    six concurrent greedy requests (two share a 300+ token system prompt,
    so the second hits the prefix cache; one is ~1450 tokens), then one
    request sent twice must give the same tokens. Every kernel's launch
    count is reset just before the six requests, and each kernel the phase
-   runs must show > 0 launches after them. Each engine is freed before the
-   next is built.
+   runs must show > 0 launches after them; the chunk kernels must launch
+   once per layer per call of the history prefill (a whole chunk round or
+   prefix-hit suffix in one call). Each engine is freed before the next is
+   built.
 
 The attention path runs first, on a card the MoE phases have not loaded:
 kernels (Llama-3-8B serving shapes), model (llama3-tiny), engine (llama3-8b
-at full width, 32 layers: the three attention kernels; every flash launch
-must take the tensor-core kernel). Then the long-
+at full width, 32 layers: the three attention kernels; every flash and
+chunk launch must take the wgmma kernels). Then the long-
 context path on int8 KV pages: the int8-page chunk and decode kernels at
 Llama-3-8B shapes over a 1024-page int8 pool (seq_lens up to ~8000; 512-
-query chunks over up to 48 history pages), the llama3-tiny model check on
-int8 pages, and ``engine_llama3_8b_int8_kv_long``: llama3-8b at full width
+query chunks over up to 48 history pages, and the 6040-token prompt's last
+chunk round: 2048 queries, 1944 of them real, over 32 history pages), the
+llama3-tiny model check on int8 pages, and
+``engine_llama3_8b_int8_kv_long``: llama3-8b at full width
 and depth with ``kv_quant="int8"``, max_seq_len 8192 and a 512-page byte
 budget (1023 int8 pages), serving a ~6000-token and a ~3000-token prompt
 by chunked prefill beside a prefix hit and two short chats (tensor-core
-flash and the two int8-page kernels; the bf16 paged kernels and the FMA
+flash and the two int8-page kernels, the chunk kernel on its wgmma route;
+the bf16 paged kernels, the tile-engine chunk kernels and the mma.sync
 flash kernel must not launch). Then the
 MoE path:
 kernels (both grouped-expert kernels at Mixtral-8x7B widths on a
@@ -70,6 +83,7 @@ from pathlib import Path
 
 TOL = 2e-2
 ROW_REL = 1e-2   # attention kernels: max|out - ref| within a row over max|ref| of that row
+F32_ROW_REL = 1e-4   # the f32 mma.sync route (3xTF32): one TF32 product alone reads ~1e-3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, dense peak
 BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
@@ -107,9 +121,11 @@ def bound(nbytes: float, flops: float,
 
 REPLACES = {
     "flash_attention_tc": "mcp_context_forge_tpu/tpu_local/ops/attention.py:88",
-    "flash_attention_fma": "mcp_context_forge_tpu/tpu_local/ops/attention.py:88",
-    "paged_chunk_attention": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:148",
-    "paged_chunk_attention_q8": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:111",
+    "flash_attention_mma": "mcp_context_forge_tpu/tpu_local/ops/attention.py:88",
+    "paged_chunk_attention_tc": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:148",
+    "paged_chunk_attention_tc_q8": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:111",
+    "paged_chunk_attention_tile": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:148",
+    "paged_chunk_attention_tile_q8": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:111",
     "paged_decode_attention": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:199",
     "paged_decode_attention_q8": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:59",
     "expert_blocks": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:164",
@@ -117,18 +133,25 @@ REPLACES = {
 }
 SOURCES = {
     "flash_attention_tc": "flash_attention_tc.cu",
-    "flash_attention_fma": "flash_attention.cu",
-    "paged_chunk_attention": "paged_chunk_attention.cu",
-    "paged_chunk_attention_q8": "paged_chunk_attention.cu",
+    "flash_attention_mma": "flash_attention_mma.cu",
+    "paged_chunk_attention_tc": "paged_chunk_attention_tc.cu",
+    "paged_chunk_attention_tc_q8": "paged_chunk_attention_tc.cu",
+    "paged_chunk_attention_tile": "paged_chunk_attention.cu",
+    "paged_chunk_attention_tile_q8": "paged_chunk_attention.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
     "paged_decode_attention_q8": "paged_decode_attention.cu",
     "expert_blocks": "grouped_moe.cu",
     "expert_blocks_q8": "grouped_moe.cu",
 }
-ATTENTION = ("flash_attention_tc", "paged_chunk_attention", "paged_decode_attention")
-ATTENTION_Q8 = ("flash_attention_tc", "paged_chunk_attention_q8",
+ATTENTION = ("flash_attention_tc", "paged_chunk_attention_tc", "paged_decode_attention")
+ATTENTION_Q8 = ("flash_attention_tc", "paged_chunk_attention_tc_q8",
                 "paged_decode_attention_q8")
-ATTENTION_F32 = ("flash_attention_fma", "paged_chunk_attention", "paged_decode_attention")
+ATTENTION_F32 = ("flash_attention_mma", "paged_chunk_attention_tile", "paged_decode_attention")
+CHUNK = ("paged_chunk_attention_tc", "paged_chunk_attention_tc_q8",
+         "paged_chunk_attention_tile", "paged_chunk_attention_tile_q8")
+# kernels the bf16 llama3-8b and Mixtral paths must not launch
+NOT_BF16 = ("flash_attention_mma", "paged_chunk_attention_tile",
+            "paged_chunk_attention_tile_q8")
 
 
 def kernel_wrappers() -> dict:
@@ -137,9 +160,11 @@ def kernel_wrappers() -> dict:
     from mcp_context_forge_tpu_torch.tpu_local.ops import grouped_moe as gm
     from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
     return {"flash_attention_tc": attn.flash_attention_tc,
-            "flash_attention_fma": attn.flash_attention_fma,
-            "paged_chunk_attention": paged.paged_chunk_attention,
-            "paged_chunk_attention_q8": paged.paged_chunk_attention_q8,
+            "flash_attention_mma": attn.flash_attention_mma,
+            "paged_chunk_attention_tc": paged.paged_chunk_attention_tc,
+            "paged_chunk_attention_tc_q8": paged.paged_chunk_attention_tc_q8,
+            "paged_chunk_attention_tile": paged.paged_chunk_attention_tile,
+            "paged_chunk_attention_tile_q8": paged.paged_chunk_attention_tile_q8,
             "paged_decode_attention": paged.paged_decode_attention,
             "paged_decode_attention_q8": paged.paged_decode_attention_q8,
             "expert_blocks": gm.expert_blocks,
@@ -187,13 +212,14 @@ def main() -> int:
     model_check(torch, dev, "llama3-tiny")
     counts, stats = engine_phase(torch, dev, "llama3-tiny", ATTENTION_F32,
                                  chat_requests("llama3-tiny"), hit=1,
-                                 absent=("flash_attention_tc",), dtype="float32")
+                                 absent=("flash_attention_tc", "paged_chunk_attention_tc",
+                                         "paged_chunk_attention_tc_q8"),
+                                 dtype="float32")
     emit({"phase": "engine_llama3_tiny_f32", **stats})
     free_device(torch)
     launches, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION,
-                                   chat_requests("llama3-8b"), hit=1,
-                                   absent=("flash_attention_fma",))
-    launches["flash_attention_fma"] = counts["flash_attention_fma"]
+                                   chat_requests("llama3-8b"), hit=1, absent=NOT_BF16)
+    launches = {**launches, **{name: counts[name] for name in ATTENTION_F32[:2]}}
     check(stats["buckets"][2] == 2048,
           f"the ~1450-token prompt took bucket {stats['buckets'][2]}")
     emit({"phase": "engine", **stats})
@@ -202,10 +228,11 @@ def main() -> int:
     # ------------------------- long context on int8 KV: kernels, model, engine
     results.update(q8_kernel_phase(torch, dev, timer))
     free_device(torch)
-    model_check(torch, dev, "llama3-tiny", kv_quant="int8")
+    counts = model_check(torch, dev, "llama3-tiny", kv_quant="int8")
+    launches["paged_chunk_attention_tile_q8"] = counts["paged_chunk_attention_tile_q8"]
     counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION_Q8,
                                  long_context_requests("llama3-8b"), hit=3,
-                                 absent=ATTENTION[1:] + ("flash_attention_fma",),
+                                 absent=ATTENTION[1:] + NOT_BF16,
                                  kv_quant="int8", max_seq_len=8192)
     check_long_context(stats)
     emit({"phase": "engine_llama3_8b_int8_kv_long", **stats})
@@ -222,14 +249,14 @@ def main() -> int:
                     moe=dict(moe_impl="grouped_pallas", moe_block=8))
     counts, stats = engine_phase(
         torch, dev, "mixtral-8x7b", ATTENTION + ("expert_blocks_q8",),
-        chat_requests("mixtral-8x7b"), hit=1, absent=("flash_attention_fma",),
+        chat_requests("mixtral-8x7b"), hit=1, absent=NOT_BF16,
         quant="int8", moe_impl="grouped_pallas")
     emit({"phase": "engine_mixtral_int8", **stats})
     launches["expert_blocks_q8"] = counts["expert_blocks_q8"]
     free_device(torch)
     counts, stats = engine_phase(
         torch, dev, "mixtral-8x7b", ATTENTION + ("expert_blocks",),
-        chat_requests("mixtral-8x7b"), hit=1, absent=("flash_attention_fma",),
+        chat_requests("mixtral-8x7b"), hit=1, absent=NOT_BF16,
         moe_impl="grouped_pallas", n_layers=8)
     emit({"phase": "engine_mixtral_bf16_8_layers", **stats})
     launches["expert_blocks"] = counts["expert_blocks"]
@@ -319,22 +346,25 @@ def row_error(torch, out, ref, rows) -> float:
     return float(err.max())
 
 
-def compare_paged(torch, name: str, out, ref, rows) -> tuple[float, float]:
-    """``compare`` plus each row within ROW_REL of its own size."""
+def compare_paged(torch, name: str, out, ref, rows,
+                  limit: float = ROW_REL) -> tuple[float, float]:
+    """``compare`` plus each row within ``limit`` of its own size."""
     err = compare(torch, out, ref, rows)
     rel = row_error(torch, out, ref, rows)
-    check(rel <= ROW_REL, f"{name}: a row is off by {rel:.3g} of its largest value")
+    check(rel <= limit, f"{name}: a row is off by {rel:.3g} of its largest value")
     return err, rel
 
 
-def planted_faults(torch, name: str, faults: dict, ref, rows) -> dict:
+def planted_faults(torch, name: str, faults: dict, ref, rows,
+                   limit: float = ROW_REL) -> dict:
     """Each fault's output (the kernel on corrupted inputs) against the
-    right plain output: the row check must reject every one. Returns each
-    fault's row error and whether atol = rtol = TOL alone would pass it."""
+    right plain output: the row check (each row within ``limit``) must
+    reject every one. Returns each fault's row error and whether
+    atol = rtol = TOL alone would pass it."""
     readings = {}
     for fault, out in faults.items():
         rel = row_error(torch, out, ref, rows)
-        check(rel > ROW_REL, f"{name}: the row check passes the planted fault {fault}")
+        check(rel > limit, f"{name}: the row check passes the planted fault {fault}")
         readings[fault] = {"row_error": rel, "passes_atol_rtol": bool(torch.allclose(
             out[rows].float(), ref[rows].float(), atol=TOL, rtol=TOL))}
     return readings
@@ -364,33 +394,83 @@ def drop_split(torch, paged, ws, seq_lens, q, row: int, split: int) -> dict:
     return {name: paged.paged_decode_combine(ws, seq_lens, torch.empty_like(q))}
 
 
-def flash_faults(torch, attn, q, k, v, valid, out) -> dict:
-    """The tensor-core kernel on inputs that plant two faults: row 0's last
-    64-key tile dropped (its keys marked invalid), and a causal off-by-one
-    (each query moved one position later, so query s sees key s + 1; the
-    last position keeps its right output)."""
+def flash_faults(torch, kernel, q, k, v, valid, out) -> dict:
+    """A flash kernel on inputs that plant two faults: row 0's last 64-key
+    tile dropped (its keys marked invalid), and a causal off-by-one (each
+    query moved one position later, so query s sees key s + 1; the last
+    position keeps its right output)."""
     S = q.shape[1]
     short = valid.clone()
     short[0, (S - 1) // 64 * 64:] = False
     later = torch.zeros_like(q)
     later[:, 1:] = q[:, :-1]
-    shifted = attn.flash_attention_tc(later, k, v, valid).roll(-1, dims=1)
+    shifted = kernel(later, k, v, valid).roll(-1, dims=1)
     shifted[:, -1] = out[:, -1]
-    return {f"row 0: last 64-key tile of {S} dropped":
-            attn.flash_attention_tc(q, k, v, short),
+    return {f"row 0: last 64-key tile of {S} dropped": kernel(q, k, v, short),
             "causal off by one: query s sees key s + 1": shifted}
+
+
+def tf32(torch, x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+    as cvt.rna.tf32.f32 rounds: what a kernel that drops the lo terms of
+    3xTF32 multiplies."""
+    bits = x.view(torch.int32)
+    return torch.bitwise_and(bits + 0x1000, ~0x1FFF).view(torch.float32)
+
+
+def chunk_faults(torch, kernel, args, spare: int, row: int, slot: int,
+                 n_slots: int) -> dict:
+    """A chunk kernel on inputs that plant two faults: one history page of
+    ``row`` (table slot ``slot`` of ``n_slots``) read from the ``spare``
+    page, and a causal off-by-one (every real query one position later, so
+    a query at position p also sees key p + 1)."""
+    q, k_pages, v_pages, tables, pos, *scales = args
+    wrong = tables.clone()
+    wrong[row, slot] = spare
+    later = torch.where(pos >= 0, pos + 1, pos)
+    return {f"row {row}: history page {slot} of {n_slots} read from a wrong page":
+            kernel(q, k_pages, v_pages, wrong, pos, *scales),
+            "causal off by one: a query at position p sees key p + 1":
+            kernel(q, k_pages, v_pages, tables, later, *scales)}
+
+
+def sdpa_paged(torch, paged, q, k_pages, v_pages, tables, keep, scales=()):
+    """``library_ms``'s inputs for a paged kernel: K/V gathered from the
+    row's pages into contiguous [B, H, C, hd] in the query's dtype
+    (dequantized for int8 pages, expanded to the H query heads), q as
+    [B, H, S, hd] and the
+    boolean mask [B, 1, S, C] from ``keep(c)`` (key c of row b for query s);
+    C is the longest walk, rounded up to whole pages. Built outside the
+    timed call."""
+    B, KV, G, hd = q.shape[0], q.shape[-3], q.shape[-2], q.shape[-1]
+    page = k_pages.shape[1]
+    mask = keep(torch.arange(tables.shape[1] * page, device=q.device))
+    C = -(-(int(mask.any(1).any(0).nonzero().max()) + 1) // page) * page
+    used = tables[:, :C // page]
+    ks, vs = scales if scales else (None, None)
+    kg = paged._gather_pages(k_pages, used, ks).to(q.dtype)
+    vg = paged._gather_pages(v_pages, used, vs).to(q.dtype)
+    kt = kg.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = vg.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    qt = q.reshape(B, -1, KV * G, hd).transpose(1, 2).contiguous()
+    return qt, kt, vt, mask[..., :C][:, None].contiguous()
 
 
 def kernel_phase(torch, dev, time_ms) -> dict:
     """Each attention kernel against its plain version at Llama-3-8B
-    serving shapes in bf16; times, bounds. Flash also at the qwen2-7b
-    (G = 7) and qwen2-0.5b (G = 7, hd 64) geometries, and its FMA kernel in
-    f32 at the llama3-tiny geometry. Returns the per-kernel results."""
+    serving shapes in bf16; times, bounds, SDPA yardsticks. Flash also at
+    the qwen2-7b (G = 7) and qwen2-0.5b (G = 7, hd 64) geometries, its
+    mma.sync kernel in f32 at the llama3-tiny geometry and in bf16 at
+    gemma-2b's (and every head-dim template at small shapes); the chunk
+    kernel's wgmma route at every head dim and page size it takes (small
+    shapes) and its tile-engine route on f32 pages at the llama3-tiny
+    geometry. Returns the per-kernel results."""
     from mcp_context_forge_tpu_torch.tpu_local.ops import attention as attn
     from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     KV, G, hd, PAGE, NUM_PAGES, P = 8, 4, 128, 128, 512, 16
     H = KV * G
 
@@ -399,6 +479,7 @@ def kernel_phase(torch, dev, time_ms) -> dict:
 
     k_pages = randn(NUM_PAGES, PAGE, KV, hd)
     v_pages = randn(NUM_PAGES, PAGE, KV, hd)
+    spare = NUM_PAGES - 1    # a page no row's table holds
 
     def tables_for(n_tokens: list[int]) -> torch.Tensor:
         tables = torch.zeros((len(n_tokens), P), dtype=torch.int32)
@@ -407,7 +488,7 @@ def kernel_phase(torch, dev, time_ms) -> dict:
             pages = -(-n // PAGE)
             tables[b, :pages] = torch.arange(nxt, nxt + pages)
             nxt += pages
-        check(nxt <= NUM_PAGES, "the test tables overflow the page pool")
+        check(nxt <= spare, "the test tables overflow the page pool")
         return tables.to(dev)
 
     results = {}
@@ -431,6 +512,8 @@ def kernel_phase(torch, dev, time_ms) -> dict:
                             drop_split(torch, paged, ws, seq_lens, q, 0, 1), ref, active)
     tokens = sum(seq_lens_list)
     nbytes = 2 * tokens * KV * hd * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + 8 * 4
+    lib = sdpa_paged(torch, paged, q, k_pages, v_pages, tables,
+                     lambda c: (c[None, :] < seq_lens[:, None])[:, None])
     results["paged_decode_attention"] = dict(
         shape={"q": list(q.shape), "pages": list(k_pages.shape),
                "seq_lens": seq_lens_list},
@@ -438,9 +521,12 @@ def kernel_phase(torch, dev, time_ms) -> dict:
         **time_ms.both("kernel", lambda: paged.paged_decode_attention(
             q, k_pages, v_pages, tables, seq_lens)),
         plain_ms=time_ms(lambda: paged.paged_decode_attention_ref(q, k_pages, v_pages, tables, seq_lens)),
-        library_ms=None, bytes=nbytes, flops=4 * hd * G * KV * tokens)
+        library_ms=time_ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
+        bytes=nbytes, flops=4 * hd * G * KV * tokens)
+    del lib
 
-    # chunk: a 128-query suffix over 2-6 history pages; row 3 is half padding
+    # chunk, the wgmma route: a 128-query suffix over 2-6 history pages;
+    # row 3 is half padding
     hist_pages, S = [2, 3, 4, 6], 128
     n_valid = [128, 128, 128, 60]
     qc = randn(4, S, KV, G, hd)
@@ -449,38 +535,109 @@ def kernel_phase(torch, dev, time_ms) -> dict:
         pos[b, :n] = torch.arange(hp * PAGE, hp * PAGE + n)
     pos = pos.to(dev)
     ctables = tables_for([hp * PAGE + S for hp in hist_pages])
-    out = paged.paged_chunk_attention(qc, k_pages, v_pages, ctables, pos)
-    ref = paged.paged_chunk_attention_ref(qc, k_pages, v_pages, ctables, pos)
+    cargs = (qc, k_pages, v_pages, ctables, pos)
+    check(paged.chunk_route(bf16, hd, PAGE) == "tc", "bf16 chunk does not route to tc")
+    out = paged.paged_chunk_attention_tc(*cargs)
+    ref = paged.paged_chunk_attention_ref(*cargs)
     torch.cuda.synchronize()
+    check(torch.equal(paged.paged_chunk_attention(*cargs), out),
+          "paged_chunk_attention does not dispatch to paged_chunk_attention_tc")
     valid = pos >= 0
-    err, rel = compare_paged(torch, "paged_chunk_attention", out, ref, valid)
+    err, rel = compare_paged(torch, "paged_chunk_attention_tc", out, ref, valid)
+    faults = planted_faults(torch, "paged_chunk_attention_tc", chunk_faults(
+        torch, paged.paged_chunk_attention_tc, cargs, spare, 3, 5, 7), ref, valid)
     keys = sum(int(p.max()) + 1 for p in pos)
     pairs = int((pos[valid].long() + 1).sum())
     nbytes = 2 * keys * KV * hd * 2 + 2 * qc.numel() * 2 + ctables.numel() * 4 + pos.numel() * 4
-    results["paged_chunk_attention"] = dict(
+    lib = sdpa_paged(torch, paged, qc, k_pages, v_pages, ctables,
+                     lambda c: c[None, None, :] <= pos[:, :, None])
+    results["paged_chunk_attention_tc"] = dict(
         shape={"q": list(qc.shape), "pages": list(k_pages.shape),
                "history_pages": hist_pages, "valid_queries": n_valid},
-        max_abs_err=err, max_row_error=rel,
-        **time_ms.both("kernel", lambda: paged.paged_chunk_attention(
-            qc, k_pages, v_pages, ctables, pos)),
-        plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(qc, k_pages, v_pages, ctables, pos)),
-        library_ms=None, bytes=nbytes, flops=4 * hd * G * KV * pairs)
+        max_abs_err=err, max_row_error=rel, planted_faults=faults,
+        **time_ms.both("kernel", lambda: paged.paged_chunk_attention_tc(*cargs)),
+        plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*cargs)),
+        tile_engine_ms=time_ms(lambda: paged.paged_chunk_attention_tile(*cargs)),
+        library_ms=time_ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
+        bytes=nbytes, flops=4 * hd * G * KV * pairs)
+    del lib
 
-    # flash: the tensor-core kernel at B=4, S=512 and S=2048 (llama3-8b),
-    # at the qwen2-7b and qwen2-0.5b geometries, then the FMA kernel in f32
-    # at the llama3-tiny geometry; rows padded to the lengths given
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # every geometry the wgmma route takes (hd 64/128, pages of 64, 128 and
+    # 256 tokens, bf16 and int8 pages) at a small shape: three rows at
+    # different offsets, one half padding, in a pool of their own
+    geometries = []
+    for hdg in (64, 128):
+        for page in (64, 128, 256):
+            for q8 in (False, True):
+                n_pages = 40
+                starts, n_real, Sg = (3 * page + 5, 0, 2 * page - 9), (200, 200, 90), 200
+                Pg = -(-(max(st + n for st, n in zip(starts, n_real))) // page)
+                tg = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(page))[
+                    :3 * Pg].add(1).reshape(3, Pg).to(torch.int32).to(dev)
+                check(3 * Pg < n_pages, "the geometry tables overflow their pool")
+                if q8:
+                    kg, vg = (torch.randint(-127, 128, (n_pages, page, 2, hdg), generator=gen,
+                                            device=dev, dtype=torch.int8) for _ in range(2))
+                    sg = tuple((torch.rand((n_pages, 2), generator=gen, device=dev) + 0.5)
+                               .div(127).to(bf16) for _ in range(2))
+                else:
+                    kg, vg, sg = randn(n_pages, page, 2, hdg), randn(n_pages, page, 2, hdg), ()
+                posg = torch.full((3, Sg), -1, dtype=torch.int32)
+                for b, (st, n) in enumerate(zip(starts, n_real)):
+                    posg[b, :n] = torch.arange(st, st + n)
+                posg = posg.to(dev)
+                gargs = (randn(3, Sg, 2, 3, hdg), kg, vg, tg, posg, *sg)
+                name = "paged_chunk_attention_tc_q8" if q8 else "paged_chunk_attention_tc"
+                out = getattr(paged, name)(*gargs)
+                ref = paged.paged_chunk_attention_ref(*gargs)
+                torch.cuda.synchronize()
+                check(torch.isfinite(out).all(), f"{name}: a padding row is not finite")
+                err, rel = compare_paged(torch, f"{name} hd {hdg} page {page}", out, ref, posg >= 0)
+                geometries.append({"kernel": name, "hd": hdg, "page": page,
+                                   "max_abs_err": err, "max_row_error": rel})
+
+    # chunk, the tile-engine route: f32 pages at the llama3-tiny geometry
+    # (KV 4, G 2, hd 32), the same rows
+    KVt, Gt, hdt = 4, 2, 32
+    kt_pages = randn(NUM_PAGES, PAGE, KVt, hdt, dtype=torch.float32)
+    vt_pages = randn(NUM_PAGES, PAGE, KVt, hdt, dtype=torch.float32)
+    qt = randn(4, S, KVt, Gt, hdt, dtype=torch.float32)
+    targs = (qt, kt_pages, vt_pages, ctables, pos)
+    check(paged.chunk_route(torch.float32, hdt, PAGE) == "tile", "f32 chunk does not route to tile")
+    out = paged.paged_chunk_attention(*targs)
+    ref = paged.paged_chunk_attention_ref(*targs)
+    torch.cuda.synchronize()
+    err, rel = compare_paged(torch, "paged_chunk_attention_tile", out, ref, valid)
+    lib = sdpa_paged(torch, paged, qt, kt_pages, vt_pages, ctables,
+                     lambda c: c[None, None, :] <= pos[:, :, None])
+    results["paged_chunk_attention_tile"] = dict(
+        shape={"q": list(qt.shape), "pages": list(kt_pages.shape), "dtype": "float32",
+               "history_pages": hist_pages, "valid_queries": n_valid},
+        max_abs_err=err, max_row_error=rel,
+        **time_ms.both("kernel", lambda: paged.paged_chunk_attention_tile(*targs)),
+        plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*targs)),
+        library_ms=time_ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
+        bytes=2 * keys * KVt * hdt * 4 + 2 * qt.numel() * 4 + ctables.numel() * 4 + pos.numel() * 4,
+        flops=4 * hdt * Gt * KVt * pairs, flops_per_s=F32_FLOPS_PER_S)
+    del kt_pages, vt_pages, lib
+
+    # flash: the wgmma kernel at B=4, S=512 and S=2048 (llama3-8b), at the
+    # qwen2-7b and qwen2-0.5b geometries; the mma.sync kernel in f32 at the
+    # llama3-tiny geometry and in bf16 at gemma-2b's; rows padded to the
+    # lengths given
     flash_runs = []
     for name, B, S, KVf, Gf, hdf, dtype, lens in (
             ("flash_attention_tc", 4, 512, KV, G, hd, bf16, [512, 475, 261, 1]),
             ("flash_attention_tc", 4, 2048, KV, G, hd, bf16, [2048, 2011, 1029, 1]),
             ("flash_attention_tc", 2, 1024, 4, 7, 128, bf16, [1024, 700]),
             ("flash_attention_tc", 2, 1024, 2, 7, 64, bf16, [1024, 333]),
-            ("flash_attention_fma", 2, 256, 4, 2, 32, torch.float32, [256, 100])):
+            ("flash_attention_mma", 1, 2048, 1, 8, 256, bf16, [2048]),
+            ("flash_attention_mma", 2, 256, 4, 2, 32, torch.float32, [256, 100])):
         kernel = getattr(attn, name)
         check(attn.flash_route(dtype, hdf) == name.rsplit("_", 1)[1],
               f"{dtype} at hd {hdf} does not route to {name}")
         Hf, size = KVf * Gf, torch.finfo(dtype).bits // 8
+        limit = F32_ROW_REL if dtype == torch.float32 else ROW_REL
         qf, kf, vf = (randn(B, S, Hf, hdf, dtype=dtype), randn(B, S, KVf, hdf, dtype=dtype),
                       randn(B, S, KVf, hdf, dtype=dtype))
         validf = torch.arange(S, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
@@ -489,13 +646,16 @@ def kernel_phase(torch, dev, time_ms) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(attn.flash_attention(qf, kf, vf, validf), out),
               f"flash_attention does not dispatch to {name}")
-        err, rel = compare_paged(torch, name, out, ref, validf)
+        err, rel = compare_paged(torch, name, out, ref, validf, limit)
         run = dict(kernel=name, shape={"q": list(qf.shape), "kv": list(kf.shape),
                                        "dtype": str(dtype), "valid_lens": lens},
-                   max_abs_err=err, max_row_error=rel)
-        if name == "flash_attention_tc" and KVf == KV:
-            run["planted_faults"] = planted_faults(
-                torch, name, flash_faults(torch, attn, qf, kf, vf, validf, out), ref, validf)
+                   max_abs_err=err, max_row_error=rel, row_limit=limit)
+        if KVf == KV or name == "flash_attention_mma":
+            faults = flash_faults(torch, kernel, qf, kf, vf, validf, out)
+            if dtype == torch.float32:
+                faults["inputs rounded to TF32 (the lo terms of 3xTF32 dropped)"] = kernel(
+                    tf32(torch, qf), tf32(torch, kf), tf32(torch, vf), validf)
+            run["planted_faults"] = planted_faults(torch, name, faults, ref, validf, limit)
         del ref
         qt = qf.transpose(1, 2).contiguous()
         kt = kf.repeat_interleave(Gf, dim=2).transpose(1, 2).contiguous()
@@ -513,14 +673,36 @@ def kernel_phase(torch, dev, time_ms) -> dict:
         flash_runs.append(run)
         del qt, kt, vt
     results["flash_attention_tc"] = flash_runs[1]
-    results["flash_attention_fma"] = flash_runs[-1]
-    for run in [results["paged_decode_attention"], results["paged_chunk_attention"]]:
-        run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
+    results["flash_attention_mma"] = flash_runs[-1]
+
+    # every head-dim template of the mma.sync kernel (hd up to 16, 32, 64,
+    # 128, 256; hd % 8 == 0) in both dtypes, at a small shape
+    templates = []
+    for dtype in (torch.float32, bf16):
+        for hdm in (8, 16, 24, 32, 48, 64, 96, 128, 192, 256):
+            qf, kf, vf = (randn(2, 200, 6, hdm, dtype=dtype), randn(2, 200, 2, hdm, dtype=dtype),
+                          randn(2, 200, 2, hdm, dtype=dtype))
+            validf = torch.arange(200, device=dev)[None, :] < torch.tensor([200, 77], device=dev)[:, None]
+            out = attn.flash_attention_mma(qf, kf, vf, validf)
+            ref = attn.attention_reference(qf, kf, vf, validf)
+            torch.cuda.synchronize()
+            limit = F32_ROW_REL if dtype == torch.float32 else ROW_REL
+            err, rel = compare_paged(torch, f"flash_attention_mma {dtype} hd {hdm}", out, ref,
+                                     validf, limit)
+            templates.append({"dtype": str(dtype), "hd": hdm, "max_abs_err": err,
+                              "max_row_error": rel})
+    for name in ("paged_decode_attention", "paged_chunk_attention_tc", "paged_chunk_attention_tile"):
+        run = results[name]
+        run["bound_ms"], run["bound_by"] = bound(
+            run["bytes"], run["flops"], run.pop("flops_per_s", BF16_FLOPS_PER_S))
     emit({"phase": "kernels",
-          "tolerance": {"atol": TOL, "rtol": TOL, "row_relative": ROW_REL},
+          "tolerance": {"atol": TOL, "rtol": TOL, "row_relative": ROW_REL,
+                        "row_relative_f32_mma": F32_ROW_REL},
           "decode": results["paged_decode_attention"],
-          "chunk": results["paged_chunk_attention"],
-          "flash": flash_runs})
+          "chunk": results["paged_chunk_attention_tc"],
+          "chunk_tc_geometries": geometries,
+          "chunk_tile_f32": results["paged_chunk_attention_tile"],
+          "flash": flash_runs, "flash_mma_templates": templates})
     return results
 
 
@@ -528,16 +710,21 @@ def q8_kernel_phase(torch, dev, time_ms) -> dict:
     """Both int8-page kernels against their plain versions at Llama-3-8B
     serving shapes over a pool of 1024 int8 pages of 128 with bf16 scales
     [1024, 8]; times, bounds (1 byte per K/V element plus the scales of the
-    pages walked). Each is also timed beside its bf16-page kernel on the
-    same pages dequantized to bf16 (the same shape, twice the bytes).
-    Planted faults in row 0 past its 32nd page (a wrong page, wrong K
-    scales, a dropped tail tile, a dropped split) show that the row check
-    sees a kernel that misreads part of a long walk."""
+    pages walked), SDPA yardsticks over K/V gathered and dequantized to
+    bf16 in advance. Each is also timed beside its bf16-page kernel on the
+    same pages dequantized to bf16 (the same shape, twice the bytes), and
+    the wgmma chunk kernel beside the tile engine on the same int8 pages.
+    Planted faults in row 0 (decode: a wrong page, wrong K scales, a dropped
+    tail tile, a dropped split; chunk: a wrong history page, a causal
+    off-by-one, wrong V scales) show that the row check sees a kernel that
+    misreads part of a long walk. Then the tile-engine route on int8 pages
+    with f32 queries at the llama3-tiny geometry."""
     from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
     from mcp_context_forge_tpu_torch.tpu_local.quantize import kv_dequantize
 
     gen = torch.Generator(device=dev).manual_seed(2)
     bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     KV, G, hd, PAGE, NUM_PAGES, P = 8, 4, 128, 128, 1024, 64
 
     def randn(*shape):
@@ -616,49 +803,113 @@ def q8_kernel_phase(torch, dev, time_ms) -> dict:
         flops=4 * hd * G * KV * tokens)
     del ref
 
-    # chunk: 4 rows x 512 queries (the history tile at G = 4) over 48, 24, 8
-    # and 0 history pages; row 3 is half padding
-    hist_pages, S = [48, 24, 8, 0], 512
-    n_valid = [512, 512, 512, 256]
-    qc = randn(4, S, KV, G, hd)
+    lib = sdpa_paged(torch, paged, q, k8, v8, tables,
+                     lambda c: (c[None, :] < seq_lens[:, None])[:, None], (ks, vs))
+    results["paged_decode_attention_q8"]["library_ms"] = time_ms(
+        lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3]))
+    del lib
+
+    # chunk, the wgmma route: 4 rows x 512 queries over 48, 24, 8 and 0
+    # history pages (row 3 half padding); then one row of 2048 queries, the
+    # first 1944 real, over 32 history pages (the 6040-token prompt's last
+    # chunk round)
+    chunk_runs = []
+    for hist_pages, S, n_valid in (([48, 24, 8, 0], 512, [512, 512, 512, 256]),
+                                   ([32], 2048, [1944])):
+        B = len(hist_pages)
+        qc = randn(B, S, KV, G, hd)
+        pos = torch.full((B, S), -1, dtype=torch.int32)
+        for b, (hp, n) in enumerate(zip(hist_pages, n_valid)):
+            pos[b, :n] = torch.arange(hp * PAGE, hp * PAGE + n)
+        pos = pos.to(dev)
+        ctables = tables_for([hp * PAGE + n for hp, n in zip(hist_pages, n_valid)])
+        check(not bool((ctables == spare).any()), "the spare page is in use")
+        cargs = (qc, k8, v8, ctables, pos, ks, vs)
+        out = paged.paged_chunk_attention_tc_q8(*cargs)
+        ref = paged.paged_chunk_attention_ref(*cargs)
+        torch.cuda.synchronize()
+        check(torch.equal(paged.paged_chunk_attention_q8(*cargs), out),
+              "paged_chunk_attention_q8 does not dispatch to paged_chunk_attention_tc_q8")
+        valid = pos >= 0
+        err, rel = compare_paged(torch, "paged_chunk_attention_tc_q8", out, ref, valid)
+        n_slots = -(-(hist_pages[0] * PAGE + n_valid[0]) // PAGE)
+        wrong_scales = vs.clone()
+        wrong_scales[ctables[0, 1:hist_pages[0] - 1].long()] *= 1.25
+        planted = chunk_faults(torch, paged.paged_chunk_attention_tc_q8, cargs, spare, 0,
+                               hist_pages[0] - 8, n_slots)
+        if hist_pages[0] * PAGE > S:   # every query sees thousands of keys: one more moves
+            planted = {k: v for k, v in planted.items() if not k.startswith("causal")}
+        faults = planted_faults(torch, "paged_chunk_attention_tc_q8", {
+            **planted,
+            f"row 0: V scales of history pages 1-{hist_pages[0] - 2} read 1.25x":
+            paged.paged_chunk_attention_tc_q8(qc, k8, v8, ctables, pos, ks, wrong_scales)},
+            ref, valid)
+        del ref, out
+        keys = [int(p.max()) + 1 for p in pos]
+        pairs = int((pos[valid].long() + 1).sum())
+        lib = sdpa_paged(torch, paged, qc, k8, v8, ctables,
+                         lambda c: c[None, None, :] <= pos[:, :, None], (ks, vs))
+        run = dict(
+            shape={"q": list(qc.shape), "pages": list(k8.shape), "page_dtype": "int8",
+                   "scales": list(ks.shape), "history_pages": hist_pages,
+                   "valid_queries": n_valid},
+            max_abs_err=err, max_row_error=rel, planted_faults=faults,
+            **time_ms.both("kernel", lambda: paged.paged_chunk_attention_tc_q8(*cargs)),
+            plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*cargs)),
+            tile_engine_ms=time_ms(lambda: paged.paged_chunk_attention_tile_q8(*cargs)),
+            bf16_pages_kernel_ms=time_ms(lambda: paged.paged_chunk_attention(
+                qc, k16, v16, ctables, pos)),
+            library_ms=time_ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
+            bytes=page_bytes(keys) + 2 * qc.numel() * 2 + ctables.numel() * 4 + pos.numel() * 4,
+            flops=4 * hd * G * KV * pairs)
+        del lib
+        run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
+        chunk_runs.append(run)
+    results["paged_chunk_attention_tc_q8"] = chunk_runs[0]
+
+    # chunk, the tile-engine route on int8 pages: f32 queries and scales at
+    # the llama3-tiny geometry (KV 4, G 2, hd 32), 4 x 128 queries over 2-6
+    # history pages
+    KVt, Gt, hdt = 4, 2, 32
+    hist_pages, S, n_valid = [2, 3, 4, 6], 128, [128, 128, 128, 60]
+    kt8 = k8[:, :, :KVt, :hdt].contiguous()
+    vt8 = v8[:, :, :KVt, :hdt].contiguous()
+    kst, vst = ks[:, :KVt].float().contiguous(), vs[:, :KVt].float().contiguous()
+    qt = torch.randn((4, S, KVt, Gt, hdt), generator=gen, device=dev)
     pos = torch.full((4, S), -1, dtype=torch.int32)
     for b, (hp, n) in enumerate(zip(hist_pages, n_valid)):
         pos[b, :n] = torch.arange(hp * PAGE, hp * PAGE + n)
     pos = pos.to(dev)
     ctables = tables_for([hp * PAGE + S for hp in hist_pages])
-    cargs = (qc, k8, v8, ctables, pos, ks, vs)
-    out = paged.paged_chunk_attention_q8(*cargs)
-    ref = paged.paged_chunk_attention_ref(*cargs)
+    targs = (qt, kt8, vt8, ctables, pos, kst, vst)
+    out = paged.paged_chunk_attention_q8(*targs)
+    ref = paged.paged_chunk_attention_ref(*targs)
     torch.cuda.synchronize()
     valid = pos >= 0
-    err, rel = compare_paged(torch, "paged_chunk_attention_q8", out, ref, valid)
-    wrong_page = ctables.clone()
-    wrong_page[0, 40] = spare
-    check(not bool((ctables == spare).any()), "the spare page is in use")
-    faults = planted_faults(torch, "paged_chunk_attention_q8", {
-        "row 0: history page 40 of 52 read from a wrong page": paged.paged_chunk_attention_q8(
-            qc, k8, v8, wrong_page, pos, ks, vs)}, ref, valid)
-    del ref, out
+    err, rel = compare_paged(torch, "paged_chunk_attention_tile_q8", out, ref, valid)
     keys = [int(p.max()) + 1 for p in pos]
     pairs = int((pos[valid].long() + 1).sum())
-    results["paged_chunk_attention_q8"] = dict(
-        shape={"q": list(qc.shape), "pages": list(k8.shape), "page_dtype": "int8",
-               "scales": list(ks.shape), "history_pages": hist_pages,
-               "valid_queries": n_valid},
-        max_abs_err=err, max_row_error=rel, planted_faults=faults,
-        **time_ms.both("kernel", lambda: paged.paged_chunk_attention_q8(*cargs)),
-        plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*cargs)),
-        bf16_pages_kernel_ms=time_ms(lambda: paged.paged_chunk_attention(
-            qc, k16, v16, ctables, pos)),
-        library_ms=None,
-        bytes=page_bytes(keys) + 2 * qc.numel() * 2 + ctables.numel() * 4 + pos.numel() * 4,
-        flops=4 * hd * G * KV * pairs)
-    for run in results.values():
-        run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
+    lib = sdpa_paged(torch, paged, qt, kt8, vt8, ctables,
+                     lambda c: c[None, None, :] <= pos[:, :, None], (kst, vst))
+    tile_run = dict(
+        shape={"q": list(qt.shape), "pages": list(kt8.shape), "page_dtype": "int8",
+               "dtype": "float32", "history_pages": hist_pages, "valid_queries": n_valid},
+        max_abs_err=err, max_row_error=rel,
+        **time_ms.both("kernel", lambda: paged.paged_chunk_attention_tile_q8(*targs)),
+        plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*targs)),
+        library_ms=time_ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
+        bytes=(2 * sum(keys) * KVt * hdt + 2 * sum(-(-n // PAGE) for n in keys) * KVt * 4
+               + 2 * qt.numel() * 4 + ctables.numel() * 4 + pos.numel() * 4),
+        flops=4 * hdt * Gt * KVt * pairs)
+    tile_run["bound_ms"], tile_run["bound_by"] = bound(tile_run["bytes"], tile_run["flops"],
+                                                       F32_FLOPS_PER_S)
+    results["paged_chunk_attention_tile_q8"] = tile_run
+    run = results["paged_decode_attention_q8"]
+    run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
     emit({"phase": "kernels_int8_pages",
           "tolerance": {"atol": TOL, "rtol": TOL, "row_relative": ROW_REL},
           "decode": results["paged_decode_attention_q8"],
-          "chunk": results["paged_chunk_attention_q8"]})
+          "chunk": chunk_runs, "chunk_tile_f32": tile_run})
     return results
 
 
@@ -766,10 +1017,12 @@ def model_check(torch, dev, name: str, quant: str = "",
     CPU (plain versions): cold prefill, prefix-hit suffix prefill and decode
     logits agree within 1e-3 (f32 both sides; summation order differs).
     ``moe`` overrides the MoE formulation; the grouped kernels must then
-    launch on the card. The FMA flash kernel (f32) and the paged kernels
-    must launch on the card. ``kv_quant="int8"`` stores the KV pool as int8
-    pages (the CPU side reads them through ``gather_kv``); both int8-page
-    kernels must then launch on the card. Quantization is not continuous:
+    launch on the card. The mma.sync flash kernel (f32), the tile-engine
+    chunk kernel and the decode kernel must launch on the card.
+    ``kv_quant="int8"`` stores the KV pool as int8 pages (the CPU side reads
+    them through ``gather_kv``); both int8-page kernels must then launch on
+    the card. Returns every kernel's launches over the card's run (the
+    counts are set to 0 just before it). Quantization is not continuous:
     the two sides' int8 pools may differ by isolated one-step rounding
     flips (checked: never more), and a stage's logits read the pages that
     stage writes, so the logits are compared against the plain path
@@ -787,10 +1040,9 @@ def model_check(torch, dev, name: str, quant: str = "",
     params_cpu = llama.init_params(cfg, torch.Generator().manual_seed(0),
                                    torch.float32, "cpu", quant=quant)
     wrappers = kernel_wrappers()
-    expert_kernel = wrappers["expert_blocks_q8" if quant else "expert_blocks"]
-    paged_kernels = [wrappers[k] for k in (ATTENTION_Q8[1:] if kv_quant
-                                           else ATTENTION[1:])]
-    paged_kernels.append(wrappers["flash_attention_fma"])
+    expert_kernel = "expert_blocks_q8" if quant else "expert_blocks"
+    attention = (("flash_attention_mma", "paged_chunk_attention_tile_q8",
+                  "paged_decode_attention_q8") if kv_quant else ATTENTION_F32)
 
     def to(tree, device):
         if isinstance(tree, dict):
@@ -841,14 +1093,14 @@ def model_check(torch, dev, name: str, quant: str = "",
             pools.append({key: getattr(kv, key).to("cpu", copy=True) for key in pool_names})
         return outs, pools
 
-    launched = expert_kernel.launches
-    paged_launched = [fn.launches for fn in paged_kernels]
+    for fn in wrappers.values():
+        fn.launches = 0
     card, card_pools = run(dev)
+    counts = {k: fn.launches for k, fn in wrappers.items()}
     if moe:
-        check(expert_kernel.launches > launched,
-              f"{name}: the grouped expert kernel never launched")
-    check(all(fn.launches > n for fn, n in zip(paged_kernels, paged_launched)),
-          f"{name}: the FMA flash kernel or a paged kernel never launched")
+        check(counts[expert_kernel] > 0, f"{name}: the grouped expert kernel never launched")
+    for kernel in attention:
+        check(counts[kernel] > 0, f"{name}: {kernel} never launched")
     cpu, cpu_pools = run("cpu")
     stored = {}
     if kv_quant:
@@ -875,7 +1127,9 @@ def model_check(torch, dev, name: str, quant: str = "",
         errs[part] = float((x - y).abs().max())
     emit({"phase": "model", "config": name, "dtype": "float32",
           "quant": quant or "none", "kv_quant": kv_quant or "none", "moe": moe,
-          "max_abs_err": errs, **({"int8_storage": stored} if kv_quant else {})})
+          "max_abs_err": errs, **({"int8_storage": stored} if kv_quant else {}),
+          "launches": counts})
+    return counts
 
 
 SYSTEM = ("You are the assistant of an MCP gateway. Use only the tools "
@@ -944,7 +1198,11 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     ``n_layers`` cuts the depth; ``engine_kwargs`` override the engine
     config. Every kernel's count is reset just before the concurrent
     requests and read just after; each of ``kernels`` must have launched,
-    and none of ``absent``."""
+    and none of ``absent``; the chunk kernels must have launched once per
+    layer per history prefill (a chunk round or a prefix-hit suffix)."""
+    from unittest import mock
+
+    from mcp_context_forge_tpu_torch.tpu_local import engine as engine_module
     from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngine
     from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
     from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
@@ -973,6 +1231,12 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         return await submit(request)
 
     engine.submit = recording_submit
+    history_calls = [0]
+    history = engine_module.prefill_with_history
+
+    def counted_history(*args, **kwargs):
+        history_calls[0] += 1
+        return history(*args, **kwargs)
     check(len(engine.tokenizer.encode(SYSTEM)) >= 300,
           "the shared system prompt is under 300 tokens")
 
@@ -981,6 +1245,7 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         try:
             for fn in wrappers.values():
                 fn.launches = 0
+            history_calls[0] = 0
             torch.cuda.reset_peak_memory_stats()
             stats0 = dict(engine.stats.__dict__)
             t_start = time.monotonic()
@@ -992,6 +1257,7 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
             replies = await asyncio.wait_for(asyncio.gather(first, *rest), 600)
             wall = time.monotonic() - t_start
             counts = {k: fn.launches for k, fn in wrappers.items()}
+            counts["history_prefills"] = history_calls[0]
             peak = torch.cuda.max_memory_allocated()
             served = list(seen)
             delta = {k: v - stats0[k] for k, v in engine.stats.__dict__.items()}
@@ -1001,7 +1267,10 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         finally:
             await engine.stop()
 
-    replies, wall, counts, peak, served, delta = asyncio.run(run())
+    # the engine module's own name, which its admission and chunk rounds call
+    with mock.patch.object(engine_module, "prefill_with_history", counted_history):
+        replies, wall, counts, peak, served, delta = asyncio.run(run())
+    history_prefills = counts.pop("history_prefills")
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     check(max(peak, build_peak) < card_bytes,
           f"peak memory {max(peak, build_peak)} exceeds the card's {card_bytes}")
@@ -1020,6 +1289,10 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         check(counts[kernel] > 0, f"{kernel} never launched on the {name} path")
     for kernel in absent:
         check(counts[kernel] == 0, f"{kernel} launched on the {name} path")
+    chunk_launches = sum(counts[k] for k in CHUNK)
+    check(history_prefills > 0 and chunk_launches == engine.model_config.n_layers * history_prefills,
+          f"{chunk_launches} chunk launches for {history_prefills} history prefills of "
+          f"{engine.model_config.n_layers} layers")
     ttft = [(r.first_token_ts - r.created) * 1e3 for r in served]
     decode_tokens = sum(len(r.generated) - 1 for r in served)
     cfg = engine.model_config
@@ -1049,7 +1322,7 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         "total_s": wall, "peak_memory_bytes": peak,
         "build_peak_memory_bytes": build_peak,
         "repeat_tokens_equal": True, "repeat_tokens": len(tokens_a),
-        "launches": counts}
+        "history_prefills": history_prefills, "launches": counts}
     del engine, provider, seen, served
     return counts, stats
 

@@ -1,21 +1,20 @@
-// Tile engine shared by the FMA flash prefill kernel (f32, and bf16 at the
-// head dims the tensor-core kernel does not take) and the paged chunk
-// kernels (bf16/f32 and int8 pages). Each is the same computation: a tile
-// of query rows, each with an absolute position, attends with an f32
-// online softmax over keys c <= position, where the keys come either from a
-// contiguous [B, Sk, KV, hd] tensor (flash) or from a paged pool
-// [N, page, KV, hd] through a block table (chunk). Paged K/V are stored in
-// the query's type, or in int8 with one scale per (page, kv head) ([N, KV]
-// in the query's type).
+// Tile engine of the paged chunk kernels that are not on the tensor cores
+// (paged_chunk_attention.cu: f32 pages, and bf16 at head dims or page sizes
+// the wgmma kernel paged_chunk_attention_tc.cu does not take; bf16/f32 and
+// int8 pages). A tile of query rows, each with an absolute position, attends
+// with an f32 online softmax over keys c <= position, where the keys come
+// from a paged pool [N, page, KV, hd] through a block table. Paged K/V are
+// stored in the query's type, or in int8 with one scale per (page, kv head)
+// ([N, KV] in the query's type).
 //
 // Query and output layout is [B, S, KV*G, hd]; one CTA owns BQ = NT/4 rows
 // r = s*G + g of one (batch row, kv head), so every key tile it stages in
 // shared memory serves all G query heads of the group (no K/V repeat).
 //
 // Per key tile of TK keys:
-//   1. the block resolves each key's address (block-table lookup for pages,
-//      done by the block itself: there is no scalar prefetch on this card)
-//      and, for int8 pages, loads that page's K and V scales of this head;
+//   1. the block resolves each key's address (block-table lookup, done by
+//      the block itself: there is no scalar prefetch on this card) and, for
+//      int8 pages, loads that page's K and V scales of this head;
 //   2. K and V are staged in shared memory as f32 (one 16-byte load per
 //      thread per 8 elements; 8 bytes for int8, each value multiplied by
 //      its page's scale in f32, the Pallas kernel's dequantization);
@@ -43,16 +42,14 @@ constexpr int kMaxHeadDim = 256;
 struct AttnParams {
   const void* q;              // [B, S, KV*G, hd]
   void* out;                  // [B, S, KV*G, hd]
-  const void* k;              // contiguous [B, Sk, KV, hd] or pages [N, page, KV, hd]
+  const void* k;              // pages [N, page, KV, hd]
   const void* v;
-  const uint8_t* key_valid;   // contiguous keys: [B, Sk] (nullptr = all valid)
-  const int32_t* tables;      // paged keys: [B, P]
-  const int32_t* q_pos;       // [B, S] absolute positions (-1 = padding), or nullptr
+  const int32_t* tables;      // [B, P]
+  const int32_t* q_pos;       // [B, S] absolute positions (-1 = padding)
   const void* k_scales;       // int8 pages: [N, KV] dequant scales in the query's type
   const void* v_scales;
   int B, S, KV, G, hd;
-  int Sk;                     // contiguous keys per batch row
-  int page_size, P;           // paged keys
+  int page_size, P;
   float scale;                // 1 / sqrt(hd)
 };
 
@@ -103,7 +100,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Dynamic shared memory of one CTA, in bytes (layout as in the kernel).
 inline size_t attn_smem_bytes(int BQ, int TK, int hd, bool q8) {
   const size_t ld = (size_t)hd + 1;
-  return (size_t)TK * 8 + (size_t)TK * 4 + (size_t)BQ * 4   // key_off, key_ok, row_pos
+  return (size_t)TK * 8 + (size_t)BQ * 4                    // key_off, row_pos
          + (q8 ? (size_t)TK * 2 * 4 : 0)                     // key_ks, key_vs (int8 pages)
          + (size_t)BQ * 3 * 4                                // row_m, row_l, row_c
          + ((size_t)BQ + 2 * (size_t)TK) * ld * 4            // Qs, Ks, Vs
@@ -111,11 +108,10 @@ inline size_t attn_smem_bytes(int BQ, int TK, int hd, bool q8) {
 }
 
 // T: query, output and scale type; KT: K/V storage (T, or int8_t for int8
-// pages, which only the paged kernels take)
-template <typename T, typename KT, int NT, int TK, bool PAGED>
+// pages)
+template <typename T, typename KT, int NT, int TK>
 __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
   constexpr bool Q8 = std::is_same<KT, int8_t>::value;
-  static_assert(!Q8 || PAGED, "int8 K/V are paged");
   constexpr int BQ = NT / 4;    // query rows per CTA
   constexpr int TQ = NT / 16;   // a thread owns rows tq + TQ*i, i < 4
   constexpr int CK = TK / 16;   // keys per thread in the score micro-tile
@@ -126,8 +122,7 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   long long* key_off = reinterpret_cast<long long*>(smem_raw);  // [TK], -1 = no key
-  int* key_ok = reinterpret_cast<int*>(key_off + TK);            // [TK]
-  float* key_ks = reinterpret_cast<float*>(key_ok + TK);          // [TK] int8 only: page scales
+  float* key_ks = reinterpret_cast<float*>(key_off + TK);         // [TK] int8 only: page scales
   float* key_vs = key_ks + (Q8 ? TK : 0);                         // [TK] int8 only
   int* row_pos = reinterpret_cast<int*>(key_vs + (Q8 ? TK : 0));  // [BQ]
   float* row_m = reinterpret_cast<float*>(row_pos + BQ);          // [BQ]
@@ -157,7 +152,7 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
     int pos = -1;
     if (gr < R) {
       const int s = gr / G;
-      pos = p.q_pos != nullptr ? p.q_pos[(long long)b * p.S + s] : s;
+      pos = p.q_pos[(long long)b * p.S + s];
     }
     row_pos[r] = pos;
     row_m[r] = kNegInf;
@@ -181,8 +176,7 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
   // the keys this tile needs: 0 .. max(position) (causal frontier)
   int max_pos = -1;
   for (int r = 0; r < BQ; ++r) max_pos = max(max_pos, row_pos[r]);
-  const int key_range = PAGED ? p.P * p.page_size : p.Sk;
-  const int n_keys = min(max_pos + 1, key_range);
+  const int n_keys = min(max_pos + 1, p.P * p.page_size);
   const int n_tiles = n_keys > 0 ? (n_keys + TK - 1) / TK : 0;
 
   const int tq = tid / 16;
@@ -201,25 +195,17 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
     for (int j = tid; j < TK; j += NT) {
       const int c = c0 + j;
       long long off = -1;
-      int ok = 0;
       float ks = 0.f, vs = 0.f;
       if (c < n_keys) {
-        if (PAGED) {
-          const int page = p.tables[(long long)b * p.P + c / p.page_size];
-          off = (((long long)page * p.page_size + c % p.page_size) * p.KV + kvh) * hd;
-          ok = 1;
-          if (Q8) {
-            const long long s = (long long)page * p.KV + kvh;
-            ks = to_float(static_cast<const T*>(p.k_scales)[s]);
-            vs = to_float(static_cast<const T*>(p.v_scales)[s]);
-          }
-        } else {
-          off = (((long long)b * p.Sk + c) * p.KV + kvh) * hd;
-          ok = p.key_valid == nullptr ? 1 : (p.key_valid[(long long)b * p.Sk + c] != 0);
+        const int page = p.tables[(long long)b * p.P + c / p.page_size];
+        off = (((long long)page * p.page_size + c % p.page_size) * p.KV + kvh) * hd;
+        if (Q8) {
+          const long long s = (long long)page * p.KV + kvh;
+          ks = to_float(static_cast<const T*>(p.k_scales)[s]);
+          vs = to_float(static_cast<const T*>(p.v_scales)[s]);
         }
       }
       key_off[j] = off;
-      key_ok[j] = ok;
       if (Q8) {
         key_ks[j] = ks;
         key_vs[j] = vs;
@@ -276,7 +262,7 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
 #pragma unroll
       for (int j = 0; j < CK; ++j) {
         const int key = tk + 16 * j;
-        const bool ok = key_ok[key] && (c0 + key) <= row_pos[r];
+        const bool ok = key_off[key] >= 0 && (c0 + key) <= row_pos[r];
         Ps[r * (TK + 1) + key] = ok ? sc[i][j] : kNegInf;
       }
     }
@@ -353,11 +339,11 @@ __global__ void __launch_bounds__(NT) attn_tile_kernel(AttnParams p) {
 }
 
 // Launches one tile kernel on ``stream``; returns cudaGetLastError().
-template <typename T, typename KT, int NT, int TK, bool PAGED>
+template <typename T, typename KT, int NT, int TK>
 int launch_attn(const AttnParams& p, cudaStream_t stream) {
   constexpr int BQ = NT / 4;
   const size_t smem = attn_smem_bytes(BQ, TK, p.hd, std::is_same<KT, int8_t>::value);
-  auto kernel = attn_tile_kernel<T, KT, NT, TK, PAGED>;
+  auto kernel = attn_tile_kernel<T, KT, NT, TK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -375,14 +361,14 @@ constexpr int kF32 = 1;
 
 // Q8: int8 K/V pages with scales in the query's type (``dtype``), both
 // non-null
-template <int NT, int TK, bool PAGED, bool Q8 = false>
+template <int NT, int TK, bool Q8>
 int launch_attn_dtype(const AttnParams& p, int dtype, cudaStream_t stream) {
   if (p.hd <= 0 || p.hd > kMaxHeadDim || p.hd % 8 != 0) return (int)cudaErrorInvalidValue;
   if (Q8 && (p.k_scales == nullptr || p.v_scales == nullptr)) return (int)cudaErrorInvalidValue;
   using KB = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
   using KF = typename std::conditional<Q8, int8_t, float>::type;
-  if (dtype == kBF16) return launch_attn<__nv_bfloat16, KB, NT, TK, PAGED>(p, stream);
-  if (dtype == kF32) return launch_attn<float, KF, NT, TK, PAGED>(p, stream);
+  if (dtype == kBF16) return launch_attn<__nv_bfloat16, KB, NT, TK>(p, stream);
+  if (dtype == kF32) return launch_attn<float, KF, NT, TK>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 

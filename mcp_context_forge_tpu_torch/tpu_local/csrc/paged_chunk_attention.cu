@@ -1,4 +1,9 @@
-// Multi-query attention over a paged KV pool, for Hopper (sm_90a).
+// Multi-query attention over a paged KV pool on the FMA tile engine, for
+// Hopper (sm_90a): the cases the tensor-core kernel
+// (paged_chunk_attention_tc.cu: bf16 queries at hd 64/128, page_size a
+// multiple of 64) does not take, which are f32 queries and pages, and bf16
+// at other head dims or page sizes; ops/paged_attention.py chunk_route
+// chooses.
 //
 // Replaces: mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:148,
 // paged_chunk_attention_pallas (kernel body _chunk_kernel): bf16/f32 pages
@@ -12,12 +17,12 @@
 // the chunk just written) are read once per KV head and serve all S*G query
 // rows of the group, so a short chunk over a long history is bound by the
 // pages' bytes; a 512-query chunk over thousands of keys is FLOP-bound.
-// This first version stages each key tile in shared memory once per CTA
-// (all G heads of a KV group share it), loads the block table itself
-// (there is no scalar prefetch on this card) and walks pages only up to the
-// tile's largest query position. Int8 pages are read 8 values per 8-byte
-// load and multiplied by their page's scale in f32 as they are staged.
-// Tensor-core tiles and split-K come later.
+// This version stages each key tile in shared memory once per CTA (all G
+// heads of a KV group share it), loads the block table itself (there is no
+// scalar prefetch on this card) and walks pages only up to the tile's
+// largest query position. Int8 pages are read 8 values per 8-byte load and
+// multiplied by their page's scale in f32 as they are staged. Its FMAs are
+// not the tensor cores: a redesign of these cases is still to come.
 //
 // Semantics: cache position c is attended iff c <= q_positions[b, s];
 // q_positions = -1 marks a padding row, whose output is finite and unread.
@@ -48,7 +53,7 @@ int chunk(const void* q, const void* k_pages, const void* v_pages,
   p.P = P;
   p.scale = 1.0f / sqrtf((float)hd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mcf::launch_attn_dtype<256, 32, true, Q8>(p, dtype, s);
+  return mcf::launch_attn_dtype<256, 32, Q8>(p, dtype, s);
 }
 
 }  // namespace

@@ -313,6 +313,11 @@ def prefill_with_history(params: dict[str, Any], config: LlamaConfig,
     causal by absolute position (cache position c attends iff c <= q_pos),
     so rows with different history lengths share one call. The kernel walks
     only the pages a row uses, so no context-width bucket is needed.
+
+    On the card the chunk kernel takes all S queries of a layer in one
+    call: its scores never reach device memory. The plain path on the CPU
+    keeps the JAX package's query tiles of ``_history_tile`` rows, which
+    bound its [B, KV, G, T, C] f32 scores.
     Returns (logits [B,S,V] or [B,V] f32, kv)."""
     B, S = tokens.shape
     x = embed_rows(params["embed"], tokens, config.embed_multiplier)
@@ -327,24 +332,17 @@ def prefill_with_history(params: dict[str, Any], config: LlamaConfig,
         h = rms_norm(x, layer["attn_norm"], config.norm_eps, config.norm_plus_one)
         q, k, v = _attention_block(layer, config, h, safe_positions)
         write_prefill_kv(kv, idx, k, v, slot_ids, safe_positions, mask_valid)
-        if not on_card:
+        if on_card:
+            attn = paged_chunk_attention(
+                q.reshape(B, S, KV, G, hd), kv.k_pages[idx], kv.v_pages[idx],
+                tables, positions.contiguous(), *_layer_scales(kv, idx))
+        else:
             keys, values = gather_kv(kv, idx, slot_ids)
-        tiles = []
-        for t0 in range(0, S, tile):
-            qs = q[:, t0:t0 + tile]
-            if on_card:
-                at = paged_chunk_attention(
-                    qs.reshape(B, -1, KV, G, hd).contiguous(),
-                    kv.k_pages[idx], kv.v_pages[idx], tables,
-                    positions[:, t0:t0 + tile].contiguous(),
-                    *_layer_scales(kv, idx))
-                at = at.reshape(B, -1, config.n_heads, hd)
-            else:
-                at = _history_attention(qs, keys, values,
-                                        safe_positions[:, t0:t0 + tile],
-                                        mask_valid[:, t0:t0 + tile], config)
-            tiles.append(at)
-        attn = tiles[0] if len(tiles) == 1 else torch.cat(tiles, dim=1)
+            attn = torch.cat([
+                _history_attention(q[:, t0:t0 + tile], keys, values,
+                                   safe_positions[:, t0:t0 + tile],
+                                   mask_valid[:, t0:t0 + tile], config)
+                for t0 in range(0, S, tile)], dim=1)
         x = x + qmm(attn.reshape(B, S, -1), layer["wo"])
         h = rms_norm(x, layer["ffn_norm"], config.norm_eps, config.norm_plus_one)
         x = x + _ffn_block(layer, config, h)

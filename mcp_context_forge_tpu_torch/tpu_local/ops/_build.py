@@ -20,8 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention", "flash_attention_tc", "paged_chunk_attention",
-           "paged_decode_attention", "grouped_moe")
+KERNELS = ("flash_attention_mma", "flash_attention_tc", "paged_chunk_attention",
+           "paged_chunk_attention_tc", "paged_decode_attention", "grouped_moe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -5,10 +5,11 @@
 - ``flash_attention``: the wrapper of the hand-written CUDA kernels for
   CUDA tensors. ``flash_route`` picks one by dtype and head dim:
   ``flash_attention_tc`` (``csrc/flash_attention_tc.cu``: wgmma tensor-core
-  tiles, K/V by TMA) for bf16 at hd 64 and 128, ``flash_attention_fma``
-  (``csrc/flash_attention.cu``: the f32 FMA tile engine) for everything
-  else. Both read each KV head directly: GQA K/V are never repeated to H
-  heads. Each carries its own launch count.
+  tiles, K/V by TMA) for bf16 at hd 64 and 128, ``flash_attention_mma``
+  (``csrc/flash_attention_mma.cu``: warp-level mma.sync tiles, bf16 in f32
+  accumulation, f32 as 3xTF32) for everything else. Both read each KV head
+  directly: GQA K/V are never repeated to H heads. Each carries its own
+  launch count.
 - ``causal_attention``: the dispatcher the model calls.
 """
 
@@ -44,10 +45,10 @@ TC_HEAD_DIMS = (64, 128)
 
 
 def flash_route(dtype: torch.dtype, hd: int) -> str:
-    """Which kernel a CUDA call takes: ``"tc"`` (tensor cores) for bf16 at
-    hd 64 or 128, ``"fma"`` otherwise. A static choice by dtype and hd,
-    never a reaction to a failed build or launch."""
-    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "fma"
+    """Which kernel a CUDA call takes: ``"tc"`` (wgmma) for bf16 at hd 64
+    or 128, ``"mma"`` (mma.sync) otherwise. A static choice by dtype and
+    hd, never a reaction to a failed build or launch."""
+    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "mma"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,7 +59,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_reference(q, k, v, valid)
     kernel = (flash_attention_tc if flash_route(q.dtype, q.shape[-1]) == "tc"
-              else flash_attention_fma)
+              else flash_attention_mma)
     return kernel(q, k, v, valid)
 
 
@@ -96,18 +97,18 @@ def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def flash_attention_fma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+def flash_attention_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         valid: torch.Tensor) -> torch.Tensor:
-    """The FMA tile kernel (CUDA tensors, bf16 or f32, any hd <= 256
+    """The mma.sync kernel (CUDA tensors, bf16 or f32, any hd <= 256
     divisible by 8)."""
-    out = _flash_launch("flash_attention", "mcf_flash_attention",
+    out = _flash_launch("flash_attention_mma", "mcf_flash_attention_mma",
                         q, k, v, valid)
-    flash_attention_fma.launches += 1
+    flash_attention_mma.launches += 1
     return out
 
 
 flash_attention_tc.launches = 0
-flash_attention_fma.launches = 0
+flash_attention_mma.launches = 0
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,10 +2,9 @@
 chunk (S query tokens per row, causal by absolute position).
 
 Each function has a plain PyTorch version (``*_ref``: gather the row's
-pages, masked softmax in f32), which CPU tensors run, and a wrapper of a
-hand-written CUDA kernel (``csrc/paged_decode_attention.cu``,
-``csrc/paged_chunk_attention.cu``) for CUDA tensors. The kernels walk only
-the pages a row uses, loading the block table themselves.
+pages, masked softmax in f32), which CPU tensors run, and wrappers of
+hand-written CUDA kernels for CUDA tensors. The kernels walk only the pages
+a row uses, loading the block table themselves.
 
 The decode kernel splits each row's key walk across CTAs (flash-decoding):
 ``decode_split_plan`` picks whole-page splits on the host, one launch
@@ -13,13 +12,24 @@ writes each split's f32 partials (m, l, o) to a workspace and a second
 combines them in a fixed order. ``decode_partials_ref`` and
 ``decode_combine_ref`` are the plain model of that arithmetic.
 
+The chunk kernels: ``chunk_route`` picks one by query dtype, head dim and
+page size. bf16 queries at hd 64 or 128 over pages of a multiple of 64
+take ``csrc/paged_chunk_attention_tc.cu`` (wgmma tiles, K/V pages by TMA;
+``paged_chunk_attention_tc``/``_tc_q8``); everything else takes the FMA
+tile engine of ``csrc/paged_chunk_attention.cu``
+(``paged_chunk_attention_tile``/``_tile_q8``). Each carries its own launch
+count; ``paged_chunk_attention``/``_q8`` only dispatch.
+
 Pages are bf16/f32, or int8 with per-(page, kv-head) scales ``k_scales`` /
 ``v_scales`` [num_pages, KV] in the query's dtype (one layer's slice of the
-pool's scales). Int8 pages run their own kernels (``mcf_*_q8``, wrappers
-``paged_decode_attention_q8`` / ``paged_chunk_attention_q8``, each with its
-own launch count), which dequantize each key in f32 as they stage it, as
-the Pallas kernels do (``k * k_scale``). The plain versions do the same
-inside the gather.
+pool's scales). Int8 pages run their own kernels (``mcf_*_q8``; wrappers
+``paged_decode_attention_q8`` and ``paged_chunk_attention_{tc,tile}_q8``
+behind ``paged_chunk_attention_q8``, each with its own launch count). The
+decode and tile-engine kernels dequantize each key in f32 as they stage it,
+as the Pallas kernels do (``k * k_scale``); the decode kernel factors each
+page's scales out of its sums, and the tensor-core chunk kernel multiplies
+S by the K scale and P by the V scale in f32 (the int8 values widen to
+bf16 exactly). The plain versions dequantize in f32 inside the gather.
 
 Layouts are the JAX package's: q [B, KV, G, hd] (decode) or
 [B, S, KV, G, hd] (chunk); pages [num_pages, page, KV, hd]; block tables
@@ -35,6 +45,7 @@ import math
 import torch
 
 from . import _build
+from .attention import TC_HEAD_DIMS
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -296,13 +307,25 @@ def paged_decode_combine(ws: DecodeWorkspace, seq_lens: torch.Tensor,
     return out
 
 
+CHUNK_TC_PAGE = 64   # the tensor-core kernel's key tile: pages hold whole tiles
+
+
+def chunk_route(q_dtype: torch.dtype, hd: int, page_size: int) -> str:
+    """Which chunk kernel a CUDA call takes: ``"tc"`` (wgmma) for bf16
+    queries at hd 64 or 128 over pages of a multiple of 64 tokens,
+    ``"tile"`` (the FMA tile engine) otherwise. A static choice, never a
+    reaction to a failed build or launch."""
+    return ("tc" if q_dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
+            and page_size % CHUNK_TC_PAGE == 0 else "tile")
+
+
 def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, block_tables: torch.Tensor,
                           q_positions: torch.Tensor, k_scales=None,
                           v_scales=None) -> torch.Tensor:
     """q: [B, S, KV, G, hd] -> [B, S, KV, G, hd]. With scales, int8 pages
     go to ``paged_chunk_attention_q8``. CPU tensors run the plain version;
-    CUDA tensors launch the kernel (or raise)."""
+    CUDA tensors launch the kernel ``chunk_route`` names (or raise)."""
     _check_scale_pair(k_scales, v_scales)
     if k_scales is not None:
         return paged_chunk_attention_q8(q, k_pages, v_pages, block_tables,
@@ -310,11 +333,10 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_chunk_attention_ref(q, k_pages, v_pages, block_tables,
                                          q_positions)
-    out = _chunk_launch("paged_chunk_attention", "mcf_paged_chunk_attention",
-                        q, k_pages, v_pages, block_tables, q_positions, None,
-                        None)
-    paged_chunk_attention.launches += 1
-    return out
+    kernel = (paged_chunk_attention_tc
+              if chunk_route(q.dtype, q.shape[-1], k_pages.shape[1]) == "tc"
+              else paged_chunk_attention_tile)
+    return kernel(q, k_pages, v_pages, block_tables, q_positions)
 
 
 def paged_chunk_attention_q8(q: torch.Tensor, k_pages: torch.Tensor,
@@ -325,16 +347,71 @@ def paged_chunk_attention_q8(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_chunk_attention_ref(q, k_pages, v_pages, block_tables,
                                          q_positions, k_scales, v_scales)
-    out = _chunk_launch("paged_chunk_attention_q8",
-                        "mcf_paged_chunk_attention_q8", q, k_pages, v_pages,
-                        block_tables, q_positions, k_scales, v_scales)
-    paged_chunk_attention_q8.launches += 1
+    kernel = (paged_chunk_attention_tc_q8
+              if chunk_route(q.dtype, q.shape[-1], k_pages.shape[1]) == "tc"
+              else paged_chunk_attention_tile_q8)
+    return kernel(q, k_pages, v_pages, block_tables, q_positions, k_scales,
+                  v_scales)
+
+
+def _check_tc(name: str, q: torch.Tensor, k_pages: torch.Tensor) -> None:
+    if chunk_route(q.dtype, q.shape[-1], k_pages.shape[1]) != "tc":
+        raise ValueError(
+            f"{name} takes bf16 queries at hd {TC_HEAD_DIMS} over pages "
+            f"of a multiple of {CHUNK_TC_PAGE}, got {q.dtype} at hd "
+            f"{q.shape[-1]}, page {k_pages.shape[1]}")
+
+
+def paged_chunk_attention_tc(q, k_pages, v_pages, block_tables,
+                             q_positions) -> torch.Tensor:
+    """The tensor-core kernel over bf16 pages (CUDA tensors)."""
+    _check_tc("paged_chunk_attention_tc", q, k_pages)
+    out = _chunk_launch("paged_chunk_attention_tc",
+                        "mcf_paged_chunk_attention_tc", q, k_pages, v_pages,
+                        block_tables, q_positions, None, None)
+    paged_chunk_attention_tc.launches += 1
     return out
 
 
-def _chunk_launch(name, symbol, q, k_pages, v_pages, block_tables,
+def paged_chunk_attention_tc_q8(q, k_pages, v_pages, block_tables,
+                                q_positions, k_scales,
+                                v_scales) -> torch.Tensor:
+    """The tensor-core kernel over int8 pages (CUDA tensors)."""
+    _check_tc("paged_chunk_attention_tc_q8", q, k_pages)
+    out = _chunk_launch("paged_chunk_attention_tc",
+                        "mcf_paged_chunk_attention_tc_q8", q, k_pages,
+                        v_pages, block_tables, q_positions, k_scales, v_scales)
+    paged_chunk_attention_tc_q8.launches += 1
+    return out
+
+
+def paged_chunk_attention_tile(q, k_pages, v_pages, block_tables,
+                               q_positions) -> torch.Tensor:
+    """The FMA tile-engine kernel over bf16/f32 pages (CUDA tensors)."""
+    out = _chunk_launch("paged_chunk_attention", "mcf_paged_chunk_attention",
+                        q, k_pages, v_pages, block_tables, q_positions, None,
+                        None)
+    paged_chunk_attention_tile.launches += 1
+    return out
+
+
+def paged_chunk_attention_tile_q8(q, k_pages, v_pages, block_tables,
+                                  q_positions, k_scales,
+                                  v_scales) -> torch.Tensor:
+    """The FMA tile-engine kernel over int8 pages (CUDA tensors)."""
+    out = _chunk_launch("paged_chunk_attention",
+                        "mcf_paged_chunk_attention_q8", q, k_pages, v_pages,
+                        block_tables, q_positions, k_scales, v_scales)
+    paged_chunk_attention_tile_q8.launches += 1
+    return out
+
+
+def _chunk_launch(lib, symbol, q, k_pages, v_pages, block_tables,
                   q_positions, k_scales, v_scales) -> torch.Tensor:
+    """One chunk launch of library ``lib``; the tensor-core entries also
+    take the pool's page count (their TMA maps span the layer's pool)."""
     B, S, KV, G, hd = q.shape
+    name = symbol.removeprefix("mcf_")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
             or q_positions.shape != (B, S):
         raise ValueError(f"{name}: block_tables must be [B, P] and "
@@ -342,13 +419,15 @@ def _chunk_launch(name, symbol, q, k_pages, v_pages, block_tables,
     ptrs, dtype = _checked(name, q, k_pages, v_pages, k_scales, v_scales, KV,
                            hd, {"block_tables": block_tables,
                                 "q_positions": q_positions})
+    ints = [B, S, KV, G, hd, k_pages.shape[1], block_tables.shape[1]]
+    if lib == "paged_chunk_attention_tc":
+        ints.append(k_pages.shape[0])
     out = torch.empty_like(q)
-    fn = _build.kernel_fn("paged_chunk_attention", symbol,
-                          [_build.PTR] * (len(ptrs) + 3) + [_build.INT] * 8
-                          + [_build.PTR])
+    fn = _build.kernel_fn(lib, symbol,
+                          [_build.PTR] * (len(ptrs) + 3)
+                          + [_build.INT] * (len(ints) + 1) + [_build.PTR])
     rc = fn(*ptrs, block_tables.data_ptr(), q_positions.data_ptr(),
-            out.data_ptr(), B, S, KV, G, hd, k_pages.shape[1],
-            block_tables.shape[1], dtype,
+            out.data_ptr(), *ints, dtype,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, name)
     return out
@@ -356,5 +435,7 @@ def _chunk_launch(name, symbol, q, k_pages, v_pages, block_tables,
 
 paged_decode_attention.launches = 0
 paged_decode_attention_q8.launches = 0
-paged_chunk_attention.launches = 0
-paged_chunk_attention_q8.launches = 0
+paged_chunk_attention_tc.launches = 0
+paged_chunk_attention_tc_q8.launches = 0
+paged_chunk_attention_tile.launches = 0
+paged_chunk_attention_tile_q8.launches = 0

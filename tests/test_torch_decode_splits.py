@@ -1,8 +1,9 @@
 """The split-K decode kernel's host plan and a plain model of its arithmetic
 (partials over whole-page splits, then the combine), against the port's
 plain decode and the JAX package's Pallas decode kernel (interpret mode, as
-its own tests run it), on the same seeded numpy inputs; and the flash
-wrapper's static choice between its two kernels. CPU only, a few seconds.
+its own tests run it), on the same seeded numpy inputs; and the static
+choices of the flash and paged chunk wrappers between their kernels. CPU
+only, a few seconds.
 
 Tolerance: rtol = atol = 2e-5 in f32. The split model sums each split
 separately and takes base-2 exponentials, so only the order and the
@@ -18,6 +19,7 @@ import torch
 from mcp_context_forge_tpu.tpu_local.ops.paged_attention import (
     paged_decode_attention_pallas,
 )
+from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
 from mcp_context_forge_tpu_torch.tpu_local.ops import attention as port_attn
 from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as port_paged
 
@@ -139,17 +141,39 @@ def test_decode_kernel_refuses_what_it_does_not_hold():
                                   pages8, tables, lens, None, None)
 
 
-@pytest.mark.parametrize("dtype,hd,route", [
-    (torch.bfloat16, 128, "tc"),   # llama3-8b, mistral-7b, qwen2-7b
-    (torch.bfloat16, 64, "tc"),    # qwen2-0.5b
-    (torch.bfloat16, 256, "fma"),  # gemma-2b: not taken by the tc kernel yet
-    (torch.bfloat16, 32, "fma"),   # llama3-tiny
-    (torch.float32, 128, "fma"),
-    (torch.float32, 32, "fma"),
-    (torch.float16, 128, "fma"),
-])
-def test_flash_route_is_static_by_dtype_and_head_dim(dtype, hd, route):
-    assert port_attn.flash_route(dtype, hd) == route
+def _route_cases():
+    """(kernel, dtype, hd, page, route) for every head dim of MODEL_CONFIGS
+    (16, 32, 64, 128, 256) in bf16 and f32, at the engine's page of 128
+    for the chunk kernel, and the page sizes and dtypes around the choice."""
+    hds = sorted({cfg.head_dim for cfg in MODEL_CONFIGS.values()})
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in hds:
+            tc = dtype == torch.bfloat16 and hd in (64, 128)
+            cases.append(("flash", dtype, hd, None, "tc" if tc else "mma"))
+            cases.append(("chunk", dtype, hd, 128, "tc" if tc else "tile"))
+    cases += [
+        ("flash", torch.float16, 128, None, "mma"),
+        ("chunk", torch.float16, 128, 128, "tile"),
+        ("chunk", torch.bfloat16, 128, 64, "tc"),
+        ("chunk", torch.bfloat16, 64, 256, "tc"),
+        ("chunk", torch.bfloat16, 128, 16, "tile"),   # pages smaller than a key tile
+        ("chunk", torch.bfloat16, 128, 96, "tile"),   # pages of a partial key tile
+    ]
+    return cases
+
+
+@pytest.mark.parametrize("kernel,dtype,hd,page,route", _route_cases())
+def test_flash_route_is_static_by_dtype_and_head_dim(kernel, dtype, hd, page,
+                                                     route):
+    """Both prefill routes are static: flash by (dtype, hd), the paged
+    chunk kernel by (query dtype, hd, page size)."""
+    assert sorted({cfg.head_dim for cfg in MODEL_CONFIGS.values()}) == [
+        16, 32, 64, 128, 256]
+    if kernel == "flash":
+        assert port_attn.flash_route(dtype, hd) == route
+    else:
+        assert port_paged.chunk_route(dtype, hd, page) == route
 
 
 def test_flash_tc_refuses_what_it_does_not_take():
@@ -159,3 +183,23 @@ def test_flash_tc_refuses_what_it_does_not_take():
         with pytest.raises(ValueError, match="takes bf16"):
             port_attn.flash_attention_tc(q, q, q, valid)
     assert port_attn.flash_attention_tc.launches == 0
+
+
+def test_chunk_tc_refuses_what_it_does_not_take():
+    """The tensor-core chunk wrappers refuse f32, other head dims and pages
+    that do not hold whole 64-key tiles before anything reaches the card."""
+    tables = torch.ones((1, 1), dtype=torch.int32)
+    pos = torch.zeros((1, 4), dtype=torch.int32)
+    for dtype, hd, page in ((torch.float32, 128, 128), (torch.bfloat16, 32, 128),
+                            (torch.bfloat16, 128, 32)):
+        q = torch.zeros((1, 4, 1, 2, hd), dtype=dtype)
+        pages = torch.zeros((2, page, 1, hd), dtype=dtype)
+        with pytest.raises(ValueError, match="takes bf16"):
+            port_paged.paged_chunk_attention_tc(q, pages, pages, tables, pos)
+        scales = torch.ones((2, 1), dtype=dtype)
+        pages8 = pages.to(torch.int8)
+        with pytest.raises(ValueError, match="takes bf16"):
+            port_paged.paged_chunk_attention_tc_q8(q, pages8, pages8, tables, pos,
+                                                   scales, scales)
+    assert port_paged.paged_chunk_attention_tc.launches == 0
+    assert port_paged.paged_chunk_attention_tc_q8.launches == 0

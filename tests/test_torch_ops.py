@@ -192,7 +192,8 @@ def test_int8_pages_match_pallas(kind, KV, G, hd, page):
     np.testing.assert_allclose(out[rows], pallas[rows], **TOL)
     np.testing.assert_array_equal(out, ref)
     assert port_paged.paged_decode_attention_q8.launches == 0
-    assert port_paged.paged_chunk_attention_q8.launches == 0
+    assert port_paged.paged_chunk_attention_tc_q8.launches == 0
+    assert port_paged.paged_chunk_attention_tile_q8.launches == 0
 
 
 def test_scales_come_in_pairs():
@@ -209,11 +210,13 @@ def test_cpu_tensors_run_the_plain_versions():
     """A wrapper handed CPU tensors runs its plain version, bit for bit,
     and never counts a kernel launch."""
     rng = np.random.default_rng(4)
-    counters = (port_attn.flash_attention_tc, port_attn.flash_attention_fma,
+    counters = (port_attn.flash_attention_tc, port_attn.flash_attention_mma,
                 port_paged.paged_decode_attention,
-                port_paged.paged_chunk_attention,
                 port_paged.paged_decode_attention_q8,
-                port_paged.paged_chunk_attention_q8)
+                port_paged.paged_chunk_attention_tc,
+                port_paged.paged_chunk_attention_tc_q8,
+                port_paged.paged_chunk_attention_tile,
+                port_paged.paged_chunk_attention_tile_q8)
     before = [fn.launches for fn in counters]
     q = _t(rng.standard_normal((1, 8, 4, 16), dtype=np.float32))
     k = _t(rng.standard_normal((1, 8, 2, 16), dtype=np.float32))
@@ -244,7 +247,7 @@ def test_cpu_tensors_run_the_plain_versions():
                                          scales),
         port_paged.paged_chunk_attention_ref(qc, k8, v8, tables, pos, scales,
                                              scales))
-    assert [fn.launches for fn in counters] == before == [0] * 6
+    assert [fn.launches for fn in counters] == before == [0] * 8
 
 
 def test_scale_is_inverse_sqrt_head_dim():
