@@ -19,14 +19,16 @@ Run from the root of a checkout. Phases, each printing one JSON line:
    and 64, G = 4 and the qwen2 G = 7) and the mma.sync one (f32 at the
    llama3-tiny geometry, held per row to 1e-4; bf16 at gemma-2b's; every
    head-dim template in both dtypes at small shapes). The paged chunk
-   kernel runs its wgmma route (bf16 pages; int8 below) and its tile-engine
-   route (f32 pages and int8 pages at the llama3-tiny geometry). Planted
-   faults show that the checks see a kernel that misreads part of a walk.
+   kernel runs its wgmma route (bf16 pages; int8 below) and its mma.sync
+   route (f32 pages and int8 pages at the llama3-tiny geometry, held per
+   row to 1e-4), each at a spread of geometries (page sizes 16 to 256,
+   qwen2-7b's G = 7, gemma-2b's KV 1 / G 8 / hd 256); decode is held at
+   those geometries too. Planted faults show that the checks see a kernel
+   that misreads part of a walk.
 4. model: a tiny f32 model on the card (kernels) against the same model on
    the CPU (plain versions): prefill, prefix-hit suffix prefill, decode.
    Then ``engine_llama3_tiny_f32``: the engine phase below on llama3-tiny in
-   f32, the path of the mma.sync flash kernel and the tile-engine chunk
-   kernel.
+   f32, the path of the mma.sync flash and chunk kernels.
 5. engine: ``TorchLocalProvider.chat`` with seeded random weights in bf16:
    six concurrent greedy requests (two share a 300+ token system prompt,
    so the second hits the prefix cache; one is ~1450 tokens), then one
@@ -35,7 +37,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
    runs must show > 0 launches after them; the chunk kernels must launch
    once per layer per call of the history prefill (a whole chunk round or
    prefix-hit suffix in one call). Each engine is freed before the next is
-   built.
+   built. The kernel table's ``launches`` sum every engine phase and
+   model check.
 
 The attention path runs first, on a card the MoE phases have not loaded:
 kernels (Llama-3-8B serving shapes), model (llama3-tiny), engine (llama3-8b
@@ -51,17 +54,26 @@ and depth with ``kv_quant="int8"``, max_seq_len 8192 and a 512-page byte
 budget (1023 int8 pages), serving a ~6000-token and a ~3000-token prompt
 by chunked prefill beside a prefix hit and two short chats (tensor-core
 flash and the two int8-page kernels, the chunk kernel on its wgmma route;
-the bf16 paged kernels, the tile-engine chunk kernels and the mma.sync
-flash kernel must not launch). Then the
-MoE path:
-kernels (both grouped-expert kernels at Mixtral-8x7B widths on a
-2048-token batch routed by a seeded random router, NB = 40 blocks of 128
-rows, plus the cost of one expert-scan ``qmm`` over an int8 expert
-matrix), model (mixtral-test through the grouped path, full-precision and
-int8 weights), and two engine phases: mixtral-8x7b at full width and depth
+the bf16 paged kernels, the mma.sync chunk kernels and the mma.sync
+flash kernel must not launch). Then gemma-2b, whose 256-wide heads the
+wgmma kernels do not take: the mma.sync chunk kernel at its geometry (the
+2048-query chunk round over 32 history pages, bf16 and int8 pages; 4 x
+512 queries), and ``engine_gemma_2b``: gemma-2b at full width and depth
+(18 layers, bf16 weights, bf16 pages of 128, max_seq_len 8192, 512
+pages) serving the same long-context requests (the mma.sync flash, chunk
+and decode kernels at KV 1, G 8, hd 256; no wgmma attention kernel may
+launch). Then the MoE path:
+kernels (both routes of the grouped-expert kernels, the wgmma one and the
+WMMA one, at Mixtral-8x7B widths on a 2048-token batch routed by a
+seeded random router, NB = 40 blocks of 128 rows, each row also held in
+norm to MOE_ROW_RMS, with planted faults, plus the cost of one expert-scan
+``qmm`` over an int8 expert matrix), model (mixtral-test through the
+grouped path at moe_block 8, the WMMA route, full-precision and int8
+weights), and two engine phases: mixtral-8x7b at full width and depth
 with int8 weights (``moe_impl="grouped_pallas"``: attention and
-``expert_blocks_q8``), and mixtral-8x7b in bf16 cut to 8 layers (32 do not
-fit the card in bf16: attention and ``expert_blocks``).
+``expert_blocks_tc_q8``), and mixtral-8x7b in bf16 cut to 8 layers (32 do
+not fit the card in bf16: attention and ``expert_blocks_tc``); neither may
+launch the WMMA route.
 
 Then the card line, the kernel table (JSON), and last the contract line.
 Any failure raises: the exit code is non-zero and the last line is absent.
@@ -84,6 +96,13 @@ from pathlib import Path
 TOL = 2e-2
 ROW_REL = 1e-2   # attention kernels: max|out - ref| within a row over max|ref| of that row
 F32_ROW_REL = 1e-4   # the f32 mma.sync route (3xTF32): one TF32 product alone reads ~1e-3
+# grouped experts, each row's ||out - ref||_2 over ||ref||_2: a right row
+# differs from the plain version where the tensor cores' f32 accumulation and
+# the plain f32 sums round to another bf16 value (up to 8.0e-4 on an H100 at
+# Mixtral widths, K = 14336); an h rounded once to bf16 (its lo half dropped)
+# reads 2.8e-3 there, which the max-based ROW_REL cannot see (0.0078 against
+# 0.0078 for a right row)
+MOE_ROW_RMS = 1.5e-3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, dense peak
 BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 tensor cores
 F32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
@@ -124,34 +143,40 @@ REPLACES = {
     "flash_attention_mma": "mcp_context_forge_tpu/tpu_local/ops/attention.py:88",
     "paged_chunk_attention_tc": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:148",
     "paged_chunk_attention_tc_q8": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:111",
-    "paged_chunk_attention_tile": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:148",
-    "paged_chunk_attention_tile_q8": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:111",
+    "paged_chunk_attention_mma": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:148",
+    "paged_chunk_attention_mma_q8": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:111",
     "paged_decode_attention": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:199",
     "paged_decode_attention_q8": "mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:59",
-    "expert_blocks": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:164",
-    "expert_blocks_q8": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:225",
+    "expert_blocks_tc": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:164",
+    "expert_blocks_tc_q8": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:225",
+    "expert_blocks_wmma": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:164",
+    "expert_blocks_wmma_q8": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:225",
 }
 SOURCES = {
     "flash_attention_tc": "flash_attention_tc.cu",
     "flash_attention_mma": "flash_attention_mma.cu",
     "paged_chunk_attention_tc": "paged_chunk_attention_tc.cu",
     "paged_chunk_attention_tc_q8": "paged_chunk_attention_tc.cu",
-    "paged_chunk_attention_tile": "paged_chunk_attention.cu",
-    "paged_chunk_attention_tile_q8": "paged_chunk_attention.cu",
+    "paged_chunk_attention_mma": "paged_chunk_attention_mma.cu",
+    "paged_chunk_attention_mma_q8": "paged_chunk_attention_mma.cu",
     "paged_decode_attention": "paged_decode_attention.cu",
     "paged_decode_attention_q8": "paged_decode_attention.cu",
-    "expert_blocks": "grouped_moe.cu",
-    "expert_blocks_q8": "grouped_moe.cu",
+    "expert_blocks_tc": "grouped_moe_tc.cu",
+    "expert_blocks_tc_q8": "grouped_moe_tc.cu",
+    "expert_blocks_wmma": "grouped_moe.cu",
+    "expert_blocks_wmma_q8": "grouped_moe.cu",
 }
 ATTENTION = ("flash_attention_tc", "paged_chunk_attention_tc", "paged_decode_attention")
 ATTENTION_Q8 = ("flash_attention_tc", "paged_chunk_attention_tc_q8",
                 "paged_decode_attention_q8")
-ATTENTION_F32 = ("flash_attention_mma", "paged_chunk_attention_tile", "paged_decode_attention")
+ATTENTION_MMA = ("flash_attention_mma", "paged_chunk_attention_mma", "paged_decode_attention")
 CHUNK = ("paged_chunk_attention_tc", "paged_chunk_attention_tc_q8",
-         "paged_chunk_attention_tile", "paged_chunk_attention_tile_q8")
+         "paged_chunk_attention_mma", "paged_chunk_attention_mma_q8")
+TC_ATTENTION = ("flash_attention_tc", "paged_chunk_attention_tc", "paged_chunk_attention_tc_q8")
+MOE_WMMA = ("expert_blocks_wmma", "expert_blocks_wmma_q8")
 # kernels the bf16 llama3-8b and Mixtral paths must not launch
-NOT_BF16 = ("flash_attention_mma", "paged_chunk_attention_tile",
-            "paged_chunk_attention_tile_q8")
+NOT_BF16 = ("flash_attention_mma", "paged_chunk_attention_mma",
+            "paged_chunk_attention_mma_q8")
 
 
 def kernel_wrappers() -> dict:
@@ -163,12 +188,14 @@ def kernel_wrappers() -> dict:
             "flash_attention_mma": attn.flash_attention_mma,
             "paged_chunk_attention_tc": paged.paged_chunk_attention_tc,
             "paged_chunk_attention_tc_q8": paged.paged_chunk_attention_tc_q8,
-            "paged_chunk_attention_tile": paged.paged_chunk_attention_tile,
-            "paged_chunk_attention_tile_q8": paged.paged_chunk_attention_tile_q8,
+            "paged_chunk_attention_mma": paged.paged_chunk_attention_mma,
+            "paged_chunk_attention_mma_q8": paged.paged_chunk_attention_mma_q8,
             "paged_decode_attention": paged.paged_decode_attention,
             "paged_decode_attention_q8": paged.paged_decode_attention_q8,
-            "expert_blocks": gm.expert_blocks,
-            "expert_blocks_q8": gm.expert_blocks_q8}
+            "expert_blocks_tc": gm.expert_blocks_tc,
+            "expert_blocks_tc_q8": gm.expert_blocks_tc_q8,
+            "expert_blocks_wmma": gm.expert_blocks_wmma,
+            "expert_blocks_wmma_q8": gm.expert_blocks_wmma_q8}
 
 
 def free_device(torch) -> None:
@@ -206,38 +233,54 @@ def main() -> int:
           "ptxas": usage})
 
     # ------------------------------------------- attention: kernels, model, engine
+    launches = dict.fromkeys(REPLACES, 0)   # summed over the engine phases and model checks
+
+    def count(counts: dict) -> None:
+        for name in launches:
+            launches[name] += counts[name]
+
     timer = Timer(torch, dev)
     results = kernel_phase(torch, dev, timer)
     free_device(torch)
-    model_check(torch, dev, "llama3-tiny")
-    counts, stats = engine_phase(torch, dev, "llama3-tiny", ATTENTION_F32,
+    count(model_check(torch, dev, "llama3-tiny"))
+    counts, stats = engine_phase(torch, dev, "llama3-tiny", ATTENTION_MMA,
                                  chat_requests("llama3-tiny"), hit=1,
-                                 absent=("flash_attention_tc", "paged_chunk_attention_tc",
-                                         "paged_chunk_attention_tc_q8"),
-                                 dtype="float32")
+                                 absent=TC_ATTENTION, dtype="float32")
     emit({"phase": "engine_llama3_tiny_f32", **stats})
+    count(counts)
     free_device(torch)
-    launches, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION,
-                                   chat_requests("llama3-8b"), hit=1, absent=NOT_BF16)
-    launches = {**launches, **{name: counts[name] for name in ATTENTION_F32[:2]}}
+    counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION,
+                                 chat_requests("llama3-8b"), hit=1, absent=NOT_BF16)
     check(stats["buckets"][2] == 2048,
           f"the ~1450-token prompt took bucket {stats['buckets'][2]}")
     emit({"phase": "engine", **stats})
+    count(counts)
     free_device(torch)
 
     # ------------------------- long context on int8 KV: kernels, model, engine
     results.update(q8_kernel_phase(torch, dev, timer))
     free_device(torch)
-    counts = model_check(torch, dev, "llama3-tiny", kv_quant="int8")
-    launches["paged_chunk_attention_tile_q8"] = counts["paged_chunk_attention_tile_q8"]
+    count(model_check(torch, dev, "llama3-tiny", kv_quant="int8"))
     counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION_Q8,
                                  long_context_requests("llama3-8b"), hit=3,
                                  absent=ATTENTION[1:] + NOT_BF16,
                                  kv_quant="int8", max_seq_len=8192)
-    check_long_context(stats)
+    check_long_context(stats, pool_pages=1023, page_dtype="torch.int8")
     emit({"phase": "engine_llama3_8b_int8_kv_long", **stats})
-    for name in ATTENTION_Q8[1:]:
-        launches[name] = counts[name]
+    count(counts)
+    free_device(torch)
+
+    # --------------------- gemma-2b: hd 256 on the mma.sync kernels, engine
+    gemma_kernel_phase(torch, dev, timer)
+    free_device(torch)
+    counts, stats = engine_phase(torch, dev, "gemma-2b", ATTENTION_MMA,
+                                 long_context_requests("gemma-2b"), hit=3,
+                                 absent=TC_ATTENTION + ("paged_chunk_attention_mma_q8",
+                                                        "paged_decode_attention_q8"),
+                                 max_seq_len=8192)
+    check_long_context(stats, pool_pages=512, page_dtype="torch.bfloat16")
+    emit({"phase": "engine_gemma_2b", **stats})
+    count(counts)
     free_device(torch)
 
     # ------------------------------------------------- MoE: kernels, model, engine
@@ -245,21 +288,21 @@ def main() -> int:
     del timer
     free_device(torch)
     for quant in ("", "int8"):
-        model_check(torch, dev, "mixtral-test", quant=quant,
-                    moe=dict(moe_impl="grouped_pallas", moe_block=8))
+        count(model_check(torch, dev, "mixtral-test", quant=quant,
+                          moe=dict(moe_impl="grouped_pallas", moe_block=8)))
     counts, stats = engine_phase(
-        torch, dev, "mixtral-8x7b", ATTENTION + ("expert_blocks_q8",),
-        chat_requests("mixtral-8x7b"), hit=1, absent=NOT_BF16,
+        torch, dev, "mixtral-8x7b", ATTENTION + ("expert_blocks_tc_q8",),
+        chat_requests("mixtral-8x7b"), hit=1, absent=NOT_BF16 + MOE_WMMA,
         quant="int8", moe_impl="grouped_pallas")
     emit({"phase": "engine_mixtral_int8", **stats})
-    launches["expert_blocks_q8"] = counts["expert_blocks_q8"]
+    count(counts)
     free_device(torch)
     counts, stats = engine_phase(
-        torch, dev, "mixtral-8x7b", ATTENTION + ("expert_blocks",),
-        chat_requests("mixtral-8x7b"), hit=1, absent=NOT_BF16,
+        torch, dev, "mixtral-8x7b", ATTENTION + ("expert_blocks_tc",),
+        chat_requests("mixtral-8x7b"), hit=1, absent=NOT_BF16 + MOE_WMMA,
         moe_impl="grouped_pallas", n_layers=8)
     emit({"phase": "engine_mixtral_bf16_8_layers", **stats})
-    launches["expert_blocks"] = counts["expert_blocks"]
+    count(counts)
     free_device(torch)
 
     table = []
@@ -456,6 +499,46 @@ def sdpa_paged(torch, paged, q, k_pages, v_pages, tables, keep, scales=()):
     return qt, kt, vt, mask[..., :C][:, None].contiguous()
 
 
+def chunk_geometries(torch, dev, gen, paged, cases) -> list:
+    """Each (kernel, dtype, hd, page, int8 pages, KV, G) of ``cases`` at a
+    small shape against the plain version: three rows at different offsets
+    (one starting past a page boundary, one half padding) in a pool of
+    their own; f32 held per row to F32_ROW_REL, bf16 to ROW_REL."""
+    out_rows = []
+    for name, dtype, hd, page, q8, KV, G in cases:
+        starts, n_real, S = (3 * page + 5, 0, 2 * page - 9), (200, 200, 90), 200
+        P = -(-(max(st + n for st, n in zip(starts, n_real))) // page)
+        n_pages = 3 * P + 2   # distinct pages for every row, page 0 unused
+        tables = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(page))[
+            :3 * P].add(1).reshape(3, P).to(torch.int32).to(dev)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        if q8:
+            kp, vp = (torch.randint(-127, 128, (n_pages, page, KV, hd), generator=gen,
+                                    device=dev, dtype=torch.int8) for _ in range(2))
+            scales = tuple((torch.rand((n_pages, KV), generator=gen, device=dev) + 0.5)
+                           .div(127).to(dtype) for _ in range(2))
+        else:
+            kp, vp, scales = randn(n_pages, page, KV, hd), randn(n_pages, page, KV, hd), ()
+        pos = torch.full((3, S), -1, dtype=torch.int32)
+        for b, (st, n) in enumerate(zip(starts, n_real)):
+            pos[b, :n] = torch.arange(st, st + n)
+        pos = pos.to(dev)
+        args = (randn(3, S, KV, G, hd), kp, vp, tables, pos, *scales)
+        out = getattr(paged, name)(*args)
+        ref = paged.paged_chunk_attention_ref(*args)
+        torch.cuda.synchronize()
+        check(torch.isfinite(out).all(), f"{name}: a padding row is not finite")
+        limit = F32_ROW_REL if dtype == torch.float32 else ROW_REL
+        err, rel = compare_paged(torch, f"{name} {dtype} hd {hd} page {page} KV {KV} G {G}",
+                                 out, ref, pos >= 0, limit)
+        out_rows.append({"kernel": name, "dtype": str(dtype), "hd": hd, "page": page,
+                         "KV": KV, "G": G, "max_abs_err": err, "max_row_error": rel})
+    return out_rows
+
+
 def kernel_phase(torch, dev, time_ms) -> dict:
     """Each attention kernel against its plain version at Llama-3-8B
     serving shapes in bf16; times, bounds, SDPA yardsticks. Flash also at
@@ -463,8 +546,10 @@ def kernel_phase(torch, dev, time_ms) -> dict:
     mma.sync kernel in f32 at the llama3-tiny geometry and in bf16 at
     gemma-2b's (and every head-dim template at small shapes); the chunk
     kernel's wgmma route at every head dim and page size it takes (small
-    shapes) and its tile-engine route on f32 pages at the llama3-tiny
-    geometry. Returns the per-kernel results."""
+    shapes, G 3 and G 7) and its mma.sync route on f32 pages at the
+    llama3-tiny geometry and at a spread of page sizes and geometries;
+    decode at qwen2-7b's and gemma-2b's geometries. Returns the per-kernel
+    results."""
     from mcp_context_forge_tpu_torch.tpu_local.ops import attention as attn
     from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
 
@@ -557,64 +642,75 @@ def kernel_phase(torch, dev, time_ms) -> dict:
         max_abs_err=err, max_row_error=rel, planted_faults=faults,
         **time_ms.both("kernel", lambda: paged.paged_chunk_attention_tc(*cargs)),
         plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*cargs)),
-        tile_engine_ms=time_ms(lambda: paged.paged_chunk_attention_tile(*cargs)),
+        mma_route_ms=time_ms(lambda: paged.paged_chunk_attention_mma(*cargs)),
         library_ms=time_ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
         bytes=nbytes, flops=4 * hd * G * KV * pairs)
     del lib
 
     # every geometry the wgmma route takes (hd 64/128, pages of 64, 128 and
-    # 256 tokens, bf16 and int8 pages) at a small shape: three rows at
-    # different offsets, one half padding, in a pool of their own
-    geometries = []
-    for hdg in (64, 128):
-        for page in (64, 128, 256):
-            for q8 in (False, True):
-                n_pages = 40
-                starts, n_real, Sg = (3 * page + 5, 0, 2 * page - 9), (200, 200, 90), 200
-                Pg = -(-(max(st + n for st, n in zip(starts, n_real))) // page)
-                tg = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(page))[
-                    :3 * Pg].add(1).reshape(3, Pg).to(torch.int32).to(dev)
-                check(3 * Pg < n_pages, "the geometry tables overflow their pool")
-                if q8:
-                    kg, vg = (torch.randint(-127, 128, (n_pages, page, 2, hdg), generator=gen,
-                                            device=dev, dtype=torch.int8) for _ in range(2))
-                    sg = tuple((torch.rand((n_pages, 2), generator=gen, device=dev) + 0.5)
-                               .div(127).to(bf16) for _ in range(2))
-                else:
-                    kg, vg, sg = randn(n_pages, page, 2, hdg), randn(n_pages, page, 2, hdg), ()
-                posg = torch.full((3, Sg), -1, dtype=torch.int32)
-                for b, (st, n) in enumerate(zip(starts, n_real)):
-                    posg[b, :n] = torch.arange(st, st + n)
-                posg = posg.to(dev)
-                gargs = (randn(3, Sg, 2, 3, hdg), kg, vg, tg, posg, *sg)
-                name = "paged_chunk_attention_tc_q8" if q8 else "paged_chunk_attention_tc"
-                out = getattr(paged, name)(*gargs)
-                ref = paged.paged_chunk_attention_ref(*gargs)
-                torch.cuda.synchronize()
-                check(torch.isfinite(out).all(), f"{name}: a padding row is not finite")
-                err, rel = compare_paged(torch, f"{name} hd {hdg} page {page}", out, ref, posg >= 0)
-                geometries.append({"kernel": name, "hd": hdg, "page": page,
-                                   "max_abs_err": err, "max_row_error": rel})
+    # 256 tokens, bf16 and int8 pages; G 3 and qwen2-7b's G 7 over 4 KV
+    # heads) and a spread of the mma route's (f32, bf16 and int8 pages of 16,
+    # 96 and 128 tokens at gemma-2b's KV 1 / G 8 / hd 256, qwen2's G 7 and
+    # the tiny configs' hd 32)
+    tc_cases = [("paged_chunk_attention_tc" + ("_q8" if q8 else ""), bf16, hdg, page, q8, KVg, Gg)
+                for hdg in (64, 128) for page in (64, 128, 256) for q8 in (False, True)
+                for KVg, Gg in ((2, 3),) + (((4, 7),) if hdg == 128 else ())]
+    mma_cases = [("paged_chunk_attention_mma" + ("_q8" if q8 else ""), dtype, hdg, page, q8, KVg, Gg)
+                 for dtype in (torch.float32, bf16) for page in (16, 96, 128)
+                 for q8 in (False, True) for KVg, Gg, hdg in ((1, 8, 256), (4, 7, 128), (4, 2, 32))]
+    geometries = chunk_geometries(torch, dev, gen, paged, tc_cases)
+    mma_geometries = chunk_geometries(torch, dev, gen, paged, mma_cases)
 
-    # chunk, the tile-engine route: f32 pages at the llama3-tiny geometry
-    # (KV 4, G 2, hd 32), the same rows
+    # decode at qwen2-7b's geometry (KV 4, G 7, hd 128) and gemma-2b's (KV 1,
+    # G 8, hd 256), bf16 and int8 pages
+    decode_geometries = []
+    for KVd, Gd, hdd in ((4, 7, 128), (1, 8, 256)):
+        for q8 in (False, True):
+            lens_d = [1000, 1, 0, 129, 384]
+            pool = 5 * 8 + 1    # eight table slots of 128 per row, distinct pages
+            td = torch.randperm(pool - 1, generator=torch.Generator().manual_seed(hdd)).add(1).reshape(
+                5, 8).to(torch.int32).to(dev)
+            if q8:
+                kd, vd = (torch.randint(-127, 128, (pool, PAGE, KVd, hdd), generator=gen, device=dev,
+                                        dtype=torch.int8) for _ in range(2))
+                sd = tuple((torch.rand((pool, KVd), generator=gen, device=dev) + 0.5).div(127).to(bf16)
+                           for _ in range(2))
+            else:
+                kd, vd, sd = randn(pool, PAGE, KVd, hdd), randn(pool, PAGE, KVd, hdd), ()
+            lens_t = torch.tensor(lens_d, dtype=torch.int32, device=dev)
+            dargs = (randn(5, KVd, Gd, hdd), kd, vd, td, lens_t, *sd)
+            name = "paged_decode_attention_q8" if q8 else "paged_decode_attention"
+            out = getattr(paged, name)(*dargs)
+            ref = paged.paged_decode_attention_ref(*dargs)
+            torch.cuda.synchronize()
+            err, rel = compare_paged(torch, f"{name} KV {KVd} G {Gd} hd {hdd}", out, ref, lens_t > 0)
+            check(torch.count_nonzero(out[lens_t == 0]) == 0, "seq_len 0 row is not zero")
+            decode_geometries.append({"kernel": name, "KV": KVd, "G": Gd, "hd": hdd,
+                                      "seq_lens": lens_d, "max_abs_err": err, "max_row_error": rel})
+
+    # chunk, the mma route: f32 pages at the llama3-tiny geometry (KV 4, G 2,
+    # hd 32), the same rows, each held to F32_ROW_REL
     KVt, Gt, hdt = 4, 2, 32
     kt_pages = randn(NUM_PAGES, PAGE, KVt, hdt, dtype=torch.float32)
     vt_pages = randn(NUM_PAGES, PAGE, KVt, hdt, dtype=torch.float32)
     qt = randn(4, S, KVt, Gt, hdt, dtype=torch.float32)
     targs = (qt, kt_pages, vt_pages, ctables, pos)
-    check(paged.chunk_route(torch.float32, hdt, PAGE) == "tile", "f32 chunk does not route to tile")
-    out = paged.paged_chunk_attention(*targs)
+    check(paged.chunk_route(torch.float32, hdt, PAGE) == "mma", "f32 chunk does not route to mma")
+    out = paged.paged_chunk_attention_mma(*targs)
     ref = paged.paged_chunk_attention_ref(*targs)
     torch.cuda.synchronize()
-    err, rel = compare_paged(torch, "paged_chunk_attention_tile", out, ref, valid)
+    check(torch.equal(paged.paged_chunk_attention(*targs), out),
+          "paged_chunk_attention does not dispatch to paged_chunk_attention_mma")
+    err, rel = compare_paged(torch, "paged_chunk_attention_mma", out, ref, valid, F32_ROW_REL)
+    faults = planted_faults(torch, "paged_chunk_attention_mma", chunk_faults(
+        torch, paged.paged_chunk_attention_mma, targs, spare, 3, 5, 7), ref, valid, F32_ROW_REL)
     lib = sdpa_paged(torch, paged, qt, kt_pages, vt_pages, ctables,
                      lambda c: c[None, None, :] <= pos[:, :, None])
-    results["paged_chunk_attention_tile"] = dict(
+    results["paged_chunk_attention_mma"] = dict(
         shape={"q": list(qt.shape), "pages": list(kt_pages.shape), "dtype": "float32",
                "history_pages": hist_pages, "valid_queries": n_valid},
-        max_abs_err=err, max_row_error=rel,
-        **time_ms.both("kernel", lambda: paged.paged_chunk_attention_tile(*targs)),
+        max_abs_err=err, max_row_error=rel, row_limit=F32_ROW_REL, planted_faults=faults,
+        **time_ms.both("kernel", lambda: paged.paged_chunk_attention_mma(*targs)),
         plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*targs)),
         library_ms=time_ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
         bytes=2 * keys * KVt * hdt * 4 + 2 * qt.numel() * 4 + ctables.numel() * 4 + pos.numel() * 4,
@@ -691,7 +787,7 @@ def kernel_phase(torch, dev, time_ms) -> dict:
                                      validf, limit)
             templates.append({"dtype": str(dtype), "hd": hdm, "max_abs_err": err,
                               "max_row_error": rel})
-    for name in ("paged_decode_attention", "paged_chunk_attention_tc", "paged_chunk_attention_tile"):
+    for name in ("paged_decode_attention", "paged_chunk_attention_tc", "paged_chunk_attention_mma"):
         run = results[name]
         run["bound_ms"], run["bound_by"] = bound(
             run["bytes"], run["flops"], run.pop("flops_per_s", BF16_FLOPS_PER_S))
@@ -701,7 +797,8 @@ def kernel_phase(torch, dev, time_ms) -> dict:
           "decode": results["paged_decode_attention"],
           "chunk": results["paged_chunk_attention_tc"],
           "chunk_tc_geometries": geometries,
-          "chunk_tile_f32": results["paged_chunk_attention_tile"],
+          "chunk_mma_f32": results["paged_chunk_attention_mma"],
+          "chunk_mma_geometries": mma_geometries, "decode_geometries": decode_geometries,
           "flash": flash_runs, "flash_mma_templates": templates})
     return results
 
@@ -713,11 +810,11 @@ def q8_kernel_phase(torch, dev, time_ms) -> dict:
     pages walked), SDPA yardsticks over K/V gathered and dequantized to
     bf16 in advance. Each is also timed beside its bf16-page kernel on the
     same pages dequantized to bf16 (the same shape, twice the bytes), and
-    the wgmma chunk kernel beside the tile engine on the same int8 pages.
+    the wgmma chunk kernel beside the mma.sync route on the same int8 pages.
     Planted faults in row 0 (decode: a wrong page, wrong K scales, a dropped
     tail tile, a dropped split; chunk: a wrong history page, a causal
     off-by-one, wrong V scales) show that the row check sees a kernel that
-    misreads part of a long walk. Then the tile-engine route on int8 pages
+    misreads part of a long walk. Then the mma.sync route on int8 pages
     with f32 queries at the llama3-tiny geometry."""
     from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
     from mcp_context_forge_tpu_torch.tpu_local.quantize import kv_dequantize
@@ -856,7 +953,7 @@ def q8_kernel_phase(torch, dev, time_ms) -> dict:
             max_abs_err=err, max_row_error=rel, planted_faults=faults,
             **time_ms.both("kernel", lambda: paged.paged_chunk_attention_tc_q8(*cargs)),
             plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*cargs)),
-            tile_engine_ms=time_ms(lambda: paged.paged_chunk_attention_tile_q8(*cargs)),
+            mma_route_ms=time_ms(lambda: paged.paged_chunk_attention_mma_q8(*cargs)),
             bf16_pages_kernel_ms=time_ms(lambda: paged.paged_chunk_attention(
                 qc, k16, v16, ctables, pos)),
             library_ms=time_ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
@@ -867,9 +964,9 @@ def q8_kernel_phase(torch, dev, time_ms) -> dict:
         chunk_runs.append(run)
     results["paged_chunk_attention_tc_q8"] = chunk_runs[0]
 
-    # chunk, the tile-engine route on int8 pages: f32 queries and scales at
-    # the llama3-tiny geometry (KV 4, G 2, hd 32), 4 x 128 queries over 2-6
-    # history pages
+    # chunk, the mma route on int8 pages: f32 queries and scales at the
+    # llama3-tiny geometry (KV 4, G 2, hd 32), 4 x 128 queries over 2-6
+    # history pages, each row held to F32_ROW_REL
     KVt, Gt, hdt = 4, 2, 32
     hist_pages, S, n_valid = [2, 3, 4, 6], 128, [128, 128, 128, 60]
     kt8 = k8[:, :, :KVt, :hdt].contiguous()
@@ -882,50 +979,185 @@ def q8_kernel_phase(torch, dev, time_ms) -> dict:
     pos = pos.to(dev)
     ctables = tables_for([hp * PAGE + S for hp in hist_pages])
     targs = (qt, kt8, vt8, ctables, pos, kst, vst)
-    out = paged.paged_chunk_attention_q8(*targs)
+    out = paged.paged_chunk_attention_mma_q8(*targs)
     ref = paged.paged_chunk_attention_ref(*targs)
     torch.cuda.synchronize()
+    check(torch.equal(paged.paged_chunk_attention_q8(*targs), out),
+          "paged_chunk_attention_q8 does not dispatch to paged_chunk_attention_mma_q8")
     valid = pos >= 0
-    err, rel = compare_paged(torch, "paged_chunk_attention_tile_q8", out, ref, valid)
+    err, rel = compare_paged(torch, "paged_chunk_attention_mma_q8", out, ref, valid, F32_ROW_REL)
+    wrong_scales = vst.clone()
+    wrong_scales[ctables[3, 1:5].long()] *= 1.25
+    faults = planted_faults(torch, "paged_chunk_attention_mma_q8", {
+        **chunk_faults(torch, paged.paged_chunk_attention_mma_q8, targs, spare, 3, 5, 7),
+        "row 3: V scales of history pages 1-4 read 1.25x": paged.paged_chunk_attention_mma_q8(
+            qt, kt8, vt8, ctables, pos, kst, wrong_scales)}, ref, valid, F32_ROW_REL)
     keys = [int(p.max()) + 1 for p in pos]
     pairs = int((pos[valid].long() + 1).sum())
     lib = sdpa_paged(torch, paged, qt, kt8, vt8, ctables,
                      lambda c: c[None, None, :] <= pos[:, :, None], (kst, vst))
-    tile_run = dict(
+    mma_run = dict(
         shape={"q": list(qt.shape), "pages": list(kt8.shape), "page_dtype": "int8",
                "dtype": "float32", "history_pages": hist_pages, "valid_queries": n_valid},
-        max_abs_err=err, max_row_error=rel,
-        **time_ms.both("kernel", lambda: paged.paged_chunk_attention_tile_q8(*targs)),
+        max_abs_err=err, max_row_error=rel, row_limit=F32_ROW_REL, planted_faults=faults,
+        **time_ms.both("kernel", lambda: paged.paged_chunk_attention_mma_q8(*targs)),
         plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*targs)),
         library_ms=time_ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
         bytes=(2 * sum(keys) * KVt * hdt + 2 * sum(-(-n // PAGE) for n in keys) * KVt * 4
                + 2 * qt.numel() * 4 + ctables.numel() * 4 + pos.numel() * 4),
         flops=4 * hdt * Gt * KVt * pairs)
-    tile_run["bound_ms"], tile_run["bound_by"] = bound(tile_run["bytes"], tile_run["flops"],
-                                                       F32_FLOPS_PER_S)
-    results["paged_chunk_attention_tile_q8"] = tile_run
+    mma_run["bound_ms"], mma_run["bound_by"] = bound(mma_run["bytes"], mma_run["flops"],
+                                                     F32_FLOPS_PER_S)
+    results["paged_chunk_attention_mma_q8"] = mma_run
     run = results["paged_decode_attention_q8"]
     run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
     emit({"phase": "kernels_int8_pages",
           "tolerance": {"atol": TOL, "rtol": TOL, "row_relative": ROW_REL},
           "decode": results["paged_decode_attention_q8"],
-          "chunk": chunk_runs, "chunk_tile_f32": tile_run})
+          "chunk": chunk_runs, "chunk_mma_f32": mma_run})
     return results
 
 
+def gemma_kernel_phase(torch, dev, time_ms) -> None:
+    """The mma.sync chunk route at gemma-2b's geometry (KV 1, G 8, hd 256,
+    page 128), where the wgmma kernel does not go: one row of 2048 queries,
+    1944 real, over 32 history pages (the 6040-token prompt's last chunk
+    round) on bf16 and on int8 pages, and 4 x 512 queries over 48, 24, 8
+    and 0 history pages on bf16 pages. Each row is held to ROW_REL, with
+    planted faults (a wrong history page; int8: V scales read 1.25x), timed
+    beside its bound, its plain version and SDPA over K/V gathered (and
+    dequantized) in advance."""
+    from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    KV, G, hd, PAGE, NUM_PAGES, P = 1, 8, 256, 128, 256, 64
+    spare = NUM_PAGES - 1
+    check(paged.chunk_route(bf16, hd, PAGE) == "mma", "hd 256 does not route to mma")
+    pools = {
+        "bf16": (torch.randn((NUM_PAGES, PAGE, KV, hd), generator=gen, device=dev).to(bf16),
+                 torch.randn((NUM_PAGES, PAGE, KV, hd), generator=gen, device=dev).to(bf16), ()),
+        "int8": tuple(torch.randint(-127, 128, (NUM_PAGES, PAGE, KV, hd), generator=gen,
+                                    device=dev, dtype=torch.int8) for _ in range(2))
+        + (tuple((torch.rand((NUM_PAGES, KV), generator=gen, device=dev) * 1.5 + 0.5)
+                 .div(127).to(bf16) for _ in range(2)),)}
+    runs = []
+    for pages, hist_pages, S, n_valid in (("bf16", [32], 2048, [1944]),
+                                          ("int8", [32], 2048, [1944]),
+                                          ("bf16", [48, 24, 8, 0], 512, [512, 512, 512, 256])):
+        kp, vp, scales = pools[pages]
+        B = len(hist_pages)
+        tables = torch.zeros((B, P), dtype=torch.int32)
+        nxt = 1
+        for b, (hp, n) in enumerate(zip(hist_pages, n_valid)):
+            used = -(-(hp * PAGE + n) // PAGE)
+            tables[b, :used] = torch.arange(nxt, nxt + used)
+            nxt += used
+        check(nxt <= spare, "the test tables overflow the page pool")
+        tables = tables.to(dev)
+        pos = torch.full((B, S), -1, dtype=torch.int32)
+        for b, (hp, n) in enumerate(zip(hist_pages, n_valid)):
+            pos[b, :n] = torch.arange(hp * PAGE, hp * PAGE + n)
+        pos = pos.to(dev)
+        q = torch.randn((B, S, KV, G, hd), generator=gen, device=dev).to(bf16)
+        args = (q, kp, vp, tables, pos, *scales)
+        name = "paged_chunk_attention_mma" + ("_q8" if scales else "")
+        kernel = getattr(paged, name)
+        out = kernel(*args)
+        ref = paged.paged_chunk_attention_ref(*args)
+        torch.cuda.synchronize()
+        dispatch = paged.paged_chunk_attention_q8 if scales else paged.paged_chunk_attention
+        check(torch.equal(dispatch(*args), out), f"the chunk dispatch does not take {name}")
+        valid = pos >= 0
+        err, rel = compare_paged(torch, f"{name} at gemma-2b's geometry", out, ref, valid)
+        n_slots = -(-(hist_pages[0] * PAGE + n_valid[0]) // PAGE)
+        planted = chunk_faults(torch, kernel, args, spare, 0, hist_pages[0] - 8, n_slots)
+        if hist_pages[0] * PAGE > S:   # every query sees thousands of keys: one more moves
+            planted = {k: v for k, v in planted.items() if not k.startswith("causal")}
+        if scales:
+            loud = scales[1].clone()
+            loud[tables[0, 1:hist_pages[0] - 1].long()] *= 1.25
+            planted[f"row 0: V scales of history pages 1-{hist_pages[0] - 2} read 1.25x"] = \
+                kernel(q, kp, vp, tables, pos, scales[0], loud)
+        faults = planted_faults(torch, name, planted, ref, valid)
+        del ref, out, planted
+        keys = [int(p.max()) + 1 for p in pos]
+        pairs = int((pos[valid].long() + 1).sum())
+        kv_bytes = 2 * sum(keys) * KV * hd * (1 if scales else 2)
+        if scales:
+            kv_bytes += 2 * sum(-(-n // PAGE) for n in keys) * KV * 2
+        lib = sdpa_paged(torch, paged, q, kp, vp, tables,
+                         lambda c: c[None, None, :] <= pos[:, :, None], scales)
+        run = dict(
+            kernel=name, shape={"q": list(q.shape), "pages": list(kp.shape),
+                                "page_dtype": pages, "history_pages": hist_pages,
+                                "valid_queries": n_valid},
+            max_abs_err=err, max_row_error=rel, planted_faults=faults,
+            **time_ms.both("kernel", lambda: kernel(*args)),
+            plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*args)),
+            library_ms=time_ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
+            bytes=kv_bytes + 2 * q.numel() * 2 + tables.numel() * 4 + pos.numel() * 4,
+            flops=4 * hd * G * KV * pairs)
+        del lib
+        run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
+        runs.append(run)
+    emit({"phase": "kernels_gemma_2b", "tolerance": {"atol": TOL, "rtol": TOL,
+                                                     "row_relative": ROW_REL},
+          "chunk_mma": runs})
+
+
+def row_rms(torch, out, ref, rows) -> float:
+    """The largest over ``rows`` of ||out - ref||_2 / ||ref||_2 within the
+    row (see MOE_ROW_RMS)."""
+    out, ref = out[rows].float().flatten(1), ref[rows].float().flatten(1)
+    return float(((out - ref).norm(dim=1) / ref.norm(dim=1).clamp_min(1e-30)).max())
+
+
+def moe_checks(torch, name: str, out, ref, rows) -> dict:
+    """A grouped-expert output against its plain version: atol = rtol = TOL,
+    each row within ROW_REL of its largest value and within MOE_ROW_RMS in
+    norm."""
+    err = compare(torch, out, ref, rows)
+    rel, rms = row_error(torch, out, ref, rows), row_rms(torch, out, ref, rows)
+    check(rel <= ROW_REL, f"{name}: a row is off by {rel:.3g} of its largest value")
+    check(rms <= MOE_ROW_RMS, f"{name}: a row is off by {rms:.3g} in norm")
+    return {"max_abs_err": err, "max_row_error": rel, "max_row_rms": rms}
+
+
+def moe_faults(torch, name: str, faults: dict, ref, rows) -> dict:
+    """Each planted fault's output against the right plain output: the
+    checks of ``moe_checks`` must reject every one."""
+    readings = {}
+    for fault, out in faults.items():
+        rel, rms = row_error(torch, out, ref, rows), row_rms(torch, out, ref, rows)
+        check(rel > ROW_REL or rms > MOE_ROW_RMS,
+              f"{name}: the row checks pass the planted fault {fault}")
+        readings[fault] = {"row_error": rel, "row_rms": rms}
+    return readings
+
+
 def moe_kernel_phase(torch, dev, time_ms) -> dict:
-    """Both grouped-expert kernels against their plain versions at
-    Mixtral-8x7B widths (D 4096, F 14336, E 8, top-2, Bt 128) on T = 2048
-    bf16 tokens routed by a seeded random router: NB = 40 blocks. bf16
-    stacks [8, 4096, 14336] (2.8 GB), then the same stacks in int8 with
-    bf16 scales. Also times one expert-scan ``qmm`` (an [8, D] decode
-    batch through one int8 [D, F] expert matrix) beside the bf16 matmul."""
+    """Both routes of the grouped-expert kernels against their plain
+    versions at Mixtral-8x7B widths (D 4096, F 14336, E 8, top-2, Bt 128) on
+    T = 2048 bf16 tokens routed by a seeded random router: NB = 40 blocks.
+    bf16 stacks [8, 4096, 14336] (2.8 GB), then the same stacks in int8 with
+    bf16 scales. The tensor-core route (rows 4, 5) and the WMMA route on the
+    same inputs, each held by ``moe_checks``; the tensor-core route must be
+    deterministic and reject three planted faults (a wrong expert for one
+    block, h's lo half dropped, int8: s2 read 1.25x). ``library_ms``: the
+    same function by cuBLAS per expert (``torch.matmul`` over each expert's
+    padded rows, x3, plus silu(a) * b; int8 stacks converted to bf16 and
+    scaled after each product, as ``qmm`` does), not one call. Also times
+    one expert-scan ``qmm`` (an [8, D] decode batch through one int8 [D, F]
+    expert matrix) beside the bf16 matmul."""
     from mcp_context_forge_tpu_torch.tpu_local.ops import grouped_moe as gm
     from mcp_context_forge_tpu_torch.tpu_local.parallel.moe import router_probs
     from mcp_context_forge_tpu_torch.tpu_local.quantize import qmm, quantize_leaf
 
     D, F, E, K, T, Bt = 4096, 14336, 8, 2, 2048, 128
     bf16 = torch.bfloat16
+    silu = torch.nn.functional.silu
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def randn(*shape, fan_in=1):
@@ -945,31 +1177,97 @@ def moe_kernel_phase(torch, dev, time_ms) -> dict:
     be = plan["block_expert"]
     NB = be.numel()
     check(NB == -(-T * K // Bt) + E, f"NB is {NB}")
+    check(gm.moe_route(bf16, Bt, D, F) == "tc", "Mixtral widths do not route to tc")
     x_pad = (x[plan["sorted_token"].long()]
              * plan["row_valid"][:, None].to(bf16)).reshape(NB, Bt, D)
-    rows = torch.ones((NB, Bt), dtype=torch.bool, device=dev)
+    rows = plan["row_valid"].reshape(NB, Bt) > 0
     NP = NB * Bt
     flops = 6 * NP * D * F
     act_bytes = 2 * NP * D * 2 + NB * 4          # x_pad in, out out, owners
+    per_expert = torch.bincount(be.long(), minlength=E).mul(Bt).tolist()
     shape = {"x_pad": [NB, Bt, D], "w1": [E, D, F], "w2": [E, F, D],
-             "tokens": T, "top_k": K,
-             "padded_rows_per_expert": torch.bincount(
-                 be.long(), minlength=E).mul(Bt).tolist()}
-    results = {}
+             "tokens": T, "top_k": K, "padded_rows_per_expert": per_expert}
+    # blocks are sorted by expert: each expert's padded rows are one slice
+    spans = [(sum(per_expert[:e]), sum(per_expert[:e + 1])) for e in range(E)]
+    xf = x_pad.reshape(NP, D)
+    wrong = be.clone()
+    wrong[NB // 2] = (wrong[NB // 2] + 1) % E
 
-    out = gm.expert_blocks(x_pad, w1, w3, w2, be)
-    ref = gm.expert_blocks_ref(x_pad, w1, w3, w2, be)
-    torch.cuda.synchronize()
-    err = compare(torch, out, ref, rows)
-    check(torch.equal(out, gm.expert_blocks(x_pad, w1, w3, w2, be)),
-          "expert_blocks is not deterministic")
+    def library(up1, up3, down):
+        out = torch.empty_like(xf)
+        for e, (r0, r1) in enumerate(spans):
+            if r1 > r0:
+                xs = xf[r0:r1]
+                out[r0:r1] = down(silu(up1(xs, e)) * up3(xs, e), e)
+        return out
+
+    def routes(name, args, ref, extra_faults):
+        """Both routes on ``args``; the tensor-core one's faults."""
+        tc, wmma = getattr(gm, f"expert_blocks_tc{name}"), getattr(gm, f"expert_blocks_wmma{name}")
+        out = tc(*args)
+        torch.cuda.synchronize()
+        runs = {"tc": moe_checks(torch, f"expert_blocks_tc{name}", out, ref, rows)}
+        check(torch.equal(out, tc(*args)), f"expert_blocks_tc{name} is not deterministic")
+        dispatch = gm.expert_blocks_q8 if name else gm.expert_blocks
+        check(torch.equal(dispatch(*args), out),
+              f"expert_blocks{name} does not dispatch to expert_blocks_tc{name}")
+        h = torch.empty((2, NP, F), dtype=bf16, device=dev)
+        tc(*args, phases=1, h=h)
+        h[1].zero_()
+        runs["tc"]["planted_faults"] = moe_faults(torch, f"expert_blocks_tc{name}", {
+            f"block {NB // 2} read with expert {int(wrong[NB // 2])} for {int(be[NB // 2])}":
+            tc(args[0], *args[1:4], wrong),
+            "h's lo half dropped: the down-projection over hi alone": tc(*args, phases=2, h=h),
+            **{k: fn() for k, fn in extra_faults.items()}}, ref, rows)
+        del h, out
+        out = wmma(*args)
+        torch.cuda.synchronize()
+        runs["wmma"] = moe_checks(torch, f"expert_blocks_wmma{name}", out, ref, rows)
+        check(torch.equal(out, wmma(*args)), f"expert_blocks_wmma{name} is not deterministic")
+        del out
+        for route, fn in (("tc", tc), ("wmma", wmma)):
+            runs[route].update(time_ms.both("kernel", lambda: fn(*args)))
+        return runs
+
+    # the tensor-core route's other instantiations at a small shape: blocks
+    # of 64 rows (one warpgroup per CTA) and 128, SiLU and GeLU, bf16 and
+    # int8 stacks, three experts owning 1, 2 and 3 of six blocks
+    tc_geometries = []
+    for Bt_g in (64, 128):
+        for q8 in (False, True):
+            for act in ("silu", "gelu"):
+                Dg, Fg, Eg = 512, 384, 3
+                xg = randn(6, Bt_g, Dg)
+                beg = torch.tensor([0, 1, 1, 2, 2, 2], dtype=torch.int32, device=dev)
+                wg = [randn(Eg, Dg, Fg, fan_in=Dg), randn(Eg, Dg, Fg, fan_in=Dg),
+                      randn(Eg, Fg, Dg, fan_in=Fg)]
+                if q8:
+                    leaves = [[quantize_leaf(w[e], 0, bf16) for e in range(Eg)] for w in wg]
+                    wg = [{k: torch.stack([leaf[k] for leaf in ls]) for k in ("q", "s")}
+                          for ls in leaves]
+                    out = gm.expert_blocks_tc_q8(xg, *wg, beg, act)
+                    ref_g = gm.expert_blocks_q8_ref(xg, *wg, beg, act)
+                else:
+                    out = gm.expert_blocks_tc(xg, *wg, beg, act)
+                    ref_g = gm.expert_blocks_ref(xg, *wg, beg, act)
+                torch.cuda.synchronize()
+                tc_geometries.append({"Bt": Bt_g, "int8": q8, "act": act, **moe_checks(
+                    torch, f"expert_blocks_tc Bt {Bt_g} int8 {q8} {act}", out, ref_g,
+                    torch.ones((6, Bt_g), dtype=torch.bool, device=dev))})
+
+    results = {}
+    args = (x_pad, w1, w3, w2, be)
+    ref = gm.expert_blocks_ref(*args)
+    runs = routes("", args, ref, {})
     del ref
-    results["expert_blocks"] = dict(
-        shape=shape, dtype="bfloat16", max_abs_err=err,
-        **time_ms.both("kernel", lambda: gm.expert_blocks(x_pad, w1, w3, w2, be)),
-        plain_ms=time_ms(lambda: gm.expert_blocks_ref(x_pad, w1, w3, w2, be)),
-        library_ms=None, flops=flops,
-        bytes=act_bytes + 3 * E * D * F * 2)
+    plain_ms = time_ms(lambda: gm.expert_blocks_ref(*args))
+    library_ms = time_ms(lambda: library(lambda xs, e: xs @ w1[e], lambda xs, e: xs @ w3[e],
+                                         lambda h, e: h @ w2[e]))
+    for route, run in runs.items():
+        results[f"expert_blocks_{route}"] = dict(
+            shape=shape, dtype="bfloat16", **run, plain_ms=plain_ms,
+            library_ms=library_ms, library="cuBLAS per expert (3 matmuls + silu(a)*b), not one call",
+            flops=flops, bytes=act_bytes + 3 * E * D * F * 2)
 
     def quantize(w):   # per expert, as the engine's int8 init does
         q = torch.empty(w.shape, dtype=torch.int8, device=dev)
@@ -987,38 +1285,43 @@ def moe_kernel_phase(torch, dev, time_ms) -> dict:
                 "bf16_matmul_ms": time_ms(lambda: x8 @ w_one),
                 "int8_bound_ms": bound(D * F + F * 2 + 2 * 8 * (D + F) * 2,
                                        2 * 8 * D * F)[0]}
-    del w1, w3, w2, w_one
+    del w1, w3, w2, w_one, args
     free_device(torch)
 
-    out = gm.expert_blocks_q8(x_pad, q1, q3, q2, be)
-    ref = gm.expert_blocks_q8_ref(x_pad, q1, q3, q2, be)
-    torch.cuda.synchronize()
-    err = compare(torch, out, ref, rows)
-    check(torch.equal(out, gm.expert_blocks_q8(x_pad, q1, q3, q2, be)),
-          "expert_blocks_q8 is not deterministic")
-    del ref
-    results["expert_blocks_q8"] = dict(
-        shape=shape, dtype="bfloat16 activations, int8 stacks, bf16 scales",
-        max_abs_err=err,
-        **time_ms.both("kernel", lambda: gm.expert_blocks_q8(x_pad, q1, q3, q2, be)),
-        plain_ms=time_ms(lambda: gm.expert_blocks_q8_ref(x_pad, q1, q3, q2, be)),
-        library_ms=None, flops=flops,
-        bytes=act_bytes + 3 * E * D * F + (2 * E * F + E * D) * 2)
+    args = (x_pad, q1, q3, q2, be)
+    ref = gm.expert_blocks_q8_ref(*args)
+    loud = dict(q2, s=q2["s"] * 1.25)
+    runs = routes("_q8", args, ref, {"s2 read 1.25x": lambda: gm.expert_blocks_tc_q8(
+        x_pad, q1, q3, loud, be)})
+    del ref, loud
+    plain_ms = time_ms(lambda: gm.expert_blocks_q8_ref(*args))
+    library_ms = time_ms(lambda: library(
+        lambda xs, e: (xs @ q1["q"][e].to(bf16)) * q1["s"][e],
+        lambda xs, e: (xs @ q3["q"][e].to(bf16)) * q3["s"][e],
+        lambda h, e: (h @ q2["q"][e].to(bf16)) * q2["s"][e]))
+    for route, run in runs.items():
+        results[f"expert_blocks_{route}_q8"] = dict(
+            shape=shape, dtype="bfloat16 activations, int8 stacks, bf16 scales", **run,
+            plain_ms=plain_ms, library_ms=library_ms,
+            library="cuBLAS per expert on int8 stacks converted to bf16, not one call",
+            flops=flops, bytes=act_bytes + 3 * E * D * F + (2 * E * F + E * D) * 2)
     for run in results.values():
         run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
-    emit({"phase": "moe_kernels", "tolerance": {"atol": TOL, "rtol": TOL},
-          **results, "dense_scan_qmm": qmm_cost})
+    emit({"phase": "moe_kernels",
+          "tolerance": {"atol": TOL, "rtol": TOL, "row_relative": ROW_REL,
+                        "row_rms": MOE_ROW_RMS},
+          **results, "tc_geometries": tc_geometries, "dense_scan_qmm": qmm_cost})
     return results
 
 
 def model_check(torch, dev, name: str, quant: str = "",
-                moe: dict | None = None, kv_quant: str = "") -> None:
+                moe: dict | None = None, kv_quant: str = "") -> dict:
     """A tiny f32 model, the same weights on the card (kernels) and on the
     CPU (plain versions): cold prefill, prefix-hit suffix prefill and decode
     logits agree within 1e-3 (f32 both sides; summation order differs).
     ``moe`` overrides the MoE formulation; the grouped kernels must then
-    launch on the card. The mma.sync flash kernel (f32), the tile-engine
-    chunk kernel and the decode kernel must launch on the card.
+    launch on the card (f32 activations: the WMMA route). The mma.sync flash
+    and chunk kernels (f32) and the decode kernel must launch on the card.
     ``kv_quant="int8"`` stores the KV pool as int8 pages (the CPU side reads
     them through ``gather_kv``); both int8-page kernels must then launch on
     the card. Returns every kernel's launches over the card's run (the
@@ -1040,9 +1343,9 @@ def model_check(torch, dev, name: str, quant: str = "",
     params_cpu = llama.init_params(cfg, torch.Generator().manual_seed(0),
                                    torch.float32, "cpu", quant=quant)
     wrappers = kernel_wrappers()
-    expert_kernel = "expert_blocks_q8" if quant else "expert_blocks"
-    attention = (("flash_attention_mma", "paged_chunk_attention_tile_q8",
-                  "paged_decode_attention_q8") if kv_quant else ATTENTION_F32)
+    expert_kernel = "expert_blocks_wmma_q8" if quant else "expert_blocks_wmma"
+    attention = (("flash_attention_mma", "paged_chunk_attention_mma_q8",
+                  "paged_decode_attention_q8") if kv_quant else ATTENTION_MMA)
 
     def to(tree, device):
         if isinstance(tree, dict):
@@ -1175,16 +1478,18 @@ def long_context_requests(model: str) -> list[dict]:
             chat(model, "Hello!"), chat(model, "What is 2 + 2?")]
 
 
-def check_long_context(stats: dict) -> None:
-    """The int8-KV long-context phase: both summaries chunked and the pool
-    holds 1023 int8 pages."""
+def check_long_context(stats: dict, pool_pages: int, page_dtype: str) -> None:
+    """A long-context phase: both summaries chunked, and the pool holds
+    ``pool_pages`` pages of ``page_dtype`` (1023 int8 pages in the bytes of
+    512 bf16 ones, or 512 bf16 pages)."""
     lengths = stats["prompt_tokens"][1:3]
     check(lengths[0] >= 6000 and 3000 <= lengths[1] < 4096,
           f"the long prompts have {lengths} tokens")
     check(all(stats["chunked"][1:3]), "a long prompt was not chunked")
-    check(stats["kv_pages"] == stats["kv_pool_pages"] == 1023
-          and stats["kv_page_dtype"] == "torch.int8",
-          f"the int8 pool holds {stats['kv_pool_pages']} {stats['kv_page_dtype']} pages")
+    check(stats["kv_pages"] == stats["kv_pool_pages"] == pool_pages
+          and stats["kv_page_dtype"] == page_dtype,
+          f"the pool holds {stats['kv_pool_pages']} {stats['kv_page_dtype']} pages, "
+          f"not {pool_pages} {page_dtype}")
 
 
 def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],

@@ -11,7 +11,8 @@
 //
 // What bounds it: operations (4*hd per attended (query, key) pair and
 // head, growing as S^2 against bytes growing as S). The design is
-// FlashAttention-2's:
+// FlashAttention-2's, on the machinery of attention_mma.cuh (shared with
+// the paged chunk kernel, paged_chunk_attention_mma.cu):
 //   - each warp owns 16 query rows r = s*G + g of one (batch row, KV head),
 //     four warps to a CTA (64 rows). Smaller CTAs would fill more SMs at
 //     small shapes, but each one's key walk is then a single warp's latency
@@ -21,19 +22,8 @@
 //     share an SM in bf16 and one fits in f32) arrive by cp.async into a
 //     double buffer and serve all G heads of the KV group and every warp of
 //     the CTA;
-//   - bf16: S = Q K^T and O += P V run as mma.sync m16n8k16 with f32
-//     accumulation; Q and K fragments come by ldmatrix, V by ldmatrix.trans,
-//     and the S accumulator's fragment, rounded to bf16, is the A fragment
-//     of P V in registers;
-//   - f32: 3xTF32 mma.sync m16n8k8: a = a_hi + a_lo with both parts in TF32
-//     and a*b ~ a_hi*b_hi + a_hi*b_lo + a_lo*b_hi, within ~1e-6 relative of
-//     f32 FMAs (one TF32 product alone is ~1e-3). The S accumulator holds
-//     keys (2t, 2t+1) of each 8-key group where the m16n8k8 A fragment
-//     wants (t, t + 4), so P V reads its keys in that order: key 2t of the
-//     group is column t and key 2t + 1 column t + 4 of the A fragment, and
-//     the V rows of the B fragment follow the same order;
-//   - the head dim is a template value in {16, 32, 64, 128, 256}; a runtime
-//     hd up to it (hd % 8 == 0) reads zeros in the columns past hd;
+//   - bf16 runs mma.sync m16n8k16, f32 3xTF32 m16n8k8 (attention_mma.cuh);
+//     the head dim is a template value in {16, 32, 64, 128, 256};
 //   - each CTA walks key tiles up to its causal frontier and skips the
 //     trailing tiles with no valid key; the longest (last) query blocks
 //     launch first.
@@ -41,93 +31,11 @@
 // Semantics: out[b, s, h] = softmax_c(q.k_c / sqrt(hd)) @ v over keys
 // c <= s with valid[b, c]; masked scores are -1e30 and the sum is floored
 // at 1e-30, so a row that sees no valid key stays finite.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 4;
-constexpr int kRows = 16 * kWarps;  // query rows per CTA
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zeros where ``ok`` is false
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// D[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// D[16 x 8] += A[16 x 8] B[8 x 8], TF32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x = hi + lo, both TF32 (round to nearest); x - hi is exact in f32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-// a*b in 3xTF32: the two cross terms first, the large term last
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
-                                           uint32_t bl0, uint32_t bl1) {
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
+using namespace mma;
 
 template <typename T>
 struct MmaParams {
@@ -140,106 +48,13 @@ struct MmaParams {
   float scale_log2;       // log2(e) / sqrt(hd)
 };
 
-// Tile shape and shared memory: Q [kRows][LD], K [2][TKM][LD], V [2][TKM][LD]
-// (a pitch of HD + 8 bf16 or HD + 4 f32 puts the rows a fragment reads on
-// distinct banks), then one validity bit per walked key.
+// Shared memory: Q [kRows][LD], K [2][TKM][LD], V [2][TKM][LD], then one
+// validity bit per walked key.
 template <typename T, int HD>
-struct Cfg {
-  static constexpr bool F32 = std::is_same<T, float>::value;
-  static constexpr int TKM = HD == 256 ? 32 : 64;  // keys per tile
-  static constexpr int LD = F32 ? HD + 4 : HD + 8;
-  static constexpr int EPC = 16 / (int)sizeof(T);           // elements per 16-byte chunk
-  static constexpr int CPR = HD / EPC;                      // chunks per row
-  static size_t bytes(int S) {
-    return (size_t)(kRows + 4 * TKM) * LD * sizeof(T) + (size_t)((S + TKM - 1) / TKM) * (TKM / 32) * 4;
-  }
-};
-
-// S[16 x TKM] = Q K^T of one warp's rows (Qw) and one key tile (kt)
-template <typename T, int HD>
-__device__ __forceinline__ void scores(float (&s)[Cfg<T, HD>::TKM / 8][4], const T* Qw,
-                                       const T* kt, int lane) {
+size_t smem_bytes(int S) {
   using C = Cfg<T, HD>;
-  constexpr int NB = C::TKM / 8;
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-  if constexpr (C::F32) {
-    const int g = lane / 4, tg = lane % 4;
-#pragma unroll
-    for (int kk = 0; kk < HD / 8; ++kk) {
-      uint32_t ah[4], al[4];
-      split_tf32(Qw[g * C::LD + kk * 8 + tg], ah[0], al[0]);
-      split_tf32(Qw[(g + 8) * C::LD + kk * 8 + tg], ah[1], al[1]);
-      split_tf32(Qw[g * C::LD + kk * 8 + tg + 4], ah[2], al[2]);
-      split_tf32(Qw[(g + 8) * C::LD + kk * 8 + tg + 4], ah[3], al[3]);
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(kt[(nb * 8 + g) * C::LD + kk * 8 + tg], bh0, bl0);
-        split_tf32(kt[(nb * 8 + g) * C::LD + kk * 8 + tg + 4], bh1, bl1);
-        mma_3xtf32(s[nb], ah, al, bh0, bh1, bl0, bl1);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, smem_u32(Qw + (lane % 8 + ((lane / 8) % 2) * 8) * C::LD + kk * 16 +
-                              (lane / 16) * 8));
-#pragma unroll
-      for (int nb = 0; nb < NB; nb += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, smem_u32(kt + (nb * 8 + lane % 8 + (lane / 16) * 8) * C::LD + kk * 16 +
-                                 ((lane / 8) % 2) * 8));
-        mma_bf16(s[nb], a, bf[0], bf[1]);
-        mma_bf16(s[nb + 1], a, bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// O[16 x HD] += P V of one warp's rows: P (the probabilities in s) and one
-// V tile (vt)
-template <typename T, int HD>
-__device__ __forceinline__ void pv(float (&o)[HD / 8][4], const float (&s)[Cfg<T, HD>::TKM / 8][4],
-                                   const T* vt, int lane) {
-  using C = Cfg<T, HD>;
-  if constexpr (C::F32) {
-    const int g = lane / 4, tg = lane % 4;
-#pragma unroll
-    for (int kk = 0; kk < C::TKM / 8; ++kk) {
-      // A column tg is key 2tg of the group, column tg + 4 key 2tg + 1
-      uint32_t ah[4], al[4];
-      split_tf32(s[kk][0], ah[0], al[0]);
-      split_tf32(s[kk][2], ah[1], al[1]);
-      split_tf32(s[kk][1], ah[2], al[2]);
-      split_tf32(s[kk][3], ah[3], al[3]);
-      const T* v0 = vt + (kk * 8 + 2 * tg) * C::LD + g;
-#pragma unroll
-      for (int nb = 0; nb < HD / 8; ++nb) {
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(v0[nb * 8], bh0, bl0);
-        split_tf32(v0[C::LD + nb * 8], bh1, bl1);
-        mma_3xtf32(o[nb], ah, al, bh0, bh1, bl0, bl1);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < C::TKM / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nb = 0; nb < HD / 8; nb += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, smem_u32(vt + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * C::LD +
-                                       nb * 8 + (lane / 16) * 8));
-        mma_bf16(o[nb], a, bf[0], bf[1]);
-        mma_bf16(o[nb + 1], a, bf[2], bf[3]);
-      }
-    }
-  }
+  return (size_t)(kRows + 4 * C::TKM) * C::LD * sizeof(T) +
+         (size_t)((S + C::TKM - 1) / C::TKM) * (C::TKM / 32) * 4;
 }
 
 template <typename T, int HD>
@@ -290,14 +105,7 @@ __global__ void __launch_bounds__(32 * kWarps) flash_mma_kernel(MmaParams<T> p) 
     }
   };
   if (n_tiles > 0) {
-    for (int i = tid; i < kRows * C::CPR; i += 32 * kWarps) {
-      const int r = i / C::CPR, col = (i % C::CPR) * C::EPC;
-      const int gr = r0 + r;
-      const bool ok = gr < R && col < hd;
-      const int s = gr / G, g = gr - s * G;
-      const long long off = ok ? (((long long)b * S + s) * H + (long long)kvh * G + g) * hd + col : 0;
-      cp_async16(smem_u32(Qs + r * C::LD + col), p.q + off, ok);
-    }
+    load_q<T, HD>(Qs, p.q, b, S, H, G, kvh, r0, hd);
     load_kv(0, 0);
   }
   cp_async_commit();
@@ -364,62 +172,18 @@ __global__ void __launch_bounds__(32 * kWarps) flash_mma_kernel(MmaParams<T> p) 
         }
       }
     }
-#pragma unroll
-    for (int sh = 1; sh <= 2; sh <<= 1) {  // the four threads of a row
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      s[nb][0] = exp2f(s[nb][0] - mn0);
-      s[nb][1] = exp2f(s[nb][1] - mn0);
-      s[nb][2] = exp2f(s[nb][2] - mn1);
-      s[nb][3] = exp2f(s[nb][3] - mn1);
-      sum0 += s[nb][0] + s[nb][1];
-      sum1 += s[nb][2] + s[nb][3];
-    }
-    l0 = l0 * corr0 + sum0;  // this thread's columns; the row sums at the end
-    l1 = l1 * corr1 + sum1;
-#pragma unroll
-    for (int nb = 0; nb < HD / 8; ++nb) {
-      o[nb][0] *= corr0;
-      o[nb][1] *= corr0;
-      o[nb][2] *= corr1;
-      o[nb][3] *= corr1;
-    }
+    online_softmax(s, o, mx0, mx1, m0, m1, l0, l1);
     pv<T, HD>(o, s, vt, lane);
     __syncthreads();  // the next load overwrites this tile's buffer
   }
 
-#pragma unroll
-  for (int sh = 1; sh <= 2; sh <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
-  }
-  const float inv[2] = {1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f)};
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int gr = r0 + wr + g + 8 * half;
-    if (gr >= R) continue;
-    const int s = gr / G, gh = gr - s * G;
-    T* dst = p.out + (((long long)b * S + s) * H + (long long)kvh * G + gh) * hd;
-#pragma unroll
-    for (int nb = 0; nb < HD / 8; ++nb) {
-      const int col = nb * 8 + 2 * tg;
-      if (col < hd) store2(dst + col, o[nb][2 * half] * inv[half], o[nb][2 * half + 1] * inv[half]);
-    }
-  }
+  store_out<T, HD>(o, l0, l1, p.out, b, S, H, G, kvh, r0 + wr + g, hd, tg);
 }
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out, int B,
            int S, int KV, int G, int hd, cudaStream_t stream) {
-  const size_t smem = Cfg<T, HD>::bytes(S);
+  const size_t smem = smem_bytes<T, HD>(S);
   cudaError_t err = cudaFuncSetAttribute(
       flash_mma_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -1,5 +1,8 @@
 // Grouped expert FFN over expert-sorted row-blocks (the dropless MoE FFN),
-// for Hopper (sm_90a). Two C entries:
+// for Hopper (sm_90a), on WMMA: the cases the wgmma kernel
+// (grouped_moe_tc.cu: bf16 activations, Bt a multiple of 64, D of 256 and
+// F of 128) does not take, such as f32 and moe_block 8;
+// ops/grouped_moe.py moe_route chooses. Two C entries:
 //   mcf_expert_blocks     full-precision expert stacks (bf16 or f32)
 //   mcf_expert_blocks_q8  int8 expert stacks with per-(expert, out-channel)
 //                         scales
@@ -38,7 +41,7 @@
 // What bounds it: operations. At Mixtral-8x7B widths (D 4096, F 14336,
 // Bt 128) and T = 2048 tokens (NB = 40 blocks), 6*NB*Bt*D*F = 1.80 TFLOP
 // against 2.82 GB of bf16 weights (1.41 GB int8): 1.82 ms at the bf16
-// tensor-core peak vs 0.84 ms of bytes. This first version loads tiles
+// tensor-core peak vs 0.84 ms of bytes. This kernel loads tiles
 // synchronously (no cp.async / TMA pipeline) and uses WMMA, not wgmma;
 // phase B's hi/lo split doubles its MMAs.
 #include <cuda_bf16.h>

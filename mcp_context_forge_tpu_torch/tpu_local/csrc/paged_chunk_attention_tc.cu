@@ -8,8 +8,8 @@
 // paged_attention.py:111-113) in mcf_paged_chunk_attention_tc_q8. The JAX
 // engine reaches it from models/llama.py prefill_with_history: the suffix
 // prefill of a prefix-cache hit and every round of a chunked prefill. f32
-// pages and other head dims keep the tile-engine kernel
-// (paged_chunk_attention.cu); ops/paged_attention.py chunk_route chooses.
+// pages, other head dims and other page sizes take the mma.sync kernel
+// (paged_chunk_attention_mma.cu); ops/paged_attention.py chunk_route chooses.
 //
 // What bounds it: a 2048-query round over thousands of cached keys is
 // FLOP-bound (4*hd per attended (query, key) pair and head against 1 or 2

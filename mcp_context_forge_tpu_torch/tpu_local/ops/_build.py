@@ -20,8 +20,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("flash_attention_mma", "flash_attention_tc", "paged_chunk_attention",
-           "paged_chunk_attention_tc", "paged_decode_attention", "grouped_moe")
+KERNELS = ("flash_attention_mma", "flash_attention_tc", "paged_chunk_attention_mma",
+           "paged_chunk_attention_tc", "paged_decode_attention", "grouped_moe",
+           "grouped_moe_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -118,8 +119,8 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-# dtype codes of the C entries (attention_tile.cuh kBF16 / kF32, and the
-# same codes in paged_decode_attention.cu and grouped_moe.cu)
+# dtype codes of the C entries (bf16 0, f32 1 in every csrc/ source that
+# takes both)
 DTYPE_CODES = {"torch.bfloat16": 0, "torch.float32": 1}
 
 

@@ -15,21 +15,23 @@ combines them in a fixed order. ``decode_partials_ref`` and
 The chunk kernels: ``chunk_route`` picks one by query dtype, head dim and
 page size. bf16 queries at hd 64 or 128 over pages of a multiple of 64
 take ``csrc/paged_chunk_attention_tc.cu`` (wgmma tiles, K/V pages by TMA;
-``paged_chunk_attention_tc``/``_tc_q8``); everything else takes the FMA
-tile engine of ``csrc/paged_chunk_attention.cu``
-(``paged_chunk_attention_tile``/``_tile_q8``). Each carries its own launch
-count; ``paged_chunk_attention``/``_q8`` only dispatch.
+``paged_chunk_attention_tc``/``_tc_q8``); everything else takes the
+mma.sync kernel of ``csrc/paged_chunk_attention_mma.cu``
+(``paged_chunk_attention_mma``/``_mma_q8``: key tiles of 64 keys, 32 at
+hd 256, each key looked up through the block table, so any page size).
+``chunk_tiles_ref`` is the plain model of that walk. Each carries its own
+launch count; ``paged_chunk_attention``/``_q8`` only dispatch.
 
 Pages are bf16/f32, or int8 with per-(page, kv-head) scales ``k_scales`` /
 ``v_scales`` [num_pages, KV] in the query's dtype (one layer's slice of the
 pool's scales). Int8 pages run their own kernels (``mcf_*_q8``; wrappers
-``paged_decode_attention_q8`` and ``paged_chunk_attention_{tc,tile}_q8``
+``paged_decode_attention_q8`` and ``paged_chunk_attention_{tc,mma}_q8``
 behind ``paged_chunk_attention_q8``, each with its own launch count). The
-decode and tile-engine kernels dequantize each key in f32 as they stage it,
-as the Pallas kernels do (``k * k_scale``); the decode kernel factors each
-page's scales out of its sums, and the tensor-core chunk kernel multiplies
-S by the K scale and P by the V scale in f32 (the int8 values widen to
-bf16 exactly). The plain versions dequantize in f32 inside the gather.
+decode kernel factors each page's scales out of its sums; both chunk
+kernels widen the int8 values exactly (to bf16, or f32 for f32 queries)
+and multiply S by each key's K scale and P by its V scale in f32. The
+plain versions dequantize in f32 inside the gather (``k * k_scale``, as
+the Pallas kernels do).
 
 Layouts are the JAX package's: q [B, KV, G, hd] (decode) or
 [B, S, KV, G, hd] (chunk); pages [num_pages, page, KV, hd]; block tables
@@ -94,6 +96,58 @@ def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables,
     out = torch.einsum("bkgsc,bckh->bskgh", torch.softmax(scores, dim=-1),
                        values)
     return out.to(q.dtype)
+
+
+def chunk_tile_keys(hd: int) -> int:
+    """Keys per tile of the mma.sync chunk kernel: 64, and 32 at its
+    hd-256 template (hd > 128), where the O accumulator leaves room for
+    less."""
+    return 32 if hd > 128 else 64
+
+
+def chunk_tiles_ref(q, k_pages, v_pages, block_tables, q_positions,
+                    k_scales=None, v_scales=None):
+    """Plain model of the mma.sync chunk kernel's walk: key tiles of
+    ``chunk_tile_keys(hd)`` keys up to the largest position, each key
+    gathered from row c % page of page block_tables[b, c // page], scores
+    in base 2 (int8 pages: times each key's K scale), masked by position,
+    and an online softmax across the tiles (running max and sum; the
+    probabilities times each key's V scale for P V). Padding rows
+    (position -1) see every key masked and come out finite."""
+    B, S, KV, G, hd = q.shape
+    page, P = k_pages.shape[1], block_tables.shape[1]
+    tk = chunk_tile_keys(hd)
+    n_keys = min(int(q_positions.max()) + 1, P * page)
+    qf = q.float().permute(0, 2, 3, 1, 4)                        # [B, KV, G, S, hd]
+    m = torch.full((B, KV, G, S), NEG_INF, device=q.device)
+    l = torch.zeros((B, KV, G, S), device=q.device)
+    o = torch.zeros((B, KV, G, S, hd), device=q.device)
+    scale = LOG2E / math.sqrt(hd)
+    for c0 in range(0, n_keys, tk):
+        c = torch.arange(c0, c0 + tk, device=q.device)
+        live = c < n_keys
+        idx = block_tables[:, torch.clamp(c // page, max=P - 1)].long()  # [B, tk]
+        keys = k_pages[idx, c % page].float()                    # [B, tk, KV, hd]
+        values = v_pages[idx, c % page].float()
+        keys = torch.where(live[None, :, None, None], keys, 0.0)
+        values = torch.where(live[None, :, None, None], values, 0.0)
+        s = torch.einsum("bkgsh,bckh->bkgsc", qf, keys) * scale
+        if k_scales is not None:
+            ks = torch.where(live[None, :, None], k_scales[idx].float(), 0.0)
+            s = s * ks.permute(0, 2, 1)[:, :, None, None, :]
+        ok = c[None, None, :] <= q_positions[:, :, None]         # [B, S, tk]
+        s = torch.where(ok[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        if v_scales is not None:
+            vs = torch.where(live[None, :, None], v_scales[idx].float(), 0.0)
+            p = p * vs.permute(0, 2, 1)[:, :, None, None, :]
+        o = o * corr[..., None] + torch.einsum("bkgsc,bckh->bkgsh", p, values)
+        m = m_new
+    out = o / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
 DECODE_CTAS_PER_SM = 4   # more splits shorten the longest walk; past ~4 the
@@ -313,10 +367,10 @@ CHUNK_TC_PAGE = 64   # the tensor-core kernel's key tile: pages hold whole tiles
 def chunk_route(q_dtype: torch.dtype, hd: int, page_size: int) -> str:
     """Which chunk kernel a CUDA call takes: ``"tc"`` (wgmma) for bf16
     queries at hd 64 or 128 over pages of a multiple of 64 tokens,
-    ``"tile"`` (the FMA tile engine) otherwise. A static choice, never a
+    ``"mma"`` (mma.sync) otherwise. A static choice, never a
     reaction to a failed build or launch."""
     return ("tc" if q_dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
-            and page_size % CHUNK_TC_PAGE == 0 else "tile")
+            and page_size % CHUNK_TC_PAGE == 0 else "mma")
 
 
 def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -335,7 +389,7 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                          q_positions)
     kernel = (paged_chunk_attention_tc
               if chunk_route(q.dtype, q.shape[-1], k_pages.shape[1]) == "tc"
-              else paged_chunk_attention_tile)
+              else paged_chunk_attention_mma)
     return kernel(q, k_pages, v_pages, block_tables, q_positions)
 
 
@@ -349,7 +403,7 @@ def paged_chunk_attention_q8(q: torch.Tensor, k_pages: torch.Tensor,
                                          q_positions, k_scales, v_scales)
     kernel = (paged_chunk_attention_tc_q8
               if chunk_route(q.dtype, q.shape[-1], k_pages.shape[1]) == "tc"
-              else paged_chunk_attention_tile_q8)
+              else paged_chunk_attention_mma_q8)
     return kernel(q, k_pages, v_pages, block_tables, q_positions, k_scales,
                   v_scales)
 
@@ -385,24 +439,28 @@ def paged_chunk_attention_tc_q8(q, k_pages, v_pages, block_tables,
     return out
 
 
-def paged_chunk_attention_tile(q, k_pages, v_pages, block_tables,
-                               q_positions) -> torch.Tensor:
-    """The FMA tile-engine kernel over bf16/f32 pages (CUDA tensors)."""
-    out = _chunk_launch("paged_chunk_attention", "mcf_paged_chunk_attention",
-                        q, k_pages, v_pages, block_tables, q_positions, None,
-                        None)
-    paged_chunk_attention_tile.launches += 1
+def paged_chunk_attention_mma(q, k_pages, v_pages, block_tables,
+                              q_positions) -> torch.Tensor:
+    """The mma.sync kernel over bf16/f32 pages (CUDA tensors)."""
+    out = _chunk_launch("paged_chunk_attention_mma",
+                        "mcf_paged_chunk_attention_mma", q, k_pages, v_pages,
+                        block_tables, q_positions, None, None)
+    paged_chunk_attention_mma.launches += 1
     return out
 
 
-def paged_chunk_attention_tile_q8(q, k_pages, v_pages, block_tables,
-                                  q_positions, k_scales,
-                                  v_scales) -> torch.Tensor:
-    """The FMA tile-engine kernel over int8 pages (CUDA tensors)."""
-    out = _chunk_launch("paged_chunk_attention",
-                        "mcf_paged_chunk_attention_q8", q, k_pages, v_pages,
-                        block_tables, q_positions, k_scales, v_scales)
-    paged_chunk_attention_tile_q8.launches += 1
+def paged_chunk_attention_mma_q8(q, k_pages, v_pages, block_tables,
+                                 q_positions, k_scales,
+                                 v_scales) -> torch.Tensor:
+    """The mma.sync kernel over int8 pages (CUDA tensors; hd % 16 == 0,
+    whole 16-byte chunks of int8 keys)."""
+    if q.shape[-1] % 16:
+        raise ValueError(f"paged_chunk_attention_mma_q8: int8 pages need "
+                         f"hd % 16 == 0, got {q.shape[-1]}")
+    out = _chunk_launch("paged_chunk_attention_mma",
+                        "mcf_paged_chunk_attention_mma_q8", q, k_pages,
+                        v_pages, block_tables, q_positions, k_scales, v_scales)
+    paged_chunk_attention_mma_q8.launches += 1
     return out
 
 
@@ -437,5 +495,5 @@ paged_decode_attention.launches = 0
 paged_decode_attention_q8.launches = 0
 paged_chunk_attention_tc.launches = 0
 paged_chunk_attention_tc_q8.launches = 0
-paged_chunk_attention_tile.launches = 0
-paged_chunk_attention_tile_q8.launches = 0
+paged_chunk_attention_mma.launches = 0
+paged_chunk_attention_mma_q8.launches = 0

@@ -151,14 +151,14 @@ def _route_cases():
         for hd in hds:
             tc = dtype == torch.bfloat16 and hd in (64, 128)
             cases.append(("flash", dtype, hd, None, "tc" if tc else "mma"))
-            cases.append(("chunk", dtype, hd, 128, "tc" if tc else "tile"))
+            cases.append(("chunk", dtype, hd, 128, "tc" if tc else "mma"))
     cases += [
         ("flash", torch.float16, 128, None, "mma"),
-        ("chunk", torch.float16, 128, 128, "tile"),
+        ("chunk", torch.float16, 128, 128, "mma"),
         ("chunk", torch.bfloat16, 128, 64, "tc"),
         ("chunk", torch.bfloat16, 64, 256, "tc"),
-        ("chunk", torch.bfloat16, 128, 16, "tile"),   # pages smaller than a key tile
-        ("chunk", torch.bfloat16, 128, 96, "tile"),   # pages of a partial key tile
+        ("chunk", torch.bfloat16, 128, 16, "mma"),   # pages smaller than a key tile
+        ("chunk", torch.bfloat16, 128, 96, "mma"),   # pages of a partial key tile
     ]
     return cases
 

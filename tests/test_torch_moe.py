@@ -162,14 +162,15 @@ def test_cpu_tensors_run_the_plain_versions():
     _, tp = _params()
     _, tq = _params(quant=True)
     x, be = _t(x), _t(be)
-    before = (gm.expert_blocks.launches, gm.expert_blocks_q8.launches)
+    counters = (gm.expert_blocks_tc, gm.expert_blocks_tc_q8,
+                gm.expert_blocks_wmma, gm.expert_blocks_wmma_q8)
+    before = tuple(fn.launches for fn in counters)
     assert torch.equal(gm.expert_blocks(x, tp["w1"], tp["w3"], tp["w2"], be),
                        gm.expert_blocks_ref(x, tp["w1"], tp["w3"], tp["w2"], be))
     assert torch.equal(
         gm.expert_blocks_q8(x, tq["w1"], tq["w3"], tq["w2"], be),
         gm.expert_blocks_q8_ref(x, tq["w1"], tq["w3"], tq["w2"], be))
-    assert (gm.expert_blocks.launches, gm.expert_blocks_q8.launches) == \
-        before == (0, 0)
+    assert tuple(fn.launches for fn in counters) == before == (0, 0, 0, 0)
 
 
 # ------------------------------------------------------------- FFN as a whole

@@ -193,7 +193,7 @@ def test_int8_pages_match_pallas(kind, KV, G, hd, page):
     np.testing.assert_array_equal(out, ref)
     assert port_paged.paged_decode_attention_q8.launches == 0
     assert port_paged.paged_chunk_attention_tc_q8.launches == 0
-    assert port_paged.paged_chunk_attention_tile_q8.launches == 0
+    assert port_paged.paged_chunk_attention_mma_q8.launches == 0
 
 
 def test_scales_come_in_pairs():
@@ -215,8 +215,8 @@ def test_cpu_tensors_run_the_plain_versions():
                 port_paged.paged_decode_attention_q8,
                 port_paged.paged_chunk_attention_tc,
                 port_paged.paged_chunk_attention_tc_q8,
-                port_paged.paged_chunk_attention_tile,
-                port_paged.paged_chunk_attention_tile_q8)
+                port_paged.paged_chunk_attention_mma,
+                port_paged.paged_chunk_attention_mma_q8)
     before = [fn.launches for fn in counters]
     q = _t(rng.standard_normal((1, 8, 4, 16), dtype=np.float32))
     k = _t(rng.standard_normal((1, 8, 2, 16), dtype=np.float32))
