@@ -29,7 +29,8 @@ Run from the root of a checkout. Phases, each printing one JSON line:
    the CPU (plain versions): prefill, prefix-hit suffix prefill, decode.
    Then ``engine_llama3_tiny_f32``: the engine phase below on llama3-tiny in
    f32, the path of the mma.sync flash and chunk kernels.
-5. engine: ``TorchLocalProvider.chat`` with seeded random weights in bf16:
+5. engine: ``TorchLocalProvider.chat`` with seeded random weights in bf16
+   (decode on CUDA graphs, below):
    six concurrent greedy requests (two share a 300+ token system prompt,
    so the second hits the prefix cache; one is ~1450 tokens), then one
    request sent twice must give the same tokens. Every kernel's launch
@@ -40,6 +41,23 @@ Run from the root of a checkout. Phases, each printing one JSON line:
    built. The kernel table's ``launches`` sum every engine phase and
    model check.
 
+Decode in every engine phase is CUDA-graph replays of K-step super-steps
+(the overlapped pipeline on, as by default): each phase checks that
+``decode_step`` ran only while the engine was built (warm-up and capture,
+2 K calls per graph; one graph per width and greedy-only or sampling) and
+never while it served, that every decode dispatch was a replay, and that
+each decode kernel's launches equal replays x the graph's launches of it;
+its line adds ``graph_replays``, ``graph_captures``, ``decode_dispatches``,
+``overlap_steps``, ``pipeline_drains`` and ``decode_wall_ms_total``
+(retire-to-retire wall, which decode tokens/s divides by). The llama3-8b
+phase also gives one replay's inputs to the eager super-step on the same
+pool (``graph_against_eager``: equal greedy tokens, logits within the row
+bound), and ``engine_llama3_tiny_f32_k8`` repeats the llama3-tiny phase at
+K = 8, whose greedy streams must equal the K = 1 phase's. ``kv_write``
+holds the fused int8 decode writer bit for bit against the plain writer
+(pages >= 1 and their scales) at Llama-3-8B shapes, with three planted
+faults.
+
 The attention path runs first, on a card the MoE phases have not loaded:
 kernels (Llama-3-8B serving shapes), model (llama3-tiny), engine (llama3-8b
 at full width, 32 layers: the three attention kernels; every flash and
@@ -48,7 +66,8 @@ context path on int8 KV pages: the int8-page chunk and decode kernels at
 Llama-3-8B shapes over a 1024-page int8 pool (seq_lens up to ~8000; 512-
 query chunks over up to 48 history pages, and the 6040-token prompt's last
 chunk round: 2048 queries, 1944 of them real, over 32 history pages), the
-llama3-tiny model check on int8 pages, and
+fused int8 decode writer (``kv_write``), the llama3-tiny model check on
+int8 pages, and
 ``engine_llama3_8b_int8_kv_long``: llama3-8b at full width
 and depth with ``kv_quant="int8"``, max_seq_len 8192 and a 512-page byte
 budget (1023 int8 pages), serving a ~6000-token and a ~3000-token prompt
@@ -151,6 +170,8 @@ REPLACES = {
     "expert_blocks_tc_q8": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:225",
     "expert_blocks_wmma": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:164",
     "expert_blocks_wmma_q8": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:225",
+    # not a pallas_call: the XLA-fused int8 decode write (_quant_store)
+    "kv_quant_store_decode": "mcp_context_forge_tpu/tpu_local/kv/paged_cache.py:121",
 }
 SOURCES = {
     "flash_attention_tc": "flash_attention_tc.cu",
@@ -165,6 +186,7 @@ SOURCES = {
     "expert_blocks_tc_q8": "grouped_moe_tc.cu",
     "expert_blocks_wmma": "grouped_moe.cu",
     "expert_blocks_wmma_q8": "grouped_moe.cu",
+    "kv_quant_store_decode": "kv_quant_store.cu",
 }
 ATTENTION = ("flash_attention_tc", "paged_chunk_attention_tc", "paged_decode_attention")
 ATTENTION_Q8 = ("flash_attention_tc", "paged_chunk_attention_tc_q8",
@@ -181,21 +203,8 @@ NOT_BF16 = ("flash_attention_mma", "paged_chunk_attention_mma",
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, which carries its ``launches`` count."""
-    from mcp_context_forge_tpu_torch.tpu_local.ops import attention as attn
-    from mcp_context_forge_tpu_torch.tpu_local.ops import grouped_moe as gm
-    from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
-    return {"flash_attention_tc": attn.flash_attention_tc,
-            "flash_attention_mma": attn.flash_attention_mma,
-            "paged_chunk_attention_tc": paged.paged_chunk_attention_tc,
-            "paged_chunk_attention_tc_q8": paged.paged_chunk_attention_tc_q8,
-            "paged_chunk_attention_mma": paged.paged_chunk_attention_mma,
-            "paged_chunk_attention_mma_q8": paged.paged_chunk_attention_mma_q8,
-            "paged_decode_attention": paged.paged_decode_attention,
-            "paged_decode_attention_q8": paged.paged_decode_attention_q8,
-            "expert_blocks_tc": gm.expert_blocks_tc,
-            "expert_blocks_tc_q8": gm.expert_blocks_tc_q8,
-            "expert_blocks_wmma": gm.expert_blocks_wmma,
-            "expert_blocks_wmma_q8": gm.expert_blocks_wmma_q8}
+    from mcp_context_forge_tpu_torch.tpu_local.ops import kernel_wrappers as wrappers
+    return wrappers()
 
 
 def free_device(torch) -> None:
@@ -249,8 +258,18 @@ def main() -> int:
     emit({"phase": "engine_llama3_tiny_f32", **stats})
     count(counts)
     free_device(torch)
+    k1_tokens = stats["generated"]
+    counts, stats = engine_phase(torch, dev, "llama3-tiny", ATTENTION_MMA,
+                                 chat_requests("llama3-tiny"), hit=1,
+                                 absent=TC_ATTENTION, dtype="float32", superstep=8)
+    check(stats["generated"] == k1_tokens,
+          "K = 8 super-steps changed a greedy stream of the K = 1 phase")
+    emit({"phase": "engine_llama3_tiny_f32_k8", "tokens_equal_k1": True, **stats})
+    count(counts)
+    free_device(torch)
     counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION,
-                                 chat_requests("llama3-8b"), hit=1, absent=NOT_BF16)
+                                 chat_requests("llama3-8b"), hit=1, absent=NOT_BF16,
+                                 graph_check=True)
     check(stats["buckets"][2] == 2048,
           f"the ~1450-token prompt took bucket {stats['buckets'][2]}")
     emit({"phase": "engine", **stats})
@@ -260,8 +279,11 @@ def main() -> int:
     # ------------------------- long context on int8 KV: kernels, model, engine
     results.update(q8_kernel_phase(torch, dev, timer))
     free_device(torch)
+    results.update(kv_write_phase(torch, dev, timer))
+    free_device(torch)
     count(model_check(torch, dev, "llama3-tiny", kv_quant="int8"))
-    counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION_Q8,
+    counts, stats = engine_phase(torch, dev, "llama3-8b",
+                                 ATTENTION_Q8 + ("kv_quant_store_decode",),
                                  long_context_requests("llama3-8b"), hit=3,
                                  absent=ATTENTION[1:] + NOT_BF16,
                                  kv_quant="int8", max_seq_len=8192)
@@ -1018,6 +1040,130 @@ def q8_kernel_phase(torch, dev, time_ms) -> dict:
     return results
 
 
+def writer_diff(torch, got: dict, want: dict) -> int:
+    """Elements of pages >= 1 and their scales (K and V) where two pools
+    differ; the trash page 0 is don't-care."""
+    return sum(int((got[key][1:] != want[key][1:]).sum()) for key in want)
+
+
+def kv_write_phase(torch, dev, time_ms) -> dict:
+    """The fused int8 decode writer against its plain version (the plain
+    writer, ``_quant_store``, on the card) at Llama-3-8B shapes: one layer
+    of the long-context pool (1024 int8 pages of 128, KV 8, hd 128, bf16
+    scales), B = 8 rows: offset 0 on a page left with a large scale (the
+    reset shows), mid-page rows whose scale grows and does not, the last
+    offset of a page, offset 1, and two invalid rows. Pages >= 1 and their
+    scales must agree bit for bit. Planted faults, each a kernel given
+    corrupted inputs or an output edited as a faulty kernel would leave it,
+    must be rejected: the requantize skipped (the growing row's page given
+    its final scale, so the ratio is 1), the offset-0 reset skipped (its
+    page keeps max(old, token) and the token is quantized under it), and a
+    scale read from the wrong page (the non-growing row's page given
+    another page's scale). Timed on repeated writes of the same tokens,
+    the decode steady state (no scale grows)."""
+    from mcp_context_forge_tpu_torch.tpu_local.kv import PagedKVState
+    from mcp_context_forge_tpu_torch.tpu_local.kv.paged_cache import write_decode_kv_plain
+    from mcp_context_forge_tpu_torch.tpu_local.ops.kv_write import kv_quant_store_decode
+    from mcp_context_forge_tpu_torch.tpu_local.quantize import kv_int8_scale, kv_quantize
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf16 = torch.bfloat16
+    KV, hd, PAGE, NUM_PAGES, P, B = 8, 128, 128, 1024, 64, 8
+    pool = {key: torch.randint(-127, 128, (NUM_PAGES, PAGE, KV, hd), generator=gen,
+                               device=dev, dtype=torch.int8) for key in ("k_pages", "v_pages")}
+    for key in ("k_scales", "v_scales"):
+        pool[key] = ((torch.rand((NUM_PAGES, KV), generator=gen, device=dev) + 0.5) / 127).to(bf16)
+    tables = torch.arange(1, 1 + B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    #        reset  grows    no growth  last   invalid  mid      invalid  offset 1
+    positions = [3 * PAGE, 5 * PAGE + 37, 2 * PAGE + 90, 2 * PAGE + 127, 40, 7 * PAGE + 64,
+                 9 * PAGE, 11 * PAGE + 1]
+    valid = torch.tensor([True, True, True, True, False, True, False, True], device=dev)
+    magnitude = torch.tensor([0.5, 60.0, 1e-3, 1.0, 5.0, 1.0, 5.0, 1.0], device=dev)
+    k, v = (torch.randn((B, KV, hd), generator=gen, device=dev) * magnitude[:, None, None]
+            for _ in range(2))
+    k, v = k.to(bf16), v.to(bf16)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    slots = torch.arange(B, dtype=torch.int32, device=dev)
+    page_of = [int(tables[b, p // PAGE]) for b, p in enumerate(positions)]
+    for key in ("k_scales", "v_scales"):
+        pool[key][page_of[0]] = 1.0            # a large scale left by an earlier tenancy
+
+    def kernel(state: dict) -> dict:
+        kv_quant_store_decode(state["k_pages"], state["v_pages"], state["k_scales"],
+                              state["v_scales"], k, v, tables, slots, pos, valid)
+        return state
+
+    def plain(state: dict) -> dict:
+        kv = PagedKVState(*(state[key][None] for key in ("k_pages", "v_pages")), tables,
+                          state["k_scales"][None], state["v_scales"][None])
+        write_decode_kv_plain(kv, 0, k, v, slots, pos, valid)
+        return state
+
+    def copy(state: dict) -> dict:
+        return {key: t.clone() for key, t in state.items()}
+
+    ref = plain(copy(pool))
+    out = kernel(copy(pool))
+    torch.cuda.synchronize()
+    diff = writer_diff(torch, out, ref)
+    check(diff == 0, f"kv_quant_store_decode: {diff} elements of pages >= 1 or their "
+                     f"scales differ from the plain writer")
+    grew = {key: [b for b in range(B) if bool(valid[b]) and positions[b] % PAGE
+                  and not torch.equal(ref[key][page_of[b]], pool[key][page_of[b]])]
+            for key in ("k_scales", "v_scales")}
+    check(1 in grew["k_scales"] and 2 not in grew["k_scales"],
+          f"the rows whose scale grows are {grew}, not row 1 alone")
+
+    faults = {}
+    skip_requant = copy(pool)                  # the ratio is 1: nothing is requantized
+    for key in ("k_scales", "v_scales"):
+        skip_requant[key][page_of[1]] = ref[key][page_of[1]]
+    faults["row 1: the requantize skipped"] = kernel(skip_requant)
+    no_reset = copy(out)
+    for name, x in (("k", k), ("v", v)):
+        scales, pages = no_reset[f"{name}_scales"], no_reset[f"{name}_pages"]
+        kept = torch.maximum(pool[f"{name}_scales"][page_of[0]],
+                             kv_int8_scale(x[0].float().abs().amax(-1)).to(bf16))
+        scales[page_of[0]] = kept
+        pages[page_of[0], 0] = kv_quantize(x[0], kept[:, None])
+    faults["row 0: the offset-0 reset skipped"] = no_reset
+    wrong_scale = copy(pool)
+    for key in ("k_scales", "v_scales"):
+        wrong_scale[key][page_of[2]] = pool[key][NUM_PAGES - 1] / 8
+    faults["row 2: its page's scale read from another page"] = kernel(wrong_scale)
+    torch.cuda.synchronize()
+    planted = {}
+    for fault, state in faults.items():
+        n = writer_diff(torch, state, ref)
+        check(n > 0, f"kv_quant_store_decode: the bit check passes the planted fault {fault}")
+        planted[fault] = {"differing_elements": n}
+
+    # requantized (row, head) slices of the checked call, and the timed state
+    requant = sum(int((ref[key][page_of[b]] != pool[key][page_of[b]]).sum())
+                  for key in ("k_scales", "v_scales") for b in grew[key])
+    steady = copy(ref)
+    kernel_ms = time_ms.both("kernel", lambda: kernel(steady))
+    plain_state = copy(ref)
+    plain_ms = time_ms(lambda: plain(plain_state))
+    check(writer_diff(torch, steady, plain_state) == 0,
+          "kv_quant_store_decode: repeated writes differ from the plain writer's")
+    values = 2 * B * KV * hd
+    nbytes = values * 2 + values + 2 * 2 * B * KV * 2 + B * (4 * 3 + 1)
+    result = dict(
+        shape={"pages": list(pool["k_pages"].shape), "scales": list(pool["k_scales"].shape),
+               "k": list(k.shape), "positions": positions, "valid": valid.tolist()},
+        rows_whose_scale_grew=grew, requantized_head_slices=requant,
+        first_call_bytes=nbytes + requant * 2 * PAGE * hd,
+        max_abs_err=max(float((out[key][1:].float() - ref[key][1:].float()).abs().max())
+                        for key in ref),
+        differing_elements=diff, planted_faults=planted,
+        **kernel_ms, plain_ms=plain_ms, library_ms=None, bytes=nbytes, flops=0)
+    result["bound_ms"], result["bound_by"] = bound(nbytes, 0)
+    emit({"phase": "kv_write", "tolerance": "bit for bit on pages >= 1 and their scales",
+          **result})
+    return {"kv_quant_store_decode": result}
+
+
 def gemma_kernel_phase(torch, dev, time_ms) -> None:
     """The mma.sync chunk route at gemma-2b's geometry (KV 1, G 8, hd 256,
     page 128), where the wgmma kernel does not go: one row of 2048 queries,
@@ -1323,8 +1469,8 @@ def model_check(torch, dev, name: str, quant: str = "",
     launch on the card (f32 activations: the WMMA route). The mma.sync flash
     and chunk kernels (f32) and the decode kernel must launch on the card.
     ``kv_quant="int8"`` stores the KV pool as int8 pages (the CPU side reads
-    them through ``gather_kv``); both int8-page kernels must then launch on
-    the card. Returns every kernel's launches over the card's run (the
+    them through ``gather_kv``); both int8-page kernels and the int8 decode
+    writer must then launch on the card. Returns every kernel's launches over the card's run (the
     counts are set to 0 just before it). Quantization is not continuous:
     the two sides' int8 pools may differ by isolated one-step rounding
     flips (checked: never more), and a stage's logits read the pages that
@@ -1345,7 +1491,8 @@ def model_check(torch, dev, name: str, quant: str = "",
     wrappers = kernel_wrappers()
     expert_kernel = "expert_blocks_wmma_q8" if quant else "expert_blocks_wmma"
     attention = (("flash_attention_mma", "paged_chunk_attention_mma_q8",
-                  "paged_decode_attention_q8") if kv_quant else ATTENTION_MMA)
+                  "paged_decode_attention_q8", "kv_quant_store_decode")
+                 if kv_quant else ATTENTION_MMA)
 
     def to(tree, device):
         if isinstance(tree, dict):
@@ -1492,9 +1639,60 @@ def check_long_context(stats: dict, pool_pages: int, page_dtype: str) -> None:
           f"not {pool_pages} {page_dtype}")
 
 
+def graph_against_eager(torch, engine) -> dict:
+    """One greedy replay's inputs given to the eager ``_decode_and_sample``
+    on the same pool (restored to its state before the replay): eight
+    columns over real pages of the engine's pool, one of them empty. The
+    greedy tokens and valid masks must be equal, and each active row's
+    last logits within ROW_REL of its largest value. The engine is
+    stopped; this is the one eager decode on the card, on purpose."""
+    from mcp_context_forge_tpu_torch.tpu_local.decode_graphs import (BUDGETS, POSITIONS,
+                                                                     SEQ_LENS, TOKENS)
+
+    K, B = engine._k, engine.config.max_batch
+    key = (K, B, False)
+    bufs = engine._graphs.get(key)
+    lens = ([1500, 37, 800, 128, 0, 300, 1990, 64] * B)[:B]
+    gen = torch.Generator().manual_seed(11)
+    pack = engine._graphs.stage(key)
+    for slot, n in enumerate(lens):
+        if n:
+            check(engine.allocator.allocate_slot(slot, n + K), "no pages for the check")
+            pack[TOKENS, slot] = int(torch.randint(0, engine.model_config.vocab_size, (1,),
+                                                   generator=gen))
+            pack[POSITIONS, slot], pack[SEQ_LENS, slot], pack[BUDGETS, slot] = n - 1, n, K
+    kv = engine.kv
+    pool = [t for t in (kv.k_pages, kv.v_pages, kv.k_scales, kv.v_scales) if t is not None]
+    with torch.inference_mode():
+        engine._sync_tables()
+        saved = [t.clone() for t in pool]
+        tokens_g, valid_g, _ = engine._graphs.fetch(engine._graphs.launch(key))
+        logits_g = bufs.logits.clone()
+        for t, copy in zip(pool, saved):
+            t.copy_(copy)
+        del saved
+        tokens_e, valid_e, _, logits_e = engine._decode_and_sample(*bufs.views(), k=K,
+                                                                   any_sampled=False)
+        torch.cuda.synchronize()
+    for slot in range(B):
+        engine.allocator.free_slot(slot)
+    active = torch.tensor(lens) > 0
+    check(bool((torch.from_numpy(valid_g) == valid_e.cpu()).all()),
+          "graph and eager decode differ in their valid masks")
+    check(bool((torch.from_numpy(tokens_g)[:, active]
+                == tokens_e.cpu().to(torch.int32)[:, active]).all()),
+          "graph and eager decode sampled different greedy tokens")
+    rel = row_error(torch, logits_g, logits_e, active.to(logits_g.device))
+    check(rel <= ROW_REL, f"graph and eager logits differ by {rel:.3g} of a row's largest value")
+    return {"key": list(key), "seq_lens": lens, "tokens_equal": True,
+            "logits_max_row_error": rel,
+            "logits_max_abs_err": float((logits_g - logits_e)[active.to(logits_g.device)]
+                                        .abs().max())}
+
+
 def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
                  requests: list[dict], hit: int, absent: tuple[str, ...] = (),
-                 n_layers: int = 0, **engine_kwargs):
+                 n_layers: int = 0, graph_check: bool = False, **engine_kwargs):
     """``requests`` sent concurrently as greedy chats through
     ``TorchLocalProvider.chat`` on ``model`` (random weights, bf16), then
     ``requests[hit]`` twice more, which must give the same tokens. The
@@ -1503,8 +1701,16 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     ``n_layers`` cuts the depth; ``engine_kwargs`` override the engine
     config. Every kernel's count is reset just before the concurrent
     requests and read just after; each of ``kernels`` must have launched,
-    and none of ``absent``; the chunk kernels must have launched once per
-    layer per history prefill (a chunk round or a prefix-hit suffix)."""
+    and none of ``absent`` (nor the int8 KV writer on a pool that is not
+    int8); the chunk kernels must have launched once per layer per
+    history prefill (a chunk round or a prefix-hit suffix).
+
+    Decode runs only as CUDA-graph replays: ``decode_step`` is called only
+    while the engine is built (warm-up and capture: 2 K calls per graph),
+    one graph per (K, width, greedy-only or sampling), and never while it
+    serves; each decode kernel's launches equal the sum over the graphs of
+    replays x the graph's launches of it. ``graph_check`` runs
+    ``graph_against_eager`` after the requests."""
     from unittest import mock
 
     from mcp_context_forge_tpu_torch.tpu_local import engine as engine_module
@@ -1518,15 +1724,35 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         MODEL_CONFIGS[name] = dataclasses.replace(MODEL_CONFIGS[model],
                                                   name=name, n_layers=n_layers)
     wrappers = kernel_wrappers()
+    decode_calls = [0]
+    decode_step = engine_module.decode_step
+
+    def counted_decode(*args, **kwargs):
+        decode_calls[0] += 1
+        return decode_step(*args, **kwargs)
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     config = dict(model=name, dtype="bfloat16", device="cuda", max_batch=8,
                   max_seq_len=2048, page_size=128, num_pages=512,
                   prefill_buckets=(128, 512, 2048), prefill_max_batch=4, seed=0)
-    engine = TorchEngine(EngineConfig(**{**config, **engine_kwargs}))
+    # the engine module's own names, which its decode super-step, admission
+    # and chunk rounds call
+    with mock.patch.object(engine_module, "decode_step", counted_decode):
+        engine = TorchEngine(EngineConfig(**{**config, **engine_kwargs}))
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
     build_peak = torch.cuda.max_memory_allocated()
+    build_decode_calls, decode_calls[0] = decode_calls[0], 0
+    graphs = engine._graphs
+    K = engine.config.superstep
+    widths = engine._batch_buckets() if engine.config.batch_buckets else [engine.config.max_batch]
+    check(engine.stats.graph_captures == len(graphs.buffers) == 2 * len(widths),
+          f"{engine.stats.graph_captures} graphs captured for {len(widths)} widths")
+    check(build_decode_calls == 2 * K * engine.stats.graph_captures,
+          f"decode_step ran {build_decode_calls} times while the engine was built")
+    if not engine.config.kv_quant:
+        absent = absent + ("kv_quant_store_decode",)
     provider = TorchLocalProvider("tpu_local", engine)
     seen = []
     submit = engine.submit
@@ -1551,6 +1777,7 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
             for fn in wrappers.values():
                 fn.launches = 0
             history_calls[0] = 0
+            replays0 = {key: bufs.replays for key, bufs in graphs.buffers.items()}
             torch.cuda.reset_peak_memory_stats()
             stats0 = dict(engine.stats.__dict__)
             t_start = time.monotonic()
@@ -1563,18 +1790,21 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
             wall = time.monotonic() - t_start
             counts = {k: fn.launches for k, fn in wrappers.items()}
             counts["history_prefills"] = history_calls[0]
+            replays = {key: bufs.replays - replays0[key] for key, bufs in graphs.buffers.items()}
             peak = torch.cuda.max_memory_allocated()
             served = list(seen)
             delta = {k: v - stats0[k] for k, v in engine.stats.__dict__.items()}
             for _ in range(2):
                 await provider.chat(requests[hit])
-            return replies, wall, counts, peak, served, delta
+            return replies, wall, counts, replays, peak, served, delta
         finally:
             await engine.stop()
 
-    # the engine module's own name, which its admission and chunk rounds call
-    with mock.patch.object(engine_module, "prefill_with_history", counted_history):
-        replies, wall, counts, peak, served, delta = asyncio.run(run())
+    with mock.patch.object(engine_module, "prefill_with_history", counted_history), \
+            mock.patch.object(engine_module, "decode_step", counted_decode):
+        replies, wall, counts, replays, peak, served, delta = asyncio.run(run())
+        serve_decode_calls = decode_calls[0]
+        eager = graph_against_eager(torch, engine) if graph_check else None
     history_prefills = counts.pop("history_prefills")
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     check(max(peak, build_peak) < card_bytes,
@@ -1598,6 +1828,19 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     check(history_prefills > 0 and chunk_launches == engine.model_config.n_layers * history_prefills,
           f"{chunk_launches} chunk launches for {history_prefills} history prefills of "
           f"{engine.model_config.n_layers} layers")
+    # decode: graph replays only, and every decode-kernel launch is a replay's
+    check(serve_decode_calls == 0,
+          f"decode_step ran {serve_decode_calls} times outside the graphs while serving")
+    check(delta["graph_replays"] > 0 and delta["graph_replays"] == delta["decode_dispatches"]
+          == sum(replays.values()), f"{delta['graph_replays']} replays for "
+          f"{delta['decode_dispatches']} decode dispatches")
+    expected = {}
+    for key, bufs in graphs.buffers.items():
+        for kernel, per_replay in bufs.launches.items():
+            expected[kernel] = expected.get(kernel, 0) + replays[key] * per_replay
+    check(expected and all(counts[k] == v for k, v in expected.items()),
+          f"decode kernel launches {({k: counts[k] for k in expected})} are not "
+          f"replays x per-graph launches {expected}")
     ttft = [(r.first_token_ts - r.created) * 1e3 for r in served]
     decode_tokens = sum(len(r.generated) - 1 for r in served)
     cfg = engine.model_config
@@ -1610,6 +1853,7 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         "kv_pool_pages": engine.kv.k_pages.shape[1],
         "kv_page_dtype": str(engine.kv.k_pages.dtype),
         "moe_impl": cfg.moe_impl if cfg.n_experts else None,
+        "superstep": K, "decode_overlap": engine.config.decode_overlap,
         "engine_build_s": build_s, "requests": len(served),
         "prompt_tokens": [len(r.prompt_ids) for r in served],
         "buckets": [r.bucket for r in served],
@@ -1619,15 +1863,28 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         "completion_tokens": [len(r.generated) for r in served],
         "ttft_ms": ttft, "ttft_p50_ms": statistics.median(ttft),
         "decode_tokens": decode_tokens,
-        "decode_tokens_per_s": decode_tokens / (delta["decode_ms_total"] / 1e3),
+        "decode_tokens_per_s": decode_tokens / (delta["decode_wall_ms_total"] / 1e3),
         "decode_steps": delta["decode_steps"],
+        "decode_dispatches": delta["decode_dispatches"],
         "decode_ms_total": delta["decode_ms_total"],
+        "decode_wall_ms_total": delta["decode_wall_ms_total"],
+        "overlap_steps": delta["overlap_steps"],
+        "pipeline_drains": delta["pipeline_drains"],
+        "graph_captures": engine.stats.graph_captures,
+        "graph_static_bytes": graphs.static_bytes,
+        "graph_pool_bytes": graphs.pool_bytes,
+        "graph_replays": delta["graph_replays"],
+        "graph_launches_per_replay": {str(list(key)): bufs.launches
+                                      for key, bufs in graphs.buffers.items()},
+        "decode_step_calls_at_build": build_decode_calls,
         "prefill_batches": delta["prefill_batches"],
         "prefill_ms_total": delta["prefill_ms_total"],
         "total_s": wall, "peak_memory_bytes": peak,
         "build_peak_memory_bytes": build_peak,
         "repeat_tokens_equal": True, "repeat_tokens": len(tokens_a),
-        "history_prefills": history_prefills, "launches": counts}
+        "history_prefills": history_prefills, "launches": counts,
+        **({"graph_against_eager": eager} if eager else {}),
+        "generated": [r.generated for r in served]}
     del engine, provider, seen, served
     return counts, stats
 

@@ -1,0 +1,232 @@
+"""Decode dispatches as CUDA-graph replays, with static buffers and
+double-buffered host staging.
+
+A dispatch is one K-step decode super-step over B columns (slot = column),
+greedy-only or sampling: the key (K, B, sampled). For every key the
+holder keeps
+
+- the static device inputs, one int32 pack [INPUT_ROWS, B] (tokens,
+  positions, seq_lens, budgets, top_k, temperature and top_p as f32 bits,
+  the stop table), and the outputs, one int32 pack [2K + 1, B] (tokens
+  [K, B], valid [K, B], done [B]) and the last sub-step's logits [B, V]
+  f32, all allocated outside any capture;
+- two host staging slots for the inputs and two for the outputs
+  (page-locked on the card), used in turn: a dispatch's slot is reused two
+  dispatches of its key later, after its retire has read it;
+- on the card, one captured ``torch.cuda.CUDAGraph``.
+
+All graphs share one private memory pool: replays never overlap, and every
+input and output lives outside the pool. Capture runs once, when the
+holder is built: for each key an eager warm-up on a side stream first (it
+loads every kernel module and creates every library handle and workspace
+outside the pool), then the capture. A failed capture or replay raises;
+nothing falls back to eager decode on the card. On the CPU no graph is
+captured and each dispatch runs the same body eagerly, through the plain
+versions of the kernels.
+
+A dispatch (``launch``) uploads its staged inputs with one non-blocking
+copy, optionally feeds the previous dispatch's last sampled tokens with one
+device-to-device copy (the overlapped pipeline), replays, and enqueues a
+non-blocking copy of the outputs into its staging slot followed by an
+event; ``fetch`` waits on that event, never on the stream. Everything runs
+on the caller's current stream, whose order makes each output copy finish
+before the next replay overwrites the outputs.
+
+Captured kernels do not run at capture, and a replay does not run the
+Python wrappers, so the wrappers' ``launches`` counts would read wrong both
+ways: each capture's increments are taken back and kept per key as the
+graph's launches, and every replay adds them once.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .ops import kernel_wrappers
+from .sampling import SamplingParams
+
+# rows of the int32 input pack
+TOKENS, POSITIONS, SEQ_LENS, BUDGETS, TOP_K, TEMPERATURE, TOP_P, STOPS = range(8)
+# stop-id columns the super-step's on-device freeze checks: column 0 is EOS,
+# the rest a request's first stop ids (a request with more is still ended
+# by the host at retire; its row just does not freeze early)
+STOP_TBL_WIDTH = 4
+INPUT_ROWS = STOPS + STOP_TBL_WIDTH
+
+
+def neutral_inputs(B: int) -> np.ndarray:
+    """An input pack of B inactive columns: seq_len 0 (no KV write, no
+    token), greedy, top_p 1, no stop ids."""
+    pack = np.zeros((INPUT_ROWS, B), dtype=np.int32)
+    pack[TOP_P] = np.ones(B, dtype=np.float32).view(np.int32)
+    pack[STOPS:] = -1
+    return pack
+
+
+@dataclass
+class DecodeBuffers:
+    key: tuple[int, int, bool]          # (K, B, sampled)
+    inputs: torch.Tensor                # [INPUT_ROWS, B] int32, device
+    outputs: torch.Tensor               # [2K + 1, B] int32, device
+    logits: torch.Tensor                # [B, V] f32, device
+    slot_ids: torch.Tensor              # arange(B) int32, device
+    staging_in: list[torch.Tensor]      # 2 x [INPUT_ROWS, B] int32, host
+    staging_out: list[torch.Tensor]     # 2 x [2K + 1, B] int32, host
+    events: list[Any]                   # 2 CUDA events (none on the CPU)
+    graph: Any = None
+    launches: dict[str, int] = field(default_factory=dict)   # per replay
+    replays: int = 0                    # graph replays (none on the CPU)
+    slot: int = 0                       # the staging slot of the next dispatch
+
+    @property
+    def k(self) -> int:
+        return self.key[0]
+
+    def views(self) -> tuple:
+        """(tokens, positions, seq_lens, budgets, stop_tbl [B, W],
+        sampling, slot_ids): views of the input pack."""
+        x = self.inputs
+        sampling = SamplingParams(x[TEMPERATURE].view(torch.float32),
+                                  x[TOP_K], x[TOP_P].view(torch.float32))
+        return (x[TOKENS], x[POSITIONS], x[SEQ_LENS], x[BUDGETS],
+                x[STOPS:].t(), sampling, self.slot_ids)
+
+
+class DecodeGraphs:
+    """The decode buffers of every key and, on the card, their graphs.
+
+    ``body(buffers)`` runs one super-step over ``buffers.views()`` into
+    ``buffers.outputs`` and ``buffers.logits``; ``generator`` is the
+    sampler's, registered with every graph so that replays advance its
+    offset instead of repeating one draw."""
+
+    def __init__(self, body: Callable[[DecodeBuffers], None],
+                 keys: list[tuple[int, int, bool]], device: torch.device,
+                 vocab_size: int, generator: torch.Generator):
+        self.body = body
+        self.device = device
+        self.on_card = device.type == "cuda"
+        self.captures = 0
+        self.pool_bytes = 0   # device memory the graphs' pool holds (card only)
+        self.buffers: dict[tuple[int, int, bool], DecodeBuffers] = {}
+
+        def host(t: torch.Tensor) -> torch.Tensor:
+            return t.pin_memory() if self.on_card else t
+
+        for key in keys:
+            K, B, _ = key
+            self.buffers[key] = DecodeBuffers(
+                key=key,
+                inputs=torch.from_numpy(neutral_inputs(B)).to(device),
+                outputs=torch.zeros((2 * K + 1, B), dtype=torch.int32, device=device),
+                logits=torch.zeros((B, vocab_size), dtype=torch.float32, device=device),
+                slot_ids=torch.arange(B, dtype=torch.int32, device=device),
+                staging_in=[host(torch.from_numpy(neutral_inputs(B))) for _ in range(2)],
+                staging_out=[host(torch.zeros((2 * K + 1, B), dtype=torch.int32))
+                             for _ in range(2)],
+                events=[torch.cuda.Event() for _ in range(2)] if self.on_card else [])
+        if self.on_card:
+            self._capture(generator)
+
+    @property
+    def static_bytes(self) -> int:
+        """Device bytes of the static inputs and outputs of every key."""
+        return sum(t.numel() * t.element_size() for bufs in self.buffers.values()
+                   for t in (bufs.inputs, bufs.outputs, bufs.logits, bufs.slot_ids))
+
+    def _capture(self, generator: torch.Generator) -> None:
+        wrappers = kernel_wrappers()
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.inference_mode(), torch.cuda.stream(stream):
+            for bufs in self.buffers.values():
+                self.body(bufs)   # the warm-up: every kernel and handle built outside the pool
+                stream.synchronize()
+                before = {name: fn.launches for name, fn in wrappers.items()}
+                graph = torch.cuda.CUDAGraph()
+                graph.register_generator_state(generator)
+                # cuBLAS keeps one workspace per (handle, stream) for the
+                # process's life: dropped before the capture, the capture's
+                # own comes from the pool, and dropped after, it stays the
+                # pool's (where the replays use it) instead of outliving
+                # the engine, as the warm-up stream's would
+                torch._C._cuda_clearCublasWorkspaces()
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    self.body(bufs)
+                torch._C._cuda_clearCublasWorkspaces()
+                bufs.launches = {name: fn.launches - before[name]
+                                 for name, fn in wrappers.items()
+                                 if fn.launches != before[name]}
+                for name, fn in wrappers.items():
+                    fn.launches = before[name]
+                bufs.graph = graph
+                self.captures += 1
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        torch.cuda.synchronize(self.device)
+        # the pool's segments: reserved for the replays, outside the
+        # allocator's allocated bytes once the captures have ended
+        self.pool_bytes = sum(
+            seg["total_size"] for seg in torch.cuda.memory._snapshot()["segments"]
+            if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+    def get(self, key: tuple[int, int, bool]) -> DecodeBuffers:
+        bufs = self.buffers.get(key)
+        if bufs is None:
+            raise RuntimeError(f"no decode graph for (K, B, sampled) = {key}; "
+                               f"captured: {sorted(self.buffers)}")
+        return bufs
+
+    def stage(self, key: tuple[int, int, bool]) -> np.ndarray:
+        """The host input pack of ``key``'s next dispatch, reset to
+        inactive columns, for the caller to fill."""
+        bufs = self.get(key)
+        pack = bufs.staging_in[bufs.slot].numpy()
+        pack[:] = neutral_inputs(pack.shape[1])
+        return pack
+
+    def launch(self, key: tuple[int, int, bool],
+               feed: tuple | None = None) -> tuple:
+        """Run ``key``'s dispatch on the staged inputs; ``feed`` (a handle
+        of the previous, still in-flight dispatch) supplies the input tokens
+        from its last sampled row. Returns the handle ``fetch`` takes."""
+        bufs = self.get(key)
+        slot = bufs.slot
+        bufs.slot ^= 1
+        bufs.inputs.copy_(bufs.staging_in[slot], non_blocking=True)
+        if feed is not None:
+            fed = self.buffers[feed[0]]
+            bufs.inputs[TOKENS].copy_(fed.outputs[fed.k - 1])
+        if bufs.graph is not None:
+            bufs.graph.replay()
+            bufs.replays += 1
+            wrappers = kernel_wrappers()
+            for name, n in bufs.launches.items():
+                wrappers[name].launches += n
+        elif self.on_card:
+            raise RuntimeError(f"decode graph {key} was not captured")
+        else:
+            self.body(bufs)
+        bufs.staging_out[slot].copy_(bufs.outputs, non_blocking=True)
+        if bufs.events:
+            bufs.events[slot].record()
+        return key, slot
+
+    def fetch(self, handle: tuple) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Wait for a dispatch's outputs: (tokens [K, B], valid [K, B]
+        bool, done [B] bool) as host arrays of their own."""
+        key, slot = handle
+        bufs = self.buffers[key]
+        if bufs.events:
+            bufs.events[slot].synchronize()
+        out = bufs.staging_out[slot].numpy()
+        K = bufs.k
+        return out[:K].copy(), out[K:2 * K] != 0, out[2 * K] != 0
+
+    @property
+    def replays(self) -> int:
+        return sum(bufs.replays for bufs in self.buffers.values())

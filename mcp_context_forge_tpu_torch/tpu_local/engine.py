@@ -17,19 +17,33 @@ stall the caller's event loop; tokens hop back with one
   carry absolute positions, so long prompts at different offsets share
   one round of up to ``prefill_max_batch`` rows. Decode never touches a
   chunking slot.
-- Decode is serial: one step per dispatch over the active slots, retired
-  before the next dispatch. The JAX engine's overlapped pipeline and
-  super-steps are defined to give the same greedy streams as this.
+- Decode runs the JAX engine's machinery: each dispatch is one K-step
+  SUPER-STEP (``superstep``; ``_decode_and_sample``) over fixed-width
+  columns (slot = column) with per-row token budgets and an EOS/stop
+  table, so a finished row freezes inside the dispatch; the host syncs
+  once per K tokens. With ``decode_overlap`` (the default) dispatches run
+  as a depth-2 pipeline: dispatch N+1 takes its input tokens from N's
+  on-device output while N's tokens are read back and emitted, with drain
+  barriers (admission, chunk rounds, stale feeds, page pressure, width
+  changes, stop) that keep greedy streams identical to the serial order.
+  ``batch_buckets`` sizes the columns by the active slot ceiling (powers
+  of two, slot compaction, shrink hysteresis).
+- On the card every decode dispatch is one replay of a CUDA graph
+  (``decode_graphs.py``), one per (K, width, greedy-only or sampling),
+  all captured when the engine is built; inputs are staged in pinned host
+  memory and uploaded without blocking, outputs read back behind an
+  event. On the CPU the same dispatches run eagerly.
 - There are no context-width buckets (the JAX engine's ``_ctx_bucket_for``
   and ``_hist_ctx_for``, which bounded XLA's static gather): the attention
   kernels walk only the pages each row uses.
 
-The engine runs on ``config.device`` ("cuda" by default) and raises at
-construction when that device is absent; it never moves to the CPU by
-itself. ``quant="int8"`` serves int8 weights; ``kv_quant="int8"`` stores
-the KV pool as int8 pages with per-page scales (``num_pages`` is then a
-byte budget counted in compute-dtype pages, which holds about twice as
-many int8 pages: ``num_kv_pages``). MoE models (Mixtral) pick their FFN
+Prefill, chunk rounds and prefix hits run eagerly. The engine runs on
+``config.device`` ("cuda" by default) and raises at construction when
+that device is absent; it never moves to the CPU by itself.
+``quant="int8"`` serves int8 weights; ``kv_quant="int8"`` stores the KV
+pool as int8 pages with per-page scales (``num_pages`` is then a byte
+budget counted in compute-dtype pages, which holds about twice as many
+int8 pages: ``num_kv_pages``). MoE models (Mixtral) pick their FFN
 formulation with ``moe_impl`` and ``moe_block``.
 """
 
@@ -49,6 +63,9 @@ import numpy as np
 import torch
 
 from ..utils import new_id
+from .decode_graphs import (BUDGETS, POSITIONS, SEQ_LENS, STOP_TBL_WIDTH, STOPS,
+                            TEMPERATURE, TOKENS, TOP_K, TOP_P, DecodeBuffers,
+                            DecodeGraphs)
 from .kv import PageAllocator, init_kv_state, kv_page_bytes, num_pages_for_budget
 from .models import MODEL_CONFIGS, LlamaConfig
 from .models.llama import decode_step, init_params, prefill, prefill_with_history
@@ -88,6 +105,20 @@ class EngineConfig:
     # per-(layer, page, kv-head) scales); under int8, num_pages is a byte
     # budget in compute-dtype pages
     kv_quant: str = ""
+    # decode iterations fused per dispatch (the K of a super-step): the
+    # host syncs once per K tokens; tokens past a row's end inside a
+    # super-step are masked on the device
+    superstep: int = 1
+    # depth-2 overlapped decode pipeline: dispatch N+1 is fed by N's
+    # on-device sampled tokens while N's results are read back and emitted
+    decode_overlap: bool = True
+    # decode width buckets: size a dispatch by the active slot ceiling
+    # (powers of two from 8, slot compaction) instead of max_batch; a
+    # width shrinks only after batch_shrink_steps narrower dispatches, and
+    # resets at an admission after batch_idle_reset_s fully idle
+    batch_buckets: bool = False
+    batch_shrink_steps: int = 64
+    batch_idle_reset_s: float = 2.0
 
 
 @dataclass
@@ -130,7 +161,19 @@ class EngineStats:
         self.queue_depth = 0
         self.chunking = 0             # long prompts mid-chunk-prefill
         self.prefill_ms_total = 0.0   # host wall of prefill dispatches (synced)
-        self.decode_ms_total = 0.0    # host wall of decode dispatches (synced)
+        # decode: dispatch -> outputs read back, summed; under the overlapped
+        # pipeline each spans about two dispatches
+        self.decode_ms_total = 0.0
+        # decode: each dispatch's own wall, retire to retire (dispatch to
+        # read back when the card was idle at dispatch)
+        self.decode_wall_ms_total = 0.0
+        self.decode_dispatches = 0    # host syncs; decode_steps / this = K
+        self.overlap_steps = 0        # dispatches fed by device tokens
+        self.pipeline_drains = 0      # overlap barriers that forced a drain
+        # host time from a read back to the next host-fed dispatch
+        self.dispatch_gap_ms_total = 0.0
+        self.graph_captures = 0       # decode graphs captured (at construction)
+        self.graph_replays = 0        # decode dispatches run as graph replays
 
 
 def _resolve_device(name: str) -> torch.device:
@@ -165,6 +208,8 @@ class TorchEngine:
             raise ValueError(f"unsupported quant mode {config.quant!r}")
         if config.kv_quant not in ("", "int8"):
             raise ValueError(f"unsupported kv_quant mode {config.kv_quant!r}")
+        if config.superstep < 1:
+            raise ValueError(f"superstep must be >= 1, got {config.superstep}")
         if config.moe_impl not in ("", "dense", "grouped", "grouped_pallas"):
             # a typo must not silently serve the dense path
             raise ValueError(
@@ -203,6 +248,22 @@ class TorchEngine:
                                        config.max_batch, max_pages_per_slot)
         self._sample_gen = torch.Generator(device=self.device)
         self._sample_gen.manual_seed(config.seed + 1)
+        # decode machinery (dispatch thread only after start)
+        self._k = config.superstep
+        self._inflight: dict[str, Any] | None = None
+        self._last_step_done_ts: float | None = None
+        # every width is captured at construction, so the width starts at
+        # max (the JAX engine's warmed posture) and may shrink to any bucket
+        self._batch_width = config.max_batch
+        self._shrink_streak = 0
+        self._shrink_peak = 0
+        self._last_active_ts = time.monotonic()
+        widths = self._batch_buckets() if config.batch_buckets else [config.max_batch]
+        self._graphs = DecodeGraphs(
+            self._decode_body, [(self._k, B, sampled) for B in widths
+                                for sampled in (False, True)],
+            self.device, self.model_config.vocab_size, self._sample_gen)
+        self.stats.graph_captures = self._graphs.captures
         self._work: queue.Queue[GenRequest] = queue.Queue(maxsize=config.max_queue)
         self._pending: deque[GenRequest] = deque()   # dispatch thread only
         self._running: dict[int, GenRequest] = {}    # slot -> request
@@ -303,9 +364,11 @@ class TorchEngine:
 
     def _device_loop(self) -> None:
         """Owns every device call. Each iteration: take new work, apply
-        cancels, admit one prefill group when a slot is free, advance every
-        chunking prompt by one chunk round, run one decode step over the
-        running slots, then flush the emitted tokens."""
+        cancels, drain the decode pipeline when admission or a chunk round
+        is due (or nothing runs), admit one prefill group when a slot is
+        free, advance every chunking prompt by one chunk round, dispatch
+        one decode super-step over the running slots (retiring the one
+        before it), then flush the emitted tokens."""
         try:
             with torch.inference_mode():
                 if self.device.type == "cuda":
@@ -317,13 +380,26 @@ class TorchEngine:
                         self._apply_cancels()
                         did_work = True
                     occupied = len(self._running) + len(self._chunking)
-                    if self._pending and occupied < self.config.max_batch:
+                    can_admit = (bool(self._pending)
+                                 and occupied < self.config.max_batch)
+                    if self._inflight is not None and (
+                            can_admit or self._chunking or not self._running):
+                        # drain barriers: admission and chunk completion move
+                        # requests into slots and pages the in-flight
+                        # lookahead indexes; with no running row it holds
+                        # only rows that already finished
+                        self._drain_pipeline()
+                        did_work = True
+                    if can_admit:
                         did_work = self._admit_batch() or did_work
                     if self._chunking:
                         self._chunk_round()
                         did_work = True
                     if self._running:
-                        self._decode_step()
+                        if self.config.decode_overlap:
+                            self._decode_step_overlapped()
+                        else:
+                            self._decode_step_all()
                         did_work = True
                     self.stats.queue_depth = (self._work.qsize()
                                               + len(self._pending))
@@ -331,7 +407,10 @@ class TorchEngine:
                     self._flush_emits()
                     if not did_work:
                         self._wait_for_work()
+                # a clean stop: tokens already sampled reach their streams
+                self._drain_pipeline()
         except Exception:
+            self._inflight = None   # device state is suspect: never read it back
             logger.exception("torch engine dispatch thread crashed")
             self._fail_outstanding("error")
         else:
@@ -431,6 +510,9 @@ class TorchEngine:
         prefill_max_batch prompts chunk at once: a chunked request beyond
         that steps aside so the requests behind it can still admit."""
         config = self.config
+        was_idle = (not self._running and not self._chunking
+                    and (time.monotonic() - self._last_active_ts
+                         >= config.batch_idle_reset_s))
         if len({r.priority for r in self._pending}) > 1:
             # stable sort: FIFO holds within each priority class
             self._pending = deque(sorted(self._pending,
@@ -508,6 +590,22 @@ class TorchEngine:
         if not admitted:
             return False
         self._sync_tables()
+        self._last_active_ts = time.monotonic()
+        if was_idle and config.batch_buckets:
+            # idle-boundary width reset: a width left by a drained burst
+            # must not tax the next arrivals for batch_shrink_steps
+            # dispatches; the ceiling counts the load that could admit
+            # (slots were assigned from 0 up, so the bucket covers them)
+            active = len(self._running) + len(self._chunking)
+            admissible = max(0, min(
+                len(self._pending), config.max_batch - active,
+                self.allocator.free_pages // self.allocator.avg_slot_pages()))
+            desired = self._batch_bucket_for(
+                max(min(active + admissible, config.max_batch), 1))
+            if desired < self._batch_width:
+                self._batch_width = desired
+                self._shrink_streak = 0
+                self._shrink_peak = 0
         if head.chunked:
             return True   # the device work happens in _chunk_round
 
@@ -518,7 +616,8 @@ class TorchEngine:
         logits, self.kv = step(self.params, self.model_config, tokens,
                                positions, self.kv, slot_ids,
                                last_idx=last_idx)
-        first = sample_tokens(logits, sampling, self._sample_gen).tolist()
+        first = sample_tokens(logits, sampling, self._sample_gen,
+                              any(r.temperature > 0 for r in admitted)).tolist()
         if config.prefix_cache:
             # register the full prompt pages for later prompts to share
             for request in admitted:
@@ -556,7 +655,8 @@ class TorchEngine:
         logits, self.kv = prefill_with_history(
             self.params, self.model_config, tokens, positions, self.kv,
             slot_ids, last_idx=last_idx)
-        sampled = sample_tokens(logits, sampling, self._sample_gen).tolist()
+        sampled = sample_tokens(logits, sampling, self._sample_gen,
+                                any(r.temperature > 0 for r in batch)).tolist()
         self.stats.prefill_ms_total += (time.monotonic() - started) * 1000
         self.stats.prefill_batches += 1
         for request, token in zip(batch, sampled):
@@ -601,44 +701,306 @@ class TorchEngine:
 
     # ----------------------------------------------------------------- decode
 
-    def _decode_step(self) -> None:
-        """One decode step over every running slot: write each row's last
-        token's KV, attend over its pages, sample the next token."""
-        rows: list[GenRequest] = []
-        for slot in sorted(self._running):
-            request = self._running[slot]
-            n_ctx = len(request.prompt_ids) + len(request.generated)
-            # the input token sits at position n_ctx - 1; a slot that cannot
-            # grow to hold it (page pool exhausted) ends with "length"
-            if self.allocator.grow_slot(slot, n_ctx) < n_ctx:
+    def _batch_buckets(self) -> list[int]:
+        """Decode widths: powers of two from 8 (or max_batch if smaller)
+        up to max_batch."""
+        buckets = []
+        width = min(8, self.config.max_batch)
+        while width < self.config.max_batch:
+            buckets.append(width)
+            width *= 2
+        buckets.append(self.config.max_batch)
+        return buckets
+
+    def _batch_bucket_for(self, active_ceiling: int) -> int:
+        for bucket in self._batch_buckets():
+            if bucket >= active_ceiling:
+                return bucket
+        return self.config.max_batch
+
+    def _compact_slots(self) -> None:
+        """Move the highest-slot requests into the lowest free slots, so
+        the active ceiling equals the active count. Only block-table rows
+        move (``move_slot``); the table uploads at the next dispatch."""
+        if not self._running:
+            return
+        occupied = len(self._running) + len(self._chunking)
+        ceiling = max(max(self._running), max(self._chunking, default=-1)) + 1
+        if ceiling == occupied:
+            return
+        for slot in sorted(self._running, reverse=True):
+            frees = [s for s in range(slot)
+                     if s not in self._running and s not in self._chunking]
+            if not frees:
+                break
+            target = frees[0]
+            request = self._running.pop(slot)
+            self.allocator.move_slot(slot, target)
+            request.slot = target
+            self._running[target] = request
+
+    def _decode_width(self, allow_compact: bool = True) -> int:
+        """The dispatch width: the bucket covering the active slot ceiling
+        plus the queued load that could admit (slots compacted first)
+        under batch_buckets, else max_batch. It grows at once and shrinks
+        only after batch_shrink_steps narrower dispatches, to the widest
+        width wanted over that streak. ``allow_compact=False`` keeps slots
+        where they are (an in-flight lookahead indexes them)."""
+        config = self.config
+        if self._running or self._chunking:
+            self._last_active_ts = time.monotonic()
+        if not config.batch_buckets:
+            return config.max_batch
+        incoming = self._work.qsize() + len(self._pending)
+        free_slots = config.max_batch - len(self._running) - len(self._chunking)
+        page_capacity = (self.allocator.free_pages
+                         // self.allocator.avg_slot_pages())
+        admissible = max(0, min(incoming, free_slots, page_capacity))
+        if admissible == 0 and allow_compact:
+            # holes that the next admission will not refill
+            self._compact_slots()
+        ceiling = min(max(max(self._running) + 1,
+                          len(self._running) + len(self._chunking) + admissible),
+                      config.max_batch)
+        desired = self._batch_bucket_for(ceiling)
+        if desired >= self._batch_width:
+            self._batch_width = desired
+            self._shrink_streak = 0
+            self._shrink_peak = 0
+        else:
+            self._shrink_streak += 1
+            self._shrink_peak = max(self._shrink_peak, desired)
+            if self._shrink_streak >= config.batch_shrink_steps:
+                self._batch_width = self._shrink_peak
+                self._shrink_streak = 0
+                self._shrink_peak = 0
+        return self._batch_width
+
+    def _decode_step_all(self) -> None:
+        """Serial decode: one super-step over every active slot, dispatched
+        and retired back to back (also the first step after a drain)."""
+        self._decode_retire(self._decode_dispatch(self._decode_width(), None))
+
+    def _decode_step_overlapped(self) -> None:
+        """Depth-2 pipelined decode: dispatch step N+1 fed by step N's
+        on-device tokens, then retire step N while N+1 runs. Rows that
+        finish in step N still ride N+1 (their writes land in pages that
+        are re-granted only to later dispatches, after N+1 in stream
+        order), and their lookahead tokens are discarded at retire."""
+        k = self._k
+        feed = self._inflight
+        self._inflight = None
+        if feed is not None:
+            # the lookahead is stale when a running row is not the one the
+            # fed step covers (defensive: admission drains upstream), or
+            # has a partial budget and survives its retire (its true last
+            # token is not the block's row k-1); under batch_buckets, when
+            # slots have holes or the width would change
+            stale = any(
+                feed["reqs"].get(slot) is not request
+                or (0 < feed["budgets"].get(slot, 0) < k
+                    and len(request.generated) + feed["budgets"][slot]
+                    < request.max_tokens)
+                for slot, request in self._running.items())
+            holes = False
+            if self.config.batch_buckets:
+                ceiling = max(self._running) + 1
+                holes = (ceiling != len(self._running) + len(self._chunking)
+                         or self._batch_bucket_for(ceiling) != self._batch_width)
+            if stale or holes:
+                if not self._drain_feed(feed):
+                    return
+                feed = None
+        if feed is not None and all(
+                request.max_tokens - len(request.generated)
+                - feed["budgets"].get(slot, 0) <= 0
+                for slot, request in self._running.items()):
+            # every surviving row's budget is spent by the in-flight tokens
+            # (a max_tokens tail): a lookahead would sample only discards
+            self._decode_retire(feed)
+            return
+        if feed is not None:
+            # page pressure: the lookahead grants pages before retire N
+            # frees finished rows' pages; when the pool cannot cover every
+            # surviving row's full want, drain first, so that truncation
+            # falls where the serial order puts it
+            deficit = 0
+            for slot, request in self._running.items():
+                pending = feed["budgets"].get(slot, 0)
+                n_ctx = len(request.prompt_ids) + len(request.generated) + pending
+                want = min(k, max(0, request.max_tokens
+                                  - len(request.generated) - pending))
+                if want > 0:
+                    deficit += max(0, self.allocator.pages_needed(n_ctx + want - 1)
+                                   - self.allocator.slot_pages(slot))
+            if deficit > self.allocator.free_pages:
+                if not self._drain_feed(feed):
+                    return
+                feed = None
+        B = self._decode_width(allow_compact=feed is None)
+        if feed is not None and feed["B"] != B:
+            # a width change: the fed block's shape no longer matches
+            if not self._drain_feed(feed):
+                return
+            feed = None
+            B = self._decode_width()
+        self._inflight = self._decode_dispatch(B, feed)
+        if feed is not None:
+            self._decode_retire(feed)
+
+    def _drain_pipeline(self) -> None:
+        """Retire the in-flight dispatch, if any (a pipeline barrier)."""
+        inflight = self._inflight
+        if inflight is None:
+            return
+        self._inflight = None
+        self.stats.pipeline_drains += 1
+        self._decode_retire(inflight)
+
+    def _drain_feed(self, feed: dict[str, Any]) -> bool:
+        """A barrier inside the overlapped step: retire the fed dispatch
+        now; returns whether any row still runs."""
+        self.stats.pipeline_drains += 1
+        self._decode_retire(feed)
+        return bool(self._running)
+
+    def _decode_dispatch(self, B: int, feed: dict[str, Any] | None
+                         ) -> dict[str, Any]:
+        """Stage and launch one super-step of width ``B``; returns the
+        in-flight record ``_decode_retire`` consumes. ``feed``: the previous,
+        still in-flight dispatch, whose last sampled tokens are this one's
+        inputs; the host then advances each row by the fed step's budget
+        (a row that survives its step used its whole budget: a short one
+        means max_tokens or the page pool ends the row at that retire)."""
+        k = self._k
+        reqs = dict(self._running)
+        key = (k, B, any(r.temperature > 0 for r in reqs.values()))
+        pack = self._graphs.stage(key)
+        temperature = pack[TEMPERATURE].view(np.float32)
+        top_p = pack[TOP_P].view(np.float32)
+        budgets: dict[int, int] = {}
+        truncated: set[int] = set()
+        for slot, request in reqs.items():
+            pending = feed["budgets"].get(slot, 0) if feed is not None else 0
+            # every token that exists, the fed step's unseen ones included;
+            # the input token sits at position n_ctx - 1 and is written now
+            n_ctx = len(request.prompt_ids) + len(request.generated) + pending
+            if feed is None:
+                pack[TOKENS, slot] = request.generated[-1]
+            pack[POSITIONS, slot] = n_ctx - 1
+            pack[SEQ_LENS, slot] = n_ctx
+            temperature[slot] = request.temperature
+            pack[TOP_K, slot] = request.top_k
+            top_p[slot] = request.top_p
+            remaining = max(0, request.max_tokens - len(request.generated) - pending)
+            want = min(k, remaining)
+            usable = 0
+            if want > 0:
+                usable = self.allocator.pregrant_block(slot, n_ctx, want)
+                if usable == 0:
+                    # the page pool is exhausted: the row ends "length" at
+                    # retire, after the previous step's tokens
+                    truncated.add(slot)
+            budgets[slot] = usable
+            pack[BUDGETS, slot] = usable
+            stops = (self.tokenizer.eos_id,
+                     *tuple(request.stop_ids)[:STOP_TBL_WIDTH - 1])
+            pack[STOPS:STOPS + len(stops), slot] = stops
+        self._sync_tables()
+        started = time.monotonic()
+        gap_s = 0.0
+        if feed is None and self._last_step_done_ts is not None:
+            gap_s = max(0.0, started - self._last_step_done_ts)
+        self.stats.overlap_steps += int(feed is not None)
+        self.stats.dispatch_gap_ms_total += gap_s * 1000
+        graphs_before = self._graphs.replays
+        handle = self._graphs.launch(key, feed["handle"] if feed else None)
+        self.stats.graph_replays += self._graphs.replays - graphs_before
+        self.stats.decode_steps += k
+        self.stats.decode_dispatches += 1
+        return {"handle": handle, "budgets": budgets, "reqs": reqs,
+                "truncated": truncated, "B": B, "dispatch_ts": started}
+
+    def _decode_retire(self, inflight: dict[str, Any]) -> None:
+        """Read back one dispatch (its [K, B] tokens and the device's
+        valid/done masks, behind its event) and emit up to K tokens per
+        row. Under overlap this runs while the next dispatch executes."""
+        block, valid, _ = self._graphs.fetch(inflight["handle"])
+        done_ts = time.monotonic()
+        prev_done_ts = self._last_step_done_ts
+        self._last_step_done_ts = done_ts
+        self.stats.decode_ms_total += (done_ts - inflight["dispatch_ts"]) * 1000
+        self.stats.decode_wall_ms_total += (
+            done_ts - max(inflight["dispatch_ts"], prev_done_ts or 0.0)) * 1000
+        for slot, request in inflight["reqs"].items():
+            if self._running.get(slot) is not request:
+                continue  # finished at an earlier retire: lookahead discarded
+            if slot in inflight["truncated"]:
                 request.finish_reason = request.finish_reason or "length"
                 self._finish(request)
                 continue
-            rows.append(request)
-        if not rows:
-            return
-        self._sync_tables()
-        started = time.monotonic()
-        n_ctx = np.array([len(r.prompt_ids) + len(r.generated) for r in rows],
-                         dtype=np.int32)
-        tokens = self._to_device(np.array([r.generated[-1] for r in rows],
-                                          np.int64))
-        logits, self.kv = decode_step(
-            self.params, self.model_config, tokens,
-            self._to_device(n_ctx - 1), self.kv,
-            self._to_device(np.array([r.slot for r in rows], np.int64)),
-            self._to_device(n_ctx))
-        sampled = sample_tokens(logits, self._sampling(rows),
-                                self._sample_gen).tolist()
-        self.stats.decode_ms_total += (time.monotonic() - started) * 1000
-        self.stats.decode_steps += 1
-        for request, token in zip(rows, sampled):
-            self._emit(request, int(token))
+            for step in range(inflight["budgets"][slot]):
+                if not valid[step, slot]:
+                    break   # the device froze the row (EOS or a stop id)
+                self._emit(request, int(block[step, slot]))
+                if self._running.get(slot) is not request:
+                    break   # finished: the rest of the block is discarded
+
+    def _decode_body(self, bufs: DecodeBuffers) -> None:
+        """One dispatch over a key's static buffers: what each graph holds."""
+        K, _, sampled = bufs.key
+        tokens, valid, done, logits = self._decode_and_sample(
+            *bufs.views(), k=K, any_sampled=sampled)
+        bufs.outputs[:K].copy_(tokens)
+        bufs.outputs[K:2 * K].copy_(valid)
+        bufs.outputs[2 * K].copy_(done)
+        bufs.logits.copy_(logits)
+
+    def _decode_and_sample(self, tokens: torch.Tensor, positions: torch.Tensor,
+                           seq_lens: torch.Tensor, budgets: torch.Tensor,
+                           stop_tbl: torch.Tensor, sampling: SamplingParams,
+                           slot_ids: torch.Tensor, k: int, any_sampled: bool
+                           ) -> tuple[torch.Tensor, ...]:
+        """One decode SUPER-STEP: k decode iterations unrolled, each writing
+        its input token's KV, attending and sampling, with per-row budgets
+        and stop ids masking on the device so a finished row freezes (no
+        KV write after its last token, no advance). Columns with seq_len 0
+        (empty or chunking slots) never write.
+
+        Returns (tokens [k, B], valid [k, B] bool, done [B] bool, the last
+        iteration's logits [B, V]): valid marks the tokens to emit."""
+        active = seq_lens > 0
+        done = torch.zeros_like(active)
+        prev_valid = active
+        out_tokens, out_valid = [], []
+        for j in range(k):
+            # iteration j writes the KV of its input token (sampled at j - 1,
+            # or fed at j = 0): the write mask trails validity by one
+            logits, self.kv = decode_step(
+                self.params, self.model_config, tokens, positions, self.kv,
+                slot_ids, seq_lens, write_mask=active & prev_valid & ~done)
+            sampled = sample_tokens(logits, sampling, self._sample_gen,
+                                    any_sampled)
+            valid = active & ~done & (j < budgets)
+            done = done | (valid & (sampled[:, None] == stop_tbl).any(dim=1))
+            positions = torch.where(valid, positions + 1, positions)
+            seq_lens = torch.where(valid, seq_lens + 1, seq_lens)
+            prev_valid, tokens = valid, sampled
+            out_tokens.append(sampled)
+            out_valid.append(valid)
+        return torch.stack(out_tokens), torch.stack(out_valid), done, logits
 
     def _sync_tables(self) -> None:
-        """Upload the block table when the allocator changed a row."""
+        """Upload the block table when the allocator changed a row: a
+        non-blocking copy from page-locked memory on the card, ordered on
+        the dispatch thread's stream before the next device call. (Every
+        device call of the engine runs on that one stream, the current
+        one, so eager prefill reuses the allocator's cached blocks as it
+        did before decode moved to graphs.)"""
         if self.allocator.dirty:
-            self.kv.block_tables.copy_(self.allocator.tables())
+            self.kv.block_tables.copy_(
+                self.allocator.tables(pin=self.device.type == "cuda"),
+                non_blocking=True)
 
     # --------------------------------------------------------------- emission
 

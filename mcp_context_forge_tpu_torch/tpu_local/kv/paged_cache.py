@@ -19,7 +19,9 @@ row's valid positions within one call must form one contiguous ascending
 span (true of prefill, chunk and suffix prefill, and decode): then only
 the page under each row's first written token can hold earlier tokens of
 that row, and only it is requantized. The arithmetic is the JAX writers',
-step for step (``_quant_store``).
+step for step (``_quant_store``). On the card, the decode writer of an
+int8 pool is one hand-written kernel per layer (``ops.kv_write``); CPU
+tensors and every prefill write keep ``_quant_store``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models.configs import LlamaConfig
+from ..ops.kv_write import kv_quant_store_decode
 from ..quantize import KV_SCALE_EPS, kv_dequantize, kv_int8_scale, kv_quantize
 
 
@@ -179,10 +182,30 @@ def write_decode_kv(kv: PagedKVState, layer: int, k: torch.Tensor,
                     positions: torch.Tensor,
                     valid: torch.Tensor | None = None) -> PagedKVState:
     """Scatter one token per slot, in place. k/v: [B,KV,hd]; positions: [B];
-    valid: [B] bool — False rows write to the trash page."""
+    valid: [B] bool — False rows write to the trash page. A position past
+    the block table takes its last column, as the JAX package's gather
+    clamps (only a row the page pool has already ended writes there). An
+    int8 pool on the card takes the fused writer kernel, K and V of the
+    layer in one launch; everything else runs ``write_decode_kv_plain``."""
+    if kv.quantized and kv.k_pages.is_cuda:
+        kv_quant_store_decode(kv.k_pages[layer], kv.v_pages[layer],
+                              kv.k_scales[layer], kv.v_scales[layer], k, v,
+                              kv.block_tables, slot_ids, positions, valid)
+        return kv
+    return write_decode_kv_plain(kv, layer, k, v, slot_ids, positions, valid)
+
+
+def write_decode_kv_plain(kv: PagedKVState, layer: int, k: torch.Tensor,
+                          v: torch.Tensor, slot_ids: torch.Tensor,
+                          positions: torch.Tensor,
+                          valid: torch.Tensor | None = None) -> PagedKVState:
+    """The plain PyTorch decode writer (``_quant_store`` on int8 pools),
+    on any device: what CPU tensors run and what the fused kernel is held
+    to."""
     page_size = kv.page_size
     rows = kv.block_tables[slot_ids.long()]                       # [B, P]
-    pages = torch.gather(rows, 1, (positions // page_size)[:, None].long())[:, 0]
+    col = (positions // page_size).clamp(max=rows.shape[1] - 1)
+    pages = torch.gather(rows, 1, col[:, None].long())[:, 0]
     offset = positions % page_size
     if valid is not None:
         pages = torch.where(valid, pages, 0)
@@ -305,6 +328,18 @@ class PageAllocator:
     @property
     def pages_in_use(self) -> int:
         return (self.num_pages - 1) - self.free_pages
+
+    def avg_slot_pages(self) -> int:
+        """Average page footprint of the active slots (the typical
+        admission cost); max_pages_per_slot when none is active."""
+        if not self._slots:
+            return self.max_pages_per_slot
+        total = sum(len(pages) for pages in self._slots.values())
+        return max(1, total // len(self._slots))
+
+    def slot_pages(self, slot: int) -> int:
+        """Pages one slot holds."""
+        return len(self._slots.get(slot, ()))
 
     def _track_peak(self) -> None:
         self.peak_pages_in_use = max(self.peak_pages_in_use,
@@ -450,6 +485,28 @@ class PageAllocator:
             self._track_peak()
         return len(pages) * self.page_size
 
+    def pregrant_block(self, slot: int, n_ctx: int, k: int) -> int:
+        """Grant the pages of a K-token decode super-step in one call;
+        returns the usable token budget (0..k). ``n_ctx`` counts the row's
+        tokens including the input token at position n_ctx - 1, whose KV
+        this dispatch writes; the last of the k sampled tokens is written
+        only as the next dispatch's input, so the capacity needed is
+        n_ctx + k - 1 tokens."""
+        if k <= 0:
+            return 0
+        capacity = self.grow_slot(slot, n_ctx + k - 1)
+        return max(0, min(k, capacity - (n_ctx - 1)))
+
+    def move_slot(self, old: int, new: int) -> None:
+        """Reassign a slot's pages to a free slot id (compaction): pages
+        are slot-agnostic, so only the mapping and two table rows move."""
+        if new in self._slots:
+            raise RuntimeError(f"move_slot: slot {new} is occupied")
+        if old in self._slots:
+            self._slots[new] = self._slots.pop(old)
+            self._dirty.add(old)
+            self._dirty.add(new)
+
     def free_slot(self, slot: int) -> None:
         pages = self._slots.pop(slot, [])
         if pages:
@@ -457,9 +514,12 @@ class PageAllocator:
         for page in reversed(pages):
             self._release_page(page)
 
-    def tables(self) -> torch.Tensor:
-        """The block table as a fresh CPU int32 tensor. Only dirty rows are
-        rebuilt in the cached host table; reading clears the dirty set."""
+    def tables(self, pin: bool = False) -> torch.Tensor:
+        """The block table as a fresh CPU int32 tensor, in page-locked
+        memory with ``pin`` (so a non-blocking upload can read it while the
+        host goes on; the caching host allocator keeps the block until the
+        copy is done). Only dirty rows are rebuilt in the cached host
+        table; reading clears the dirty set."""
         for slot in self._dirty:
             row = self._table[slot]
             row[:] = 0
@@ -467,4 +527,5 @@ class PageAllocator:
             if pages:
                 row[:len(pages)] = pages
         self._dirty.clear()
-        return torch.from_numpy(self._table.copy())
+        table = torch.from_numpy(self._table)
+        return table.pin_memory() if pin else table.clone()

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("flash_attention_mma", "flash_attention_tc", "paged_chunk_attention_mma",
            "paged_chunk_attention_tc", "paged_decode_attention", "grouped_moe",
-           "grouped_moe_tc")
+           "grouped_moe_tc", "kv_quant_store")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

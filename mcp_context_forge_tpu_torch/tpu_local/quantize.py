@@ -138,8 +138,12 @@ def embed_rows(embed: Any, tokens: torch.Tensor,
         s = embed["s"]
         rows = embed["q"][idx].to(s.dtype) * s[idx][..., None]
     if multiplier != 1.0:
-        rows = rows * torch.tensor(multiplier, dtype=rows.dtype,
-                                   device=rows.device)
+        # the multiplier rounded to the rows' dtype once, on the host; a
+        # Python scalar multiplies in f32 and rounds once, the bits of the
+        # product by a 0-d tensor of that dtype, with no host-to-device
+        # copy (which CUDA-graph capture refuses)
+        rounded = torch.tensor(multiplier, dtype=rows.dtype).item()
+        rows = rows * rounded
     return rows
 
 
@@ -156,8 +160,11 @@ KV_SCALE_EPS = 1e-8  # floor under scales: all-zero pages must not divide by 0
 
 def kv_int8_scale(amax: torch.Tensor) -> torch.Tensor:
     """Per-(page, head) scale from a max-|value| statistic: round(x / s)
-    stays inside [-127, 127] for every |x| <= amax."""
-    return amax.float() / 127.0
+    stays inside [-127, 127] for every |x| <= amax. A true f32 division on
+    every device (CUDA computes a tensor over a Python scalar as a product
+    by its reciprocal, which can differ in the last bit)."""
+    amax = amax.float()
+    return amax / torch.full_like(amax, 127.0)
 
 
 def kv_quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

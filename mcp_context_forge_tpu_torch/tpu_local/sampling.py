@@ -37,15 +37,24 @@ def sampling_mask(scaled: torch.Tensor, top_k: torch.Tensor,
 
 
 def sample_tokens(logits: torch.Tensor, params: SamplingParams,
-                  generator: torch.Generator) -> torch.Tensor:
+                  generator: torch.Generator,
+                  any_sampled: bool = True) -> torch.Tensor:
     """logits: [B, V] f32 -> token ids [B] (int64). Greedy rows take the
     argmax (first index on ties, as jnp.argmax); the others draw from the
-    masked softmax with ``generator``."""
+    masked softmax with ``generator``.
+
+    ``any_sampled``: whether some row has a temperature above 0, which the
+    caller knows on the host; False returns the argmax alone and reads
+    nothing back (the call never syncs the host, so a CUDA graph can hold
+    it). The draw is Gumbel-max, as ``jax.random.categorical``:
+    argmax(masked logits - log E) with E ~ Exp(1) from ``generator``, the
+    masked softmax's distribution (masked tokens stay at -inf)."""
     greedy = torch.argmax(logits, dim=-1)
-    if not bool((params.temperature > 0.0).any()):
+    if not any_sampled:
         return greedy
     scaled = logits / params.temperature.clamp(min=1e-6)[:, None]
     mask = sampling_mask(scaled, params.top_k, params.top_p)
-    probs = torch.softmax(torch.where(mask, scaled, -torch.inf), dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    masked = torch.where(mask, scaled, -torch.inf)
+    noise = torch.empty_like(masked).exponential_(generator=generator)
+    sampled = torch.argmax(masked - torch.log(noise), dim=-1)
     return torch.where(params.temperature <= 0.0, greedy, sampled)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the port's decode step spends its time on one NVIDIA GPU.
+"""Where the port's decode time goes on one NVIDIA GPU.
 
     python3 profile_torch_engine.py [--phase engine|long]
 
@@ -7,15 +7,22 @@ Run from the root of a checkout, on a card. Builds the engine of one of
 ``chip_smoke.py``'s llama3-8b phases (random weights from seed 0): ``engine``
 (bf16 pages, max_seq_len 2048) or ``long`` (int8 KV pages, max_seq_len 8192,
 a ~6000- and a ~3000-token prompt chunked), serves that phase's six
-requests through ``TorchLocalProvider.chat``, and profiles decode steps 8 to
-15 with ``torch.profiler`` (CUDA activity only, one step per profile, so
-the profiler's start and stop stay outside the step). Each step's wall time
-is the engine's own (host clock around the step, which ends in a
-device-to-host copy of the sampled tokens), its device time the sum of the
-kernel durations in the step. Prints one JSON line: the card, the medians
-per step (wall, device busy, kernels launched, the idle share
-1 - busy / wall) and the kernels that take the most device time.
-Exits 1 without CUDA.
+requests through ``TorchLocalProvider.chat``, and reads two windows of
+the engine's loop, each step of which dispatches one CUDA-graph replay
+and, under the overlapped pipeline, retires the one before it:
+
+- steps 8 to 15, unprofiled: the wall per step,
+  ``EngineStats.decode_wall_ms_total`` over the window's retires (retire
+  to retire); the device time per replay, CUDA events recorded around
+  each replay on its stream (a graph's kernels run back to back, so this
+  is its busy time); the idle share, 1 - device time / wall;
+- steps 16 to 23, under ``torch.profiler`` (CUDA activity only): the
+  kernels (and copies) per replay, their summed time per replay, and the
+  kernels that take the most device time. CUPTI's tracing of graph
+  kernels slows each replay's host side by about a second, so no wall is
+  read from this window.
+
+Prints one JSON line with the card. Exits 1 without CUDA.
 """
 
 from __future__ import annotations
@@ -24,7 +31,6 @@ import argparse
 import asyncio
 import collections
 import json
-import statistics
 import sys
 import time
 from pathlib import Path
@@ -56,28 +62,58 @@ def main() -> int:
         requests = chip_smoke.long_context_requests("llama3-8b")
     engine = TorchEngine(EngineConfig(**config))
     provider = TorchLocalProvider("tpu_local", engine)
-    step = engine._decode_step
-    seen, steps = [0], []
+    name = "_decode_step_overlapped" if engine.config.decode_overlap else "_decode_step_all"
+    step, retire = getattr(engine, name), engine._decode_retire
+    seen, retires, window, marks = [0], [0], {}, []
+
+    class TimedGraph:
+        """A graph whose replays in the first window are bracketed by
+        CUDA events."""
+
+        def __init__(self, graph):
+            self.graph = graph
+
+        def replay(self):
+            if not FIRST_STEP <= seen[0] < FIRST_STEP + STEPS:
+                return self.graph.replay()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            self.graph.replay()
+            end.record()
+            marks.append((start, end))
+            return None
+
+    for bufs in engine._graphs.buffers.values():
+        bufs.graph = TimedGraph(bufs.graph)
+
+    def counted_retire(inflight):
+        retires[0] += 1
+        return retire(inflight)
 
     def profiled_step():
         seen[0] += 1
-        if not FIRST_STEP <= seen[0] < FIRST_STEP + STEPS:
-            return step()
-        before = (engine.stats.decode_steps, engine.stats.decode_ms_total)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            step()
-        if engine.stats.decode_steps == before[0]:
-            return None   # no running row
-        by_name = collections.Counter()
-        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        for e in kernels:   # a kernel's own interval on the card
-            by_name[e.name] += e.time_range.elapsed_us() / 1e3
-        steps.append({"wall_ms": engine.stats.decode_ms_total - before[1],
-                      "busy_ms": sum(by_name.values()), "kernels": len(kernels),
-                      "by_name": by_name})
-        return None
+        stats = engine.stats
+        if seen[0] == FIRST_STEP:
+            window.update(wall=stats.decode_wall_ms_total, retires=retires[0],
+                          t0=time.monotonic())
+        if seen[0] == FIRST_STEP + STEPS:
+            window["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            window["replays"] = stats.graph_replays
+            window["prof"].start()
+        step()
+        if seen[0] == FIRST_STEP + STEPS - 1:
+            torch.cuda.synchronize()
+            window.update(host_s=time.monotonic() - window["t0"],
+                          wall=stats.decode_wall_ms_total - window["wall"],
+                          retires=retires[0] - window["retires"],
+                          busy=[s.elapsed_time(e) for s, e in marks])
+        if seen[0] == FIRST_STEP + 2 * STEPS - 1:
+            torch.cuda.synchronize()
+            window["prof"].stop()
+            window["replays"] = stats.graph_replays - window["replays"]
 
-    engine._decode_step = profiled_step
+    setattr(engine, name, profiled_step)
+    engine._decode_retire = counted_retire
 
     async def run():
         await engine.start()
@@ -89,22 +125,31 @@ def main() -> int:
 
     t0 = time.monotonic()
     asyncio.run(run())
-    if not steps:
-        print("profile_torch_engine: no decode step was profiled", file=sys.stderr)
+    if "replays" not in window or not window["replays"] or not window["busy"]:
+        print("profile_torch_engine: the decode windows were not reached", file=sys.stderr)
         return 1
     by_name = collections.Counter()
-    for s in steps:
-        for name, ms in s["by_name"].items():
-            by_name[name] += ms / len(steps)
-    wall = statistics.median(s["wall_ms"] for s in steps)
-    busy = statistics.median(s["busy_ms"] for s in steps)
+    kernels = [e for e in window["prof"].events() if e.device_type.name == "CUDA"]
+    for e in kernels:   # a kernel's own interval on the card
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    replays, busy = window["replays"], window["busy"]
+    wall = window["wall"] / window["retires"]
+    device = sum(busy) / len(busy)
     print(json.dumps({
         "card": chip_smoke.card_line(), "phase": args.phase,
-        "profiled_steps": [FIRST_STEP, FIRST_STEP + len(steps) - 1],
-        "wall_ms_per_step": wall, "busy_ms_per_step": busy,
-        "idle_share": 1 - busy / wall,
-        "kernels_per_step": statistics.median(s["kernels"] for s in steps),
-        "top_kernels_ms_per_step": [[name[:90], ms] for name, ms in by_name.most_common(12)],
+        "superstep": engine.config.superstep,
+        "decode_overlap": engine.config.decode_overlap,
+        "timed_steps": [FIRST_STEP, FIRST_STEP + STEPS - 1],
+        "profiled_steps": [FIRST_STEP + STEPS, FIRST_STEP + 2 * STEPS - 1],
+        "timed_replays": len(busy), "retires": window["retires"],
+        "wall_ms_per_step": wall, "device_ms_per_replay": device,
+        "idle_share": 1 - device / wall,
+        "host_window_ms_per_replay": window["host_s"] * 1e3 / len(busy),
+        "profiled_replays": replays,
+        "kernels_per_replay": len(kernels) / replays,
+        "profiled_busy_ms_per_replay": sum(by_name.values()) / replays,
+        "top_kernels_ms_per_replay": [[k[:90], ms / replays]
+                                      for k, ms in by_name.most_common(12)],
         "seconds": time.monotonic() - t0}))
     return 0
 

@@ -53,6 +53,8 @@ def test_kernel_modules_import_without_toolchain():
         "import mcp_context_forge_tpu_torch.tpu_local.ops.paged_attention\n"
         "import mcp_context_forge_tpu_torch.tpu_local.ops.attention\n"
         "import mcp_context_forge_tpu_torch.tpu_local.ops.grouped_moe\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.ops.kv_write\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.decode_graphs\n"
         "import mcp_context_forge_tpu_torch.tpu_local.parallel.moe\n"
         "import mcp_context_forge_tpu_torch.tpu_local.quantize\n"
         "import mcp_context_forge_tpu_torch.tpu_local.kv.paged_cache\n"

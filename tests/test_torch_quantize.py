@@ -203,3 +203,23 @@ def test_int8_model_matches_jax(name):
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                    atol=1e-4)
         seq = seq + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True])
+def test_embed_multiplier_scalar_equals_tensor_multiply(dtype, quant):
+    """Gemma's embedding multiplier is rounded to the rows' dtype once and
+    applied as a Python scalar (no host-to-device copy): the same bits as
+    the product by a 0-d tensor of that dtype, plain and int8 tables."""
+    rng = np.random.default_rng(8)
+    table = torch.from_numpy(rng.standard_normal((50, 24)).astype(np.float32)).to(dtype)
+    if quant:
+        table = pq.quantize_leaf(table, 1, dtype)
+    tokens = torch.from_numpy(rng.integers(0, 50, (3, 7)))
+    multiplier = 24 ** 0.5
+    rows = pq.embed_rows(table, tokens)
+    want = rows * torch.tensor(multiplier, dtype=rows.dtype)
+    got = pq.embed_rows(table, tokens, multiplier)
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))

@@ -94,3 +94,56 @@ def test_draw_distribution_chi_square(top_k, top_p):
     expected = probs[mask].double() * N
     chi2 = float(((counts[mask] - expected) ** 2 / expected).sum())
     assert chi2 < 20.5
+
+
+def test_sample_tokens_reads_nothing_back(monkeypatch):
+    """Neither variant reads a device value on the host (a CUDA graph holds
+    the call): with ``Tensor.__bool__`` and ``Tensor.item`` raising, both
+    still run."""
+    rng = np.random.default_rng(4)
+    logits = torch.from_numpy(rng.standard_normal((4, 40)).astype(np.float32))
+    params = _params([0.0, 0.8, 1.0, 0.0], [0, 5, 0, 0], [1.0, 0.9, 1.0, 1.0])
+    gen = torch.Generator().manual_seed(5)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("sample_tokens read a tensor value on the host")
+
+    monkeypatch.setattr(torch.Tensor, "__bool__", refuse)
+    monkeypatch.setattr(torch.Tensor, "item", refuse)
+    for any_sampled in (False, True):
+        assert sample_tokens(logits, params, gen, any_sampled).shape == (4,)
+
+
+def test_greedy_only_variant_matches_sampling_variant():
+    """The greedy-only call (``any_sampled=False``) and the sampling call
+    give the same tokens on every greedy row of a mixed batch."""
+    rng = np.random.default_rng(6)
+    logits = torch.from_numpy(rng.standard_normal((8, 100)).astype(np.float32))
+    temperature = [0.0, 0.9, 0.0, 1.2, 0.0, 0.0, 0.5, 0.0]
+    params = _params(temperature, [0, 10, 0, 0, 3, 0, 0, 1], [1.0] * 8)
+    greedy_rows = torch.tensor(temperature) == 0.0
+    only = sample_tokens(logits, params, torch.Generator().manual_seed(7), False)
+    mixed = sample_tokens(logits, params, torch.Generator().manual_seed(7), True)
+    assert torch.equal(only, logits.argmax(dim=-1))
+    assert torch.equal(mixed[greedy_rows], only[greedy_rows])
+
+
+def test_tempered_masked_draw_chi_square():
+    """The Gumbel-max draw at temperature 0.7 under top-k 4 and top-p 0.8
+    together (top-p keeps 3 of top-k's 4): 20000 seeded draws against the
+    masked softmax of the tempered logits, under the 0.999 quantile of
+    chi-square with 2 degrees of freedom (13.8)."""
+    logits = torch.tensor([[2.0, 1.2, 0.3, -0.4, 1.6, -1.1, 0.9]])
+    N = 20000
+    params = _params([0.7] * N, [4] * N, [0.8] * N)
+    draws = sample_tokens(logits.expand(N, -1).contiguous(), params,
+                          torch.Generator().manual_seed(99))
+    scaled = logits / 0.7
+    mask = sampling_mask(scaled, torch.tensor([4]), torch.tensor([0.8]))[0]
+    assert int(mask.sum()) == 3
+    probs = torch.softmax(torch.where(mask, scaled[0], -torch.inf), dim=-1)
+    counts = torch.bincount(draws, minlength=7).double()
+    assert counts[~mask].sum() == 0
+    expected = probs[mask].double() * N
+    chi2 = float(((counts[mask] - expected) ** 2 / expected).sum())
+    assert chi2 < 13.8
