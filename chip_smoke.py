@@ -58,6 +58,26 @@ holds the fused int8 decode writer bit for bit against the plain writer
 (pages >= 1 and their scales) at Llama-3-8B shapes, with three planted
 faults.
 
+Speculative decoding (prompt-lookup drafts, a [B, spec_k] verify replayed
+from its own CUDA graphs through the paged chunk kernel): in
+``engine_llama3_tiny_f32_spec`` and ``engine_llama3_tiny_f32_int8_kv_spec``
+greedy streams must equal the plain phases' of the same config in the
+same run (``engine_llama3_tiny_f32`` and ``engine_llama3_tiny_f32_int8_kv``).
+``engine_llama3_8b_spec`` serves the ``engine`` phase's requests plus an
+extraction-style one at full width and depth in bf16; one verify replay
+must give bit-identical logits to the eager verify, and at llama3-8b's
+width in f32 (4 layers) each verify position's logits are held to an
+eager decode step's over the same prefix (``verify_against_eager``); its
+streams' agreement with the ``engine`` phase is reported. Every engine
+phase accounts for each launch: decode kernels = replays x per-graph
+launches, and flash, the chunk kernels and the int8 span writer add one
+launch per layer per eager prefill or history prefill; the plain int8
+writer (``_quant_store``) never runs on the card. ``kv_span_write`` holds
+the int8 span writer (prefill, chunk rounds, hit suffixes, verify) bit
+for bit against the plain writer at the verify's block and a 2048-token
+prefill block, with three planted faults, and ``kernels_verify_shape``
+times the chunk kernel (rows 2 and 2b) at the verify's shape.
+
 The attention path runs first, on a card the MoE phases have not loaded:
 kernels (Llama-3-8B serving shapes), model (llama3-tiny), engine (llama3-8b
 at full width, 32 layers: the three attention kernels; every flash and
@@ -172,6 +192,9 @@ REPLACES = {
     "expert_blocks_wmma_q8": "mcp_context_forge_tpu/tpu_local/ops/grouped_moe.py:225",
     # not a pallas_call: the XLA-fused int8 decode write (_quant_store)
     "kv_quant_store_decode": "mcp_context_forge_tpu/tpu_local/kv/paged_cache.py:121",
+    # not a pallas_call: the XLA-fused int8 prefill write (_quant_store as
+    # write_prefill_kv calls it)
+    "kv_quant_store_span": "mcp_context_forge_tpu/tpu_local/kv/paged_cache.py:165",
 }
 SOURCES = {
     "flash_attention_tc": "flash_attention_tc.cu",
@@ -187,6 +210,7 @@ SOURCES = {
     "expert_blocks_wmma": "grouped_moe.cu",
     "expert_blocks_wmma_q8": "grouped_moe.cu",
     "kv_quant_store_decode": "kv_quant_store.cu",
+    "kv_quant_store_span": "kv_quant_store.cu",
 }
 ATTENTION = ("flash_attention_tc", "paged_chunk_attention_tc", "paged_decode_attention")
 ATTENTION_Q8 = ("flash_attention_tc", "paged_chunk_attention_tc_q8",
@@ -196,6 +220,10 @@ CHUNK = ("paged_chunk_attention_tc", "paged_chunk_attention_tc_q8",
          "paged_chunk_attention_mma", "paged_chunk_attention_mma_q8")
 TC_ATTENTION = ("flash_attention_tc", "paged_chunk_attention_tc", "paged_chunk_attention_tc_q8")
 MOE_WMMA = ("expert_blocks_wmma", "expert_blocks_wmma_q8")
+FLASH = ("flash_attention_tc", "flash_attention_mma")
+# kernels that run only inside the decode graphs
+DECODE_ONLY = ("paged_decode_attention", "paged_decode_attention_q8", "kv_quant_store_decode")
+INT8_WRITERS = ("kv_quant_store_decode", "kv_quant_store_span")
 # kernels the bf16 llama3-8b and Mixtral paths must not launch
 NOT_BF16 = ("flash_attention_mma", "paged_chunk_attention_mma",
             "paged_chunk_attention_mma_q8")
@@ -267,6 +295,33 @@ def main() -> int:
     emit({"phase": "engine_llama3_tiny_f32_k8", "tokens_equal_k1": True, **stats})
     count(counts)
     free_device(torch)
+    # speculative decoding is lossless: greedy streams equal the plain phases'
+    counts, stats = engine_phase(torch, dev, "llama3-tiny", ATTENTION_MMA[:2],
+                                 chat_requests("llama3-tiny"), hit=1,
+                                 absent=TC_ATTENTION, dtype="float32", spec_decode=True)
+    check(stats["generated"] == k1_tokens,
+          "speculative decoding changed a greedy stream of the plain phase")
+    emit({"phase": "engine_llama3_tiny_f32_spec", "tokens_equal_plain": True, **stats})
+    count(counts)
+    free_device(torch)
+    tiny_q8 = ("flash_attention_mma", "paged_chunk_attention_mma_q8")
+    tiny_q8_absent = TC_ATTENTION + ("paged_chunk_attention_mma", "paged_decode_attention")
+    counts, stats = engine_phase(torch, dev, "llama3-tiny",
+                                 tiny_q8 + ("paged_decode_attention_q8",) + INT8_WRITERS,
+                                 chat_requests("llama3-tiny"), hit=1, absent=tiny_q8_absent,
+                                 dtype="float32", kv_quant="int8")
+    emit({"phase": "engine_llama3_tiny_f32_int8_kv", **stats})
+    count(counts)
+    free_device(torch)
+    q8_tokens = stats["generated"]
+    counts, stats = engine_phase(torch, dev, "llama3-tiny", tiny_q8 + ("kv_quant_store_span",),
+                                 chat_requests("llama3-tiny"), hit=1, absent=tiny_q8_absent,
+                                 dtype="float32", kv_quant="int8", spec_decode=True)
+    check(stats["generated"] == q8_tokens,
+          "speculative decoding changed a greedy stream of the plain int8-page phase")
+    emit({"phase": "engine_llama3_tiny_f32_int8_kv_spec", "tokens_equal_plain": True, **stats})
+    count(counts)
+    free_device(torch)
     counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION,
                                  chat_requests("llama3-8b"), hit=1, absent=NOT_BF16,
                                  graph_check=True)
@@ -275,15 +330,30 @@ def main() -> int:
     emit({"phase": "engine", **stats})
     count(counts)
     free_device(torch)
+    engine_tokens = stats["generated"]
+    counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION[:2],
+                                 chat_requests("llama3-8b") + [extraction_request("llama3-8b")],
+                                 hit=1, absent=NOT_BF16, spec_decode=True)
+    # reported, not required: in bf16 a near-tie may flip between the
+    # verify's and the decode step's sums
+    stats["streams_equal_engine"] = [a == b for a, b in zip(stats["generated"], engine_tokens)]
+    free_device(torch)
+    stats["verify_against_decode_f32"] = verify_against_decode_f32(torch, dev)
+    emit({"phase": "engine_llama3_8b_spec", **stats})
+    count(counts)
+    free_device(torch)
 
     # ------------------------- long context on int8 KV: kernels, model, engine
     results.update(q8_kernel_phase(torch, dev, timer))
     free_device(torch)
     results.update(kv_write_phase(torch, dev, timer))
     free_device(torch)
+    results.update(span_write_phase(torch, dev, timer))
+    free_device(torch)
+    verify_shape_phase(torch, dev, timer)
+    free_device(torch)
     count(model_check(torch, dev, "llama3-tiny", kv_quant="int8"))
-    counts, stats = engine_phase(torch, dev, "llama3-8b",
-                                 ATTENTION_Q8 + ("kv_quant_store_decode",),
+    counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION_Q8 + INT8_WRITERS,
                                  long_context_requests("llama3-8b"), hit=3,
                                  absent=ATTENTION[1:] + NOT_BF16,
                                  kv_quant="int8", max_seq_len=8192)
@@ -1164,6 +1234,224 @@ def kv_write_phase(torch, dev, time_ms) -> dict:
     return {"kv_quant_store_decode": result}
 
 
+def span_write_phase(torch, dev, time_ms) -> dict:
+    """The int8 span writer against its plain versions at Llama-3-8B
+    shapes: one layer of the long-context pool (1024 int8 pages of 128, KV
+    8, hd 128, bf16 scales), the verify's block (B = 8, S = 4: spans at
+    offset 0 of a page left with a large scale, so the reset shows;
+    mid-page with values that grow the page's scale and with values that
+    do not; crossing a page from its offset 126; 2 and 3 tokens, then
+    padding; one token at offset 1; a padding row) and a prefill block
+    (B = 4, S = 2048, rows of 2048, 2011, 1029 and 1 valid tokens from
+    offset 0, mid-page with growth, a page's last offset, and mid-page).
+    The kernel must equal the plain writer (``write_prefill_kv_plain``,
+    ``_quant_store`` on the card) and the plain model of the kernel
+    (``kv_quant_store_span_ref``) bit for bit on pages >= 1 and their
+    scales. Planted faults on the verify block, each a kernel given
+    corrupted inputs or an output edited as a faulty kernel would leave it,
+    must be rejected: the requantize skipped (the growing row's first page
+    given its final scale, so the ratio is 1), the offset-0 reset skipped
+    (the page keeps max(old, new) and its tokens are quantized under it),
+    and a wrong page column (one row's table column pointing at a spare
+    page). Timed on repeated writes of the same block (the steady state: no
+    scale grows); the bound counts the valid tokens' bytes."""
+    from mcp_context_forge_tpu_torch.tpu_local.kv import PagedKVState
+    from mcp_context_forge_tpu_torch.tpu_local.kv.paged_cache import write_prefill_kv_plain
+    from mcp_context_forge_tpu_torch.tpu_local.ops.kv_write import (kv_quant_store_span,
+                                                                    kv_quant_store_span_ref)
+    from mcp_context_forge_tpu_torch.tpu_local.quantize import kv_quantize
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf16 = torch.bfloat16
+    KV, hd, PAGE, NUM_PAGES, P = 8, 128, 128, 1024, 64
+    spare = NUM_PAGES - 1    # a page no row's table holds
+    pool = {key: torch.randint(-127, 128, (NUM_PAGES, PAGE, KV, hd), generator=gen,
+                               device=dev, dtype=torch.int8) for key in ("k_pages", "v_pages")}
+    for key in ("k_scales", "v_scales"):
+        pool[key] = ((torch.rand((NUM_PAGES, KV), generator=gen, device=dev) + 0.5) / 127).to(bf16)
+
+    def copy(state: dict) -> dict:
+        return {key: t.clone() for key, t in state.items()}
+
+    cases = {   # (first positions, valid tokens, magnitudes, S) of each row
+        # rows: reset, grows, no growth, crosses a page, padding, 2 tokens,
+        # 3 tokens, offset 1
+        "verify": ([3 * PAGE, 5 * PAGE + 37, 2 * PAGE + 90, 2 * PAGE + 126, 40,
+                    7 * PAGE + 64, 9 * PAGE, 11 * PAGE + 1],
+                   [4, 4, 4, 4, 0, 2, 3, 1], [0.5, 60.0, 1e-3, 1.0, 5.0, 1.0, 1.0, 1.0], 4),
+        "prefill": ([0, 2 * PAGE + 37, 5 * PAGE + 127, 20 * PAGE + 64], [2048, 2011, 1029, 1],
+                    [0.5, 60.0, 1e-3, 1.0], 2048),
+    }
+    runs = {}
+    for case, (starts, n_valid, magnitude, S) in cases.items():
+        B = len(starts)
+        tables = torch.arange(1, 1 + B * P, dtype=torch.int32, device=dev).reshape(B, P)
+        check(not bool((tables == spare).any()), "the spare page is in use")
+        positions = torch.zeros((B, S), dtype=torch.int32)
+        valid = torch.zeros((B, S), dtype=torch.bool)
+        for b, (st, n) in enumerate(zip(starts, n_valid)):
+            positions[b, :n] = torch.arange(st, st + n)
+            valid[b, :n] = True
+        positions, valid = positions.to(dev), valid.to(dev)
+        scale = torch.tensor(magnitude, device=dev)[:, None, None, None]
+        k, v = ((torch.randn((B, S, KV, hd), generator=gen, device=dev) * scale).to(bf16)
+                for _ in range(2))
+        slots = torch.arange(B, dtype=torch.int32, device=dev)
+        first_page = [int(tables[b, st // PAGE]) for b, st in enumerate(starts)]
+        start = copy(pool)
+        for key in ("k_scales", "v_scales"):
+            start[key][first_page[0]] = 1.0    # a large scale left by an earlier tenancy
+
+        def kernel(state: dict, tables=tables) -> dict:
+            kv_quant_store_span(state["k_pages"], state["v_pages"], state["k_scales"],
+                                state["v_scales"], k, v, tables, slots, positions, valid)
+            return state
+
+        def plain(state: dict) -> dict:
+            kv = PagedKVState(*(state[key][None] for key in ("k_pages", "v_pages")), tables,
+                              state["k_scales"][None], state["v_scales"][None])
+            write_prefill_kv_plain(kv, 0, k, v, slots, positions, valid)
+            return state
+
+        def model(state: dict) -> dict:
+            kv_quant_store_span_ref(state["k_pages"], state["v_pages"], state["k_scales"],
+                                    state["v_scales"], k, v, tables, slots, positions, valid)
+            return state
+
+        ref = plain(copy(start))
+        out = kernel(copy(start))
+        modelled = model(copy(start))
+        torch.cuda.synchronize()
+        diff = writer_diff(torch, out, ref)
+        check(diff == 0, f"kv_quant_store_span ({case}): {diff} elements of pages >= 1 or "
+                         f"their scales differ from the plain writer")
+        check(writer_diff(torch, modelled, ref) == 0,
+              f"kv_quant_store_span_ref ({case}) differs from the plain writer")
+        grew = [b for b in range(B) if n_valid[b] and starts[b] % PAGE
+                and not torch.equal(ref["k_scales"][first_page[b]], start["k_scales"][first_page[b]])]
+        reset = bool((ref["k_scales"][first_page[0]] < 1.0).all())
+        check(1 in grew and reset, f"kv_quant_store_span ({case}): the rows whose scale grew "
+                                   f"are {grew}, the reset showed: {reset}")
+        run = {"shape": {"pages": list(pool["k_pages"].shape), "scales": list(pool["k_scales"].shape),
+                         "k": list(k.shape), "starts": starts, "valid_tokens": n_valid},
+               "rows_whose_scale_grew": grew, "differing_elements": diff,
+               "max_abs_err": max(float((out[key][1:].float() - ref[key][1:].float()).abs().max())
+                                  for key in ref)}
+        if case == "verify":
+            faults = {}
+            skip_requant = copy(start)
+            for key in ("k_scales", "v_scales"):
+                skip_requant[key][first_page[1]] = ref[key][first_page[1]]
+            faults["row 1: the requantize skipped"] = kernel(skip_requant)
+            no_reset = copy(out)
+            n0 = n_valid[0]
+            for name, x in (("k", k), ("v", v)):
+                scales, pages = no_reset[f"{name}_scales"], no_reset[f"{name}_pages"]
+                kept = torch.maximum(start[f"{name}_scales"][first_page[0]],
+                                     ref[f"{name}_scales"][first_page[0]])
+                scales[first_page[0]] = kept
+                pages[first_page[0], :n0] = kv_quantize(x[0, :n0], kept[None, :, None])
+            faults["row 0: the offset-0 reset skipped"] = no_reset
+            wrong = tables.clone()
+            wrong[2, starts[2] // PAGE] = spare
+            faults["row 2: its page column read as a spare page"] = kernel(copy(start), wrong)
+            torch.cuda.synchronize()
+            planted = {}
+            for fault, state in faults.items():
+                n = writer_diff(torch, state, ref)
+                check(n > 0, f"kv_quant_store_span: the bit check passes the planted fault {fault}")
+                planted[fault] = {"differing_elements": n}
+            run["planted_faults"] = planted
+        steady = copy(ref)
+        run.update(time_ms.both("kernel", lambda: kernel(steady)))
+        plain_state = copy(ref)
+        run["plain_ms"] = time_ms(lambda: plain(plain_state))
+        check(writer_diff(torch, steady, plain_state) == 0,
+              f"kv_quant_store_span ({case}): repeated writes differ from the plain writer's")
+        tokens = sum(n_valid)
+        pages_touched = sum(-(-(st % PAGE + n) // PAGE) for st, n in zip(starts, n_valid) if n)
+        run["bytes"] = (2 * tokens * KV * hd * (2 + 1)           # K and V read in bf16, written in int8
+                        + 2 * pages_touched * KV * 2 * 2         # each touched scale read and written
+                        + B * S * (4 + 1) + B * (4 + 4))         # positions, valid, slot ids, table entries
+        run["flops"] = 0
+        run["bound_ms"], run["bound_by"] = bound(run["bytes"], 0)
+        run["library_ms"] = None
+        runs[case] = run
+        del ref, out, modelled, steady, plain_state, start
+    emit({"phase": "kv_span_write", "tolerance": "bit for bit on pages >= 1 and their scales",
+          **runs})
+    return {"kv_quant_store_span": runs["prefill"]}
+
+
+def verify_shape_phase(torch, dev, time_ms) -> dict:
+    """The paged chunk kernel (rows 2 and 2b) at the speculative verify's
+    shape at Llama-3-8B width: q [8, 4, 8, 4, 128] bf16, each row's 4
+    queries at the last positions of the decode phases' seq_lens (bf16
+    pages: [512, 128, 8, 128], seq_lens 2000/1/0/129/300/777/128/1500;
+    int8 pages: [1024, 128, 8, 128] with bf16 scales, seq_lens
+    8000/1/0/6032/3000/129/4100/7777; a row of 1 has one real query, a
+    row of 0 none). Each row within ROW_REL of the plain version; times,
+    bounds and SDPA yardsticks."""
+    from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    KV, G, hd, PAGE, S = 8, 4, 128, 128, 4
+    runs = {}
+    for name, num_pages, seq_lens_list in (
+            ("paged_chunk_attention_tc", 512, [2000, 1, 0, 129, 300, 777, 128, 1500]),
+            ("paged_chunk_attention_tc_q8", 1024, [8000, 1, 0, 6032, 3000, 129, 4100, 7777])):
+        B, P = len(seq_lens_list), -(-max(seq_lens_list) // PAGE)
+        q8 = name.endswith("q8")
+        if q8:
+            k_pages, v_pages = (torch.randint(-127, 128, (num_pages, PAGE, KV, hd), generator=gen,
+                                              device=dev, dtype=torch.int8) for _ in range(2))
+            scales = tuple((torch.rand((num_pages, KV), generator=gen, device=dev) * 1.5 + 0.5)
+                           .div(127).to(bf16) for _ in range(2))
+        else:
+            k_pages, v_pages = (torch.randn((num_pages, PAGE, KV, hd), generator=gen, device=dev)
+                                .to(bf16) for _ in range(2))
+            scales = ()
+        tables = torch.zeros((B, P), dtype=torch.int32)
+        nxt = 1
+        for b, n in enumerate(seq_lens_list):
+            tables[b, :-(-n // PAGE)] = torch.arange(nxt, nxt + -(-n // PAGE))
+            nxt += -(-n // PAGE)
+        check(nxt <= num_pages, "the test tables overflow the page pool")
+        tables = tables.to(dev)
+        pos = torch.tensor([[n - S + j if n - S + j >= 0 else -1 for j in range(S)]
+                            for n in seq_lens_list], dtype=torch.int32, device=dev)
+        q = torch.randn((B, S, KV, G, hd), generator=gen, device=dev).to(bf16)
+        args = (q, k_pages, v_pages, tables, pos, *scales)
+        kernel = getattr(paged, name)
+        out = kernel(*args)
+        ref = paged.paged_chunk_attention_ref(*args)
+        torch.cuda.synchronize()
+        valid = pos >= 0
+        err, rel = compare_paged(torch, f"{name} at the verify shape", out, ref, valid)
+        keys = [int(p.max()) + 1 for p in pos if int(p.max()) >= 0]
+        pairs = int((pos[valid].long() + 1).sum())
+        per_elem = 1 if q8 else 2
+        nbytes = (2 * sum(keys) * KV * hd * per_elem
+                  + (2 * sum(-(-n // PAGE) for n in keys) * KV * 2 if q8 else 0)
+                  + 2 * q.numel() * 2 + tables.numel() * 4 + pos.numel() * 4)
+        lib = sdpa_paged(torch, paged, q, k_pages, v_pages, tables,
+                         lambda c: c[None, None, :] <= pos[:, :, None], scales)
+        run = dict(shape={"q": list(q.shape), "pages": list(k_pages.shape),
+                          "page_dtype": str(k_pages.dtype), "seq_lens": seq_lens_list},
+                   max_abs_err=err, max_row_error=rel,
+                   **time_ms.both("kernel", lambda: kernel(*args)),
+                   plain_ms=time_ms(lambda: paged.paged_chunk_attention_ref(*args)),
+                   library_ms=time_ms(lambda: sdpa(lib[0], lib[1], lib[2], attn_mask=lib[3])),
+                   bytes=nbytes, flops=4 * hd * G * KV * pairs)
+        run["bound_ms"], run["bound_by"] = bound(run["bytes"], run["flops"])
+        runs[name] = run
+        del lib, ref, out, k_pages, v_pages
+    emit({"phase": "kernels_verify_shape", "tolerance": {"row_relative": ROW_REL}, **runs})
+    return runs
+
+
 def gemma_kernel_phase(torch, dev, time_ms) -> None:
     """The mma.sync chunk route at gemma-2b's geometry (KV 1, G 8, hd 256,
     page 128), where the wgmma kernel does not go: one row of 2048 queries,
@@ -1491,7 +1779,7 @@ def model_check(torch, dev, name: str, quant: str = "",
     wrappers = kernel_wrappers()
     expert_kernel = "expert_blocks_wmma_q8" if quant else "expert_blocks_wmma"
     attention = (("flash_attention_mma", "paged_chunk_attention_mma_q8",
-                  "paged_decode_attention_q8", "kv_quant_store_decode")
+                  "paged_decode_attention_q8") + INT8_WRITERS
                  if kv_quant else ATTENTION_MMA)
 
     def to(tree, device):
@@ -1610,6 +1898,15 @@ def chat_requests(model: str) -> list[dict]:
             chat(model, "What is 2 + 2?")]
 
 
+def extraction_request(model: str) -> dict:
+    """An extraction-style request, whose reply should echo its prompt:
+    the lines of a tool log that name one server, copied as they are."""
+    log = "\n".join(f"tool call {i % 7} on server s{i % 3} returned status ok."
+                    for i in range(24))
+    return chat(model, "Copy every line below that names server s1, exactly as "
+                       "written, one per line:\n" + log)
+
+
 def long_context_requests(model: str) -> list[dict]:
     """Summaries of a ~6000- and a ~3000-token log at indices 1 and 2, led
     only by the first SYSTEM request so that one admission takes both into
@@ -1647,10 +1944,11 @@ def graph_against_eager(torch, engine) -> dict:
     last logits within ROW_REL of its largest value. The engine is
     stopped; this is the one eager decode on the card, on purpose."""
     from mcp_context_forge_tpu_torch.tpu_local.decode_graphs import (BUDGETS, POSITIONS,
-                                                                     SEQ_LENS, TOKENS)
+                                                                     SEQ_LENS, TOKENS,
+                                                                     GraphKey)
 
     K, B = engine._k, engine.config.max_batch
-    key = (K, B, False)
+    key = GraphKey("decode", K, B, False)
     bufs = engine._graphs.get(key)
     lens = ([1500, 37, 800, 128, 0, 300, 1990, 64] * B)[:B]
     gen = torch.Generator().manual_seed(11)
@@ -1690,6 +1988,121 @@ def graph_against_eager(torch, engine) -> dict:
                                         .abs().max())}
 
 
+def verify_against_eager(torch, engine) -> dict:
+    """One greedy verify replay's inputs given to the eager
+    ``_verify_and_sample`` on the same pool (restored to its state before
+    the replay): eight rows over real pages of the engine's pool, chunks of
+    4, 4, 3, 4, 0 (an empty row), 1, 4 and 2 tokens after histories of
+    1500 down to 37 tokens. The logits must be bit-identical and the
+    tokens equal. Then, on bf16 or f32 pages, each chunk position's logits
+    against an eager ``decode_step`` over the same prefix (the pool
+    restored once more; the chunk's tokens decoded one at a time): an f32
+    engine holds each active row within F32_ROW_REL of its largest value
+    (the chunk's and the step's projections and attention sum in other
+    orders); a bf16 engine's distance is reported, not held: bf16 rounds
+    those two orders apart by about 1 % of a row's largest value per layer
+    of random weights (0.0100 at one layer, 0.0191 at four, 0.0544 at 32
+    of llama3-8b on an H100, where f32 reads 1.3e-5 and 2.1e-5). Not on
+    int8 pages, where the two store other values: the verify quantizes its
+    chunk under the page's final scale, decode one token at a time with
+    requantization (0.025 of a row's largest value apart in f32 on the
+    CPU at llama3-test). The engine is stopped; these are the
+    eager verify and decode on the card, on purpose. Also times the replay
+    alone (CUDA events around it, and the host's wall from upload to read
+    back)."""
+    from mcp_context_forge_tpu_torch.tpu_local.decode_graphs import (V_TOKENS, GraphKey)
+    from mcp_context_forge_tpu_torch.tpu_local.models.llama import decode_step
+
+    K, B = engine.config.spec_k, engine.config.max_batch
+    key = GraphKey("verify", K, B, False)
+    bufs = engine._graphs.get(key)
+    hist = ([1500, 37, 800, 128, 0, 300, 1990, 64] * B)[:B]
+    widths = ([4, 4, 3, 4, 0, 1, 4, 2] * B)[:B]
+    gen = torch.Generator().manual_seed(12)
+    pack = engine._graphs.stage(key)
+    tokens = torch.randint(0, engine.model_config.vocab_size, (B, K), generator=gen)
+    positions = torch.full((B, K), -1, dtype=torch.int32)
+    for slot, (n, w) in enumerate(zip(hist, widths)):
+        if w:
+            check(engine.allocator.allocate_slot(slot, n + w), "no pages for the check")
+            positions[slot, :w] = torch.arange(n, n + w)
+            pack[V_TOKENS:V_TOKENS + w, slot] = tokens[slot, :w].numpy()
+            pack[V_TOKENS + K:V_TOKENS + K + w, slot] = positions[slot, :w].numpy()
+    kv = engine.kv
+    pool = [t for t in (kv.k_pages, kv.v_pages, kv.k_scales, kv.v_scales) if t is not None]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with torch.inference_mode():
+        engine._sync_tables()
+        saved = [t.clone() for t in pool]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        start.record()
+        handle = engine._graphs.launch(key)
+        end.record()
+        tokens_g = engine._graphs.fetch_verify(handle)
+        wall_ms = (time.monotonic() - t0) * 1e3
+        logits_g = bufs.logits.clone()
+        for t, copy in zip(pool, saved):
+            t.copy_(copy)
+        tokens_e, logits_e = engine._verify_and_sample(*bufs.verify_views(), any_sampled=False)
+        for t, copy in zip(pool, saved):
+            t.copy_(copy)
+        del saved
+        dev = logits_e.device
+        valid = (positions >= 0).to(dev)
+        steps = []
+        for j in range(0 if kv.quantized else K):
+            pos = positions[:, j].to(dev)
+            live = valid[:, j]
+            logits_d, _ = decode_step(
+                engine.params, engine.model_config, tokens[:, j].to(dev),
+                torch.where(live, pos, 0), kv, bufs.slot_ids,
+                torch.where(live, pos + 1, 0), write_mask=live)
+            steps.append(logits_d)
+        torch.cuda.synchronize()
+    for slot in range(B):
+        engine.allocator.free_slot(slot)
+    check(torch.equal(logits_g, logits_e), "graph and eager verify logits differ")
+    check(bool((torch.from_numpy(tokens_g)[valid.cpu()]
+                == tokens_e.cpu().to(torch.int32)[valid.cpu()]).all()),
+          "graph and eager verify sampled different greedy tokens")
+    result = {"key": list(key), "history": hist, "chunk_widths": widths,
+              "logits_bit_identical": True, "tokens_equal": True,
+              "replay_device_ms": start.elapsed_time(end), "replay_wall_ms": wall_ms}
+    if steps:
+        logits_d = torch.stack(steps, dim=1)     # [B, K, V]
+        rel = row_error(torch, logits_e, logits_d, valid)
+        if engine.dtype == torch.float32:
+            check(rel <= F32_ROW_REL,
+                  f"verify and decode logits differ by {rel:.3g} of a row's largest value")
+        result.update(against_decode_max_row_error=rel,
+                      against_decode_max_abs_err=float((logits_e - logits_d)[valid].abs().max()))
+    return result
+
+
+def verify_against_decode_f32(torch, dev, layers: int = 4) -> dict:
+    """``verify_against_eager`` on a spec engine of llama3-8b's width in f32
+    (``layers`` deep, its pool filled with random values so the histories
+    matter): the verify's logits held to the decode step's within
+    F32_ROW_REL per row, the check that a bf16 engine cannot take."""
+    from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngine
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+
+    name = f"llama3-8b-{layers}-layers"
+    MODEL_CONFIGS[name] = dataclasses.replace(MODEL_CONFIGS["llama3-8b"], name=name,
+                                              n_layers=layers)
+    engine = TorchEngine(EngineConfig(model=name, dtype="float32", device="cuda",
+                                      max_batch=8, max_seq_len=2048, page_size=128,
+                                      num_pages=256, spec_decode=True))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for pages in (engine.kv.k_pages, engine.kv.v_pages):
+        pages.copy_(torch.randn(pages.shape, generator=gen, device=dev))
+    result = verify_against_eager(torch, engine)
+    check("against_decode_max_row_error" in result, "the f32 verify was not held to decode")
+    del engine
+    return {"model": name, "dtype": "float32", **result}
+
+
 def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
                  requests: list[dict], hit: int, absent: tuple[str, ...] = (),
                  n_layers: int = 0, graph_check: bool = False, **engine_kwargs):
@@ -1701,20 +2114,26 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     ``n_layers`` cuts the depth; ``engine_kwargs`` override the engine
     config. Every kernel's count is reset just before the concurrent
     requests and read just after; each of ``kernels`` must have launched,
-    and none of ``absent`` (nor the int8 KV writer on a pool that is not
-    int8); the chunk kernels must have launched once per layer per
-    history prefill (a chunk round or a prefix-hit suffix).
+    and none of ``absent`` (nor the int8 KV writers on a pool that is not
+    int8), and the plain int8 writer (``_quant_store``) never ran.
 
-    Decode runs only as CUDA-graph replays: ``decode_step`` is called only
-    while the engine is built (warm-up and capture: 2 K calls per graph),
-    one graph per (K, width, greedy-only or sampling), and never while it
-    serves; each decode kernel's launches equal the sum over the graphs of
-    replays x the graph's launches of it. ``graph_check`` runs
-    ``graph_against_eager`` after the requests."""
+    Decode and verify run only as CUDA-graph replays: ``decode_step`` is
+    called only while the engine is built (warm-up and capture: 2 K calls
+    per decode graph), one decode graph per (K, width, greedy-only or
+    sampling) and, with ``spec_decode``, one verify graph per greedy-only
+    or sampling, and never while it serves. Every launch is accounted for:
+    the decode kernels' launches equal the sum over the graphs of replays
+    x the graph's launches of them; the chunk kernels', flash's and the
+    int8 span writer's equal that plus their eager launches, one per
+    layer per call: flash per cold prefill, the chunk kernel per history
+    prefill (a chunk round or a prefix-hit suffix), the span writer (int8
+    pools) per either. ``graph_check`` runs ``graph_against_eager`` after
+    the requests, and ``verify_against_eager`` on a spec engine."""
     from unittest import mock
 
     from mcp_context_forge_tpu_torch.tpu_local import engine as engine_module
     from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngine
+    from mcp_context_forge_tpu_torch.tpu_local.kv import paged_cache
     from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
     from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
 
@@ -1724,35 +2143,41 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         MODEL_CONFIGS[name] = dataclasses.replace(MODEL_CONFIGS[model],
                                                   name=name, n_layers=n_layers)
     wrappers = kernel_wrappers()
-    decode_calls = [0]
-    decode_step = engine_module.decode_step
+    calls = dict.fromkeys(("decode", "prefill", "history", "quant_store"), 0)
 
-    def counted_decode(*args, **kwargs):
-        decode_calls[0] += 1
-        return decode_step(*args, **kwargs)
+    def counted(kind, fn):
+        def wrapped(*args, **kwargs):
+            calls[kind] += 1
+            return fn(*args, **kwargs)
+        return wrapped
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     config = dict(model=name, dtype="bfloat16", device="cuda", max_batch=8,
                   max_seq_len=2048, page_size=128, num_pages=512,
                   prefill_buckets=(128, 512, 2048), prefill_max_batch=4, seed=0)
-    # the engine module's own names, which its decode super-step, admission
-    # and chunk rounds call
-    with mock.patch.object(engine_module, "decode_step", counted_decode):
+    # the engine module's own names, which its decode super-step, verify,
+    # admission and chunk rounds call
+    with mock.patch.object(engine_module, "decode_step",
+                           counted("decode", engine_module.decode_step)):
         engine = TorchEngine(EngineConfig(**{**config, **engine_kwargs}))
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
     build_peak = torch.cuda.max_memory_allocated()
-    build_decode_calls, decode_calls[0] = decode_calls[0], 0
+    build_decode_calls, calls["decode"] = calls["decode"], 0
     graphs = engine._graphs
     K = engine.config.superstep
+    spec = engine.config.spec_decode
     widths = engine._batch_buckets() if engine.config.batch_buckets else [engine.config.max_batch]
-    check(engine.stats.graph_captures == len(graphs.buffers) == 2 * len(widths),
-          f"{engine.stats.graph_captures} graphs captured for {len(widths)} widths")
-    check(build_decode_calls == 2 * K * engine.stats.graph_captures,
+    decode_graphs = 2 * len(widths)
+    check(engine.stats.graph_captures == len(graphs.buffers)
+          == decode_graphs + (2 if spec else 0),
+          f"{engine.stats.graph_captures} graphs captured for {len(widths)} widths"
+          f"{' and the verify' if spec else ''}")
+    check(build_decode_calls == 2 * K * decode_graphs,
           f"decode_step ran {build_decode_calls} times while the engine was built")
     if not engine.config.kv_quant:
-        absent = absent + ("kv_quant_store_decode",)
+        absent = absent + INT8_WRITERS
     provider = TorchLocalProvider("tpu_local", engine)
     seen = []
     submit = engine.submit
@@ -1762,12 +2187,6 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         return await submit(request)
 
     engine.submit = recording_submit
-    history_calls = [0]
-    history = engine_module.prefill_with_history
-
-    def counted_history(*args, **kwargs):
-        history_calls[0] += 1
-        return history(*args, **kwargs)
     check(len(engine.tokenizer.encode(SYSTEM)) >= 300,
           "the shared system prompt is under 300 tokens")
 
@@ -1776,7 +2195,8 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         try:
             for fn in wrappers.values():
                 fn.launches = 0
-            history_calls[0] = 0
+            for kind in calls:
+                calls[kind] = 0
             replays0 = {key: bufs.replays for key, bufs in graphs.buffers.items()}
             torch.cuda.reset_peak_memory_stats()
             stats0 = dict(engine.stats.__dict__)
@@ -1789,23 +2209,28 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
             replies = await asyncio.wait_for(asyncio.gather(first, *rest), 600)
             wall = time.monotonic() - t_start
             counts = {k: fn.launches for k, fn in wrappers.items()}
-            counts["history_prefills"] = history_calls[0]
+            served_calls = dict(calls)
             replays = {key: bufs.replays - replays0[key] for key, bufs in graphs.buffers.items()}
             peak = torch.cuda.max_memory_allocated()
             served = list(seen)
             delta = {k: v - stats0[k] for k, v in engine.stats.__dict__.items()}
             for _ in range(2):
                 await provider.chat(requests[hit])
-            return replies, wall, counts, replays, peak, served, delta
+            return replies, wall, counts, served_calls, replays, peak, served, delta
         finally:
             await engine.stop()
 
-    with mock.patch.object(engine_module, "prefill_with_history", counted_history), \
-            mock.patch.object(engine_module, "decode_step", counted_decode):
-        replies, wall, counts, replays, peak, served, delta = asyncio.run(run())
-        serve_decode_calls = decode_calls[0]
+    with mock.patch.object(engine_module, "prefill_with_history",
+                           counted("history", engine_module.prefill_with_history)), \
+            mock.patch.object(engine_module, "prefill",
+                              counted("prefill", engine_module.prefill)), \
+            mock.patch.object(engine_module, "decode_step",
+                              counted("decode", engine_module.decode_step)), \
+            mock.patch.object(paged_cache, "_quant_store",
+                              counted("quant_store", paged_cache._quant_store)):
+        replies, wall, counts, served_calls, replays, peak, served, delta = asyncio.run(run())
         eager = graph_against_eager(torch, engine) if graph_check else None
-    history_prefills = counts.pop("history_prefills")
+        verify = verify_against_eager(torch, engine) if spec else None
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     check(max(peak, build_peak) < card_bytes,
           f"peak memory {max(peak, build_peak)} exceeds the card's {card_bytes}")
@@ -1824,23 +2249,39 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         check(counts[kernel] > 0, f"{kernel} never launched on the {name} path")
     for kernel in absent:
         check(counts[kernel] == 0, f"{kernel} launched on the {name} path")
-    chunk_launches = sum(counts[k] for k in CHUNK)
-    check(history_prefills > 0 and chunk_launches == engine.model_config.n_layers * history_prefills,
-          f"{chunk_launches} chunk launches for {history_prefills} history prefills of "
-          f"{engine.model_config.n_layers} layers")
-    # decode: graph replays only, and every decode-kernel launch is a replay's
-    check(serve_decode_calls == 0,
-          f"decode_step ran {serve_decode_calls} times outside the graphs while serving")
+    check(served_calls["quant_store"] == 0,
+          f"the plain int8 writer ran {served_calls['quant_store']} times on the card")
+    # decode and verify: graph replays only, and every launch accounted for
+    check(served_calls["decode"] == 0,
+          f"decode_step ran {served_calls['decode']} times outside the graphs while serving")
     check(delta["graph_replays"] > 0 and delta["graph_replays"] == delta["decode_dispatches"]
           == sum(replays.values()), f"{delta['graph_replays']} replays for "
-          f"{delta['decode_dispatches']} decode dispatches")
-    expected = {}
+          f"{delta['decode_dispatches']} decode and verify dispatches")
+    verify_replays = sum(r for key, r in replays.items() if key.kind == "verify")
+    check(verify_replays == delta["spec_steps"],
+          f"{verify_replays} verify replays for {delta['spec_steps']} verify steps")
+    if spec:
+        check(verify_replays > 0, "no speculative verify ran")
+    in_graphs = {}
     for key, bufs in graphs.buffers.items():
         for kernel, per_replay in bufs.launches.items():
-            expected[kernel] = expected.get(kernel, 0) + replays[key] * per_replay
-    check(expected and all(counts[k] == v for k, v in expected.items()),
-          f"decode kernel launches {({k: counts[k] for k in expected})} are not "
-          f"replays x per-graph launches {expected}")
+            in_graphs[kernel] = in_graphs.get(kernel, 0) + replays[key] * per_replay
+    layers = engine.model_config.n_layers
+    history_prefills = served_calls["history"]
+    check(history_prefills > 0, "no history prefill ran")
+    eager_launches = {
+        "flash": (FLASH, layers * served_calls["prefill"]),
+        "chunk": (CHUNK, layers * history_prefills),
+        "span writer": (("kv_quant_store_span",), layers * (served_calls["prefill"] + history_prefills)
+                        if engine.config.kv_quant else 0),
+        **{kernel: ((kernel,), 0) for kernel in DECODE_ONLY}}
+    accounted = {}
+    for family, (names, eager_n) in eager_launches.items():
+        got = sum(counts[k] for k in names)
+        want = eager_n + sum(in_graphs.get(k, 0) for k in names)
+        check(got == want, f"{family} launches {got} are not {eager_n} eager + replays x "
+                           f"per-graph launches {want - eager_n}")
+        accounted[family] = {"launches": got, "eager": eager_n, "in_graphs": want - eager_n}
     ttft = [(r.first_token_ts - r.created) * 1e3 for r in served]
     decode_tokens = sum(len(r.generated) - 1 for r in served)
     cfg = engine.model_config
@@ -1854,7 +2295,7 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         "kv_page_dtype": str(engine.kv.k_pages.dtype),
         "moe_impl": cfg.moe_impl if cfg.n_experts else None,
         "superstep": K, "decode_overlap": engine.config.decode_overlap,
-        "engine_build_s": build_s, "requests": len(served),
+        "spec_decode": spec, "engine_build_s": build_s, "requests": len(served),
         "prompt_tokens": [len(r.prompt_ids) for r in served],
         "buckets": [r.bucket for r in served],
         "chunked": [r.chunked for r in served],
@@ -1882,9 +2323,19 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         "total_s": wall, "peak_memory_bytes": peak,
         "build_peak_memory_bytes": build_peak,
         "repeat_tokens_equal": True, "repeat_tokens": len(tokens_a),
-        "history_prefills": history_prefills, "launches": counts,
+        "prefills": served_calls["prefill"], "history_prefills": history_prefills,
+        "launches_accounted": accounted, "launches": counts,
         **({"graph_against_eager": eager} if eager else {}),
         "generated": [r.generated for r in served]}
+    if spec:
+        steps = delta["spec_steps"]
+        stats.update(
+            spec_k=engine.config.spec_k, spec_steps=steps, spec_tokens=delta["spec_tokens"],
+            spec_emitted=delta["spec_emitted"],
+            tokens_per_verify=delta["spec_emitted"] / steps,
+            verify_wall_ms_per_step=delta["spec_ms_total"] / steps,
+            plain_decode_dispatches=delta["decode_dispatches"] - steps,
+            verify_against_eager=verify)
     del engine, provider, seen, served
     return counts, stats
 

@@ -1,15 +1,19 @@
-"""Decode dispatches as CUDA-graph replays, with static buffers and
-double-buffered host staging.
+"""Decode and speculative-verify dispatches as CUDA-graph replays, with
+static buffers and double-buffered host staging.
 
-A dispatch is one K-step decode super-step over B columns (slot = column),
-greedy-only or sampling: the key (K, B, sampled). For every key the
-holder keeps
+A dispatch is one of two kinds over B columns (slot = column), greedy-only
+or sampling: a K-step decode super-step (key ("decode", K, B, sampled)),
+or a speculative verify of K tokens per row through the history prefill
+(key ("verify", K, B, sampled)). For every key the holder keeps
 
-- the static device inputs, one int32 pack [INPUT_ROWS, B] (tokens,
-  positions, seq_lens, budgets, top_k, temperature and top_p as f32 bits,
-  the stop table), and the outputs, one int32 pack [2K + 1, B] (tokens
-  [K, B], valid [K, B], done [B]) and the last sub-step's logits [B, V]
-  f32, all allocated outside any capture;
+- the static device inputs, one int32 pack: decode [INPUT_ROWS, B]
+  (tokens, positions, seq_lens, budgets, top_k, temperature and top_p as
+  f32 bits, the stop table), verify [verify_rows(K), B] (temperature,
+  top_k, top_p, then K rows of tokens and K of positions); the outputs,
+  one int32 pack, decode [2K + 1, B] (tokens [K, B], valid [K, B], done
+  [B]) and verify [K, B] (the token sampled at each position), and the
+  logits in f32, decode the last sub-step's [B, V], verify every
+  position's [B, K, V], all allocated outside any capture;
 - two host staging slots for the inputs and two for the outputs
   (page-locked on the card), used in turn: a dispatch's slot is reused two
   dispatches of its key later, after its retire has read it;
@@ -20,15 +24,16 @@ input and output lives outside the pool. Capture runs once, when the
 holder is built: for each key an eager warm-up on a side stream first (it
 loads every kernel module and creates every library handle and workspace
 outside the pool), then the capture. A failed capture or replay raises;
-nothing falls back to eager decode on the card. On the CPU no graph is
-captured and each dispatch runs the same body eagerly, through the plain
-versions of the kernels.
+nothing falls back to eager decode or verify on the card. On the CPU no
+graph is captured and each dispatch runs the same body eagerly, through
+the plain versions of the kernels.
 
 A dispatch (``launch``) uploads its staged inputs with one non-blocking
 copy, optionally feeds the previous dispatch's last sampled tokens with one
 device-to-device copy (the overlapped pipeline), replays, and enqueues a
 non-blocking copy of the outputs into its staging slot followed by an
-event; ``fetch`` waits on that event, never on the stream. Everything runs
+event; ``fetch`` (``fetch_verify``) waits on that event, never on the
+stream. Everything runs
 on the caller's current stream, whose order makes each output copy finish
 before the next replay overwrites the outputs.
 
@@ -41,7 +46,7 @@ graph's launches, and every replay adds them once.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -56,11 +61,32 @@ TOKENS, POSITIONS, SEQ_LENS, BUDGETS, TOP_K, TEMPERATURE, TOP_P, STOPS = range(8
 # by the host at retire; its row just does not freeze early)
 STOP_TBL_WIDTH = 4
 INPUT_ROWS = STOPS + STOP_TBL_WIDTH
+# rows of the int32 verify pack: the sampling rows, then K rows of tokens
+# (row V_TOKENS + j: every column's j-th token) and K rows of positions
+V_TEMPERATURE, V_TOP_K, V_TOP_P, V_TOKENS = range(4)
 
 
-def neutral_inputs(B: int) -> np.ndarray:
-    """An input pack of B inactive columns: seq_len 0 (no KV write, no
-    token), greedy, top_p 1, no stop ids."""
+def verify_rows(K: int) -> int:
+    return V_TOKENS + 2 * K
+
+
+class GraphKey(NamedTuple):
+    kind: str           # "decode" or "verify"
+    k: int              # decode: steps per super-step; verify: tokens per row
+    width: int          # columns
+    sampled: bool       # some row samples (else greedy-only)
+
+
+def neutral_inputs(key: GraphKey) -> np.ndarray:
+    """An input pack of inactive columns: decode seq_len 0 (no KV write, no
+    token), verify position -1 (padding: no KV write); greedy, top_p 1,
+    no stop ids."""
+    B = key.width
+    if key.kind == "verify":
+        pack = np.zeros((verify_rows(key.k), B), dtype=np.int32)
+        pack[V_TOP_P] = np.ones(B, dtype=np.float32).view(np.int32)
+        pack[V_TOKENS + key.k:] = -1
+        return pack
     pack = np.zeros((INPUT_ROWS, B), dtype=np.int32)
     pack[TOP_P] = np.ones(B, dtype=np.float32).view(np.int32)
     pack[STOPS:] = -1
@@ -69,10 +95,10 @@ def neutral_inputs(B: int) -> np.ndarray:
 
 @dataclass
 class DecodeBuffers:
-    key: tuple[int, int, bool]          # (K, B, sampled)
-    inputs: torch.Tensor                # [INPUT_ROWS, B] int32, device
-    outputs: torch.Tensor               # [2K + 1, B] int32, device
-    logits: torch.Tensor                # [B, V] f32, device
+    key: GraphKey
+    inputs: torch.Tensor                # the input pack, int32, device
+    outputs: torch.Tensor               # the output pack, int32, device
+    logits: torch.Tensor                # decode [B, V], verify [B, K, V]; f32, device
     slot_ids: torch.Tensor              # arange(B) int32, device
     staging_in: list[torch.Tensor]      # 2 x [INPUT_ROWS, B] int32, host
     staging_out: list[torch.Tensor]     # 2 x [2K + 1, B] int32, host
@@ -84,10 +110,10 @@ class DecodeBuffers:
 
     @property
     def k(self) -> int:
-        return self.key[0]
+        return self.key.k
 
     def views(self) -> tuple:
-        """(tokens, positions, seq_lens, budgets, stop_tbl [B, W],
+        """Decode: (tokens, positions, seq_lens, budgets, stop_tbl [B, W],
         sampling, slot_ids): views of the input pack."""
         x = self.inputs
         sampling = SamplingParams(x[TEMPERATURE].view(torch.float32),
@@ -95,38 +121,52 @@ class DecodeBuffers:
         return (x[TOKENS], x[POSITIONS], x[SEQ_LENS], x[BUDGETS],
                 x[STOPS:].t(), sampling, self.slot_ids)
 
+    def verify_views(self) -> tuple:
+        """Verify: (tokens [B, K], positions [B, K], sampling, slot_ids);
+        tokens and positions are copies, laid out row by row."""
+        x, K = self.inputs, self.k
+        sampling = SamplingParams(x[V_TEMPERATURE].view(torch.float32),
+                                  x[V_TOP_K], x[V_TOP_P].view(torch.float32))
+        return (x[V_TOKENS:V_TOKENS + K].t().contiguous(),
+                x[V_TOKENS + K:V_TOKENS + 2 * K].t().contiguous(), sampling,
+                self.slot_ids)
+
 
 class DecodeGraphs:
-    """The decode buffers of every key and, on the card, their graphs.
+    """The buffers of every key and, on the card, their graphs.
 
-    ``body(buffers)`` runs one super-step over ``buffers.views()`` into
-    ``buffers.outputs`` and ``buffers.logits``; ``generator`` is the
-    sampler's, registered with every graph so that replays advance its
-    offset instead of repeating one draw."""
+    ``body(buffers)`` runs one dispatch of ``buffers.key`` (a decode
+    super-step over ``buffers.views()``, or a verify over
+    ``buffers.verify_views()``) into ``buffers.outputs`` and
+    ``buffers.logits``; ``generator`` is the sampler's, registered with
+    every graph so that replays advance its offset instead of repeating
+    one draw."""
 
     def __init__(self, body: Callable[[DecodeBuffers], None],
-                 keys: list[tuple[int, int, bool]], device: torch.device,
+                 keys: list[GraphKey], device: torch.device,
                  vocab_size: int, generator: torch.Generator):
         self.body = body
         self.device = device
         self.on_card = device.type == "cuda"
         self.captures = 0
         self.pool_bytes = 0   # device memory the graphs' pool holds (card only)
-        self.buffers: dict[tuple[int, int, bool], DecodeBuffers] = {}
+        self.buffers: dict[GraphKey, DecodeBuffers] = {}
 
         def host(t: torch.Tensor) -> torch.Tensor:
             return t.pin_memory() if self.on_card else t
 
         for key in keys:
-            K, B, _ = key
+            K, B, verify = key.k, key.width, key.kind == "verify"
+            out_rows = K if verify else 2 * K + 1
+            logits = (B, K, vocab_size) if verify else (B, vocab_size)
             self.buffers[key] = DecodeBuffers(
                 key=key,
-                inputs=torch.from_numpy(neutral_inputs(B)).to(device),
-                outputs=torch.zeros((2 * K + 1, B), dtype=torch.int32, device=device),
-                logits=torch.zeros((B, vocab_size), dtype=torch.float32, device=device),
+                inputs=torch.from_numpy(neutral_inputs(key)).to(device),
+                outputs=torch.zeros((out_rows, B), dtype=torch.int32, device=device),
+                logits=torch.zeros(logits, dtype=torch.float32, device=device),
                 slot_ids=torch.arange(B, dtype=torch.int32, device=device),
-                staging_in=[host(torch.from_numpy(neutral_inputs(B))) for _ in range(2)],
-                staging_out=[host(torch.zeros((2 * K + 1, B), dtype=torch.int32))
+                staging_in=[host(torch.from_numpy(neutral_inputs(key))) for _ in range(2)],
+                staging_out=[host(torch.zeros((out_rows, B), dtype=torch.int32))
                              for _ in range(2)],
                 events=[torch.cuda.Event() for _ in range(2)] if self.on_card else [])
         if self.on_card:
@@ -174,26 +214,25 @@ class DecodeGraphs:
             seg["total_size"] for seg in torch.cuda.memory._snapshot()["segments"]
             if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
-    def get(self, key: tuple[int, int, bool]) -> DecodeBuffers:
+    def get(self, key: GraphKey) -> DecodeBuffers:
         bufs = self.buffers.get(key)
         if bufs is None:
-            raise RuntimeError(f"no decode graph for (K, B, sampled) = {key}; "
-                               f"captured: {sorted(self.buffers)}")
+            raise RuntimeError(f"no graph for {key}; captured: {sorted(self.buffers)}")
         return bufs
 
-    def stage(self, key: tuple[int, int, bool]) -> np.ndarray:
+    def stage(self, key: GraphKey) -> np.ndarray:
         """The host input pack of ``key``'s next dispatch, reset to
         inactive columns, for the caller to fill."""
         bufs = self.get(key)
         pack = bufs.staging_in[bufs.slot].numpy()
-        pack[:] = neutral_inputs(pack.shape[1])
+        pack[:] = neutral_inputs(key)
         return pack
 
-    def launch(self, key: tuple[int, int, bool],
-               feed: tuple | None = None) -> tuple:
+    def launch(self, key: GraphKey, feed: tuple | None = None) -> tuple:
         """Run ``key``'s dispatch on the staged inputs; ``feed`` (a handle
-        of the previous, still in-flight dispatch) supplies the input tokens
-        from its last sampled row. Returns the handle ``fetch`` takes."""
+        of the previous, still in-flight decode dispatch) supplies the
+        input tokens from its last sampled row. Returns the handle
+        ``fetch`` or ``fetch_verify`` takes."""
         bufs = self.get(key)
         slot = bufs.slot
         bufs.slot ^= 1
@@ -208,7 +247,7 @@ class DecodeGraphs:
             for name, n in bufs.launches.items():
                 wrappers[name].launches += n
         elif self.on_card:
-            raise RuntimeError(f"decode graph {key} was not captured")
+            raise RuntimeError(f"graph {key} was not captured")
         else:
             self.body(bufs)
         bufs.staging_out[slot].copy_(bufs.outputs, non_blocking=True)
@@ -216,16 +255,25 @@ class DecodeGraphs:
             bufs.events[slot].record()
         return key, slot
 
-    def fetch(self, handle: tuple) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Wait for a dispatch's outputs: (tokens [K, B], valid [K, B]
-        bool, done [B] bool) as host arrays of their own."""
+    def _outputs(self, handle: tuple) -> np.ndarray:
+        """A dispatch's host output pack, once its copy has landed."""
         key, slot = handle
         bufs = self.buffers[key]
         if bufs.events:
             bufs.events[slot].synchronize()
-        out = bufs.staging_out[slot].numpy()
-        K = bufs.k
+        return bufs.staging_out[slot].numpy()
+
+    def fetch(self, handle: tuple) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Wait for a decode dispatch's outputs: (tokens [K, B], valid
+        [K, B] bool, done [B] bool) as host arrays of their own."""
+        out = self._outputs(handle)
+        K = handle[0].k
         return out[:K].copy(), out[K:2 * K] != 0, out[2 * K] != 0
+
+    def fetch_verify(self, handle: tuple) -> np.ndarray:
+        """Wait for a verify dispatch's sampled tokens: [B, K], a host
+        array of its own."""
+        return self._outputs(handle).T.copy()
 
     @property
     def replays(self) -> int:

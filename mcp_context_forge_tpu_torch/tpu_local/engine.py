@@ -28,11 +28,20 @@ stall the caller's event loop; tokens hop back with one
   changes, stop) that keep greedy streams identical to the serial order.
   ``batch_buckets`` sizes the columns by the active slot ceiling (powers
   of two, slot compaction, shrink hysteresis).
-- On the card every decode dispatch is one replay of a CUDA graph
-  (``decode_graphs.py``), one per (K, width, greedy-only or sampling),
-  all captured when the engine is built; inputs are staged in pinned host
-  memory and uploaded without blocking, outputs read back behind an
-  event. On the CPU the same dispatches run eagerly.
+- Speculative decoding (``spec_decode``): prompt-lookup drafting
+  (``_draft_tokens``: the most recent earlier occurrence of the context's
+  trailing ``spec_ngram`` tokens proposes up to ``spec_k - 1`` more), and
+  one [B, ``spec_k``] verify per step through the history path, sampling
+  at every position (``_spec_step_all``): drafts are accepted while they
+  agree with the model's own tokens, so a greedy row emits 1 to ``spec_k``
+  tokens per dispatch and its stream equals plain decoding's. Sampled rows
+  ride the verify one token at a time; a step where no row would draft
+  runs the plain decode dispatch. The overlapped pipeline is off.
+- On the card every decode and verify dispatch is one replay of a CUDA
+  graph (``decode_graphs.py``), one per (kind, K, width, greedy-only or
+  sampling), all captured when the engine is built; inputs are staged in
+  pinned host memory and uploaded without blocking, outputs read back
+  behind an event. On the CPU the same dispatches run eagerly.
 - There are no context-width buckets (the JAX engine's ``_ctx_bucket_for``
   and ``_hist_ctx_for``, which bounded XLA's static gather): the attention
   kernels walk only the pages each row uses.
@@ -64,8 +73,9 @@ import torch
 
 from ..utils import new_id
 from .decode_graphs import (BUDGETS, POSITIONS, SEQ_LENS, STOP_TBL_WIDTH, STOPS,
-                            TEMPERATURE, TOKENS, TOP_K, TOP_P, DecodeBuffers,
-                            DecodeGraphs)
+                            TEMPERATURE, TOKENS, TOP_K, TOP_P, V_TEMPERATURE,
+                            V_TOKENS, V_TOP_K, V_TOP_P, DecodeBuffers,
+                            DecodeGraphs, GraphKey)
 from .kv import PageAllocator, init_kv_state, kv_page_bytes, num_pages_for_budget
 from .models import MODEL_CONFIGS, LlamaConfig
 from .models.llama import decode_step, init_params, prefill, prefill_with_history
@@ -119,6 +129,13 @@ class EngineConfig:
     batch_buckets: bool = False
     batch_shrink_steps: int = 64
     batch_idle_reset_s: float = 2.0
+    # speculative decoding by prompt lookup: a verify of spec_k tokens per
+    # row (the last token and up to spec_k - 1 drafts found by matching the
+    # context's trailing spec_ngram tokens earlier in it); exclusive with
+    # superstep > 1
+    spec_decode: bool = False
+    spec_k: int = 4
+    spec_ngram: int = 2
 
 
 @dataclass
@@ -172,8 +189,12 @@ class EngineStats:
         self.pipeline_drains = 0      # overlap barriers that forced a drain
         # host time from a read back to the next host-fed dispatch
         self.dispatch_gap_ms_total = 0.0
-        self.graph_captures = 0       # decode graphs captured (at construction)
-        self.graph_replays = 0        # decode dispatches run as graph replays
+        self.graph_captures = 0       # graphs captured (at construction)
+        self.graph_replays = 0        # decode and verify dispatches run as replays
+        self.spec_steps = 0           # speculative verify dispatches
+        self.spec_tokens = 0          # tokens emitted beyond one per row and verify
+        self.spec_emitted = 0         # tokens emitted by verify dispatches
+        self.spec_ms_total = 0.0      # verify dispatch -> read back, summed
 
 
 def _resolve_device(name: str) -> torch.device:
@@ -210,6 +231,13 @@ class TorchEngine:
             raise ValueError(f"unsupported kv_quant mode {config.kv_quant!r}")
         if config.superstep < 1:
             raise ValueError(f"superstep must be >= 1, got {config.superstep}")
+        if config.spec_decode and config.superstep > 1:
+            raise ValueError("spec_decode and superstep>1 are mutually "
+                             "exclusive (both widen the per-dispatch step)")
+        if config.spec_decode and config.spec_k < 2:
+            raise ValueError(f"spec_k must be >= 2, got {config.spec_k}")
+        if config.spec_decode and config.spec_ngram < 1:
+            raise ValueError(f"spec_ngram must be >= 1, got {config.spec_ngram}")
         if config.moe_impl not in ("", "dense", "grouped", "grouped_pallas"):
             # a typo must not silently serve the dense path
             raise ValueError(
@@ -258,11 +286,18 @@ class TorchEngine:
         self._shrink_streak = 0
         self._shrink_peak = 0
         self._last_active_ts = time.monotonic()
+        # speculative verify steps run while this holds (a knob surface
+        # that turns them off is not ported)
+        self._spec_enabled = True
         widths = self._batch_buckets() if config.batch_buckets else [config.max_batch]
+        keys = [GraphKey("decode", self._k, B, sampled) for B in widths
+                for sampled in (False, True)]
+        if config.spec_decode:
+            keys += [GraphKey("verify", config.spec_k, config.max_batch, sampled)
+                     for sampled in (False, True)]
         self._graphs = DecodeGraphs(
-            self._decode_body, [(self._k, B, sampled) for B in widths
-                                for sampled in (False, True)],
-            self.device, self.model_config.vocab_size, self._sample_gen)
+            self._graph_body, keys, self.device, self.model_config.vocab_size,
+            self._sample_gen)
         self.stats.graph_captures = self._graphs.captures
         self._work: queue.Queue[GenRequest] = queue.Queue(maxsize=config.max_queue)
         self._pending: deque[GenRequest] = deque()   # dispatch thread only
@@ -367,8 +402,10 @@ class TorchEngine:
         cancels, drain the decode pipeline when admission or a chunk round
         is due (or nothing runs), admit one prefill group when a slot is
         free, advance every chunking prompt by one chunk round, dispatch
-        one decode super-step over the running slots (retiring the one
-        before it), then flush the emitted tokens."""
+        one speculative verify (when some row would draft) or one decode
+        super-step over the running slots (retiring the one before it),
+        then flush the emitted tokens."""
+        overlap = self.config.decode_overlap and not self.config.spec_decode
         try:
             with torch.inference_mode():
                 if self.device.type == "cuda":
@@ -396,7 +433,11 @@ class TorchEngine:
                         self._chunk_round()
                         did_work = True
                     if self._running:
-                        if self.config.decode_overlap:
+                        if (self.config.spec_decode and self._spec_enabled
+                                and self._any_would_draft()):
+                            self._drain_pipeline()
+                            self._spec_step_all()
+                        elif overlap:
                             self._decode_step_overlapped()
                         else:
                             self._decode_step_all()
@@ -699,6 +740,129 @@ class TorchEngine:
             self._to_device(np.array([r.top_k for r in rows], np.int32)),
             self._to_device(np.array([r.top_p for r in rows], np.float32)))
 
+    # ------------------------------------------------------ speculative step
+
+    def _draft_tokens(self, request: GenRequest, k: int) -> list[int]:
+        """Prompt-lookup drafting: the most recent earlier occurrence of the
+        trailing spec_ngram in (prompt + generated), returning up to k
+        tokens that followed it. No draft model: the context itself is the
+        proposer (summaries and tool outputs echo their inputs, and greedy
+        decoding revisits its own phrases)."""
+        n = self.config.spec_ngram
+        ctx = request.prompt_ids + request.generated
+        if len(ctx) <= n:
+            return []
+        tail = ctx[-n:]
+        lo = max(0, len(ctx) - n - 512)  # bounded scan window
+        for start in range(len(ctx) - n - 1, lo - 1, -1):
+            if ctx[start:start + n] == tail:
+                return ctx[start + n:start + n + k]
+        return []
+
+    def _any_would_draft(self) -> bool:
+        """True iff some running row can take drafts this step: a greedy
+        row with more than one token left. Otherwise the [B, K] verify
+        would cost about K times the attention and MLP work of a decode
+        step for no extra token, and the plain decode runs instead."""
+        for request in self._running.values():
+            if (request.temperature == 0.0
+                    and request.max_tokens - len(request.generated) > 1):
+                return True
+        return False
+
+    def _spec_step_all(self) -> None:
+        """One [B, K] verify over every running slot: row = the last token
+        and up to K - 1 drafted continuations, at their positions. Drafts
+        are accepted while the model's own token at the position before
+        agrees, so each dispatch emits 1..K tokens per row for one read of
+        the weights. Greedy rows only get drafts; sampled rows ride at
+        width 1 (their token is drawn from the true distribution).
+        Rejected drafts' KV stays in the pages, dead until a later step
+        rewrites those positions (attention at a position reads only
+        positions before it); on int8 pages a rejected draft may still
+        have grown its page's scale."""
+        config = self.config
+        B, K = config.max_batch, config.spec_k
+        active = list(self._running.items())
+        key = GraphKey("verify", K, B, any(r.temperature > 0 for _, r in active))
+        pack = self._graphs.stage(key)
+        temperature = pack[V_TEMPERATURE].view(np.float32)
+        top_p = pack[V_TOP_P].view(np.float32)
+        widths: dict[int, int] = {}
+        chunks: dict[int, list[int]] = {}
+        for slot, request in active:
+            p0 = len(request.prompt_ids) + len(request.generated) - 1
+            remaining = max(0, request.max_tokens - len(request.generated))
+            chunk = [request.generated[-1]]
+            if request.temperature == 0.0 and remaining > 1:
+                chunk += self._draft_tokens(request, K - 1)
+            chunk = chunk[:min(K, remaining)]   # running => remaining >= 1
+            # one grant per slot: the usable width falls out of the granted
+            # capacity (the chunk's first token sits at p0)
+            usable = self.allocator.pregrant_block(slot, p0 + 1, len(chunk))
+            widths[slot] = usable
+            if usable == 0:
+                # the page pool is exhausted: the request ends "length"
+                request.finish_reason = "length"
+                continue
+            chunks[slot] = chunk = chunk[:usable]
+            pack[V_TOKENS:V_TOKENS + usable, slot] = chunk
+            pack[V_TOKENS + K:V_TOKENS + K + usable, slot] = np.arange(p0, p0 + usable)
+            temperature[slot] = request.temperature
+            pack[V_TOP_K, slot] = request.top_k
+            top_p[slot] = request.top_p
+        self._sync_tables()
+        started = time.monotonic()
+        if self._last_step_done_ts is not None:
+            self.stats.dispatch_gap_ms_total += max(
+                0.0, started - self._last_step_done_ts) * 1000
+        graphs_before = self._graphs.replays
+        block = self._graphs.fetch_verify(self._graphs.launch(key))   # [B, K]
+        self.stats.graph_replays += self._graphs.replays - graphs_before
+        done_ts = time.monotonic()
+        self._last_step_done_ts = done_ts
+        elapsed_ms = (done_ts - started) * 1000
+        self.stats.decode_ms_total += elapsed_ms
+        self.stats.decode_wall_ms_total += elapsed_ms
+        self.stats.spec_ms_total += elapsed_ms
+        self.stats.decode_steps += 1
+        self.stats.decode_dispatches += 1
+        self.stats.spec_steps += 1
+        for slot, request in active:
+            if request.finish_reason == "length" and slot in self._running:
+                self._finish(request)
+                continue
+            chunk = chunks.get(slot, [])
+            emitted = 0
+            for j in range(widths[slot]):
+                # chunk[j] (j > 0) is a draft: it stands iff it equals the
+                # model's token at the position before
+                if j > 0 and chunk[j] != block[slot, j - 1]:
+                    break
+                self._emit(request, int(block[slot, j]))
+                emitted += 1
+                if self._running.get(slot) is not request:
+                    break   # EOS, a stop id or max_tokens inside the chunk
+            self.stats.spec_tokens += max(0, emitted - 1)
+            self.stats.spec_emitted += emitted
+
+    def _verify_and_sample(self, tokens: torch.Tensor, positions: torch.Tensor,
+                           sampling: SamplingParams, slot_ids: torch.Tensor,
+                           any_sampled: bool
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Speculative verify: a [B, K] chunk (the last token and up to
+        K - 1 drafts per row; padding at position -1) through the history
+        prefill, sampling at every position. Position j's token is the
+        model's next token given the chunk up to j. Returns ([B, K] tokens,
+        [B, K, V] f32 logits)."""
+        logits, self.kv = prefill_with_history(
+            self.params, self.model_config, tokens, positions, self.kv, slot_ids)
+        B, K, V = logits.shape
+        flat = SamplingParams(*(p.repeat_interleave(K) for p in sampling))
+        out = sample_tokens(logits.reshape(B * K, V), flat, self._sample_gen,
+                            any_sampled)
+        return out.reshape(B, K), logits
+
     # ----------------------------------------------------------------- decode
 
     def _batch_buckets(self) -> list[int]:
@@ -874,7 +1038,7 @@ class TorchEngine:
         means max_tokens or the page pool ends the row at that retire)."""
         k = self._k
         reqs = dict(self._running)
-        key = (k, B, any(r.temperature > 0 for r in reqs.values()))
+        key = GraphKey("decode", k, B, any(r.temperature > 0 for r in reqs.values()))
         pack = self._graphs.stage(key)
         temperature = pack[TEMPERATURE].view(np.float32)
         top_p = pack[TOP_P].view(np.float32)
@@ -946,9 +1110,15 @@ class TorchEngine:
                 if self._running.get(slot) is not request:
                     break   # finished: the rest of the block is discarded
 
-    def _decode_body(self, bufs: DecodeBuffers) -> None:
+    def _graph_body(self, bufs: DecodeBuffers) -> None:
         """One dispatch over a key's static buffers: what each graph holds."""
-        K, _, sampled = bufs.key
+        kind, K, _, sampled = bufs.key
+        if kind == "verify":
+            tokens, logits = self._verify_and_sample(*bufs.verify_views(),
+                                                     any_sampled=sampled)
+            bufs.outputs.copy_(tokens.t())
+            bufs.logits.copy_(logits)
+            return
         tokens, valid, done, logits = self._decode_and_sample(
             *bufs.views(), k=K, any_sampled=sampled)
         bufs.outputs[:K].copy_(tokens)

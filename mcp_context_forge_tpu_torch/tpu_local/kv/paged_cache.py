@@ -19,9 +19,10 @@ row's valid positions within one call must form one contiguous ascending
 span (true of prefill, chunk and suffix prefill, and decode): then only
 the page under each row's first written token can hold earlier tokens of
 that row, and only it is requantized. The arithmetic is the JAX writers',
-step for step (``_quant_store``). On the card, the decode writer of an
-int8 pool is one hand-written kernel per layer (``ops.kv_write``); CPU
-tensors and every prefill write keep ``_quant_store``.
+step for step (``_quant_store``). On the card, both writers of an int8
+pool are one hand-written kernel per layer (``ops.kv_write``: a decode
+token per row, or a [B, S] span per row); CPU tensors keep
+``_quant_store`` (``write_decode_kv_plain``, ``write_prefill_kv_plain``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from ..models.configs import LlamaConfig
-from ..ops.kv_write import kv_quant_store_decode
+from ..ops.kv_write import kv_quant_store_decode, kv_quant_store_span
 from ..quantize import KV_SCALE_EPS, kv_dequantize, kv_int8_scale, kv_quantize
 
 
@@ -145,10 +146,29 @@ def write_prefill_kv(kv: PagedKVState, layer: int, k: torch.Tensor,
                      positions: torch.Tensor,
                      valid: torch.Tensor) -> PagedKVState:
     """Scatter a [B,S] block of K/V into pages, in place (quantizing under
-    int8; each row's valid span must be contiguous).
+    int8; each row's valid entries must be one run of columns at
+    consecutive positions, as every caller packs them).
 
     k/v: [B,S,KV,hd]; slot_ids: [B]; positions: [B,S] (>= 0); valid:
-    [B,S] bool — invalid entries go to page 0, offset 0."""
+    [B,S] bool — invalid entries go to page 0, offset 0 (the int8 kernel
+    writes nothing for them). An int8 pool on the card takes the span
+    writer kernel, K and V of the layer in one launch; everything else
+    runs ``write_prefill_kv_plain``."""
+    if kv.quantized and kv.k_pages.is_cuda:
+        kv_quant_store_span(kv.k_pages[layer], kv.v_pages[layer],
+                            kv.k_scales[layer], kv.v_scales[layer], k, v,
+                            kv.block_tables, slot_ids, positions, valid)
+        return kv
+    return write_prefill_kv_plain(kv, layer, k, v, slot_ids, positions, valid)
+
+
+def write_prefill_kv_plain(kv: PagedKVState, layer: int, k: torch.Tensor,
+                           v: torch.Tensor, slot_ids: torch.Tensor,
+                           positions: torch.Tensor,
+                           valid: torch.Tensor) -> PagedKVState:
+    """The plain PyTorch prefill writer (``_quant_store`` on int8 pools),
+    on any device: what CPU tensors run and what the span kernel is held
+    to."""
     B, S = positions.shape
     page_size = kv.page_size
     rows = kv.block_tables[slot_ids.long()]                       # [B, P]

@@ -1,4 +1,4 @@
-"""Attention, grouped experts and the int8 KV writer: the hand-written
+"""Attention, grouped experts and the int8 KV writers: the hand-written
 CUDA kernels (``csrc/``), their wrappers and their plain PyTorch versions."""
 
 
@@ -18,4 +18,5 @@ def kernel_wrappers() -> dict:
             "expert_blocks_tc_q8": grouped_moe.expert_blocks_tc_q8,
             "expert_blocks_wmma": grouped_moe.expert_blocks_wmma,
             "expert_blocks_wmma_q8": grouped_moe.expert_blocks_wmma_q8,
-            "kv_quant_store_decode": kv_write.kv_quant_store_decode}
+            "kv_quant_store_decode": kv_write.kv_quant_store_decode,
+            "kv_quant_store_span": kv_write.kv_quant_store_span}

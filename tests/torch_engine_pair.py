@@ -1,9 +1,9 @@
 """Helpers of the decode-machinery parity tests (``test_torch_superstep.py``,
-``test_torch_overlap.py``): a ``TPUEngine`` and a ``TorchEngine`` on the
-same ``llama3-test`` weights (``params_from_jax``) and config, and a
-runner that queues every request before the dispatch thread starts, so
-that admission groups, and with them every dispatch, are the same in both
-engines."""
+``test_torch_overlap.py``, ``test_torch_spec_decode*.py``): a ``TPUEngine``
+and a ``TorchEngine`` on the same ``llama3-test`` weights
+(``params_from_jax``) and config, and a runner that queues every request
+before the dispatch thread starts, so that admission groups, and with them
+every dispatch, are the same in both engines."""
 
 import asyncio
 
@@ -61,18 +61,44 @@ def serve(engine, jobs: list[tuple[list[int], dict]]):
     return asyncio.run(main())
 
 
+COUNTERS = ("decode_dispatches", "spec_steps", "spec_tokens")
+
+
+def _counters(engine) -> dict:
+    return {name: getattr(engine.stats, name) for name in COUNTERS}
+
+
 def serve_both(pair, jobs) -> list:
     """Both engines serve ``jobs``: their streams and finish reasons must
-    be equal, and so must the pages in use afterwards and the number of
-    decode dispatches (the same scheduling). Returns the streams."""
+    be equal, and so must the pages in use afterwards, the number of
+    decode dispatches (the same scheduling) and the speculative counters.
+    Returns the streams."""
     ref, port = pair
-    dispatches = (ref.stats.decode_dispatches, port.stats.decode_dispatches)
+    before = [_counters(engine) for engine in pair]
     want, got = serve(ref, jobs), serve(port, jobs)
     assert got == want
     assert port.allocator.pages_in_use == ref.allocator.pages_in_use
-    assert (port.stats.decode_dispatches - dispatches[1]
-            == ref.stats.decode_dispatches - dispatches[0])
+    deltas = [{name: n - b[name] for name, n in _counters(engine).items()}
+              for engine, b in zip(pair, before)]
+    assert deltas[1] == deltas[0]
     return got
+
+
+def serve_spec(pair, jobs) -> tuple[list, dict]:
+    """``serve_both``; returns the streams and the port's counter deltas."""
+    before = _counters(pair[1])
+    got = serve_both(pair, jobs)
+    return got, {name: n - before[name] for name, n in _counters(pair[1]).items()}
+
+
+def prompt_jobs(tok):
+    """The JAX spec tests' prompts (a repetitive one, a plain one, 40
+    counting tokens) and a cyclic one whose trailing 2-gram always
+    repeats."""
+    prompts = [tok.encode("abc abc abc abc abc abc"),
+               tok.encode("the quick brown fox"), list(range(5, 45)),
+               [7, 8, 9, 7, 8, 9, 7, 8, 9, 7, 8]]
+    return [(ids, dict(max_tokens=16)) for ids in prompts]
 
 
 def first_new_token(stream: list[int], start: int) -> int:
