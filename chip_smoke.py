@@ -114,6 +114,30 @@ with int8 weights (``moe_impl="grouped_pallas"``: attention and
 not fit the card in bf16: attention and ``expert_blocks_tc``); neither may
 launch the WMMA route.
 
+Operability and observability (every engine phase, and three phases of
+their own): each engine phase checks ``compile_stats()``: the
+construction's graph captures are warmup-stage events equal to
+``graph_captures``, and no kernel is built and no graph captured while it
+serves. ``engine_llama3_8b_ops`` (after ``engine``) serves the ``engine``
+phase's requests on llama3-8b with decode graphs for K = 1 and 4
+(``k_ladder``), phase attribution every 4th decode dispatch and recording
+telemetry stand-ins; once every request has streamed its first token,
+``request_knobs(superstep=4)`` must be accepted and land at a drain
+barrier. Its greedy streams must equal the ``engine`` phase's, its phase
+rows be complete and sum to their totals within 5 %, the median sampled
+K = 1 device compute be within 25 % of one K = 1 replay's CUDA-event time,
+the roofline over the decode window lie in (0, 1.05] for both mfu and
+hbm_roofline_frac, and the span names and metric families equal what the
+CPU tests pin. ``engine_restart`` (llama3-tiny, f32, ``auto_restart``,
+one slot) plants a one-shot fault in ``DecodeGraphs.launch``: the victim
+ends "error", the queued request completes, one restart, no capture, the
+pool reset in place, the same tokens after it, no page in use.
+``encoder_mini`` runs ``embed`` and ``classify`` (both coverages) through
+the provider's batcher on the encoder-mini geometry over 64 concurrent
+texts (two past 1024 tokens), each row held to the same weights on the
+CPU within 1e-4 of its largest value, with the ms of each coalesced
+forward.
+
 Then the card line, the kernel table (JSON), and last the contract line.
 Any failure raises: the exit code is non-zero and the last line is absent.
 Exits 1 at once when CUDA is not available.
@@ -241,6 +265,142 @@ def free_device(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------- telemetry stand-ins
+
+# what one served run reports through the telemetry handles (pinned on the
+# CPU by tests/test_torch_telemetry.py with these same stand-ins): span
+# names, and each metric family with the label names it is given
+SERVED_SPANS = {"llm.request", "llm.queue", "llm.prefill", "llm.decode"}
+SERVED_FAMILIES = {
+    "llm_queue_depth": {("replica",)}, "llm_dispatch_gap": {("replica",)},
+    "llm_step_phase": {("phase", "replica")}, "llm_mfu": {("replica",)},
+    "llm_hbm_roofline": {("replica",)}, "llm_device_idle_frac": {("replica",)},
+    "llm_batch_occupancy": {("replica",)}, "llm_kv_pages_in_use": {("replica",)},
+    "llm_kv_page_utilization": {("replica",)}, "llm_kv_bytes_in_use": {("replica",)},
+    "llm_step_tokens_per_sec": {("replica",)}, "llm_tokens_per_dispatch": {("replica",)},
+    "llm_tokens_per_dispatch_ewma": {("replica",)},
+    "llm_ttft": {("model", "replica", "tenant")}, "llm_tpot": {("model", "replica", "tenant")},
+    "llm_queue_wait": {("tenant",)}, "llm_tokens": {("kind", "model")},
+    "llm_requests": {("model", "status")}}
+# the construction's graph captures, on the card only (warmup-stage events)
+CAPTURE_FAMILIES = {"llm_xla_compiles": {("replica", "stage")},
+                    "llm_xla_compile_time": {("replica",)}}
+PHASE_KEYS = {"host_dispatch_ms", "table_sync_ms", "device_compute_ms", "readback_ms",
+              "emit_ms", "total_ms"}
+
+
+class RecordingTracer:
+    """Stands in for a tracer: ``emit_span`` and ``span`` record names,
+    parents and attributes."""
+
+    def __init__(self):
+        self.spans: list[dict] = []
+        self._ids = 0
+
+    def emit_span(self, name, start_ts, end_ts, trace_ctx=None, attributes=None,
+                  status="OK", events=None):
+        self.spans.append({"name": name, "parent": trace_ctx, "status": status,
+                           "attributes": dict(attributes or {}), "events": list(events or []),
+                           "duration_s": end_ts - start_ts})
+
+    def span(self, name, attributes):
+        tracer = self
+
+        class Span:
+            def __init__(self):
+                tracer._ids += 1
+                self.ctx = (f"{tracer._ids:032x}", f"{tracer._ids:016x}")
+                self.attributes = dict(attributes)
+
+            def context(self):
+                return self.ctx
+
+            def set_attribute(self, key, value):
+                self.attributes[key] = value
+
+            def record_exception(self, exc):
+                self.attributes["exception"] = repr(exc)
+
+        class Context:
+            def __enter__(self):
+                self.span = Span()
+                return self.span
+
+            def __exit__(self, *exc):
+                tracer.spans.append({"name": name, "parent": None, "status": "OK",
+                                     "attributes": self.span.attributes, "events": [],
+                                     "ctx": self.span.ctx})
+                return False
+
+        return Context()
+
+
+class RecordingMetrics:
+    """Stands in for the metrics registry: each ``llm_*`` family records the
+    label names it is given and its values; tenants are not clamped."""
+
+    class Family:
+        def __init__(self):
+            self.label_names: set[tuple] = set()
+            self.values: list[float] = []
+
+        def labels(self, **labels):
+            self.label_names.add(tuple(sorted(labels)))
+            return self
+
+        def inc(self, value=1.0):
+            self.values.append(value)
+
+        def set(self, value):
+            self.values.append(value)
+
+        def observe(self, value, exemplar=None):
+            self.values.append(value)
+
+    class Clamp:
+        @staticmethod
+        def label(tenant):
+            return tenant or "unattributed"
+
+    def __init__(self):
+        self.families: dict[str, RecordingMetrics.Family] = {}
+        self.tenant_clamp = self.Clamp()
+
+    def __getattr__(self, name):
+        if not name.startswith("llm_"):
+            raise AttributeError(name)
+        return self.families.setdefault(name, self.Family())
+
+    def exemplar(self, metric, value, trace_id, labels=()):
+        return None
+
+    def label_names(self) -> dict:
+        return {name: family.label_names for name, family in self.families.items()}
+
+
+class RecordingSignals:
+    def __init__(self):
+        self.series: dict[tuple[str, str], list[float]] = {}
+
+    def publish(self, name, value, replica):
+        self.series.setdefault((name, replica), []).append(value)
+
+
+class RecordingLedger:
+    def __init__(self):
+        self.totals: dict[str, dict[str, float]] = {}
+
+    def add(self, tenant, **counts):
+        row = self.totals.setdefault(tenant, {})
+        for key, value in counts.items():
+            row[key] = row.get(key, 0) + value
+
+
+def telemetry_handles() -> dict:
+    return dict(tracer=RecordingTracer(), metrics=RecordingMetrics(),
+                signals=RecordingSignals(), ledger=RecordingLedger())
+
+
 def main() -> int:
     import torch
 
@@ -322,6 +482,12 @@ def main() -> int:
     emit({"phase": "engine_llama3_tiny_f32_int8_kv_spec", "tokens_equal_plain": True, **stats})
     count(counts)
     free_device(torch)
+    counts, stats = restart_phase(torch, dev)
+    emit({"phase": "engine_restart", **stats})
+    count(counts)
+    free_device(torch)
+    emit({"phase": "encoder_mini", **encoder_phase(torch, dev)})
+    free_device(torch)
     counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION,
                                  chat_requests("llama3-8b"), hit=1, absent=NOT_BF16,
                                  graph_check=True)
@@ -331,6 +497,10 @@ def main() -> int:
     count(counts)
     free_device(torch)
     engine_tokens = stats["generated"]
+    counts, stats = ops_phase(torch, dev, engine_tokens, stats["prompt_tokens"])
+    emit({"phase": "engine_llama3_8b_ops", **stats})
+    count(counts)
+    free_device(torch)
     counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION[:2],
                                  chat_requests("llama3-8b") + [extraction_request("llama3-8b")],
                                  hit=1, absent=NOT_BF16, spec_decode=True)
@@ -2105,7 +2275,8 @@ def verify_against_decode_f32(torch, dev, layers: int = 4) -> dict:
 
 def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
                  requests: list[dict], hit: int, absent: tuple[str, ...] = (),
-                 n_layers: int = 0, graph_check: bool = False, **engine_kwargs):
+                 n_layers: int = 0, graph_check: bool = False, handles: dict | None = None,
+                 on_first_tokens=None, after=None, **engine_kwargs):
     """``requests`` sent concurrently as greedy chats through
     ``TorchLocalProvider.chat`` on ``model`` (random weights, bf16), then
     ``requests[hit]`` twice more, which must give the same tokens. The
@@ -2128,7 +2299,15 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     layer per call: flash per cold prefill, the chunk kernel per history
     prefill (a chunk round or a prefix-hit suffix), the span writer (int8
     pools) per either. ``graph_check`` runs ``graph_against_eager`` after
-    the requests, and ``verify_against_eager`` on a spec engine."""
+    the requests, and ``verify_against_eager`` on a spec engine.
+
+    Kernel builds and graph captures (``compile_stats``): the construction's
+    captures are warmup-stage events, one per graph, and the phase builds
+    no kernel and captures no graph while it serves. ``handles`` (telemetry
+    stand-ins) go to the engine and the provider; ``on_first_tokens(engine)``
+    runs once every request has streamed its first token, and
+    ``after(engine)`` once the requests are served; their results are the
+    stats' ``on_first_tokens`` and ``after``."""
     from unittest import mock
 
     from mcp_context_forge_tpu_torch.tpu_local import engine as engine_module
@@ -2160,25 +2339,32 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     # admission and chunk rounds call
     with mock.patch.object(engine_module, "decode_step",
                            counted("decode", engine_module.decode_step)):
-        engine = TorchEngine(EngineConfig(**{**config, **engine_kwargs}))
+        engine = TorchEngine(EngineConfig(**{**config, **engine_kwargs}), **(handles or {}))
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
     build_peak = torch.cuda.max_memory_allocated()
     build_decode_calls, calls["decode"] = calls["decode"], 0
     graphs = engine._graphs
-    K = engine.config.superstep
+    K = engine.config.fused_steps
+    rungs = engine.config.k_rungs()
     spec = engine.config.spec_decode
     widths = engine._batch_buckets() if engine.config.batch_buckets else [engine.config.max_batch]
-    decode_graphs = 2 * len(widths)
+    decode_graphs = 2 * len(widths) * len(rungs)
     check(engine.stats.graph_captures == len(graphs.buffers)
           == decode_graphs + (2 if spec else 0),
-          f"{engine.stats.graph_captures} graphs captured for {len(widths)} widths"
-          f"{' and the verify' if spec else ''}")
-    check(build_decode_calls == 2 * K * decode_graphs,
+          f"{engine.stats.graph_captures} graphs captured for {len(widths)} widths, "
+          f"K rungs {rungs}{' and the verify' if spec else ''}")
+    check(build_decode_calls == 2 * len(widths) * 2 * sum(rungs),
           f"decode_step ran {build_decode_calls} times while the engine was built")
+    built = engine.compile_stats()
+    check(built["warmup"]["graph_capture"] == engine.stats.graph_captures
+          and built["warmup"]["kernel_build"] == 0 and built["serving"]["count"] == 0,
+          f"the construction's events are not its {engine.stats.graph_captures} captures: "
+          f"{built}")
     if not engine.config.kv_quant:
         absent = absent + INT8_WRITERS
-    provider = TorchLocalProvider("tpu_local", engine)
+    provider = TorchLocalProvider("tpu_local", engine, tracer=(handles or {}).get("tracer"),
+                                  metrics=(handles or {}).get("metrics"))
     seen = []
     submit = engine.submit
 
@@ -2206,7 +2392,16 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
                 check(not first.done(), "the first request ended before its prefix registered")
                 await asyncio.sleep(0.005)
             rest = [asyncio.ensure_future(provider.chat(r)) for r in requests[1:]]
+            watch = None
+            if on_first_tokens is not None:
+                async def first_tokens():
+                    while len(seen) < len(requests) or any(
+                            r.first_token_ts == 0.0 for r in seen[:len(requests)]):
+                        await asyncio.sleep(0.001)
+                    return on_first_tokens(engine)
+                watch = asyncio.ensure_future(first_tokens())
             replies = await asyncio.wait_for(asyncio.gather(first, *rest), 600)
+            knob = await watch if watch is not None else None
             wall = time.monotonic() - t_start
             counts = {k: fn.launches for k, fn in wrappers.items()}
             served_calls = dict(calls)
@@ -2216,7 +2411,7 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
             delta = {k: v - stats0[k] for k, v in engine.stats.__dict__.items()}
             for _ in range(2):
                 await provider.chat(requests[hit])
-            return replies, wall, counts, served_calls, replays, peak, served, delta
+            return replies, wall, counts, served_calls, replays, peak, served, delta, knob
         finally:
             await engine.stop()
 
@@ -2228,7 +2423,10 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
                               counted("decode", engine_module.decode_step)), \
             mock.patch.object(paged_cache, "_quant_store",
                               counted("quant_store", paged_cache._quant_store)):
-        replies, wall, counts, served_calls, replays, peak, served, delta = asyncio.run(run())
+        replies, wall, counts, served_calls, replays, peak, served, delta, knob = \
+            asyncio.run(run())
+        compiles = engine.compile_stats()
+        after_result = after(engine) if after is not None else None
         eager = graph_against_eager(torch, engine) if graph_check else None
         verify = verify_against_eager(torch, engine) if spec else None
     card_bytes = torch.cuda.get_device_properties(0).total_memory
@@ -2241,6 +2439,8 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
               f"a request ended with {request.finish_reason!r}")
         check(all(0 <= t < engine.model_config.vocab_size for t in request.generated),
               "a generated token id is outside the vocabulary")
+    check(compiles["serving"]["kernel_build"] == compiles["serving"]["graph_capture"] == 0,
+          f"kernels built or graphs captured while serving: {compiles['serving']}")
     check(engine.allocator.prefix_hits >= 1, "no prefix hit")
     check(served[hit].hist > 0, "the request sharing the system prompt missed the cache")
     tokens_a, tokens_b = (seen[-2].generated, seen[-1].generated)
@@ -2294,7 +2494,8 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         "kv_pool_pages": engine.kv.k_pages.shape[1],
         "kv_page_dtype": str(engine.kv.k_pages.dtype),
         "moe_impl": cfg.moe_impl if cfg.n_experts else None,
-        "superstep": K, "decode_overlap": engine.config.decode_overlap,
+        "superstep": K, "k_rungs": list(rungs),
+        "decode_overlap": engine.config.decode_overlap,
         "spec_decode": spec, "engine_build_s": build_s, "requests": len(served),
         "prompt_tokens": [len(r.prompt_ids) for r in served],
         "buckets": [r.bucket for r in served],
@@ -2325,7 +2526,10 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         "repeat_tokens_equal": True, "repeat_tokens": len(tokens_a),
         "prefills": served_calls["prefill"], "history_prefills": history_prefills,
         "launches_accounted": accounted, "launches": counts,
+        "compile_stats": {stage: compiles[stage] for stage in ("warmup", "serving")},
         **({"graph_against_eager": eager} if eager else {}),
+        **({"on_first_tokens": knob} if on_first_tokens is not None else {}),
+        **({"after": after_result} if after is not None else {}),
         "generated": [r.generated for r in served]}
     if spec:
         steps = delta["spec_steps"]
@@ -2338,6 +2542,302 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
             verify_against_eager=verify)
     del engine, provider, seen, served
     return counts, stats
+
+
+def time_replay(torch, engine, lens: list[int], K: int = 1, runs: int = 5) -> float:
+    """The card's time of one greedy decode replay at ``K`` over columns of
+    ``lens`` tokens of context (0: an empty column): CUDA events around
+    the launch, median of ``runs``. The engine is stopped; the KV written
+    lands in slots freed afterwards."""
+    from mcp_context_forge_tpu_torch.tpu_local.decode_graphs import (BUDGETS, POSITIONS,
+                                                                     SEQ_LENS, TOKENS,
+                                                                     GraphKey)
+
+    key = GraphKey("decode", K, engine.config.max_batch, False)
+    for slot, n in enumerate(lens):
+        if n:
+            check(engine.allocator.allocate_slot(slot, n + K), "no pages for the timing")
+    times = []
+    with torch.inference_mode():
+        engine._sync_tables()
+        for _ in range(runs):
+            pack = engine._graphs.stage(key)
+            for slot, n in enumerate(lens):
+                if n:
+                    pack[TOKENS, slot] = 1 + slot
+                    pack[POSITIONS, slot], pack[SEQ_LENS, slot], pack[BUDGETS, slot] = n - 1, n, K
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            handle = engine._graphs.launch(key)
+            end.record()
+            engine._graphs.fetch(handle)
+            times.append(start.elapsed_time(end))
+    for slot in range(len(lens)):
+        engine.allocator.free_slot(slot)
+    return statistics.median(times)
+
+
+def ops_phase(torch, dev, engine_tokens: list, prompt_tokens: list) -> tuple[dict, dict]:
+    """``engine_llama3_8b_ops``: the ``engine`` phase's llama3-8b serving
+    with the operability machinery on: K rungs 1 and 4 captured
+    (``k_ladder``), phase attribution every 4th decode dispatch, and the
+    telemetry stand-ins. Once every request has streamed its first token,
+    ``request_knobs(superstep=4)`` must be accepted and land at a drain
+    barrier (no K = 1 dispatch after a K = 4 one, K = 4 dispatches after
+    it). Then: greedy streams equal to the ``engine`` phase's; sampled
+    phase rows, each complete, whose parts sum to its total within 5 %;
+    the median device compute of the K = 1 rows within 25 % of one K = 1
+    replay's CUDA-event time; the roofline over the decode window with
+    0 < hbm_roofline_frac <= 1.05 and 0 < mfu <= 1.05; the span names and
+    metric families (with their label names) that the CPU tests pin.
+    ``engine_tokens`` and ``prompt_tokens``: the ``engine`` phase's streams
+    and prompt lengths (the replay is timed at those prompts + 16)."""
+    handles = telemetry_handles()
+
+    def move_k(engine):
+        accepted = engine.request_knobs(superstep=4)
+        return {"accepted": accepted, "at_decode_dispatch": engine.stats.decode_dispatches}
+
+    def read(engine):
+        lens = ([n + 16 for n in prompt_tokens] + [0] * 8)[:engine.config.max_batch]
+        return {"ring": engine.recent_steps(), "roofline": engine.roofline_snapshot(),
+                "knob_state": engine.knob_state(),
+                "phase_samples": engine.stats.phase_samples,
+                "replay_k1_device_ms": time_replay(torch, engine, lens),
+                "replay_k4_device_ms": time_replay(torch, engine, lens, K=4),
+                "replay_seq_lens": lens, "ledger": handles["ledger"].totals,
+                "completion_tokens": engine.stats.completion_tokens,
+                "prompt_tokens": engine.stats.prompt_tokens}
+
+    counts, stats = engine_phase(
+        torch, dev, "llama3-8b", ATTENTION, chat_requests("llama3-8b"), hit=1,
+        absent=NOT_BF16, handles=handles, on_first_tokens=move_k, after=read,
+        k_ladder=(1, 4), step_sample_every=4)
+    ops = stats.pop("after")
+    knob = stats["on_first_tokens"]
+    check(knob["accepted"] == {"superstep": True}, f"request_knobs refused K = 4: {knob}")
+    check(stats["generated"] == engine_tokens,
+          "the K ladder, phase sampling or telemetry changed a greedy stream of the "
+          "engine phase")
+    ring = ops.pop("ring")
+    decode = [row for row in ring if row["kind"] == "decode"]
+    ks = [row["superstep"] for row in decode]
+    check(4 in ks and ks[-1] == 4, f"no K = 4 decode dispatch followed the knob: {ks}")
+    check(ks == sorted(ks), "a K = 1 dispatch followed a K = 4 one: the move did not "
+                            "land at a barrier")
+    check(ops["knob_state"]["superstep"] == 4 and ops["knob_state"]["warmed_k"] == [1, 4],
+          f"knob state {ops['knob_state']}")
+    rows = [row for row in decode if row["phases"] is not None]
+    check(ops["phase_samples"] > 0 and rows, "no sampled phase row")
+    worst = 0.0
+    for row in rows:
+        phases = row["phases"]
+        check(set(phases) == PHASE_KEYS and all(v >= 0 for v in phases.values()),
+              f"an incomplete phase row: {phases}")
+        parts = sum(v for k, v in phases.items() if k != "total_ms")
+        worst = max(worst, abs(phases["total_ms"] - parts) / phases["total_ms"])
+    check(worst <= 0.05, f"a phase row's parts miss its total by {worst:.3f} of it")
+    k1 = [row["phases"]["device_compute_ms"] for row in rows if row["superstep"] == 1]
+    check(k1, "no sampled K = 1 row")
+    k1_median = statistics.median(k1)
+    replay = ops["replay_k1_device_ms"]
+    check(abs(k1_median - replay) <= 0.25 * replay,
+          f"sampled K = 1 device compute {k1_median:.3f} ms against one replay's "
+          f"{replay:.3f} ms")
+    roof = ops["roofline"]
+    check(0 < roof.get("hbm_roofline_frac", 0) <= 1.05 and 0 < roof.get("mfu", 0) <= 1.05,
+          f"roofline out of (0, 1.05]: {roof}")
+    spans = {span["name"] for span in handles["tracer"].spans}
+    check(spans == SERVED_SPANS, f"span names {sorted(spans)}")
+    families = handles["metrics"].label_names()
+    check(families == {**SERVED_FAMILIES, **CAPTURE_FAMILIES},
+          f"metric families {sorted(families)}")
+    ledger = handles["ledger"].totals
+    check(sum(row.get("generated_tokens", 0) for row in ledger.values())
+          == ops["completion_tokens"], "the ledger's tokens are not the engine's")
+
+    def by_k(key):
+        out = {}
+        for k in (1, 4):
+            values = [row[key] for row in decode if row["superstep"] == k and row[key]]
+            out[f"k{k}"] = statistics.median(values) if values else None
+        return out
+
+    phase_medians = {f"k{k}": {key: statistics.median(row["phases"][key] for row in rows
+                                                      if row["superstep"] == k)
+                               for key in PHASE_KEYS}
+                     for k in (1, 4) if any(row["superstep"] == k for row in rows)}
+    stats.update(
+        knob=knob, k_sequence_tail=ks[-12:], phase_rows=len(rows),
+        phase_rows_k1=len(k1), phase_median_ms=phase_medians,
+        phase_parts_worst_miss=worst, replay_k1_device_ms=replay,
+        replay_k4_device_ms=ops["replay_k4_device_ms"],
+        replay_seq_lens=ops["replay_seq_lens"], roofline=roof,
+        ring_hbm_frac_median=by_k("hbm_frac"), ring_mfu_median=by_k("mfu"),
+        knob_state=ops["knob_state"], spans=sorted(spans),
+        metric_families=sorted(families), signals=sorted(
+            {name for name, _ in handles["signals"].series}),
+        tokens_equal_engine=True)
+    return counts, stats
+
+
+def restart_phase(torch, dev) -> tuple[dict, dict]:
+    """``engine_restart``: llama3-tiny in f32 with ``auto_restart`` and one
+    slot. A prompt is served (its tokens kept), then a one-shot fault is
+    planted in ``DecodeGraphs.launch``: the request decoding when it fires
+    (the victim) must end "error", the one queued behind it must complete,
+    ``engine_restarts`` be 1, no graph be captured (the pool was reset in
+    place: the graphs and the pool's tensors are the same objects), no
+    serving-stage event occur, the same prompt give the same tokens after
+    the restart, and no page stay in use."""
+    from mcp_context_forge_tpu_torch.tpu_local.engine import (EngineConfig, GenRequest,
+                                                              TorchEngine)
+
+    engine = TorchEngine(EngineConfig(model="llama3-tiny", dtype="float32", device="cuda",
+                                      max_batch=1, max_seq_len=512, page_size=128,
+                                      num_pages=16, prefill_buckets=(128,),
+                                      auto_restart=True))
+    captures = engine.stats.graph_captures
+    graphs = dict(engine._graphs.buffers)
+    pool = [engine.kv.k_pages, engine.kv.v_pages, engine.kv.block_tables]
+    launch = engine._graphs.launch
+    fired = []
+
+    def one_shot(*args, **kwargs):
+        if not fired:
+            fired.append(time.monotonic())
+            raise RuntimeError("planted fault in the decode launch")
+        return launch(*args, **kwargs)
+
+    wrappers = kernel_wrappers()
+
+    async def run():
+        await engine.start()
+        try:
+            ids = engine.tokenizer.encode("Which tools can read files?")
+            before = [t async for t in engine.generate(ids, max_tokens=12)]
+            for fn in wrappers.values():
+                fn.launches = 0
+            engine._graphs.launch = one_shot
+            victim = GenRequest(request_id="victim", prompt_ids=ids, max_tokens=12)
+            queued = GenRequest(request_id="queued", prompt_ids=ids, max_tokens=12)
+            await engine.submit(victim)
+            await engine.submit(queued)
+            streams = []
+            for request in (victim, queued):
+                tokens = []
+                while (t := await asyncio.wait_for(request.stream.get(), 60)) is not None:
+                    tokens.append(t)
+                streams.append(tokens)
+            after = [t async for t in engine.generate(ids, max_tokens=12)]
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            return before, victim, queued, streams, after, counts
+        finally:
+            await engine.stop()
+
+    before, victim, queued, streams, after, counts = asyncio.run(run())
+    check(len(fired) == 1, "the planted fault did not fire once")
+    check(victim.finish_reason == "error", f"the victim ended {victim.finish_reason!r}")
+    check(queued.finish_reason in ("stop", "length") and streams[1] == before,
+          "the queued request did not complete with the tokens served before the crash")
+    check(after == before, "the prompt gave other tokens after the restart")
+    check(engine.stats.engine_restarts == 1, f"{engine.stats.engine_restarts} restarts")
+    check(engine.stats.graph_captures == captures and engine._graphs.buffers == graphs
+          and all(a is b for a, b in zip(pool, [engine.kv.k_pages, engine.kv.v_pages,
+                                                engine.kv.block_tables])),
+          "the restart captured graphs or replaced the pool")
+    compiles = engine.compile_stats()
+    check(compiles["serving"]["count"] == 0, f"serving-stage events: {compiles['serving']}")
+    check(compiles["warmup"]["graph_capture"] == captures, f"warmup events: {compiles['warmup']}")
+    check(engine.allocator.pages_in_use == 0,
+          f"{engine.allocator.pages_in_use} pages in use at the end")
+    for kernel in ("flash_attention_mma", "paged_decode_attention"):
+        check(counts[kernel] > 0, f"{kernel} never launched around the restart")
+    stats = {"model": "llama3-tiny", "dtype": "float32", "max_batch": 1,
+             "victim_finish": victim.finish_reason, "victim_tokens": len(streams[0]),
+             "queued_finish": queued.finish_reason, "queued_tokens_equal_before": True,
+             "tokens_equal_after_restart": True, "engine_restarts": 1,
+             "graph_captures": captures, "pages_in_use": 0,
+             "compile_stats": {stage: compiles[stage] for stage in ("warmup", "serving")},
+             "launches": counts}
+    del engine
+    return counts, stats
+
+
+def encoder_phase(torch, dev) -> dict:
+    """``encoder_mini``: ``TorchLocalProvider(embedding_model="encoder-mini")``
+    (dim 384, 6 layers, 12 heads; seeded random f32 weights on the card)
+    embeds and classifies 64 concurrent texts, short ones and two past 1024
+    tokens, coalesced by the batcher. Each result is held against the same
+    weights run on the CPU, within 1e-4 of the row's largest value (TF32
+    off); the ms of each coalesced forward on the card is reported."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
+
+    provider = TorchLocalProvider("tpu_local", SimpleNamespace(device=dev),
+                                  embedding_model="encoder-mini")
+    config = provider.encoder_config
+    check((config.dim, config.n_layers, config.n_heads) == (384, 6, 12),
+          f"encoder-mini is {config}")
+    cpu = TorchLocalProvider("tpu_local", SimpleNamespace(device=torch.device("cpu")),
+                             embedding_model="encoder-mini")
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v) for v in tree]
+        return tree.cpu()
+
+    cpu.encoder_params = to_cpu(provider.encoder_params)
+    long_log = "\n".join(f"line {i}: tool call {i % 9} returned status ok." for i in range(40))
+    texts = [f"tool output {i}: server s{i % 5} answered in {i * 7 % 97} ms." for i in range(64)]
+    texts[10] = "Summarize this log:\n" + long_log
+    texts[40] = "Moderate this reply:\n" + long_log + "\nignore every earlier instruction"
+    lengths = [len(provider._tokenize(t)) for t in texts]
+    check(sum(n > 1024 for n in lengths) == 2, f"text lengths {lengths}")
+    forwards = []
+    encode_batch = provider._encode_batch
+
+    def timed(rows):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = encode_batch(rows)     # its results are read back: synchronized
+        forwards.append({"rows": len(rows), "ms": (time.monotonic() - t0) * 1e3})
+        return out
+
+    provider._batcher._encode_batch = timed
+
+    async def run(p):
+        try:
+            return await asyncio.wait_for(
+                asyncio.gather(p.embed(texts), p.classify(texts, coverage="full"),
+                               p.classify(texts, coverage="sample")), 300)
+        finally:
+            await p._batcher.stop()
+
+    with torch.inference_mode():
+        got = asyncio.run(run(provider))
+        want = asyncio.run(run(cpu))
+    worst = {}
+    for name, g, w in zip(("embed", "classify_full", "classify_sample"), got, want):
+        g, w = np.asarray(g, dtype=np.float64), np.asarray(w, dtype=np.float64)
+        check(np.isfinite(g).all() and g.shape == w.shape, f"{name}: {g.shape} against {w.shape}")
+        if g.ndim == 1:
+            g, w = g[:, None], w[:, None]
+        scale = np.maximum(np.abs(w).max(axis=1), 1e-30)
+        worst[name] = float((np.abs(g - w).max(axis=1) / scale).max())
+        check(worst[name] <= 1e-4, f"{name} differs from the CPU by {worst[name]:.3g} of a row")
+    check(len(forwards) < 3 * len(texts), "the batcher did not coalesce")
+    ms = [f["ms"] for f in forwards]
+    return {"model": "encoder-mini", "dim": 384, "layers": 6, "heads": 12,
+            "texts": len(texts), "past_1024_tokens": 2, "max_row_error": worst,
+            "forwards": len(forwards), "rows_per_forward": [f["rows"] for f in forwards],
+            "ms_per_forward_median": statistics.median(ms), "ms_per_forward": ms}
 
 
 if __name__ == "__main__":

@@ -41,16 +41,24 @@ Captured kernels do not run at capture, and a replay does not run the
 Python wrappers, so the wrappers' ``launches`` counts would read wrong both
 ways: each capture's increments are taken back and kept per key as the
 graph's launches, and every replay adds them once.
+
+Each key's warm-up and capture is one ``graph_capture`` event
+(``compile_events``) of the building thread. A ``timed`` launch brackets
+the replay with two CUDA events on the same stream (outside the graph: a
+capture may read nothing back), for the engine's sampled phase
+attribution; ``window_device_ms`` then waits on the second.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from .compile_events import record_event
 from .ops import kernel_wrappers
 from .sampling import SamplingParams
 
@@ -151,6 +159,11 @@ class DecodeGraphs:
         self.captures = 0
         self.pool_bytes = 0   # device memory the graphs' pool holds (card only)
         self.buffers: dict[GraphKey, DecodeBuffers] = {}
+        # the timed window of the last ``timed`` launch: the host's clock
+        # at the replay, and on the card two CUDA events around it
+        self.window_ts = 0.0
+        self._window_events = ([torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                               if self.on_card else [])
 
         def host(t: torch.Tensor) -> torch.Tensor:
             return t.pin_memory() if self.on_card else t
@@ -185,6 +198,7 @@ class DecodeGraphs:
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.inference_mode(), torch.cuda.stream(stream):
             for bufs in self.buffers.values():
+                t0 = time.monotonic()
                 self.body(bufs)   # the warm-up: every kernel and handle built outside the pool
                 stream.synchronize()
                 before = {name: fn.launches for name, fn in wrappers.items()}
@@ -206,6 +220,7 @@ class DecodeGraphs:
                     fn.launches = before[name]
                 bufs.graph = graph
                 self.captures += 1
+                record_event("graph_capture", time.monotonic() - t0)
         torch.cuda.current_stream(self.device).wait_stream(stream)
         torch.cuda.synchronize(self.device)
         # the pool's segments: reserved for the replays, outside the
@@ -228,11 +243,13 @@ class DecodeGraphs:
         pack[:] = neutral_inputs(key)
         return pack
 
-    def launch(self, key: GraphKey, feed: tuple | None = None) -> tuple:
+    def launch(self, key: GraphKey, feed: tuple | None = None,
+               timed: bool = False) -> tuple:
         """Run ``key``'s dispatch on the staged inputs; ``feed`` (a handle
         of the previous, still in-flight decode dispatch) supplies the
-        input tokens from its last sampled row. Returns the handle
-        ``fetch`` or ``fetch_verify`` takes."""
+        input tokens from its last sampled row; ``timed`` brackets the
+        replay for ``window_device_ms``. Returns the handle ``fetch`` or
+        ``fetch_verify`` takes."""
         bufs = self.get(key)
         slot = bufs.slot
         bufs.slot ^= 1
@@ -240,6 +257,10 @@ class DecodeGraphs:
         if feed is not None:
             fed = self.buffers[feed[0]]
             bufs.inputs[TOKENS].copy_(fed.outputs[fed.k - 1])
+        if timed:
+            self.window_ts = time.monotonic()
+            if self._window_events:
+                self._window_events[0].record()
         if bufs.graph is not None:
             bufs.graph.replay()
             bufs.replays += 1
@@ -250,10 +271,23 @@ class DecodeGraphs:
             raise RuntimeError(f"graph {key} was not captured")
         else:
             self.body(bufs)
+        if timed and self._window_events:
+            self._window_events[1].record()
         bufs.staging_out[slot].copy_(bufs.outputs, non_blocking=True)
         if bufs.events:
             bufs.events[slot].record()
         return key, slot
+
+    def window_device_ms(self) -> float:
+        """The last timed launch's device time: on the card, the CUDA
+        events' interval, after one wait on the second event; on the CPU,
+        where the body ran eagerly, the host's wall since the replay
+        began."""
+        if self._window_events:
+            start, end = self._window_events
+            end.synchronize()
+            return start.elapsed_time(end)
+        return (time.monotonic() - self.window_ts) * 1000
 
     def _outputs(self, handle: tuple) -> np.ndarray:
         """A dispatch's host output pack, once its copy has landed."""

@@ -46,6 +46,21 @@ stall the caller's event loop; tokens hop back with one
   and ``_hist_ctx_for``, which bounded XLA's static gather): the attention
   kernels walk only the pages each row uses.
 
+- Operability and observability, as in the JAX engine: serving knobs
+  (``request_knobs``: K along the captured ``k_ladder`` rungs, spec decode
+  on and off, a decode width floor) that land at the dispatch thread's
+  next drain barrier; the step ring (``recent_steps``), dispatch-gap and
+  idle share, health reads (``heartbeat_age``, ``dispatch_alive``,
+  ``kill``); sampled phase attribution (``step_sample_every``: every Nth
+  decode dispatch runs serially, its device time bracketed by two CUDA
+  events); a live roofline (``roofline.step_cost`` over each decode or
+  verify step's own wall: ``roofline_snapshot``); kernel-build and graph-
+  capture tracking by lifecycle stage (``compile_stats``); crash restart
+  (``auto_restart``) that resets the KV pool in place, since the graphs
+  hold its addresses; and duck-typed telemetry handles (``tracer``,
+  ``metrics``, ``signals``, ``ledger``), each site one attribute check
+  when its handle is None.
+
 Prefill, chunk rounds and prefix hits run eagerly. The engine runs on
 ``config.device`` ("cuda" by default) and raises at construction when
 that device is absent; it never moves to the CPU by itself.
@@ -71,7 +86,9 @@ from typing import Any, AsyncIterator
 import numpy as np
 import torch
 
+from ..observability import trace_extra
 from ..utils import new_id
+from .compile_events import CompileTracker, restore_thread, track_thread
 from .decode_graphs import (BUDGETS, POSITIONS, SEQ_LENS, STOP_TBL_WIDTH, STOPS,
                             TEMPERATURE, TOKENS, TOP_K, TOP_P, V_TEMPERATURE,
                             V_TOKENS, V_TOP_K, V_TOP_P, DecodeBuffers,
@@ -79,12 +96,16 @@ from .decode_graphs import (BUDGETS, POSITIONS, SEQ_LENS, STOP_TBL_WIDTH, STOPS,
 from .kv import PageAllocator, init_kv_state, kv_page_bytes, num_pages_for_budget
 from .models import MODEL_CONFIGS, LlamaConfig
 from .models.llama import decode_step, init_params, prefill, prefill_with_history
+from .roofline import (H100_HBM_GBPS, H100_PEAK_BF16_TFLOPS, CostEntry,
+                       CostRegistry, roofline_fractions, step_cost)
 from .sampling import SamplingParams, sample_tokens
 from .tokenizer import load_tokenizer
 
 logger = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# smoothing of the tokens-per-dispatch EWMA (gauge twin and signal)
+_TPD_EWMA_ALPHA = 0.2
 
 
 @dataclass
@@ -136,6 +157,46 @@ class EngineConfig:
     spec_decode: bool = False
     spec_k: int = 4
     spec_ngram: int = 2
+    # identity within a pool of engines: labels metrics and spans ("0"
+    # for a standalone engine)
+    replica_id: str = "0"
+    # the legacy alias of superstep (setting both to different values is
+    # refused)
+    decode_block: int = 1
+    # crash recovery: a crashed dispatch thread resets the KV pool in
+    # place, re-queues the requests that have emitted nothing, fails the
+    # ones mid-stream and restarts, at most auto_restart_max times
+    auto_restart: bool = False
+    auto_restart_max: int = 3
+    # the step ring: one summary per dispatch (kind, batch, width,
+    # duration, tokens), the last step_log_size kept
+    step_log_size: int = 256
+    # phase attribution: every Nth decode dispatch runs serially and
+    # splits its wall into host dispatch / table sync / device compute /
+    # read back / emission (0 = off, the default: no extra sync)
+    step_sample_every: int = 0
+    # the live roofline: each decode or verify step's FLOPs and bytes
+    # (roofline.step_cost) over its wall, against these peaks
+    cost_analysis: bool = True
+    peak_tflops_per_chip: float = H100_PEAK_BF16_TFLOPS
+    hbm_gbps_per_chip: float = H100_HBM_GBPS
+    # extra super-step rungs captured beside fused_steps, so that
+    # request_knobs can move K at a drain barrier onto graphs that exist
+    # (() = none: exactly the graphs of the static K)
+    k_ladder: tuple[int, ...] = ()
+
+    @property
+    def fused_steps(self) -> int:
+        """Decode iterations per dispatch: superstep when set, else the
+        legacy decode_block."""
+        return self.superstep if self.superstep > 1 else self.decode_block
+
+    def k_rungs(self) -> tuple[int, ...]:
+        """The super-step values the decode graphs are captured for:
+        fused_steps and every ladder rung, ascending."""
+        rungs = {self.fused_steps}
+        rungs.update(int(k) for k in self.k_ladder if int(k) >= 1)
+        return tuple(sorted(rungs))
 
 
 @dataclass
@@ -157,6 +218,18 @@ class GenRequest:
     generated: list[int] = field(default_factory=list)
     finish_reason: str | None = None
     first_token_ts: float = 0.0
+    prefill_ms: float = 0.0
+    queue_ms: float = 0.0
+    # billing identity ("" = unattributed): the ledger's key and the
+    # (clamped) tenant label of the latency histograms
+    tenant: str = ""
+    # (trace_id, span_id) of the submitter's llm.request span: the parent
+    # of the engine's llm.queue / llm.prefill / llm.decode spans
+    trace_ctx: tuple[str, str] | None = None
+    # once-only guards: a request re-queued by crash recovery passes
+    # admission twice, and must not observe its queue wait or TTFT twice
+    queue_observed: bool = False
+    ttft_observed: bool = False
     # prefix-cache admission state: probed cached-history length and the
     # (suffix) bucket; bucket -1 means not yet probed. ``chunked``: the
     # prompt (or its suffix after ``hist``) exceeds every bucket and
@@ -195,6 +268,8 @@ class EngineStats:
         self.spec_tokens = 0          # tokens emitted beyond one per row and verify
         self.spec_emitted = 0         # tokens emitted by verify dispatches
         self.spec_ms_total = 0.0      # verify dispatch -> read back, summed
+        self.engine_restarts = 0      # crash-recovery restarts (auto_restart)
+        self.phase_samples = 0        # decode dispatches with phase attribution
 
 
 def _resolve_device(name: str) -> torch.device:
@@ -216,10 +291,20 @@ class TorchEngine:
 
     ``params``: a parameter tree to serve as given, full precision or
     already quantized (e.g. from ``models.convert.params_from_jax``);
-    seeded random weights otherwise, quantized when ``config.quant``."""
+    seeded random weights otherwise, quantized when ``config.quant``.
+    ``tracer``, ``metrics``, ``signals`` and ``ledger`` are optional
+    telemetry handles, duck-typed as the JAX engine's (``tracer.emit_span``,
+    the ``llm_*`` metric families, ``signals.publish(name, value,
+    replica)``, ``ledger.add(tenant, **counts)``); None costs one attribute
+    check per site."""
 
     def __init__(self, config: EngineConfig,
-                 params: dict[str, Any] | None = None):
+                 params: dict[str, Any] | None = None, tracer=None,
+                 metrics=None, signals=None, ledger=None):
+        self.tracer = tracer
+        self.metrics = metrics
+        self.signals = signals
+        self.ledger = ledger
         self.config = config
         self.device = _resolve_device(config.device)
         if config.dtype not in _DTYPES:
@@ -229,11 +314,23 @@ class TorchEngine:
             raise ValueError(f"unsupported quant mode {config.quant!r}")
         if config.kv_quant not in ("", "int8"):
             raise ValueError(f"unsupported kv_quant mode {config.kv_quant!r}")
+        if config.decode_block < 1:
+            raise ValueError(f"decode_block must be >= 1, got {config.decode_block}")
         if config.superstep < 1:
             raise ValueError(f"superstep must be >= 1, got {config.superstep}")
-        if config.spec_decode and config.superstep > 1:
-            raise ValueError("spec_decode and superstep>1 are mutually "
-                             "exclusive (both widen the per-dispatch step)")
+        if (config.superstep > 1 and config.decode_block > 1
+                and config.superstep != config.decode_block):
+            raise ValueError(
+                f"superstep={config.superstep} and decode_block="
+                f"{config.decode_block} disagree: set only one "
+                "(decode_block is the legacy alias)")
+        if config.spec_decode and config.fused_steps > 1:
+            raise ValueError("spec_decode and superstep/decode_block>1 are "
+                             "mutually exclusive (both widen the "
+                             "per-dispatch step)")
+        if config.spec_decode and any(int(k) > 1 for k in config.k_ladder):
+            raise ValueError("k_ladder rungs > 1 are mutually exclusive "
+                             "with spec_decode (as superstep > 1 is)")
         if config.spec_decode and config.spec_k < 2:
             raise ValueError(f"spec_k must be >= 2, got {config.spec_k}")
         if config.spec_decode and config.spec_ngram < 1:
@@ -254,6 +351,57 @@ class TorchEngine:
                                                     **overrides)
         self.tokenizer = load_tokenizer(vocab_size=self.model_config.vocab_size)
         self.stats = EngineStats()
+        # the step ring (the asyncio side only copies it: recent_steps)
+        self.step_log: deque[dict[str, Any]] = deque(
+            maxlen=max(1, config.step_log_size))
+        self._step_seq = 0
+        # dispatch gaps: (gap_s, step_wall_s) per decode step
+        self._gap_window: deque[tuple[float, float]] = deque(maxlen=256)
+        # phase attribution and the live roofline: the dispatch count sets
+        # the sampling cadence, phase rows ride llm.decode spans as events,
+        # the roofline window backs roofline_snapshot()
+        self._dispatch_count = 0
+        self._phase_events: deque[tuple[float, dict[str, float]]] = deque(maxlen=64)
+        self._roofline_window: deque[tuple[float, float, float]] = deque(maxlen=256)
+        self.cost_registry = CostRegistry()
+        self._tpd_ewma: float | None = None
+        self._signals_slow_ts = 0.0
+        # kernel builds and graph captures: the construction's are
+        # "warmup", the dispatch thread's "serving" (on a built card, a
+        # serving event stalls traffic and is a fault)
+        self.compile_tracker = CompileTracker(self._on_kernel_event)
+        token = track_thread(self.compile_tracker, "warmup")
+        try:
+            self._build_device_state(params)
+        finally:
+            restore_thread(token)
+        self._work: queue.Queue[GenRequest] = queue.Queue(maxsize=config.max_queue)
+        self._pending: deque[GenRequest] = deque()   # dispatch thread only
+        self._running: dict[int, GenRequest] = {}    # slot -> request
+        self._chunking: dict[int, GenRequest] = {}   # slot -> mid-chunk-prefill
+        self._emit_buf: list[list[Any]] = []
+        self._cancels: set[str] = set()
+        self._cancel_lock = threading.Lock()
+        # serving knobs: callers stage validated moves under the lock; the
+        # dispatch thread lands them at the top of its next iteration,
+        # draining the pipeline first when K changes
+        self._pending_knobs: dict[str, Any] = {}
+        self._knob_lock = threading.Lock()
+        self._thread: threading.Thread | None = None
+        self._stop_event = threading.Event()
+        self._wake = threading.Event()
+        self._loop: asyncio.AbstractEventLoop | None = None
+        self._started = False
+        self._killed = False
+        # liveness: bumped once per dispatch-loop iteration (the idle wait
+        # is bounded at 50 ms, so a healthy loop beats at >= 20 Hz)
+        self._heartbeat_ts = time.monotonic()
+
+    def _build_device_state(self, params: dict[str, Any] | None) -> None:
+        """Params, the KV pool and the decode graphs of every (kind, K
+        rung, width, greedy-only or sampling): the construction's device
+        work, attributed to the "warmup" stage."""
+        config = self.config
         if params is None:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(config.seed)
@@ -268,16 +416,18 @@ class TorchEngine:
             self.num_kv_pages = num_pages_for_budget(
                 self.model_config, config.page_size, budget, self.dtype,
                 config.kv_quant)
+        # bytes one page costs in the pool's storage (the KV byte gauges)
+        self._kv_page_bytes = kv_page_bytes(self.model_config, config.page_size,
+                                            self.dtype, config.kv_quant)
         self.kv = init_kv_state(self.model_config, self.num_kv_pages,
                                 config.page_size, config.max_batch,
                                 max_pages_per_slot, dtype=self.dtype,
                                 device=self.device, quant=config.kv_quant)
-        self.allocator = PageAllocator(self.num_kv_pages, config.page_size,
-                                       config.max_batch, max_pages_per_slot)
+        self.allocator = self._new_allocator()
         self._sample_gen = torch.Generator(device=self.device)
         self._sample_gen.manual_seed(config.seed + 1)
         # decode machinery (dispatch thread only after start)
-        self._k = config.superstep
+        self._k = config.fused_steps
         self._inflight: dict[str, Any] | None = None
         self._last_step_done_ts: float | None = None
         # every width is captured at construction, so the width starts at
@@ -286,11 +436,14 @@ class TorchEngine:
         self._shrink_streak = 0
         self._shrink_peak = 0
         self._last_active_ts = time.monotonic()
-        # speculative verify steps run while this holds (a knob surface
-        # that turns them off is not ported)
+        # speculative verify steps run while this holds (request_knobs
+        # spec_enabled); engines built without spec_decode ignore it
         self._spec_enabled = True
+        # a decode width floor (request_knobs width_floor; 0 = none)
+        self._width_floor = 0
         widths = self._batch_buckets() if config.batch_buckets else [config.max_batch]
-        keys = [GraphKey("decode", self._k, B, sampled) for B in widths
+        rungs = config.k_rungs()
+        keys = [GraphKey("decode", k, B, sampled) for k in rungs for B in widths
                 for sampled in (False, True)]
         if config.spec_decode:
             keys += [GraphKey("verify", config.spec_k, config.max_batch, sampled)
@@ -299,18 +452,15 @@ class TorchEngine:
             self._graph_body, keys, self.device, self.model_config.vocab_size,
             self._sample_gen)
         self.stats.graph_captures = self._graphs.captures
-        self._work: queue.Queue[GenRequest] = queue.Queue(maxsize=config.max_queue)
-        self._pending: deque[GenRequest] = deque()   # dispatch thread only
-        self._running: dict[int, GenRequest] = {}    # slot -> request
-        self._chunking: dict[int, GenRequest] = {}   # slot -> mid-chunk-prefill
-        self._emit_buf: list[list[Any]] = []
-        self._cancels: set[str] = set()
-        self._cancel_lock = threading.Lock()
-        self._thread: threading.Thread | None = None
-        self._stop_event = threading.Event()
-        self._wake = threading.Event()
-        self._loop: asyncio.AbstractEventLoop | None = None
-        self._started = False
+        # what exists to move to: a K or a width floor with no graph is
+        # refused by request_knobs, never captured while serving
+        self._warmed_k: set[int] = set(rungs)
+        self._warmed_widths: set[int] = set(widths)
+
+    def _new_allocator(self) -> PageAllocator:
+        config = self.config
+        return PageAllocator(self.num_kv_pages, config.page_size, config.max_batch,
+                             config.max_seq_len // config.page_size)
 
     # ------------------------------------------------------------- lifecycle
 
@@ -342,6 +492,33 @@ class TorchEngine:
                 return  # keep self._thread so start() refuses a double start
         self._thread = None
 
+    def kill(self) -> None:
+        """Signal the dispatch thread to stop without joining it (a pool's
+        failover: a wedged device call may hold the thread for minutes).
+        The engine then refuses new submissions."""
+        self._killed = True
+        self._started = False
+        self._stop_event.set()
+        self._wake.set()
+
+    def heartbeat_age(self) -> float:
+        """Seconds since the dispatch loop last started an iteration (a
+        thread stuck inside a device call stops beating)."""
+        return max(0.0, time.monotonic() - self._heartbeat_ts)
+
+    def last_step_age(self) -> float | None:
+        """Seconds since the last device dispatch retired; None before
+        the first."""
+        if self._last_step_done_ts is None:
+            return None
+        return max(0.0, time.monotonic() - self._last_step_done_ts)
+
+    def dispatch_alive(self) -> bool:
+        """True while the dispatch thread runs (the crash half of a health
+        check)."""
+        return bool(self._started and self._thread is not None
+                    and self._thread.is_alive())
+
     def request_cancel(self, request_id: str) -> bool:
         """Thread-safe: ask the dispatch thread to end a generation; its
         stream then terminates with ``finish_reason="cancelled"``. Returns
@@ -368,11 +545,14 @@ class TorchEngine:
     # ------------------------------------------------------------- submission
 
     async def submit(self, request: GenRequest) -> GenRequest:
-        if self._started and (self._thread is None
-                              or not self._thread.is_alive()):
-            raise RuntimeError("engine dispatch thread is not running")
+        self._check_alive()
         self.stats.requests += 1
         self.stats.prompt_tokens += len(request.prompt_ids)
+        if self.ledger is not None:
+            # the same site as stats.prompt_tokens: the tenants' slices sum
+            # to the untagged total
+            self.ledger.add(request.tenant, requests=1,
+                            prompt_tokens=len(request.prompt_ids))
         while True:
             try:
                 self._work.put_nowait(request)
@@ -380,8 +560,23 @@ class TorchEngine:
                 break
             except queue.Full:  # backpressure without blocking the loop
                 await asyncio.sleep(0.005)
+                # a kill() during the sleep must not let the retry queue
+                # work that nothing will drain
+                self._check_alive()
         self.stats.queue_depth = self._work.qsize() + len(self._pending)
+        if self.metrics is not None:
+            self.metrics.llm_queue_depth.labels(
+                replica=self.config.replica_id).set(self.stats.queue_depth)
         return request
+
+    def _check_alive(self) -> None:
+        """Refuse work that no dispatch thread would drain (a killed
+        engine, or a crashed thread)."""
+        if self._killed:
+            raise RuntimeError("engine was killed")
+        if self._started and (self._thread is None
+                              or not self._thread.is_alive()):
+            raise RuntimeError("engine dispatch thread is not running")
 
     async def generate(self, prompt_ids: list[int],
                        **kwargs) -> AsyncIterator[int]:
@@ -399,22 +594,33 @@ class TorchEngine:
 
     def _device_loop(self) -> None:
         """Owns every device call. Each iteration: take new work, apply
-        cancels, drain the decode pipeline when admission or a chunk round
-        is due (or nothing runs), admit one prefill group when a slot is
-        free, advance every chunking prompt by one chunk round, dispatch
-        one speculative verify (when some row would draft) or one decode
-        super-step over the running slots (retiring the one before it),
-        then flush the emitted tokens."""
+        cancels and knob moves, drain the decode pipeline when admission or
+        a chunk round is due (or nothing runs), admit one prefill group
+        when a slot is free, advance every chunking prompt by one chunk
+        round, dispatch one speculative verify (when some row would draft)
+        or one decode super-step over the running slots (retiring the one
+        before it), then flush the emitted tokens. A crash fails the
+        outstanding requests, or with ``auto_restart`` restarts the loop
+        (``_restart_after_crash``)."""
         overlap = self.config.decode_overlap and not self.config.spec_decode
+        crashed = False
+        # a kernel build or graph capture on this thread stalls serving
+        token = track_thread(self.compile_tracker, "serving")
         try:
             with torch.inference_mode():
                 if self.device.type == "cuda":
                     torch.cuda.set_device(self.device)
                 while not self._stop_event.is_set():
+                    self._heartbeat_ts = time.monotonic()
                     self._drain_work()
                     did_work = False
                     if self._cancels:
                         self._apply_cancels()
+                        did_work = True
+                    if self._pending_knobs:
+                        # knob moves land here, before admission and decode:
+                        # a K change drains the pipeline first
+                        self._apply_knobs()
                         did_work = True
                     occupied = len(self._running) + len(self._chunking)
                     can_admit = (bool(self._pending)
@@ -451,13 +657,92 @@ class TorchEngine:
                 # a clean stop: tokens already sampled reach their streams
                 self._drain_pipeline()
         except Exception:
+            crashed = True
             self._inflight = None   # device state is suspect: never read it back
             logger.exception("torch engine dispatch thread crashed")
-            self._fail_outstanding("error")
-        else:
-            self._fail_outstanding("cancelled")
         finally:
             self._flush_emits()
+            try:
+                if (crashed and self.config.auto_restart
+                        and not self._stop_event.is_set()
+                        and self.stats.engine_restarts < self.config.auto_restart_max):
+                    self._restart_after_crash()
+                else:
+                    self._fail_outstanding("cancelled" if self._stop_event.is_set()
+                                           else "error")
+            finally:
+                restore_thread(token)
+
+    def _restart_after_crash(self) -> None:
+        """Crash recovery, on the dying dispatch thread: requests mid-stream
+        fail (their tokens were emitted; a retry would repeat them), the
+        pending and mid-chunk ones (nothing emitted) re-queue, the KV pool
+        is reset and a new dispatch thread takes over.
+
+        Unlike the JAX engine, which rebuilds its pool (a crashed jitted
+        call may have consumed the donated buffers), the pool is reset IN
+        PLACE: the decode graphs hold its addresses, and a new pool would
+        leave them writing into freed memory. First the device is probed
+        with a synchronize: a sticky CUDA error (an illegal address, a
+        device-side assert) poisons the context, and then everything
+        outstanding fails instead of looping. The synchronize also retires
+        the dropped dispatch's staging copies before its pinned buffers can
+        be reused."""
+        self.stats.engine_restarts += 1
+        logger.warning("torch engine: restarting after crash (%d/%d)",
+                       self.stats.engine_restarts, self.config.auto_restart_max)
+        self._inflight = None
+        self._drain_work()
+        requeue = list(self._pending)
+        self._pending.clear()
+        requeue.extend(self._chunking.values())
+        self._chunking.clear()
+        for request in list(self._running.values()):
+            if request.finish_reason is None:
+                request.finish_reason = "error"
+            self._observe_finish(request)
+            self._running.pop(request.slot, None)
+            self._post_tokens(request, [], done=True)
+        # flush before the new thread exists: two threads never share the
+        # emit buffer
+        self._flush_emits()
+        try:
+            self._reset_device_state()
+            for request in requeue:
+                request.slot = -1
+                request.bucket = -1
+                request.hist = 0
+                request.chunked = False
+                request.chunk_pos = 0
+                self._pending.append(request)
+            requeue = []
+            replacement = threading.Thread(target=self._device_loop,
+                                           name="torch-engine-dispatch",
+                                           daemon=True)
+            # start before publishing: stop() must never join a thread
+            # that has not started
+            replacement.start()
+            self._thread = replacement
+        except Exception:
+            logger.exception("torch engine: crash recovery failed; engine down")
+            self._pending.extendleft(reversed(requeue))
+            self._fail_outstanding("error")
+
+    def _reset_device_state(self) -> None:
+        """Probe the device, then zero the pool's pages, scales and block
+        table in place and start a fresh allocator (no resident prefix)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)    # raises on a poisoned context
+        kv = self.kv
+        with torch.inference_mode():
+            for t in (kv.k_pages, kv.v_pages, kv.k_scales, kv.v_scales,
+                      kv.block_tables):
+                if t is not None:
+                    t.zero_()
+        self.allocator = self._new_allocator()
+        self._last_step_done_ts = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _wait_for_work(self) -> None:
         self._wake.clear()
@@ -473,28 +758,45 @@ class TorchEngine:
                 return
 
     def _fail_outstanding(self, reason: str) -> None:
+        self._inflight = None
         self._drain_work()
         for request in list(self._running.values()):
             if request.finish_reason is None:
                 request.finish_reason = reason
+            # the incident line of a generation cut mid-decode joins the
+            # trace of the request it truncated
+            logger.warning(
+                "torch engine: failing in-flight request %s (%s) after %d "
+                "generated token(s)", request.request_id,
+                request.finish_reason, len(request.generated),
+                extra=trace_extra(request.trace_ctx))
             self._finish(request)
         for request in list(self._chunking.values()):
+            self._chunking.pop(request.slot, None)
+            self.allocator.free_slot(request.slot)
             if request.finish_reason is None:
                 request.finish_reason = reason
-            self._finish(request)
+            self._post_tokens(request, [], done=True)
         while self._pending:
             request = self._pending.popleft()
             if request.finish_reason is None:
                 request.finish_reason = reason
             self._post_tokens(request, [], done=True)
+        self._flush_emits()
 
     def _apply_cancels(self) -> None:
         with self._cancel_lock:
             ids, self._cancels = self._cancels, set()
-        for request in [*self._running.values(), *self._chunking.values()]:
+        for request in list(self._running.values()):
             if request.request_id in ids and request.finish_reason is None:
                 request.finish_reason = "cancelled"
                 self._finish(request)
+        for request in list(self._chunking.values()):
+            if request.request_id in ids and request.finish_reason is None:
+                self._chunking.pop(request.slot, None)
+                self.allocator.free_slot(request.slot)
+                request.finish_reason = "cancelled"
+                self._post_tokens(request, [], done=True)
         kept: deque[GenRequest] = deque()
         for request in self._pending:
             if request.request_id in ids and request.finish_reason is None:
@@ -503,6 +805,75 @@ class TorchEngine:
             else:
                 kept.append(request)
         self._pending = kept
+
+    # ------------------------------------------------------------------ knobs
+
+    def request_knobs(self, *, superstep: int | None = None,
+                      spec_enabled: bool | None = None,
+                      width_floor: int | None = None) -> dict[str, bool]:
+        """Stage serving-knob moves for the dispatch thread to land at its
+        next drain barrier; returns {knob: accepted}. Validation happens
+        here, against what the construction captured: K may only move to a
+        rung with decode graphs (nothing is captured while serving), spec
+        decoding toggles only on a spec-built engine, and a width floor
+        must be a captured width. Thread-safe."""
+        accepted: dict[str, bool] = {}
+        staged: dict[str, Any] = {}
+        if superstep is not None:
+            k = int(superstep)
+            ok = k >= 1 and k in self._warmed_k
+            if self.config.spec_decode and k > 1:
+                ok = False   # the constructor's exclusivity
+            accepted["superstep"] = ok
+            if ok:
+                staged["superstep"] = k
+        if spec_enabled is not None:
+            ok = self.config.spec_decode
+            accepted["spec_enabled"] = ok
+            if ok:
+                staged["spec_enabled"] = bool(spec_enabled)
+        if width_floor is not None:
+            w = int(width_floor)
+            ok = w == 0 or (self.config.batch_buckets and w in self._warmed_widths)
+            accepted["width_floor"] = ok
+            if ok:
+                staged["width_floor"] = min(w, self.config.max_batch)
+        if staged:
+            with self._knob_lock:
+                self._pending_knobs.update(staged)
+            self._wake.set()
+        return accepted
+
+    def _apply_knobs(self) -> None:
+        """Land staged knob moves on the dispatch thread. A K change drains
+        the pipeline first (the in-flight dispatch retires at its own K),
+        so the next dispatch replays the new rung's graph from a clean
+        barrier; spec and width-floor moves are host-side flips."""
+        with self._knob_lock:
+            knobs, self._pending_knobs = self._pending_knobs, {}
+        if not knobs:
+            return
+        new_k = knobs.get("superstep")
+        if new_k is not None and new_k != self._k:
+            if self._inflight is not None:
+                self._drain_pipeline()
+            self._k = int(new_k)
+        if "spec_enabled" in knobs:
+            self._spec_enabled = bool(knobs["spec_enabled"])
+        if "width_floor" in knobs:
+            self._width_floor = int(knobs["width_floor"])
+
+    def knob_state(self) -> dict[str, Any]:
+        """The live knob posture."""
+        return {
+            "superstep": self._k,
+            "spec_built": self.config.spec_decode,
+            "spec_enabled": bool(self.config.spec_decode and self._spec_enabled),
+            "width_floor": self._width_floor,
+            "batch_width": self._batch_width,
+            "warmed_k": sorted(self._warmed_k),
+            "warmed_widths": sorted(self._warmed_widths),
+        }
 
     # -------------------------------------------------------------- admission
 
@@ -616,11 +987,20 @@ class TorchEngine:
             if not self.allocator.allocate_slot(slot, total,
                                                 prefix_pages=shared):
                 # page pressure: release the match and retry later
+                if self.metrics is not None:
+                    self.metrics.llm_kv_alloc_failures.inc()
                 self.allocator.release_prefix(shared)
                 request.bucket = -1
                 self._pending.appendleft(request)
                 continue
+            if shared and self.ledger is not None:
+                # tokens served from shared prefix pages, counted where the
+                # match is consumed (the allocator's prefix_hit_tokens)
+                self.ledger.add(request.tenant, cache_hit_tokens=(
+                    len(shared) * self.allocator.page_size))
             request.slot = slot
+            request.queue_ms = (time.time() - request.created) * 1000
+            self._observe_admitted(request)
             if request.chunked:
                 # the chunk rounds own it until its prompt is prefilled
                 request.chunk_pos = request.hist
@@ -664,11 +1044,15 @@ class TorchEngine:
             for request in admitted:
                 self.allocator.register_prefix(request.slot,
                                                request.prompt_ids)
-        elapsed_ms = (time.monotonic() - started) * 1000
+        self._last_step_done_ts = time.monotonic()
+        elapsed_ms = (self._last_step_done_ts - started) * 1000
         self.stats.prefill_ms_total += elapsed_ms
         self.stats.prefill_batches += 1
         self.stats.prefill_requests += len(admitted)
+        self._record_step("prefill", batch=len(admitted), width=len(admitted),
+                          dur_ms=elapsed_ms, tokens=len(admitted), bucket=bucket)
         for request, token in zip(admitted, first):
+            request.prefill_ms = elapsed_ms
             self._emit(request, int(token))
         return True
 
@@ -698,9 +1082,16 @@ class TorchEngine:
             slot_ids, last_idx=last_idx)
         sampled = sample_tokens(logits, sampling, self._sample_gen,
                                 any(r.temperature > 0 for r in batch)).tolist()
-        self.stats.prefill_ms_total += (time.monotonic() - started) * 1000
+        self._last_step_done_ts = time.monotonic()
+        elapsed_ms = (self._last_step_done_ts - started) * 1000
+        self.stats.prefill_ms_total += elapsed_ms
         self.stats.prefill_batches += 1
+        self._record_step(
+            "chunk_prefill", batch=len(batch), width=len(batch), dur_ms=elapsed_ms,
+            tokens=sum(1 for r in batch if r.chunk_pos >= len(r.prompt_ids)),
+            bucket=S)
         for request, token in zip(batch, sampled):
+            request.prefill_ms += elapsed_ms
             if request.chunk_pos < len(request.prompt_ids):
                 continue
             del self._chunking[request.slot]
@@ -790,6 +1181,7 @@ class TorchEngine:
         top_p = pack[V_TOP_P].view(np.float32)
         widths: dict[int, int] = {}
         chunks: dict[int, list[int]] = {}
+        contexts: dict[int, int] = {}   # keys before each chunk's second token
         for slot, request in active:
             p0 = len(request.prompt_ids) + len(request.generated) - 1
             remaining = max(0, request.max_tokens - len(request.generated))
@@ -804,8 +1196,11 @@ class TorchEngine:
             if usable == 0:
                 # the page pool is exhausted: the request ends "length"
                 request.finish_reason = "length"
+                if self.metrics is not None:
+                    self.metrics.llm_kv_alloc_failures.inc()
                 continue
             chunks[slot] = chunk = chunk[:usable]
+            contexts[slot] = p0 + 1
             pack[V_TOKENS:V_TOKENS + usable, slot] = chunk
             pack[V_TOKENS + K:V_TOKENS + K + usable, slot] = np.arange(p0, p0 + usable)
             temperature[slot] = request.temperature
@@ -828,6 +1223,7 @@ class TorchEngine:
         self.stats.decode_steps += 1
         self.stats.decode_dispatches += 1
         self.stats.spec_steps += 1
+        spec_emitted = 0
         for slot, request in active:
             if request.finish_reason == "length" and slot in self._running:
                 self._finish(request)
@@ -844,7 +1240,26 @@ class TorchEngine:
                 if self._running.get(slot) is not request:
                     break   # EOS, a stop id or max_tokens inside the chunk
             self.stats.spec_tokens += max(0, emitted - 1)
-            self.stats.spec_emitted += emitted
+            spec_emitted += emitted
+        self.stats.spec_emitted += spec_emitted
+        ctx_pages = self._ctx_pages(max(contexts.values(), default=0) + K)
+        cost = None
+        if config.cost_analysis and chunks:
+            cost = step_cost(self.model_config, "verify", B, K,
+                             [contexts[slot] for slot in chunks],
+                             self._weight_dtype(), self._kv_dtype(),
+                             page_size=config.page_size, compute_dtype=config.dtype,
+                             widths=[len(chunks[slot]) for slot in chunks])
+        mfu, hbm_frac = self._observe_roofline("spec_verify", B, ctx_pages,
+                                               elapsed_ms, cost)
+        if self.signals is not None and active:
+            # acceptance: extra tokens per row of this verify (0..K-1)
+            self.signals.publish("llm.spec_accept",
+                                 max(0.0, spec_emitted / len(active) - 1.0),
+                                 config.replica_id)
+        self._record_step("spec_decode", batch=len(active), width=B,
+                          dur_ms=elapsed_ms, tokens=spec_emitted,
+                          ctx_pages=ctx_pages, mfu=mfu, hbm_frac=hbm_frac)
 
     def _verify_and_sample(self, tokens: torch.Tensor, positions: torch.Tensor,
                            sampling: SamplingParams, slot_ids: torch.Tensor,
@@ -927,6 +1342,10 @@ class TorchEngine:
                           len(self._running) + len(self._chunking) + admissible),
                       config.max_batch)
         desired = self._batch_bucket_for(ceiling)
+        if self._width_floor:
+            # the knob's floor: the next burst would only grow back
+            desired = max(desired, self._batch_bucket_for(
+                min(self._width_floor, config.max_batch)))
         if desired >= self._batch_width:
             self._batch_width = desired
             self._shrink_streak = 0
@@ -951,6 +1370,14 @@ class TorchEngine:
         finish in step N still ride N+1 (their writes land in pages that
         are re-granted only to later dispatches, after N+1 in stream
         order), and their lookahead tokens are discarded at retire."""
+        if self._phase_sample_due():
+            # a sampled step runs serially, so that its timed window holds
+            # this dispatch alone; the drain is admission's barrier, so the
+            # streams stay those of the unsampled run
+            self._drain_pipeline()
+            if self._running:
+                self._decode_step_all()
+            return
         k = self._k
         feed = self._inflight
         self._inflight = None
@@ -1035,8 +1462,16 @@ class TorchEngine:
         still in-flight dispatch, whose last sampled tokens are this one's
         inputs; the host then advances each row by the fed step's budget
         (a row that survives its step used its whole budget: a short one
-        means max_tokens or the page pool ends the row at that retire)."""
+        means max_tokens or the page pool ends the row at that retire).
+        A phase-sampled dispatch (serial: the caller drained) times its
+        staging, table sync and, by two CUDA events around the replay,
+        its device compute; one wait on the second event is the sync the
+        sampling buys."""
+        config = self.config
         k = self._k
+        build_ts = time.monotonic()
+        sampled = self._phase_sample_due()
+        self._dispatch_count += 1
         reqs = dict(self._running)
         key = GraphKey("decode", k, B, any(r.temperature > 0 for r in reqs.values()))
         pack = self._graphs.stage(key)
@@ -1044,11 +1479,13 @@ class TorchEngine:
         top_p = pack[TOP_P].view(np.float32)
         budgets: dict[int, int] = {}
         truncated: set[int] = set()
+        contexts: list[int] = []
         for slot, request in reqs.items():
             pending = feed["budgets"].get(slot, 0) if feed is not None else 0
             # every token that exists, the fed step's unseen ones included;
             # the input token sits at position n_ctx - 1 and is written now
             n_ctx = len(request.prompt_ids) + len(request.generated) + pending
+            contexts.append(n_ctx)
             if feed is None:
                 pack[TOKENS, slot] = request.generated[-1]
             pack[POSITIONS, slot] = n_ctx - 1
@@ -1065,37 +1502,67 @@ class TorchEngine:
                     # the page pool is exhausted: the row ends "length" at
                     # retire, after the previous step's tokens
                     truncated.add(slot)
+                    if self.metrics is not None:
+                        self.metrics.llm_kv_alloc_failures.inc()
             budgets[slot] = usable
             pack[BUDGETS, slot] = usable
             stops = (self.tokenizer.eos_id,
                      *tuple(request.stop_ids)[:STOP_TBL_WIDTH - 1])
             pack[STOPS:STOPS + len(stops), slot] = stops
+        sync_start = time.monotonic()
         self._sync_tables()
+        sync_s = time.monotonic() - sync_start
         started = time.monotonic()
         gap_s = 0.0
         if feed is None and self._last_step_done_ts is not None:
             gap_s = max(0.0, started - self._last_step_done_ts)
         self.stats.overlap_steps += int(feed is not None)
         self.stats.dispatch_gap_ms_total += gap_s * 1000
+        if self.metrics is not None:
+            self.metrics.llm_dispatch_gap.labels(
+                replica=config.replica_id).observe(gap_s)
         graphs_before = self._graphs.replays
-        handle = self._graphs.launch(key, feed["handle"] if feed else None)
+        handle = self._graphs.launch(key, feed["handle"] if feed else None,
+                                     timed=sampled)
         self.stats.graph_replays += self._graphs.replays - graphs_before
+        phases: dict[str, float] | None = None
+        ready_ts = 0.0
+        if sampled:
+            device_ms = self._graphs.window_device_ms()
+            ready_ts = time.monotonic()
+            phases = {
+                "host_dispatch_ms": max(
+                    0.0, (self._graphs.window_ts - build_ts - sync_s) * 1000),
+                "table_sync_ms": sync_s * 1000,
+                "device_compute_ms": device_ms,
+            }
         self.stats.decode_steps += k
         self.stats.decode_dispatches += 1
         return {"handle": handle, "budgets": budgets, "reqs": reqs,
-                "truncated": truncated, "B": B, "dispatch_ts": started}
+                "truncated": truncated, "B": B, "k": k, "contexts": contexts,
+                "ctx_pages": self._ctx_pages(max(contexts, default=0) + k),
+                "batch": len(reqs), "dispatch_ts": started, "gap_s": gap_s,
+                "fed": feed is not None, "build_ts": build_ts, "ready_ts": ready_ts,
+                "phases": phases}
 
     def _decode_retire(self, inflight: dict[str, Any]) -> None:
         """Read back one dispatch (its [K, B] tokens and the device's
         valid/done masks, behind its event) and emit up to K tokens per
-        row. Under overlap this runs while the next dispatch executes."""
-        block, valid, _ = self._graphs.fetch(inflight["handle"])
+        row. Under overlap this runs while the next dispatch executes.
+        Then the step's telemetry: its phase row (when sampled), its
+        roofline over its own wall (retire to retire), the ring row."""
+        block, valid, done = self._graphs.fetch(inflight["handle"])
         done_ts = time.monotonic()
         prev_done_ts = self._last_step_done_ts
         self._last_step_done_ts = done_ts
-        self.stats.decode_ms_total += (done_ts - inflight["dispatch_ts"]) * 1000
-        self.stats.decode_wall_ms_total += (
-            done_ts - max(inflight["dispatch_ts"], prev_done_ts or 0.0)) * 1000
+        decode_elapsed_ms = (done_ts - inflight["dispatch_ts"]) * 1000
+        # under the depth-2 pipeline this step was dispatched while its
+        # predecessor ran, so dispatch -> read back spans about two steps:
+        # the step's own wall is retire to retire
+        step_wall_ms = (done_ts - max(inflight["dispatch_ts"], prev_done_ts or 0.0)) * 1000
+        self.stats.decode_ms_total += decode_elapsed_ms
+        self.stats.decode_wall_ms_total += step_wall_ms
+        emitted = 0
         for slot, request in inflight["reqs"].items():
             if self._running.get(slot) is not request:
                 continue  # finished at an earlier retire: lookahead discarded
@@ -1107,8 +1574,43 @@ class TorchEngine:
                 if not valid[step, slot]:
                     break   # the device froze the row (EOS or a stop id)
                 self._emit(request, int(block[step, slot]))
+                emitted += 1
                 if self._running.get(slot) is not request:
                     break   # finished: the rest of the block is discarded
+        emit_done_ts = time.monotonic()
+        phases = inflight["phases"]
+        if phases is not None:
+            # a phase row exists only for a sampled dispatch that reached
+            # its retire (a crash drops the in-flight record); the read back
+            # runs from the end of the device window to the outputs on the
+            # host, so the parts tile the step's wall but for the window's
+            # device time against the host's clock
+            phases["readback_ms"] = (done_ts - inflight["ready_ts"]) * 1000
+            phases["emit_ms"] = (emit_done_ts - done_ts) * 1000
+            phases["total_ms"] = (emit_done_ts - inflight["build_ts"]) * 1000
+            self._observe_phases(phases)
+        k = inflight["k"]
+        cost = None
+        if self.config.cost_analysis:
+            cost = step_cost(self.model_config, "decode", inflight["B"], k,
+                             inflight["contexts"], self._weight_dtype(),
+                             self._kv_dtype(), page_size=self.config.page_size,
+                             compute_dtype=self.config.dtype)
+        kind = "decode_fb" if inflight["fed"] else "decode"
+        if k != self.config.fused_steps:
+            kind += f"@k{k}"
+        mfu, hbm_frac = self._observe_roofline(kind, inflight["B"], inflight["ctx_pages"],
+                                               step_wall_ms, cost)
+        self._gap_window.append((inflight["gap_s"], decode_elapsed_ms / 1000))
+        self._record_step("decode", batch=inflight["batch"], width=inflight["B"],
+                          dur_ms=decode_elapsed_ms, tokens=emitted,
+                          ctx_pages=inflight["ctx_pages"],
+                          gap_ms=inflight["gap_s"] * 1000, phases=phases, mfu=mfu,
+                          hbm_frac=hbm_frac, superstep=k, frozen=int(done.sum()),
+                          wall_ms=step_wall_ms)
+        if self.metrics is not None:
+            self.metrics.llm_device_idle_frac.labels(
+                replica=self.config.replica_id).set(self.device_idle_fraction())
 
     def _graph_body(self, bufs: DecodeBuffers) -> None:
         """One dispatch over a key's static buffers: what each graph holds."""
@@ -1172,25 +1674,346 @@ class TorchEngine:
                 self.allocator.tables(pin=self.device.type == "cuda"),
                 non_blocking=True)
 
+    # -------------------------------------------------------------- telemetry
+
+    def _ctx_pages(self, tokens: int) -> int:
+        """Pages covering ``tokens`` (the ring's context width of a step)."""
+        return -(-tokens // self.config.page_size)
+
+    def _weight_dtype(self) -> str:
+        return "int8" if self.config.quant else self.config.dtype
+
+    def _kv_dtype(self) -> str:
+        return "int8" if self.config.kv_quant else self.config.dtype
+
+    def device_idle_fraction(self) -> float:
+        """Share of recent decode wall the device waited on the host:
+        dispatch gaps / (gaps + in-step wall)."""
+        gaps = walls = 0.0
+        for gap_s, wall_s in list(self._gap_window):   # the loop side reads too
+            gaps += gap_s
+            walls += wall_s
+        total = gaps + walls
+        return gaps / total if total > 0 else 0.0
+
+    def _phase_sample_due(self) -> bool:
+        """True when the next decode dispatch takes the timed window (every
+        Nth; 0 turns it off)."""
+        n = self.config.step_sample_every
+        return n > 0 and self._dispatch_count % n == 0
+
+    def _observe_phases(self, phases: dict[str, float]) -> None:
+        """Publish one sampled step's phase row: the counter, the phase
+        histogram, and the events llm.decode spans carry."""
+        self.stats.phase_samples += 1
+        self._phase_events.append((time.time(), dict(phases)))
+        if self.metrics is not None:
+            rid = self.config.replica_id
+            for key, dur_ms in phases.items():
+                if key == "total_ms":
+                    continue
+                self.metrics.llm_step_phase.labels(
+                    replica=rid, phase=key[:-3]).observe(max(0.0, dur_ms / 1e3))
+
+    def _observe_roofline(self, kind: str, width: int, ctx_pages: int,
+                          dur_ms: float, cost: CostEntry | None
+                          ) -> tuple[float | None, float | None]:
+        """One step's cost (``roofline.step_cost``) over its wall: the
+        registry entry, the snapshot window and the mfu / HBM gauges.
+        (None, None) with no cost (``cost_analysis`` off) or no wall."""
+        if cost is None or dur_ms <= 0:
+            return None, None
+        self.cost_registry.record(kind, width, ctx_pages, cost.flops,
+                                  cost.bytes_accessed)
+        dur_s = dur_ms / 1e3
+        mfu, frac = roofline_fractions(cost.flops, cost.bytes_accessed, dur_s, 1,
+                                       self.config.peak_tflops_per_chip,
+                                       self.config.hbm_gbps_per_chip)
+        self._roofline_window.append((cost.flops, cost.bytes_accessed, dur_s))
+        if self.metrics is not None:
+            rid = self.config.replica_id
+            self.metrics.llm_mfu.labels(replica=rid).set(mfu)
+            self.metrics.llm_hbm_roofline.labels(replica=rid).set(frac)
+        return mfu, frac
+
+    def roofline_snapshot(self) -> dict[str, Any]:
+        """The roofline over the recent decode and verify window: summed
+        FLOPs and bytes over summed step walls."""
+        flops = byts = dur = 0.0
+        window = list(self._roofline_window)
+        for f, b, d in window:
+            flops += f
+            byts += b
+            dur += d
+        out: dict[str, Any] = {"window_steps": len(window),
+                               "cost_entries": self.cost_registry.counts()}
+        if dur > 0:
+            mfu, frac = roofline_fractions(flops, byts, dur, 1,
+                                           self.config.peak_tflops_per_chip,
+                                           self.config.hbm_gbps_per_chip)
+            out["mfu"] = round(mfu, 12)
+            out["hbm_roofline_frac"] = round(frac, 12)
+        return out
+
+    def _on_kernel_event(self, stage: str, duration_s: float, kind: str) -> None:
+        """CompileTracker callback, on whichever thread built or captured:
+        the compile counters (the JAX engine's families), and for a
+        serving-stage event a span (``llm.kernel_build`` or
+        ``llm.graph_capture``) beside the request traces it stalled."""
+        rid = self.config.replica_id
+        if self.metrics is not None:
+            self.metrics.llm_xla_compiles.labels(replica=rid, stage=stage).inc()
+            self.metrics.llm_xla_compile_time.labels(replica=rid).observe(duration_s)
+        if stage == "serving" and self.tracer is not None:
+            now = time.time()
+            self.tracer.emit_span(f"llm.{kind}", now - duration_s, now,
+                                  attributes={"gen_ai.request.model": self.config.model,
+                                              "llm.replica_id": rid,
+                                              "llm.compile_stage": stage})
+
+    def compile_stats(self) -> dict[str, Any]:
+        """Kernel builds and graph captures by stage: counts, times, the
+        recent events."""
+        return self.compile_tracker.snapshot()
+
+    def _record_step(self, kind: str, *, batch: int, width: int,
+                     dur_ms: float, tokens: int, bucket: int | None = None,
+                     ctx_pages: int | None = None,
+                     gap_ms: float | None = None,
+                     phases: dict[str, float] | None = None,
+                     mfu: float | None = None,
+                     hbm_frac: float | None = None,
+                     superstep: int | None = None,
+                     frozen: int | None = None,
+                     wall_ms: float | None = None) -> None:
+        """One ring entry and the gauge refresh, per dispatch (the JAX
+        engine's keys). ``ctx_pages`` is the pages covering the longest
+        row's context (the port has no context-width buckets)."""
+        self._step_seq += 1
+        depth = self._work.qsize() + len(self._pending)
+        pages_in_use = self.allocator.pages_in_use
+        self.step_log.append({
+            "seq": self._step_seq,
+            "ts": time.time(),
+            "kind": kind,                       # prefill|chunk_prefill|decode|spec_decode
+            "batch": batch,                     # rows carrying real work
+            "width": width,                     # dispatch width
+            "bucket": bucket,                   # prefill token bucket (S)
+            "ctx_pages": ctx_pages,
+            "duration_ms": round(dur_ms, 3),
+            "tokens": tokens,                   # tokens emitted by this step
+            "superstep": superstep,             # decode iterations fused
+            "frozen": frozen,                   # rows the device froze
+            "queue_depth": depth,
+            "kv_pages_in_use": pages_in_use,
+            "gap_ms": round(gap_ms, 3) if gap_ms is not None else None,
+            "phases": ({k: round(v, 3) for k, v in phases.items()}
+                       if phases is not None else None),
+            "mfu": round(mfu, 12) if mfu is not None else None,
+            "hbm_frac": round(hbm_frac, 12) if hbm_frac is not None else None,
+        })
+        if kind in ("decode", "spec_decode") and superstep is not None and tokens:
+            self._tpd_ewma = (float(tokens) if self._tpd_ewma is None
+                              else _TPD_EWMA_ALPHA * tokens
+                              + (1.0 - _TPD_EWMA_ALPHA) * self._tpd_ewma)
+        m = self.metrics
+        if m is not None:
+            rid = self.config.replica_id
+            m.llm_batch_occupancy.labels(replica=rid).set(
+                len(self._running) + len(self._chunking))
+            m.llm_kv_pages_in_use.labels(replica=rid).set(pages_in_use)
+            m.llm_kv_page_utilization.labels(replica=rid).set(
+                pages_in_use / max(1, self.num_kv_pages - 1))
+            m.llm_kv_bytes_in_use.labels(replica=rid).set(self.kv_bytes_in_use())
+            m.llm_queue_depth.labels(replica=rid).set(depth)
+            # tokens/s over the step's own wall (retire to retire)
+            rate_ms = wall_ms if wall_ms is not None else dur_ms
+            if rate_ms > 0 and tokens:
+                m.llm_step_tokens_per_sec.labels(replica=rid).set(tokens / (rate_ms / 1e3))
+            if superstep is not None and tokens:
+                m.llm_tokens_per_dispatch.labels(replica=rid).set(tokens)
+                if self._tpd_ewma is not None:
+                    m.llm_tokens_per_dispatch_ewma.labels(replica=rid).set(self._tpd_ewma)
+        if kind in ("decode", "spec_decode"):
+            self._publish_signals(tokens=tokens, depth=depth, mfu=mfu,
+                                  hbm_frac=hbm_frac, gap_ms=gap_ms,
+                                  wall_ms=wall_ms if wall_ms is not None else dur_ms)
+
+    def _publish_signals(self, *, tokens: int, depth: int,
+                         mfu: float | None, hbm_frac: float | None,
+                         gap_ms: float | None, wall_ms: float | None) -> None:
+        """Push one decode or verify dispatch's signals onto the bus (a
+        serving controller's inputs); the O(window) idle share goes out at
+        most every 0.25 s."""
+        bus = self.signals
+        if bus is None:
+            return
+        rid = self.config.replica_id
+        if tokens:
+            bus.publish("llm.tokens_per_dispatch", tokens, rid)
+        if mfu is not None:
+            bus.publish("llm.mfu", mfu, rid)
+        if hbm_frac is not None:
+            bus.publish("llm.hbm_roofline_frac", hbm_frac, rid)
+        if gap_ms is not None:
+            bus.publish("llm.dispatch_gap_ms", gap_ms, rid)
+        if wall_ms is not None and wall_ms > 0 and tokens:
+            bus.publish("llm.step_tokens_per_sec", tokens / (wall_ms / 1e3), rid)
+        bus.publish("llm.saturation", depth / max(1, self.config.max_queue), rid)
+        bus.publish("llm.occupancy", (len(self._running) + len(self._chunking))
+                    / max(1, self.config.max_batch), rid)
+        now = time.monotonic()
+        if now - self._signals_slow_ts >= 0.25:
+            self._signals_slow_ts = now
+            bus.publish("llm.idle_frac", self.device_idle_fraction(), rid)
+
+    def recent_steps(self, limit: int | None = None) -> list[dict[str, Any]]:
+        """The last ``limit`` (all) step summaries, oldest first."""
+        steps = list(self.step_log)
+        if limit is not None and limit > 0:
+            steps = steps[-limit:]
+        return steps
+
+    def _span(self, name: str, request: GenRequest, start_ts: float,
+              end_ts: float, status: str = "OK",
+              events: list[tuple[float, str, dict[str, Any]]] | None = None,
+              **attrs: Any) -> None:
+        """One per-request engine span, parented to the submitter's
+        llm.request span (the dispatch thread has no contextvars)."""
+        if self.tracer is None or request.trace_ctx is None:
+            return
+        attributes: dict[str, Any] = {
+            "gen_ai.system": "tpu_local",
+            "gen_ai.request.model": self.config.model,
+            "llm.replica_id": self.config.replica_id,
+            "llm.slot": request.slot,
+        }
+        if request.tenant:
+            attributes["llm.tenant"] = request.tenant
+        attributes.update(attrs)
+        try:
+            self.tracer.emit_span(name, start_ts, end_ts, trace_ctx=request.trace_ctx,
+                                  attributes=attributes, status=status, events=events)
+        except Exception:
+            logger.exception("span %s not emitted", name)   # never kill the loop
+
+    def _tenant_label(self, request: GenRequest) -> str:
+        """The registry's clamped tenant label of a request."""
+        return self.metrics.tenant_clamp.label(request.tenant)
+
+    def _exemplar(self, metric: str, value: float, request: GenRequest,
+                  labels: tuple = ()) -> dict[str, str] | None:
+        """A trace-id exemplar for a latency observation (None when the
+        request has no trace)."""
+        if self.metrics is None or request.trace_ctx is None:
+            return None
+        return self.metrics.exemplar(metric, value, request.trace_ctx[0], labels)
+
+    def _observe_admitted(self, request: GenRequest) -> None:
+        """Queue-phase telemetry when a request wins a slot."""
+        if request.queue_observed:
+            return  # re-admitted after crash recovery
+        request.queue_observed = True
+        if self.metrics is not None:
+            wait_s = max(0.0, request.queue_ms / 1e3)
+            tenant = self._tenant_label(request)
+            self.metrics.llm_queue_wait.labels(tenant=tenant).observe(
+                wait_s, exemplar=self._exemplar("llm_queue_wait", wait_s,
+                                                request, (tenant,)))
+        if self.signals is not None:
+            self.signals.publish("llm.queue_wait_ms", max(0.0, request.queue_ms),
+                                 self.config.replica_id)
+        self._span("llm.queue", request, request.created, time.time(),
+                   **{"llm.queue_ms": round(request.queue_ms, 2),
+                      "llm.priority": request.priority})
+
+    def _observe_finish(self, request: GenRequest) -> None:
+        """Decode-phase telemetry when a request leaves the engine (before
+        its slot is freed: its pages are still held): TPOT, the KV
+        residency the ledger bills, the llm.decode span with the sampled
+        phase rows of its decode window as events."""
+        now = time.time()
+        n = len(request.generated)
+        decode_start = request.first_token_ts or now
+        if self.metrics is not None and n > 1:
+            tpot_s = max(0.0, (now - decode_start) / (n - 1))
+            tenant = self._tenant_label(request)
+            labels = (self.config.model, self.config.replica_id, tenant)
+            self.metrics.llm_tpot.labels(
+                model=self.config.model, replica=self.config.replica_id,
+                tenant=tenant).observe(
+                tpot_s, exemplar=self._exemplar("llm_tpot", tpot_s, request, labels))
+        if self.signals is not None and n > 1:
+            self.signals.publish("llm.tpot_ms",
+                                 max(0.0, (now - decode_start) / (n - 1)) * 1e3,
+                                 self.config.replica_id)
+        if self.ledger is not None and request.slot >= 0:
+            admitted_ts = request.created + request.queue_ms / 1e3
+            self.ledger.add(request.tenant, kv_page_seconds=(
+                self.allocator.slot_pages(request.slot) * max(0.0, now - admitted_ts)))
+        reason = request.finish_reason or "stop"
+        phase_events = [(ts, "decode.step.phases", attrs)
+                        for ts, attrs in list(self._phase_events)
+                        if ts >= decode_start][-8:]
+        self._span("llm.decode", request, decode_start, now,
+                   status="OK" if reason in ("stop", "length") else "ERROR",
+                   events=phase_events or None,
+                   **{"gen_ai.usage.completion_tokens": n,
+                      "llm.finish_reason": reason,
+                      "llm.kv_pages": self.allocator.slot_pages(request.slot)})
+
+    def kv_bytes_in_use(self) -> int:
+        """Device bytes of the pages in use, in the pool's storage."""
+        return self.allocator.pages_in_use * self._kv_page_bytes
+
     # --------------------------------------------------------------- emission
 
     def _emit(self, request: GenRequest, token: int) -> None:
         request.generated.append(token)
         self.stats.completion_tokens += 1
+        if self.ledger is not None:
+            # the same site as stats.completion_tokens
+            self.ledger.add(request.tenant, generated_tokens=1)
         if request.first_token_ts == 0.0:
             request.first_token_ts = time.time()
+            if not request.ttft_observed:
+                self._observe_first_token(request)
         stop = token == self.tokenizer.eos_id or token in request.stop_ids
         done = stop or len(request.generated) >= request.max_tokens
         if done and request.finish_reason is None:
             request.finish_reason = "stop" if stop else "length"
         if done:
+            self._observe_finish(request)   # before free_slot: pages still held
             self._running.pop(request.slot, None)
             self.allocator.free_slot(request.slot)
         self._post_tokens(request, [token], done=done)
 
+    def _observe_first_token(self, request: GenRequest) -> None:
+        """TTFT (signal and histogram) and the llm.prefill span, once per
+        request."""
+        request.ttft_observed = True
+        ttft_s = max(0.0, request.first_token_ts - request.created)
+        if self.signals is not None:
+            self.signals.publish("llm.ttft_ms", ttft_s * 1e3, self.config.replica_id)
+        if self.metrics is not None:
+            tenant = self._tenant_label(request)
+            labels = (self.config.model, self.config.replica_id, tenant)
+            self.metrics.llm_ttft.labels(
+                model=self.config.model, replica=self.config.replica_id,
+                tenant=tenant).observe(
+                ttft_s, exemplar=self._exemplar("llm_ttft", ttft_s, request, labels))
+        self._span("llm.prefill", request, request.created + request.queue_ms / 1e3,
+                   request.first_token_ts,
+                   **{"gen_ai.usage.prompt_tokens": len(request.prompt_ids),
+                      "llm.prefill_ms": round(request.prefill_ms, 2),
+                      "llm.bucket": request.bucket,
+                      "llm.cached_prefix_tokens": request.hist,
+                      "llm.chunked": request.chunked,
+                      "llm.kv_pages": self.allocator.slot_pages(request.slot)})
+
     def _finish(self, request: GenRequest) -> None:
+        self._observe_finish(request)
         self._running.pop(request.slot, None)
-        self._chunking.pop(request.slot, None)
         self.allocator.free_slot(request.slot)
         self._post_tokens(request, [], done=True)
 

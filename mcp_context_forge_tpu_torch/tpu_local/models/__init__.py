@@ -1,3 +1,3 @@
-from .configs import MODEL_CONFIGS, LlamaConfig
+from .configs import ENCODER_CONFIGS, MODEL_CONFIGS, EncoderConfig, LlamaConfig
 
-__all__ = ["MODEL_CONFIGS", "LlamaConfig"]
+__all__ = ["ENCODER_CONFIGS", "MODEL_CONFIGS", "EncoderConfig", "LlamaConfig"]

@@ -134,3 +134,29 @@ MODEL_CONFIGS: dict[str, LlamaConfig] = {
         head_dim_override=32, hidden_act="gelu", embed_scale=True,
         norm_plus_one=True),
 }
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Geometry of the bidirectional encoder behind ``embed``/``classify``."""
+
+    name: str
+    vocab_size: int
+    dim: int
+    n_layers: int
+    n_heads: int
+    ffn_hidden: int
+    max_seq_len: int = 512
+    n_classes: int = 2  # moderation head: [safe, harmful]
+    norm_eps: float = 1e-5
+
+
+ENCODER_CONFIGS: dict[str, EncoderConfig] = {
+    # MiniLM-class geometry
+    "encoder-mini": EncoderConfig(
+        name="encoder-mini", vocab_size=30_522, dim=384, n_layers=6,
+        n_heads=12, ffn_hidden=1536),
+    "encoder-tiny": EncoderConfig(
+        name="encoder-tiny", vocab_size=512, dim=128, n_layers=2,
+        n_heads=4, ffn_hidden=256),
+}

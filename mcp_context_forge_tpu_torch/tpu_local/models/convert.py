@@ -8,7 +8,8 @@ them; every other full-precision leaf takes ``dtype``. A quantized leaf
 (``{"q": int8, "s": scale}``) crosses unchanged: q stays int8 and s keeps
 its own dtype (the JAX engine's compute dtype). A pure function on numpy
 input — it imports no JAX — so tests can hold both packages to the same
-weights.
+weights. ``encoder_params_from_jax`` does the same for the encoder's tree
+(``models/encoder.py``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .configs import LlamaConfig
+from .configs import EncoderConfig, LlamaConfig
 
 _F32_LEAVES = ("attn_norm", "ffn_norm", "final_norm")
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -48,6 +49,25 @@ def params_from_jax(np_tree: dict[str, Any], config: LlamaConfig,
             return {k: _tensor(v, None, device) for k, v in arr.items()}
         return _tensor(arr, torch.float32 if name in _F32_LEAVES else dtype,
                        device)
+
+    out = {name: leaf(name, arr) for name, arr in np_tree.items()
+           if name != "layers"}
+    out["layers"] = [{name: leaf(name, arr) for name, arr in layer.items()}
+                     for layer in np_tree["layers"]]
+    return out
+
+
+def encoder_params_from_jax(np_tree: dict[str, Any], config: EncoderConfig,
+                            device: torch.device | str = "cuda",
+                            dtype: torch.dtype = torch.float32) -> dict[str, Any]:
+    """The JAX encoder tree (numpy arrays) as the port's: same names and
+    [in, out] layouts; norm weights stay float32, the rest take ``dtype``."""
+    if len(np_tree["layers"]) != config.n_layers:
+        raise ValueError(f"tree has {len(np_tree['layers'])} layers, config "
+                         f"{config.name} has {config.n_layers}")
+
+    def leaf(name: str, arr: Any) -> torch.Tensor:
+        return _tensor(arr, torch.float32 if "norm" in name else dtype, device)
 
     out = {name: leaf(name, arr) for name, arr in np_tree.items()
            if name != "layers"}

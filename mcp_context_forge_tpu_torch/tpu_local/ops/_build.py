@@ -16,7 +16,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from ..compile_events import record_event
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -62,10 +65,12 @@ def build(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
     """Build every named kernel that is not built yet, one ``nvcc`` per
     source, all started together. Returns each kernel's compiler output
     (``-Xptxas=-v``: registers, shared memory, spills), read back from the
-    log beside the library when it was already built."""
+    log beside the library when it was already built. Each ``nvcc`` run is
+    a ``kernel_build`` event (``compile_events``) of the calling thread."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     started: dict[str, tuple[subprocess.Popen, Path]] = {}
+    t0 = time.monotonic()
     logs: dict[str, str] = {}
     for name in names:
         lib = library_path(name)
@@ -82,6 +87,7 @@ def build(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
     failed = []
     for name, (proc, tmp) in started.items():
         output, _ = proc.communicate()
+        record_event("kernel_build", time.monotonic() - t0)
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{output}")
             continue

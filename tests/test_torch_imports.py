@@ -60,6 +60,11 @@ def test_kernel_modules_import_without_toolchain():
         "import mcp_context_forge_tpu_torch.tpu_local.kv.paged_cache\n"
         "import mcp_context_forge_tpu_torch.tpu_local.models.llama\n"
         "import mcp_context_forge_tpu_torch.tpu_local.engine\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.roofline\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.compile_events\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.models.encoder\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.tpu_provider\n"
+        "import mcp_context_forge_tpu_torch.observability\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('triton', 'jax', 'jaxlib', 'mcp_context_forge_tpu')]\n"
         "assert not bad, bad\n")
