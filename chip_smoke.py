@@ -138,6 +138,32 @@ texts (two past 1024 tokens), each row held to the same weights on the
 CPU within 1e-4 of its largest value, with the ms of each coalesced
 forward.
 
+Checkpoints (two phases; the files live under ``build/checkpoints/`` for
+the phase only, after ``shutil.disk_usage`` is printed): this script draws
+a seeded tree on the card and writes it in HF layout with its own
+safetensors writer (8-byte header length, JSON header, raw little-endian
+bf16; transposed ``*.weight``, ``model.layers.N.*`` names; two shard
+files), streamed a tensor at a time. ``checkpoint_llama3_8b`` (full width
+and depth, 16.06 GB) boots ``TorchEngine(EngineConfig(checkpoint=...))``
+in bf16, every leaf bit for bit the drawn one (norms widened to f32; each
+drawn leaf made again from its own generator to compare), and serves a
+chat, an SSE stream (``sse_event`` frames ending in ``SSE_DONE``) and a
+chat sharing the first's full-page prefix through an
+``LLMProviderRegistry`` (flash, the paged chunk kernel and decode
+launch); then with ``quant="int8"``: every leaf bit for bit
+``quantize_tree`` of the drawn leaf on the card, the load's peak device
+memory under the bf16 tree's bytes, one request. ``checkpoint_mixtral_int8``
+(full width, one layer, per-expert tensors with one expert split across
+the two files) loads as int8: each expert stack's q and s bit for bit
+``quantize_tree``'s (s [8, 14336] / [8, 4096]), the peak under the bf16
+tree's bytes, a ~1450-token request on the int8 grouped-expert kernel;
+the int8 tree through ``save_params``/``load_params`` bit for bit; the bf16
+tree saved the same way refused under ``quant="int8"``. Planted faults it
+must reject: a flipped byte in a shard's data, an expert tensor dropped
+from a header (the incomplete-stack error), and a loader that quantizes
+expert stacks over axis 0, the expert axis. Each load prints its seconds,
+GB/s and peak; each engine its ``compile_stats()``.
+
 Then the card line, the kernel table (JSON), and last the contract line.
 Any failure raises: the exit code is non-zero and the last line is absent.
 Exits 1 at once when CUDA is not available.
@@ -512,6 +538,12 @@ def main() -> int:
     emit({"phase": "engine_llama3_8b_spec", **stats})
     count(counts)
     free_device(torch)
+    # checkpoints written here in HF layout, served from disk
+    ckpt_root = Path(__file__).resolve().parent / "build" / "checkpoints"
+    counts, stats = checkpoint_llama3_phase(torch, dev, ckpt_root)
+    emit({"phase": "checkpoint_llama3_8b", **stats})
+    count(counts)
+    free_device(torch)
 
     # ------------------------- long context on int8 KV: kernels, model, engine
     results.update(q8_kernel_phase(torch, dev, timer))
@@ -564,6 +596,10 @@ def main() -> int:
         chat_requests("mixtral-8x7b"), hit=1, absent=NOT_BF16 + MOE_WMMA,
         moe_impl="grouped_pallas", n_layers=8)
     emit({"phase": "engine_mixtral_bf16_8_layers", **stats})
+    count(counts)
+    free_device(torch)
+    counts, stats = checkpoint_mixtral_phase(torch, dev, ckpt_root)
+    emit({"phase": "checkpoint_mixtral_int8", **stats})
     count(counts)
     free_device(torch)
 
@@ -2838,6 +2874,540 @@ def encoder_phase(torch, dev) -> dict:
             "texts": len(texts), "past_1024_tokens": 2, "max_row_error": worst,
             "forwards": len(forwards), "rows_per_forward": [f["rows"] for f in forwards],
             "ms_per_forward_median": statistics.median(ms), "ms_per_forward": ms}
+
+
+# --------------------------------------------------------------- checkpoints
+
+CKPT_SEED = 10
+# llama3-8b's checkpoint phase runs at full depth (32 layers, 16.06 GB of bf16)
+CKPT_LLAMA_LAYERS = 32
+
+
+def depth_config(model: str, n_layers: int):
+    """``model``'s config, registered as ``<model>-<n>-layers`` when
+    ``n_layers`` cuts its depth (the name the checkpoint and the engine
+    both use)."""
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+
+    cfg = MODEL_CONFIGS[model]
+    if n_layers == cfg.n_layers:
+        return cfg
+    name = f"{model}-{n_layers}-layers"
+    MODEL_CONFIGS[name] = dataclasses.replace(cfg, name=name, n_layers=n_layers)
+    return MODEL_CONFIGS[name]
+
+
+def hf_specs(cfg) -> list[tuple]:
+    """Every tensor of an HF checkpoint of ``cfg``, in the order HF shards
+    hold them (embedding first, head last): (HF name, tree path, shape in
+    the tree's [in, out] layout, transposed in the file, expert index or
+    None, fan-in; 0 for a norm)."""
+    D, F, hd, E = cfg.dim, cfg.ffn_hidden, cfg.head_dim, cfg.n_experts
+    specs = [("model.embed_tokens.weight", ("embed",), (cfg.vocab_size, D), False, None, D)]
+    for i in range(cfg.n_layers):
+        p, at = f"model.layers.{i}.", ("layers", i)
+        specs += [
+            (p + "input_layernorm.weight", at + ("attn_norm",), (D,), False, None, 0),
+            (p + "self_attn.q_proj.weight", at + ("wq",), (D, cfg.n_heads * hd), True, None, D),
+            (p + "self_attn.k_proj.weight", at + ("wk",), (D, cfg.n_kv_heads * hd), True, None, D),
+            (p + "self_attn.v_proj.weight", at + ("wv",), (D, cfg.n_kv_heads * hd), True, None, D),
+            (p + "self_attn.o_proj.weight", at + ("wo",), (cfg.n_heads * hd, D), True, None,
+             cfg.n_heads * hd),
+            (p + "post_attention_layernorm.weight", at + ("ffn_norm",), (D,), False, None, 0)]
+        if E:
+            specs.append((p + "block_sparse_moe.gate.weight", at + ("router",), (D, E), True,
+                          None, D))
+            for m in range(E):
+                for name, shape, fan in (("w1", (D, F), D), ("w3", (D, F), D), ("w2", (F, D), F)):
+                    specs.append((p + f"block_sparse_moe.experts.{m}.{name}.weight",
+                                  at + (name,), shape, True, m, fan))
+        else:
+            for name, hf, shape, fan in (("w1", "gate_proj", (D, F), D),
+                                         ("w3", "up_proj", (D, F), D),
+                                         ("w2", "down_proj", (F, D), F)):
+                specs.append((p + f"mlp.{hf}.weight", at + (name,), shape, True, None, fan))
+    specs.append(("model.norm.weight", ("final_norm",), (D,), False, None, 0))
+    if not cfg.tie_embeddings:
+        specs.append(("lm_head.weight", ("lm_head",), (D, cfg.vocab_size), True, None, D))
+    return specs
+
+
+def draw_leaf(torch, dev, index: int, spec: tuple):
+    """Tensor ``index`` of the checkpoint in bf16, in the tree's layout, from
+    a generator of its own (any one is drawn again alone): normal over
+    sqrt(fan-in), norms 1 + N(0, 0.1)."""
+    shape, fan = spec[2], spec[5]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(CKPT_SEED * 1_000_003 + index)
+    w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    w = 1.0 + 0.1 * w if fan == 0 else w * (1.0 / math.sqrt(fan))
+    return w.to(torch.bfloat16)
+
+
+def write_hf_checkpoint(torch, dev, path: Path, specs: list, shards: list[list[int]]) -> dict:
+    """The checkpoint in HF layout, written by this script: one file per
+    shard (``shards`` holds spec indices), each an 8-byte little-endian
+    header length, a JSON header padded to 8 bytes, then each tensor's raw
+    little-endian bf16 bytes ([out, in] for transposed weights), drawn on
+    the card and streamed one at a time. Returns the bytes, seconds and
+    each tensor's (file, offset of its data)."""
+    t0 = time.monotonic()
+    where, total = {}, 0
+    for n, indices in enumerate(shards):
+        file = path / f"model-{n + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, offset = {}, 0
+        for i in indices:
+            name, _, shape, transposed = specs[i][:4]
+            stored = list(shape[::-1] if transposed else shape)
+            size = math.prod(stored) * 2
+            header[name] = {"dtype": "BF16", "shape": stored,
+                            "data_offsets": [offset, offset + size]}
+            offset += size
+        blob = json.dumps(header).encode()
+        blob += b" " * (-len(blob) % 8)
+        base = 8 + len(blob)
+        with open(file, "wb") as fh:
+            fh.write(len(blob).to_bytes(8, "little"))
+            fh.write(blob)
+            for i in indices:
+                w = draw_leaf(torch, dev, i, specs[i])
+                if specs[i][3]:
+                    w = w.T.contiguous()
+                fh.write(w.view(torch.uint8).cpu().numpy())
+                where[specs[i][0]] = (file, base + header[specs[i][0]]["data_offsets"][0])
+        total += base + offset
+    return {"bytes": total, "seconds": time.monotonic() - t0, "where": where}
+
+
+def loaded_mismatches(torch, dev, cfg, params, specs: list, quant: str) -> list:
+    """The tree paths whose loaded leaf is not bit for bit what was drawn:
+    full precision, bf16 (norms widened to f32); int8, ``quantize_tree``
+    of the drawn bf16 leaf computed on the card (an expert stack's as a
+    whole [E, ...] stack, drawn again expert by expert)."""
+    from mcp_context_forge_tpu_torch.tpu_local.models.llama import params_logical
+    from mcp_context_forge_tpu_torch.tpu_local.quantize import is_quant, quantize_tree
+
+    logical = params_logical(cfg)
+
+    def get(tree, path):
+        for part in path:
+            tree = tree[part]
+        return tree
+
+    def same(got, want) -> bool:
+        if is_quant(want):
+            return is_quant(got) and all(
+                got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
+                and torch.equal(got[k], want[k]) for k in ("q", "s"))
+        return (not is_quant(got) and got.shape == want.shape and got.dtype == want.dtype
+                and torch.equal(got, want))
+
+    stacks: dict[tuple, list[int]] = {}
+    bad = []
+    for i, spec in enumerate(specs):
+        path, expert, fan = spec[1], spec[4], spec[5]
+        if expert is not None:
+            stacks.setdefault(path, []).append(i)
+            continue
+        want = draw_leaf(torch, dev, i, spec)
+        want = want.float() if fan == 0 else want
+        if quant:
+            want = quantize_tree(want, get(logical, path), scale_dtype=torch.bfloat16)
+        if not same(get(params, path), want):
+            bad.append(path)
+    for path, indices in stacks.items():
+        want = torch.stack([draw_leaf(torch, dev, i, specs[i]) for i in indices])
+        if quant:
+            want = quantize_tree(want, get(logical, path), scale_dtype=torch.bfloat16)
+        if not same(get(params, path), want):
+            bad.append(path)
+        del want
+    return bad
+
+
+class LoadProbe:
+    """Stands in for the engine module's ``load_params``: each call's
+    seconds and the card's peak allocated bytes over it (reset at its
+    start)."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.calls = torch, fn, []
+
+    def __call__(self, *args, **kwargs):
+        torch = self.torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.calls.append({"seconds": time.monotonic() - t0, "base_bytes": base,
+                           "peak_bytes": torch.cuda.max_memory_allocated()})
+        return out
+
+
+def checkpoint_engine(torch, dev, model: str, checkpoint: Path, **kwargs):
+    """``TorchEngine`` on ``checkpoint`` (bf16, 8 slots, pages of 128, the
+    buckets of the engine phases) and the probe of its load."""
+    from unittest import mock
+
+    from mcp_context_forge_tpu_torch.tpu_local import engine as engine_module
+    from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngine
+
+    probe = LoadProbe(torch, engine_module.load_params)
+    config = dict(model=model, checkpoint=str(checkpoint), dtype="bfloat16", device=str(dev),
+                  max_batch=8, max_seq_len=2048, page_size=128, num_pages=512,
+                  prefill_buckets=(128, 512, 2048), prefill_max_batch=4, seed=0)
+    t0 = time.monotonic()
+    with mock.patch.object(engine_module, "load_params", probe):
+        engine = TorchEngine(EngineConfig(**{**config, **kwargs}))
+    build_s = time.monotonic() - t0
+    check(len(probe.calls) == 1, f"the engine loaded its checkpoint {len(probe.calls)} times")
+    return engine, {**probe.calls[0], "engine_build_s": build_s}
+
+
+def serve_registry(torch, engine, requests: list[tuple[str, dict]]) -> tuple[dict, list]:
+    """``requests`` ((``chat`` or ``stream``, request) each) served one after
+    another through an ``LLMProviderRegistry`` holding the engine's
+    ``TorchLocalProvider``, as the /v1 routes call it: a stream's chunks are
+    framed with ``sse_event`` and closed with ``SSE_DONE``, the bytes the
+    route writes. Every kernel's count is set to 0 just before and read
+    just after. Returns the counts, each reply (a chat response, or the
+    stream's decoded frames, ``[DONE]`` last) and each request's tokens
+    generated (``EngineStats.completion_tokens``; a stream's text may be
+    empty: random weights pick ids past the byte tokenizer's)."""
+    from mcp_context_forge_tpu_torch.gateway.serialize import (SSE_DATA, SSE_DONE, SSE_END,
+                                                               sse_event)
+    from mcp_context_forge_tpu_torch.tpu_local.provider import LLMProviderRegistry
+    from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
+
+    registry = LLMProviderRegistry()
+    registry.register(TorchLocalProvider("tpu_local", engine),
+                      [engine.config.model, "tpu_local"], default_chat=True, default_embed=True)
+    wrappers = kernel_wrappers()
+
+    async def run():
+        await engine.start()
+        try:
+            for fn in wrappers.values():
+                fn.launches = 0
+            replies, tokens = [], []
+            for kind, request in requests:
+                before = engine.stats.completion_tokens
+                if kind == "chat":
+                    replies.append(await asyncio.wait_for(registry.chat(request), 300))
+                else:
+                    frames = [sse_event(c) async for c in registry.chat_stream(request)]
+                    replies.append(frames + [SSE_DONE])
+                tokens.append(engine.stats.completion_tokens - before)
+            return {k: fn.launches for k, fn in wrappers.items()}, replies, tokens
+        finally:
+            await registry.shutdown()
+
+    counts, replies, tokens = asyncio.run(run())
+    check(all(n >= 1 for n in tokens), f"tokens generated per request: {tokens}")
+    out = []
+    for (kind, _), reply in zip(requests, replies):
+        if kind == "chat":
+            check(reply["usage"]["completion_tokens"] >= 1
+                  and reply["choices"][0]["finish_reason"] in ("stop", "length"),
+                  f"a chat reply is {reply['usage']}, {reply['choices'][0]['finish_reason']}")
+            out.append(reply)
+            continue
+        check(reply[-1] == SSE_DONE, "the stream does not end in data: [DONE]")
+        check(all(f.startswith(SSE_DATA) and f.endswith(SSE_END) for f in reply),
+              "a stream frame is not an SSE data frame")
+        chunks = [json.loads(f[len(SSE_DATA):-len(SSE_END)]) for f in reply[:-1]]
+        check(chunks and chunks[-1]["choices"][0]["finish_reason"] in ("stop", "length"),
+              "the stream's last chunk carries no finish reason")
+        out.append(chunks + ["[DONE]"])
+    return counts, out, tokens
+
+
+def disk_room(path: Path, need: int) -> dict:
+    import shutil
+
+    path.mkdir(parents=True, exist_ok=True)
+    usage = shutil.disk_usage(path)
+    room = {"disk_total_bytes": usage.total, "disk_free_bytes": usage.free,
+            "checkpoint_bytes_needed": need}
+    print(json.dumps({"phase": "checkpoint_disk", "path": str(path), **room}), flush=True)
+    check(usage.free > need * 1.1, f"{usage.free} bytes free on disk, the checkpoint needs {need}")
+    return room
+
+
+def checkpoint_dir(root: Path) -> Path:
+    import tempfile
+
+    return Path(tempfile.mkdtemp(prefix="checkpoint-", dir=root))
+
+
+def checkpoint_llama3_phase(torch, dev, root: Path, model: str = "llama3-8b",
+                            layers: int = CKPT_LLAMA_LAYERS) -> tuple[dict, dict]:
+    """``checkpoint_llama3_8b``: a seeded llama3-8b tree (full width; depth
+    ``layers``) drawn on the card and written in HF layout by this script
+    (two shard files), then served through ``EngineConfig(checkpoint=...)``:
+    in bf16, every leaf bit for bit the drawn one (norms f32), three
+    requests through the registry (a chat, an SSE stream, a chat sharing
+    the first's full-page prefix: flash, the paged chunk kernel and decode
+    launch); with ``quant="int8"``, every leaf bit for bit ``quantize_tree``
+    of the drawn leaf on the card, the load's peak device memory under the
+    bf16 tree's bytes, one request. The directory is deleted at the end."""
+    import shutil
+
+    from mcp_context_forge_tpu_torch.tpu_local.quantize import param_bytes
+
+    cfg = depth_config(model, layers)
+    specs = hf_specs(cfg)
+    need = sum(math.prod(s[2]) * 2 for s in specs)
+    room = disk_room(root, need)
+    path = checkpoint_dir(root)
+    try:
+        half = next(i for i, s in enumerate(specs) if s[1][:2] == ("layers", cfg.n_layers // 2))
+        written = write_hf_checkpoint(torch, dev, path, specs,
+                                      [list(range(half)), list(range(half, len(specs)))])
+        free_device(torch)
+        stats = {"model": cfg.name, "layers": cfg.n_layers, "dim": cfg.dim,
+                 "vocab": cfg.vocab_size, "shards": 2, "checkpoint_bytes": written["bytes"],
+                 "write_s": written["seconds"], "card": card_line(), **room}
+        # bf16: the engine loads the directory; three requests through the registry
+        engine, load = checkpoint_engine(torch, dev, cfg.name, path)
+        bad = loaded_mismatches(torch, dev, cfg, engine.params, specs, quant="")
+        check(not bad, f"bf16 leaves differ from the drawn ones: {bad[:5]}")
+        bf16_bytes = param_bytes(engine.params)
+        system = chat(cfg.name, "Which tools can read files?", SYSTEM)
+        hits0 = engine.allocator.prefix_hits
+        counts, replies, tokens = serve_registry(torch, engine, [
+            ("chat", system), ("stream", chat(cfg.name, "List three MCP servers.")),
+            ("chat", chat(cfg.name, "Summarize the last failure.", SYSTEM))])
+        check(engine.allocator.prefix_hits > hits0, "the third request missed the prefix cache")
+        for kernel in ATTENTION:
+            check(counts[kernel] > 0, f"{kernel} never launched on the loaded bf16 engine")
+        for kernel in NOT_BF16 + INT8_WRITERS:
+            check(counts[kernel] == 0, f"{kernel} launched on the loaded bf16 engine")
+        stats["bf16"] = {**load, "gb_per_s": written["bytes"] / load["seconds"] / 1e9,
+                         "tree_bytes": bf16_bytes, "leaves_bit_equal": True,
+                         "prefix_hit": True, "stream_frames": len(replies[1]),
+                         "completion_tokens": tokens,
+                         "launches": {k: counts[k] for k in ATTENTION},
+                         "compile_stats": engine.compile_stats()}
+        del engine
+        free_device(torch)
+        # int8 on the way in
+        engine, load = checkpoint_engine(torch, dev, cfg.name, path, quant="int8")
+        bad = loaded_mismatches(torch, dev, cfg, engine.params, specs, quant="int8")
+        check(not bad, f"int8 leaves differ from quantize_tree of the drawn ones: {bad[:5]}")
+        int8_bytes = param_bytes(engine.params)
+        check(load["peak_bytes"] < bf16_bytes,
+              f"the int8 load peaked at {load['peak_bytes']} bytes, the bf16 tree is {bf16_bytes}")
+        counts8, _, tokens8 = serve_registry(torch, engine, [("chat", system)])
+        for kernel in ("flash_attention_tc", "paged_decode_attention"):
+            check(counts8[kernel] > 0, f"{kernel} never launched on the loaded int8 engine")
+        stats["int8"] = {**load, "gb_per_s": written["bytes"] / load["seconds"] / 1e9,
+                         "tree_bytes": int8_bytes, "bf16_tree_bytes": bf16_bytes,
+                         "peak_under_bf16_tree": True, "leaves_bit_equal": True,
+                         "completion_tokens": tokens8,
+                         "launches": {k: counts8[k] for k in ATTENTION},
+                         "compile_stats": engine.compile_stats()}
+        del engine
+        free_device(torch)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    total = {k: counts[k] + counts8[k] for k in counts}
+    return total, stats
+
+
+def flip_byte(file: Path, offset: int) -> None:
+    with open(file, "r+b") as fh:
+        fh.seek(offset)
+        byte = fh.read(1)[0]
+        fh.seek(offset)
+        fh.write(bytes([byte ^ 0x40]))
+
+
+def drop_header_name(file: Path, name: str) -> bytes:
+    """``name`` removed from the file's header (padded with spaces to its
+    length, so the data stays where it is); returns the old header."""
+    with open(file, "r+b") as fh:
+        size = int.from_bytes(fh.read(8), "little")
+        old = fh.read(size)
+        header = json.loads(old)
+        del header[name]
+        new = json.dumps(header).encode()
+        fh.seek(8)
+        fh.write(new + b" " * (size - len(new)))
+    return old
+
+
+def restore_header(file: Path, old: bytes) -> None:
+    with open(file, "r+b") as fh:
+        fh.seek(8)
+        fh.write(old)
+
+
+def checkpoint_mixtral_phase(torch, dev, root: Path, model: str = "mixtral-8x7b",
+                             layers: int = 1) -> tuple[dict, dict]:
+    """``checkpoint_mixtral_int8``: a seeded mixtral-8x7b tree (full width,
+    ``layers`` layer) written in HF layout with per-expert
+    ``block_sparse_moe.experts.M.w{1,2,3}`` tensors, one expert's split
+    across the two shard files, served through ``EngineConfig(checkpoint=
+    ..., quant="int8")``: each expert stack's q and s bit for bit
+    ``quantize_tree``'s (s [E, F] for w1/w3, [E, D] for w2), the load's
+    peak under the bf16 tree's bytes, one long request on the grouped
+    route (the int8 grouped-expert kernel launches). Then the int8 tree
+    through ``save_params``/``load_params``, bit for bit; the bf16 tree
+    saved the same way must refuse ``quant="int8"``. Planted faults: a
+    flipped byte in a shard's data, an expert tensor dropped from a
+    header (the incomplete-stack error), a loader that quantizes expert
+    stacks over axis 0 (the expert axis)."""
+    import shutil
+    from unittest import mock
+
+    from mcp_context_forge_tpu_torch.tpu_local import checkpoint as ckpt
+    from mcp_context_forge_tpu_torch.tpu_local.quantize import param_bytes, quantize_leaf
+
+    cfg = depth_config(model, layers)
+    specs = hf_specs(cfg)
+    E, D, F = cfg.n_experts, cfg.dim, cfg.ffn_hidden
+    # the bf16 files, the saved bf16 tree, and room for the int8 one
+    need = sum(math.prod(s[2]) * 2 for s in specs) * 3
+    room = disk_room(root, need)
+    path = checkpoint_dir(root)
+    try:
+        # expert E // 2 of layer 0: w1 in the first file, w3 and w2 in the second
+        split = next(i for i, s in enumerate(specs)
+                     if s[4] == E // 2 and s[1] == ("layers", 0, "w3"))
+        written = write_hf_checkpoint(torch, dev, path, specs,
+                                      [list(range(split)), list(range(split, len(specs)))])
+        free_device(torch)
+        stats = {"model": cfg.name, "layers": cfg.n_layers, "dim": D, "ffn": F, "experts": E,
+                 "checkpoint_bytes": written["bytes"], "write_s": written["seconds"],
+                 "card": card_line(), **room}
+        engine, load = checkpoint_engine(torch, dev, cfg.name, path, quant="int8",
+                                         moe_impl="grouped_pallas")
+        params = engine.params
+        bad = loaded_mismatches(torch, dev, cfg, params, specs, quant="int8")
+        check(not bad, f"int8 leaves differ from quantize_tree of the drawn ones: {bad[:5]}")
+        for layer in params["layers"]:
+            check(layer["w1"]["s"].shape == layer["w3"]["s"].shape == (E, F)
+                  and layer["w2"]["s"].shape == (E, D),
+                  f"expert scales {layer['w1']['s'].shape}, {layer['w2']['s'].shape}")
+        long_chat = chat_requests(cfg.name)[2]
+        counts, replies, _ = serve_registry(torch, engine, [("chat", long_chat)])
+        check(replies[0]["usage"]["prompt_tokens"] * cfg.moe_top_k >= E * cfg.moe_block,
+              f"the prompt of {replies[0]['usage']['prompt_tokens']} tokens misses the grouped route")
+        for kernel in ("flash_attention_tc", "expert_blocks_tc_q8", "paged_decode_attention"):
+            check(counts[kernel] > 0, f"{kernel} never launched on the loaded int8 Mixtral")
+        for kernel in MOE_WMMA + ("expert_blocks_tc",):
+            check(counts[kernel] == 0, f"{kernel} launched on the loaded int8 Mixtral")
+        int8_bytes = param_bytes(params)
+        stats["int8"] = {**load, "gb_per_s": written["bytes"] / load["seconds"] / 1e9,
+                         "tree_bytes": int8_bytes, "leaves_bit_equal": True,
+                         "w1_scales": list(params["layers"][0]["w1"]["s"].shape),
+                         "w2_scales": list(params["layers"][0]["w2"]["s"].shape),
+                         "prompt_tokens": replies[0]["usage"]["prompt_tokens"],
+                         "launches": {k: counts[k] for k in ATTENTION + ("expert_blocks_tc_q8",)},
+                         "compile_stats": engine.compile_stats()}
+        # the port's own format: the int8 tree saved once restores as it was
+        own = path / "own-int8"
+        t0 = time.monotonic()
+        ckpt.save_params(str(own), params)
+        save_s = time.monotonic() - t0
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        restored = ckpt.load_params(str(own), cfg, dev, torch.bfloat16, quant="int8")
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        check(not loaded_mismatches(torch, dev, cfg, restored, specs, quant="int8"),
+              "the restored int8 tree differs from the saved one")
+        stats["own_int8"] = {"save_s": save_s, "restore_s": restore_s,
+                             "bytes": (own / ckpt.PARAMS_FILE).stat().st_size,
+                             "bit_equal": True}
+        del engine, params, restored
+        free_device(torch)
+        shutil.rmtree(own)
+        # the bf16 tree, saved the same way, refuses quant="int8"
+        bf16 = ckpt.load_params(str(path), cfg, dev, torch.bfloat16)
+        bf16_bytes = param_bytes(bf16)
+        check(load["peak_bytes"] < bf16_bytes,
+              f"the int8 load peaked at {load['peak_bytes']} bytes, the bf16 tree is {bf16_bytes}")
+        stats["int8"].update(bf16_tree_bytes=bf16_bytes, peak_under_bf16_tree=True)
+        own = path / "own-bf16"
+        ckpt.save_params(str(own), bf16)
+        del bf16
+        free_device(torch)
+        try:
+            ckpt.load_params(str(own), cfg, dev, torch.bfloat16, quant="int8")
+            refused = None
+        except ValueError as exc:
+            refused = str(exc)
+        check(refused is not None and "does not match the quantized (int8)" in refused,
+              f"a bf16 tree restored under int8: {refused}")
+        stats["own_bf16_under_int8"] = refused.split(":")[0]
+        shutil.rmtree(own)
+        free_device(torch)
+        stats["planted_faults"] = mixtral_faults(torch, dev, cfg, path, specs, written["where"],
+                                                 ckpt, quantize_leaf, mock)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return counts, stats
+
+
+def mixtral_faults(torch, dev, cfg, path: Path, specs: list, where: dict, ckpt,
+                   quantize_leaf, mock) -> dict:
+    """Each planted fault must fail the phase's check: the loaded int8 tree
+    against ``quantize_tree`` of the drawn leaves, or the loader's own
+    incomplete-stack error."""
+    faults = {}
+    # a flipped exponent bit in the first element of layer 0's wq
+    name = "model.layers.0.self_attn.q_proj.weight"
+    file, offset = where[name]
+    flip_byte(file, offset + 1)   # the high byte of a little-endian bf16
+    try:
+        bad = loaded_mismatches(torch, dev, cfg, ckpt.load_params(
+            str(path), cfg, dev, torch.bfloat16, quant="int8"), specs, quant="int8")
+    finally:
+        flip_byte(file, offset + 1)
+    free_device(torch)
+    check(("layers", 0, "wq") in bad, f"a flipped byte of {name} passed the check: {bad}")
+    faults["flipped_byte"] = [list(map(str, b)) for b in bad]
+    # an expert tensor dropped from the second file's header
+    name = next(s[0] for s in specs if s[4] == cfg.n_experts - 1 and s[1][-1] == "w2")
+    file = where[name][0]
+    old = drop_header_name(file, name)
+    try:
+        ckpt.load_params(str(path), cfg, dev, torch.bfloat16, quant="int8")
+        error = None
+    except ValueError as exc:
+        error = str(exc)
+    finally:
+        restore_header(file, old)
+    free_device(torch)
+    check(error is not None and error.startswith("Checkpoint has incomplete expert stacks"),
+          f"a checkpoint without {name} loaded: {error}")
+    faults["dropped_expert"] = error
+    # expert stacks staged full precision and quantized over axis 0
+    real_axis, real_set = ckpt.reduction_axis, ckpt._set_path
+
+    def axis_without_experts(name):
+        return None if name.startswith("moe_") else real_axis(name)
+
+    def set_quantizing_axis_0(tree, tree_path, value):
+        if isinstance(value, torch.Tensor) and value.dim() == 3:
+            value = quantize_leaf(value, 0, scale_dtype=torch.bfloat16)
+        real_set(tree, tree_path, value)
+
+    with mock.patch.object(ckpt, "reduction_axis", axis_without_experts), \
+            mock.patch.object(ckpt, "_set_path", set_quantizing_axis_0):
+        tree = ckpt.load_params(str(path), cfg, dev, torch.bfloat16, quant="int8")
+    bad = loaded_mismatches(torch, dev, cfg, tree, specs, quant="int8")
+    scales = list(tree["layers"][0]["w1"]["s"].shape)
+    del tree
+    free_device(torch)
+    stacks = {("layers", i, w) for i in range(cfg.n_layers) for w in ("w1", "w2", "w3")}
+    check(stacks <= set(bad), f"expert stacks quantized over axis 0 passed the check: {bad}")
+    faults["expert_axis_0"] = {"failed": [list(map(str, b)) for b in bad], "w1_scales": scales}
+    return faults
 
 
 if __name__ == "__main__":

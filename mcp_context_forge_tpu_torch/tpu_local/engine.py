@@ -63,8 +63,10 @@ stall the caller's event loop; tokens hop back with one
 
 Prefill, chunk rounds and prefix hits run eagerly. The engine runs on
 ``config.device`` ("cuda" by default) and raises at construction when
-that device is absent; it never moves to the CPU by itself.
-``quant="int8"`` serves int8 weights; ``kv_quant="int8"`` stores the KV
+that device is absent; it never moves to the CPU by itself. Weights come
+from ``checkpoint`` (an HF safetensors directory or the port's own saved
+tree, ``checkpoint.py``), with its ``tokenizer.json`` when it has one, or
+are drawn from ``seed``. ``quant="int8"`` serves int8 weights; ``kv_quant="int8"`` stores the KV
 pool as int8 pages with per-page scales (``num_pages`` is then a byte
 budget counted in compute-dtype pages, which holds about twice as many
 int8 pages: ``num_kv_pages``). MoE models (Mixtral) pick their FFN
@@ -88,6 +90,7 @@ import torch
 
 from ..observability import trace_extra
 from ..utils import new_id
+from .checkpoint import load_params
 from .compile_events import CompileTracker, restore_thread, track_thread
 from .decode_graphs import (BUDGETS, POSITIONS, SEQ_LENS, STOP_TBL_WIDTH, STOPS,
                             TEMPERATURE, TOKENS, TOP_K, TOP_P, V_TEMPERATURE,
@@ -111,6 +114,9 @@ _TPD_EWMA_ALPHA = 0.2
 @dataclass
 class EngineConfig:
     model: str = "llama3-tiny"
+    # weights to serve: an HF safetensors directory or the port's own
+    # saved tree (checkpoint.py); "" = seeded random weights
+    checkpoint: str = ""
     max_batch: int = 8              # decode slots
     max_seq_len: int = 2048
     page_size: int = 128
@@ -197,6 +203,47 @@ class EngineConfig:
         rungs = {self.fused_steps}
         rungs.update(int(k) for k in self.k_ladder if int(k) >= 1)
         return tuple(sorted(rungs))
+
+    @classmethod
+    def from_settings(cls, settings) -> "EngineConfig":
+        """The config from the gateway's ``tpu_local_*`` settings (duck-
+        typed), with the JAX engine's fallbacks for absent fields. Settings
+        of what the port does not have (the mesh, sequence parallelism, KV
+        tiers, the cache fabric, warm-up modes, the compile cache) are not
+        read, and neither are the roofline peaks, whose settings describe
+        a TPU chip: the port keeps the H100's. ``device`` and ``seed`` keep
+        their defaults."""
+        return cls(
+            model=settings.tpu_local_model,
+            checkpoint=settings.tpu_local_checkpoint,
+            max_batch=settings.tpu_local_max_batch,
+            max_seq_len=settings.tpu_local_max_seq_len,
+            page_size=settings.tpu_local_page_size,
+            num_pages=settings.tpu_local_num_pages,
+            prefill_buckets=tuple(settings.tpu_local_prefill_buckets),
+            prefill_max_batch=getattr(settings, "tpu_local_prefill_max_batch", 4),
+            dtype=settings.tpu_local_dtype,
+            decode_block=getattr(settings, "tpu_local_decode_block", 1),
+            superstep=getattr(settings, "tpu_local_superstep", 1),
+            decode_overlap=getattr(settings, "tpu_local_decode_overlap", True),
+            prefix_cache=getattr(settings, "tpu_local_prefix_cache", True),
+            spec_decode=getattr(settings, "tpu_local_spec_decode", False),
+            spec_k=getattr(settings, "tpu_local_spec_k", 4),
+            spec_ngram=getattr(settings, "tpu_local_spec_ngram", 2),
+            quant=getattr(settings, "tpu_local_quant", ""),
+            kv_quant=getattr(settings, "tpu_local_kv_quant", ""),
+            moe_impl=getattr(settings, "tpu_local_moe_impl", ""),
+            batch_buckets=getattr(settings, "tpu_local_batch_buckets", False),
+            max_queue=getattr(settings, "tpu_local_max_queue", 1024),
+            auto_restart=getattr(settings, "tpu_local_auto_restart", False),
+            auto_restart_max=getattr(settings, "tpu_local_auto_restart_max", 3),
+            step_log_size=getattr(settings, "tpu_local_step_log_size", 256),
+            step_sample_every=getattr(settings, "tpu_local_step_sample_every", 0),
+            cost_analysis=getattr(settings, "tpu_local_cost_analysis", True),
+            # extra K rungs only when the serving controller is on
+            k_ladder=(tuple(getattr(settings, "controller_k_ladder", ()))
+                      if getattr(settings, "controller_enabled", False) else ()),
+        )
 
 
 @dataclass
@@ -291,7 +338,9 @@ class TorchEngine:
 
     ``params``: a parameter tree to serve as given, full precision or
     already quantized (e.g. from ``models.convert.params_from_jax``);
-    seeded random weights otherwise, quantized when ``config.quant``.
+    else ``config.checkpoint`` is loaded (quantized on the way in when
+    ``config.quant``), else seeded random weights are drawn, quantized
+    when ``config.quant``.
     ``tracer``, ``metrics``, ``signals`` and ``ledger`` are optional
     telemetry handles, duck-typed as the JAX engine's (``tracer.emit_span``,
     the ``llm_*`` metric families, ``signals.publish(name, value,
@@ -335,6 +384,8 @@ class TorchEngine:
             raise ValueError(f"spec_k must be >= 2, got {config.spec_k}")
         if config.spec_decode and config.spec_ngram < 1:
             raise ValueError(f"spec_ngram must be >= 1, got {config.spec_ngram}")
+        if config.checkpoint and params is not None:
+            raise ValueError("pass either params or config.checkpoint, not both")
         if config.moe_impl not in ("", "dense", "grouped", "grouped_pallas"):
             # a typo must not silently serve the dense path
             raise ValueError(
@@ -349,7 +400,8 @@ class TorchEngine:
         if overrides:
             self.model_config = dataclasses.replace(self.model_config,
                                                     **overrides)
-        self.tokenizer = load_tokenizer(vocab_size=self.model_config.vocab_size)
+        self.tokenizer = load_tokenizer(config.checkpoint,
+                                        vocab_size=self.model_config.vocab_size)
         self.stats = EngineStats()
         # the step ring (the asyncio side only copies it: recent_steps)
         self.step_log: deque[dict[str, Any]] = deque(
@@ -402,7 +454,10 @@ class TorchEngine:
         rung, width, greedy-only or sampling): the construction's device
         work, attributed to the "warmup" stage."""
         config = self.config
-        if params is None:
+        if config.checkpoint:
+            params = load_params(config.checkpoint, self.model_config,
+                                 self.device, self.dtype, quant=config.quant)
+        elif params is None:
             init_gen = torch.Generator(device=self.device)
             init_gen.manual_seed(config.seed)
             params = init_params(self.model_config, init_gen, self.dtype,

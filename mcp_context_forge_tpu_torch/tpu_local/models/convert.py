@@ -21,7 +21,7 @@ import torch
 
 from .configs import EncoderConfig, LlamaConfig
 
-_F32_LEAVES = ("attn_norm", "ffn_norm", "final_norm")
+F32_LEAVES = ("attn_norm", "ffn_norm", "final_norm")
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                  "float16": torch.float16, "int8": torch.int8}
 
@@ -47,7 +47,7 @@ def params_from_jax(np_tree: dict[str, Any], config: LlamaConfig,
     def leaf(name: str, arr: Any) -> Any:
         if isinstance(arr, dict):  # {"q": int8, "s": scale}, as they are
             return {k: _tensor(v, None, device) for k, v in arr.items()}
-        return _tensor(arr, torch.float32 if name in _F32_LEAVES else dtype,
+        return _tensor(arr, torch.float32 if name in F32_LEAVES else dtype,
                        device)
 
     out = {name: leaf(name, arr) for name, arr in np_tree.items()

@@ -1,8 +1,11 @@
-"""Tokenization: the dependency-free byte-level tokenizer and the Llama-3
-chat template (copies of the JAX package's; the HuggingFace tokenizer path
-waits until checkpoints and ``tokenizers`` are available to the port)."""
+"""Tokenization (copies of the JAX package's): ``HFTokenizer`` loads a
+checkpoint's ``tokenizer.json`` (HuggingFace ``tokenizers``, imported only
+when one is loaded); ``ByteTokenizer`` is the dependency-free byte-level
+fallback; ``render_chat`` is the Llama-3 chat template."""
 
 from __future__ import annotations
+
+import os
 
 
 class ByteTokenizer:
@@ -53,11 +56,39 @@ class ByteTokenizer:
         return "".join(out)
 
 
+class HFTokenizer:
+    """A checkpoint's ``tokenizer.json`` with the Llama-3 specials (bos
+    ``<|begin_of_text|>``, eos ``<|eot_id|>``, their Llama-3 ids when the
+    vocabulary lacks them); decoding skips special tokens."""
+
+    def __init__(self, path: str):
+        from tokenizers import Tokenizer as _HF
+        self._tok = _HF.from_file(path)
+        self.vocab_size = self._tok.get_vocab_size()
+        self.bos_id = self._special("<|begin_of_text|>", 128000)
+        self.eos_id = self._special("<|eot_id|>", 128009)
+        self.pad_id = self.eos_id
+
+    def _special(self, token: str, default: int) -> int:
+        tid = self._tok.token_to_id(token)
+        return tid if tid is not None else default
+
+    def encode(self, text: str, add_bos: bool = True) -> list[int]:
+        ids = self._tok.encode(text, add_special_tokens=False).ids
+        return ([self.bos_id] + ids) if add_bos else ids
+
+    def decode(self, ids: list[int]) -> str:
+        return self._tok.decode(ids, skip_special_tokens=True)
+
+
 def load_tokenizer(checkpoint_dir: str = "", vocab_size: int = 512
-                   ) -> ByteTokenizer:
+                   ) -> HFTokenizer | ByteTokenizer:
+    """The checkpoint's ``tokenizer.json`` when it has one, else the byte
+    tokenizer."""
     if checkpoint_dir:
-        raise NotImplementedError("checkpoint tokenizers are not ported yet; "
-                                  "only the byte tokenizer is served")
+        path = os.path.join(checkpoint_dir, "tokenizer.json")
+        if os.path.exists(path):
+            return HFTokenizer(path)
     return ByteTokenizer(vocab_size=vocab_size)
 
 

@@ -20,7 +20,7 @@ from .engine import GenRequest, TorchEngine
 from .models import ENCODER_CONFIGS
 from .models.encoder import encode as encoder_forward
 from .models.encoder import init_encoder_params
-from .provider import make_chat_response
+from .provider import LLMProvider, make_chat_response
 from .tokenizer import load_tokenizer, render_chat
 from .tool_calls import parse_tool_calls
 
@@ -100,7 +100,7 @@ class _EncoderBatcher:
                 raise
 
 
-class TorchLocalProvider:
+class TorchLocalProvider(LLMProvider):
     """Chat over a :class:`TorchEngine`; ``embed``/``classify`` over the
     encoder ``embedding_model`` (seeded random weights in f32, on the
     engine's device). ``tracer`` and ``metrics`` are optional handles,
