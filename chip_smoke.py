@@ -120,10 +120,11 @@ construction's graph captures are warmup-stage events equal to
 ``graph_captures``, and no kernel is built and no graph captured while it
 serves. ``engine_llama3_8b_ops`` (after ``engine``) serves the ``engine``
 phase's requests on llama3-8b with decode graphs for K = 1 and 4
-(``k_ladder``), phase attribution every 4th decode dispatch and recording
-telemetry stand-ins; once every request has streamed its first token,
-``request_knobs(superstep=4)`` must be accepted and land at a drain
-barrier. Its greedy streams must equal the ``engine`` phase's, its phase
+(``k_ladder``), phase attribution every 4th decode dispatch and the
+telemetry handles (the port's own tracer and signal bus, recording
+stand-ins of the metrics registry and the ledger); once every request has
+streamed its first token, ``request_knobs(superstep=4)`` must be accepted
+and land at a drain barrier. Its greedy streams must equal the ``engine`` phase's, its phase
 rows be complete and sum to their totals within 5 %, the median sampled
 K = 1 device compute be within 25 % of one K = 1 replay's CUDA-event time,
 the roofline over the decode window lie in (0, 1.05] for both mfu and
@@ -137,6 +138,32 @@ the provider's batcher on the encoder-mini geometry over 64 concurrent
 texts (two past 1024 tokens), each row held to the same weights on the
 CPU within 1e-4 of its largest value, with the ms of each coalesced
 forward.
+
+The serving plane (two phases on one llama3-8b build: full width and
+depth, bf16, K rungs 1 and 4, ``auto_restart``, the port's own signal
+bus and tracer): ``engine_llama3_8b_admission`` sends the ``engine``
+phase's requests through the port's stdlib admission (``gateway/auth.py``
+resolves a minted JWT or the Basic admin credentials, ``require("llm.chat")``,
+the overload shedder's ``decide_admission``, the registry's chat under the
+tenant contextvar); at the first tokens four bad credentials (none, a wrong
+password, a JWT for another audience, a JWT scoped without ``llm.chat``)
+are refused before the engine sees them, and a shedder with ``shed_at`` 0
+and the class order ["batch"] sheds a ``batch`` tenant (429) and admits a
+``default`` one; the streams equal ``engine``'s. ``engine_llama3_8b_controller``
+(the same run): a ``safe_mode`` and an actuating ``ServingController`` tick
+over the engine's live signals and both decide K 1 -> 4; the actuating
+one's move lands at a drain barrier and its ring row settles an effect;
+with the fault plane disabled arming is refused and one overlapped decode
+dispatch runs ``DECODE_REPLAY_EVENTS`` device events (``torch.profiler``);
+then an ``engine.dispatch`` error fault armed once under ``auto_restart``
+(the victim ends "error", the queued request completes, one restart, no
+capture, the same tokens after, no page in use). A second build with
+``spec_decode``: a controller turns drafting off from the live acceptance
+and ``spec_steps`` stops rising once it lands; the streams' agreement with
+``engine``'s is reported (in bf16 the verify's logits, and the KV it
+writes, drift from a decode step's, so a near-tie may flip even after
+drafting stops). The same toggle on llama3-tiny in f32 must leave every
+stream equal to ``engine_llama3_tiny_f32``'s.
 
 Checkpoints (two phases; the files live under ``build/checkpoints/`` for
 the phase only, after ``shutil.disk_usage`` is printed): this script draws
@@ -172,6 +199,7 @@ Exits 1 at once when CUDA is not available.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import gc
 import json
@@ -291,10 +319,10 @@ def free_device(torch) -> None:
     torch.cuda.empty_cache()
 
 
-# ------------------------------------------------------- telemetry stand-ins
+# ------------------------------------------------------------- telemetry
 
 # what one served run reports through the telemetry handles (pinned on the
-# CPU by tests/test_torch_telemetry.py with these same stand-ins): span
+# CPU by tests/test_torch_telemetry.py with these same handles): span
 # names, and each metric family with the label names it is given
 SERVED_SPANS = {"llm.request", "llm.queue", "llm.prefill", "llm.decode"}
 SERVED_FAMILIES = {
@@ -313,52 +341,6 @@ CAPTURE_FAMILIES = {"llm_xla_compiles": {("replica", "stage")},
                     "llm_xla_compile_time": {("replica",)}}
 PHASE_KEYS = {"host_dispatch_ms", "table_sync_ms", "device_compute_ms", "readback_ms",
               "emit_ms", "total_ms"}
-
-
-class RecordingTracer:
-    """Stands in for a tracer: ``emit_span`` and ``span`` record names,
-    parents and attributes."""
-
-    def __init__(self):
-        self.spans: list[dict] = []
-        self._ids = 0
-
-    def emit_span(self, name, start_ts, end_ts, trace_ctx=None, attributes=None,
-                  status="OK", events=None):
-        self.spans.append({"name": name, "parent": trace_ctx, "status": status,
-                           "attributes": dict(attributes or {}), "events": list(events or []),
-                           "duration_s": end_ts - start_ts})
-
-    def span(self, name, attributes):
-        tracer = self
-
-        class Span:
-            def __init__(self):
-                tracer._ids += 1
-                self.ctx = (f"{tracer._ids:032x}", f"{tracer._ids:016x}")
-                self.attributes = dict(attributes)
-
-            def context(self):
-                return self.ctx
-
-            def set_attribute(self, key, value):
-                self.attributes[key] = value
-
-            def record_exception(self, exc):
-                self.attributes["exception"] = repr(exc)
-
-        class Context:
-            def __enter__(self):
-                self.span = Span()
-                return self.span
-
-            def __exit__(self, *exc):
-                tracer.spans.append({"name": name, "parent": None, "status": "OK",
-                                     "attributes": self.span.attributes, "events": [],
-                                     "ctx": self.span.ctx})
-                return False
-
-        return Context()
 
 
 class RecordingMetrics:
@@ -404,14 +386,6 @@ class RecordingMetrics:
         return {name: family.label_names for name, family in self.families.items()}
 
 
-class RecordingSignals:
-    def __init__(self):
-        self.series: dict[tuple[str, str], list[float]] = {}
-
-    def publish(self, name, value, replica):
-        self.series.setdefault((name, replica), []).append(value)
-
-
 class RecordingLedger:
     def __init__(self):
         self.totals: dict[str, dict[str, float]] = {}
@@ -423,8 +397,14 @@ class RecordingLedger:
 
 
 def telemetry_handles() -> dict:
-    return dict(tracer=RecordingTracer(), metrics=RecordingMetrics(),
-                signals=RecordingSignals(), ledger=RecordingLedger())
+    """The port's own tracer (memory exporter) and signal bus, with the
+    recording stand-ins of the metrics registry and the tenant ledger
+    (whose modules the port has not taken over yet)."""
+    from mcp_context_forge_tpu_torch.observability.signals import SignalBus
+    from mcp_context_forge_tpu_torch.observability.tracing import Tracer
+
+    return dict(tracer=Tracer(exporter="memory"), metrics=RecordingMetrics(),
+                signals=SignalBus(), ledger=RecordingLedger())
 
 
 def main() -> int:
@@ -525,6 +505,11 @@ def main() -> int:
     engine_tokens = stats["generated"]
     counts, stats = ops_phase(torch, dev, engine_tokens, stats["prompt_tokens"])
     emit({"phase": "engine_llama3_8b_ops", **stats})
+    count(counts)
+    free_device(torch)
+    counts, admission, controller = serving_plane_phase(torch, dev, engine_tokens, k1_tokens)
+    emit({"phase": "engine_llama3_8b_admission", **admission})
+    emit({"phase": "engine_llama3_8b_controller", **controller})
     count(counts)
     free_device(torch)
     counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION[:2],
@@ -2312,7 +2297,7 @@ def verify_against_decode_f32(torch, dev, layers: int = 4) -> dict:
 def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
                  requests: list[dict], hit: int, absent: tuple[str, ...] = (),
                  n_layers: int = 0, graph_check: bool = False, handles: dict | None = None,
-                 on_first_tokens=None, after=None, **engine_kwargs):
+                 on_first_tokens=None, after=None, send=None, **engine_kwargs):
     """``requests`` sent concurrently as greedy chats through
     ``TorchLocalProvider.chat`` on ``model`` (random weights, bf16), then
     ``requests[hit]`` twice more, which must give the same tokens. The
@@ -2340,10 +2325,12 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     Kernel builds and graph captures (``compile_stats``): the construction's
     captures are warmup-stage events, one per graph, and the phase builds
     no kernel and captures no graph while it serves. ``handles`` (telemetry
-    stand-ins) go to the engine and the provider; ``on_first_tokens(engine)``
-    runs once every request has streamed its first token, and
-    ``after(engine)`` once the requests are served; their results are the
-    stats' ``on_first_tokens`` and ``after``."""
+    handles) go to the engine and the provider; ``on_first_tokens(engine)``
+    (a function or a coroutine function) runs once every request has
+    streamed its first token, and ``after(engine)`` once the requests are
+    served and the engine stopped; their results are the stats'
+    ``on_first_tokens`` and ``after``. ``send(provider, request)`` sends
+    each request in place of ``provider.chat(request)``."""
     from unittest import mock
 
     from mcp_context_forge_tpu_torch.tpu_local import engine as engine_module
@@ -2412,6 +2399,9 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     check(len(engine.tokenizer.encode(SYSTEM)) >= 300,
           "the shared system prompt is under 300 tokens")
 
+    def chat_one(request):
+        return send(provider, request) if send is not None else provider.chat(request)
+
     async def run():
         await engine.start()
         try:
@@ -2423,18 +2413,19 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
             torch.cuda.reset_peak_memory_stats()
             stats0 = dict(engine.stats.__dict__)
             t_start = time.monotonic()
-            first = asyncio.ensure_future(provider.chat(requests[0]))
+            first = asyncio.ensure_future(chat_one(requests[0]))
             while engine.allocator.cached_pages == 0:  # its prefix registered
                 check(not first.done(), "the first request ended before its prefix registered")
                 await asyncio.sleep(0.005)
-            rest = [asyncio.ensure_future(provider.chat(r)) for r in requests[1:]]
+            rest = [asyncio.ensure_future(chat_one(r)) for r in requests[1:]]
             watch = None
             if on_first_tokens is not None:
                 async def first_tokens():
                     while len(seen) < len(requests) or any(
                             r.first_token_ts == 0.0 for r in seen[:len(requests)]):
                         await asyncio.sleep(0.001)
-                    return on_first_tokens(engine)
+                    out = on_first_tokens(engine)
+                    return await out if asyncio.iscoroutine(out) else out
                 watch = asyncio.ensure_future(first_tokens())
             replies = await asyncio.wait_for(asyncio.gather(first, *rest), 600)
             knob = await watch if watch is not None else None
@@ -2446,8 +2437,10 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
             served = list(seen)
             delta = {k: v - stats0[k] for k, v in engine.stats.__dict__.items()}
             for _ in range(2):
-                await provider.chat(requests[hit])
-            return replies, wall, counts, served_calls, replays, peak, served, delta, knob
+                await chat_one(requests[hit])
+            repeats = seen[-2:]
+            return (replies, wall, counts, served_calls, replays, peak, served, delta, knob,
+                    repeats)
         finally:
             await engine.stop()
 
@@ -2459,9 +2452,10 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
                               counted("decode", engine_module.decode_step)), \
             mock.patch.object(paged_cache, "_quant_store",
                               counted("quant_store", paged_cache._quant_store)):
-        replies, wall, counts, served_calls, replays, peak, served, delta, knob = \
+        replies, wall, counts, served_calls, replays, peak, served, delta, knob, repeats = \
             asyncio.run(run())
         compiles = engine.compile_stats()
+        prefix_hits = engine.allocator.prefix_hits   # before ``after`` may restart it
         after_result = after(engine) if after is not None else None
         eager = graph_against_eager(torch, engine) if graph_check else None
         verify = verify_against_eager(torch, engine) if spec else None
@@ -2477,9 +2471,9 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
               "a generated token id is outside the vocabulary")
     check(compiles["serving"]["kernel_build"] == compiles["serving"]["graph_capture"] == 0,
           f"kernels built or graphs captured while serving: {compiles['serving']}")
-    check(engine.allocator.prefix_hits >= 1, "no prefix hit")
+    check(prefix_hits >= 1, "no prefix hit")
     check(served[hit].hist > 0, "the request sharing the system prompt missed the cache")
-    tokens_a, tokens_b = (seen[-2].generated, seen[-1].generated)
+    tokens_a, tokens_b = (r.generated for r in repeats)
     check(tokens_a == tokens_b, "repeated greedy request changed its tokens")
     for kernel in kernels:
         check(counts[kernel] > 0, f"{kernel} never launched on the {name} path")
@@ -2566,6 +2560,7 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         **({"graph_against_eager": eager} if eager else {}),
         **({"on_first_tokens": knob} if on_first_tokens is not None else {}),
         **({"after": after_result} if after is not None else {}),
+        "request_ids": [r.request_id for r in served],
         "generated": [r.generated for r in served]}
     if spec:
         steps = delta["spec_steps"]
@@ -2580,11 +2575,14 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     return counts, stats
 
 
-def time_replay(torch, engine, lens: list[int], K: int = 1, runs: int = 5) -> float:
-    """The card's time of one greedy decode replay at ``K`` over columns of
-    ``lens`` tokens of context (0: an empty column): CUDA events around
-    the launch, median of ``runs``. The engine is stopped; the KV written
-    lands in slots freed afterwards."""
+@contextlib.contextmanager
+def staged_replays(torch, engine, lens: list[int], K: int):
+    """Pages for columns of ``lens`` tokens of context (0: an empty column)
+    on a stopped engine; yields (``stage``, ``launch``): ``stage()`` fills
+    the input pack of the greedy K-step decode graph at the engine's width,
+    ``launch(feed=None)`` replays it (``feed``: the handle whose tokens it
+    takes, as the overlapped pipeline does) and returns the handle to
+    ``fetch``. The KV written lands in slots freed afterwards."""
     from mcp_context_forge_tpu_torch.tpu_local.decode_graphs import (BUDGETS, POSITIONS,
                                                                      SEQ_LENS, TOKENS,
                                                                      GraphKey)
@@ -2592,33 +2590,71 @@ def time_replay(torch, engine, lens: list[int], K: int = 1, runs: int = 5) -> fl
     key = GraphKey("decode", K, engine.config.max_batch, False)
     for slot, n in enumerate(lens):
         if n:
-            check(engine.allocator.allocate_slot(slot, n + K), "no pages for the timing")
+            check(engine.allocator.allocate_slot(slot, n + K), "no pages for the replay")
+
+    def stage():
+        pack = engine._graphs.stage(key)
+        for slot, n in enumerate(lens):
+            if n:
+                pack[TOKENS, slot] = 1 + slot
+                pack[POSITIONS, slot], pack[SEQ_LENS, slot], pack[BUDGETS, slot] = n - 1, n, K
+
+    try:
+        with torch.inference_mode():
+            engine._sync_tables()
+            yield stage, lambda feed=None: engine._graphs.launch(key, feed)
+    finally:
+        for slot in range(len(lens)):
+            engine.allocator.free_slot(slot)
+
+
+def time_replay(torch, engine, lens: list[int], K: int = 1, runs: int = 5) -> float:
+    """The card's time of one greedy decode replay at ``K`` over columns of
+    ``lens`` tokens of context: CUDA events around the launch, median of
+    ``runs``."""
     times = []
-    with torch.inference_mode():
-        engine._sync_tables()
+    with staged_replays(torch, engine, lens, K) as (stage, launch):
         for _ in range(runs):
-            pack = engine._graphs.stage(key)
-            for slot, n in enumerate(lens):
-                if n:
-                    pack[TOKENS, slot] = 1 + slot
-                    pack[POSITIONS, slot], pack[SEQ_LENS, slot], pack[BUDGETS, slot] = n - 1, n, K
+            stage()
             torch.cuda.synchronize()
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            handle = engine._graphs.launch(key)
+            handle = launch()
             end.record()
             engine._graphs.fetch(handle)
             times.append(start.elapsed_time(end))
-    for slot in range(len(lens)):
-        engine.allocator.free_slot(slot)
     return statistics.median(times)
+
+
+def replay_device_events(torch, engine, lens: list[int]) -> dict:
+    """What one greedy K = 1 decode dispatch of the overlapped pipeline runs
+    on the card (the input upload, the tokens fed from the dispatch before
+    it, the replay, the output read back), under ``torch.profiler`` (CUDA
+    activity), after one unprofiled replay: every device event (kernels
+    and copies: what ``profile_torch_engine.py`` counts per replay) and the
+    copies among them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with staged_replays(torch, engine, lens, 1) as (stage, launch):
+        stage()
+        previous = launch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            stage()
+            handle = launch(feed=previous)
+            engine._graphs.fetch(handle)
+            torch.cuda.synchronize()
+        engine._graphs.fetch(previous)
+    events = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    return {"device_events": len(events),
+            "copies": sum(name.lower().startswith(("memcpy", "memset")) for name in events)}
 
 
 def ops_phase(torch, dev, engine_tokens: list, prompt_tokens: list) -> tuple[dict, dict]:
     """``engine_llama3_8b_ops``: the ``engine`` phase's llama3-8b serving
     with the operability machinery on: K rungs 1 and 4 captured
     (``k_ladder``), phase attribution every 4th decode dispatch, and the
-    telemetry stand-ins. Once every request has streamed its first token,
+    telemetry handles. Once every request has streamed its first token,
     ``request_knobs(superstep=4)`` must be accepted and land at a drain
     barrier (no K = 1 dispatch after a K = 4 one, K = 4 dispatches after
     it). Then: greedy streams equal to the ``engine`` phase's; sampled
@@ -2684,7 +2720,7 @@ def ops_phase(torch, dev, engine_tokens: list, prompt_tokens: list) -> tuple[dic
     roof = ops["roofline"]
     check(0 < roof.get("hbm_roofline_frac", 0) <= 1.05 and 0 < roof.get("mfu", 0) <= 1.05,
           f"roofline out of (0, 1.05]: {roof}")
-    spans = {span["name"] for span in handles["tracer"].spans}
+    spans = {span.name for span in handles["tracer"].finished}
     check(spans == SERVED_SPANS, f"span names {sorted(spans)}")
     families = handles["metrics"].label_names()
     check(families == {**SERVED_FAMILIES, **CAPTURE_FAMILIES},
@@ -2713,7 +2749,7 @@ def ops_phase(torch, dev, engine_tokens: list, prompt_tokens: list) -> tuple[dic
         ring_hbm_frac_median=by_k("hbm_frac"), ring_mfu_median=by_k("mfu"),
         knob_state=ops["knob_state"], spans=sorted(spans),
         metric_families=sorted(families), signals=sorted(
-            {name for name, _ in handles["signals"].series}),
+            {key.rsplit("@", 1)[0] for key in handles["signals"].snapshot()}),
         tokens_equal_engine=True)
     return counts, stats
 
@@ -2799,6 +2835,454 @@ def restart_phase(torch, dev) -> tuple[dict, dict]:
              "launches": counts}
     del engine
     return counts, stats
+
+
+# --------------------------------------------- admission and the controller
+
+# kernels (and copies) of one bf16 llama3-8b K = 1 decode dispatch at width
+# 8, as profile_torch_engine.py counts them per replay (PERF.md section 5)
+DECODE_REPLAY_EVENTS = 2762
+RING_KEYS = {"schema", "seq", "ts", "replica", "knob", "direction", "from", "to",
+             "actuated", "safe_mode", "signals", "effect"}
+
+
+def gateway_settings():
+    """What admission reads of the gateway's settings, at their defaults but
+    the JWT secret (the card has no pydantic: duck-typed)."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(auth_required=True, basic_auth_user="admin",
+                           basic_auth_password="changeme",
+                           platform_admin_email="admin@example.com",
+                           jwt_secret_key="chip-smoke-secret-0123456789abcdef",
+                           jwt_algorithm="HS256", jwt_audience="mcpforge-api",
+                           jwt_issuer="mcpforge")
+
+
+def bearer(settings, claims: dict, **overrides) -> str:
+    from mcp_context_forge_tpu_torch.utils import jwt
+
+    kwargs = dict(audience=settings.jwt_audience, issuer=settings.jwt_issuer)
+    return "Bearer " + jwt.create_token(claims, settings.jwt_secret_key,
+                                        **{**kwargs, **overrides})
+
+
+def basic(user: str, password: str) -> str:
+    import base64
+
+    return "Basic " + base64.b64encode(f"{user}:{password}".encode()).decode()
+
+
+class Admission:
+    """The /v1 app's admission in front of a provider, through the port's
+    stdlib pieces: ``gateway/auth.py`` resolves the header, then
+    ``require("llm.chat")``, then the overload shedder's
+    ``decide_admission`` on the engine's saturation, then the registry's
+    chat under ``set_current_tenant``. A refusal raises (``AuthError``,
+    ``PermissionDenied``); a shed verdict fails the run."""
+
+    def __init__(self, settings, provider, shedder):
+        from mcp_context_forge_tpu_torch.tpu_local.provider import LLMProviderRegistry
+
+        self.settings, self.engine, self.shedder = settings, provider.engine, shedder
+        self.registry = LLMProviderRegistry()
+        self.registry.register(provider, [self.engine.config.model, "tpu_local"],
+                               default_chat=True, default_embed=True)
+
+    async def decide(self, header: str, request: dict, shedder=None):
+        from mcp_context_forge_tpu_torch.gateway.auth import resolve_header
+        from mcp_context_forge_tpu_torch.gateway.flight_recorder import compute_queue_state
+        from mcp_context_forge_tpu_torch.observability import resolve_tenant
+
+        auth = resolve_header(self.settings, header)
+        auth.require("llm.chat")
+        tenant = resolve_tenant(auth)
+        state = compute_queue_state(self.engine)
+        verdict = await (shedder or self.shedder).decide_admission(
+            state["saturation"], tenant, est_tokens=float(request["max_tokens"]))
+        return tenant, verdict
+
+    async def chat(self, header: str, request: dict) -> dict:
+        from mcp_context_forge_tpu_torch.observability import (reset_current_tenant,
+                                                               set_current_tenant)
+
+        tenant, verdict = await self.decide(header, request)
+        check(verdict is None, f"an admitted tenant was shed: {verdict}")
+        token = set_current_tenant(tenant)
+        try:
+            return await self.registry.chat(request)
+        finally:
+            reset_current_tenant(token)
+
+
+def controller_for(engine, bus, tracer, safe_mode: bool = False, **bars):
+    """A ``ServingController`` over ``engine`` with bars that the signals
+    this engine really publishes cross: no bar on queue wait, any published
+    idle share steps K up (the card is idle < 0.01 of a decode step), a
+    cooldown past the phase (one move per knob), a 0.5 s effect window."""
+    from mcp_context_forge_tpu_torch.tpu_local.controller import ServingController
+
+    settings = dict(queue_wait_high_ms=1e9, queue_wait_low_ms=1e9, idle_frac_high=-1.0,
+                    tick_s=0.05, cooldown_s=3600.0, eval_window_s=0.5, **bars)
+    return ServingController(bus, lambda: [engine], tracer=tracer, safe_mode=safe_mode,
+                             **settings)
+
+
+async def fresh_signal(bus, name: str, replica: str, within_s: float = 10.0) -> dict:
+    """Wait (bounded) for a publish of ``name`` under 0.3 s old."""
+    deadline = time.monotonic() + within_s
+    while True:
+        view = bus.get(name, replica)
+        if view is not None and view["age_s"] < 0.3:
+            return view
+        check(time.monotonic() < deadline, f"no fresh {name} signal in {within_s} s")
+        await asyncio.sleep(0.001)
+
+
+def move_of(row: dict) -> tuple:
+    return row["replica"], row["knob"], row["direction"], row["from"], row["to"]
+
+
+def fault_run(torch, engine) -> tuple[dict, dict]:
+    """On the stopped ``auto_restart`` engine: a prompt served, then an
+    ``engine.dispatch`` error fault armed ``once`` (scope: the replica)
+    while a victim request decodes, with a second request queued behind
+    it, then the prompt again. Checks: the victim ends "error", the queued
+    request completes with the tokens served before, one restart, no graph
+    captured, no serving-stage event, the same tokens after, no page in
+    use. Returns the launches and the stats (the restart's seconds)."""
+    from mcp_context_forge_tpu_torch.observability import faults
+    from mcp_context_forge_tpu_torch.tpu_local.engine import GenRequest
+
+    wrappers = kernel_wrappers()
+    captures, buffers = engine.stats.graph_captures, dict(engine._graphs.buffers)
+    restarts0 = engine.stats.engine_restarts
+    restart, seconds = engine._restart_after_crash, []
+
+    def timed_restart():
+        t0 = time.monotonic()
+        restart()
+        seconds.append(time.monotonic() - t0)
+
+    engine._restart_after_crash = timed_restart
+    plane = faults.configure_fault_plane(True)
+
+    async def drain(request) -> list:
+        tokens = []
+        while (t := await asyncio.wait_for(request.stream.get(), 60)) is not None:
+            tokens.append(t)
+        return tokens
+
+    async def run():
+        await engine.start()
+        try:
+            ids = engine.tokenizer.encode("Which tools can read files?")
+            before = [t async for t in engine.generate(ids, max_tokens=12)]
+            for fn in wrappers.values():
+                fn.launches = 0
+            victim = GenRequest(request_id="victim", prompt_ids=ids, max_tokens=64)
+            await engine.submit(victim)
+            first = await asyncio.wait_for(victim.stream.get(), 60)
+            plane.arm(faults.FaultRule(point="engine.dispatch", kind="error", mode="once",
+                                       scope=engine.config.replica_id))
+            queued = GenRequest(request_id="queued", prompt_ids=ids, max_tokens=12)
+            await engine.submit(queued)
+            victim_tokens = [first] + await drain(victim)
+            queued_tokens = await drain(queued)
+            after = [t async for t in engine.generate(ids, max_tokens=12)]
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            return before, victim, victim_tokens, queued, queued_tokens, after, counts
+        finally:
+            await engine.stop()
+
+    try:
+        before, victim, victim_tokens, queued, queued_tokens, after, counts = asyncio.run(run())
+        rule = plane.snapshot()["rules"][0]
+    finally:
+        faults.configure_fault_plane(False)
+        engine._restart_after_crash = restart
+    check(rule["fired"] == 1, f"the engine.dispatch fault fired {rule['fired']} times")
+    check(victim.finish_reason == "error", f"the victim ended {victim.finish_reason!r}")
+    check(victim_tokens[:len(before)] == before[:len(victim_tokens)],
+          "the victim's tokens before the fault are not the prompt's")
+    check(queued.finish_reason in ("stop", "length") and queued_tokens == before,
+          "the queued request did not complete with the tokens served before the fault")
+    check(after == before, "the prompt gave other tokens after the restart")
+    check(engine.stats.engine_restarts - restarts0 == 1 and len(seconds) == 1,
+          f"{engine.stats.engine_restarts - restarts0} restarts")
+    check(engine.stats.graph_captures == captures and engine._graphs.buffers == buffers,
+          "the restart captured graphs")
+    compiles = engine.compile_stats()
+    check(compiles["serving"]["count"] == 0, f"serving-stage events: {compiles['serving']}")
+    check(engine.allocator.pages_in_use == 0,
+          f"{engine.allocator.pages_in_use} pages in use after the fault")
+    for kernel in ("flash_attention_tc", "paged_decode_attention"):
+        check(counts[kernel] > 0, f"{kernel} never launched around the fault")
+    return counts, {"fault": "engine.dispatch error once, scope " + rule["scope"],
+                    "fired": rule["fired"], "calls_seen": rule["calls"],
+                    "victim_finish": victim.finish_reason,
+                    "victim_tokens": len(victim_tokens),
+                    "queued_finish": queued.finish_reason, "queued_tokens_equal_before": True,
+                    "tokens_equal_after_restart": True, "engine_restarts": 1,
+                    "restart_s": seconds[0], "graph_captures": captures, "pages_in_use": 0}
+
+
+def spec_toggle_phase(torch, dev, model: str, kernels: tuple, reference: list,
+                      exact: bool = False, **engine_kwargs) -> tuple[dict, dict]:
+    """``model`` built with ``spec_decode`` (no ``k_ladder``) serves
+    ``chat_requests(model)``; once a fresh ``llm.spec_accept`` is on the
+    bus, a ``ServingController`` whose ``spec_accept_off`` (``spec_k``) is
+    above any acceptance turns drafting off, and ``spec_steps`` must not
+    rise from the moment the knob lands. Each stream is compared with
+    ``reference`` (a plain engine's streams of the same requests):
+    ``exact`` requires them equal; otherwise (bf16) they are reported,
+    since the verify's logits, and the KV it writes, drift from a decode
+    step's and may flip a near-tie, even after drafting stops."""
+    from mcp_context_forge_tpu_torch.observability.signals import SignalBus
+
+    bus = SignalBus()
+    state: dict = {}
+
+    async def spec_off(engine):
+        rid = engine.config.replica_id
+        accept = await fresh_signal(bus, "llm.spec_accept", rid)
+        controller = controller_for(engine, bus, None,
+                                    spec_accept_off=float(engine.config.spec_k))
+        apply_knobs = engine._apply_knobs
+
+        def landed():
+            """On the dispatch thread: each running request's tokens when
+            drafting stops."""
+            apply_knobs()
+            if not engine._spec_enabled and "at_off" not in state:
+                state["at_off"] = {r.request_id: len(r.generated)
+                                   for r in list(engine._running.values())}
+
+        engine._apply_knobs = landed
+        rows = controller.tick()
+        check([move_of(r) for r in rows] == [(rid, "spec", "off", 1, 0)] and rows[0]["actuated"],
+              f"the controller's decisions: {rows}")
+        deadline = time.monotonic() + 10
+        while engine.knob_state()["spec_enabled"]:
+            check(time.monotonic() < deadline, "drafting did not turn off")
+            await asyncio.sleep(0.001)
+        state["steps_at_off"] = engine.stats.spec_steps
+        return {"spec_accept_ewma": accept["ewma"], "spec_accept_off": controller.spec_accept_off,
+                "decision": move_of(rows[0]), "spec_steps_at_off": engine.stats.spec_steps}
+
+    def spec_after(engine):
+        check(engine.stats.spec_steps == state["steps_at_off"],
+              f"spec_steps rose from {state['steps_at_off']} to "
+              f"{engine.stats.spec_steps} after drafting turned off")
+        return {"spec_steps_at_end": engine.stats.spec_steps,
+                "knob_state": engine.knob_state()}
+
+    counts, stats = engine_phase(torch, dev, model, kernels, chat_requests(model), hit=1,
+                                 handles=dict(signals=bus), on_first_tokens=spec_off,
+                                 after=spec_after, spec_decode=True, **engine_kwargs)
+    equal = [a == b for a, b in zip(stats["generated"], reference)]
+    if exact:
+        check(all(equal), f"turning drafting off changed a greedy stream of the plain "
+                          f"{model} phase: {equal}")
+    first_diff = {rid: next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                            min(len(got), len(want)))
+                  for rid, got, want in zip(stats["request_ids"], stats["generated"], reference)
+                  if got != want}
+    return counts, {**stats.pop("on_first_tokens"), **stats.pop("after"), "model": model,
+                    "dtype": stats["dtype"], "layers": stats["layers"],
+                    "spec_steps": stats["spec_steps"],
+                    "tokens_per_verify": stats["tokens_per_verify"],
+                    "ttft_p50_ms": stats["ttft_p50_ms"],
+                    "decode_tokens_per_s": stats["decode_tokens_per_s"],
+                    "engine_build_s": stats["engine_build_s"],
+                    "tokens_at_off": state["at_off"], "streams_equal_plain": equal,
+                    "first_diff": first_diff}
+
+
+def serving_plane_phase(torch, dev, engine_tokens: list, tiny_tokens: list,
+                        model: str = "llama3-8b") -> tuple[dict, dict, dict]:
+    """``engine_llama3_8b_admission`` and ``engine_llama3_8b_controller``:
+    llama3-8b at full width and depth in bf16, decode graphs for K = 1 and
+    4 (``k_ladder``), ``auto_restart``, the port's signal bus as
+    ``signals`` and its tracer (memory exporter).
+
+    Admission: the ``engine`` phase's requests each go in through
+    ``Admission`` with a minted JWT or the Basic admin credentials; once
+    every request has streamed its first token, a request with no header,
+    one with a wrong password, one whose JWT has the wrong audience and one
+    whose JWT is scoped without ``llm.chat`` are refused before the engine
+    sees them (its request count does not move), and a shedder with
+    ``shed_at`` 0.0 and the class order ["batch"] gives a ``batch`` tenant a
+    429 verdict and admits a ``default`` tenant. Greedy streams equal the
+    ``engine`` phase's; the span names are SERVED_SPANS.
+
+    Controller, on the same run: at the first tokens a ``safe_mode``
+    controller and then an actuating one tick over the engine's live
+    signals; both decide ``superstep`` 1 -> 4, the first records it
+    without moving the knob, the engine accepts the second's, and it lands
+    at a drain barrier (no K = 1 decode dispatch after a K = 4 one). A tick
+    past ``eval_window_s`` settles the row's effect; every ring row carries
+    RING_SCHEMA's keys. Then, with the fault plane disabled, arming is
+    refused and one decode replay runs DECODE_REPLAY_EVENTS device events;
+    then ``fault_run``. A second build with ``spec_decode`` (no
+    ``k_ladder``): once a fresh ``llm.spec_accept`` is on the bus, a
+    controller whose ``spec_accept_off`` (``spec_k``) is above any
+    acceptance turns drafting off and ``spec_steps`` stops rising from the
+    moment the knob lands; its streams' agreement with the ``engine``
+    phase's is reported (``spec_toggle_phase``). The same toggle on
+    llama3-tiny in f32 must leave every stream equal to
+    ``engine_llama3_tiny_f32``'s (``tiny_tokens``)."""
+    from mcp_context_forge_tpu_torch.observability import faults
+    from mcp_context_forge_tpu_torch.observability.degradation import OverloadShedder
+    from mcp_context_forge_tpu_torch.observability.signals import SignalBus
+    from mcp_context_forge_tpu_torch.observability.tracing import Tracer
+    from mcp_context_forge_tpu_torch.tpu_local.controller import RING_SCHEMA
+
+    settings = gateway_settings()
+    faults.configure_fault_plane(False)
+    bus, tracer = SignalBus(), Tracer(exporter="memory")
+    admitted = [bearer(settings, {"sub": "user@example.com"}),
+                basic(settings.basic_auth_user, settings.basic_auth_password)]
+    sent = []
+    state: dict = {}
+
+    def send(provider, request):
+        if "admission" not in state:
+            state["admission"] = Admission(settings, provider,
+                                           OverloadShedder(shed_at=0.95, class_order=["batch"]))
+        sent.append(len(sent) % 2)
+        return state["admission"].chat(admitted[sent[-1]], request)
+
+    refusals = [
+        ("no_header", "", "AuthError"),
+        ("wrong_password", basic(settings.basic_auth_user, "wrong"), "AuthError"),
+        ("jwt_wrong_audience", bearer(settings, {"sub": "user@example.com"},
+                                      audience="elsewhere"), "AuthError"),
+        ("jwt_scoped_without_llm_chat", bearer(settings, {"sub": "ci@example.com",
+                                                          "scopes": ["tools.read"]}),
+         "PermissionDenied")]
+
+    async def at_first_tokens(engine):
+        from mcp_context_forge_tpu_torch.gateway.auth import AuthError, PermissionDenied
+
+        errors = {"AuthError": AuthError, "PermissionDenied": PermissionDenied}
+        admission = state["admission"]
+        requests_before = engine.stats.requests
+        refused = {}
+        for name, header, error in refusals:
+            try:
+                await admission.chat(header, chat(model, "Refuse me."))
+            except errors[error] as exc:
+                refused[name] = f"{error}: {exc}"
+            else:
+                raise SmokeFailure(f"the {name} request was admitted")
+        check(engine.stats.requests == requests_before,
+              "a refused request reached the engine")
+        strict = OverloadShedder(shed_at=0.0, class_order=["batch"],
+                                 tenant_classes={"user:batch@example.com": "batch"})
+        verdicts = {}
+        for name, header in (("batch", bearer(settings, {"sub": "batch@example.com"})),
+                             ("default", admitted[1])):
+            verdicts[name] = (await admission.decide(header, chat(model, "x"), strict))[1]
+        check(verdicts["batch"] is not None and verdicts["batch"]["status"] == 429
+              and verdicts["batch"]["slo_class"] == "batch", f"batch verdict {verdicts}")
+        check(verdicts["default"] is None, f"the default tenant was shed: {verdicts}")
+        rid = engine.config.replica_id
+        await fresh_signal(bus, "llm.idle_frac", rid)
+        safe, real = (controller_for(engine, bus, tracer, safe_mode=m) for m in (True, False))
+        safe_rows, rows = safe.tick(), real.tick()
+        state["controllers"] = (safe, real)
+        check([move_of(r) for r in rows] == [(rid, "superstep", "up", 1, 4)]
+              and rows[0]["actuated"], f"the controller's decisions: {rows}")
+        check([move_of(r) for r in safe_rows] == [move_of(r) for r in rows]
+              and not safe_rows[0]["actuated"] and safe_rows[0]["safe_mode"],
+              f"safe_mode decided otherwise: {safe_rows}")
+        return {"refused": refused, "shed_verdicts": verdicts,
+                "engine_requests_unchanged": True,
+                "decision": {k: rows[0][k] for k in ("knob", "direction", "from", "to",
+                                                     "actuated", "signals")},
+                "safe_mode_decision": {k: safe_rows[0][k] for k in
+                                       ("knob", "direction", "from", "to", "actuated")},
+                "at_decode_dispatch": engine.stats.decode_dispatches}
+
+    def after_serving(engine):
+        safe, real = state["controllers"]
+        due = real.decisions()[-1]["ts"] + real.eval_window_s
+        time.sleep(max(0.0, due - time.time()) + 0.05)
+        real.tick()
+        ring = real.decisions() + safe.decisions()
+        check(all(set(row) == RING_KEYS and row["schema"] == RING_SCHEMA for row in ring),
+              f"ring rows {ring}")
+        check(real.decisions()[0]["effect"], "the decision's effect did not settle")
+        decode = [row for row in engine.recent_steps() if row["kind"] == "decode"]
+        ks = [row["superstep"] for row in decode]
+        check(4 in ks and ks == sorted(ks),
+              f"the K move did not land at a drain barrier: {ks[-16:]}")
+        try:
+            faults.get_fault_plane().arm(faults.FaultRule(point="engine.dispatch"))
+        except RuntimeError as exc:
+            refusal = str(exc)
+        else:
+            raise SmokeFailure("a disabled fault plane armed a rule")
+        check(faults.fault_point("engine.dispatch", engine.config.replica_id) is None,
+              "the unarmed engine.dispatch point returned an action")
+        events = replay_device_events(torch, engine, [300] * engine.config.max_batch)
+        check(events["device_events"] == DECODE_REPLAY_EVENTS,
+              f"one decode replay ran {events['device_events']} device events, "
+              f"not {DECODE_REPLAY_EVENTS}")
+        fault_counts, fault = fault_run(torch, engine)
+        return {"effect": real.decisions()[0]["effect"], "k_sequence_tail": ks[-12:],
+                "ring": [move_of(r) + (r["actuated"],) for r in ring],
+                "disabled_plane_refused": refusal, "replay": events,
+                "fault_counts": fault_counts, "fault": fault,
+                "spans": sorted({span.name for span in tracer.finished})}
+
+    counts, stats = engine_phase(
+        torch, dev, model, ATTENTION, chat_requests(model), hit=1,
+        absent=NOT_BF16, handles=dict(tracer=tracer, signals=bus),
+        on_first_tokens=at_first_tokens, after=after_serving, send=send,
+        k_ladder=(1, 4), auto_restart=True)
+    check(stats["generated"] == engine_tokens,
+          "admission or the controller's K move changed a greedy stream of the engine phase")
+    check(len(sent) == len(chat_requests(model)) + 2,
+          f"{len(sent)} requests went through admission")
+    first, after = stats.pop("on_first_tokens"), stats.pop("after")
+    check(set(after["spans"]) == SERVED_SPANS | {"controller.decision"},
+          f"span names {after['spans']}")
+    # every launch of the three runs, for the kernel table; each phase line
+    # keeps its own run's
+    total = dict(counts)
+
+    def add(more: dict) -> None:
+        for kernel, n in more.items():
+            total[kernel] += n
+
+    add(after.pop("fault_counts"))
+    spec_counts, spec = spec_toggle_phase(torch, dev, model, ATTENTION[:2], engine_tokens,
+                                          absent=NOT_BF16)
+    add(spec_counts)
+    free_device(torch)
+    # the same toggle in f32, where the verify and a decode step agree to
+    # 1e-4 of a row's largest logit: every stream equals the plain phase's
+    spec_counts, spec_f32 = spec_toggle_phase(
+        torch, dev, "llama3-tiny", ATTENTION_MMA[:2], tiny_tokens, exact=True,
+        absent=TC_ATTENTION, dtype="float32")
+    add(spec_counts)
+    admission = {**stats, **{k: first[k] for k in ("refused", "shed_verdicts",
+                                                   "engine_requests_unchanged")},
+                 "admitted_via": ["jwt", "basic"], "spans": after["spans"],
+                 "tokens_equal_engine": True}
+    controller = {
+        "model": model, "k_rungs": stats["k_rungs"],
+        "decision": first["decision"], "safe_mode_decision": first["safe_mode_decision"],
+        "at_decode_dispatch": first["at_decode_dispatch"], "effect": after["effect"],
+        "k_sequence_tail": after["k_sequence_tail"], "ring": after["ring"],
+        "disabled_plane_refused": after["disabled_plane_refused"],
+        "replay_unarmed": after["replay"], "fault": after["fault"],
+        "spec": spec, "spec_llama3_tiny_f32": spec_f32,
+        "ttft_p50_ms": stats["ttft_p50_ms"], "decode_tokens_per_s": stats["decode_tokens_per_s"],
+        "engine_build_s": stats["engine_build_s"], "tokens_equal_engine": True}
+    return total, admission, controller
 
 
 def encoder_phase(torch, dev) -> dict:
@@ -3085,6 +3569,9 @@ def serve_registry(torch, engine, requests: list[tuple[str, dict]]) -> tuple[dic
     registry.register(TorchLocalProvider("tpu_local", engine),
                       [engine.config.model, "tpu_local"], default_chat=True, default_embed=True)
     wrappers = kernel_wrappers()
+
+    def chat_one(request):
+        return send(provider, request) if send is not None else provider.chat(request)
 
     async def run():
         await engine.start()

@@ -1,0 +1,163 @@
+"""The aiohttp middlewares of the port's /v1 app: the part of the JAX
+package's ``gateway/middleware.py`` chain that the /v1 surface needs, in
+the reference's order (``MIDDLEWARES``, outermost first):
+
+- ``observability_middleware``: a correlation id and the ``http.request``
+  span, through the app's tracer (``app["tracer"]``);
+- ``flight_recorder_middleware``: a ``PhaseClock`` per request, whose
+  vector (the ``handler`` or ``error`` residue included) sums to the
+  request's wall and lands as a ``gw.phases`` event on the span;
+  X-Queue-Depth and Retry-After on the unary /v1 responses;
+- ``error_middleware``: ``AuthError`` -> 401 with ``www-authenticate:
+  Bearer``, ``PermissionDenied`` -> 403, ``ValueError`` -> 422, anything
+  else -> 500 without a trace;
+- ``auth_middleware``: ``request["auth"]`` from the Authorization header
+  (``gateway/auth.py``); public paths and OPTIONS pass as anonymous; the
+  rest of the chain runs under the principal's tenant
+  (``request["tenant"]`` and the port's ``set_current_tenant``).
+
+``request.app["settings"]`` is duck-typed as the gateway's settings.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+import uuid
+from typing import Awaitable, Callable
+
+from aiohttp import web
+
+from ..observability import (ANONYMOUS, reset_current_tenant, resolve_tenant,
+                             set_current_tenant)
+from ..observability import phases as request_phases
+from ..observability.tracing import current_span
+from .auth import AuthContext, AuthError, PermissionDenied, resolve_header
+from .flight_recorder import backpressure_headers, queue_state
+
+Handler = Callable[[web.Request], Awaitable[web.StreamResponse]]
+
+PUBLIC_PATHS = {"/health", "/ready", "/version", "/auth/login", "/robots.txt",
+                "/auth/password/reset-request", "/auth/password/reset"}
+
+
+@web.middleware
+async def observability_middleware(request: web.Request,
+                                   handler: Handler) -> web.StreamResponse:
+    """Correlation id and the ``http.request`` span of each request."""
+    settings = request.app["settings"]
+    inbound = (request.headers.get(settings.correlation_id_header, "")
+               if settings.correlation_id_preserve else "")
+    correlation_id = inbound or uuid.uuid4().hex[:16]
+    request["correlation_id"] = correlation_id
+    route = request.match_info.route.resource
+    attrs = {"http.method": request.method, "http.path": request.path,
+             "correlation_id": correlation_id}
+    with request.app["tracer"].span(
+            "http.request", attrs,
+            traceparent=request.headers.get("traceparent")) as span:
+        # the route template (bounded); unmatched paths are client-controlled
+        span.set_attribute("http.route",
+                           route.canonical if route is not None else "unmatched")
+        response = await handler(request)
+        span.set_attribute("http.status_code", response.status)
+        span.set_attribute("gw.tenant", request.get("tenant") or ANONYMOUS)
+        response.headers[settings.correlation_id_response_header] = correlation_id
+        return response
+
+
+@web.middleware
+async def flight_recorder_middleware(request: web.Request,
+                                     handler: Handler) -> web.StreamResponse:
+    """A ``PhaseClock`` for the request: the layers below charge auth,
+    routing, engine and serialize time to it; the residue is ``handler``,
+    or ``error`` when an exception passed through."""
+    clock = request_phases.PhaseClock()
+    token = request_phases.set_phase_clock(clock)
+    span = current_span()
+    started = time.perf_counter()
+    response: web.StreamResponse | None = None
+    error = False
+    try:
+        response = await handler(request)
+        return response
+    except web.HTTPException as exc:
+        response = exc  # an HTTPException is its response
+        raise
+    except (asyncio.CancelledError, Exception):
+        error = True
+        raise
+    finally:
+        request_phases.reset_phase_clock(token)
+        wall = time.perf_counter() - started
+        clock.add("error" if error else "handler", max(0.0, wall - clock.total()))
+        if span is not None:
+            span.add_event("gw.phases", {"duration_ms": round(wall * 1e3, 3),
+                                         **clock.vector_ms()})
+        if response is not None:
+            _apply_backpressure(request, response, request.app["settings"])
+
+
+def _apply_backpressure(request: web.Request, response: web.StreamResponse,
+                        settings) -> None:
+    """X-Queue-Depth / Retry-After on the unary /v1 responses (the SSE path
+    sets them before it prepares the stream)."""
+    if (not settings.gw_backpressure_headers or response.prepared
+            or not request.path.startswith(settings.llm_api_prefix + "/")):
+        return
+    response.headers.update(backpressure_headers(queue_state(request.app), settings))
+
+
+@web.middleware
+async def error_middleware(request: web.Request, handler: Handler) -> web.StreamResponse:
+    """Map errors to HTTP codes; never leak stack traces."""
+    try:
+        return await handler(request)
+    except web.HTTPException:
+        raise
+    except ValueError as exc:
+        return web.json_response({"detail": str(exc)}, status=422)
+    except AuthError as exc:
+        return web.json_response({"detail": str(exc)}, status=401,
+                                 headers={"www-authenticate": "Bearer"})
+    except PermissionDenied as exc:
+        return web.json_response({"detail": str(exc)}, status=403)
+    except Exception as exc:
+        request.app.logger.exception("Unhandled error on %s", request.path)
+        return web.json_response({"detail": f"Internal error: {type(exc).__name__}"},
+                                 status=500)
+
+
+async def _handle_as_tenant(request: web.Request, handler: Handler) -> web.StreamResponse:
+    """The rest of the chain under the principal's resolved tenant."""
+    tenant = resolve_tenant(request.get("auth"))
+    request["tenant"] = tenant
+    token = set_current_tenant(tenant)
+    try:
+        return await handler(request)
+    finally:
+        reset_current_tenant(token)
+
+
+@web.middleware
+async def auth_middleware(request: web.Request, handler: Handler) -> web.StreamResponse:
+    """``request["auth"]`` from a Bearer JWT or Basic credentials; an
+    anonymous admin when ``auth_required`` is off; else ``AuthError``."""
+    if request.method == "OPTIONS" or request.path in PUBLIC_PATHS:
+        request["auth"] = AuthContext(user="anonymous", via="anonymous")
+        return await _handle_as_tenant(request, handler)
+    settings = request.app["settings"]
+    with request_phases.phase("auth"):
+        request["auth"] = resolve_header(
+            settings, request.headers.get(settings.auth_header_name, ""))
+    return await _handle_as_tenant(request, handler)
+
+
+# outermost first: observability sees every response (errors included),
+# and error_middleware sits outside auth so AuthError maps to a status
+MIDDLEWARES = [
+    observability_middleware,
+    flight_recorder_middleware,
+    error_middleware,
+    auth_middleware,
+]

@@ -57,7 +57,10 @@ stall the caller's event loop; tokens hop back with one
   verify step's own wall: ``roofline_snapshot``); kernel-build and graph-
   capture tracking by lifecycle stage (``compile_stats``); crash restart
   (``auto_restart``) that resets the KV pool in place, since the graphs
-  hold its addresses; and duck-typed telemetry handles (``tracer``,
+  hold its addresses; the ``engine.dispatch`` fault point
+  (``observability/faults.py``) at the top of every loop iteration, which
+  an armed error rule turns into a crash of that path; and duck-typed
+  telemetry handles (``tracer``,
   ``metrics``, ``signals``, ``ledger``), each site one attribute check
   when its handle is None.
 
@@ -89,6 +92,7 @@ import numpy as np
 import torch
 
 from ..observability import trace_extra
+from ..observability.faults import fault_point
 from ..utils import new_id
 from .checkpoint import load_params
 from .compile_events import CompileTracker, restore_thread, track_thread
@@ -667,6 +671,13 @@ class TorchEngine:
                     torch.cuda.set_device(self.device)
                 while not self._stop_event.is_set():
                     self._heartbeat_ts = time.monotonic()
+                    # fault point engine.dispatch, scope = replica id: a
+                    # latency fault is a slow replica (the heartbeat still
+                    # beats), an error one a dispatch-thread crash through
+                    # the real crash path below. Unarmed: one dict miss.
+                    fault = fault_point("engine.dispatch", scope=self.config.replica_id)
+                    if fault is not None:
+                        fault.apply()
                     self._drain_work()
                     did_work = False
                     if self._cancels:

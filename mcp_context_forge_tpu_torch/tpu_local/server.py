@@ -4,15 +4,22 @@ single-engine branch of its gateway app).
 
 ``setup_llm_routes`` binds ``POST /chat/completions`` (unary and SSE),
 ``POST /embeddings``, ``GET /models`` and ``POST /moderations`` under a
-prefix; ``build_llm_app`` builds an aiohttp app that serves them from a
-``TorchEngine`` configured by the gateway's settings. The gateway's own
-pieces (authentication, overload shedding, the request phase clock, the
-tracing span) are consulted only when the app carries them:
-``request["auth"]``, ``app["overload_shedder"]``, ``app["phase_clock"]``
-(``.phase(name)`` context managers) and ``app["current_span"]`` (a
-callable returning the request's span or None).
+prefix. The routes consult the gateway's pieces when the app carries
+them: ``request["auth"]`` (``require("llm.chat")``),
+``app["overload_shedder"]``, ``app["phase_clock"]`` (``.phase(name)``
+context managers) and ``app["current_span"]`` (a callable returning the
+request's span or None).
 
-aiohttp is imported here and nowhere else in the port.
+``build_llm_app`` builds an aiohttp app that serves them from a
+``TorchEngine`` configured by the gateway's settings, as the JAX gateway
+does: the middlewares of ``gateway/middleware.py`` (the ``http.request``
+span, the phase clock, error mapping, authentication, so that
+``request["auth"]`` is always set), the overload shedder, the signal
+bus, the fault plane and, with ``controller_enabled``, the serving
+controller.
+
+aiohttp is imported here and in ``gateway/middleware.py``, nowhere else in
+the port.
 """
 
 from __future__ import annotations
@@ -275,20 +282,73 @@ def setup_llm_routes(app: web.Application, registry: LLMProviderRegistry,
     app.add_routes(routes)
 
 
+def _tenant_classes(settings) -> dict[str, str]:
+    """``slo_tenant_classes`` (a JSON object: tenant id -> SLO class)."""
+    raw = getattr(settings, "slo_tenant_classes", "") or ""
+    if not raw:
+        return {}
+    try:
+        parsed = json.loads(raw)
+        if not isinstance(parsed, dict):
+            raise ValueError("must be a JSON object")
+        return {str(k): str(v) for k, v in parsed.items()}
+    except (json.JSONDecodeError, TypeError, ValueError) as exc:
+        raise ValueError(f"invalid slo_tenant_classes setting: {exc}") from exc
+
+
+def _shed_class_order(settings) -> list[str]:
+    """``gw_shed_class_order`` (a JSON array of class names, lowest first)."""
+    if not settings.gw_shed_class_order:
+        return []
+    try:
+        order = json.loads(settings.gw_shed_class_order)
+    except json.JSONDecodeError as exc:
+        raise ValueError(f"invalid gw_shed_class_order JSON: {exc}") from exc
+    if not isinstance(order, list):
+        raise ValueError("gw_shed_class_order must be a JSON array of class "
+                         "names, lowest first")
+    return order
+
+
 def build_llm_app(settings, engine=None) -> web.Application:
     """An app serving the /v1 surface under ``settings.llm_api_prefix`` from
     one engine: ``engine``, or a ``TorchEngine`` built from
     ``EngineConfig.from_settings(settings)`` (weights from
-    ``tpu_local_checkpoint``). The engine starts with the app and stops,
-    with the provider, at its cleanup. ``settings`` is duck-typed as the
-    gateway's."""
+    ``tpu_local_checkpoint``). The app's tracer and signal bus go to the
+    engine (a given engine keeps handles it already has). The engine, and
+    then the controller, start with the app; at its cleanup the controller
+    stops first, then the provider and the engine. ``settings`` is
+    duck-typed as the gateway's."""
+    from ..gateway.middleware import MIDDLEWARES
+    from ..observability import phases
+    from ..observability.degradation import OverloadShedder, configure_degradation
+    from ..observability.faults import configure_fault_plane
+    from ..observability.signals import SignalBus
+    from ..observability.tracing import Tracer, current_span
+    from .controller import ServingController
     from .engine import EngineConfig, TorchEngine
     from .tpu_provider import TorchLocalProvider
 
+    # the process's fault plane stays a no-op unless fault_injection_enabled
+    # is set (then faults.get_fault_plane().arm(...) arms a rule)
+    configure_fault_plane(settings.fault_injection_enabled, rules_json=settings.fault_rules)
+    degradation = configure_degradation(
+        failure_threshold=settings.degradation_failure_threshold,
+        cooldown_s=settings.degradation_cooldown_s)
+    tracer = Tracer(service_name=settings.otel_service_name,
+                    exporter=settings.otel_exporter if settings.otel_enable else "none")
+    signal_bus = SignalBus(window=settings.signal_window,
+                           ewma_alpha=settings.signal_ewma_alpha)
     if engine is None:
-        engine = TorchEngine(EngineConfig.from_settings(settings))
+        engine = TorchEngine(EngineConfig.from_settings(settings), tracer=tracer,
+                             signals=signal_bus)
+    else:
+        if engine.tracer is None:
+            engine.tracer = tracer
+        if engine.signals is None:
+            engine.signals = signal_bus
     provider = TorchLocalProvider(
-        "tpu_local", engine,
+        "tpu_local", engine, tracer=tracer,
         embedding_model=settings.tpu_local_embedding_model,
         encoder_max_batch=settings.tpu_local_encoder_max_batch,
         encoder_max_wait_ms=settings.tpu_local_encoder_max_wait_ms,
@@ -300,16 +360,52 @@ def build_llm_app(settings, engine=None) -> web.Application:
     registry = LLMProviderRegistry()
     registry.register(provider, [settings.tpu_local_model, "tpu_local"],
                       default_chat=True, default_embed=True)
-    app = web.Application()
+    app = web.Application(middlewares=MIDDLEWARES)
     app["settings"] = settings
     app["llm_registry"] = registry
     app["tpu_engine"] = engine
     app["tpu_provider"] = provider
+    app["tracer"] = tracer
+    app["current_span"] = current_span
+    app["phase_clock"] = phases   # phases.phase(name) charges the request's clock
+    app["signal_bus"] = signal_bus
+    if settings.gw_shed_enabled:
+        app["overload_shedder"] = OverloadShedder(
+            shed_at=settings.gw_shed_saturation_at,
+            class_order=_shed_class_order(settings),
+            tenant_classes=_tenant_classes(settings), degradation=degradation)
+    controller = None
+    if settings.controller_enabled:
+        controller = ServingController(
+            signal_bus, lambda: [engine], shedder=app.get("overload_shedder"),
+            tracer=tracer, enabled=True,
+            safe_mode=settings.controller_safe_mode,
+            tick_s=settings.controller_tick_s,
+            cooldown_s=settings.controller_cooldown_s,
+            eval_window_s=settings.controller_eval_window_s,
+            hysteresis=settings.controller_hysteresis,
+            ring_size=settings.controller_ring_size,
+            queue_wait_high_ms=settings.controller_queue_wait_high_ms,
+            queue_wait_low_ms=settings.controller_queue_wait_low_ms,
+            idle_frac_high=settings.controller_idle_frac_high,
+            spec_accept_off=settings.controller_spec_accept_off,
+            spec_accept_on=settings.controller_spec_accept_on,
+            burn_high=settings.controller_burn_high,
+            burn_low=settings.controller_burn_low,
+            shed_floor=settings.controller_shed_floor,
+            shed_step=settings.controller_shed_step)
+    app["serving_controller"] = controller
 
     async def start(app: web.Application) -> None:
         await engine.start()
+        if controller is not None:
+            await controller.start()
 
     async def stop(app: web.Application) -> None:
+        if controller is not None:
+            # before the engine stops: no knob request may land on a
+            # stopping dispatch loop
+            await controller.stop()
         await registry.shutdown()
 
     app.on_startup.append(start)

@@ -65,6 +65,16 @@ def test_kernel_modules_import_without_toolchain():
         "import mcp_context_forge_tpu_torch.tpu_local.models.encoder\n"
         "import mcp_context_forge_tpu_torch.tpu_local.tpu_provider\n"
         "import mcp_context_forge_tpu_torch.observability\n"
+        "import mcp_context_forge_tpu_torch.observability.phases\n"
+        "import mcp_context_forge_tpu_torch.observability.tracing\n"
+        "import mcp_context_forge_tpu_torch.observability.degradation\n"
+        "import mcp_context_forge_tpu_torch.observability.signals\n"
+        "import mcp_context_forge_tpu_torch.observability.faults\n"
+        "import mcp_context_forge_tpu_torch.utils.jwt\n"
+        "import mcp_context_forge_tpu_torch.gateway.auth\n"
+        "import mcp_context_forge_tpu_torch.gateway.middleware\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.controller\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.server\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('triton', 'jax', 'jaxlib', 'mcp_context_forge_tpu')]\n"
         "assert not bad, bad\n")

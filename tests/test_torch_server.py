@@ -5,7 +5,8 @@ weights (``params_from_jax``) and its provider the JAX provider's encoder
 weights. They must agree on the model list, greedy completions and usage,
 SSE streams, the error statuses (400, 422, 404, 503 with Retry-After
 before and after the first-chunk window, the error event of a stream that
-fails midway), embeddings and moderations. Also: ``EngineConfig
+fails midway), embeddings and moderations, each sent with the same Basic
+credentials to both, and a 401 from each without credentials. Also: ``EngineConfig
 .from_settings`` field by field, and the port's modules that run on the
 card import none of aiohttp, safetensors or tokenizers."""
 
@@ -130,14 +131,30 @@ def clients(loop):
         _run(loop, client.close())
 
 
-def both(loop, clients, method: str, path: str, **kwargs):
-    """(status, headers, body text) of the same request to each app."""
-    async def one(client, auth):
+def both(loop, clients, method: str, path: str, auth=BASIC, **kwargs):
+    """(status, headers, body text) of the same request, with the same
+    credentials, to each app."""
+    async def one(client):
         resp = await client.request(method, path, auth=auth, **kwargs)
         return resp.status, resp.headers, await resp.text()
 
     ref, port = clients
-    return _run(loop, one(ref, BASIC)), _run(loop, one(port, None))
+    return _run(loop, one(ref)), _run(loop, one(port))
+
+
+@pytest.mark.parametrize("method,path", [
+    ("GET", "/v1/models"), ("POST", "/v1/chat/completions"),
+    ("POST", "/v1/embeddings"), ("POST", "/v1/moderations"),
+])
+def test_no_credentials_is_401(loop, clients, method, path):
+    """``auth_required`` is on by default: a request without credentials is
+    refused by both apps before any handler runs."""
+    ref, port = both(loop, clients, method, path, auth=None,
+                     json={"messages": [{"role": "user", "content": "x"}]})
+    assert ref[0] == port[0] == 401
+    for _, headers, _ in (ref, port):
+        assert headers["www-authenticate"] == "Bearer"
+    assert json.loads(port[2]) == json.loads(ref[2]) == {"detail": "Authentication required"}
 
 
 def test_models(loop, clients):
@@ -279,9 +296,11 @@ def test_from_settings_equals_jax():
 
 
 def test_card_modules_import_no_server_packages():
-    """What the card runs imports none of aiohttp, safetensors or
+    """What the card runs (admission, the controller, the signal bus and
+    the fault plane included) imports none of aiohttp, safetensors or
     tokenizers (the card has none of them): they load only with the
-    server, or with a checkpoint that holds a tokenizer.json."""
+    server and its middlewares, or with a checkpoint that holds a
+    tokenizer.json."""
     code = (
         "import sys\n"
         "import mcp_context_forge_tpu_torch.tpu_local.checkpoint\n"
@@ -291,6 +310,14 @@ def test_card_modules_import_no_server_packages():
         "import mcp_context_forge_tpu_torch.tpu_local.tpu_provider\n"
         "import mcp_context_forge_tpu_torch.gateway.serialize\n"
         "import mcp_context_forge_tpu_torch.gateway.flight_recorder\n"
+        "import mcp_context_forge_tpu_torch.gateway.auth\n"
+        "import mcp_context_forge_tpu_torch.utils.jwt\n"
+        "import mcp_context_forge_tpu_torch.observability.phases\n"
+        "import mcp_context_forge_tpu_torch.observability.tracing\n"
+        "import mcp_context_forge_tpu_torch.observability.degradation\n"
+        "import mcp_context_forge_tpu_torch.observability.signals\n"
+        "import mcp_context_forge_tpu_torch.observability.faults\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.controller\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('aiohttp', 'safetensors', 'tokenizers')]\n"
         "assert not bad, bad\n")

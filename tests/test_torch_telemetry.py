@@ -196,7 +196,8 @@ def test_engine_without_handles_is_silent():
 
 def test_served_spans_and_families_pinned_for_the_card():
     """What ``chip_smoke.py`` holds the card's llama3-8b ops phase to, on
-    the CPU with its own telemetry stand-ins: chats through the provider
+    the CPU with its own telemetry handles (the port's tracer and signal
+    bus, recording metrics and ledger): chats through the provider
     with phase sampling and a K move report exactly SERVED_SPANS and
     SERVED_FAMILIES (the card adds the construction's capture events,
     CAPTURE_FAMILIES)."""
@@ -232,7 +233,7 @@ def test_served_spans_and_families_pinned_for_the_card():
     assert set(ledger) == {"", "team:x"} and ledger["team:x"]["requests"] == 1
     assert ledger["team:x"]["generated_tokens"] == \
         replies[1]["usage"]["completion_tokens"]
-    assert {span["name"] for span in handles["tracer"].spans} == chip_smoke.SERVED_SPANS
+    assert {span.name for span in handles["tracer"].finished} == chip_smoke.SERVED_SPANS
     assert handles["metrics"].label_names() == chip_smoke.SERVED_FAMILIES
     assert engine.stats.phase_samples > 0
     assert {k for row in engine.recent_steps() if row["kind"] == "decode"
