@@ -191,6 +191,29 @@ from a header (the incomplete-stack error), and a loader that quantizes
 expert stacks over axis 0, the expert axis. Each load prints its seconds,
 GB/s and peak; each engine its ``compile_stats()``.
 
+The spill tiers (``prefix_tiers``; three phases): a request whose
+system prompt fills three pages is sent cold, then two ~1440-token
+summaries evict (spill) those pages from a 16-page pool, then the request
+again, whose history is restored from the tiers into the pool
+(fetch-on-miss) and prefilled as a hit through the paged chunk kernel.
+``engine_llama3_8b_tiers`` (llama3-8b, full width and depth, bf16): a pool
+that never evicts gives the resident hit's stream, one fed decode
+dispatch's device events (``DECODE_REPLAY_EVENTS``) and what a spill read
+costs a decode step it overlaps; the lossless spill (``tier_spill_quant=""``)
+restored from host RAM and, with a host budget of one page, from disk must
+give that stream with every restored page equal on the card to the page
+spilled; a payload with one flipped byte of its chunk identity is a miss
+and the request then gives its cold stream; an armed ``tier.disk.write``
+error is counted; the default int8 spill reports how many tokens match.
+Each run prints spill and restore ms per page (median, max) and their GB/s,
+the TTFTs (cold, resident, host, disk), the chunk kernel's launches on the
+restored hit (one per layer, no flash), the peak device memory and
+``tier_stats()``. ``engine_llama3_8b_int8_kv_tiers``: the same on an int8
+pool (15 pages), whose bytes and scales round-trip bit for bit and whose
+restored hit (row 2b) gives the resident hit's stream.
+``engine_llama3_tiny_f32_tiers``: llama3-tiny in f32, the lossless spill:
+the restored hit's stream equals ``engine_llama3_tiny_f32``'s.
+
 Then the card line, the kernel table (JSON), and last the contract line.
 Any failure raises: the exit code is non-zero and the last line is absent.
 Exits 1 at once when CUDA is not available.
@@ -488,6 +511,10 @@ def main() -> int:
     emit({"phase": "engine_llama3_tiny_f32_int8_kv_spec", "tokens_equal_plain": True, **stats})
     count(counts)
     free_device(torch)
+    counts, stats = tiny_tiers_phase(torch, dev, k1_tokens)
+    emit({"phase": "engine_llama3_tiny_f32_tiers", **stats})
+    count(counts)
+    free_device(torch)
     counts, stats = restart_phase(torch, dev)
     emit({"phase": "engine_restart", **stats})
     count(counts)
@@ -521,6 +548,11 @@ def main() -> int:
     free_device(torch)
     stats["verify_against_decode_f32"] = verify_against_decode_f32(torch, dev)
     emit({"phase": "engine_llama3_8b_spec", **stats})
+    count(counts)
+    free_device(torch)
+    counts, bf16_tiers, int8_tiers = tiers_phase(torch, dev)
+    emit({"phase": "engine_llama3_8b_tiers", **bf16_tiers})
+    emit({"phase": "engine_llama3_8b_int8_kv_tiers", **int8_tiers})
     count(counts)
     free_device(torch)
     # checkpoints written here in HF layout, served from disk
@@ -2640,12 +2672,18 @@ def replay_device_events(torch, engine, lens: list[int]) -> dict:
         previous = launch()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # a spinning kernel first, alone, and not counted: a session
+            # can miss its first device events (on an H100 a later session
+            # of a process counted 2761, its leading copies lost)
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
             stage()
             handle = launch(feed=previous)
             engine._graphs.fetch(handle)
             torch.cuda.synchronize()
         engine._graphs.fetch(previous)
-    events = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    events = [e.name for e in prof.events()
+              if e.device_type.name == "CUDA" and "spin_kernel" not in e.name]
     return {"device_events": len(events),
             "copies": sum(name.lower().startswith(("memcpy", "memset")) for name in events)}
 
@@ -3358,6 +3396,423 @@ def encoder_phase(torch, dev) -> dict:
             "texts": len(texts), "past_1024_tokens": 2, "max_row_error": worst,
             "forwards": len(forwards), "rows_per_forward": [f["rows"] for f in forwards],
             "ms_per_forward_median": statistics.median(ms), "ms_per_forward": ms}
+
+
+# ------------------------------------------------------------ the spill tiers
+
+# the tier phases' pool: 15 usable pages, under one ~1440-token summary (12
+# pages with its reply) plus the shared system prompt's 3 registered pages,
+# so a second summary evicts (spills) them
+TIER_POOL_PAGES = 16
+# the int8 pool of the same phases: a byte budget of 8 bf16 pages, 15 int8 pages
+TIER_INT8_BUDGET = 8
+
+
+# what a tier run's phase line leaves out (held by the checks)
+RUN_DETAIL = ("streams", "launches", "hit_launches")
+
+
+def tier_requests(model: str) -> tuple[dict, list[dict]]:
+    """The system-prompt request of ``chat_requests`` (index 1, whose first
+    three pages, 384 tokens, match) and four ~1440-token log summaries that
+    share no page with it or with one another (each names its log first)."""
+    long_doc = " ".join(f"line {i}: the tool returned status ok." for i in range(37))
+    return (chat_requests(model)[1],
+            [chat(model, f"Summarize log {tag}:\n" + long_doc) for tag in "WXYZ"])
+
+
+def tier_engine(model: str, params, **kwargs):
+    """A TorchEngine at ``engine_phase``'s shapes on ``params`` (shared by
+    every engine of a tier phase: one weight draw)."""
+    from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngine
+
+    config = dict(model=model, dtype="bfloat16", device="cuda", max_batch=8,
+                  max_seq_len=2048, page_size=128, num_pages=512,
+                  prefill_buckets=(128, 512, 2048), prefill_max_batch=4, seed=0)
+    return TorchEngine(EngineConfig(**{**config, **kwargs}), params=params)
+
+
+def pool_page(engine, page: int) -> tuple:
+    """Copies of one page of the pool on the card (K, V, and an int8 pool's
+    scales)."""
+    kv = engine.kv
+    parts = [kv.k_pages[:, page], kv.v_pages[:, page]]
+    if kv.quantized:
+        parts += [kv.k_scales[:, page], kv.v_scales[:, page]]
+    return tuple(t.clone() for t in parts)
+
+
+def spread(values) -> dict:
+    values = list(values)
+    return {"n": len(values), "median": statistics.median(values) if values else None,
+            "max": max(values) if values else None}
+
+
+def tier_run(torch, engine, mode: str) -> dict:
+    """Sequential chats through ``TorchLocalProvider.chat`` on a tier
+    engine. ``mode`` "hbm" (a pool that never evicts): the system-prompt
+    request cold, then again twice (resident hits: the second is the one
+    timed, after the engine's first history prefill). Otherwise: cold, two
+    summaries (the second evicts, so spills, its three pages), and the
+    request again: its history is restored from the tiers (fetch-on-miss).
+    "disk" first waits until the write-behind worker has put every spill
+    on disk; "host" then evicts the restored pages again with two more
+    summaries, flips a byte of the first page's chunk identity in the
+    store and sends the request once more (a collision: a miss and a cold
+    prefill); "disk" then arms a ``tier.disk.write`` error and sends a
+    summary (its spills overflow to disk and fail). Spills and restores of
+    the request's chain pages are held on the card: each restored page
+    against a copy of the page taken when it spilled. Every kernel count
+    is reset when the engine starts and read when the chats end."""
+    from mcp_context_forge_tpu_torch.observability import degradation, faults
+    from mcp_context_forge_tpu_torch.tpu_local.kv.prefix_index import chain_hashes
+    from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
+
+    hit_request, fillers = tier_requests(engine.config.model)
+    provider = TorchLocalProvider("tpu_local", engine)
+    seen = []
+    submit = engine.submit
+
+    async def recording_submit(request):
+        seen.append(request)
+        return await submit(request)
+
+    engine.submit = recording_submit
+    client = engine._tier_client
+    store = client.store
+    wrappers = kernel_wrappers()
+    watch: set = set()
+    spilled: dict = {}
+    restored: dict = {}
+    real_spill, real_restore = client.spill, client.restore
+
+    def spill(key_hash, parent, chunk, page):
+        if key_hash in watch and key_hash not in spilled:
+            spilled[key_hash] = pool_page(engine, page)
+        return real_spill(key_hash, parent, chunk, page)
+
+    def restore(key_hash, parent, chunk, page):
+        tier = real_restore(key_hash, parent, chunk, page)
+        if tier is not None and key_hash in watch:
+            restored.setdefault(key_hash, []).append((tier, pool_page(engine, page)))
+        return tier
+
+    client.spill, client.restore = spill, restore
+
+    def drain_writer():
+        deadline = time.monotonic() + 120
+        while (store._pending or not store._writeq.empty()) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(not store._pending, "the write-behind worker did not drain in 120 s")
+
+    out: dict = {"mode": mode}
+
+    async def send(request) -> object:
+        await provider.chat(request)
+        return seen[-1]
+
+    async def run():
+        await engine.start()
+        try:
+            for fn in wrappers.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            cold = await send(hit_request)
+            watch.update(chain_hashes(cold.prompt_ids, engine.config.page_size))
+            out["chain_pages"] = len(watch)
+            hits0 = dict(engine.allocator.tier_hit_tokens)
+            if mode != "hbm":
+                for request in fillers[:2]:
+                    await send(request)
+                check(all(h in spilled for h in watch),
+                      f"{len(spilled)} of the {len(watch)} chain pages spilled")
+                if mode == "disk":
+                    await asyncio.to_thread(drain_writer)
+                    out["before_hit"] = store.stats()
+            at_hit = {k: fn.launches for k, fn in wrappers.items()}
+            hit = await send(hit_request)
+            out["hit_launches"] = {k: fn.launches - at_hit[k] for k, fn in wrappers.items()}
+            out["hit_chunk_launches"] = sum(out["hit_launches"][k] for k in CHUNK)
+            out["hit_flash_launches"] = sum(out["hit_launches"][k] for k in FLASH)
+            out["hit_tokens"] = {tier: n - hits0[tier] for tier, n in
+                                 engine.allocator.tier_hit_tokens.items()}
+            served = [cold, hit]
+            if mode == "hbm":
+                served.append(await send(hit_request))
+            if mode == "host":
+                for request in fillers[2:]:
+                    await send(request)
+                key = chain_hashes(cold.prompt_ids, engine.config.page_size)[0]
+                with store._lock:
+                    payload = store._host[key]
+                    payload.chunk = (payload.chunk[0] ^ 1,) + tuple(payload.chunk[1:])
+                collisions = store.collisions
+                served.append(await send(hit_request))
+                out["collision"] = {"collisions": store.collisions - collisions,
+                                    "probe_after": store.probe(key),
+                                    "hist": served[-1].hist}
+            if mode == "disk":
+                errors = store.io_errors[("disk", "write")]
+                plane = faults.configure_fault_plane(True)
+                try:
+                    plane.arm(faults.FaultRule(point="tier.disk.write", kind="error"))
+                    await send(fillers[2])
+                    await asyncio.to_thread(drain_writer)
+                finally:
+                    faults.configure_fault_plane(False)
+                    degradation.configure_degradation()
+                out["disk_write_errors"] = store.io_errors[("disk", "write")] - errors
+            out["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+            out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            out["tier_stats"] = engine.tier_stats()
+            # the host tier's payloads: page-locked on the card
+            out["pinned_host_bytes"] = out["tier_stats"]["store"]["host_bytes"]
+            return served
+        finally:
+            await engine.stop()
+
+    served = asyncio.run(run())
+    engine.submit = submit
+    out["streams"] = [r.generated for r in served]
+    out["ttft_ms"] = [(r.first_token_ts - r.created) * 1e3 for r in served]
+    out["hist"] = [r.hist for r in served]
+    out["prompt_tokens"] = len(served[0].prompt_ids)
+    client.spill, client.restore = real_spill, real_restore
+    out["spill_ms"] = spread(client.spill_ms)
+    out["restore_ms"] = spread(client.restore_ms)
+    out["restored"] = {h.hex()[:12]: [tier for tier, _ in hits] for h, hits in restored.items()}
+    # each restored page against the page as it was when it spilled
+    diffs = []
+    for key_hash, hits in restored.items():
+        for tier, page in hits:
+            before = spilled[key_hash]
+            diffs.append(max(float((a.float() - b.float()).abs().max())
+                             for a, b in zip(page, before)))
+            if mode != "int8_spill":
+                check(all(torch.equal(a, b) for a, b in zip(page, before)),
+                      f"a page restored from {tier} differs from the page spilled")
+    out["restored_max_abs_diff"] = max(diffs, default=None)
+    return out
+
+
+def spill_wait(torch, engine, runs: int = 5) -> dict:
+    """What a spill costs a decode step it overlaps: one greedy K = 1 replay
+    over 8 columns of 300 tokens, its outputs read back (host wall, launch
+    to read back), alone and with one page's spill read
+    (``_read_page_payload``, which waits on its D2H copy's event behind
+    the replay) between the launch and the read back, each payload kept
+    as the host tier keeps it (so each read allocates fresh page-locked
+    buffers); medians. Then the spill read alone on an idle card, its
+    buffers reused from the host allocator's cache (each payload dropped)
+    and freshly allocated (each payload kept)."""
+    lens = [300] * engine.config.max_batch
+    alone, with_spill = [], []
+    kept = []
+    with staged_replays(torch, engine, lens, 1) as (stage, launch):
+        page = engine.allocator._slots[0][0]
+        for _ in range(runs):
+            for walls, spill in ((alone, False), (with_spill, True)):
+                stage()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                handle = launch()
+                if spill:
+                    kept.append(engine._read_page_payload(page))
+                engine._graphs.fetch(handle)
+                walls.append((time.perf_counter() - t0) * 1e3)
+        reads = {"cached": [], "fresh": []}
+        for kind in reads:
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                payload = engine._read_page_payload(page)
+                reads[kind].append((time.perf_counter() - t0) * 1e3)
+                if kind == "fresh":
+                    kept.append(payload)
+        del kept
+    replay, spilled = statistics.median(alone), statistics.median(with_spill)
+    return {"replay_ms": replay, "replay_with_spill_ms": spilled,
+            "extra_ms": spilled - replay,
+            "read_ms_cached_buffers": statistics.median(reads["cached"]),
+            "read_ms_fresh_buffers": statistics.median(reads["fresh"])}
+
+
+def payload_bytes(model: str, int8: bool, page_size: int = 128) -> int:
+    """Bytes of one page's spill payload: int8 K and V (an int8 pool, or
+    the int8 spill) or the f32 container, and two f32 scales per (layer,
+    KV head)."""
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+
+    cfg = MODEL_CONFIGS[model]
+    elems = cfg.n_layers * page_size * cfg.n_kv_heads * cfg.head_dim
+    return 2 * elems * (1 if int8 else 4) + 2 * cfg.n_layers * cfg.n_kv_heads * 4
+
+
+def tier_rates(run: dict, nbytes: int) -> dict:
+    """Spill and restore ms per page and the GB/s they imply."""
+    spill, restore = run["spill_ms"]["median"], run["restore_ms"]["median"]
+    return {"payload_bytes": nbytes, "spill_ms": run["spill_ms"], "restore_ms": run["restore_ms"],
+            "d2h_gbps": nbytes / spill / 1e6 if spill else None,
+            "h2d_gbps": nbytes / restore / 1e6 if restore else None}
+
+
+def check_tier_hit(run: dict, tier: str, pages: int, layers: int) -> None:
+    """The restored hit: ``pages`` full pages from ``tier``, its history
+    prefill one chunk-kernel launch per layer and no cold prefill."""
+    tokens = pages * 128
+    check(run["hist"][1] == tokens, f"the hit covered {run['hist'][1]} tokens, not {tokens}")
+    want = {t: (tokens if t == tier else 0) for t in run["hit_tokens"]}
+    check(run["hit_tokens"] == want, f"tier_hit_tokens {run['hit_tokens']}, not {want}")
+    chunk, flash = run["hit_chunk_launches"], run["hit_flash_launches"]
+    check(chunk == layers and flash == 0,
+          f"the restored hit launched the chunk kernel {chunk} and flash {flash} times")
+
+
+def tiers_phase(torch, dev, model: str = "llama3-8b") -> tuple[dict, dict, dict]:
+    """``engine_llama3_8b_tiers`` and ``engine_llama3_8b_int8_kv_tiers``:
+    llama3-8b at full width and depth, bf16 weights (one seeded draw for
+    every engine here), ``prefix_tiers`` on, max_seq_len 2048, the
+    system-prompt request sent cold, then after two summaries that evict
+    its three pages (a 16-page pool), again: its history comes back from
+    the tiers. Four bf16-page runs: a pool that never evicts (512 pages:
+    the resident hit, the stream the restored hits must give; one fed
+    decode dispatch's device events; a spill's cost inside a decode step),
+    the lossless spill from host RAM (``tier_spill_quant=""``; then a
+    planted collision: a miss and the cold stream), the same from disk (a
+    host budget of one page, a private temporary directory; then a
+    ``tier.disk.write`` error counted), and the default int8 spill (tokens
+    matching are reported). Then the int8 pool (the long phase's storage,
+    15 pages): its bytes and scales spill as they are; the restored hit
+    runs row 2b and gives the resident hit's stream. Restored pages equal
+    the pages spilled, on the card, wherever the round trip is lossless."""
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+    from mcp_context_forge_tpu_torch.tpu_local.models.llama import init_params
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(MODEL_CONFIGS[model], gen, torch.bfloat16, dev)
+    layers = MODEL_CONFIGS[model].n_layers
+    counts = dict.fromkeys(REPLACES, 0)
+    runs = {}
+
+    def run(name, mode, **kwargs):
+        engine = tier_engine(model, params, **kwargs)
+        result = tier_run(torch, engine, mode)
+        for k in counts:
+            counts[k] += result["launches"][k]
+        int8 = bool(engine.config.kv_quant or engine.config.tier_spill_quant)
+        result["payload_bytes"] = payload_bytes(model, int8)
+        runs[name] = result
+        return engine
+
+    engine = run("hbm", "hbm", prefix_tiers=True, tier_spill_quant="")
+    ref = runs["hbm"]
+    check(ref["hist"][1:] == [384, 384] and ref["streams"][1] == ref["streams"][2],
+          f"the resident hits covered {ref['hist'][1:]} tokens or gave two streams")
+    events = replay_device_events(torch, engine, [300] * engine.config.max_batch)
+    check(events["device_events"] == DECODE_REPLAY_EVENTS,
+          f"one fed decode dispatch with the tiers on ran {events['device_events']} device "
+          f"events, not {DECODE_REPLAY_EVENTS}")
+    wait = spill_wait(torch, engine)
+    del engine
+    free_device(torch)
+    one_page = payload_bytes(model, int8=False)
+    for name, tier, kwargs in (
+            ("host", "host", dict(tier_spill_quant="", tier_host_bytes=2**31)),
+            ("disk", "disk", dict(tier_spill_quant="", tier_host_bytes=one_page + 1,
+                                  tier_disk_bytes=2**30)),
+            ("int8_spill", "host", dict(tier_host_bytes=2**31))):
+        engine = run(name, name, prefix_tiers=True, num_pages=TIER_POOL_PAGES, **kwargs)
+        del engine
+        free_device(torch)
+        check_tier_hit(runs[name], tier, 3, layers)
+    for name in ("host", "disk"):
+        check(runs[name]["streams"][1] == ref["streams"][1],
+              f"the hit restored from {name} gave another stream than the resident hit")
+    collision = runs["host"]["collision"]
+    check(collision["collisions"] == 1 and not collision["probe_after"]
+          and collision["hist"] == 0 and runs["host"]["streams"][2] == runs["host"]["streams"][0],
+          f"the planted collision was not a miss giving the cold stream: {collision}")
+    check(runs["disk"]["disk_write_errors"] >= 1, "the armed tier.disk.write error was not counted")
+    int8_match = sum(a == b for a, b in zip(runs["int8_spill"]["streams"][1], ref["streams"][1]))
+    ttft = {"cold": runs["host"]["ttft_ms"][0], "hbm": ref["ttft_ms"][2],
+            "host": runs["host"]["ttft_ms"][1], "disk": runs["disk"]["ttft_ms"][1],
+            "int8_spill": runs["int8_spill"]["ttft_ms"][1]}
+    bf16 = {"model": model, "layers": layers, "weights": "random (seed 0)",
+            "dtype": "bfloat16", "pool_pages": TIER_POOL_PAGES,
+            "prompt_tokens": ref["prompt_tokens"], "hit_tokens": 384,
+            "ttft_ms": ttft, "spill_wait": wait, "replay_device_events": events,
+            "rates": {name: tier_rates(runs[name], runs[name]["payload_bytes"])
+                      for name in ("host", "disk", "int8_spill")},
+            "int8_spill_tokens_matching": [int8_match, len(ref["streams"][1])],
+            "chunk_launches_on_restored_hit": {name: runs[name]["hit_chunk_launches"]
+                                               for name in ("host", "disk", "int8_spill")},
+            "pinned_host_bytes": {name: runs[name]["pinned_host_bytes"]
+                                  for name in ("host", "disk", "int8_spill")},
+            "peak_memory_bytes": {name: r["peak_memory_bytes"] for name, r in runs.items()},
+            "streams_equal_resident_hit": {"host": True, "disk": True},
+            "restored_equal_spilled": {"host": True, "disk": True},
+            "collision": collision, "disk_write_errors": runs["disk"]["disk_write_errors"],
+            "runs": {name: {k: v for k, v in r.items() if k not in RUN_DETAIL}
+                     for name, r in runs.items()}}
+    int8_runs = {}
+    for name, kwargs in (("hbm", {}), ("tiers", dict(num_pages=TIER_INT8_BUDGET))):
+        engine = tier_engine(model, params, prefix_tiers=True, kv_quant="int8", **kwargs)
+        int8_runs[name] = tier_run(torch, engine, "hbm" if name == "hbm" else "int8_pool")
+        for k in counts:
+            counts[k] += int8_runs[name]["launches"][k]
+        int8_runs[name]["pool_pages"] = engine.num_kv_pages
+        int8_runs[name]["payload_bytes"] = payload_bytes(model, int8=True)
+        del engine
+        free_device(torch)
+    q8 = int8_runs["tiers"]
+    check(q8["pool_pages"] == 15, f"the int8 tier pool has {q8['pool_pages']} pages")
+    check_tier_hit(q8, "host", 3, layers)
+    check(q8["hit_launches"]["paged_chunk_attention_tc_q8"] == layers,
+          "the restored hit on the int8 pool did not run row 2b once per layer")
+    check(q8["streams"][1] == int8_runs["hbm"]["streams"][1],
+          "the hit restored into the int8 pool gave another stream than the resident hit")
+    int8 = {"model": model, "layers": layers, "kv_quant": "int8",
+            "pool_pages": q8["pool_pages"], "hit_tokens": 384,
+            "ttft_ms": {"cold": q8["ttft_ms"][0], "hbm": int8_runs["hbm"]["ttft_ms"][2],
+                        "host": q8["ttft_ms"][1]},
+            "rates": tier_rates(q8, q8["payload_bytes"]),
+            "chunk_launches_on_restored_hit": q8["hit_chunk_launches"],
+            "pinned_host_bytes": q8["pinned_host_bytes"],
+            "peak_memory_bytes": {name: r["peak_memory_bytes"] for name, r in int8_runs.items()},
+            "restored_equal_spilled": True, "stream_equal_resident_hit": True,
+            "runs": {name: {k: v for k, v in r.items() if k not in RUN_DETAIL}
+                     for name, r in int8_runs.items()}}
+    del params
+    return counts, bf16, int8
+
+
+def tiny_tiers_phase(torch, dev, reference: list) -> tuple[dict, dict]:
+    """``engine_llama3_tiny_f32_tiers``: llama3-tiny in f32 (seed 0, the
+    weights of ``engine_llama3_tiny_f32``), the lossless spill on the
+    16-page pool: the request restored from host RAM gives exactly the
+    stream ``engine_llama3_tiny_f32`` gave it as a resident hit, its
+    restored pages equal the pages spilled, and the planted collision is a
+    miss that gives the cold stream."""
+    engine = tier_engine("llama3-tiny", None, dtype="float32", prefix_tiers=True,
+                         tier_spill_quant="", num_pages=TIER_POOL_PAGES)
+    run = tier_run(torch, engine, "host")
+    layers = engine.model_config.n_layers
+    del engine
+    check_tier_hit(run, "host", 3, layers)
+    check(run["streams"][1] == reference[1],
+          "the restored hit's stream differs from engine_llama3_tiny_f32's")
+    collision = run["collision"]
+    check(collision["collisions"] == 1 and collision["hist"] == 0
+          and run["streams"][2] == run["streams"][0],
+          f"the planted collision was not a miss giving the cold stream: {collision}")
+    stats = {"model": "llama3-tiny", "dtype": "float32", "pool_pages": TIER_POOL_PAGES,
+             "stream_equal_engine_llama3_tiny_f32": True, "restored_equal_spilled": True,
+             "ttft_ms": {"cold": run["ttft_ms"][0], "host": run["ttft_ms"][1]},
+             "rates": tier_rates(run, payload_bytes("llama3-tiny", int8=False)),
+             **{k: v for k, v in run.items()
+                if k not in RUN_DETAIL + ("ttft_ms", "spill_ms", "restore_ms")}}
+    return run["launches"], stats
 
 
 # --------------------------------------------------------------- checkpoints

@@ -42,6 +42,12 @@ stall the caller's event loop; tokens hop back with one
   sampling), all captured when the engine is built; inputs are staged in
   pinned host memory and uploaded without blocking, outputs read back
   behind an event. On the CPU the same dispatches run eagerly.
+- Spill tiers (``prefix_tiers``; ``kv/tiers.py``): an evicted prefix
+  page's bytes go to host RAM (page-locked on the card), then disk, then
+  an object store, instead of being lost; a later prompt that shares the
+  prefix restores them into a pool page at admission (fetch-on-miss) and
+  prefills only its suffix. The device side (``_read_page_payload``,
+  ``_upload_page``) is plain tensor ops on the pool, written in place.
 - There are no context-width buckets (the JAX engine's ``_ctx_bucket_for``
   and ``_hist_ctx_for``, which bounded XLA's static gather): the attention
   kernels walk only the pages each row uses.
@@ -100,9 +106,12 @@ from .decode_graphs import (BUDGETS, POSITIONS, SEQ_LENS, STOP_TBL_WIDTH, STOPS,
                             TEMPERATURE, TOKENS, TOP_K, TOP_P, V_TEMPERATURE,
                             V_TOKENS, V_TOP_K, V_TOP_P, DecodeBuffers,
                             DecodeGraphs, GraphKey)
-from .kv import PageAllocator, init_kv_state, kv_page_bytes, num_pages_for_budget
+from .kv import (PageAllocator, SpilledPage, TierClient, TieredPageStore,
+                 init_kv_state, kv_page_bytes, num_pages_for_budget)
+from .kv.fabric import object_store_or_none
 from .models import MODEL_CONFIGS, LlamaConfig
 from .models.llama import decode_step, init_params, prefill, prefill_with_history
+from .quantize import kv_dequantize, kv_quantize
 from .roofline import (H100_HBM_GBPS, H100_PEAK_BF16_TFLOPS, CostEntry,
                        CostRegistry, roofline_fractions, step_cost)
 from .sampling import SamplingParams, sample_tokens
@@ -132,6 +141,29 @@ class EngineConfig:
     # prefix cache: reuse resident KV pages for shared full-page prompt
     # prefixes; only each request's suffix pays prefill
     prefix_cache: bool = True
+    # tiered prefix cache (kv/tiers.py): evicted prefix pages SPILL to a
+    # bounded host-RAM store (page-locked on the card) with a disk write-
+    # behind tier below it (and an object store below that, with
+    # tier_object_url), and admission restores tier-resident chain pages
+    # into the pool on a match (fetch-on-miss). Requires prefix_cache.
+    prefix_tiers: bool = False
+    tier_host_bytes: int = 256 * 1024 * 1024   # T1 (host RAM) byte budget
+    tier_disk_bytes: int = 1024 * 1024 * 1024  # T2 (disk) byte budget; 0 = off
+    tier_disk_dir: str = ""                    # "" = a private temporary directory
+    # spill storage of a full-precision pool: "int8" (the default)
+    # quantizes on spill, one scale per (layer, KV head): restored pages
+    # carry the same small greedy drift as resident int8 KV; "" spills an
+    # f32 container, lossless for bf16 and f32 pools. An int8 pool always
+    # spills its bytes and scales as they are (a bit-exact round trip).
+    tier_spill_quant: str = "int8"
+    # disk and object I/O: transient errors retry this many times with
+    # jittered backoff, then the entry drops to a clean miss
+    tier_io_retry_max: int = 2
+    tier_io_retry_backoff_ms: float = 10.0
+    # the T3 object store below disk ("" = none; file://<dir> or
+    # gcs://<bucket>[/prefix]); the namespace qualifies every blob key
+    tier_object_url: str = ""
+    fabric_namespace: str = "shared"
     device: str = "cuda"
     seed: int = 0                   # random weights and the sampler
     # weight-only quantization: "" (full precision) or "int8" (quantize.py;
@@ -212,11 +244,10 @@ class EngineConfig:
     def from_settings(cls, settings) -> "EngineConfig":
         """The config from the gateway's ``tpu_local_*`` settings (duck-
         typed), with the JAX engine's fallbacks for absent fields. Settings
-        of what the port does not have (the mesh, sequence parallelism, KV
-        tiers, the cache fabric, warm-up modes, the compile cache) are not
-        read, and neither are the roofline peaks, whose settings describe
-        a TPU chip: the port keeps the H100's. ``device`` and ``seed`` keep
-        their defaults."""
+        of what the port does not have (the mesh, sequence parallelism,
+        warm-up modes, the compile cache) are not read, and neither are the
+        roofline peaks, whose settings describe a TPU chip: the port keeps
+        the H100's. ``device`` and ``seed`` keep their defaults."""
         return cls(
             model=settings.tpu_local_model,
             checkpoint=settings.tpu_local_checkpoint,
@@ -231,6 +262,15 @@ class EngineConfig:
             superstep=getattr(settings, "tpu_local_superstep", 1),
             decode_overlap=getattr(settings, "tpu_local_decode_overlap", True),
             prefix_cache=getattr(settings, "tpu_local_prefix_cache", True),
+            prefix_tiers=getattr(settings, "tpu_local_prefix_tiers", False),
+            tier_host_bytes=getattr(settings, "tpu_local_tier_host_bytes", 256 * 1024 * 1024),
+            tier_disk_bytes=getattr(settings, "tpu_local_tier_disk_bytes", 1024 * 1024 * 1024),
+            tier_disk_dir=getattr(settings, "tpu_local_tier_disk_dir", ""),
+            tier_spill_quant=getattr(settings, "tpu_local_tier_spill_quant", "int8"),
+            tier_io_retry_max=getattr(settings, "tier_io_retry_max", 2),
+            tier_io_retry_backoff_ms=getattr(settings, "tier_io_retry_backoff_ms", 10.0),
+            tier_object_url=getattr(settings, "tpu_local_tier_object_url", ""),
+            fabric_namespace=getattr(settings, "tpu_local_fabric_namespace", "shared"),
             spec_decode=getattr(settings, "tpu_local_spec_decode", False),
             spec_k=getattr(settings, "tpu_local_spec_k", 4),
             spec_ngram=getattr(settings, "tpu_local_spec_ngram", 2),
@@ -323,6 +363,16 @@ class EngineStats:
         self.phase_samples = 0        # decode dispatches with phase attribution
 
 
+def _spill_scale(pages: torch.Tensor) -> torch.Tensor:
+    """The f32 scale per (layer, KV head) of an int8 spill of one page
+    [L, page, KV, hd]: its max |value| / 127 as the JAX engine's jitted
+    ``_tier_read_fn`` computes it, where XLA folds the division by the
+    constant into a product by its f32 reciprocal (which differs from
+    ``kv_int8_scale``'s true division in the last bit for some maxima)."""
+    amax = pages.float().abs().amax(dim=(1, 3))
+    return amax * torch.full_like(amax, 1.0 / 127.0)
+
+
 def _resolve_device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -349,11 +399,15 @@ class TorchEngine:
     telemetry handles, duck-typed as the JAX engine's (``tracer.emit_span``,
     the ``llm_*`` metric families, ``signals.publish(name, value,
     replica)``, ``ledger.add(tenant, **counts)``); None costs one attribute
-    check per site."""
+    check per site.
+    ``tier_store`` and ``prefix_index``: a spill store and a prefix index
+    shared with other engines (a pool's); without them an engine with
+    ``prefix_tiers`` owns a private store, which ``stop`` closes."""
 
     def __init__(self, config: EngineConfig,
                  params: dict[str, Any] | None = None, tracer=None,
-                 metrics=None, signals=None, ledger=None):
+                 metrics=None, signals=None, ledger=None,
+                 tier_store: TieredPageStore | None = None, prefix_index=None):
         self.tracer = tracer
         self.metrics = metrics
         self.signals = signals
@@ -395,6 +449,34 @@ class TorchEngine:
             raise ValueError(
                 f"moe_impl must be dense|grouped|grouped_pallas, "
                 f"got {config.moe_impl!r}")
+        if config.prefix_tiers and not config.prefix_cache:
+            raise ValueError("prefix_tiers requires prefix_cache (the tiers "
+                             "spill and restore prefix-cache pages)")
+        if config.tier_spill_quant not in ("", "int8"):
+            raise ValueError(f"unsupported tier_spill_quant mode "
+                             f"{config.tier_spill_quant!r}")
+        # the tiered prefix cache: bind to a shared store and index when
+        # given, else own a private store. A client with only an index
+        # still publishes resident pages (a router's affinity).
+        self._owned_tier_store: TieredPageStore | None = None
+        self._tier_client: TierClient | None = None
+        if config.prefix_cache and (config.prefix_tiers or prefix_index is not None
+                                    or tier_store is not None):
+            store = tier_store
+            if store is None and config.prefix_tiers:
+                store = TieredPageStore(
+                    host_bytes=config.tier_host_bytes, disk_bytes=config.tier_disk_bytes,
+                    disk_dir=config.tier_disk_dir, index=prefix_index, metrics=metrics,
+                    device=self.device, io_retry_max=config.tier_io_retry_max,
+                    io_retry_backoff_ms=config.tier_io_retry_backoff_ms,
+                    object_store=object_store_or_none(config.tier_object_url),
+                    object_namespace=config.fabric_namespace)
+                self._owned_tier_store = store
+            self._tier_client = TierClient(config.replica_id, store=store,
+                                           index=prefix_index, metrics=metrics,
+                                           tracer=tracer)
+        # the tier hit counts already exported (dispatch thread)
+        self._tier_hits_exported: dict[str, int] = {}
         self.model_config: LlamaConfig = MODEL_CONFIGS[config.model]
         overrides: dict[str, Any] = {}
         if config.moe_impl:
@@ -483,6 +565,12 @@ class TorchEngine:
                                 max_pages_per_slot, dtype=self.dtype,
                                 device=self.device, quant=config.kv_quant)
         self.allocator = self._new_allocator()
+        if self._tier_client is not None and self._tier_client.store is not None:
+            self._tier_client.read_fn = self._read_page_payload
+            self._tier_client.write_fn = self._upload_page
+            # one spill and one restore of the trash page (zeros either
+            # way), so the first of each while serving is steady state
+            self._upload_page(0, self._read_page_payload(0))
         self._sample_gen = torch.Generator(device=self.device)
         self._sample_gen.manual_seed(config.seed + 1)
         # decode machinery (dispatch thread only after start)
@@ -519,7 +607,78 @@ class TorchEngine:
     def _new_allocator(self) -> PageAllocator:
         config = self.config
         return PageAllocator(self.num_kv_pages, config.page_size, config.max_batch,
-                             config.max_seq_len // config.page_size)
+                             config.max_seq_len // config.page_size,
+                             tiers=self._tier_client)
+
+    # ------------------------------------------------------- spill tier I/O
+
+    def _to_host(self, tensors: tuple[torch.Tensor, ...]) -> list[np.ndarray]:
+        """Copies of device tensors in host memory, as numpy arrays. On the
+        card each lands in a page-locked buffer by a non-blocking copy on
+        the dispatch thread's stream, behind every replay queued before
+        it, and the host waits on one event after the last copy: a page
+        leaves the pool before a later device call can give it a new
+        tenant, without draining the pipeline."""
+        cuda = self.device.type == "cuda"
+        out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda) for t in tensors]
+        for dst, src in zip(out, tensors):
+            dst.copy_(src, non_blocking=cuda)
+        self._wait_stream()
+        return [t.numpy() for t in out]
+
+    def _wait_stream(self) -> None:
+        """On the card, wait for the work queued so far on the dispatch
+        thread's stream (one event; other streams run on)."""
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+
+    def _read_page_payload(self, page: int) -> SpilledPage:
+        """Device -> host read of one prefix page for spilling, as the JAX
+        engine's ``_tier_read_fn``: an int8 pool's bytes and scales as they
+        are (a bit-exact round trip); with ``tier_spill_quant=""`` an f32
+        container (lossless for bf16 and f32 pools); else int8 quantized
+        on spill with one f32 scale per (layer, KV head) (``_spill_scale``)."""
+        kv = self.kv
+        with torch.inference_mode():
+            k, v = kv.k_pages[:, page], kv.v_pages[:, page]
+            if kv.quantized:
+                parts = (k, v, kv.k_scales[:, page].float(), kv.v_scales[:, page].float())
+            elif self.config.tier_spill_quant == "":
+                ones = torch.ones((k.shape[0], k.shape[2]), dtype=torch.float32,
+                                  device=self.device)
+                parts = (k.float(), v.float(), ones, ones)
+            else:
+                k_scales, v_scales = _spill_scale(k), _spill_scale(v)
+                parts = (kv_quantize(k, k_scales[:, None, :, None]),
+                         kv_quantize(v, v_scales[:, None, :, None]), k_scales, v_scales)
+            k, v, k_scales, v_scales = self._to_host(parts)
+        return SpilledPage(chunk=(), parent=b"", k=k, v=v, k_scales=k_scales,
+                           v_scales=v_scales)
+
+    def _upload_page(self, page: int, payload: SpilledPage) -> None:
+        """Host -> device upload of a restored page into this engine's
+        pool (fetch-on-miss, inside admission, after its drain barrier):
+        the inverse of ``_read_page_payload``, dequantizing an int8 spill
+        of a full-precision pool. Written IN PLACE: the decode graphs hold
+        the pool's addresses. On the card the host waits for the upload
+        (the payload may leave host memory once this returns)."""
+        cuda = self.device.type == "cuda"
+        kv = self.kv
+        k, v, k_scales, v_scales = (
+            torch.from_numpy(np.asarray(a)).to(self.device, non_blocking=cuda)
+            for a in (payload.k, payload.v, payload.k_scales, payload.v_scales))
+        with torch.inference_mode():
+            if kv.quantized:
+                kv.k_scales[:, page].copy_(k_scales)
+                kv.v_scales[:, page].copy_(v_scales)
+            elif self.config.tier_spill_quant == "int8":
+                k = kv_dequantize(k, k_scales[:, None, :, None], kv.k_pages.dtype)
+                v = kv_dequantize(v, v_scales[:, None, :, None], kv.v_pages.dtype)
+            kv.k_pages[:, page].copy_(k)
+            kv.v_pages[:, page].copy_(v)
+        self._wait_stream()
 
     # ------------------------------------------------------------- lifecycle
 
@@ -550,6 +709,33 @@ class TorchEngine:
                 logger.error("dispatch thread failed to stop within 30s")
                 return  # keep self._thread so start() refuses a double start
         self._thread = None
+        self._close_owned_tiers()
+
+    def spill_prefix_pages(self) -> int:
+        """Spill on drain: copy every ref==0 resident prefix page into the
+        spill store, so an engine rebuilt on the same store restores the
+        corpus on a miss instead of losing it with the pool. The dispatch
+        thread must be quiesced (``stop()`` returned): this reads device
+        pages from the calling thread."""
+        client = self._tier_client
+        if client is None or not client.active:
+            return 0
+        with torch.inference_mode():
+            spilled = self.allocator.spill_resident_prefix()
+        if spilled:
+            logger.info("torch engine: spilled %d resident prefix page(s) to the "
+                        "tier store before teardown", spilled)
+        return spilled
+
+    def _close_owned_tiers(self) -> None:
+        """Shut a standalone engine's private spill store (its write-behind
+        worker and temporary directory); a shared store is its owner's to
+        close."""
+        if self._owned_tier_store is not None:
+            self._owned_tier_store.close()
+            self._owned_tier_store = None
+            if self._tier_client is not None:
+                self._tier_client.store = None
 
     def kill(self) -> None:
         """Signal the dispatch thread to stop without joining it (a pool's
@@ -805,6 +991,11 @@ class TorchEngine:
                       kv.block_tables):
                 if t is not None:
                     t.zero_()
+        if self._tier_client is not None:
+            # every resident page is gone: stale HBM locations would
+            # mis-route, and the new allocator's hit counts start at zero
+            self._tier_client.drop_replica()
+        self._tier_hits_exported.clear()
         self.allocator = self._new_allocator()
         self._last_step_done_ts = None
         if self.device.type == "cuda":
@@ -1042,23 +1233,31 @@ class TorchEngine:
                         config.max_seq_len)
             slot = free_slots[len(admitted)]
             shared: list[int] = []
-            if request.hist:
-                hist, shared = self.allocator.match_prefix(request.prompt_ids)
-                if hist != request.hist:
-                    # the cache moved since the probe: re-probe later
+            # the spills and restores of this match and allocation are
+            # tier.spill / tier.restore spans in this request's trace
+            if self._tier_client is not None:
+                self._tier_client.trace_ctx = request.trace_ctx
+            try:
+                if request.hist:
+                    hist, shared = self.allocator.match_prefix(request.prompt_ids)
+                    if hist != request.hist:
+                        # the cache moved since the probe: re-probe later
+                        self.allocator.release_prefix(shared)
+                        request.bucket = -1
+                        self._pending.appendleft(request)
+                        continue
+                if not self.allocator.allocate_slot(slot, total,
+                                                    prefix_pages=shared):
+                    # page pressure: release the match and retry later
+                    if self.metrics is not None:
+                        self.metrics.llm_kv_alloc_failures.inc()
                     self.allocator.release_prefix(shared)
                     request.bucket = -1
                     self._pending.appendleft(request)
                     continue
-            if not self.allocator.allocate_slot(slot, total,
-                                                prefix_pages=shared):
-                # page pressure: release the match and retry later
-                if self.metrics is not None:
-                    self.metrics.llm_kv_alloc_failures.inc()
-                self.allocator.release_prefix(shared)
-                request.bucket = -1
-                self._pending.appendleft(request)
-                continue
+            finally:
+                if self._tier_client is not None:
+                    self._tier_client.trace_ctx = None
             if shared and self.ledger is not None:
                 # tokens served from shared prefix pages, counted where the
                 # match is consumed (the allocator's prefix_hit_tokens)
@@ -1900,6 +2099,8 @@ class TorchEngine:
                 m.llm_tokens_per_dispatch.labels(replica=rid).set(tokens)
                 if self._tpd_ewma is not None:
                     m.llm_tokens_per_dispatch_ewma.labels(replica=rid).set(self._tpd_ewma)
+            if self._tier_client is not None:
+                self._export_tier_metrics(m, rid)
         if kind in ("decode", "spec_decode"):
             self._publish_signals(tokens=tokens, depth=depth, mfu=mfu,
                                   hbm_frac=hbm_frac, gap_ms=gap_ms,
@@ -1932,6 +2133,41 @@ class TorchEngine:
         if now - self._signals_slow_ts >= 0.25:
             self._signals_slow_ts = now
             bus.publish("llm.idle_frac", self.device_idle_fraction(), rid)
+
+    def _export_tier_metrics(self, m, rid: str) -> None:
+        """The per-tier prefix families, with each step's gauges: hit
+        counts as deltas of the allocator's consume-site totals, bytes
+        resident in the pool and the store's host/disk/object footprint
+        (a shared store: every replica reports the same number)."""
+        alloc = self.allocator
+        for tier, count in alloc.tier_hits.items():
+            prev = self._tier_hits_exported.get(tier, 0)
+            if count > prev:
+                m.llm_prefix_tier_hits.labels(replica=rid, tier=tier).inc(count - prev)
+                self._tier_hits_exported[tier] = count
+        m.llm_prefix_tier_bytes.labels(replica=rid, tier="hbm").set(
+            alloc.cached_pages * self._kv_page_bytes)
+        store = self._tier_client.store
+        if store is not None:
+            s = store.stats()
+            m.llm_prefix_tier_bytes.labels(replica=rid, tier="host").set(s["host_bytes"])
+            m.llm_prefix_tier_bytes.labels(replica=rid, tier="disk").set(s["disk_bytes"])
+            if "object_bytes" in s:
+                m.llm_prefix_tier_bytes.labels(replica=rid, tier="object").set(
+                    s["object_bytes"])
+
+    def tier_stats(self) -> dict[str, Any] | None:
+        """The tiered prefix cache's snapshot: the per-tier hit split (at
+        the consume site: it sums to prefix_hit_tokens), spill and restore
+        counts with the restore p95, and the store's footprint per tier.
+        None when no tier client is wired."""
+        if self._tier_client is None:
+            return None
+        out = self._tier_client.stats()
+        out["enabled"] = self._tier_client.store is not None
+        out["hits"] = dict(self.allocator.tier_hits)
+        out["hit_tokens"] = dict(self.allocator.tier_hit_tokens)
+        return out
 
     def recent_steps(self, limit: int | None = None) -> list[dict[str, Any]]:
         """The last ``limit`` (all) step summaries, oldest first."""

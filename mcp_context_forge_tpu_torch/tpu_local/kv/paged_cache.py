@@ -35,6 +35,8 @@ import torch
 from ..models.configs import LlamaConfig
 from ..ops.kv_write import kv_quant_store_decode, kv_quant_store_span
 from ..quantize import KV_SCALE_EPS, kv_dequantize, kv_int8_scale, kv_quantize
+from .prefix_index import ROOT_HASH, chain_hash
+from .tiers import TIERS
 
 
 @dataclass
@@ -295,8 +297,14 @@ class PrefixEvictionPolicy:
         """The LRU-by-last-match page, or None when nothing is evictable."""
         return next(iter(self._order)) if self._order else None
 
+    def __contains__(self, page: int) -> bool:
+        return page in self._order
+
     def __len__(self) -> int:
         return len(self._order)
+
+    def __iter__(self):
+        return iter(self._order)
 
 
 class PageAllocator:
@@ -313,23 +321,40 @@ class PageAllocator:
     0 stay resident under the eviction policy until allocation pressure
     reclaims them. A matched page is immutable by construction — matches
     cover only positions strictly before the new prompt's last token, and
-    decode writes start at the prompt's end. (The JAX package's spill tiers
-    are not ported yet.)"""
+    decode writes start at the prompt's end.
+
+    Tiers (``tiers.py``, ``prefix_index.py``): with a
+    :class:`~.tiers.TierClient` wired (``tiers``), pages are also keyed by
+    their chain hash (``prefix_index.chain_hash``), eviction SPILLS a
+    reclaimed prefix page's bytes to the host/disk/object store instead
+    of dropping them, and ``probe_prefix``/``match_prefix`` walk on past
+    the resident chain by RESTORING tier-resident pages into freshly taken
+    pages (fetch-on-miss). Restored pages register into the local cache
+    and count toward ``prefix_hit_tokens`` where resident hits do, split
+    by source tier in ``tier_hits``/``tier_hit_tokens``. Without tiers the
+    walks stay hash-free: the default engine pays no sha256 per page."""
 
     def __init__(self, num_pages: int, page_size: int, max_slots: int,
-                 max_pages_per_slot: int):
+                 max_pages_per_slot: int, tiers=None):
         self.num_pages = num_pages
         self.page_size = page_size
         self.max_slots = max_slots
         self.max_pages_per_slot = max_pages_per_slot
+        self.tiers = tiers                              # TierClient | None
         self._free = list(range(num_pages - 1, 0, -1))  # page 0 reserved
         self._slots: dict[int, list[int]] = {}
         self._ref: dict[int, int] = {}                  # page -> live refs
         self._cached: dict[tuple, int] = {}             # chain key -> page
         self._page_key: dict[int, tuple] = {}           # page -> chain key
+        self._page_hash: dict[int, tuple[bytes, bytes]] = {}  # page -> (hash, parent)
         self._lru = PrefixEvictionPolicy()              # ref==0 resident pages
+        # the source tier of a restored page until a successful allocate
+        # consumes the hit: the per-tier split of prefix_hit_tokens
+        self._restored_tier: dict[int, str] = {}
         self.prefix_hits = 0
         self.prefix_hit_tokens = 0
+        self.tier_hits = dict.fromkeys(TIERS, 0)
+        self.tier_hit_tokens = dict.fromkeys(TIERS, 0)
         self.peak_pages_in_use = 0
         # rows whose page list changed since tables() was last read: steady
         # decode leaves this empty and the engine skips the table upload
@@ -374,7 +399,8 @@ class PageAllocator:
 
     def _take_page(self) -> int:
         """A writable page: prefer truly free, else reclaim the eviction
-        policy's victim (dropping its prefix-cache registration)."""
+        policy's victim (dropping its prefix-cache registration). With
+        tiers wired the victim's bytes SPILL on the way out."""
         if self._free:
             return self._free.pop()
         page = self._lru.victim()
@@ -384,7 +410,24 @@ class PageAllocator:
         key = self._page_key.pop(page, None)
         if key is not None and self._cached.get(key) == page:
             del self._cached[key]
+            self._evict_page(page, key)
+        self._page_hash.pop(page, None)
+        self._restored_tier.pop(page, None)
         return page
+
+    def _evict_page(self, page: int, key: tuple) -> None:
+        """Spill instead of drop: hand the evicted page's bytes to the
+        tier store (the device read runs on the calling dispatch thread,
+        before the page's new tenant can write it) and move its index
+        residency from HBM to the tier."""
+        tiers = self.tiers
+        if tiers is None:
+            return
+        hashed = self._page_hash.get(page)
+        if hashed is not None:
+            key_hash, parent = hashed
+            tiers.spill(key_hash, parent, key[1], page)
+            tiers.unpublish_hbm(key_hash)
 
     def _release_page(self, page: int) -> None:
         current = self._ref.get(page, 1)
@@ -413,6 +456,18 @@ class PageAllocator:
                                          (i + 1) * self.page_size]))
             yield key
 
+    def _chain_steps(self, prompt_ids: list[int], full: bool = False):
+        """``(key, key_hash, parent_hash, chunk)`` per page of the
+        ``_chain_keys`` walk: the hashes are ``prefix_index.chain_hash``,
+        the one chain identity the allocator, the tier store and a pool
+        index share."""
+        parent = ROOT_HASH
+        for key in self._chain_keys(prompt_ids, full):
+            chunk = key[1]
+            key_hash = chain_hash(parent, chunk)
+            yield key, key_hash, parent, chunk
+            parent = key_hash
+
     def _walk_prefix(self, prompt_ids: list[int]) -> list[int]:
         """Pages of the longest cached full-page prefix."""
         pages: list[int] = []
@@ -424,17 +479,73 @@ class PageAllocator:
         return pages
 
     def probe_prefix(self, prompt_ids: list[int]) -> int:
-        """Read-only: tokens a match WOULD cover. Takes no references."""
-        return len(self._walk_prefix(prompt_ids)) * self.page_size
+        """Read-only: tokens a match WOULD cover. Takes no references. With
+        tiers wired the walk continues past the resident chain through
+        tier-resident pages, capped at the restore capacity (free plus
+        evictable pages): a probe must never promise a history the match
+        cannot restore, or admission would re-probe the same prompt
+        forever."""
+        if self.tiers is None or not self.tiers.active:
+            return len(self._walk_prefix(prompt_ids)) * self.page_size
+        n = 0
+        restorable = self.free_pages
+        for key, key_hash, _parent, _chunk in self._chain_steps(prompt_ids):
+            page = self._cached.get(key)
+            if page is not None:
+                if page in self._lru:
+                    # matching pins a ref==0 resident page, which takes one
+                    # unit of the capacity restores draw from
+                    restorable -= 1
+                n += 1
+            elif restorable > 0 and self.tiers.probe(key_hash):
+                n += 1
+                restorable -= 1
+            else:
+                break
+        return n * self.page_size
 
     def match_prefix(self, prompt_ids: list[int]) -> tuple[int, list[int]]:
         """Longest cached full-page prefix of ``prompt_ids``: returns
         (n_tokens_matched, pages) and takes a REFERENCE on every matched
-        page (the caller assigns them to a slot or calls release_prefix)."""
-        pages = self._walk_prefix(prompt_ids)
-        for page in pages:
-            self._ref[page] = self._ref.get(page, 0) + 1
-            self._lru.pop(page, None)
+        page (the caller assigns them to a slot or calls release_prefix).
+        With tiers wired, chain pages missing from the pool but held by
+        the store are RESTORED here (fetch-on-miss): a page is taken
+        (evicting, and so spilling, colder pages if need be), the verified
+        payload is written into it, and it registers into the local cache.
+        A failed restore (payload gone, a hash collision, no page) ends the
+        match at the pages already secured."""
+        if self.tiers is None:  # the hash-free walk of the tier-less default
+            pages = self._walk_prefix(prompt_ids)
+            for page in pages:
+                self._ref[page] = self._ref.get(page, 0) + 1
+                self._lru.pop(page, None)
+            self._track_peak()
+            return len(pages) * self.page_size, pages
+        tiered = self.tiers.active
+        pages: list[int] = []
+        for key, key_hash, parent, chunk in self._chain_steps(prompt_ids):
+            page = self._cached.get(key)
+            if page is not None:
+                self._ref[page] = self._ref.get(page, 0) + 1
+                self._lru.pop(page, None)
+                pages.append(page)
+                continue
+            if not tiered or not (self._free or len(self._lru)):
+                break
+            if not self.tiers.probe(key_hash):
+                break
+            page = self._take_page()
+            tier = self.tiers.restore(key_hash, parent, chunk, page)
+            if tier is None:
+                self._free.append(page)   # a miss or a collision: hand it back
+                break
+            self._ref[page] = 1
+            self._cached[key] = page
+            self._page_key[page] = key
+            self._page_hash[page] = (key_hash, parent)
+            self._restored_tier[page] = tier
+            self.tiers.publish_hbm(key_hash)
+            pages.append(page)
         self._track_peak()
         return len(pages) * self.page_size, pages
 
@@ -443,18 +554,66 @@ class PageAllocator:
         for page in reversed(pages):
             self._release_page(page)
 
+    def spill_resident_prefix(self) -> int:
+        """Spill on drain: push every ref==0 registered prefix page through
+        the tier spill path before this pool is torn down, so a rebuilt
+        engine (or a pool sibling) restores the prefix corpus on a miss
+        instead of prefilling it again. Pages in use are untouched, and
+        the spilled pages stay resident (a copy, not an eviction). Returns
+        the pages now in the store (chains already spilled count)."""
+        tiers = self.tiers
+        if tiers is None or not tiers.active:
+            return 0
+        spilled = 0
+        for page in list(self._lru):
+            key = self._page_key.get(page)
+            hashed = self._page_hash.get(page)
+            if key is None or hashed is None:
+                continue
+            key_hash, parent = hashed
+            if tiers.spill(key_hash, parent, key[1], page):
+                spilled += 1
+        return spilled
+
+    def spill_chain(self, prompt_ids: list[int]) -> int:
+        """Copy one prompt's registered chain pages (every full page: what
+        a continuation of the prompt can match) into the tier store, the
+        seam of a prefill -> decode migration. The pages stay resident and
+        referenced. Dispatch thread only (device reads). Returns the pages
+        now in the store."""
+        tiers = self.tiers
+        if tiers is None or not tiers.active:
+            return 0
+        spilled = 0
+        for key, key_hash, parent, chunk in self._chain_steps(prompt_ids, full=True):
+            page = self._cached.get(key)
+            if page is None:
+                break  # an unregistered depth: nothing deeper can verify
+            if tiers.spill(key_hash, parent, chunk, page):
+                spilled += 1
+        return spilled
+
     def register_prefix(self, slot: int, prompt_ids: list[int]) -> None:
-        """Register the slot's full prompt pages for future reuse. First
-        registration of a chain key wins; later identical pages stay
+        """Register the slot's full prompt pages for future reuse (with
+        tiers, under their chain hashes too, published as resident here).
+        First registration of a chain key wins; later identical pages stay
         private and simply free when their slot does."""
         pages = self._slots.get(slot, [])
-        for i, key in enumerate(self._chain_keys(prompt_ids, full=True)):
+        if self.tiers is None:
+            steps = ((key, None, None, None)
+                     for key in self._chain_keys(prompt_ids, full=True))
+        else:
+            steps = self._chain_steps(prompt_ids, full=True)
+        for i, (key, key_hash, parent, _chunk) in enumerate(steps):
             if i >= len(pages):
                 break
             page = pages[i]
             if key not in self._cached and page not in self._page_key:
                 self._cached[key] = page
                 self._page_key[page] = key
+                if key_hash is not None:
+                    self._page_hash[page] = (key_hash, parent)
+                    self.tiers.publish_hbm(key_hash)
 
     # -------------------------------------------------------------- slot pages
 
@@ -471,6 +630,12 @@ class PageAllocator:
         if shared:  # hits are counted when the match is CONSUMED
             self.prefix_hits += 1
             self.prefix_hit_tokens += len(shared) * self.page_size
+            for page in shared:
+                # the same consume event, split by tier: a restored page
+                # carries its source tier until first consumed
+                tier = self._restored_tier.pop(page, "hbm")
+                self.tier_hits[tier] += 1
+                self.tier_hit_tokens[tier] += self.page_size
         pages = list(shared)
         for _ in range(fresh):
             page = self._take_page()

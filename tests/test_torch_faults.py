@@ -185,12 +185,15 @@ def _dispatch_fault(engine, module, rule: dict):
             await engine.submit(queued)
             victim_tokens = [first] + await drain(victim)
             queued_tokens = await drain(queued)
+            # the rule stays armed until the queued request ends: its
+            # admission and decode iterations all pass the point
+            fired = plane.snapshot()["rules"][0]["fired"]
+            plane.disarm(rule["point"])
             after = [t async for t in engine.generate(ids, max_tokens=6)]
             return {"before": before, "victim": victim.finish_reason,
                     "victim_prefix_ok": victim_tokens[:len(before)] == before[:len(victim_tokens)],
                     "queued": (queued.finish_reason, queued_tokens == before),
-                    "after": after == before,
-                    "fired": plane.snapshot()["rules"][0]["fired"],
+                    "after": after == before, "fired": fired,
                     "alive": engine.dispatch_alive()}
         finally:
             await engine.stop()
@@ -214,9 +217,12 @@ def test_dispatch_error_restarts_alike(pair):
 
 
 def test_dispatch_latency_is_a_slow_replica(pair):
-    """A latency fault (every iteration for 0.3 s) slows the port's
-    dispatch loop without changing a stream or restarting it."""
-    rule = dict(point="engine.dispatch", kind="latency", mode="window", window_s=0.3,
+    """A latency fault on every iteration, armed once the victim streams
+    and disarmed once the request queued behind it ends, slows the port's
+    dispatch loop without changing a stream or restarting it. (The number
+    of firings depends on the iterations, not on the CPU's speed: the
+    queued request alone needs its admission and five decode steps.)"""
+    rule = dict(point="engine.dispatch", kind="latency", mode="always",
                 latency_ms=20.0, scope="0")
     out = _dispatch_fault(pair[1], port_faults, rule)
     assert out["victim"] == "length" and out["queued"] == ("length", True)

@@ -58,6 +58,10 @@ def test_kernel_modules_import_without_toolchain():
         "import mcp_context_forge_tpu_torch.tpu_local.parallel.moe\n"
         "import mcp_context_forge_tpu_torch.tpu_local.quantize\n"
         "import mcp_context_forge_tpu_torch.tpu_local.kv.paged_cache\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.kv.prefix_index\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.kv.tiers\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.kv.fabric.index\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.kv.fabric.object_store\n"
         "import mcp_context_forge_tpu_torch.tpu_local.models.llama\n"
         "import mcp_context_forge_tpu_torch.tpu_local.engine\n"
         "import mcp_context_forge_tpu_torch.tpu_local.roofline\n"
