@@ -214,6 +214,38 @@ restored hit (row 2b) gives the resident hit's stream.
 ``engine_llama3_tiny_f32_tiers``: llama3-tiny in f32, the lossless spill:
 the restored hit's stream equals ``engine_llama3_tiny_f32``'s.
 
+The replica pool (two phases, ``pool_phase``): an ``EnginePool`` of two
+replicas on the one card, each with its own weights (seed 0), 256-page
+pool and decode graphs, one shared host store (1 GiB, the lossless spill),
+the health monitor at 0.1 s with a 3 s heartbeat bar. In order: parity
+(``engine``'s six requests through ``TorchLocalProvider.chat`` over the
+pool, then ``EnginePool.generate``: streams equal the engine phase's
+wherever a request hit as many cached tokens, in bf16 only where its
+prefill call also had the same bucket and rows, both replicas routed, the
+system-prompt repeat an affinity hit of 384 tokens); failover
+(``fail_replica`` after four tokens of a 32-token request: 32 tokens, the
+delivered prefix the engine phase's, one requeue, a ``pool.requeue``
+span; the gap printed); the dead replica reloaded while the survivor
+serves six 160-token requests (the survivor retires decode steps during
+the capture, every stream whole), then its decode dispatch blocked
+host-side until the health monitor fails it over (detection seconds);
+spill on drain (the survivor's reload spills >= 3 pages; rebuilt, it
+serves the system-prompt repeat from ``host``, 384 tokens, with the
+resident hit's stream); aggregate decode tokens/s (eight 128-token
+requests on one replica, sixteen on both); disaggregation (replica 0
+``prefill``, 1 ``decode``: a 454-token request whose system prompt no
+cache holds migrates 3 lossless pages, its first token the cold run's and
+the rest the resident hit's of its continuation on one engine
+(``standalone_reference``), the chunk kernel once per layer and no flash
+on the decode leg; then ``pool.migrate`` armed ``corrupt`` degrades in
+place); capacity loss (``requeue_max`` 0: the provider raises
+``LLMUnavailable``). Every engine the pool built shows no serving-stage
+build or capture. ``engine_llama3_tiny_f32_pool`` (f32: the failover
+stream equal in full) adds one migration on int8 pages whose restored
+chain pages equal the exported ones bit for bit (rows 2b, 3b, w, ws);
+``engine_llama3_8b_pool`` (llama3-8b, bf16) also holds one fed decode
+dispatch of each replica to ``DECODE_REPLAY_EVENTS``.
+
 Then the card line, the kernel table (JSON), and last the contract line.
 Any failure raises: the exit code is non-zero and the last line is absent.
 Exits 1 at once when CUDA is not available.
@@ -230,7 +262,9 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import weakref
 from pathlib import Path
 
 TOL = 2e-2
@@ -476,6 +510,7 @@ def main() -> int:
     count(counts)
     free_device(torch)
     k1_tokens = stats["generated"]
+    tiny_reference = stats
     counts, stats = engine_phase(torch, dev, "llama3-tiny", ATTENTION_MMA,
                                  chat_requests("llama3-tiny"), hit=1,
                                  absent=TC_ATTENTION, dtype="float32", superstep=8)
@@ -515,6 +550,13 @@ def main() -> int:
     emit({"phase": "engine_llama3_tiny_f32_tiers", **stats})
     count(counts)
     free_device(torch)
+    counts, stats = pool_phase(torch, dev, "llama3-tiny", "float32", tiny_reference,
+                               ATTENTION_MMA, TC_ATTENTION + INT8_WRITERS)
+    count(counts)
+    counts, stats["int8_migration"] = int8_pool_migration(torch, dev)
+    emit({"phase": "engine_llama3_tiny_f32_pool", **stats})
+    count(counts)
+    free_device(torch)
     counts, stats = restart_phase(torch, dev)
     emit({"phase": "engine_restart", **stats})
     count(counts)
@@ -529,6 +571,7 @@ def main() -> int:
     emit({"phase": "engine", **stats})
     count(counts)
     free_device(torch)
+    engine_reference = stats
     engine_tokens = stats["generated"]
     counts, stats = ops_phase(torch, dev, engine_tokens, stats["prompt_tokens"])
     emit({"phase": "engine_llama3_8b_ops", **stats})
@@ -553,6 +596,16 @@ def main() -> int:
     counts, bf16_tiers, int8_tiers = tiers_phase(torch, dev)
     emit({"phase": "engine_llama3_8b_tiers", **bf16_tiers})
     emit({"phase": "engine_llama3_8b_int8_kv_tiers", **int8_tiers})
+    count(counts)
+    free_device(torch)
+    counts, stats = pool_phase(torch, dev, "llama3-8b", "bfloat16", engine_reference, ATTENTION,
+                               NOT_BF16 + INT8_WRITERS + ("paged_chunk_attention_tc_q8",
+                                                          "paged_decode_attention_q8"))
+    for events in stats["replay_device_events"]:
+        check(events["device_events"] == DECODE_REPLAY_EVENTS,
+              f"one fed decode dispatch of a replica ran {events['device_events']} device "
+              f"events, not {DECODE_REPLAY_EVENTS}")
+    emit({"phase": "engine_llama3_8b_pool", **stats})
     count(counts)
     free_device(torch)
     # checkpoints written here in HF layout, served from disk
@@ -2563,6 +2616,8 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         "buckets": [r.bucket for r in served],
         "chunked": [r.chunked for r in served],
         "prefix_hit_tokens": [r.hist for r in served],
+        # rows of each request's prefill call (a call's rows share its wall)
+        "prefill_group": [sum(o.prefill_ms == r.prefill_ms for o in served) for r in served],
         "finish_reasons": [r.finish_reason for r in served],
         "completion_tokens": [len(r.generated) for r in served],
         "ttft_ms": ttft, "ttft_p50_ms": statistics.median(ttft),
@@ -2664,7 +2719,11 @@ def replay_device_events(torch, engine, lens: list[int]) -> dict:
     it, the replay, the output read back), under ``torch.profiler`` (CUDA
     activity), after one unprofiled replay: every device event (kernels
     and copies: what ``profile_torch_engine.py`` counts per replay) and the
-    copies among them."""
+    copies among them. A session can miss its leading device events (on an
+    H100 a later session of a process counted 2761 of 2762, its first
+    copies lost, even behind a spinning kernel), so a fed dispatch runs
+    first, uncounted, then a spinning kernel marks the start of the one
+    counted: the device events after the marker."""
     from torch.profiler import ProfilerActivity, profile
 
     with staged_replays(torch, engine, lens, 1) as (stage, launch):
@@ -2672,18 +2731,23 @@ def replay_device_events(torch, engine, lens: list[int]) -> dict:
         previous = launch()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # a spinning kernel first, alone, and not counted: a session
-            # can miss its first device events (on an H100 a later session
-            # of a process counted 2761, its leading copies lost)
             torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
             stage()
-            handle = launch(feed=previous)
+            first = launch(feed=previous)
+            engine._graphs.fetch(previous)
+            engine._graphs.fetch(first)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)   # the marker
+            torch.cuda.synchronize()
+            stage()
+            handle = launch(feed=first)
             engine._graphs.fetch(handle)
             torch.cuda.synchronize()
-        engine._graphs.fetch(previous)
-    events = [e.name for e in prof.events()
-              if e.device_type.name == "CUDA" and "spin_kernel" not in e.name]
+    device = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                    key=lambda e: e.time_range.start)
+    marker = max(i for i, e in enumerate(device) if "spin_kernel" in e.name)
+    events = [e.name for e in device[marker + 1:]]
     return {"device_events": len(events),
             "copies": sum(name.lower().startswith(("memcpy", "memset")) for name in events)}
 
@@ -2935,7 +2999,7 @@ class Admission:
         auth = resolve_header(self.settings, header)
         auth.require("llm.chat")
         tenant = resolve_tenant(auth)
-        state = compute_queue_state(self.engine)
+        state = compute_queue_state(None, self.engine)
         verdict = await (shedder or self.shedder).decide_admission(
             state["saturation"], tenant, est_tokens=float(request["max_tokens"]))
         return tenant, verdict
@@ -3813,6 +3877,634 @@ def tiny_tiers_phase(torch, dev, reference: list) -> tuple[dict, dict]:
              **{k: v for k, v in run.items()
                 if k not in RUN_DETAIL + ("ttft_ms", "spill_ms", "restore_ms")}}
     return run["launches"], stats
+
+
+# ------------------------------------------------------------- replica pool
+
+POOL_PAGES = 256
+POOL_HOST_BYTES = 2**30       # 31 lossless llama3-8b pages of 33,556,480 B
+POOL_HEARTBEAT_S = 3.0
+POOL_TOKENS = 32
+# the migrated request's system prompt: as long as SYSTEM (three full pages
+# and a tail), sharing no page with it, so no cache holds it before the hop
+MIGRATE_SYSTEM = ("You route tool calls for an MCP gateway. Answer with the tools this "
+                  "conversation lists and keep to their JSON schemas. Say which server "
+                  "served every call. Be brief and plain. Do not make up tools, servers "
+                  "or results. If a call fails, name the tool and the reason, then stop. "
+                  "Before a call that writes, deletes or sends data, ask first. "
+                  "Between two tools that can answer, pick the read-only one.")
+
+
+def pool_config(model: str, dtype: str, **kwargs):
+    """A replica's config: ``engine_phase``'s shapes on a 256-page pool,
+    ``prefix_tiers`` on with the lossless spill into one shared host store
+    of 1 GiB (no disk)."""
+    from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig
+
+    config = dict(model=model, dtype=dtype, device="cuda", max_batch=8, max_seq_len=2048,
+                  page_size=128, num_pages=POOL_PAGES, prefill_buckets=(128, 512, 2048),
+                  prefill_max_batch=4, seed=0, prefix_tiers=True, tier_spill_quant="",
+                  tier_host_bytes=POOL_HOST_BYTES, tier_disk_bytes=0)
+    return EngineConfig(**{**config, **kwargs})
+
+
+class PoolRecorder:
+    """What a pool's factory built (each engine, weakly, with its build
+    seconds and a sibling's decode steps retired meanwhile) and what
+    reached each engine (every shadow, in order). ``on_submit`` hooks see
+    each shadow as it is submitted. ``serving_events()`` reads every
+    engine's serving-stage builds and captures: a replaced engine's when
+    the next one is built, the others' at the call."""
+
+    def __init__(self):
+        self.engines: list = []            # weak references
+        self.retired_serving: list[int] = []
+        self.builds: list[dict] = []
+        self.shadows: list[tuple[str, object]] = []
+        self.on_submit: list = []
+        self.watch = None   # a replica whose decode steps a build reports
+
+    def factory(self, cfg, tracer, metrics, ledger=None, tier_store=None, prefix_index=None):
+        from mcp_context_forge_tpu_torch.tpu_local.engine import TorchEngine
+
+        watched = self.watch.engine.stats.decode_steps if self.watch is not None else None
+        for ref in self.engines:
+            old = ref()
+            if old is not None and old.config.replica_id == cfg.replica_id:
+                self.retired_serving.append(old.compile_stats()["serving"]["count"])
+        t0 = time.monotonic()
+        engine = TorchEngine(cfg, tracer=tracer, metrics=metrics, ledger=ledger,
+                             tier_store=tier_store, prefix_index=prefix_index)
+        build = {"replica": cfg.replica_id, "seconds": time.monotonic() - t0}
+        if watched is not None:
+            build["sibling_decode_steps_during_build"] = (
+                self.watch.engine.stats.decode_steps - watched)
+        self.builds.append(build)
+        self.engines.append(weakref.ref(engine))
+        engine_ref = weakref.ref(engine)   # no cycle through the recorder
+
+        async def recording_submit(shadow):
+            self.shadows.append((cfg.replica_id, shadow))
+            for hook in self.on_submit:
+                hook(cfg.replica_id, shadow)
+            return await TorchEngine.submit(engine_ref(), shadow)
+
+        engine.submit = recording_submit
+        return engine
+
+    def serving_events(self, replicas) -> list[int]:
+        return self.retired_serving + [r.engine.compile_stats()["serving"]["count"]
+                                       for r in replicas]
+
+    def shadow(self, request_id: str):
+        return next(s for _, s in self.shadows if s.request_id == request_id)
+
+    def replica_of(self, request_id: str) -> str:
+        return next(rid for rid, s in self.shadows if s.request_id == request_id)
+
+
+async def timed_stream(request) -> list[tuple[int, float]]:
+    out = []
+    while (token := await asyncio.wait_for(request.stream.get(), 300)) is not None:
+        out.append((token, time.monotonic()))
+    return out
+
+
+def standalone_reference(torch, model: str, dtype: str, ids: list[int]) -> dict:
+    """One engine (the replicas' config and weights, no tiers): ``ids`` cold,
+    then the continuation (``ids`` and the first token) as a resident prefix
+    hit: what a migrated stream must give."""
+    from mcp_context_forge_tpu_torch.tpu_local.engine import GenRequest, TorchEngine
+
+    engine = TorchEngine(pool_config(model, dtype, prefix_tiers=False))
+
+    async def run():
+        await engine.start()
+        try:
+            out = []
+            for rid, prompt, n in (("cold", ids, POOL_TOKENS), ("hit", None, POOL_TOKENS - 1)):
+                prompt = prompt or ids + out[0][0][:1]
+                request = GenRequest(request_id=rid, prompt_ids=prompt, max_tokens=n)
+                await engine.submit(request)
+                out.append(([t for t, _ in await timed_stream(request)], request.hist))
+            return out
+        finally:
+            await engine.stop()
+
+    (cold, cold_hist), (hit, hit_hist) = asyncio.run(run())
+    check(cold_hist == 0 and hit_hist == (len(ids) + 1) // 128 * 128,
+          f"the standalone reference ran {cold_hist} / {hit_hist} cached tokens")
+    del engine
+    free_device(torch)
+    return {"cold": cold, "hit": hit, "hit_tokens": hit_hist}
+
+
+def pool_phase(torch, dev, model: str, dtype: str, reference: dict, kernels: tuple,
+               absent: tuple) -> tuple[dict, dict]:
+    """``engine_llama3_8b_pool`` / ``engine_llama3_tiny_f32_pool``: an
+    ``EnginePool`` of two replicas of ``model`` at full width and depth on
+    the one card (each its own weights, drawn from seed 0, its 256-page
+    pool and its graphs; one shared host store, the lossless spill; the
+    health monitor at 0.1 s with a 3 s heartbeat bar), driven through the
+    steps below. ``reference``: the engine phase's stats of the same model
+    (its streams, the hit of each request). Every kernel count is reset
+    just before step 1 and read after step 6; each of ``kernels`` must have
+    launched, none of ``absent``. No kernel library is built and no graph
+    captured on a dispatch thread, on any engine the pool built.
+
+    1. Parity: ``engine``'s six requests through ``TorchLocalProvider.chat``
+       over the pool (the first alone until its first token), then through
+       ``EnginePool.generate``. Where a request hit as many cached tokens as
+       in the engine phase (in bf16: and its prefill call had the same
+       bucket and rows), its stream must equal that phase's; both
+       replicas are routed; the system-prompt repeat is an affinity hit on
+       the replica holding its 384 tokens.
+    2. Failover: ``fail_replica`` on the serving replica after four tokens
+       of a 32-token request: 32 tokens, the delivered prefix equal to the
+       engine phase's, one requeue and a ``pool.requeue`` span; in f32 the
+       whole stream equal. The gap around the hop is printed.
+    3. Recovery under load: the dead replica reloads while the survivor
+       serves six requests of 160 tokens (its decode steps advance during
+       the build); every stream whole, the rebuilt replica ready. Then its
+       decode dispatch blocks host-side: the health monitor fails it over
+       (the detection seconds printed), and both requests sent finish.
+    4. Spill on drain: the dead replica reloads, then the survivor reloads,
+       spilling its resident prefix pages (>= 3); the rebuilt replica then
+       serves the system-prompt repeat from the host tier (384 tokens) with
+       the resident hit's stream. Aggregate decode tokens/s: eight
+       128-token requests on one replica, then sixteen on both.
+    5. Disaggregation: replica 0 ``prefill``, 1 ``decode``; a request whose
+       system prompt no cache holds migrates: ok, 3 pages spilled and 3
+       restored, 3 lossless payloads of bytes moved, its first token the
+       cold run's and the rest the resident hit's of its continuation
+       (``standalone_reference``), the chunk kernel once per layer and no
+       flash on the decode leg. Then ``pool.migrate`` armed ``corrupt``:
+       the hop degrades in place and the stream is whole.
+    6. Capacity loss: with ``requeue_max`` 0 a killed replica's request ends
+       "unavailable" and the provider raises ``LLMUnavailable``."""
+    from mcp_context_forge_tpu_torch.observability import faults
+    from mcp_context_forge_tpu_torch.observability.tracing import Tracer
+    from mcp_context_forge_tpu_torch.tpu_local.engine import GenRequest
+    from mcp_context_forge_tpu_torch.tpu_local.pool import EnginePool
+    from mcp_context_forge_tpu_torch.tpu_local.provider import LLMUnavailable
+    from mcp_context_forge_tpu_torch.tpu_local.tokenizer import load_tokenizer, render_chat
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+    from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
+
+    cfg = MODEL_CONFIGS[model]
+    layers = cfg.n_layers
+    exact = dtype == "float32"
+    tok = load_tokenizer(vocab_size=cfg.vocab_size)
+    requests = chat_requests(model)
+    ids = [tok.encode(render_chat(r["messages"])) for r in requests]
+    check([len(i) for i in ids] == reference["prompt_tokens"],
+          "the pool's prompts are not the engine phase's")
+    migrate_ids = tok.encode(render_chat(chat(model, "Which servers answered today?",
+                                              MIGRATE_SYSTEM)["messages"]))
+    corrupt_ids = tok.encode(render_chat(chat(model, "List the failed calls.",
+                                              MIGRATE_SYSTEM)["messages"]))
+    check(migrate_ids[:128] != ids[0][:128] and len(migrate_ids) // 128 == 3,
+          "the migrated prompt shares a page with SYSTEM or is not three pages")
+    standalone = standalone_reference(torch, model, dtype, migrate_ids)
+    ref_streams, ref_hist = reference["generated"], reference["prefix_hit_tokens"]
+
+    wrappers = kernel_wrappers()
+    tracer = Tracer(exporter="memory")
+    rec = PoolRecorder()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    pool = EnginePool(pool_config(model, dtype), replicas=2, tracer=tracer,
+                      health_interval_s=0.1, heartbeat_timeout_s=POOL_HEARTBEAT_S,
+                      engine_factory=rec.factory)
+    torch.cuda.synchronize()
+    out: dict = {"model": model, "layers": layers, "dtype": dtype, "replicas": 2,
+                 "pool_pages": POOL_PAGES, "weights": "random (seed 0), one tree per replica",
+                 "pool_build_s": time.monotonic() - t0,
+                 "build_peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    provider = TorchLocalProvider("tpu_local", pool)
+    payload = payload_bytes(model, int8=False)
+
+    async def generate(prompt, n=POOL_TOKENS, rid=None, **fields):
+        request = GenRequest(request_id=rid or f"g{len(rec.shadows)}", prompt_ids=list(prompt),
+                             max_tokens=n, **fields)
+        await pool.submit(request)
+        stream = await timed_stream(request)
+        return request, [t for t, _ in stream], [ts for _, ts in stream]
+
+    def span_of(name, trace_ctx):
+        return [s for s in tracer.finished
+                if s.name == name and s.trace_id == trace_ctx[0]]
+
+    async def parity() -> dict:
+        seen = []
+        submit = pool.submit
+
+        async def recording(request):
+            seen.append(request)
+            return await submit(request)
+
+        pool.submit = recording
+        try:
+            first = asyncio.ensure_future(provider.chat(requests[0]))
+            while not rec.shadows or rec.shadows[0][1].first_token_ts == 0.0:
+                check(not first.done(), "the first request ended before its first token")
+                await asyncio.sleep(0.002)
+            rest = [asyncio.ensure_future(provider.chat(r)) for r in requests[1:]]
+            await asyncio.wait_for(asyncio.gather(first, *rest), 300)
+        finally:
+            pool.submit = submit
+        shadows = [rec.shadow(r.request_id) for r in seen]
+        chat_streams = [r.generated for r in seen]
+        routes = [rec.replica_of(r.request_id) for r in seen]
+        ttft = [(s.first_token_ts - s.created) * 1e3 for s in shadows]
+        gen_out = await asyncio.gather(*[generate(i, rid=f"gen{k}") for k, i in enumerate(ids)])
+        gen_shadows = [rec.shadow(f"gen{k}") for k in range(len(ids))]
+
+        def shape(shadow):
+            """(cached tokens, bucket, rows of its prefill call) on its replica."""
+            rid = rec.replica_of(shadow.request_id)
+            rows = sum(r == rid and s.prefill_ms == shadow.prefill_ms for r, s in rec.shadows)
+            return shadow.hist, shadow.bucket, rows
+
+        ref_shapes = list(zip(ref_hist, reference["buckets"], reference["prefill_group"]))
+        result = {"routes": routes, "shapes": [shape(s) for s in shadows],
+                  "generate_shapes": [shape(s) for s in gen_shadows],
+                  "engine_shapes": ref_shapes,
+                  "ttft_ms": ttft, "ttft_p50_ms": statistics.median(ttft),
+                  "engine_ttft_p50_ms": reference["ttft_p50_ms"],
+                  "finish_reasons": [r.finish_reason for r in seen]}
+        compared, equal, first_difference = [], [], {}
+        for label, streams, shapes in (("chat", chat_streams, result["shapes"]),
+                                       ("generate", [g[1] for g in gen_out],
+                                        result["generate_shapes"])):
+            for k, (stream, got) in enumerate(zip(streams, shapes)):
+                check(len(stream) == POOL_TOKENS, f"{label} request {k} gave {len(stream)} tokens")
+                same = stream == ref_streams[k]
+                if not same:
+                    first_difference[f"{label}{k}"] = next(
+                        i for i, (a, b) in enumerate(zip(stream, ref_streams[k])) if a != b)
+                # held where as many tokens were cached (f32), and in bf16
+                # where the prefill call also had the engine phase's bucket
+                # and rows: there a cold prefill alone and one batched with
+                # others round apart (the GEMMs' M differs)
+                if (got[0] == ref_shapes[k][0]) if exact else (got == ref_shapes[k]):
+                    compared.append(f"{label}{k}")
+                    if same:
+                        equal.append(f"{label}{k}")
+        result.update(compared_with_engine=compared, equal_engine=equal,
+                      first_difference=first_difference)
+        check(compared and equal == compared,
+              f"streams differ from the engine phase's: compared {compared}, equal {equal}")
+        check(len(set(routes)) == 2, f"the six requests took only replicas {routes}")
+        check(routes[1] == routes[0] and shadows[1].hist == 384,
+              f"the system-prompt repeat was not an affinity hit: routes {routes}, "
+              f"hist {shadows[1].hist}")
+        check(pool.router.affinity_hits >= 1, "the router counted no affinity hit")
+        result["chat_stream_1"] = chat_streams[1]
+        return result
+
+    async def failover() -> dict:
+        span_ctx = tracer.span("llm.request")
+        span = span_ctx.__enter__()
+        requeues = pool.requeues
+        request = GenRequest(request_id="failover", prompt_ids=list(ids[3]),
+                             max_tokens=POOL_TOKENS, trace_ctx=span.context())
+        await pool.submit(request)
+        stream = []
+        while len(stream) < 4:
+            token = await asyncio.wait_for(request.stream.get(), 120)
+            check(token is not None, "the failover request ended before four tokens")
+            stream.append((token, time.monotonic()))
+        serving = next(r for r in pool.replicas if "failover" in r.outstanding)
+        t_kill = time.monotonic()
+        pool.fail_replica(serving, reason="chip smoke: kill after four tokens")
+        stream += await timed_stream(request)
+        span_ctx.__exit__(None, None, None)
+        tokens = [t for t, _ in stream]
+        delivered = len(rec.shadow("failover~r1").prompt_ids) - len(ids[3])
+        check(len(tokens) == POOL_TOKENS and request.finish_reason == "length",
+              f"the failover stream has {len(tokens)} tokens ({request.finish_reason})")
+        check(tokens[:delivered] == ref_streams[3][:delivered],
+              "the tokens delivered before the kill differ from the engine phase's")
+        check(pool.requeues == requeues + 1 and serving.state == "dead",
+              f"{pool.requeues - requeues} requeues, the replica {serving.state}")
+        spans = span_of("pool.requeue", span.context())
+        check(len(spans) == 1 and spans[0].attributes.get("llm.from_replica") == serving.id,
+              "no pool.requeue span for the hop")
+        after = tokens[delivered:]
+        matching = sum(a == b for a, b in zip(after, ref_streams[3][delivered:]))
+        if exact:
+            check(tokens == ref_streams[3], "the failover stream differs from the engine phase's")
+        first_after = stream[delivered][1]
+        return {"killed": serving.id, "delivered_before_kill": delivered,
+                "tokens_after_hop_matching_engine": [matching, len(after)],
+                "gap_ms_kill_to_next_token": (first_after - t_kill) * 1e3,
+                "gap_ms_last_to_next_token": (first_after - stream[delivered - 1][1]) * 1e3,
+                "requeue_span_ms": spans[0].duration_ms,
+                "stream_equal_engine": tokens == ref_streams[3]}, serving
+
+    async def reload_under_load(dead) -> dict:
+        survivor = next(r for r in pool.replicas if r is not dead)
+        batch = [asyncio.ensure_future(generate(i, n=160, rid=f"load{k}"))
+                 for k, i in enumerate(ids)]
+        while sum(s.request_id.startswith("load") and s.first_token_ts > 0
+                  for _, s in rec.shadows) < len(ids):
+            await asyncio.sleep(0.002)
+        rec.watch = survivor
+        torch.cuda.reset_peak_memory_stats()
+        status = await pool.reload(dead.id)
+        reload_peak = torch.cuda.max_memory_allocated()
+        rec.watch = None
+        results = await asyncio.wait_for(asyncio.gather(*batch), 300)
+        build = rec.builds[-1]
+        check(status["state"] == "ready" and dead.engine.stats.graph_captures > 0,
+              f"the reload ended {status['state']}")
+        check(build["sibling_decode_steps_during_build"] > 0,
+              "the survivor retired no decode step while the replica was rebuilt")
+        for request, tokens, _ in results:
+            check(len(tokens) == 160 and request.finish_reason == "length",
+                  f"a stream served during the reload has {len(tokens)} tokens")
+        # the rebuilt replica's decode dispatch blocks host-side
+        rebuilt = dead.engine
+        release = threading.Event()
+        blocked_at = []
+        launch = rebuilt._graphs.launch
+
+        def blocking(*args, **kwargs):
+            if not blocked_at:
+                blocked_at.append(time.monotonic())
+            release.wait(60)
+            return launch(*args, **kwargs)
+
+        rebuilt._graphs.launch = blocking
+        failures = pool.health.failures
+        sent = [asyncio.ensure_future(generate(ids[k], rid=f"wedge{k}")) for k in (3, 4)]
+        while dead.state != "dead":
+            check(not all(t.done() for t in sent), "the wedged replica was never failed over")
+            await asyncio.sleep(0.01)
+        detected_s = time.monotonic() - blocked_at[0]
+        release.set()
+        wedged = await asyncio.wait_for(asyncio.gather(*sent), 300)
+        for request, tokens, _ in wedged:
+            check(len(tokens) == POOL_TOKENS and request.finish_reason == "length",
+                  f"a request of the wedged replica has {len(tokens)} tokens")
+        check(pool.health.failures == failures + 1, "the health monitor failed no replica")
+        return {"reload_peak_memory_bytes": reload_peak, "build": build,
+                "survivor_streams_whole": True, "wedge_detected_s": detected_s,
+                "wedge_last_failure": dead.last_failure}
+
+    async def spill_on_drain(dead) -> dict:
+        torch.cuda.reset_peak_memory_stats()
+        await pool.reload(dead.id)
+        peaks = [torch.cuda.max_memory_allocated()]
+        survivor = next(r for r in pool.replicas if r is not dead)
+        spilled = []
+        real_spill = survivor.engine.spill_prefix_pages
+
+        def counting_spill():
+            spilled.append(real_spill())
+            return spilled[-1]
+
+        survivor.engine.spill_prefix_pages = counting_spill
+        torch.cuda.reset_peak_memory_stats()
+        await pool.reload(survivor.id)
+        peaks.append(torch.cuda.max_memory_allocated())
+        check(spilled and spilled[0] >= 3, f"spill on drain spilled {spilled} pages")
+        other = dead
+        await pool.drain(other.id)
+        _, tokens, _ = await generate(ids[1], rid="restored")
+        await pool.undrain(other.id)
+        engine = survivor.engine
+        check(rec.replica_of("restored") == survivor.id, "the repeat missed the rebuilt replica")
+        hits = dict(engine.allocator.tier_hit_tokens)
+        check(hits.get("host") == 384 and rec.shadow("restored").hist == 384,
+              f"the rebuilt replica's tier hits are {hits}")
+        return {"spill_prefix_pages": spilled[0], "tier_hit_tokens": hits,
+                "reload_peak_memory_bytes": peaks, "stream": tokens}
+
+    async def tokens_per_s(replicas) -> dict:
+        prompts = [tok.encode(render_chat([{"role": "user", "content":
+                                            f"Name {k + 2} tools an MCP server can offer."}]))
+                   for k in range(8 * len(replicas))]
+        steps0 = {r.id: (r.engine.stats.completion_tokens - r.engine.stats.prefill_requests,
+                         r.engine.stats.decode_wall_ms_total) for r in pool.replicas}
+        t0 = time.monotonic()
+        results = await asyncio.gather(*[generate(p, n=128, rid=f"tps{len(replicas)}-{k}")
+                                         for k, p in enumerate(prompts)])
+        first = min(ts[0] for _, _, ts in results)
+        last = max(ts[-1] for _, _, ts in results)
+        decode_tokens = sum(len(t) - 1 for _, t, _ in results)
+        per_replica = {}
+        for r in pool.replicas:
+            toks = r.engine.stats.completion_tokens - r.engine.stats.prefill_requests
+            wall = r.engine.stats.decode_wall_ms_total
+            if toks > steps0[r.id][0]:
+                per_replica[r.id] = (toks - steps0[r.id][0]) / ((wall - steps0[r.id][1]) / 1e3)
+        routed = {rid: sum(rec.replica_of(f"tps{len(replicas)}-{k}") == rid
+                           for k in range(len(prompts))) for rid in ("0", "1")}
+        return {"requests": len(prompts), "routed": routed, "decode_tokens": decode_tokens,
+                "wall_s": time.monotonic() - t0,
+                "tokens_per_s_first_to_last_token": decode_tokens / (last - first),
+                "tokens_per_s_by_engine_walls": per_replica,
+                "tokens_per_s_engine_walls_sum": sum(per_replica.values())}
+
+    async def disaggregation() -> dict:
+        prefill, decode = pool.replicas
+        pool.set_role(prefill.id, "prefill")
+        pool.set_role(decode.id, "decode")
+        counts_at: dict = {}
+
+        def snapshot(rid, shadow):
+            if rid == decode.id and shadow.request_id == "migrate~r1":
+                counts_at["decode_leg"] = {k: fn.launches for k, fn in wrappers.items()}
+
+        rec.on_submit.append(snapshot)
+        migrations, pages, nbytes = dict(pool.migrations), dict(pool.migration_pages), \
+            pool.migration_bytes
+        span_ctx = tracer.span("llm.request")
+        span = span_ctx.__enter__()
+        at_start = {k: fn.launches for k, fn in wrappers.items()}
+        sent = time.monotonic()
+        request, tokens, stamps = await generate(migrate_ids, rid="migrate",
+                                                 trace_ctx=span.context())
+        at_end = {k: fn.launches for k, fn in wrappers.items()}
+        span_ctx.__exit__(None, None, None)
+        rec.on_submit.remove(snapshot)
+        check("decode_leg" in counts_at, "the continuation never reached the decode replica")
+        leg = counts_at["decode_leg"]
+        decode_leg = {k: at_end[k] - leg[k] for k in wrappers}
+        prefill_leg = {k: leg[k] - at_start[k] for k in wrappers}
+        moved = {k: pool.migration_pages[k] - pages[k] for k in pages}
+        check(pool.migrations["ok"] == migrations["ok"] + 1,
+              f"migrations {pool.migrations} (were {migrations})")
+        check(moved == {"spilled": 3, "restored": 3, "degraded": 0}, f"migration pages {moved}")
+        check(pool.migration_bytes - nbytes == 3 * payload,
+              f"{pool.migration_bytes - nbytes} bytes moved, not {3 * payload}")
+        check(tokens[0] == standalone["cold"][0],
+              "the migrated stream's first token is not the cold run's")
+        check(tokens[1:] == standalone["hit"],
+              "the migrated continuation differs from the resident hit's")
+        check(sum(decode_leg[k] for k in CHUNK) == layers
+              and sum(decode_leg[k] for k in FLASH) == 0,
+              f"the decode leg launched chunk {sum(decode_leg[k] for k in CHUNK)} and flash "
+              f"{sum(decode_leg[k] for k in FLASH)} times")
+        check(sum(prefill_leg[k] for k in FLASH) == layers,
+              "the prefill leg was not one cold prefill")
+        check(rec.shadow("migrate~r1").hist == 384 and rec.replica_of("migrate~r1") == decode.id,
+              "the decode leg did not restore the chain")
+        spans = span_of("pool.migrate", span.context())
+        check(len(spans) == 1 and spans[0].attributes.get("llm.outcome") == "ok",
+              "no pool.migrate span with outcome ok")
+        result = {"roles": {r.id: r.role for r in pool.replicas}, "pages": moved,
+                  "bytes": pool.migration_bytes - nbytes, "prompt_tokens": len(migrate_ids),
+                  "migration_ms": spans[0].duration_ms,
+                  "ttft_ms": (stamps[0] - sent) * 1e3,
+                  "decode_leg_chunk_launches": sum(decode_leg[k] for k in CHUNK),
+                  "first_token_equal_cold_run": True, "rest_equal_resident_hit": True}
+        # the corrupt fault: the verify fails, the hop degrades in place
+        degraded = pool.migrations["degraded"]
+        plane = faults.configure_fault_plane(True)
+        try:
+            plane.arm(faults.FaultRule(point="pool.migrate", kind="corrupt"))
+            corrupt, ctokens, _ = await generate(corrupt_ids, rid="corrupt")
+        finally:
+            faults.configure_fault_plane(False)
+        check(pool.migrations["degraded"] == degraded + 1
+              and rec.replica_of("corrupt~r1") == prefill.id,
+              "the corrupt migration did not degrade in place")
+        check(len(ctokens) == POOL_TOKENS and corrupt.finish_reason == "length",
+              f"the degraded stream has {len(ctokens)} tokens")
+        pages_now = pool.migration_pages
+        check(pages_now["spilled"] == pages_now["restored"] + pages_now["degraded"],
+              f"pages not conserved: {pages_now}")
+        result["corrupt"] = {"degraded": True, "stream_whole": True,
+                             "pages": dict(pages_now)}
+        for r in pool.replicas:
+            pool.set_role(r.id, "any")
+        return result
+
+    async def capacity_loss() -> dict:
+        pool.requeue_max = 0
+        task = asyncio.ensure_future(provider.chat(requests[4]))
+        while not any(r.outstanding for r in pool.replicas):
+            await asyncio.sleep(0.002)
+        victim = next(r for r in pool.replicas if r.outstanding)
+        pool.fail_replica(victim, reason="chip smoke: capacity loss")
+        outcome = "returned"
+        try:
+            await asyncio.wait_for(task, 120)
+        except LLMUnavailable:
+            outcome = "LLMUnavailable"
+        check(outcome == "LLMUnavailable", f"the provider {outcome} after capacity loss")
+        return {"killed": victim.id, "provider": outcome}
+
+    async def run():
+        await pool.start()
+        try:
+            for fn in wrappers.values():
+                fn.launches = 0
+            t_start = time.monotonic()
+            out["parity"] = await parity()
+            out["failover"], dead = await failover()
+            out["reload_under_load"] = await reload_under_load(dead)
+            out["spill_on_drain"] = await spill_on_drain(dead)
+            check(out["spill_on_drain"]["stream"] == out["parity"]["chat_stream_1"],
+                  "the hit restored from host gave another stream than the resident hit")
+            await pool.drain("1")
+            out["tokens_per_s_one_replica"] = await tokens_per_s(["0"])
+            await pool.undrain("1")
+            out["tokens_per_s_two_replicas"] = await tokens_per_s(["0", "1"])
+            out["disaggregation"] = await disaggregation()
+            out["capacity_loss"] = await capacity_loss()
+            out["steps_s"] = time.monotonic() - t_start
+            out["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+            out["status"] = pool.status()
+        finally:
+            await pool.stop()
+
+    asyncio.run(run())
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["builds"] = rec.builds
+    launches = out.pop("launches")
+    for kernel in kernels:
+        check(launches[kernel] > 0, f"{kernel} never launched on the {model} pool path")
+    for kernel in absent:
+        check(launches[kernel] == 0, f"{kernel} launched on the {model} pool path")
+    out["compile_stats_serving"] = rec.serving_events(pool.replicas)
+    check(len(out["compile_stats_serving"]) == len(rec.builds)
+          and not any(out["compile_stats_serving"]),
+          f"engines built or captured while serving: {out['compile_stats_serving']}")
+    # one fed decode dispatch per replica, its dispatch thread ended
+    events = []
+    for replica in pool.replicas:
+        thread = replica.engine._thread
+        if thread is not None:
+            thread.join(30)
+        events.append(replay_device_events(torch, replica.engine,
+                                           [300] * replica.engine.config.max_batch))
+    out["replay_device_events"] = events
+    for replica in out["status"]["replicas"]:
+        replica.pop("roofline", None)
+    out["parity"].pop("chat_stream_1")
+    out["spill_on_drain"].pop("stream")
+    del pool, provider, rec
+    free_device(torch)
+    return launches, out
+
+
+def int8_pool_migration(torch, dev, model: str = "llama3-tiny") -> tuple[dict, dict]:
+    """One migration on int8 KV pages (llama3-tiny, f32 compute): the decode
+    replica's restored chain pages equal the prefill replica's bit for bit
+    (bytes and scales), through rows 2b and 3b and the int8 writers."""
+    from mcp_context_forge_tpu_torch.tpu_local.engine import GenRequest
+    from mcp_context_forge_tpu_torch.tpu_local.pool import EnginePool
+    from mcp_context_forge_tpu_torch.tpu_local.tokenizer import load_tokenizer, render_chat
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+
+    tok = load_tokenizer(vocab_size=MODEL_CONFIGS[model].vocab_size)
+    ids = tok.encode(render_chat(chat(model, "Which servers answered today?",
+                                      MIGRATE_SYSTEM)["messages"]))
+    pool = EnginePool(pool_config(model, "float32", kv_quant="int8", num_pages=64),
+                      replicas=2, roles="prefill,decode", health_interval_s=0.1,
+                      heartbeat_timeout_s=POOL_HEARTBEAT_S)
+    wrappers = kernel_wrappers()
+
+    async def run():
+        await pool.start()
+        try:
+            for fn in wrappers.values():
+                fn.launches = 0
+            request = GenRequest(request_id="migrate-int8", prompt_ids=ids,
+                                 max_tokens=POOL_TOKENS)
+            await pool.submit(request)
+            tokens = [t for t, _ in await timed_stream(request)]
+            return request, tokens, {k: fn.launches for k, fn in wrappers.items()}
+        finally:
+            await pool.stop()
+
+    request, tokens, launches = asyncio.run(run())
+    check(pool.migrations == {"ok": 1, "degraded": 0}
+          and pool.migration_pages == {"spilled": 3, "restored": 3, "degraded": 0},
+          f"the int8 migration: {pool.migrations}, {pool.migration_pages}")
+    check(len(tokens) == POOL_TOKENS and request.finish_reason == "length",
+          f"the int8 migrated stream has {len(tokens)} tokens")
+    src, dst = (r.engine for r in pool.replicas)
+    pages = 0
+    for key, *_ in src.allocator._chain_steps(ids, full=True):
+        a, b = src.allocator._cached[key], dst.allocator._cached[key]
+        for name in ("k_pages", "v_pages", "k_scales", "v_scales"):
+            check(torch.equal(getattr(src.kv, name)[:, a], getattr(dst.kv, name)[:, b]),
+                  f"restored {name} of a chain page differ from the exported ones")
+        pages += 1
+    check(pages == 3, f"{pages} chain pages compared")
+    for kernel in ("paged_chunk_attention_mma_q8", "paged_decode_attention_q8") + INT8_WRITERS:
+        check(launches[kernel] > 0, f"{kernel} never launched on the int8 migration")
+    stats = {"model": model, "kv_quant": "int8", "pages_bit_exact": pages,
+             "migrations": dict(pool.migrations), "pages": dict(pool.migration_pages),
+             "bytes": pool.migration_bytes, "launches": launches}
+    del pool, src, dst
+    free_device(torch)
+    return launches, stats
 
 
 # --------------------------------------------------------------- checkpoints

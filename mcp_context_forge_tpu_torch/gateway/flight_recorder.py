@@ -1,7 +1,7 @@
-"""Engine-admission backpressure for the /v1 surface (the single-engine
-half of the JAX package's ``gateway/flight_recorder.py``): queue depth,
-capacity and saturation, the Retry-After it advises, and the headers that
-carry them."""
+"""Engine-admission backpressure for the /v1 surface (the queue-state half
+of the JAX package's ``gateway/flight_recorder.py``): queue depth, capacity
+and saturation of one engine or of a replica pool, the Retry-After it
+advises, and the headers that carry them."""
 
 from __future__ import annotations
 
@@ -9,23 +9,37 @@ import math
 from typing import Any
 
 
-def compute_queue_state(engine: Any) -> dict[str, Any] | None:
-    """Depth/capacity/saturation of one engine, or None without one."""
-    if engine is None:
+def compute_queue_state(pool: Any, engine: Any) -> dict[str, Any] | None:
+    """Depth/capacity/saturation from a replica pool (summed over its
+    routable replicas) or one engine; None without either."""
+    no_replicas = False
+    if pool is not None:
+        ready = [r for r in pool.replicas if r.state == "ready"]
+        depth = sum(r.engine.stats.queue_depth for r in ready)
+        capacity = sum(r.engine.config.max_queue for r in ready)
+        no_replicas = not ready   # every replica dead or draining
+    elif engine is not None:
+        depth = engine.stats.queue_depth
+        capacity = engine.config.max_queue
+    else:
         return None
-    depth = engine.stats.queue_depth
-    capacity = engine.config.max_queue
-    # max_queue <= 0 is an unbounded admission queue (queue.Queue maxsize
-    # semantics): never full
-    saturation = min(1.0, depth / capacity) if capacity > 0 else 0.0
+    if no_replicas:
+        saturation = 1.0   # nothing routable: saturated by definition
+    elif capacity > 0:
+        saturation = min(1.0, depth / capacity)
+    else:
+        # max_queue <= 0 is an unbounded admission queue (queue.Queue
+        # maxsize semantics): never full
+        saturation = 0.0
     return {"depth": int(depth), "capacity": int(capacity),
             "saturation": round(saturation, 4)}
 
 
 def queue_state(app: Any) -> dict[str, Any] | None:
-    """The app's engine admission state (``app["tpu_engine"]``); refreshes
-    the ``gw_engine_saturation`` gauge when the app carries metrics."""
-    state = compute_queue_state(app.get("tpu_engine"))
+    """The app's admission state (``app["tpu_engine_pool"]`` when it has a
+    pool, else ``app["tpu_engine"]``); refreshes the
+    ``gw_engine_saturation`` gauge when the app carries metrics."""
+    state = compute_queue_state(app.get("tpu_engine_pool"), app.get("tpu_engine"))
     if state is None:
         return None
     metrics = app.get("metrics")

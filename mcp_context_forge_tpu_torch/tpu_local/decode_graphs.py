@@ -39,8 +39,8 @@ before the next replay overwrites the outputs.
 
 Captured kernels do not run at capture, and a replay does not run the
 Python wrappers, so the wrappers' ``launches`` counts would read wrong both
-ways: each capture's increments are taken back and kept per key as the
-graph's launches, and every replay adds them once.
+ways: each capture's launches count apart (``ops.capturing``), are kept
+per key as the graph's launches, and every replay adds them once.
 
 Each key's warm-up and capture is one ``graph_capture`` event
 (``compile_events``) of the building thread. A ``timed`` launch brackets
@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from .compile_events import record_event
-from .ops import kernel_wrappers
+from .ops import capturing, kernel_wrappers
 from .sampling import SamplingParams
 
 # rows of the int32 input pack
@@ -192,37 +192,47 @@ class DecodeGraphs:
                    for t in (bufs.inputs, bufs.outputs, bufs.logits, bufs.slot_ids))
 
     def _capture(self, generator: torch.Generator) -> None:
-        wrappers = kernel_wrappers()
+        """Warm up and capture every key on a side stream. Other engines of
+        the process (a pool's replicas) may serve meanwhile, so nothing here
+        reaches beyond this thread and its streams: captures run in
+        ``thread_local`` error mode (another thread's syncs and allocations
+        do not invalidate them), their launches count in ``capturing()``
+        instead of the wrappers' shared counts, and the host waits on this
+        stream, never on the device. The one process-wide call kept is the
+        cuBLAS workspace reset around each capture (below)."""
         pool = torch.cuda.graph_pool_handle()
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.inference_mode(), torch.cuda.stream(stream):
             for bufs in self.buffers.values():
                 t0 = time.monotonic()
-                self.body(bufs)   # the warm-up: every kernel and handle built outside the pool
+                with capturing():
+                    # the warm-up: every kernel and handle built outside the
+                    # pool; its launches count nowhere
+                    self.body(bufs)
                 stream.synchronize()
-                before = {name: fn.launches for name, fn in wrappers.items()}
                 graph = torch.cuda.CUDAGraph()
                 graph.register_generator_state(generator)
                 # cuBLAS keeps one workspace per (handle, stream) for the
                 # process's life: dropped before the capture, the capture's
                 # own comes from the pool, and dropped after, it stays the
                 # pool's (where the replays use it) instead of outliving
-                # the engine, as the warm-up stream's would
+                # the engine, as the warm-up stream's would. No stream- or
+                # event-scoped call does this; a reset costs a serving
+                # sibling one workspace allocation at its next eager GEMM
+                # (its graphs keep the workspaces their captures took)
                 torch._C._cuda_clearCublasWorkspaces()
-                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                with capturing() as counts, torch.cuda.graph(
+                        graph, pool=pool, stream=stream,
+                        capture_error_mode="thread_local"):
                     self.body(bufs)
                 torch._C._cuda_clearCublasWorkspaces()
-                bufs.launches = {name: fn.launches - before[name]
-                                 for name, fn in wrappers.items()
-                                 if fn.launches != before[name]}
-                for name, fn in wrappers.items():
-                    fn.launches = before[name]
+                bufs.launches = counts
                 bufs.graph = graph
                 self.captures += 1
                 record_event("graph_capture", time.monotonic() - t0)
         torch.cuda.current_stream(self.device).wait_stream(stream)
-        torch.cuda.synchronize(self.device)
+        stream.synchronize()
         # the pool's segments: reserved for the replays, outside the
         # allocator's allocated bytes once the captures have ended
         self.pool_bytes = sum(

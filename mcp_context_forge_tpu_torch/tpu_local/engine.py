@@ -69,6 +69,12 @@ stall the caller's event loop; tokens hop back with one
   telemetry handles (``tracer``,
   ``metrics``, ``signals``, ``ledger``), each site one attribute check
   when its handle is None.
+- The seams a replica pool (``pool/``) calls: ``warmed`` (true once the
+  graphs are captured, at construction), ``kill``, the health reads,
+  ``request_cancel``, and ``request_chain_export`` (a migration's copy of
+  a prompt's KV chain into the shared tiers, landed at the loop's knob
+  barrier with the pipeline drained); ``probe_devices`` finds the devices
+  a pool places its replicas on.
 
 Prefill, chunk rounds and prefix hits run eagerly. The engine runs on
 ``config.device`` ("cuda" by default) and raises at construction when
@@ -91,6 +97,7 @@ import queue
 import threading
 import time
 from collections import deque
+from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator
 
@@ -165,6 +172,8 @@ class EngineConfig:
     tier_object_url: str = ""
     fabric_namespace: str = "shared"
     device: str = "cuda"
+    # the watchdog of device discovery (probe_devices) when a pool builds
+    init_timeout_s: float = 120.0
     seed: int = 0                   # random weights and the sampler
     # weight-only quantization: "" (full precision) or "int8" (quantize.py;
     # random weights quantize as they are drawn, one expert at a time)
@@ -271,6 +280,7 @@ class EngineConfig:
             tier_io_retry_backoff_ms=getattr(settings, "tier_io_retry_backoff_ms", 10.0),
             tier_object_url=getattr(settings, "tpu_local_tier_object_url", ""),
             fabric_namespace=getattr(settings, "tpu_local_fabric_namespace", "shared"),
+            init_timeout_s=getattr(settings, "tpu_local_init_timeout_s", 120.0),
             spec_decode=getattr(settings, "tpu_local_spec_decode", False),
             spec_k=getattr(settings, "tpu_local_spec_k", 4),
             spec_ngram=getattr(settings, "tpu_local_spec_ngram", 2),
@@ -329,6 +339,9 @@ class GenRequest:
     chunk_pos: int = 0
     hist: int = 0
     bucket: int = -1
+    # a pool's routing class ("" = classified by prompt length when the
+    # pool's replicas carry roles; "prefill", "decode" or a fleet class)
+    route_class: str = ""
 
 
 class EngineStats:
@@ -371,6 +384,49 @@ def _spill_scale(pages: torch.Tensor) -> torch.Tensor:
     ``kv_int8_scale``'s true division in the last bit for some maxima)."""
     amax = pages.float().abs().amax(dim=(1, 3))
     return amax * torch.full_like(amax, 1.0 / 127.0)
+
+
+class EngineInitTimeout(RuntimeError):
+    """Device discovery exceeded the watchdog budget (a hung driver)."""
+
+
+def probe_devices(timeout_s: float, device: str = "cuda") -> list[torch.device]:
+    """The devices an engine of ``device``'s type could take, found under a
+    watchdog: a hung CUDA driver blocks context creation indefinitely, so
+    the probe runs on a daemon thread and a hang becomes an exception
+    instead of a gateway that never binds its port. A CPU engine's list is
+    ``[cpu]``; a CUDA one's is every visible card, and raises when there
+    is none (the engine never moves to the CPU by itself)."""
+    if torch.device(device).type == "cpu":
+        return [torch.device("cpu")]
+
+    def _probe() -> list[torch.device]:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                               "run the plain PyTorch path explicitly")
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+    if timeout_s <= 0:
+        return _probe()
+    result: dict[str, Any] = {}
+
+    def _run() -> None:
+        try:
+            result["devices"] = _probe()
+        except Exception as exc:  # surfaced on the caller's thread
+            result["error"] = exc
+
+    thread = threading.Thread(target=_run, name="cuda-init-probe", daemon=True)
+    thread.start()
+    thread.join(timeout_s)
+    if thread.is_alive():
+        raise EngineInitTimeout(
+            f"CUDA device discovery did not complete within {timeout_s:.0f}s "
+            "(set MCPFORGE_TPU_LOCAL_ENABLED=false to serve without the "
+            "engine, or raise MCPFORGE_TPU_LOCAL_INIT_TIMEOUT_S)")
+    if "error" in result:
+        raise result["error"]
+    return result["devices"]
 
 
 def _resolve_device(name: str) -> torch.device:
@@ -525,12 +581,20 @@ class TorchEngine:
         # draining the pipeline first when K changes
         self._pending_knobs: dict[str, Any] = {}
         self._knob_lock = threading.Lock()
+        # a pool's chain exports (the prefill -> decode migration), staged
+        # the same way and landed at the same barrier
+        self._pending_exports: list[tuple[tuple[int, ...], Future]] = []
+        self._export_lock = threading.Lock()
         self._thread: threading.Thread | None = None
         self._stop_event = threading.Event()
         self._wake = threading.Event()
         self._loop: asyncio.AbstractEventLoop | None = None
         self._started = False
         self._killed = False
+        # the dispatch loop crashed for good (no restart): set before the
+        # outstanding streams end, so that a pool reading their "error"
+        # terminals sees the replica dead and never routes work back to it
+        self._dead = False
         # liveness: bumped once per dispatch-loop iteration (the idle wait
         # is bounded at 50 ms, so a healthy loop beats at >= 20 Hz)
         self._heartbeat_ts = time.monotonic()
@@ -564,6 +628,11 @@ class TorchEngine:
                                 config.page_size, config.max_batch,
                                 max_pages_per_slot, dtype=self.dtype,
                                 device=self.device, quant=config.kv_quant)
+        if self._tier_client is not None:
+            # a new pool holds none of the pages a shared index may still
+            # place on this replica id (a pool's reload rebuilds the
+            # engine): stale locations would mis-route
+            self._tier_client.drop_replica()
         self.allocator = self._new_allocator()
         if self._tier_client is not None and self._tier_client.store is not None:
             self._tier_client.read_fn = self._read_page_payload
@@ -688,6 +757,7 @@ class TorchEngine:
         if self._thread is not None and self._thread.is_alive():
             raise RuntimeError("previous dispatch thread still running")
         self._started = True
+        self._dead = False
         self._loop = asyncio.get_running_loop()
         self._stop_event = threading.Event()
         self._wake = threading.Event()
@@ -759,10 +829,25 @@ class TorchEngine:
         return max(0.0, time.monotonic() - self._last_step_done_ts)
 
     def dispatch_alive(self) -> bool:
-        """True while the dispatch thread runs (the crash half of a health
-        check)."""
-        return bool(self._started and self._thread is not None
+        """True while the dispatch thread runs and has not crashed for good
+        (the crash half of a health check)."""
+        return bool(self._started and not self._dead and self._thread is not None
                     and self._thread.is_alive())
+
+    @property
+    def warmed(self) -> bool:
+        """True once the construction captured the decode graphs of at
+        least one width: nothing is captured or built for them while
+        serving, so a pool's health monitor may read a stale heartbeat as a
+        wedge even before the first step retires."""
+        return bool(self._warmed_widths)
+
+    def warmup(self, mode: str | None = None) -> None:
+        """The JAX engine's precompile entry, kept for a pool's ``warmup``:
+        here a no-op, since the construction already captured every decode
+        (and verify) graph and nothing compiles later; ``warmed`` stays
+        true. ``mode`` is accepted and ignored."""
+        del mode
 
     def request_cancel(self, request_id: str) -> bool:
         """Thread-safe: ask the dispatch thread to end a generation; its
@@ -819,8 +904,8 @@ class TorchEngine:
         engine, or a crashed thread)."""
         if self._killed:
             raise RuntimeError("engine was killed")
-        if self._started and (self._thread is None
-                              or not self._thread.is_alive()):
+        if self._dead or (self._started and (self._thread is None
+                                             or not self._thread.is_alive())):
             raise RuntimeError("engine dispatch thread is not running")
 
     async def generate(self, prompt_ids: list[int],
@@ -874,6 +959,12 @@ class TorchEngine:
                         # a K change drains the pipeline first
                         self._apply_knobs()
                         did_work = True
+                    if self._pending_exports:
+                        # a pool's chain exports land at the same barrier,
+                        # the pipeline drained first: every exported page
+                        # holds fully retired prefill state
+                        self._apply_exports()
+                        did_work = True
                     occupied = len(self._running) + len(self._chunking)
                     can_admit = (bool(self._pending)
                                  and occupied < self.config.max_batch)
@@ -920,6 +1011,7 @@ class TorchEngine:
                         and self.stats.engine_restarts < self.config.auto_restart_max):
                     self._restart_after_crash()
                 else:
+                    self._dead = crashed
                     self._fail_outstanding("cancelled" if self._stop_event.is_set()
                                            else "error")
             finally:
@@ -977,14 +1069,21 @@ class TorchEngine:
             self._thread = replacement
         except Exception:
             logger.exception("torch engine: crash recovery failed; engine down")
+            self._dead = True
             self._pending.extendleft(reversed(requeue))
             self._fail_outstanding("error")
 
     def _reset_device_state(self) -> None:
         """Probe the device, then zero the pool's pages, scales and block
-        table in place and start a fresh allocator (no resident prefix)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)    # raises on a poisoned context
+        table in place and start a fresh allocator (no resident prefix).
+        The probe and the final wait are syncs of this thread's stream, not
+        of the device: any sync raises on a poisoned context, and a sibling
+        engine of the same process (a pool's replica, which may be capturing
+        its graphs) keeps its own work in flight."""
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        if stream is not None:
+            stream.synchronize()    # raises on a poisoned context
         kv = self.kv
         with torch.inference_mode():
             for t in (kv.k_pages, kv.v_pages, kv.k_scales, kv.v_scales,
@@ -998,8 +1097,8 @@ class TorchEngine:
         self._tier_hits_exported.clear()
         self.allocator = self._new_allocator()
         self._last_step_done_ts = None
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if stream is not None:
+            stream.synchronize()
 
     def _wait_for_work(self) -> None:
         self._wake.clear()
@@ -1017,6 +1116,15 @@ class TorchEngine:
     def _fail_outstanding(self, reason: str) -> None:
         self._inflight = None
         self._drain_work()
+        with self._export_lock:
+            exports, self._pending_exports = self._pending_exports, []
+        for _ids, fut in exports:
+            # a migration waiting on this export degrades (decode in
+            # place, or a requeue) instead of hanging on a dead engine
+            if not fut.done():
+                fut.set_exception(RuntimeError(
+                    f"engine dispatch thread ended ({reason}) before the "
+                    "chain export ran"))
         for request in list(self._running.values()):
             if request.finish_reason is None:
                 request.finish_reason = reason
@@ -1119,6 +1227,39 @@ class TorchEngine:
             self._spec_enabled = bool(knobs["spec_enabled"])
         if "width_floor" in knobs:
             self._width_floor = int(knobs["width_floor"])
+
+    def request_chain_export(self, prompt_ids: list[int]) -> Future:
+        """Stage a KV chain export for the dispatch thread (a pool's
+        prefill -> decode migration): the prompt's registered full-page
+        chain is copied into the shared tier store at the next drain
+        barrier; the pages stay resident. Staged like ``request_knobs``,
+        since only the dispatch thread touches device state. Returns a
+        future of the number of pages now in the store, which fails if the
+        engine dies first. Thread-safe."""
+        self._check_alive()
+        fut: Future = Future()
+        with self._export_lock:
+            self._pending_exports.append((tuple(prompt_ids), fut))
+        self._wake.set()
+        return fut
+
+    def _apply_exports(self) -> None:
+        """Land staged chain exports on the dispatch thread, draining the
+        decode pipeline first: the prefill leg's pages must hold retired
+        state before their bytes are read."""
+        with self._export_lock:
+            exports, self._pending_exports = self._pending_exports, []
+        if not exports:
+            return
+        if self._inflight is not None:
+            self._drain_pipeline()
+        for prompt_ids, fut in exports:
+            if fut.cancelled():
+                continue
+            try:
+                fut.set_result(self.allocator.spill_chain(list(prompt_ids)))
+            except Exception as exc:  # a failed read degrades the pool's
+                fut.set_exception(exc)  # migration; the engine lives on
 
     def knob_state(self) -> dict[str, Any]:
         """The live knob posture."""
@@ -2267,6 +2408,10 @@ class TorchEngine:
     def kv_bytes_in_use(self) -> int:
         """Device bytes of the pages in use, in the pool's storage."""
         return self.allocator.pages_in_use * self._kv_page_bytes
+
+    def kv_bytes_capacity(self) -> int:
+        """Device bytes of the whole KV pool (fixed at construction)."""
+        return self.num_kv_pages * self._kv_page_bytes
 
     # --------------------------------------------------------------- emission
 

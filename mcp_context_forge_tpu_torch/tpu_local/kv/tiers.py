@@ -818,6 +818,25 @@ class TieredPageStore:
                      v_scales=np.asarray(payload.v_scales))
         os.replace(tmp, path)
 
+    def verify_chain(self, steps: Sequence[tuple[bytes, bytes, tuple[int, ...]]]
+                     ) -> tuple[int, int]:
+        """Verify before serving a whole exported chain (a pool's
+        migration): fetch and verify each ``(key_hash, parent, chunk)``
+        through :meth:`get`, the identity check admission uses, so a corrupt
+        or colliding payload is a miss here as it would be at the decode
+        replica's fetch-on-miss. Returns ``(pages_verified,
+        bytes_verified)``; stops at the first miss (nothing deeper can
+        restore without its parent)."""
+        pages = 0
+        nbytes = 0
+        for key_hash, parent, chunk in steps:
+            hit = self.get(key_hash, parent, chunk)
+            if hit is None:
+                break
+            pages += 1
+            nbytes += hit[0].nbytes
+        return pages, nbytes
+
     # ------------------------------------------------------------------ stats
 
     def stats(self) -> dict[str, Any]:

@@ -1,6 +1,39 @@
 """Attention, grouped experts and the int8 KV writers: the hand-written
 CUDA kernels (``csrc/``), their wrappers and their plain PyTorch versions."""
 
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Callable, Iterator
+
+_local = threading.local()
+
+
+def count_launch(wrapper: Callable) -> None:
+    """Count one launch of ``wrapper``'s kernel: in its ``launches``, or,
+    while this thread is inside ``capturing()``, in that block's own
+    counts. Graph captures count there, so that a capture never moves the
+    counts that another engine's thread in the process adds to (a pool's
+    replica serving while its sibling is rebuilt)."""
+    counts = getattr(_local, "counts", None)
+    if counts is None:
+        wrapper.launches += 1
+    else:
+        counts[wrapper.__name__] = counts.get(wrapper.__name__, 0) + 1
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[dict[str, int]]:
+    """Launches on this thread inside the block count in the dict it
+    yields (by wrapper name), not in the wrappers' ``launches``."""
+    previous = getattr(_local, "counts", None)
+    _local.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _local.counts = previous
+
 
 def kernel_wrappers() -> dict:
     """Every kernel's wrapper by name; each carries its ``launches``

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 
 NEG_INF = -1e30
 
@@ -93,7 +93,7 @@ def flash_attention_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{TC_HEAD_DIMS}, got {q.dtype} at hd {q.shape[-1]}")
     out = _flash_launch("flash_attention_tc", "mcf_flash_attention_tc",
                         q, k, v, valid)
-    flash_attention_tc.launches += 1
+    count_launch(flash_attention_tc)
     return out
 
 
@@ -103,7 +103,7 @@ def flash_attention_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     divisible by 8)."""
     out = _flash_launch("flash_attention_mma", "mcf_flash_attention_mma",
                         q, k, v, valid)
-    flash_attention_mma.launches += 1
+    count_launch(flash_attention_mma)
     return out
 
 

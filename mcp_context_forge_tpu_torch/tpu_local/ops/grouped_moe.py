@@ -32,7 +32,7 @@ from typing import Any
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 from ..parallel.moe import activation, router_probs, top_k_experts
 from ..quantize import is_quant
 
@@ -240,7 +240,7 @@ def expert_blocks_wmma(x_pad: torch.Tensor, w1: torch.Tensor,
             NB, Bt, D, F, E, ACT_CODES[act], dtype,
             torch.cuda.current_stream(x_pad.device).cuda_stream)
     _build.check(rc, name)
-    expert_blocks_wmma.launches += 1
+    count_launch(expert_blocks_wmma)
     return out
 
 
@@ -293,7 +293,7 @@ def expert_blocks_wmma_q8(x_pad: torch.Tensor, w1: dict, w3: dict, w2: dict,
             out.data_ptr(), NB, Bt, D, F, E, ACT_CODES[act], dtype,
             torch.cuda.current_stream(x_pad.device).cuda_stream)
     _build.check(rc, name)
-    expert_blocks_wmma_q8.launches += 1
+    count_launch(expert_blocks_wmma_q8)
     return out
 
 
@@ -349,7 +349,7 @@ def expert_blocks_tc(x_pad: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     out = _tc_launch(name, "mcf_expert_blocks_tc", x_pad,
                      [x_pad.data_ptr(), w1.data_ptr(), w3.data_ptr(),
                       w2.data_ptr()], block_expert, F, E, act, phases, h)
-    expert_blocks_tc.launches += 1
+    count_launch(expert_blocks_tc)
     return out
 
 
@@ -368,7 +368,7 @@ def expert_blocks_tc_q8(x_pad: torch.Tensor, w1: dict, w3: dict, w2: dict,
                       w3["s"].data_ptr(), w2["q"].data_ptr(),
                       w2["s"].data_ptr()], block_expert, F, E, act,
                      phases, h)
-    expert_blocks_tc_q8.launches += 1
+    count_launch(expert_blocks_tc_q8)
     return out
 
 

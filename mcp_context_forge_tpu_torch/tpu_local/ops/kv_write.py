@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 from ..quantize import KV_SCALE_EPS, kv_int8_scale, kv_quantize
 
 
@@ -129,7 +129,7 @@ def kv_quant_store_decode(k_pages: torch.Tensor, v_pages: torch.Tensor,
             B, KV, hd, page_size, block_tables.shape[1], dtype,
             torch.cuda.current_stream(k.device).cuda_stream)
     _build.check(rc, name)
-    kv_quant_store_decode.launches += 1
+    count_launch(kv_quant_store_decode)
 
 
 kv_quant_store_decode.launches = 0
@@ -226,7 +226,7 @@ def kv_quant_store_span(k_pages: torch.Tensor, v_pages: torch.Tensor,
             B, S, KV, hd, page_size, block_tables.shape[1], dtype,
             torch.cuda.current_stream(k.device).cuda_stream)
     _build.check(rc, name)
-    kv_quant_store_span.launches += 1
+    count_launch(kv_quant_store_span)
 
 
 kv_quant_store_span.launches = 0

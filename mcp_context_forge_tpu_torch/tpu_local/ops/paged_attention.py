@@ -46,7 +46,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 from .attention import TC_HEAD_DIMS
 
 NEG_INF = -1e30
@@ -269,7 +269,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out, _ = _decode_launch("paged_decode_attention",
                             "mcf_paged_decode_attention", q, k_pages, v_pages,
                             block_tables, seq_lens, None, None)
-    paged_decode_attention.launches += 1
+    count_launch(paged_decode_attention)
     return out
 
 
@@ -285,7 +285,7 @@ def paged_decode_attention_q8(q: torch.Tensor, k_pages: torch.Tensor,
                             "mcf_paged_decode_attention_q8", q, k_pages,
                             v_pages, block_tables, seq_lens, k_scales,
                             v_scales)
-    paged_decode_attention_q8.launches += 1
+    count_launch(paged_decode_attention_q8)
     return out
 
 
@@ -423,7 +423,7 @@ def paged_chunk_attention_tc(q, k_pages, v_pages, block_tables,
     out = _chunk_launch("paged_chunk_attention_tc",
                         "mcf_paged_chunk_attention_tc", q, k_pages, v_pages,
                         block_tables, q_positions, None, None)
-    paged_chunk_attention_tc.launches += 1
+    count_launch(paged_chunk_attention_tc)
     return out
 
 
@@ -435,7 +435,7 @@ def paged_chunk_attention_tc_q8(q, k_pages, v_pages, block_tables,
     out = _chunk_launch("paged_chunk_attention_tc",
                         "mcf_paged_chunk_attention_tc_q8", q, k_pages,
                         v_pages, block_tables, q_positions, k_scales, v_scales)
-    paged_chunk_attention_tc_q8.launches += 1
+    count_launch(paged_chunk_attention_tc_q8)
     return out
 
 
@@ -445,7 +445,7 @@ def paged_chunk_attention_mma(q, k_pages, v_pages, block_tables,
     out = _chunk_launch("paged_chunk_attention_mma",
                         "mcf_paged_chunk_attention_mma", q, k_pages, v_pages,
                         block_tables, q_positions, None, None)
-    paged_chunk_attention_mma.launches += 1
+    count_launch(paged_chunk_attention_mma)
     return out
 
 
@@ -460,7 +460,7 @@ def paged_chunk_attention_mma_q8(q, k_pages, v_pages, block_tables,
     out = _chunk_launch("paged_chunk_attention_mma",
                         "mcf_paged_chunk_attention_mma_q8", q, k_pages,
                         v_pages, block_tables, q_positions, k_scales, v_scales)
-    paged_chunk_attention_mma_q8.launches += 1
+    count_launch(paged_chunk_attention_mma_q8)
     return out
 
 

@@ -11,8 +11,10 @@ context managers) and ``app["current_span"]`` (a callable returning the
 request's span or None).
 
 ``build_llm_app`` builds an aiohttp app that serves them from a
-``TorchEngine`` configured by the gateway's settings, as the JAX gateway
-does: the middlewares of ``gateway/middleware.py`` (the ``http.request``
+``TorchEngine`` configured by the gateway's settings, or from an
+``EnginePool`` of such engines when ``tpu_local_replicas`` > 1, as the JAX
+gateway does (with the pool, ``setup_pool_routes`` adds its admin card and
+actions): the middlewares of ``gateway/middleware.py`` (the ``http.request``
 span, the phase clock, error mapping, authentication, so that
 ``request["auth"]`` is always set), the overload shedder, the signal
 bus, the fault plane and, with ``controller_enabled``, the serving
@@ -310,15 +312,108 @@ def _shed_class_order(settings) -> list[str]:
     return order
 
 
-def build_llm_app(settings, engine=None) -> web.Application:
+def setup_pool_routes(app: web.Application) -> None:
+    """``GET /admin/engine/pool`` (the pool's status card; needs
+    ``observability.read``) and ``POST /admin/engine/pool/{replica}/{action}``
+    (``drain``, ``undrain``, ``reload`` with an optional body
+    ``{"timeout_s": n}``, ``role`` with ``{"role": "prefill|decode|any"}``;
+    needs ``admin.all``, since a reload rebuilds the weights). Without a pool
+    (``app["tpu_engine_pool"]`` None) both answer 404; an unknown replica is
+    a 404, a bad action or body a 422."""
+    routes = web.RouteTableDef()
+
+    def _no_pool() -> web.Response:
+        return web.json_response(
+            {"detail": "engine replica pool is not enabled "
+                       "(set MCPFORGE_TPU_LOCAL_REPLICAS > 1)"}, status=404)
+
+    def _invalid(message: str) -> web.Response:
+        return web.json_response({"detail": message}, status=422)
+
+    @routes.get("/admin/engine/pool")
+    async def engine_pool_status(request: web.Request) -> web.Response:
+        request["auth"].require("observability.read")
+        pool = request.app.get("tpu_engine_pool")
+        if pool is None:
+            return _no_pool()
+        return web.json_response(pool.status())
+
+    @routes.post("/admin/engine/pool/{replica}/{action}")
+    async def engine_pool_action(request: web.Request) -> web.Response:
+        request["auth"].require("admin.all")
+        pool = request.app.get("tpu_engine_pool")
+        if pool is None:
+            return _no_pool()
+        action = request.match_info["action"]
+        rid = request.match_info["replica"]
+        body = {}
+        if request.can_read_body:
+            try:
+                body = await request.json()
+            except json.JSONDecodeError:
+                return _invalid("body must be JSON")
+        if not isinstance(body, dict):   # valid JSON but e.g. [30] or "60"
+            return _invalid("body must be a JSON object")
+        try:
+            timeout_s = float(body.get("timeout_s", 60.0))
+        except (TypeError, ValueError):
+            return _invalid("timeout_s must be a number")
+        try:
+            if action == "drain":
+                result = await pool.drain(rid, timeout_s=timeout_s)
+            elif action == "undrain":
+                result = await pool.undrain(rid)
+            elif action == "reload":
+                result = await pool.reload(rid, timeout_s=timeout_s)
+            elif action == "role":
+                role = body.get("role")
+                if not isinstance(role, str) or not role:
+                    return _invalid('role action needs a body {"role": '
+                                    '"prefill|decode|any"}')
+                result = pool.set_role(rid, role)
+            else:
+                return _invalid(f"action must be drain|undrain|reload|role, "
+                                f"got {action!r}")
+        except KeyError as exc:
+            return web.json_response({"detail": str(exc)}, status=404)
+        except ValueError as exc:
+            return _invalid(str(exc))
+        return web.json_response(result)
+
+    app.add_routes(routes)
+
+
+def build_pool(settings, config, tracer=None, signals=None, engine_factory=None):
+    """An ``EnginePool`` of ``settings.tpu_local_replicas`` engines of
+    ``config``, with the gateway's ``tpu_local_pool_*`` settings (the JAX
+    gateway's wiring); ``engine_factory`` as ``EnginePool`` takes it."""
+    from .pool import EnginePool
+
+    return EnginePool(
+        config, replicas=settings.tpu_local_replicas, tracer=tracer, signals=signals,
+        engine_factory=engine_factory,
+        affinity_routing=getattr(settings, "tpu_local_pool_affinity_routing", True),
+        health_interval_s=getattr(settings, "tpu_local_pool_health_interval_s", 0.5),
+        heartbeat_timeout_s=getattr(settings, "tpu_local_pool_heartbeat_timeout_s", 10.0),
+        requeue_max=getattr(settings, "tpu_local_pool_requeue_max", 2),
+        roles=getattr(settings, "tpu_local_pool_roles", ""),
+        disagg_prompt_tokens=getattr(settings, "tpu_local_disagg_prompt_tokens", 64),
+        role_penalty_tokens=getattr(settings, "tpu_local_pool_role_penalty_tokens", 256))
+
+
+def build_llm_app(settings, engine=None, pool=None) -> web.Application:
     """An app serving the /v1 surface under ``settings.llm_api_prefix`` from
-    one engine: ``engine``, or a ``TorchEngine`` built from
-    ``EngineConfig.from_settings(settings)`` (weights from
-    ``tpu_local_checkpoint``). The app's tracer and signal bus go to the
-    engine (a given engine keeps handles it already has). The engine, and
-    then the controller, start with the app; at its cleanup the controller
-    stops first, then the provider and the engine. ``settings`` is
-    duck-typed as the gateway's."""
+    one engine or a replica pool: ``pool``, or ``engine``, or, with
+    ``tpu_local_replicas`` > 1, a pool (``build_pool``) and else one
+    ``TorchEngine``, built from ``EngineConfig.from_settings(settings)``
+    (weights from ``tpu_local_checkpoint``). The app's tracer and signal
+    bus go to the engines (given ones keep handles they already have). With
+    a pool, ``app["tpu_engine_pool"]`` is set, ``app["tpu_engine"]`` is
+    replica 0's engine at build time, the provider speaks to the pool, the
+    controller steers every replica's current engine, and the pool's admin
+    routes are added. The engine or pool, and then the controller, start
+    with the app; at its cleanup the controller stops first, then the
+    provider and the engines. ``settings`` is duck-typed as the gateway's."""
     from ..gateway.middleware import MIDDLEWARES
     from ..observability import phases
     from ..observability.degradation import OverloadShedder, configure_degradation
@@ -339,16 +434,28 @@ def build_llm_app(settings, engine=None) -> web.Application:
                     exporter=settings.otel_exporter if settings.otel_enable else "none")
     signal_bus = SignalBus(window=settings.signal_window,
                            ewma_alpha=settings.signal_ewma_alpha)
-    if engine is None:
-        engine = TorchEngine(EngineConfig.from_settings(settings), tracer=tracer,
-                             signals=signal_bus)
+    if pool is None and engine is None and getattr(settings, "tpu_local_replicas", 1) > 1:
+        pool = build_pool(settings, EngineConfig.from_settings(settings),
+                          tracer=tracer, signals=signal_bus)
+    if pool is not None:
+        if pool.tracer is None:
+            pool.tracer = tracer
+        if pool.signals is None:
+            pool.signals = signal_bus
+        engines = [r.engine for r in pool.replicas]
     else:
-        if engine.tracer is None:
-            engine.tracer = tracer
-        if engine.signals is None:
-            engine.signals = signal_bus
+        if engine is None:
+            engine = TorchEngine(EngineConfig.from_settings(settings), tracer=tracer,
+                                 signals=signal_bus)
+        engines = [engine]
+    for served in engines:
+        if served.tracer is None:
+            served.tracer = tracer
+        if served.signals is None:
+            served.signals = signal_bus
+    engine = engines[0]
     provider = TorchLocalProvider(
-        "tpu_local", engine, tracer=tracer,
+        "tpu_local", pool if pool is not None else engine, tracer=tracer,
         embedding_model=settings.tpu_local_embedding_model,
         encoder_max_batch=settings.tpu_local_encoder_max_batch,
         encoder_max_wait_ms=settings.tpu_local_encoder_max_wait_ms,
@@ -364,6 +471,7 @@ def build_llm_app(settings, engine=None) -> web.Application:
     app["settings"] = settings
     app["llm_registry"] = registry
     app["tpu_engine"] = engine
+    app["tpu_engine_pool"] = pool
     app["tpu_provider"] = provider
     app["tracer"] = tracer
     app["current_span"] = current_span
@@ -374,10 +482,16 @@ def build_llm_app(settings, engine=None) -> web.Application:
             shed_at=settings.gw_shed_saturation_at,
             class_order=_shed_class_order(settings),
             tenant_classes=_tenant_classes(settings), degradation=degradation)
+    def live_engines() -> list:
+        # a pool's reload swaps engine objects: read the current ones
+        if pool is not None:
+            return [r.engine for r in pool.replicas]
+        return [engine]
+
     controller = None
     if settings.controller_enabled:
         controller = ServingController(
-            signal_bus, lambda: [engine], shedder=app.get("overload_shedder"),
+            signal_bus, live_engines, shedder=app.get("overload_shedder"),
             tracer=tracer, enabled=True,
             safe_mode=settings.controller_safe_mode,
             tick_s=settings.controller_tick_s,
@@ -397,7 +511,7 @@ def build_llm_app(settings, engine=None) -> web.Application:
     app["serving_controller"] = controller
 
     async def start(app: web.Application) -> None:
-        await engine.start()
+        await (pool if pool is not None else engine).start()
         if controller is not None:
             await controller.start()
 
@@ -411,4 +525,5 @@ def build_llm_app(settings, engine=None) -> web.Application:
     app.on_startup.append(start)
     app.on_cleanup.append(stop)
     setup_llm_routes(app, registry, prefix=settings.llm_api_prefix)
+    setup_pool_routes(app)
     return app

@@ -20,7 +20,7 @@ from .engine import GenRequest, TorchEngine
 from .models import ENCODER_CONFIGS
 from .models.encoder import encode as encoder_forward
 from .models.encoder import init_encoder_params
-from .provider import LLMProvider, make_chat_response
+from .provider import LLMProvider, LLMUnavailable, make_chat_response
 from .tokenizer import load_tokenizer, render_chat
 from .tool_calls import parse_tool_calls
 
@@ -101,7 +101,9 @@ class _EncoderBatcher:
 
 
 class TorchLocalProvider(LLMProvider):
-    """Chat over a :class:`TorchEngine`; ``embed``/``classify`` over the
+    """Chat over a :class:`TorchEngine` or an ``EnginePool`` (the same
+    submit surface; a pool's "unavailable" terminal raises
+    ``LLMUnavailable``); ``embed``/``classify`` over the
     encoder ``embedding_model`` (seeded random weights in f32, on the
     engine's device). ``tracer`` and ``metrics`` are optional handles,
     duck-typed as the JAX provider's."""
@@ -217,6 +219,11 @@ class TorchLocalProvider(LLMProvider):
                 if token is None:
                     break
                 tokens.append(token)
+            if gen.finish_reason == "unavailable":
+                # a pool with no replica left to finish it: a clean 503 +
+                # Retry-After rather than a partial completion
+                raise LLMUnavailable("serving capacity temporarily unavailable "
+                                     "(pool failover budget exhausted)")
             text = self.engine.tokenizer.decode(tokens)
             self._count_request(model, len(gen.prompt_ids), len(tokens))
             if span is not None:
@@ -271,6 +278,7 @@ class TorchLocalProvider(LLMProvider):
         buffering = self._wants_tools(request)
         emitted: list[str] = []
         pending: list[int] = []
+        delivered = False
         while True:
             token = await gen.stream.get()
             if token is None:
@@ -285,11 +293,32 @@ class TorchLocalProvider(LLMProvider):
                     if head and head[0] not in "{[":
                         buffering = False  # plain answer: replay + stream
                         for chunk in emitted:
+                            delivered = True
                             yield self._chunk(chunk_id, created, model,
                                               {"content": chunk})
                         emitted = []
                     continue
+                delivered = True
                 yield self._chunk(chunk_id, created, model, {"content": text})
+        if gen.finish_reason == "unavailable":
+            if not delivered:
+                # nothing reached the client: raise, so the HTTP surface
+                # answers a clean 503 + Retry-After (it awaits the first
+                # chunk before sending headers)
+                raise LLMUnavailable("serving capacity temporarily unavailable "
+                                     "(pool failover budget exhausted)")
+            # tokens already streamed: end with a structured terminal chunk
+            # (finish_reason and an error object with the retry advice)
+            yield {
+                "id": chunk_id, "object": "chat.completion.chunk",
+                "created": created, "model": model,
+                "choices": [{"index": 0, "delta": {}, "finish_reason": "unavailable"}],
+                "error": {"message": "serving capacity lost mid-stream (pool "
+                                     "failover budget exhausted); retry with the "
+                                     "partial output discarded",
+                          "type": "overloaded_error", "code": 503, "retry_after_s": 1},
+            }
+            return
         if buffering and emitted:
             full = "".join(emitted)
             calls = parse_tool_calls(full)
