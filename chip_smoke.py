@@ -246,6 +246,37 @@ chain pages equal the exported ones bit for bit (rows 2b, 3b, w, ws);
 ``engine_llama3_8b_pool`` (llama3-8b, bf16) also holds one fed decode
 dispatch of each replica to ``DECODE_REPLAY_EVENTS``.
 
+The shared engine plane and the object tier (four phases on one
+``CoordinationHub`` on 127.0.0.1, with a secret, on an event loop of its
+own, which outlives every worker): ``engine_llama3_8b_shared_plane``
+(``plane_phase``): three workers of ``SharedEnginePlane``, each a process
+of this script (``--plane-worker``: a ``TcpEventBus``, ``TcpLeaseManager``
+and ``BusRpc`` on the hub, the worker heartbeat, a 3 s owner lease and
+heartbeat TTL, a 2 s stream idle bar; it loads the kernel libraries this
+script built and raises if one is missing). W0 owns the lease and builds
+llama3-8b at full width and depth (``engine``'s configuration) before W1
+and W2 start. ``engine``'s six chats through W1 (as ``team:alpha``) and W2
+give the owner's streams, held to ``engine``'s by the pool phase's rule,
+and the tenant's bill; the hop's TTFT cost and the ms of each forwarded
+chunk; the owner's queue depth read by W2 under sixteen chats; a
+``coordination.hub.rpc`` partition that ends in ``LLMUnavailable``; then
+W0 is SIGKILLed four tokens into a 64-token chat through W1: that stream
+ends with ``LLMUnavailable`` within the idle bar and one lease TTL, a
+survivor wins the lease and builds on the card once W0's memory is back,
+and the chat sent again equals the direct run's stream. The failover gap is
+split into the lease's lapse, the election, the build and the first token.
+No owner builds or captures while serving; each owner's kernel launches
+count in the table. ``engine_llama3_8b_fabric`` (``fabric_phase``): host A's
+chain reaches a ``file://`` object tier through the spill and write-behind
+path, A's publisher advertises it over ``BusRpc`` to host B's
+``fabric.advert``, and B serves the request from the object tier (384
+tokens, A's resident-hit stream; restore ms per page and GB/s). Planted
+faults: a forwarded stream with one token changed, an advert merged under
+another tenant (B misses), the partition. The llama3-tiny f32 arms run
+the plane's three workers as tasks of this process (failover: the owner's
+RPC, heartbeat and plane stopped) and add an engine that knew the chain
+only under another tenant and serves it cold.
+
 Then the card line, the kernel table (JSON), and last the contract line.
 Any failure raises: the exit code is non-zero and the last line is absent.
 Exits 1 at once when CUDA is not available.
@@ -259,6 +290,8 @@ import dataclasses
 import gc
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -608,6 +641,30 @@ def main() -> int:
     emit({"phase": "engine_llama3_8b_pool", **stats})
     count(counts)
     free_device(torch)
+    # the shared engine plane and the object tier, on one coordination hub
+    hub = HubThread(secret=f"chip-smoke-{os.getpid()}-{time.time_ns()}")
+    try:
+        counts, stats = plane_phase(torch, dev, "llama3-tiny", "float32", tiny_reference, hub,
+                                    ATTENTION_MMA, processes=False)
+        emit({"phase": "engine_llama3_tiny_f32_shared_plane", **stats})
+        count(counts)
+        free_device(torch)
+        counts, stats = fabric_phase(torch, dev, "llama3-tiny", "float32", hub,
+                                     ATTENTION_MMA[1:])
+        emit({"phase": "engine_llama3_tiny_f32_fabric", **stats})
+        count(counts)
+        free_device(torch)
+        counts, stats = plane_phase(torch, dev, "llama3-8b", "bfloat16", engine_reference, hub,
+                                    ATTENTION, processes=True)
+        emit({"phase": "engine_llama3_8b_shared_plane", **stats})
+        count(counts)
+        free_device(torch)
+        counts, stats = fabric_phase(torch, dev, "llama3-8b", "bfloat16", hub, ATTENTION[1:])
+        emit({"phase": "engine_llama3_8b_fabric", **stats})
+        count(counts)
+        free_device(torch)
+    finally:
+        hub.close()
     # checkpoints written here in HF layout, served from disk
     ckpt_root = Path(__file__).resolve().parent / "build" / "checkpoints"
     counts, stats = checkpoint_llama3_phase(torch, dev, ckpt_root)
@@ -5044,5 +5101,947 @@ def mixtral_faults(torch, dev, cfg, path: Path, specs: list, where: dict, ckpt,
     return faults
 
 
+# ------------------------------------------------- the shared engine plane
+
+PLANE_TTL_S = 3.0          # the owner lease and every worker heartbeat
+PLANE_IDLE_S = 2.0         # a forwarded stream's idle bar before its liveness check
+PLANE_RPC_TIMEOUT_S = 120.0
+PLANE_SECRET_ENV = "MCPFORGE_BUS_TCP_SECRET"
+PLANE_FAILOVER_TOKENS = 64
+PLANE_HOP_RUNS = 5
+PLANE_LOAD_CHATS = 16      # twice max_batch: half of them wait in the owner's queue
+PLANE_PARTITION_TIMEOUT_S = 2.0
+LEASE_POLL_S = 0.02
+
+
+def plane_chats(model: str) -> dict:
+    """The plane phase's own chats beside ``chat_requests``: each under one
+    page, so that no cache holds any of it and every run of it is cold and
+    alone (one bucket, one row)."""
+    failover = chat(model, "Describe how a gateway retries a failed tool call.")
+    failover["max_tokens"] = PLANE_FAILOVER_TOKENS
+    return {"failover": failover, "hop": chat(model, "Name one MCP transport."),
+            "load": [chat(model, f"Give one reason {i} for a tool to time out.")
+                     for i in range(PLANE_LOAD_CHATS)]}
+
+
+class SpelledTokenizer:
+    """An engine's tokenizer whose ``decode`` spells every id as ``⟨id⟩``
+    (encoding is the tokenizer's own). Random weights draw ids the byte
+    tokenizer prints as nothing, so a stream would reach its worker as one
+    empty chunk; spelled, each token is one chunk, and the worker reads
+    every token of a forwarded stream, and its time, from the text."""
+
+    def __init__(self, base):
+        self.base = base
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+    def decode(self, ids) -> str:
+        return "".join(f"⟨{i}⟩" for i in ids)
+
+
+def spelled_ids(text: str) -> list[int]:
+    return [int(i) for i in re.findall(r"⟨(\d+)⟩", text)]
+
+
+def plane_engine_config(model: str, dtype: str):
+    """``engine_phase``'s llama3-8b configuration (page 128, 512 pages,
+    buckets 128/512/2048, max_batch 8, seed 0)."""
+    from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig
+
+    return EngineConfig(model=model, dtype=dtype, device="cuda", max_batch=8,
+                        max_seq_len=2048, page_size=128, num_pages=512,
+                        prefill_buckets=(128, 512, 2048), prefill_max_batch=4, seed=0)
+
+
+class PlaneWorker:
+    """One gateway worker of the shared engine plane: a ``HubClient`` with
+    its ``TcpEventBus`` and ``TcpLeaseManager``, a ``BusRpc``, the worker
+    heartbeat (TTL ``PLANE_TTL_S``) and a ``SharedEnginePlane`` whose
+    factory builds ``TorchEngine`` + ``TorchLocalProvider`` on the card.
+    Beside the plane's ``pool.*`` methods it serves the ``smoke.*`` methods
+    by which this script drives and reads it: chats through the plane (or,
+    on the owner, straight on its provider), a stream for the failover,
+    readings of its queue state, an armed partition, its owner's report
+    (builds, the requests its engine served with their shapes and tokens,
+    the chunk times it emitted, the ledger, kernel launches, compile
+    events), a reset of the launch counts, and exit. Runs in a process of
+    its own (``--plane-worker``) or as a task of this script's loop."""
+
+    def __init__(self, worker_id: str, hub_port: int, secret: str, model: str, dtype: str):
+        self.worker_id = worker_id
+        self.hub_port = hub_port
+        self.secret = secret
+        self.model = model
+        self.dtype = dtype
+        self.builds: list[dict] = []
+        self.served: list = []          # GenRequests, in the order submitted
+        self.emitted: list[list[float]] = []   # wall times of each stream's chunks
+        self.ledger = RecordingLedger()
+        self.engine = None
+        self.min_free_bytes = 0
+        self.exit = None
+
+    async def start(self) -> None:
+        from mcp_context_forge_tpu_torch.coordination.heartbeat import WorkerHeartbeat
+        from mcp_context_forge_tpu_torch.coordination.hub import (HubClient, TcpEventBus,
+                                                                  TcpLeaseManager)
+        from mcp_context_forge_tpu_torch.coordination.rpc import BusRpc
+        from mcp_context_forge_tpu_torch.tpu_local.pool_rpc import SharedEnginePlane
+
+        self.exit = asyncio.Event()
+        self.client = HubClient("127.0.0.1", self.hub_port, secret=self.secret)
+        self.bus = TcpEventBus(self.client)
+        self.leases = TcpLeaseManager(self.client)
+        await self.bus.start()     # raises when the hub is unreachable or refuses us
+        self.rpc = BusRpc(self.bus, self.worker_id, leases=self.leases,
+                          default_timeout_s=PLANE_RPC_TIMEOUT_S, idle_timeout_s=PLANE_IDLE_S)
+        self.heartbeat = WorkerHeartbeat(self.leases, self.worker_id, ttl=PLANE_TTL_S)
+        self.plane = SharedEnginePlane(self.rpc, self.leases, self.worker_id, self._factory,
+                                       lease_ttl=PLANE_TTL_S, rpc_timeout_s=PLANE_RPC_TIMEOUT_S,
+                                       stream_idle_timeout_s=PLANE_IDLE_S)
+        for name in ("chat", "queue_watch", "partition", "report", "reset", "min_free",
+                     "exit"):
+            self.rpc.register(f"smoke.{name}", getattr(self, f"_smoke_{name}"))
+        self.rpc.register_stream("smoke.stream", self._smoke_stream)
+        await self.rpc.start()
+        await self.heartbeat.start()
+        await self.plane.start()
+
+    async def stop(self) -> None:
+        """A clean stop: the plane (its lease released, its engine
+        stopped), the heartbeat (its lease released), the RPC seam, the
+        hub connection."""
+        await self.plane.stop()
+        await self.heartbeat.stop()
+        await self.rpc.stop()
+        await self.bus.stop()
+
+    async def serve_until_exit(self) -> None:
+        await self.start()
+        try:
+            await self.exit.wait()
+        finally:
+            await self.stop()
+
+    # ------------------------------------------------------------- the owner
+
+    async def _factory(self):
+        import torch
+
+        from mcp_context_forge_tpu_torch.tpu_local.engine import TorchEngine
+        from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
+
+        t_start = time.time()
+        waited = time.monotonic()
+        # a survivor builds only once the dead owner's memory is back
+        while torch.cuda.mem_get_info()[0] < self.min_free_bytes:
+            check(time.monotonic() - waited < 20.0,
+                  f"{self.worker_id}: {torch.cuda.mem_get_info()[0]} bytes free, not "
+                  f"{self.min_free_bytes}, 20 s after winning the lease")
+            await asyncio.sleep(0.05)
+        free_before = torch.cuda.mem_get_info()[0]
+        t0 = time.monotonic()
+        engine = await asyncio.to_thread(
+            TorchEngine, plane_engine_config(self.model, self.dtype), ledger=self.ledger)
+        build_s = time.monotonic() - t0
+        engine.tokenizer = SpelledTokenizer(engine.tokenizer)
+        submit = engine.submit
+
+        async def recording(request):
+            self.served.append(request)
+            return await submit(request)
+
+        engine.submit = recording
+        await engine.start()
+        provider = TorchLocalProvider("tpu_local", engine)
+        chat_stream = provider.chat_stream
+
+        async def timed_stream(request):
+            times: list[float] = []
+            self.emitted.append(times)
+            async for chunk in chat_stream(request):
+                if chunk["choices"][0]["delta"].get("content"):
+                    times.append(time.time())
+                yield chunk
+
+        provider.chat_stream = timed_stream
+        self.engine = engine
+        self.builds.append({"worker": self.worker_id, "seconds": build_s,
+                            "waited_for_memory_s": t0 - waited, "free_bytes_before": free_before,
+                            "t_start": t_start, "t_end": time.time()})
+        return provider
+
+    # ------------------------------------------------------- smoke methods
+
+    async def _smoke_chat(self, params: dict) -> dict:
+        """A streamed chat through the plane (``direct``: straight on this
+        owner's provider, no hop); the wall times of its sending, its first
+        content chunk and its end, each chunk's arrival, and the error that
+        ended it."""
+        from mcp_context_forge_tpu_torch import observability
+
+        body, stream = params["body"], None
+        if params.get("direct"):
+            check(self.plane.ready_local, f"{self.worker_id} is not the built owner")
+            stream = self.plane.local_provider.chat_stream(dict(body))
+        else:
+            stream = self.plane.chat_stream(dict(body))
+        token = observability.set_current_tenant(params.get("tenant"))
+        arrivals, text, error = [], [], None
+        t_send = time.time()
+        try:
+            async for chunk in stream:
+                content = chunk["choices"][0]["delta"].get("content")
+                if content:
+                    arrivals.append(time.time())
+                    text.append(content)
+        except Exception as exc:   # reported: the caller checks the type
+            error = f"{type(exc).__name__}: {exc}"
+        finally:
+            observability.reset_current_tenant(token)
+        return {"t_send": t_send, "arrivals": arrivals, "t_end": time.time(),
+                "content": "".join(text), "error": error}
+
+    async def _smoke_stream(self, params: dict):
+        """A chat through the plane, one chunk out per content chunk in (its
+        count and wall time), then one last chunk with the error that ended
+        it, if one did."""
+        from mcp_context_forge_tpu_torch import observability
+
+        token = observability.set_current_tenant(params.get("tenant"))
+        count, error = 0, None
+        try:
+            async for chunk in self.plane.chat_stream(dict(params["body"])):
+                if chunk["choices"][0]["delta"].get("content"):
+                    count += 1
+                    yield {"k": count, "t": time.time()}
+        except Exception as exc:
+            error = type(exc).__name__
+            message = str(exc)
+        finally:
+            observability.reset_current_tenant(token)
+        yield {"end": True, "k": count, "t": time.time(), "error": error,
+               "message": message if error else None}
+
+    async def _smoke_queue_watch(self, params: dict) -> dict:
+        """``queue_state_sync()`` every 20 ms for ``seconds``, with the
+        plane's cache refreshed as often."""
+        self.plane.queue_cache_ttl_s = float(params.get("cache_ttl_s", 0.05))
+        readings, nones = [], 0
+        deadline = time.monotonic() + float(params["seconds"])
+        while time.monotonic() < deadline:
+            state = self.plane.queue_state_sync()
+            if state is None:
+                nones += 1
+            else:
+                readings.append(state)
+            await asyncio.sleep(0.02)
+        return {"readings": readings, "none": nones, "local_engine": self.engine is not None}
+
+    async def _smoke_partition(self, params: dict) -> dict:
+        """``coordination.hub.rpc`` armed ``corrupt`` for ``pool.chat``: the
+        request frame is dropped, and the caller walks the timeout and the
+        liveness check to ``LLMUnavailable``."""
+        from mcp_context_forge_tpu_torch.observability import faults
+        from mcp_context_forge_tpu_torch.tpu_local.provider import LLMUnavailable
+
+        plane = faults.configure_fault_plane(True)
+        plane.arm(faults.FaultRule(point="coordination.hub.rpc", kind="corrupt",
+                                   scope="pool.chat"))
+        timeout, self.plane.rpc_timeout_s = self.plane.rpc_timeout_s, PLANE_PARTITION_TIMEOUT_S
+        t0 = time.monotonic()
+        try:
+            await asyncio.wait_for(self.plane.chat(dict(params["body"])), 30)
+            outcome = "answered"
+        except LLMUnavailable as exc:
+            outcome = f"LLMUnavailable: {exc}"
+        except asyncio.TimeoutError:
+            outcome = "hung"
+        finally:
+            self.plane.rpc_timeout_s = timeout
+            faults.configure_fault_plane(False)
+        return {"outcome": outcome, "seconds": time.monotonic() - t0}
+
+    async def _smoke_report(self, params: dict) -> dict:
+        import torch
+
+        served = []
+        for r in self.served:
+            served.append({"prompt_ids": r.prompt_ids, "generated": r.generated,
+                           "finish": r.finish_reason, "hist": r.hist, "bucket": r.bucket,
+                           "rows": sum(o.prefill_ms == r.prefill_ms for o in self.served),
+                           "tenant": r.tenant,
+                           "ttft_ms": (r.first_token_ts - r.created) * 1e3
+                           if r.first_token_ts else None})
+        engine = self.engine
+        return {"worker": self.worker_id, "owner": self.plane.ready_local,
+                "plane": self.plane.stats(), "rpc": self.rpc.stats(),
+                "builds": self.builds, "served": served, "emitted": self.emitted,
+                "ledger": self.ledger.totals,
+                "launches": {k: fn.launches for k, fn in kernel_wrappers().items()},
+                "serving_events": engine.compile_stats()["serving"]["count"] if engine else None,
+                "cached_pages": engine.allocator.cached_pages if engine else None,
+                "max_queue": engine.config.max_queue if engine else None,
+                "reserved_bytes": torch.cuda.memory_reserved()}
+
+    async def _smoke_reset(self, params: dict) -> dict:
+        for fn in kernel_wrappers().values():
+            fn.launches = 0
+        self.served.clear()
+        self.emitted.clear()
+        return {}
+
+    async def _smoke_min_free(self, params: dict) -> dict:
+        self.min_free_bytes = int(params["bytes"])
+        return {}
+
+    async def _smoke_exit(self, params: dict) -> dict:
+        self.exit.set()
+        return {}
+
+
+def plane_worker_main(argv: list[str]) -> int:
+    """``chip_smoke.py --plane-worker ID HUB_PORT MODEL DTYPE``: one worker
+    process of the plane phase (the hub's secret in the environment). It
+    loads the kernel libraries this script built and builds none: a missing
+    one raises."""
+    import torch
+
+    worker_id, hub_port, model, dtype = argv[0], int(argv[1]), argv[2], argv[3]
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mcp_context_forge_tpu_torch.tpu_local.ops import _build
+
+    missing = [name for name in _build.KERNELS if not _build.library_path(name).exists()]
+    check(not missing, f"{worker_id}: kernel libraries not built: {missing}")
+    check(torch.cuda.is_available(), f"{worker_id}: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")     # the context, before the worker contends
+    worker = PlaneWorker(worker_id, hub_port, os.environ[PLANE_SECRET_ENV], model, dtype)
+    asyncio.run(worker.serve_until_exit())
+    return 0
+
+
+class HubThread:
+    """A ``CoordinationHub`` on 127.0.0.1 with a secret, on an event loop
+    of its own in a thread of this process, so that it outlives every
+    worker the plane phase starts and kills."""
+
+    def __init__(self, secret: str):
+        from mcp_context_forge_tpu_torch.coordination.hub import CoordinationHub
+
+        self.secret = secret
+        self.loop = asyncio.new_event_loop()
+        self.hub = CoordinationHub("127.0.0.1", 0, secret=secret)
+        started = threading.Event()
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+            self.loop.run_until_complete(self.hub.start())
+            started.set()
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=run, name="coordination-hub", daemon=True)
+        self.thread.start()
+        check(started.wait(30), "the coordination hub did not start")
+        self.port = self.hub.bound_port
+
+    def close(self) -> None:
+        asyncio.run_coroutine_threadsafe(self.hub.stop(), self.loop).result(30)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+
+
+class PlaneConductor:
+    """This script's own side of the plane phase: a client of the hub (a
+    ``BusRpc`` named ``conductor``, which serves nothing) by which it calls the
+    workers' ``smoke.*`` methods and reads the owner lease; and the
+    workers, as processes (``spawn``) or as tasks of this loop."""
+
+    def __init__(self, hub: HubThread, model: str, dtype: str, processes: bool):
+        self.hub, self.model, self.dtype, self.processes = hub, model, dtype, processes
+        self.procs: dict[str, subprocess.Popen] = {}
+        self.tasks: dict[str, tuple] = {}
+        self.logs = Path(__file__).resolve().parent / "build" / "plane"
+
+    async def start(self) -> None:
+        from mcp_context_forge_tpu_torch.coordination.hub import (HubClient, TcpEventBus,
+                                                                  TcpLeaseManager)
+        from mcp_context_forge_tpu_torch.coordination.rpc import BusRpc
+
+        self.client = HubClient("127.0.0.1", self.hub.port, secret=self.hub.secret)
+        self.bus = TcpEventBus(self.client)
+        self.leases = TcpLeaseManager(self.client)
+        await self.bus.start()
+        self.rpc = BusRpc(self.bus, "conductor", leases=self.leases,
+                          default_timeout_s=PLANE_RPC_TIMEOUT_S, idle_timeout_s=PLANE_IDLE_S)
+        await self.rpc.start()
+
+    async def stop(self) -> None:
+        for wid in list(self.procs) + list(self.tasks):
+            await self.retire(wid)
+        await self.rpc.stop()
+        await self.bus.stop()
+
+    def spawn(self, wid: str) -> None:
+        if self.processes:
+            self.logs.mkdir(parents=True, exist_ok=True)
+            log = open(self.logs / f"{wid}.log", "w")
+            env = {**os.environ, PLANE_SECRET_ENV: self.hub.secret}
+            self.procs[wid] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--plane-worker", wid,
+                 str(self.hub.port), self.model, self.dtype],
+                cwd=str(Path(__file__).resolve().parent), env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+            log.close()
+        else:
+            worker = PlaneWorker(wid, self.hub.port, self.hub.secret, self.model, self.dtype)
+            self.tasks[wid] = (worker, asyncio.ensure_future(worker.serve_until_exit()))
+
+    def log_tail(self, wid: str) -> str:
+        path = self.logs / f"{wid}.log"
+        return path.read_text()[-3000:] if path.exists() else ""
+
+    async def alive(self, wid: str, timeout_s: float) -> None:
+        """Wait for ``wid``'s heartbeat lease (its plane is started then)."""
+        deadline = time.monotonic() + timeout_s
+        while await self.leases.holder(f"worker:{wid}") != wid:
+            proc = self.procs.get(wid)
+            check(proc is None or proc.poll() is None,
+                  f"worker {wid} exited with {proc and proc.poll()}:\n{self.log_tail(wid)}")
+            check(time.monotonic() < deadline, f"worker {wid} never came up:\n"
+                                               f"{self.log_tail(wid)}")
+            await asyncio.sleep(0.05)
+
+    async def owner(self) -> str | None:
+        from mcp_context_forge_tpu_torch.tpu_local.pool_rpc import LEASE_NAME
+
+        return await self.leases.holder(LEASE_NAME)
+
+    async def built_owner(self, candidates, timeout_s: float) -> str:
+        """The worker of ``candidates`` that holds the owner lease and has
+        built its engine."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            owner = await self.owner()
+            if owner in candidates and (await self.call(owner, "report"))["owner"]:
+                return owner
+            for wid in candidates:
+                proc = self.procs.get(wid)
+                check(proc is None or proc.poll() is None,
+                      f"worker {wid} exited:\n{self.log_tail(wid)}")
+            check(time.monotonic() < deadline, f"no built owner among {candidates}")
+            await asyncio.sleep(0.05)
+
+    async def call(self, wid: str, method: str, **params):
+        return await self.rpc.call(wid, f"smoke.{method}", params)
+
+    async def kill(self, wid: str) -> None:
+        """The owner dies: SIGKILL for a process, reaped at once (its memory
+        goes with it); for a task, its RPC, heartbeat and plane stop (the
+        leases released), its streams cut without an end frame."""
+        if self.processes:
+            proc = self.procs.pop(wid)
+            proc.kill()
+            await asyncio.to_thread(proc.wait, 30)
+        else:
+            # the RPC first: its streams are cut without an end frame
+            worker, task = self.tasks.pop(wid)
+            await worker.rpc.stop()
+            await worker.heartbeat.stop()
+            await worker.plane.stop()
+            await worker.bus.stop()
+            task.cancel()
+
+    async def retire(self, wid: str) -> None:
+        """A clean exit, or a kill when the worker does not go."""
+        if wid in self.procs:
+            proc = self.procs.pop(wid)
+            if proc.poll() is None:
+                with contextlib.suppress(Exception):
+                    await self.rpc.call(wid, "smoke.exit", {}, timeout_s=5.0)
+                try:
+                    await asyncio.to_thread(proc.wait, 30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    await asyncio.to_thread(proc.wait, 30)
+        elif wid in self.tasks:
+            worker, task = self.tasks.pop(wid)
+            worker.exit.set()
+            with contextlib.suppress(Exception):
+                await asyncio.wait_for(task, 60)
+
+
+def plane_streams_check(reference: dict, streams: list, shapes: list, exact: bool) -> dict:
+    """The pool phase's rule for streams served by another engine of the
+    same weights: where a request hit as many cached tokens as in the
+    engine phase (in bf16: and its prefill call had the same bucket and
+    rows), its stream must equal that phase's; the first request, sent
+    alone to a cold owner, is always compared."""
+    ref_shapes = list(zip(reference["prefix_hit_tokens"], reference["buckets"],
+                          reference["prefill_group"]))
+    compared, equal, first_difference = [], [], {}
+    for k, (stream, got) in enumerate(zip(streams, shapes)):
+        if stream != reference["generated"][k]:
+            first_difference[k] = next((i for i, (a, b) in enumerate(
+                zip(stream, reference["generated"][k])) if a != b), len(stream))
+        if (got[0] == ref_shapes[k][0]) if exact else (tuple(got) == ref_shapes[k]):
+            compared.append(k)
+            if stream == reference["generated"][k]:
+                equal.append(k)
+    check(0 in compared and equal == compared,
+          f"forwarded streams differ from the engine phase's: compared {compared}, "
+          f"equal {equal}, first differences {first_difference}")
+    return {"compared_with_engine": compared, "equal_engine": equal,
+            "first_difference": first_difference}
+
+
+def plane_phase(torch, dev, model: str, dtype: str, reference: dict, hub: HubThread,
+                kernels: tuple, processes: bool) -> tuple[dict, dict]:
+    """``engine_llama3_8b_shared_plane`` (``processes``: three worker
+    processes on the card) and ``engine_llama3_tiny_f32_shared_plane`` (three
+    workers as tasks of this process), on ``hub``. W0 starts first and is
+    waited for until it owns the lease and has built; W1 and W2 start after.
+
+    1. Parity: ``engine``'s six chats through W1 (as tenant ``team:alpha``)
+       and W2, the first alone until its prefix is registered on the owner;
+       the owner's streams are held to the engine phase's
+       (``plane_streams_check``); W1's chats are billed to ``team:alpha``.
+    2. The hop: a one-page chat ``PLANE_HOP_RUNS`` times straight on the
+       owner and through W1 (TTFT each), and each forwarded chunk's
+       arrival on W1 against its emission on the owner.
+    3. Queue state: ``PLANE_LOAD_CHATS`` chats through W1 while W2 reads
+       ``queue_state_sync()``: the owner's depth (> 0 at some reading), its
+       capacity; W2 has no engine.
+    4. A partition: ``coordination.hub.rpc`` armed ``corrupt`` for
+       ``pool.chat`` on W1: ``LLMUnavailable`` after the timeout and the
+       liveness check, no hang.
+    5. Failover: the failover chat straight on the owner (the direct run),
+       then through W1; after four chunks W0 dies (SIGKILL, or its plane
+       stopped). W1's stream ends with ``LLMUnavailable`` within the idle
+       bar and one lease TTL; W1 or W2 wins the lease and builds (on the
+       card: only once W0's memory is back); the chat sent again through
+       the other worker equals the direct run's stream. The gap from the
+       kill to its first token is split into the lease's lapse, the
+       election, the build and the first token.
+
+    Every owner builds and captures nothing while it serves. Kernel counts:
+    zeroed on the owner just before step 1 and read after step 5's direct
+    run; the new owner's read after the retried chat. Returns (their sum,
+    stats)."""
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+    from mcp_context_forge_tpu_torch.tpu_local.tokenizer import load_tokenizer, render_chat
+
+    cfg = MODEL_CONFIGS[model]
+    tok = load_tokenizer(vocab_size=cfg.vocab_size)
+    requests = chat_requests(model)
+    ids = [tok.encode(render_chat(r["messages"])) for r in requests]
+    check([len(i) for i in ids] == reference["prompt_tokens"],
+          "the plane's prompts are not the engine phase's")
+    extra = plane_chats(model)
+    for name in ("failover", "hop"):
+        check(len(tok.encode(render_chat(extra[name]["messages"]))) < 128,
+              f"the {name} chat is not under one page")
+    exact = dtype == "float32"
+    conductor = PlaneConductor(hub, model, dtype, processes)
+    counts = dict.fromkeys(REPLACES, 0)
+    out: dict = {"model": model, "layers": cfg.n_layers, "dtype": dtype,
+                 "workers": "processes" if processes else "tasks of one process",
+                 "lease_ttl_s": PLANE_TTL_S, "heartbeat_ttl_s": PLANE_TTL_S,
+                 "stream_idle_timeout_s": PLANE_IDLE_S}
+
+    def served_for(report, prompt_ids, start=0):
+        rows = [r for r in report["served"] if r["prompt_ids"] == prompt_ids]
+        check(len(rows) > start, "a forwarded chat never reached the owner's engine")
+        return rows[start]
+
+    async def run():
+        await conductor.start()
+        try:
+            free_alone = torch.cuda.mem_get_info()[0]
+            t0 = time.monotonic()
+            conductor.spawn("W0")
+            await conductor.alive("W0", 120)
+            check(await conductor.built_owner(["W0"], 300) == "W0", "W0 did not build")
+            out["w0_ready_s"] = time.monotonic() - t0
+            for wid in ("W1", "W2"):
+                conductor.spawn(wid)
+            for wid in ("W1", "W2"):
+                await conductor.alive(wid, 120)
+            check(await conductor.owner() == "W0", "the lease left W0 while W1 and W2 started")
+            free_with_w0 = torch.cuda.mem_get_info()[0]
+
+            # 1. parity, with the tenant
+            await conductor.call("W0", "reset")
+            first = asyncio.ensure_future(conductor.call("W1", "chat", body=requests[0],
+                                                      tenant="team:alpha"))
+            while not (await conductor.call("W0", "report"))["cached_pages"]:
+                check(not first.done(), "the first chat ended before its prefix registered")
+                await asyncio.sleep(0.005)
+            senders = ["W1"] + ["W2" if k % 2 else "W1" for k in range(1, len(requests))]
+            rest = [asyncio.ensure_future(conductor.call(
+                w, "chat", body=r, tenant="team:alpha" if w == "W1" else None))
+                for w, r in zip(senders[1:], requests[1:])]
+            replies = await asyncio.wait_for(asyncio.gather(first, *rest), 600)
+            check(all(r["error"] is None for r in replies),
+                  f"a forwarded chat failed: {[r['error'] for r in replies]}")
+            report = await conductor.call("W0", "report")
+            rows = [served_for(report, i) for i in ids]
+            streams = [r["generated"] for r in rows]
+            check([spelled_ids(r["content"]) for r in replies] == streams,
+                  "a forwarded stream is not the tokens its owner generated")
+            shapes = [(r["hist"], r["bucket"], r["rows"]) for r in rows]
+            out["parity"] = {"senders": senders, "shapes": shapes,
+                             **plane_streams_check(reference, streams, shapes, exact)}
+            # a planted fault: one token of a forwarded stream changed
+            bad = [list(s) for s in streams]
+            bad[0][len(bad[0]) // 2] = (bad[0][len(bad[0]) // 2] + 1) % cfg.vocab_size
+            try:
+                plane_streams_check(reference, bad, shapes, exact)
+                check(False, "a forwarded stream with one token changed passed the check")
+            except SmokeFailure as exc:
+                check("differ" in str(exc), f"the planted fault failed otherwise: {exc}")
+            alpha = report["ledger"].get("team:alpha", {})
+            want_alpha = senders.count("W1")
+            check(alpha.get("requests") == want_alpha,
+                  f"team:alpha billed {alpha.get('requests')} requests, not {want_alpha}")
+            check(all(r["tenant"] == ("team:alpha" if s == "W1" else "")
+                      for r, s in zip(rows, senders)), "a chat reached the owner under "
+                                                       "another tenant")
+            out["tenant"] = {"team:alpha": alpha, "tenants": sorted(report["ledger"])}
+            out["forwarded_ttft_ms"] = [(r["arrivals"][0] - r["t_send"]) * 1e3 for r in replies]
+            out["engine_ttft_ms"] = [r["ttft_ms"] for r in rows]
+
+            # 2. the hop: TTFT straight on the owner against through W1, and
+            # each forwarded chunk's arrival against its emission
+            direct, forwarded, chunk_ms = [], [], []
+            for _ in range(PLANE_HOP_RUNS):
+                d = await conductor.call("W0", "chat", body=extra["hop"], direct=True)
+                f = await conductor.call("W1", "chat", body=extra["hop"])
+                check(d["error"] is None and f["error"] is None and d["content"] == f["content"]
+                      and len(f["arrivals"]) == len(spelled_ids(f["content"])),
+                      "the hop chat failed or its forwarded tokens differ from the direct")
+                direct.append((d["arrivals"][0] - d["t_send"]) * 1e3)
+                forwarded.append((f["arrivals"][0] - f["t_send"]) * 1e3)
+                emitted = (await conductor.call("W0", "report"))["emitted"][-1]
+                arrivals = f["arrivals"]
+                check(len(emitted) >= len(arrivals), "fewer chunks emitted than arrived")
+                chunk_ms += [(a - e) * 1e3 for a, e in zip(arrivals, emitted[-len(arrivals):])]
+            out["hop"] = {"runs": PLANE_HOP_RUNS, "direct_ttft_ms": direct,
+                          "forwarded_ttft_ms": forwarded,
+                          "direct_ttft_p50_ms": statistics.median(direct),
+                          "forwarded_ttft_p50_ms": statistics.median(forwarded),
+                          "hop_ttft_cost_ms": statistics.median(forwarded)
+                          - statistics.median(direct),
+                          "ms_per_forwarded_chunk": spread(chunk_ms)}
+
+            # 3. the owner's queue, read on W2 under load
+            watch = asyncio.ensure_future(conductor.call("W2", "queue_watch", seconds=3.0))
+            await asyncio.sleep(0.2)
+            load = await asyncio.gather(*[conductor.call("W1", "chat", body=r)
+                                          for r in extra["load"]])
+            watched = await watch
+            check(all(r["error"] is None for r in load), "a chat of the load failed")
+            depths = [s["depth"] for s in watched["readings"]]
+            owner_report = await conductor.call("W0", "report")
+            check(not watched["local_engine"], "W2 has an engine of its own")
+            check(depths and max(depths) > 0,
+                  f"W2 never read the owner's queue depth: {depths[:20]}, "
+                  f"{watched['none']} None")
+            check(all(s["capacity"] == owner_report["max_queue"] for s in watched["readings"]),
+                  "W2 read another capacity than the owner's max_queue")
+            out["queue_state"] = {"chats": PLANE_LOAD_CHATS, "readings": len(depths),
+                                  "max_depth": max(depths), "none_readings": watched["none"],
+                                  "capacity": owner_report["max_queue"]}
+
+            # 4. a partition
+            part = await conductor.call("W1", "partition", body=extra["hop"])
+            check(part["outcome"].startswith("LLMUnavailable")
+                  and part["seconds"] < PLANE_PARTITION_TIMEOUT_S + 5,
+                  f"the partitioned call ended {part}")
+            out["partition"] = part
+
+            # 5. failover
+            direct_run = await conductor.call("W0", "chat", body=extra["failover"], direct=True)
+            check(direct_run["error"] is None, "the direct failover chat failed")
+            report = await conductor.call("W0", "report")
+            failover_ids = tok.encode(render_chat(extra["failover"]["messages"]))
+            reference_stream = served_for(report, failover_ids)["generated"]
+            check(spelled_ids(direct_run["content"]) == reference_stream,
+                  "the direct run's chunks are not its owner's tokens")
+            check(len(reference_stream) == PLANE_FAILOVER_TOKENS,
+                  f"the direct run gave {len(reference_stream)} tokens")
+            check(report["serving_events"] == 0,
+                  f"W0 built or captured {report['serving_events']} times while serving")
+            for name in counts:
+                counts[name] += report["launches"][name]
+            w0_reserved = report["reserved_bytes"]
+            out["w0"] = {"build": report["builds"], "launches": report["launches"],
+                         "reserved_bytes": w0_reserved, "rpc": report["rpc"]}
+            if processes:
+                for wid in ("W1", "W2"):
+                    await conductor.call(wid, "min_free",
+                                      bytes=int(free_with_w0 + 0.9 * w0_reserved))
+            lease_log: dict = {}
+
+            async def watch_lease(t_kill):
+                while "elected" not in lease_log:
+                    owner = await conductor.owner()
+                    now = time.time()
+                    if owner != "W0" and "lapsed" not in lease_log:
+                        lease_log["lapsed"] = now
+                    if owner in ("W1", "W2"):
+                        lease_log.update(elected=now, owner=owner)
+                    check(now - t_kill < 60, "no survivor took the lease")
+                    await asyncio.sleep(LEASE_POLL_S)
+
+            chunks, t_kill = [], None
+            stream = conductor.rpc.call_stream(
+                "W1", "smoke.stream", {"body": extra["failover"], "tenant": "team:alpha"},
+                idle_timeout_s=PLANE_IDLE_S)
+            async for chunk in stream:
+                chunks.append(chunk)
+                if chunk.get("k") == 4 and not chunk.get("end"):
+                    t_kill = time.time()
+                    await conductor.kill("W0")
+                    break
+            check(t_kill is not None, "the failover stream ended before four chunks")
+
+            async def rest_of_stream():
+                async for chunk in stream:
+                    chunks.append(chunk)
+
+            # the rest of W1's stream, beside the election: the retried chat
+            # goes out once a survivor has built, whenever W1's stream ends
+            rest = asyncio.ensure_future(rest_of_stream())
+            await asyncio.wait_for(watch_lease(t_kill), 90)
+            new_owner = await conductor.built_owner([lease_log["owner"]], 300)
+            other = "W2" if new_owner == "W1" else "W1"
+            await conductor.call(new_owner, "reset")
+            retried = await conductor.call(other, "chat", body=extra["failover"])
+            await asyncio.wait_for(rest, 60)
+            end = chunks[-1]
+            check(end.get("end") and end["error"] == "LLMUnavailable",
+                  f"W1's stream ended with {end}")
+            last_chunk_t = max(c["t"] for c in chunks[:-1])
+            check(end["t"] - t_kill <= PLANE_IDLE_S + PLANE_TTL_S + 2.0,
+                  f"W1's stream took {end['t'] - t_kill:.3f} s to end after the kill")
+            check(retried["error"] is None, f"the retried chat failed: {retried['error']}")
+            check(spelled_ids(retried["content"]) == reference_stream,
+                  "the retried chat's forwarded tokens differ from the direct run's")
+            survivor = await conductor.call(new_owner, "report")
+            build = survivor["builds"][-1]
+            retried_stream = served_for(survivor, failover_ids)["generated"]
+            check(retried_stream == reference_stream,
+                  "the retried chat's stream differs from the direct run's")
+            check(survivor["serving_events"] == 0,
+                  f"{new_owner} built or captured while serving")
+            if processes:
+                check(build["free_bytes_before"] >= free_with_w0 + 0.9 * w0_reserved,
+                      f"{new_owner} built with {build['free_bytes_before']} bytes free: W0's "
+                      f"{w0_reserved} bytes were not back")
+            for name in counts:
+                counts[name] += survivor["launches"][name]
+            first_token = retried["arrivals"][0]
+            out["failover"] = {
+                "stream_chunks_before_kill": 4, "stream_chunks": end["k"],
+                "stream_end": end["message"], "stream_end_after_kill_s": end["t"] - t_kill,
+                "stream_end_after_last_chunk_s": end["t"] - last_chunk_t,
+                "new_owner": new_owner, "retried_equals_direct": True,
+                "gap_s": first_token - t_kill,
+                "split_s": {"lease_lapse": lease_log["lapsed"] - t_kill,
+                            "election": lease_log["elected"] - lease_log["lapsed"],
+                            "build": build["t_end"] - lease_log["elected"],
+                            "first_token": first_token - build["t_end"]},
+                "build": build, "free_bytes_alone": free_alone,
+                "free_bytes_with_w0": free_with_w0, "w0_reserved_bytes": w0_reserved}
+            out["build_s"] = {"W0": report["builds"][0]["seconds"],
+                              new_owner: build["seconds"]}
+            rpc_stats = [report["rpc"]] + [(await conductor.call(w, "report"))["rpc"]
+                                           for w in ("W1", "W2")]
+            out["rpc"] = {key: sum(s[key] for s in rpc_stats)
+                          for key in ("calls_served", "streams_served", "batches_sent",
+                                      "batched_calls")}
+            out["launches"] = dict(counts)
+        finally:
+            await conductor.stop()
+
+    asyncio.run(run())
+    for name in kernels:
+        check(counts[name] > 0, f"{name} was not launched on the plane's path")
+    return counts, out
+
+
+# ------------------------------------------------ the object tier on the card
+
+def fabric_phase(torch, dev, model: str, dtype: str, hub: HubThread,
+                 kernels: tuple) -> tuple[dict, dict]:
+    """``engine_llama3_8b_fabric`` / ``engine_llama3_tiny_f32_fabric``: the
+    cross-host object hit of ``tests/tpu_local/test_kv_fabric.py`` at full
+    width. Host A and host B are two engines of ``model`` on the card
+    (``tier_engine``'s shapes, a 16-page pool, ``prefix_tiers`` with the
+    lossless spill, a host tier of one page and no disk, so that every
+    spill displaces the one before it through the write-behind worker to
+    the object tier, one ``file://`` directory of this run's temp dir that
+    both share). A serves the system-prompt request cold and again (the
+    resident hit), then two summaries evict its three chain pages; once
+    the write-behind worker has put them in the object tier, A's publisher
+    advertises them (``publish_once``, bus RPC over ``hub``) to B's
+    ``fabric.advert`` handler. B, built beside A (both stay up), serves the
+    request: 384 tokens from the object tier, the tier conservation law,
+    A's resident-hit stream, the chunk kernel once per layer on the hit.
+    Planted fault: an advert merged under another tenant's namespace
+    covers nothing B may serve (its probes miss); in f32 a third engine
+    that received only that advert serves the request cold, with A's cold
+    stream. Prints the restore's ms per page and GB/s."""
+    import tempfile
+
+    from mcp_context_forge_tpu_torch.coordination.hub import HubClient, TcpEventBus
+    from mcp_context_forge_tpu_torch.coordination.rpc import BusRpc
+    from mcp_context_forge_tpu_torch.tpu_local.kv.fabric import (ADVERT_METHOD, FabricAdvert,
+                                                                 FabricIndexPublisher)
+    from mcp_context_forge_tpu_torch.tpu_local.kv.prefix_index import chain_hashes
+    from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
+
+    exact = dtype == "float32"
+    hit_request, fillers = tier_requests(model)
+    bucket = Path(tempfile.mkdtemp(prefix="fabric-")) / "bucket"
+    nbytes = payload_bytes(model, int8=False)
+    tiers = dict(dtype=dtype, prefix_tiers=True, tier_spill_quant="", num_pages=TIER_POOL_PAGES,
+                 tier_host_bytes=nbytes + 1, tier_disk_bytes=0,
+                 tier_object_url=f"file://{bucket}")
+    wrappers = kernel_wrappers()
+    out: dict = {"model": model, "dtype": dtype, "pool_pages": TIER_POOL_PAGES,
+                 "object_url": "file://<run temp dir>/bucket", "payload_bytes": nbytes}
+    host_a = tier_engine(model, None, **tiers)
+    host_b = tier_engine(model, host_a.params, **tiers)
+    engines = [host_a, host_b]
+    served: dict = {}
+
+    def recording(engine, name):
+        submit = engine.submit
+
+        async def record(request):
+            served.setdefault(name, []).append(request)
+            return await submit(request)
+
+        engine.submit = record
+
+    recording(host_a, "A")
+    recording(host_b, "B")
+
+    def drain(store):
+        deadline = time.monotonic() + 120
+        while (store._pending or not store._writeq.empty()) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(not store._pending, "the write-behind worker did not drain in 120 s")
+
+    async def run():
+        clients = [HubClient("127.0.0.1", hub.port, secret=hub.secret) for _ in range(2)]
+        buses = [TcpEventBus(c) for c in clients]
+        rpcs = [BusRpc(bus, name, default_timeout_s=30.0) for bus, name in
+                zip(buses, ("hostA", "hostB"))]
+        for engine in engines:
+            await engine.start()
+        for bus, rpc in zip(buses, rpcs):
+            await bus.start()
+            await rpc.start()
+        try:
+            a, b = (TorchLocalProvider("tpu_local", e) for e in engines)
+            await a.chat(dict(hit_request))
+            await a.chat(dict(hit_request))             # the resident hit
+            cold, resident = served["A"]
+            check(cold.hist == 0 and resident.hist == 384,
+                  f"A's runs hit {cold.hist} / {resident.hist} cached tokens")
+            chain = chain_hashes(cold.prompt_ids, host_a.config.page_size)
+            for request in fillers[:2]:
+                await a.chat(dict(request))
+            store_a, store_b = (e._tier_client.store for e in engines)
+            await asyncio.to_thread(drain, store_a)
+            on_object = store_a.object_hashes()
+            check(all(h in on_object for h in chain),
+                  f"{sum(h in on_object for h in chain)} of A's {len(chain)} chain pages "
+                  f"reached the object tier")
+            out["a_object_pages"] = store_a.stats()["object_pages"]
+            pub_a = FabricIndexPublisher(store_a, "hostA", rpc=rpcs[0],
+                                         bus_peers=lambda: ["hostA", "hostB"])
+            pub_b = FabricIndexPublisher(lambda: store_b, "hostB", rpc=rpcs[1])
+            rpcs[1].register(ADVERT_METHOD, pub_b.handle_advert)
+            # a planted fault: A's advert under another tenant's namespace
+            wrong = FabricAdvert(tenant="team-b", host="hostA", hashes=on_object,
+                                 ttl_s=300.0).to_wire()
+            merged = (await pub_b.handle_advert({"adverts": [wrong]}))["merged"]
+            check(merged == len(on_object) and not any(store_b.probe(h) for h in chain),
+                  "an advert under another tenant made B's probes hit")
+            out["wrong_tenant_advert"] = {"merged": merged, "b_probe_hits": 0}
+            report = await pub_a.publish_once()
+            check(report == {"sent": 1, "hashes": len(on_object)},
+                  f"A's publisher reported {report}")
+            check(all(store_b.fabric.covers(h, store_b.object_namespace) for h in chain),
+                  "B's fabric index does not cover A's chain")
+            for fn in wrappers.values():
+                fn.launches = 0
+            hits0 = dict(host_b.allocator.tier_hit_tokens)
+            await b.chat(dict(hit_request))
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            (got,) = served["B"]
+            hits = {t: n - hits0[t] for t, n in host_b.allocator.tier_hit_tokens.items()}
+            check(got.hist == 384 and hits["object"] == 384,
+                  f"B hit {got.hist} tokens, {hits['object']} from the object tier")
+            alloc = host_b.allocator
+            check(sum(alloc.tier_hit_tokens.values()) == alloc.prefix_hit_tokens,
+                  "the tier conservation law does not hold on B")
+            check(got.generated == resident.generated,
+                  "B's object-tier hit differs from A's resident hit")
+            layers = host_b.model_config.n_layers
+            chunk = sum(counts[k] for k in CHUNK)
+            flash = sum(counts[k] for k in FLASH)
+            check(chunk == layers and flash == 0,
+                  f"B's hit ran {chunk} chunk and {flash} flash launches for {layers} layers")
+            out.update(publisher=report, b_pub=pub_b.stats(), hit_tokens=hits,
+                       b_object_reads=store_b.stats()["object_reads"],
+                       ttft_ms={"a_cold": (cold.first_token_ts - cold.created) * 1e3,
+                                "a_resident": (resident.first_token_ts - resident.created) * 1e3,
+                                "b_object": (got.first_token_ts - got.created) * 1e3},
+                       hit_launches=counts, stream_equal_resident_hit=True)
+            if exact:
+                # the wrong tenant's advert alone, on a third engine: a cold run
+                host_c = tier_engine(model, host_a.params, **tiers)
+                engines.append(host_c)
+                recording(host_c, "C")
+                await host_c.start()
+                pub_c = FabricIndexPublisher(lambda: host_c._tier_client.store, "hostC")
+                await pub_c.handle_advert({"adverts": [wrong]})
+                await TorchLocalProvider("tpu_local", host_c).chat(dict(hit_request))
+                (c_run,) = served["C"]
+                check(c_run.hist == 0 and c_run.generated == cold.generated
+                      and host_c.allocator.tier_hit_tokens["object"] == 0,
+                      "an engine that knew A's chain only under another tenant served it")
+                out["wrong_tenant_engine"] = {"hist": c_run.hist, "stream_equal_cold": True}
+            return counts
+        finally:
+            for rpc, bus in zip(rpcs, buses):
+                await rpc.stop()
+                await bus.stop()
+            for engine in engines:
+                await engine.stop()
+
+    counts = asyncio.run(run())
+    restore = spread(host_b._tier_client.restore_ms)
+    out["restore_ms"] = restore
+    out["restore_gb_per_s"] = (nbytes / (restore["median"] / 1e3) / 1e9
+                               if restore["median"] else None)
+    for name in kernels:
+        check(counts[name] > 0, f"{name} was not launched on B's object-tier hit")
+    del host_a, host_b, engines
+    free_device(torch)
+    return counts, out
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--plane-worker"]:
+        sys.exit(plane_worker_main(sys.argv[2:]))
     sys.exit(main())

@@ -37,9 +37,16 @@ def compute_queue_state(pool: Any, engine: Any) -> dict[str, Any] | None:
 
 def queue_state(app: Any) -> dict[str, Any] | None:
     """The app's admission state (``app["tpu_engine_pool"]`` when it has a
-    pool, else ``app["tpu_engine"]``); refreshes the
+    pool, else ``app["tpu_engine"]``; on a worker of the shared engine plane,
+    which has neither, the owner's state through
+    ``app["engine_plane"].queue_state_sync()``, None until the plane has
+    read it: never a worker-local zero); refreshes the
     ``gw_engine_saturation`` gauge when the app carries metrics."""
     state = compute_queue_state(app.get("tpu_engine_pool"), app.get("tpu_engine"))
+    if state is None:
+        plane = app.get("engine_plane")
+        if plane is not None:
+            state = plane.queue_state_sync()
     if state is None:
         return None
     metrics = app.get("metrics")

@@ -11,6 +11,7 @@ use (or all at once, in parallel, through :func:`build`). A missing
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -66,8 +67,19 @@ def build(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
     source, all started together. Returns each kernel's compiler output
     (``-Xptxas=-v``: registers, shared memory, spills), read back from the
     log beside the library when it was already built. Each ``nvcc`` run is
-    a ``kernel_build`` event (``compile_events``) of the calling thread."""
+    a ``kernel_build`` event (``compile_events``) of the calling thread.
+
+    Processes that share the build directory (the workers of one host)
+    serialize here on an exclusive ``flock`` of ``BUILD_DIR/.lock``: one
+    builds, and the others, once they hold the lock, find the library
+    built and only read its log."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # released when the file closes
+        return _build_locked(names)
+
+
+def _build_locked(names: tuple[str, ...]) -> dict[str, str]:
     nvcc = None
     started: dict[str, tuple[subprocess.Popen, Path]] = {}
     t0 = time.monotonic()

@@ -18,7 +18,11 @@ actions): the middlewares of ``gateway/middleware.py`` (the ``http.request``
 span, the phase clock, error mapping, authentication, so that
 ``request["auth"]`` is always set), the overload shedder, the signal
 bus, the fault plane and, with ``controller_enabled``, the serving
-controller.
+controller. Each app is a worker of the coordination layer (a bus RPC seam
+and a heartbeat lease): with ``tpu_local_pool_shared`` its engine is the
+shared engine plane's (one owner elected among the workers builds it, the
+others forward), and ``setup_fabric_routes`` serves the prefix-cache
+fabric's ``/admin/fabric/adverts`` exchange.
 
 aiohttp is imported here and in ``gateway/middleware.py``, nowhere else in
 the port.
@@ -383,6 +387,53 @@ def setup_pool_routes(app: web.Application) -> None:
     app.add_routes(routes)
 
 
+def setup_fabric_routes(app: web.Application) -> None:
+    """The prefix-cache fabric's HTTP peer exchange (the JAX gateway's
+    ``routers_extra.py`` routes) over ``app["fabric_publisher"]``:
+    ``POST /admin/fabric/adverts`` (needs ``admin.all``) merges a peer's
+    advert batch and answers with this host's adverts, 404 without an
+    object tier, 422 for a body that is not an advert batch;
+    ``GET /admin/fabric/adverts`` (needs ``observability.read``) answers
+    the publisher's counters and the tier store's stats."""
+    routes = web.RouteTableDef()
+
+    def _detail(message: str, status: int) -> web.Response:
+        return web.json_response({"detail": message}, status=status)
+
+    @routes.post("/admin/fabric/adverts")
+    async def fabric_adverts_exchange(request: web.Request) -> web.Response:
+        request["auth"].require("admin.all")
+        publisher = request.app.get("fabric_publisher")
+        if publisher is None or publisher.store is None \
+                or getattr(publisher.store, "object_store", None) is None:
+            return _detail("prefix-cache fabric is not enabled "
+                           "(set MCPFORGE_TPU_LOCAL_TIER_OBJECT_URL)", 404)
+        try:
+            body = await request.json()
+        except json.JSONDecodeError as exc:
+            return _detail(f"invalid JSON: {exc}", 422)
+        if not isinstance(body, dict):
+            return _detail("body must be an advert batch object", 422)
+        try:
+            reply = await publisher.handle_advert(body)
+        except ValueError as exc:
+            return _detail(str(exc), 422)
+        return web.json_response(reply)
+
+    @routes.get("/admin/fabric/adverts")
+    async def fabric_adverts_status(request: web.Request) -> web.Response:
+        request["auth"].require("observability.read")
+        publisher = request.app.get("fabric_publisher")
+        if publisher is None:
+            return _detail("prefix-cache fabric is not wired", 404)
+        payload = publisher.stats()
+        store = publisher.store
+        payload["store"] = store.stats() if store is not None else None
+        return web.json_response(payload)
+
+    app.add_routes(routes)
+
+
 def build_pool(settings, config, tracer=None, signals=None, engine_factory=None):
     """An ``EnginePool`` of ``settings.tpu_local_replicas`` engines of
     ``config``, with the gateway's ``tpu_local_pool_*`` settings (the JAX
@@ -401,7 +452,32 @@ def build_pool(settings, config, tracer=None, signals=None, engine_factory=None)
         role_penalty_tokens=getattr(settings, "tpu_local_pool_role_penalty_tokens", 256))
 
 
-def build_llm_app(settings, engine=None, pool=None) -> web.Application:
+def coordination_from_settings(settings) -> tuple[Any, Any, Any, Any]:
+    """The bus and leases of ``settings.bus_backend`` (the JAX gateway's
+    wiring): ``memory`` (one process), ``file`` (a directory,
+    ``bus_dir``, shared by the workers of one host) or ``tcp`` (a hub at
+    ``bus_tcp_host``:``bus_tcp_port``, which this process hosts with
+    ``bus_tcp_serve``, authenticated by ``bus_tcp_secret`` or else the JWT
+    secret). Returns (bus, leases, hub or None, hub client or None);
+    nothing is started."""
+    from ..coordination import make_bus, make_lease_manager
+
+    backend = getattr(settings, "bus_backend", "memory")
+    if backend != "tcp":
+        directory = getattr(settings, "bus_dir", None)
+        return make_bus(backend, directory), make_lease_manager(backend, directory), None, None
+    from ..coordination.hub import CoordinationHub, HubClient, TcpEventBus, TcpLeaseManager
+
+    secret = settings.bus_tcp_secret or settings.jwt_secret_key
+    hub = None
+    if settings.bus_tcp_serve:
+        hub = CoordinationHub(settings.bus_tcp_host, settings.bus_tcp_port, secret=secret)
+    client = HubClient(settings.bus_tcp_host, settings.bus_tcp_port, secret=secret)
+    return TcpEventBus(client), TcpLeaseManager(client), hub, client
+
+
+def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
+                  worker_id: str | None = None) -> web.Application:
     """An app serving the /v1 surface under ``settings.llm_api_prefix`` from
     one engine or a replica pool: ``pool``, or ``engine``, or, with
     ``tpu_local_replicas`` > 1, a pool (``build_pool``) and else one
@@ -413,15 +489,34 @@ def build_llm_app(settings, engine=None, pool=None) -> web.Application:
     controller steers every replica's current engine, and the pool's admin
     routes are added. The engine or pool, and then the controller, start
     with the app; at its cleanup the controller stops first, then the
-    provider and the engines. ``settings`` is duck-typed as the gateway's."""
+    provider and the engines. ``settings`` is duck-typed as the gateway's.
+
+    Coordination: the app is worker ``worker_id`` (a fresh id by default)
+    on ``bus`` and ``leases`` (by default those of the settings' backend,
+    ``coordination_from_settings``, which the app then starts and stops).
+    It runs a ``BusRpc`` (``app["bus_rpc"]``) and the worker's heartbeat
+    lease, and registers the fabric publisher's ``fabric.advert`` method
+    (``app["fabric_publisher"]``; its gossip loop runs when
+    ``tpu_local_tier_object_url`` is set). With ``tpu_local_pool_shared``
+    the engine is not built with the app: a ``SharedEnginePlane``
+    (``app["engine_plane"]``) elects one owner among the workers, whose
+    factory builds the engine or pool (or starts the given one), and the
+    registry's provider is a ``SharedPoolProvider`` that forwards to the
+    owner; ``app["tpu_engine"]`` and ``app["tpu_engine_pool"]`` stay None,
+    and the backpressure headers read the owner's queue through the plane."""
+    from ..coordination.heartbeat import WorkerHeartbeat
+    from ..coordination.rpc import BusRpc
     from ..gateway.middleware import MIDDLEWARES
     from ..observability import phases
     from ..observability.degradation import OverloadShedder, configure_degradation
     from ..observability.faults import configure_fault_plane
     from ..observability.signals import SignalBus
     from ..observability.tracing import Tracer, current_span
+    from ..utils import new_id
     from .controller import ServingController
     from .engine import EngineConfig, TorchEngine
+    from .kv.fabric.publisher import ADVERT_METHOD, FabricIndexPublisher
+    from .pool_rpc import SharedEnginePlane, SharedPoolProvider
     from .tpu_provider import TorchLocalProvider
 
     # the process's fault plane stays a no-op unless fault_injection_enabled
@@ -434,45 +529,84 @@ def build_llm_app(settings, engine=None, pool=None) -> web.Application:
                     exporter=settings.otel_exporter if settings.otel_enable else "none")
     signal_bus = SignalBus(window=settings.signal_window,
                            ewma_alpha=settings.signal_ewma_alpha)
-    if pool is None and engine is None and getattr(settings, "tpu_local_replicas", 1) > 1:
-        pool = build_pool(settings, EngineConfig.from_settings(settings),
-                          tracer=tracer, signals=signal_bus)
-    if pool is not None:
-        if pool.tracer is None:
-            pool.tracer = tracer
-        if pool.signals is None:
-            pool.signals = signal_bus
-        engines = [r.engine for r in pool.replicas]
-    else:
-        if engine is None:
-            engine = TorchEngine(EngineConfig.from_settings(settings), tracer=tracer,
-                                 signals=signal_bus)
-        engines = [engine]
-    for served in engines:
-        if served.tracer is None:
-            served.tracer = tracer
-        if served.signals is None:
-            served.signals = signal_bus
-    engine = engines[0]
-    provider = TorchLocalProvider(
-        "tpu_local", pool if pool is not None else engine, tracer=tracer,
-        embedding_model=settings.tpu_local_embedding_model,
-        encoder_max_batch=settings.tpu_local_encoder_max_batch,
-        encoder_max_wait_ms=settings.tpu_local_encoder_max_wait_ms,
-        encoder_min_seq=settings.tpu_local_encoder_min_seq)
-    provider.classify_window = settings.tpu_local_classify_window
-    provider.classify_coverage = settings.tpu_local_classify_coverage
-    provider.classify_max_windows = settings.tpu_local_classify_max_windows
-    provider.classify_cache_size = settings.tpu_local_classify_cache_size
+    hub = hub_client = None
+    owns_bus = bus is None
+    if owns_bus:
+        bus, leases, hub, hub_client = coordination_from_settings(settings)
+    worker_id = worker_id or new_id()[:12]
+    bus_rpc = BusRpc(bus, worker_id, leases=leases,
+                     default_timeout_s=getattr(settings, "gw_rpc_timeout_s", 30.0),
+                     idle_timeout_s=getattr(settings, "gw_stream_idle_timeout_s", 15.0))
+    heartbeat = WorkerHeartbeat(leases, worker_id)
+    # the engines that serve on this worker (none on a plane's non-owner)
+    live = {"engine": None, "pool": None}
+
+    def make_provider(engine, pool):
+        """The engines' provider, building the pool or the engine first when
+        none is given."""
+        if pool is None and engine is None and getattr(settings, "tpu_local_replicas", 1) > 1:
+            pool = build_pool(settings, EngineConfig.from_settings(settings),
+                              tracer=tracer, signals=signal_bus)
+        if pool is not None:
+            if pool.tracer is None:
+                pool.tracer = tracer
+            if pool.signals is None:
+                pool.signals = signal_bus
+            engines = [r.engine for r in pool.replicas]
+        else:
+            if engine is None:
+                engine = TorchEngine(EngineConfig.from_settings(settings), tracer=tracer,
+                                     signals=signal_bus)
+            engines = [engine]
+        for served in engines:
+            if served.tracer is None:
+                served.tracer = tracer
+            if served.signals is None:
+                served.signals = signal_bus
+        live.update(engine=engines[0], pool=pool)
+        provider = TorchLocalProvider(
+            "tpu_local", pool if pool is not None else engines[0], tracer=tracer,
+            embedding_model=settings.tpu_local_embedding_model,
+            encoder_max_batch=settings.tpu_local_encoder_max_batch,
+            encoder_max_wait_ms=settings.tpu_local_encoder_max_wait_ms,
+            encoder_min_seq=settings.tpu_local_encoder_min_seq)
+        provider.classify_window = settings.tpu_local_classify_window
+        provider.classify_coverage = settings.tpu_local_classify_coverage
+        provider.classify_max_windows = settings.tpu_local_classify_max_windows
+        provider.classify_cache_size = settings.tpu_local_classify_cache_size
+        return provider
+
     registry = LLMProviderRegistry()
-    registry.register(provider, [settings.tpu_local_model, "tpu_local"],
-                      default_chat=True, default_embed=True)
+    plane = None
+    provider = None
+    if getattr(settings, "tpu_local_pool_shared", False):
+        async def build_owner_provider():
+            provider = await asyncio.to_thread(make_provider, engine, pool)
+            await (live["pool"] or live["engine"]).start()
+            return provider
+
+        plane = SharedEnginePlane(
+            bus_rpc, leases, worker_id, build_owner_provider,
+            lease_ttl=getattr(settings, "leader_lease_ttl", 15.0),
+            rpc_timeout_s=getattr(settings, "gw_rpc_timeout_s", 30.0),
+            stream_idle_timeout_s=getattr(settings, "gw_stream_idle_timeout_s", 15.0))
+        registry.register(SharedPoolProvider("tpu_local", plane),
+                          [settings.tpu_local_model, "tpu_local"],
+                          default_chat=True, default_embed=True)
+    else:
+        provider = make_provider(engine, pool)
+        registry.register(provider, [settings.tpu_local_model, "tpu_local"],
+                          default_chat=True, default_embed=True)
     app = web.Application(middlewares=MIDDLEWARES)
     app["settings"] = settings
     app["llm_registry"] = registry
-    app["tpu_engine"] = engine
-    app["tpu_engine_pool"] = pool
+    app["tpu_engine"] = live["engine"]
+    app["tpu_engine_pool"] = live["pool"]
     app["tpu_provider"] = provider
+    app["engine_plane"] = plane
+    app["bus_rpc"] = bus_rpc
+    app["coordination_hub"] = hub
+    app["worker_id"] = worker_id
     app["tracer"] = tracer
     app["current_span"] = current_span
     app["phase_clock"] = phases   # phases.phase(name) charges the request's clock
@@ -482,11 +616,12 @@ def build_llm_app(settings, engine=None, pool=None) -> web.Application:
             shed_at=settings.gw_shed_saturation_at,
             class_order=_shed_class_order(settings),
             tenant_classes=_tenant_classes(settings), degradation=degradation)
+
     def live_engines() -> list:
         # a pool's reload swaps engine objects: read the current ones
-        if pool is not None:
-            return [r.engine for r in pool.replicas]
-        return [engine]
+        if live["pool"] is not None:
+            return [r.engine for r in live["pool"].replicas]
+        return [live["engine"]] if live["engine"] is not None else []
 
     controller = None
     if settings.controller_enabled:
@@ -510,20 +645,76 @@ def build_llm_app(settings, engine=None, pool=None) -> web.Application:
             shed_step=settings.controller_shed_step)
     app["serving_controller"] = controller
 
+    def fabric_store():
+        # resolved at each tick: a plane's store exists once its owner built
+        if live["pool"] is not None:
+            return live["pool"].tier_store
+        client = getattr(live["engine"], "_tier_client", None)
+        return client.store if client is not None else None
+
+    fabric_http: list = []   # one ClientSession, made on the loop at first use
+
+    async def fabric_post_json(url: str, payload: dict) -> dict | None:
+        # a peer URL may carry Basic credentials ("http://admin:pw@host:4444");
+        # aiohttp refuses userinfo in the request URL itself
+        import aiohttp
+        from yarl import URL
+
+        if not fabric_http:
+            fabric_http.append(aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=5.0)))
+        u = URL(url)
+        auth = aiohttp.BasicAuth(u.user, u.password or "") if u.user else None
+        async with fabric_http[0].post(u.with_user(None), json=payload, auth=auth) as resp:
+            resp.raise_for_status()
+            return await resp.json()
+
+    fabric_publisher = FabricIndexPublisher(
+        fabric_store, worker_id, rpc=bus_rpc,
+        http_peers=[u.strip() for u in getattr(settings, "tpu_local_fabric_peers", "").split(",")
+                    if u.strip()],
+        post_json=fabric_post_json,
+        interval_s=getattr(settings, "tpu_local_fabric_advert_interval_s", 2.0),
+        ttl_s=getattr(settings, "tpu_local_fabric_advert_ttl_s", 300.0),
+        rpc_timeout_s=getattr(settings, "gw_rpc_timeout_s", 30.0))
+    app["fabric_publisher"] = fabric_publisher
+    bus_rpc.register(ADVERT_METHOD, fabric_publisher.handle_advert)
+
     async def start(app: web.Application) -> None:
-        await (pool if pool is not None else engine).start()
+        if hub is not None:
+            await hub.start()
+            hub_client.port = hub.bound_port   # a hub on port 0 took a free one
+        if owns_bus:
+            await bus.start()
+        await bus_rpc.start()
+        await heartbeat.start()
+        if plane is not None:
+            await plane.start()
+        else:
+            await (live["pool"] or live["engine"]).start()
         if controller is not None:
             await controller.start()
+        if settings.tpu_local_tier_object_url:
+            await fabric_publisher.start()
 
     async def stop(app: web.Application) -> None:
+        await fabric_publisher.stop()
+        if fabric_http:
+            await fabric_http[0].close()
         if controller is not None:
             # before the engine stops: no knob request may land on a
             # stopping dispatch loop
             await controller.stop()
         await registry.shutdown()
+        await heartbeat.stop()
+        await bus_rpc.stop()
+        if owns_bus:
+            await bus.stop()
+        if hub is not None:
+            await hub.stop()
 
     app.on_startup.append(start)
     app.on_cleanup.append(stop)
     setup_llm_routes(app, registry, prefix=settings.llm_api_prefix)
     setup_pool_routes(app)
+    setup_fabric_routes(app)
     return app

@@ -27,6 +27,7 @@ from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
 from mcp_context_forge_tpu_torch.tpu_local.models.convert import params_from_jax
 from mcp_context_forge_tpu_torch.tpu_local.server import build_llm_app
 from mcp_context_forge_tpu_torch.utils import jwt as port_jwt
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 ENV = {
     "MCPFORGE_DATABASE_URL": "sqlite:///:memory:",

@@ -35,6 +35,7 @@ from mcp_context_forge_tpu_torch.tpu_local.models.llama import init_params, para
 from mcp_context_forge_tpu_torch.tpu_local.quantize import quantize_tree
 
 from torch_engine_pair import SHAPE, TEXTS, serve
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 FAMILIES = ("llama3-test", "qwen2-tiny", "gemma-test", "mixtral-test")
 

@@ -30,6 +30,7 @@ from mcp_context_forge_tpu_torch.tpu_local.engine import (EngineConfig,
 from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
 from mcp_context_forge_tpu_torch.tpu_local.models.convert import params_from_jax
 from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as port_paged
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 GEMMA = MODEL_CONFIGS["gemma-test"]
 F32 = dict(rtol=2e-5, atol=2e-5)

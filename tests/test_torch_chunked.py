@@ -22,6 +22,7 @@ from mcp_context_forge_tpu_torch.tpu_local.engine import (EngineConfig,
                                                           TorchEngine)
 from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
 from mcp_context_forge_tpu_torch.tpu_local.models.convert import params_from_jax
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 SHAPE = dict(model="llama3-test", max_batch=4, max_seq_len=128, page_size=8,
              num_pages=64, prefill_buckets=(16,), prefill_max_batch=4,

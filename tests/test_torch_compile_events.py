@@ -19,6 +19,7 @@ from mcp_context_forge_tpu_torch.tpu_local.compile_events import (
 from mcp_context_forge_tpu_torch.tpu_local.engine import (EngineConfig, GenRequest,
                                                           TorchEngine)
 from mcp_context_forge_tpu_torch.tpu_local.ops import _build
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 SHAPE = dict(model="llama3-test", max_batch=2, max_seq_len=64, page_size=8,
              num_pages=32, prefill_buckets=(16,), dtype="float32", device="cpu")

@@ -22,6 +22,7 @@ from mcp_context_forge_tpu.tpu_local.ops.paged_attention import (
 from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
 from mcp_context_forge_tpu_torch.tpu_local.ops import attention as port_attn
 from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as port_paged
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 B, KV, G, HD, PAGE, P = 5, 2, 3, 16, 8, 6

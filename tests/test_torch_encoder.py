@@ -24,6 +24,7 @@ from mcp_context_forge_tpu_torch.tpu_local.models import ENCODER_CONFIGS
 from mcp_context_forge_tpu_torch.tpu_local.models.convert import encoder_params_from_jax
 from mcp_context_forge_tpu_torch.tpu_local.models.encoder import encode, init_encoder_params
 from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 TOL = 1e-5
 TEXTS = ["hello", "a benign tool output about files", "x" * 300,

@@ -23,6 +23,7 @@ from mcp_context_forge_tpu.tpu_local.engine import TPUEngine
 from mcp_context_forge_tpu_torch.observability import faults as port_faults
 from mcp_context_forge_tpu_torch.tpu_local.engine import GenRequest
 from torch_engine_pair import make_pair
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 PLANES = {"jax": jax_faults, "port": port_faults}
 

@@ -36,6 +36,7 @@ from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS as PORT
 from mcp_context_forge_tpu_torch.tpu_local.models import llama
 from mcp_context_forge_tpu_torch.tpu_local.models.convert import params_from_jax
 from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as port_paged
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 ATOL = 1e-4
 PAGE, NUM_PAGES, SLOTS, PER_SLOT = 8, 80, 2, 40

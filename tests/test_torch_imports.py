@@ -11,6 +11,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mcp_context_forge_tpu"}
@@ -84,3 +85,31 @@ def test_kernel_modules_import_without_toolchain():
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                    check=True, timeout=120)
+
+
+def test_chip_smoke_plane_worker_entry_imports_no_jax():
+    """``chip_smoke.py --plane-worker`` (a worker process of the plane
+    phase) imports nothing of JAX, and on a box without built kernel
+    libraries it refuses to start: it never builds one beside the script
+    that spawned it."""
+    code = (
+        "import sys, runpy\n"
+        "sys.argv = ['chip_smoke.py', '--plane-worker', 'W0', '1', 'llama3-tiny', 'float32']\n"
+        "try:\n"
+        "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    print('exit', exc.code)\n"
+        "except Exception as exc:\n"
+        "    print('raised', type(exc).__name__, exc)\n"
+        "import mcp_context_forge_tpu_torch.coordination.heartbeat\n"
+        "import mcp_context_forge_tpu_torch.coordination.hub\n"
+        "import mcp_context_forge_tpu_torch.coordination.rpc\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.pool_rpc\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.kv.fabric.publisher\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'mcp_context_forge_tpu')]\n"
+        "assert not bad, bad\n")
+    env = {**os.environ, "MCPFORGE_BUS_TCP_SECRET": "s"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    assert "kernel libraries not built" in out or "CUDA is not available" in out, out

@@ -15,6 +15,7 @@ from mcp_context_forge_tpu.tpu_local.engine import TPUEngine
 from mcp_context_forge_tpu_torch.tpu_local.engine import (EngineConfig, GenRequest,
                                                           TorchEngine)
 from torch_engine_pair import SHAPE, TEXTS, make_pair, serve
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 CASES = [dict(superstep=1), dict(superstep=4), dict(superstep=2), dict(superstep=0),
          dict(spec_enabled=False), dict(width_floor=0), dict(width_floor=8),

@@ -33,6 +33,7 @@ from mcp_context_forge_tpu_torch.tpu_local.models import (
     MODEL_CONFIGS as PORT_CONFIGS,
 )
 from mcp_context_forge_tpu_torch.tpu_local.models.convert import params_from_jax
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 CFG = "llama3-test"  # 2 layers, KV=2, hd=16
 PAGE, NUM_PAGES, SLOTS, PER_SLOT = 8, 24, 3, 6

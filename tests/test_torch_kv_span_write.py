@@ -23,6 +23,7 @@ from mcp_context_forge_tpu_torch.tpu_local.models import (
 )
 from mcp_context_forge_tpu_torch.tpu_local.ops.kv_write import (
     kv_quant_store_span, kv_quant_store_span_ref, span_pages)
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 CFG = "llama3-test"  # 2 layers, KV=2, hd=16
 L, KV, HD = 2, 2, 16

@@ -19,6 +19,7 @@ from mcp_context_forge_tpu_torch.tpu_local.models import (
 )
 from mcp_context_forge_tpu_torch.tpu_local.ops.kv_write import (
     kv_quant_store_decode, kv_quant_store_decode_ref)
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 CFG = "llama3-test"  # 2 layers, KV=2, hd=16
 PAGE, NUM_PAGES, SLOTS, PER_SLOT = 8, 32, 6, 4

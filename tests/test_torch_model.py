@@ -17,6 +17,7 @@ from mcp_context_forge_tpu_torch.tpu_local.kv import init_kv_state
 from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS as PORT
 from mcp_context_forge_tpu_torch.tpu_local.models import llama
 from mcp_context_forge_tpu_torch.tpu_local.models.convert import params_from_jax
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 ATOL = 1e-4
 # jitted once per config: eager JAX would compile every op separately

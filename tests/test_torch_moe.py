@@ -30,6 +30,7 @@ from mcp_context_forge_tpu_torch.tpu_local.models import llama
 from mcp_context_forge_tpu_torch.tpu_local.models.convert import params_from_jax
 from mcp_context_forge_tpu_torch.tpu_local.ops import grouped_moe as gm
 from mcp_context_forge_tpu_torch.tpu_local.parallel import moe
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 CFG = jax_moe.MoEConfig(dim=32, n_experts=8, expert_hidden=64, top_k=2)
 PCFG = moe.MoEConfig(dim=32, n_experts=8, expert_hidden=64, top_k=2)

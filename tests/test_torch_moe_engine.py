@@ -17,6 +17,7 @@ from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngi
 from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
 from mcp_context_forge_tpu_torch.tpu_local.models.convert import params_from_jax
 from mcp_context_forge_tpu_torch.tpu_local.quantize import is_quant
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 SHAPE = dict(model="mixtral-test", max_batch=2, max_seq_len=128, page_size=16,
              num_pages=32, prefill_buckets=(32,), dtype="float32",

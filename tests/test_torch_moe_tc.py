@@ -27,6 +27,7 @@ from mcp_context_forge_tpu.tpu_local.quantize import quantize_tree as jax_qtree
 from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS as PORT
 from mcp_context_forge_tpu_torch.tpu_local.ops import grouped_moe as gm
 from mcp_context_forge_tpu_torch.tpu_local.parallel.moe import activation
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 MIX = PORT["mixtral-test"]
 CFG = jax_moe.MoEConfig(dim=MIX.dim, n_experts=MIX.n_experts,

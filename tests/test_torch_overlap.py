@@ -9,6 +9,7 @@ closes."""
 import pytest
 
 from torch_engine_pair import TEXTS, make_pair, serve_both
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 
 @pytest.fixture(scope="module", params=[True, False], ids=["overlap", "serial"])

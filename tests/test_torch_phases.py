@@ -15,6 +15,7 @@ from mcp_context_forge_tpu.observability.tracing import Tracer
 from mcp_context_forge_tpu_torch.tpu_local.engine import (EngineConfig, GenRequest,
                                                           TorchEngine)
 from torch_engine_pair import TEXTS, make_pair, serve, serve_both
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 PHASE_KEYS = {"host_dispatch_ms", "table_sync_ms", "device_compute_ms",
               "readback_ms", "emit_ms", "total_ms"}

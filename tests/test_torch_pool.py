@@ -58,6 +58,7 @@ from mcp_context_forge_tpu_torch.tpu_local.pool.health import HealthMonitor
 from mcp_context_forge_tpu_torch.tpu_local.provider import LLMUnavailable
 from mcp_context_forge_tpu_torch.tpu_local.server import build_llm_app, build_pool
 from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 SHAPE = dict(model="llama3-test", max_batch=4, max_seq_len=128, page_size=16,
              num_pages=64, prefill_buckets=(16, 64), dtype="float32")

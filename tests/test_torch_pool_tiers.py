@@ -53,6 +53,7 @@ from mcp_context_forge_tpu_torch.tpu_local.kv.prefix_index import chain_hashes, 
 from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
 from mcp_context_forge_tpu_torch.tpu_local.models.convert import params_from_jax
 from mcp_context_forge_tpu_torch.tpu_local.pool import EnginePool
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 PS = 16
 BASE = dict(model="llama3-test", max_batch=4, max_seq_len=128, page_size=PS, num_pages=64,

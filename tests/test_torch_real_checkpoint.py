@@ -14,6 +14,7 @@ from mcp_context_forge_tpu.tpu_local.engine import EngineConfig as JaxConfig
 from mcp_context_forge_tpu.tpu_local.engine import TPUEngine
 from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngine
 from mcp_context_forge_tpu_torch.tpu_local.tokenizer import HFTokenizer, load_tokenizer
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 SHAPE = dict(model="llama3-test", max_batch=2, max_seq_len=64, page_size=16,
              num_pages=64, prefill_buckets=(16, 32), dtype="float32")

@@ -13,6 +13,7 @@ import pytest
 
 from mcp_context_forge_tpu_torch.tpu_local.engine import (EngineConfig, GenRequest,
                                                           TorchEngine)
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 SHAPE = dict(model="llama3-test", max_batch=2, max_seq_len=64, page_size=16,
              num_pages=32, prefill_buckets=(16,), dtype="float32", device="cpu")

@@ -15,6 +15,7 @@ from mcp_context_forge_tpu.tpu_local.models import MODEL_CONFIGS as JAX_CONFIGS
 from mcp_context_forge_tpu.tpu_local.models.llama import init_params as jax_init_params
 from mcp_context_forge_tpu_torch.tpu_local import roofline
 from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 
 @pytest.mark.parametrize("args", [

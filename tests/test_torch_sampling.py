@@ -12,6 +12,7 @@ import torch
 from mcp_context_forge_tpu.tpu_local import sampling as jax_sampling
 from mcp_context_forge_tpu_torch.tpu_local.sampling import (
     SamplingParams, sample_tokens, sampling_mask)
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 
 def _params(temperature, top_k, top_p):

@@ -36,6 +36,7 @@ from mcp_context_forge_tpu_torch.tpu_local.models.convert import (encoder_params
 from mcp_context_forge_tpu_torch.tpu_local.roofline import (H100_HBM_GBPS,
                                                             H100_PEAK_BF16_TFLOPS)
 from mcp_context_forge_tpu_torch.tpu_local.server import build_llm_app
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 ROOT = Path(__file__).resolve().parents[1]
 BASIC = aiohttp.BasicAuth("admin", "changeme")
@@ -318,7 +319,161 @@ def test_card_modules_import_no_server_packages():
         "import mcp_context_forge_tpu_torch.observability.signals\n"
         "import mcp_context_forge_tpu_torch.observability.faults\n"
         "import mcp_context_forge_tpu_torch.tpu_local.controller\n"
+        "import mcp_context_forge_tpu_torch.coordination.hub\n"
+        "import mcp_context_forge_tpu_torch.coordination.rpc\n"
+        "import mcp_context_forge_tpu_torch.coordination.kv\n"
+        "import mcp_context_forge_tpu_torch.coordination.heartbeat\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.pool_rpc\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.kv.fabric.publisher\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('aiohttp', 'safetensors', 'tokenizers')]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+# ------------------------------------------------ the fabric routes, the plane
+
+def test_fabric_adverts_routes_answer_like_the_gateway(loop, clients):
+    """``GET /admin/fabric/adverts`` gives the publisher's counters and the
+    store (none: no tiers) as the JAX gateway does, the host (a worker id)
+    aside; ``POST`` without an object tier is the same 404."""
+    ref, port = both(loop, clients, "GET", "/admin/fabric/adverts")
+    assert ref[0] == port[0] == 200
+    want, got = json.loads(ref[2]), json.loads(port[2])
+    assert got.pop("host") and want.pop("host")
+    assert got == want
+    assert got["store"] is None and got["bus"] is True and got["sent"] == 0
+    for body in ({"adverts": []}, {"nope": 1}):
+        ref, port = both(loop, clients, "POST", "/admin/fabric/adverts", json=body)
+        assert ref[0] == port[0] == 404
+        assert json.loads(port[2]) == json.loads(ref[2])
+    ref, port = both(loop, clients, "GET", "/admin/fabric/adverts", auth=None)
+    assert ref[0] == port[0] == 401
+
+
+@pytest.fixture(scope="module")
+def plane_apps(loop, clients):
+    """Two port apps with ``tpu_local_pool_shared`` over one bus and one
+    lease table: the owner, given an engine on the JAX weights, elected
+    first; the other, given none, whose own build (a CUDA engine from the
+    settings) fails on this box, so that it only forwards."""
+    from mcp_context_forge_tpu_torch.coordination.bus import MemoryEventBus
+    from mcp_context_forge_tpu_torch.coordination.leases import MemoryLeaseManager
+
+    settings = load_settings(env={**ENV, "MCPFORGE_TPU_LOCAL_POOL_SHARED": "true",
+                                  "MCPFORGE_LEADER_LEASE_TTL": "3"}, env_file=None)
+    bus, leases = MemoryEventBus(), MemoryLeaseManager()
+    params = clients[1].app["tpu_engine"].params
+    config = dataclasses.replace(EngineConfig.from_settings(settings), device="cpu")
+    owner = build_llm_app(settings, engine=TorchEngine(config, params=params), bus=bus,
+                          leases=leases, worker_id="owner")
+    other = build_llm_app(settings, bus=bus, leases=leases, worker_id="other")
+
+    async def start():
+        out = []
+        for app in (owner, other):
+            client = TestClient(TestServer(app))
+            await client.start_server()
+            out.append(client)
+            while app is owner and not app["engine_plane"].ready_local:
+                await asyncio.sleep(0.01)
+        return out
+
+    pair = _run(loop, start())
+    yield pair
+    for client in pair:
+        if not client._closed:
+            _run(loop, client.close())
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_non_owner_answers_the_owners_content(loop, clients, plane_apps, stream):
+    """The non-owner's /v1/chat/completions forwards to the owner: the
+    content (unary, or streamed as SSE) is the JAX gateway's and the
+    owner's own."""
+    request = {"model": "llama3-test", "max_tokens": 8, "stream": stream,
+               "messages": [{"role": "user", "content": "hello"}]}
+    owner, other = plane_apps
+    assert other.app["tpu_engine"] is None and other.app["engine_plane"].ready_local is False
+
+    async def ask(client):
+        resp = await client.post("/v1/chat/completions", json=request, auth=BASIC)
+        return resp.status, await resp.text()
+
+    want = _run(loop, ask(clients[0]))
+    answers = [_run(loop, ask(c)) for c in (other, owner)]
+    assert want[0] == answers[0][0] == answers[1][0] == 200
+
+    def content(body):
+        if not stream:
+            return json.loads(body)["choices"][0]["message"]["content"]
+        return "".join(json.loads(f)["choices"][0]["delta"].get("content") or ""
+                       for f in sse_frames(body)[:-1])
+
+    assert content(answers[0][1]) == content(answers[1][1]) == content(want[1])
+
+
+def test_no_owner_is_503_with_retry_after(loop, plane_apps):
+    """Once the owner's app has stopped (its lease released), the other
+    worker, which cannot build, answers 503 with Retry-After."""
+    owner, other = plane_apps
+    _run(loop, owner.close())
+    request = {"model": "llama3-test", "max_tokens": 4,
+               "messages": [{"role": "user", "content": "hello"}]}
+
+    async def ask():
+        resp = await other.post("/v1/chat/completions", json=request, auth=BASIC)
+        return resp.status, resp.headers, await resp.json()
+
+    status, headers, body = _run(loop, ask())
+    assert status == 503 and headers["Retry-After"] == "1"
+    assert body["error"]["type"] == "overloaded_error" and body["error"]["retry_after_s"] == 1
+    assert "owner" in body["error"]["message"] or "not built" in body["error"]["message"]
+    # the other worker tried to build (a CUDA engine from the settings) and
+    # failed each time: it never served
+    assert other.app["engine_plane"].build_failures >= 1
+    assert not other.app["engine_plane"].ready_local
+
+
+def test_apps_share_a_tcp_hub_from_settings(loop, clients):
+    """``bus_backend=tcp``: one app hosts the hub (``bus_tcp_serve``), the
+    other connects to it, both with the settings' secret; the second
+    app's chat is served by the first's engine over the hub."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**ENV, "MCPFORGE_TPU_LOCAL_POOL_SHARED": "true", "MCPFORGE_LEADER_LEASE_TTL": "3",
+           "MCPFORGE_BUS_BACKEND": "tcp", "MCPFORGE_BUS_TCP_PORT": str(port),
+           "MCPFORGE_BUS_TCP_SECRET": "hub-secret"}
+    hosting = load_settings(env={**env, "MCPFORGE_BUS_TCP_SERVE": "true"}, env_file=None)
+    joining = load_settings(env=env, env_file=None)
+    params = clients[1].app["tpu_engine"].params
+    config = dataclasses.replace(EngineConfig.from_settings(hosting), device="cpu")
+    owner = build_llm_app(hosting, engine=TorchEngine(config, params=params))
+    other = build_llm_app(joining)
+    request = {"model": "llama3-test", "max_tokens": 6,
+               "messages": [{"role": "user", "content": "over the hub"}]}
+
+    async def main():
+        started = []
+        try:
+            for app in (owner, other):
+                client = TestClient(TestServer(app))
+                await client.start_server()
+                started.append(client)
+                while app is owner and not app["engine_plane"].ready_local:
+                    await asyncio.sleep(0.01)
+            answers = []
+            for client in reversed(started):
+                resp = await client.post("/v1/chat/completions", json=request, auth=BASIC)
+                answers.append((resp.status, (await resp.json())["choices"]))
+            return answers, owner["coordination_hub"].bound_port
+        finally:
+            for client in reversed(started):
+                await client.close()
+
+    (forwarded, local), bound = _run(loop, main())
+    assert bound == port and other["coordination_hub"] is None
+    assert forwarded == local and forwarded[0] == 200

@@ -23,6 +23,7 @@ from mcp_context_forge_tpu_torch.observability.signals import GATEWAY_REPLICA, S
 from mcp_context_forge_tpu_torch.tpu_local.controller import RING_SCHEMA, ServingController
 from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngine
 from torch_engine_pair import SHAPE
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 PACKAGES = {"jax": (JaxBus, JaxController, JaxShedder),
             "port": (SignalBus, ServingController, OverloadShedder)}

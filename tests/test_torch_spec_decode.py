@@ -16,6 +16,7 @@ from mcp_context_forge_tpu_torch.tpu_local.engine import (EngineConfig,
                                                           GenRequest,
                                                           TorchEngine)
 from torch_engine_pair import SHAPE, make_pair, prompt_jobs, serve, serve_spec
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 K = 4
 

@@ -8,6 +8,7 @@ the streams are held to the JAX engine's own int8 spec streams."""
 import pytest
 
 from torch_engine_pair import make_pair, prompt_jobs, serve_spec
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 
 @pytest.fixture(scope="module")

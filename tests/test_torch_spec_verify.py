@@ -17,6 +17,7 @@ from mcp_context_forge_tpu_torch.tpu_local import engine as port_engine
 from mcp_context_forge_tpu_torch.tpu_local.sampling import (SamplingParams,
                                                             sampling_mask)
 from torch_engine_pair import SHAPE, make_pair
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 K = 4
 

@@ -17,6 +17,7 @@ from mcp_context_forge_tpu.tpu_local.sampling import \
 from mcp_context_forge_tpu_torch.tpu_local.kv import PageAllocator
 from mcp_context_forge_tpu_torch.tpu_local.sampling import SamplingParams
 from torch_engine_pair import TEXTS, first_new_token, make_pair, serve_both
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 K = 8
 

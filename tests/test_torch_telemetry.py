@@ -28,6 +28,7 @@ from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngi
 from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
 from mcp_context_forge_tpu_torch.tpu_local.models.convert import params_from_jax
 from torch_engine_pair import SHAPE, TEXTS, serve
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 # families only the JAX engine can fill here, or only the port: XLA compile
 # counters (the JAX engine compiles on its dispatch thread; the port builds

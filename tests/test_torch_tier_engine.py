@@ -46,6 +46,7 @@ from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, GenReques
 from mcp_context_forge_tpu_torch.tpu_local.kv import PrefixIndex, SpilledPage, TieredPageStore
 from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
 from mcp_context_forge_tpu_torch.tpu_local.models.convert import params_from_jax
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 PS = 16
 BASE = dict(model="llama3-test", max_batch=2, max_seq_len=128, page_size=PS, num_pages=5,

@@ -41,6 +41,7 @@ from mcp_context_forge_tpu_torch.tpu_local.kv import prefix_index as port_prefix
 from mcp_context_forge_tpu_torch.tpu_local.kv import tiers as port_tiers
 from mcp_context_forge_tpu_torch.tpu_local.kv.fabric import index as port_fabric_index
 from mcp_context_forge_tpu_torch.tpu_local.kv.fabric import object_store as port_objects
+from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 SIDES = {
     "jax": SimpleNamespace(tiers=jax_tiers, prefix=jax_prefix, faults=jax_faults,
