@@ -277,6 +277,21 @@ the plane's three workers as tasks of this process (failover: the owner's
 RPC, heartbeat and plane stopped) and add an engine that knew the chain
 only under another tenant and serves it cold.
 
+Training and the parallel layer (last, on a card the earlier phases have
+freed; no kernel of their own: the kernels have no backward, and training
+runs the plain attention and expert scan). ``train_llama3_test_tiny_ckpt``
+trains the tiny checkpoint (llama3-test, f32, the corpus as bytes) for 400
+steps, saves it with ``save_params`` and serves it on the card: the four
+memorized answers, every stream equal to the CPU port engine's on the same
+directory, a prefix hit through the mma.sync chunk kernel; the step-0
+checkpoint must fail the answer check. ``train_llama3_1b`` trains the
+whole llama3-1b for 5 steps on one 2 x 1024 batch (the loss falls; step ms,
+tokens/s, peak memory), holds the first AdamW step to its rule (a planted
+optimizer that decays twice must fail) and replays one step on the CPU at
+2 layers. ``parallel_nccl_world1`` runs every sharded entry point on a
+one-rank NCCL group against its single-device function; a ring without the
+causal mask must fail its check.
+
 Then the card line, the kernel table (JSON), and last the contract line.
 Any failure raises: the exit code is non-zero and the last line is absent.
 Exits 1 at once when CUDA is not available.
@@ -728,6 +743,16 @@ def main() -> int:
     counts, stats = checkpoint_mixtral_phase(torch, dev, ckpt_root)
     emit({"phase": "checkpoint_mixtral_int8", **stats})
     count(counts)
+    free_device(torch)
+
+    # ------------------------------------- training and the parallel layer
+    counts, stats = train_tiny_ckpt_phase(torch, dev, ckpt_root / "tiny")
+    emit({"phase": "train_llama3_test_tiny_ckpt", **stats})
+    count(counts)
+    free_device(torch)
+    emit({"phase": "train_llama3_1b", **train_1b_phase(torch, dev)})
+    free_device(torch)
+    emit({"phase": "parallel_nccl_world1", **parallel_world1_phase(torch, dev)})
     free_device(torch)
 
     table = []
@@ -6039,6 +6064,448 @@ def fabric_phase(torch, dev, model: str, dtype: str, hub: HubThread,
     del host_a, host_b, engines
     free_device(torch)
     return counts, out
+
+
+# ------------------------------------------------- training and the parallel layer
+
+TINY_CKPT_STEPS = 400
+TRAIN_1B_BATCH = (2, 1024)        # B x S seeded tokens, one batch for every step
+TRAIN_1B_STEPS = 5
+TRAIN_1B_LR, TRAIN_1B_WD = 3e-4, 0.1
+REPLAY_BATCH = (1, 256)           # the CPU replay of one step at 2 layers
+GRAD_REL = 5e-5                   # card vs CPU gradients: max|diff| <= GRAD_REL x max|cpu|
+                                  # (H100: 3.0e-6-3.8e-6 sound, 1.1e-3-1.8e-3 with TF32 on)
+ADAMW_TOL = 1e-3                  # x lr: one AdamW step against its rule
+WORLD1_ATOL = 1e-5
+
+
+def fact_streams(torch, engine, tokenizer) -> tuple[dict, list]:
+    """Greedy token ids of each fact prompt of the tiny checkpoint's corpus
+    (as many tokens as its answer has bytes: positions the corpus trains),
+    one request at a time, then 16 tokens of a 79-token prompt of the
+    repeated-phrase row whose first page is the first fact's (a prefix hit:
+    its 63-token suffix takes a smaller bucket than the whole prompt, so it
+    prefills through the paged chunk kernel). Every kernel's count is set
+    to 0 just before and read just after."""
+    from mcp_context_forge_tpu_torch.tools.tiny_checkpoint import _FACTS
+
+    wrappers = kernel_wrappers()
+    prompts = [(p, len(a.encode())) for p, a in _FACTS] + [
+        ("the capital of france is paris. " * 2 + "the capital of", 16)]
+
+    async def run():
+        await engine.start()
+        try:
+            for fn in wrappers.values():
+                fn.launches = 0
+            streams = []
+            for prompt, max_tokens in prompts:
+                ids = tokenizer.encode(prompt)
+                streams.append([t async for t in engine.generate(ids, max_tokens=max_tokens)])
+            if engine.device.type == "cuda":
+                torch.cuda.synchronize()
+            return {k: fn.launches for k, fn in wrappers.items()}, streams
+        finally:
+            await engine.stop()
+
+    return asyncio.run(run())
+
+
+def memorized(tokenizer, streams: list) -> list[bool]:
+    """Whether each fact prompt's greedy continuation is its answer."""
+    from mcp_context_forge_tpu_torch.tools.tiny_checkpoint import _FACTS
+
+    return [tokenizer.decode(s) == a for s, (_, a) in zip(streams, _FACTS)]
+
+
+def tiny_engine(dev, path: Path):
+    from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngine
+
+    return TorchEngine(EngineConfig(model="llama3-test", checkpoint=str(path), dtype="float32",
+                                    device=str(dev), max_batch=4, max_seq_len=512,
+                                    page_size=16, num_pages=64, prefill_buckets=(32, 64, 128),
+                                    prefill_max_batch=2, seed=0))
+
+
+def train_tiny_ckpt_phase(torch, dev, root: Path) -> tuple[dict, dict]:
+    """``train_llama3_test_tiny_ckpt``: the tiny checkpoint's trainer on the
+    card with the byte tokenizer (``ByteTokenizerAdapter``: the card has no
+    ``tokenizers``): llama3-test, f32, AdamW lr 3e-3 without decay, the
+    whole corpus (10 rows, each whole at the covering width) as one batch
+    per step, 400 steps from a seeded generator. The result is saved with
+    ``checkpoint.save_params`` and served by ``TorchEngine(checkpoint=...)``
+    on the card (flash 1f, the mma.sync chunk kernel on a prefix hit,
+    decode: all at hd 16): greedy answers to the four fact prompts decode
+    the memorized answers, and every stream equals the CPU port engine's
+    on the same directory. Planted fault: the step-0 checkpoint must fail
+    the answer check."""
+    import shutil
+
+    from mcp_context_forge_tpu_torch.tools import tiny_checkpoint as tc
+    from mcp_context_forge_tpu_torch.tpu_local.checkpoint import save_params
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+    from mcp_context_forge_tpu_torch.tpu_local.models.llama import init_params
+    from mcp_context_forge_tpu_torch.tpu_local.tokenizer import ByteTokenizer
+
+    phase_t0 = time.monotonic()
+    adapter = tc.ByteTokenizerAdapter()
+    seq_len = tc.covering_seq_len(adapter)
+    check(seq_len < MODEL_CONFIGS["llama3-test"].max_seq_len,
+          f"the byte corpus needs {seq_len} positions")
+    gen = torch.Generator(device=dev).manual_seed(42)
+    start = init_params(MODEL_CONFIGS["llama3-test"], gen, dtype=torch.float32, device=dev)
+    step0 = _clone_tree(start)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    losses = []
+    t0 = time.monotonic()
+    params, last = tc.train_model(adapter, steps=TINY_CKPT_STEPS, seq_len=seq_len, device=dev,
+                                  params=start, losses=losses)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    first = float(losses[0])
+    check(math.isfinite(last) and last < 0.5 < first,
+          f"the tiny checkpoint's loss went {first} -> {last}")
+    stats = {"model": "llama3-test", "dtype": "float32", "tokenizer": "bytes",
+             "rows": len(tc.CORPUS), "seq_len": seq_len, "steps": TINY_CKPT_STEPS,
+             "loss_first": first, "loss_last": last,
+             "train_s": seconds, "steps_per_s": TINY_CKPT_STEPS / seconds,
+             "peak_bytes": torch.cuda.max_memory_allocated(), "card": card_line()}
+    trained, untrained = root / "tiny-trained", root / "tiny-step0"
+    shutil.rmtree(root, ignore_errors=True)
+    trained.mkdir(parents=True)
+    untrained.mkdir(parents=True)
+    try:
+        save_params(str(trained), params)
+        save_params(str(untrained), step0)
+        tokenizer = ByteTokenizer(512)
+        engine = tiny_engine(dev, trained)
+        counts, streams = fact_streams(torch, engine, tokenizer)
+        hits = engine.allocator.prefix_hits
+        del engine
+        free_device(torch)
+        answers = memorized(tokenizer, streams)
+        check(all(answers), f"the card's answers: {[tokenizer.decode(s) for s in streams]}")
+        check(hits >= 1, "the shared-prefix prompt missed the prefix cache")
+        for kernel in ATTENTION_MMA:
+            check(counts[kernel] > 0, f"{kernel} never launched on the trained checkpoint")
+        for kernel in TC_ATTENTION + INT8_WRITERS:
+            check(counts[kernel] == 0, f"{kernel} launched on the f32 tiny checkpoint")
+        cpu_engine = tiny_engine(torch.device("cpu"), trained)
+        _, cpu_streams = fact_streams(torch, cpu_engine, tokenizer)
+        del cpu_engine
+        check(streams == cpu_streams, f"card streams {streams} != CPU streams {cpu_streams}")
+        engine = tiny_engine(dev, untrained)
+        counts0, streams0 = fact_streams(torch, engine, tokenizer)
+        del engine
+        free_device(torch)
+        check(not any(memorized(tokenizer, streams0)),
+              "the step-0 checkpoint passed the answer check (planted fault not caught)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stats.update({"answers": [tokenizer.decode(s) for s in streams],
+                  "streams_equal_cpu": True, "prefix_hits": hits,
+                  "step0_rejected": True, "step0_answers": [tokenizer.decode(s)
+                                                            for s in streams0[:4]],
+                  "launches": {k: counts[k] for k in ATTENTION_MMA},
+                  "phase_s": time.monotonic() - phase_t0})
+    stats["step0_launches"] = {k: counts0[k] for k in ATTENTION_MMA}
+    return counts, stats
+
+
+def _clone_tree(tree, device=None):
+    """A detached copy of a param tree (on ``device``, else where it is)."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v, device) for v in tree]
+    return tree.detach().to(device or tree.device, copy=True)
+
+
+class DoubleDecayAdamW:
+    """A planted fault: AdamW that applies the weight decay a second time
+    after its step."""
+
+    def __init__(self, torch, leaves, lr, weight_decay):
+        self.inner = torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                       weight_decay=weight_decay)
+        self.leaves, self.factor = leaves, 1 - lr * weight_decay
+
+    def step(self):
+        self.inner.step()
+        for p in self.leaves:
+            p.data.mul_(self.factor)
+
+
+def adamw_first_step_error(torch, p0, grad, p1, lr: float, wd: float) -> float:
+    """max |p1 - the first step of optax.adamw's rule from p0 with grad| in
+    units of lr (the rule in f64: bias-corrected moments, eps outside the
+    square root, decay decoupled)."""
+    g, p = grad.double(), p0.double()
+    m_hat = (0.1 * g) / (1 - 0.9)
+    v_hat = (0.001 * g * g) / (1 - 0.999)
+    want = p - lr * (m_hat / (v_hat.sqrt() + 1e-8) + wd * p)
+    return float((p1.double() - want).abs().max()) / lr
+
+
+def train_1b_phase(torch, dev) -> dict:
+    """``train_llama3_1b``: the whole llama3-1b (full width, all 16 layers,
+    tied embeddings; f32 params, gradients and both AdamW moments, ~19.8
+    GB) takes ``train_step`` for 5 steps on one seeded batch of 2 x 1024
+    tokens (attention through its plain version, as training runs): the
+    loss is finite and falls. The first step of the embedding, layer 0's
+    wq and norm and the final norm is held to the AdamW rule; planted
+    fault: an optimizer that applies the decay twice must fail that check.
+    One step is replayed on the CPU at the same width and 2 layers (B 1,
+    S 256): loss to rtol 1e-4, the gradients of embed, wq and w2 within
+    GRAD_REL of the CPU's largest; the same step with TF32 matmuls must
+    fail that check."""
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+    from mcp_context_forge_tpu_torch.tpu_local.models.llama import init_params, param_count
+    from mcp_context_forge_tpu_torch.tpu_local.train import (
+        init_train_state, leaves, make_optimizer, train_step)
+
+    phase_t0 = time.monotonic()
+    cfg = MODEL_CONFIGS["llama3-1b"]
+    B, S = TRAIN_1B_BATCH
+    gen = torch.Generator(device=dev).manual_seed(7)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, gen, dtype=torch.float32, device=dev)
+    data = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device=dev)
+    tokens, targets = data[:, :-1], data[:, 1:]
+    mask = torch.ones((B, S), device=dev)
+    state = init_train_state(params, make_optimizer(TRAIN_1B_LR, TRAIN_1B_WD))
+    watched = {"embed": params["embed"], "layers.0.wq": params["layers"][0]["wq"],
+               "layers.0.attn_norm": params["layers"][0]["attn_norm"],
+               "final_norm": params["final_norm"]}
+    before = {k: v.detach().clone() for k, v in watched.items()}
+    losses, step_ms = [], []
+    for i in range(TRAIN_1B_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, loss = train_step(state, cfg, tokens, targets, mask)
+        losses.append(float(loss))
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        if i == 0:
+            grads = {k: v.grad.detach().clone() for k, v in watched.items()}
+            rule = {k: adamw_first_step_error(torch, before[k], grads[k], v.detach(),
+                                              TRAIN_1B_LR, TRAIN_1B_WD)
+                    for k, v in watched.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"llama3-1b losses {losses}")
+    check(max(rule.values()) <= ADAMW_TOL, f"the first AdamW step off its rule (x lr): {rule}")
+    # planted fault: decay applied twice, on copies of the same leaves and gradients
+    copies = {k: v.clone().requires_grad_(True) for k, v in before.items()}
+    faulty = DoubleDecayAdamW(torch, list(copies.values()), TRAIN_1B_LR, TRAIN_1B_WD)
+    for k, p in copies.items():
+        p.grad = grads[k]
+    faulty.step()
+    fault = {k: adamw_first_step_error(torch, before[k], grads[k], p.detach(), TRAIN_1B_LR,
+                                       TRAIN_1B_WD) for k, p in copies.items()}
+    check(max(fault.values()) > ADAMW_TOL,
+          f"an AdamW that decays twice passed the rule check: {fault}")
+    n_params = sum(p.numel() for p in leaves(state.params))
+    state_bytes = sum(p.numel() * p.element_size() * 4 for p in leaves(state.params))
+    del state, params, watched, before, grads, copies, faulty
+    free_device(torch)
+    median_ms = statistics.median(step_ms[1:])
+    stats = {"model": cfg.name, "layers": cfg.n_layers, "dim": cfg.dim,
+             "params": n_params, "param_count": param_count(cfg), "batch": [B, S],
+             "steps": TRAIN_1B_STEPS, "lr": TRAIN_1B_LR, "weight_decay": TRAIN_1B_WD,
+             "losses": losses, "step_ms": step_ms, "step_ms_median_2_5": median_ms,
+             "tokens_per_s": B * S / (median_ms / 1e3), "peak_bytes": peak,
+             "params_grads_moments_bytes": state_bytes, "adamw_rule_x_lr": rule,
+             "double_decay_rejected": True, "double_decay_x_lr": fault,
+             "replay": train_replay(torch, dev), "card": card_line()}
+    stats["phase_s"] = time.monotonic() - phase_t0
+    return stats
+
+
+def train_replay(torch, dev) -> dict:
+    """One step's loss and gradients of llama3-1b at 2 layers on the card
+    against the same on the CPU (same seeded weights and tokens). Planted
+    fault: the card's step with TF32 matmuls (a 10-bit mantissa) must fail
+    the gradient check."""
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+    from mcp_context_forge_tpu_torch.tpu_local.models.llama import init_params
+    from mcp_context_forge_tpu_torch.tpu_local.train import leaves, loss_fn
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "the replay needs TF32 off")
+    cfg = dataclasses.replace(MODEL_CONFIGS["llama3-1b"], name="llama3-1b-2-layers",
+                              n_layers=2)
+    B, S = REPLAY_BATCH
+    gen = torch.Generator().manual_seed(11)
+    cpu = torch.device("cpu")
+    params = init_params(cfg, gen, dtype=torch.float32, device=cpu)
+    data = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen)
+    out = {}
+    for where, device, tf32 in (("card", dev, False), ("card_tf32", dev, True),
+                                ("cpu", cpu, False)):
+        tree = _clone_tree(params, device)
+        for leaf in leaves(tree):
+            leaf.requires_grad_(True)
+        batch = data.to(device)
+        t0 = time.monotonic()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            loss = loss_fn(tree, cfg, batch[:, :-1], batch[:, 1:],
+                           torch.ones((B, S), device=device))
+            loss.backward()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        out[where] = {"loss": float(loss.detach()), "seconds": time.monotonic() - t0,
+                      "embed": tree["embed"].grad.cpu(),
+                      "wq": tree["layers"][0]["wq"].grad.cpu(),
+                      "w2": tree["layers"][1]["w2"].grad.cpu()}
+        del tree, loss
+    card, tf32, ref = out["card"], out["card_tf32"], out["cpu"]
+    check(abs(card["loss"] - ref["loss"]) <= 1e-4 * abs(ref["loss"]),
+          f"replay loss card {card['loss']} cpu {ref['loss']}")
+    rel, control = ({k: float((got[k] - ref[k]).abs().max() / ref[k].abs().max())
+                     for k in ("embed", "wq", "w2")} for got in (card, tf32))
+    check(max(rel.values()) <= GRAD_REL, f"replay gradients off the CPU's: {rel}")
+    check(max(control.values()) > GRAD_REL,
+          f"the card's TF32 step passed the gradient check (planted fault not caught): {control}")
+    free_device(torch)
+    return {"model": cfg.name, "batch": [B, S], "loss_card": card["loss"],
+            "loss_cpu": ref["loss"], "loss_card_tf32": tf32["loss"], "grad_max_rel": rel,
+            "grad_max_rel_tf32": control, "grad_rel_limit": GRAD_REL,
+            "cpu_s": ref["seconds"]}
+
+
+def free_local_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_world1_phase(torch, dev) -> dict:
+    """``parallel_nccl_world1``: a one-rank NCCL group on the card (a
+    ``tcp://127.0.0.1`` rendezvous: no network), and on a 1x1 mesh every
+    sharded entry point against its single-device function in f32: ring and
+    Ulysses attention against ``attention_reference`` (B 2, S 256, 8 q / 4
+    kv heads, hd 32, padded rows) and the pipeline's forward (llama3-tiny,
+    1 stage, 2 microbatches) against the layer-by-layer forward, both to
+    1e-5; ``moe_ffn`` (mixtral-test geometry) with its experts "split" over
+    the one rank against ``moe_ffn`` without a mesh, to 1e-5;
+    ``build_sharded_train_step`` (llama3-test, 3 steps) against
+    ``train_step``: loss rtol 1e-5, parameters within 1e-2 x lr. Planted
+    fault: a ring without the causal mask must fail its check. The group
+    is torn down before the phases that follow."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+    from mcp_context_forge_tpu_torch.tpu_local.models.llama import init_params
+    from mcp_context_forge_tpu_torch.tpu_local.ops.attention import attention_reference
+    from mcp_context_forge_tpu_torch.tpu_local.parallel import moe
+    from mcp_context_forge_tpu_torch.tpu_local.parallel.mesh import make_mesh
+    from mcp_context_forge_tpu_torch.tpu_local.parallel.pipeline import (
+        build_pp_forward, stack_layers)
+    from mcp_context_forge_tpu_torch.tpu_local.parallel.ring_attention import (
+        make_ring_attention, make_ulysses_attention)
+    from mcp_context_forge_tpu_torch.tpu_local.train import (
+        build_sharded_train_step, forward_logits, init_train_state, leaves, make_optimizer,
+        train_step)
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)   # the rank's card, before the mesh's communicator
+    t0 = time.monotonic()
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_local_port()}",
+                            world_size=1, rank=0, timeout=timedelta(seconds=120))
+    stats = {"backend": backend, "world": dist.get_world_size()}
+    try:
+        mesh = make_mesh("1x1", dev.type)
+        stats["init_s"] = time.monotonic() - t0
+        gen = torch.Generator(device=dev).manual_seed(5)
+        B, S, H, KV, hd = 2, 256, 8, 4, 32
+        q = torch.randn((B, S, H, hd), generator=gen, device=dev)
+        k = torch.randn((B, S, KV, hd), generator=gen, device=dev)
+        v = torch.randn((B, S, KV, hd), generator=gen, device=dev)
+        valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+        valid[1, 200:] = False
+        want = attention_reference(q, k, v, valid)
+        errors = {}
+        for name, maker in (("ring", make_ring_attention), ("ulysses", make_ulysses_attention)):
+            got = maker(mesh)(q, k, v, valid)
+            errors[name] = float((got - want).abs().max())
+            check(errors[name] <= WORLD1_ATOL, f"{name} attention off by {errors[name]}")
+        open_ring = make_ring_attention(mesh, causal=False)(q, k, v, valid)
+        errors["ring_without_causal_mask"] = float((open_ring - want).abs().max())
+        check(errors["ring_without_causal_mask"] > WORLD1_ATOL,
+              "a ring without the causal mask passed the check (planted fault not caught)")
+        # the pipeline: one stage, two microbatches
+        cfg = MODEL_CONFIGS["llama3-tiny"]
+        params = init_params(cfg, gen, dtype=torch.float32, device=dev)
+        pipe_mesh = make_mesh("1x1", dev.type, axis_names=("data", "pipe"))
+        forward, shard_stacked = build_pp_forward(pipe_mesh, cfg, n_stages=1, microbatches=2)
+        tokens = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, device=dev)
+        positions = torch.arange(64, device=dev).expand(4, 64)
+        with torch.no_grad():
+            got = forward(shard_stacked(stack_layers(params, 1)), tokens, positions)
+            ref = forward_logits(params, cfg, tokens)
+        errors["pipeline"] = float((got - ref).abs().max())
+        check(errors["pipeline"] <= WORLD1_ATOL, f"the pipeline off by {errors['pipeline']}")
+        # capacity-dispatch MoE at mixtral-test's geometry
+        mix = MODEL_CONFIGS["mixtral-test"]
+        moe_cfg = moe.MoEConfig(dim=mix.dim, n_experts=mix.n_experts,
+                                expert_hidden=mix.ffn_hidden, top_k=mix.moe_top_k)
+        moe_params = moe.init_moe_params(moe_cfg, gen, device=dev)
+        x = torch.randn((2, 24, mix.dim), generator=gen, device=dev)
+        expert_mesh = make_mesh("1x1", dev.type, axis_names=("data", "expert"))
+        got = moe.moe_ffn(moe.shard_moe_params(moe_params, expert_mesh), x, moe_cfg,
+                          mesh=expert_mesh)
+        errors["moe_ffn"] = float((got - moe.moe_ffn(moe_params, x, moe_cfg)).abs().max())
+        check(errors["moe_ffn"] <= WORLD1_ATOL, f"moe_ffn off by {errors['moe_ffn']}")
+        stats["errors"] = errors
+        stats["train"] = world1_train(torch, dev, mesh, gen, build_sharded_train_step,
+                                      init_train_state, leaves, make_optimizer, train_step)
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived its phase")
+    stats["seconds"] = time.monotonic() - t0
+    return stats
+
+
+def world1_train(torch, dev, mesh, gen, build_sharded_train_step, init_train_state, leaves,
+                 make_optimizer, train_step) -> dict:
+    """Three steps of the sharded step on the 1x1 mesh against
+    ``train_step`` from the same llama3-test params and batches."""
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+    from mcp_context_forge_tpu_torch.tpu_local.models.llama import init_params
+
+    cfg, lr = MODEL_CONFIGS["llama3-test"], 1e-4
+    start = init_params(cfg, gen, dtype=torch.float32, device=dev)
+    step, init_state = build_sharded_train_step(mesh, cfg, lr=lr)
+    sharded = init_state(_clone_tree(start))
+    plain = init_train_state(_clone_tree(start), make_optimizer(lr))
+    near = [torch.zeros_like(p, dtype=torch.bool) for p in leaves(plain.params)]
+    losses = []
+    for _ in range(3):
+        tokens = torch.randint(0, cfg.vocab_size, (4, 65), generator=gen, device=dev)
+        batch = (tokens[:, :-1], tokens[:, 1:], torch.ones((4, 64), device=dev))
+        sharded, loss = step(sharded, *batch)
+        plain, ref = train_step(plain, cfg, *batch)
+        losses.append((float(loss), float(ref)))
+        for i, (a, b) in enumerate(zip(leaves(sharded.params), leaves(plain.params))):
+            delta = float((a.grad - b.grad).abs().max())
+            g = b.grad.abs()
+            near[i] |= (g != 0) & ((g < 1e-7) | ((g + 1e-8) ** 2 < 1e3 * 1e-8 * delta))
+    check(all(abs(a - b) <= 1e-5 * abs(b) for a, b in losses),
+          f"sharded vs plain losses {losses}")
+    worst, excluded = 0.0, 0
+    for a, b, skip in zip(leaves(sharded.params), leaves(plain.params), near):
+        err = (a.detach() - b.detach()).abs()[~skip]
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+        excluded += int(skip.sum())
+    check(worst <= 1e-2 * lr, f"sharded step parameters off by {worst} (lr {lr})")
+    return {"model": cfg.name, "losses": losses, "param_max_err": worst,
+            "excluded_near_zero_grad": excluded, "lr": lr}
 
 
 if __name__ == "__main__":

@@ -23,7 +23,11 @@ All graphs share one private memory pool: replays never overlap, and every
 input and output lives outside the pool. Capture runs once, when the
 holder is built: for each key an eager warm-up on a side stream first (it
 loads every kernel module and creates every library handle and workspace
-outside the pool), then the capture. A failed capture or replay raises;
+outside the pool), then the capture, then an upload of the executable
+graph to the device (``cuGraphUpload``: without it the first replay
+uploads, and the first decode step a server runs pays that; an upload
+runs no node, so no page, buffer or generator changes). A failed capture,
+upload or replay raises;
 nothing falls back to eager decode or verify on the card. On the CPU no
 graph is captured and each dispatch runs the same body eagerly, through
 the plain versions of the kernels.
@@ -51,6 +55,7 @@ attribution; ``window_device_ms`` then waits on the second.
 
 from __future__ import annotations
 
+import ctypes
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, NamedTuple
@@ -99,6 +104,17 @@ def neutral_inputs(key: GraphKey) -> np.ndarray:
     pack[TOP_P] = np.ones(B, dtype=np.float32).view(np.int32)
     pack[STOPS:] = -1
     return pack
+
+
+def upload_graph(graph: torch.cuda.CUDAGraph, stream: torch.cuda.Stream) -> None:
+    """Upload ``graph``'s executable to the device on ``stream`` through the
+    driver's ``cuGraphUpload``, ordered behind the stream's work; raises on
+    any error."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    result = cuda.cuGraphUpload(ctypes.c_void_p(graph.raw_cuda_graph_exec()),
+                                ctypes.c_void_p(stream.cuda_stream))
+    if result != 0:
+        raise RuntimeError(f"cuGraphUpload failed with CUresult {result}")
 
 
 @dataclass
@@ -227,6 +243,7 @@ class DecodeGraphs:
                         capture_error_mode="thread_local"):
                     self.body(bufs)
                 torch._C._cuda_clearCublasWorkspaces()
+                upload_graph(graph, stream)
                 bufs.launches = counts
                 bufs.graph = graph
                 self.captures += 1

@@ -5,10 +5,10 @@ Each host gossips a :class:`FabricAdvert` (the tenant namespace, the
 advertising host, and the chain hashes that host has persisted to T3);
 receivers :meth:`merge <FabricIndex.merge>` them here, and the local
 :class:`~..tiers.TieredPageStore` consults :meth:`covers` on probe so a
-chain prefilled on host A scores as restorable capacity on host B. (The
-JAX package's gossip loop, ``kv/fabric/publisher.py``, is not ported yet:
-adverts reach this index through :func:`merge_wire_adverts` or
-:meth:`FabricIndex.merge`.)
+chain prefilled on host A scores as restorable capacity on host B. The
+gossip loop, ``kv/fabric/publisher.py`` (``FabricIndexPublisher``),
+delivers the adverts through :func:`merge_wire_adverts`; a caller may also
+:meth:`FabricIndex.merge` them itself.
 
 Semantics:
 

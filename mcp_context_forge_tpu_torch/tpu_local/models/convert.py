@@ -9,7 +9,9 @@ them; every other full-precision leaf takes ``dtype``. A quantized leaf
 its own dtype (the JAX engine's compute dtype). A pure function on numpy
 input — it imports no JAX — so tests can hold both packages to the same
 weights. ``encoder_params_from_jax`` does the same for the encoder's tree
-(``models/encoder.py``).
+(``models/encoder.py``), ``moe_params_from_jax`` for a standalone MoE FFN's
+(``parallel/moe.py`` ``init_moe_params``) and ``stacked_params_from_jax``
+for the stage-stacked tree of ``parallel/pipeline.py`` ``stack_layers``.
 """
 
 from __future__ import annotations
@@ -73,4 +75,28 @@ def encoder_params_from_jax(np_tree: dict[str, Any], config: EncoderConfig,
            if name != "layers"}
     out["layers"] = [{name: leaf(name, arr) for name, arr in layer.items()}
                      for layer in np_tree["layers"]]
+    return out
+
+
+def moe_params_from_jax(np_tree: dict[str, Any], device: torch.device | str = "cuda",
+                        dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+    """A standalone MoE FFN's tree ({router, w1, w3, w2}; [E, ...] stacks)."""
+    return {name: _tensor(arr, dtype, device) for name, arr in np_tree.items()}
+
+
+def stacked_params_from_jax(np_tree: dict[str, Any], config: LlamaConfig,
+                            device: torch.device | str = "cuda",
+                            dtype: torch.dtype = torch.float32) -> dict[str, Any]:
+    """A stage-stacked tree ({embed, final_norm, lm_head, stages: {name:
+    [n_stages, per_stage, ...]}}); norm weights stay float32."""
+    n_stages, per_stage = np.asarray(np_tree["stages"]["wq"]).shape[:2]
+    if n_stages * per_stage != config.n_layers:
+        raise ValueError(f"{n_stages} x {per_stage} stacked layers, config "
+                         f"{config.name} has {config.n_layers}")
+
+    def leaf(name: str, arr: Any) -> torch.Tensor:
+        return _tensor(arr, torch.float32 if name in F32_LEAVES else dtype, device)
+
+    out = {name: leaf(name, arr) for name, arr in np_tree.items() if name != "stages"}
+    out["stages"] = {name: leaf(name, arr) for name, arr in np_tree["stages"].items()}
     return out

@@ -20,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 from ..compile_events import record_event
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -154,6 +156,12 @@ def check_inputs(name: str, data: dict, ints: dict,
     int8 = int8 or {}
     scales = scales or {}
     tensors = {**data, **ints, **int8, **scales}
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
+        # the kernel writes through raw pointers: autograd would see an
+        # output with no history, and the inputs' gradients would be lost
+        raise RuntimeError(f"{name}: the kernel has no backward; run it under "
+                           "torch.no_grad(), or train through the plain version "
+                           "(attn_impl='reference', moe_impl='dense')")
     device = next(iter(tensors.values())).device
     dtypes = {str(t.dtype) for t in [*data.values(), *scales.values()]}
     if len(dtypes) != 1 or next(iter(dtypes)) not in DTYPE_CODES:

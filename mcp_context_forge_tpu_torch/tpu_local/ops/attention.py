@@ -10,7 +10,8 @@
   accumulation, f32 as 3xTF32) for everything else. Both read each KV head
   directly: GQA K/V are never repeated to H heads. Each carries its own
   launch count.
-- ``causal_attention``: the dispatcher the model calls.
+- ``causal_attention``: the dispatcher the model calls, and the entry of
+  the plain version (training) and the sequence-parallel paths.
 """
 
 from __future__ import annotations
@@ -113,16 +114,34 @@ flash_attention_mma.launches = 0
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid: torch.Tensor | None = None,
-                     impl: str = "auto") -> torch.Tensor:
-    """Prefill attention: the kernel on CUDA tensors, the plain version on
-    CPU tensors. The sequence-parallel paths of the JAX package
-    (``ring``/``ulysses``) need several cards and are not ported yet."""
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn impl {impl!r}: multi-GPU sequence parallelism is not "
-            "ported yet")
-    if impl != "auto":
-        raise ValueError(f"unknown attention impl {impl!r}")
+                     impl: str = "auto", mesh=None) -> torch.Tensor:
+    """Prefill attention, ``impl`` in {auto, reference, ring, ulysses}:
+
+    - ``auto``: the kernel on CUDA tensors, the plain version on CPU
+      tensors;
+    - ``reference``: the plain version on either (what training runs: the
+      kernels have no backward);
+    - ``ring``/``ulysses``: the sequence-parallel paths
+      (``parallel/ring_attention.py``), the sequence split over ``mesh``'s
+      ``model`` axis. They require ``mesh`` and S divisible by the axis
+      size. Ulysses reshards heads, so where the query or kv head count
+      does not divide the axis it takes the ring (same numerics), as the
+      JAX package does."""
     if valid is None:
         valid = torch.ones(q.shape[:2], dtype=torch.bool, device=q.device)
+    if impl in ("ring", "ulysses"):
+        if mesh is None:
+            raise ValueError(f"attn impl {impl!r} requires a mesh")
+        from ..parallel.mesh import axis_group
+        from ..parallel.ring_attention import make_ring_attention, make_ulysses_attention
+
+        _, _, n = axis_group(mesh, "model")
+        if impl == "ulysses" and (q.shape[2] % n or k.shape[2] % n):
+            impl = "ring"
+        maker = make_ring_attention if impl == "ring" else make_ulysses_attention
+        return maker(mesh, axis_name="model")(q, k, v, valid)
+    if impl == "reference":
+        return attention_reference(q, k, v, valid)
+    if impl != "auto":
+        raise ValueError(f"unknown attention impl {impl!r}")
     return flash_attention(q, k, v, valid)

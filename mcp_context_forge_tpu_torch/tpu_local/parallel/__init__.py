@@ -1,3 +1,7 @@
-"""Parallel layers of the model. So far the routed MoE FFN on one card;
-the multi-GPU paths (tensor, sequence and pipeline parallelism) are not
-ported yet."""
+"""Parallel layers of the model over ``torch.distributed`` (NCCL on the
+card, gloo on the CPU): the mesh (``mesh.py``), the sharding rules
+(``sharding.py``), collectives with gradients for tensor parallelism
+(``collectives.py``), ring and Ulysses sequence-parallel attention
+(``ring_attention.py``), the GPipe forward (``pipeline.py``), and the routed
+MoE FFN, one card's expert scan and the capacity dispatch over an
+``expert`` axis (``moe.py``). The DP x TP train step is ``train.py``'s."""

@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: no module of
-``mcp_context_forge_tpu_torch`` (nor ``chip_smoke.py`` or
-``profile_torch_engine.py``, which run on the card) imports JAX or
+``mcp_context_forge_tpu_torch`` (nor ``chip_smoke.py``,
+``profile_torch_engine.py`` or ``profile_torch_train.py``, which run on
+the card) imports JAX or
 anything of the JAX package, and the kernel modules import without
 ``nvcc`` or ``triton`` (kernels build at first launch, on the card)."""
 
@@ -16,7 +17,7 @@ from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mcp_context_forge_tpu"}
 SOURCES = sorted((ROOT / "mcp_context_forge_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_torch_engine.py"]
+    ROOT / "chip_smoke.py", ROOT / "profile_torch_engine.py", ROOT / "profile_torch_train.py"]
 
 
 def _imported_roots(source: str) -> set[str]:
@@ -57,6 +58,12 @@ def test_kernel_modules_import_without_toolchain():
         "import mcp_context_forge_tpu_torch.tpu_local.ops.kv_write\n"
         "import mcp_context_forge_tpu_torch.tpu_local.decode_graphs\n"
         "import mcp_context_forge_tpu_torch.tpu_local.parallel.moe\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.parallel.mesh\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.parallel.sharding\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.parallel.ring_attention\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.parallel.pipeline\n"
+        "import mcp_context_forge_tpu_torch.tpu_local.train\n"
+        "import mcp_context_forge_tpu_torch.tools.tiny_checkpoint\n"
         "import mcp_context_forge_tpu_torch.tpu_local.quantize\n"
         "import mcp_context_forge_tpu_torch.tpu_local.kv.paged_cache\n"
         "import mcp_context_forge_tpu_torch.tpu_local.kv.prefix_index\n"
