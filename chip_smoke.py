@@ -292,6 +292,23 @@ optimizer that decays twice must fail) and replays one step on the CPU at
 one-rank NCCL group against its single-device function; a ring without the
 causal mask must fail its check.
 
+Multi-rank serving (``mesh_shape``; ``ranks.py``). After the ``engine``
+phase's operability run, ``engine_llama3_8b_rank1`` serves its requests at
+``mesh_shape="1x1"``: the rank path on a one-rank NCCL group, the
+forward's collectives and the sampled tokens' broadcast inside the decode
+graphs; its greedy streams must equal the ``engine`` phase's token for
+token, and it reports each graph's launches and collectives and one fed
+decode dispatch's device events. ``engine_llama3_tiny_sp1`` serves the
+llama3-tiny requests at "1x1" with ``sp_impl`` ring, then Ulysses, and
+``sp_threshold`` 128: the 512 and 2048 buckets prefill sequence-parallel,
+and every stream must equal the f32 engine phase's. After the MoE
+kernels, ``tp_rank_geometries`` holds rows 1, 2, 2b, 3 and 3b at the
+per-rank head counts of llama3-8b at TP 2, 4, 8 and 16 (a replicated pool
+read at a KV-head offset) and gemma-2b at TP 2, and rows 4 and 5 at
+Mixtral's per-rank F at TP 2; a rank reading the wrong KV head of a
+replicated pool must fail its check. Each group is torn down before the
+next phase.
+
 Then the card line, the kernel table (JSON), and last the contract line.
 Any failure raises: the exit code is non-zero and the last line is absent.
 Exits 1 at once when CUDA is not available.
@@ -625,6 +642,14 @@ def main() -> int:
     emit({"phase": "engine_llama3_8b_ops", **stats})
     count(counts)
     free_device(torch)
+    counts, stats = rank1_phase(torch, dev, engine_reference)
+    emit({"phase": "engine_llama3_8b_rank1", **stats})
+    count(counts)
+    free_device(torch)
+    counts, stats = sp1_phase(torch, dev, k1_tokens)
+    emit({"phase": "engine_llama3_tiny_sp1", **stats})
+    count(counts)
+    free_device(torch)
     counts, admission, controller = serving_plane_phase(torch, dev, engine_tokens, k1_tokens)
     emit({"phase": "engine_llama3_8b_admission", **admission})
     emit({"phase": "engine_llama3_8b_controller", **controller})
@@ -722,6 +747,8 @@ def main() -> int:
     # ------------------------------------------------- MoE: kernels, model, engine
     results.update(moe_kernel_phase(torch, dev, timer))
     del timer
+    free_device(torch)
+    emit({"phase": "tp_rank_geometries", **tp_rank_geometries(torch, dev)})
     free_device(torch)
     for quant in ("", "int8"):
         count(model_check(torch, dev, "mixtral-test", quant=quant,
@@ -2512,11 +2539,14 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         MODEL_CONFIGS[name] = dataclasses.replace(MODEL_CONFIGS[model],
                                                   name=name, n_layers=n_layers)
     wrappers = kernel_wrappers()
-    calls = dict.fromkeys(("decode", "prefill", "history", "quant_store"), 0)
+    calls = dict.fromkeys(("decode", "prefill", "history", "quant_store", "sp_prefill"), 0)
 
     def counted(kind, fn):
         def wrapped(*args, **kwargs):
-            calls[kind] += 1
+            # a sequence-parallel prefill's attention is the ring or
+            # Ulysses, not the flash kernel
+            sp = kind == "prefill" and kwargs.get("attn_impl") in ("ring", "ulysses")
+            calls["sp_prefill" if sp else kind] += 1
             return fn(*args, **kwargs)
         return wrapped
 
@@ -2669,8 +2699,9 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
     eager_launches = {
         "flash": (FLASH, layers * served_calls["prefill"]),
         "chunk": (CHUNK, layers * history_prefills),
-        "span writer": (("kv_quant_store_span",), layers * (served_calls["prefill"] + history_prefills)
-                        if engine.config.kv_quant else 0),
+        "span writer": (("kv_quant_store_span",),
+                        layers * (served_calls["prefill"] + served_calls["sp_prefill"]
+                                  + history_prefills) if engine.config.kv_quant else 0),
         **{kernel: ((kernel,), 0) for kernel in DECODE_ONLY}}
     accounted = {}
     for family, (names, eager_n) in eager_launches.items():
@@ -2724,6 +2755,10 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
         "build_peak_memory_bytes": build_peak,
         "repeat_tokens_equal": True, "repeat_tokens": len(tokens_a),
         "prefills": served_calls["prefill"], "history_prefills": history_prefills,
+        "sequence_parallel_prefills": served_calls["sp_prefill"],
+        "world": engine.world, "mesh_shape": engine.config.mesh_shape,
+        "graph_collectives_per_replay": {str(list(key)): bufs.collectives
+                                         for key, bufs in graphs.buffers.items()},
         "launches_accounted": accounted, "launches": counts,
         "compile_stats": {stage: compiles[stage] for stage in ("warmup", "serving")},
         **({"graph_against_eager": eager} if eager else {}),
@@ -6372,6 +6407,198 @@ def train_replay(torch, dev) -> dict:
             "loss_cpu": ref["loss"], "loss_card_tf32": tf32["loss"], "grad_max_rel": rel,
             "grad_max_rel_tf32": control, "grad_rel_limit": GRAD_REL,
             "cpu_s": ref["seconds"]}
+
+
+# ----------------------------------------------------- multi-rank serving
+
+def tp_rank_geometries(torch, dev) -> dict:
+    """Rows 1, 2, 2b, 3 and 3b against their plain versions at the per-rank
+    head counts tensor parallelism gives (``serving_layout``): llama3-8b (hd
+    128, G 4) at TP 2, 4 and 8 (KV 4, 2 and 1 per rank: each rank's shard of
+    the pool), gemma-2b at TP 2 (hd 256: 4 query heads per rank over the one
+    KV head every rank holds), and llama3-8b at TP 16 (rank 11: 2 query heads
+    over a replicated pool of 8 KV heads, read from head 5 through the
+    kernels' ``kv_offset``); rows 4 and 5 at Mixtral's per-rank F = 7168 (TP
+    2), 512 tokens routed top-2 over 8 experts. Bf16; a chunk of 256 queries
+    at positions 768-1023 (row 1 half padding) over 1024 cached tokens, a
+    decode over 1024 and 724. Each row within ROW_REL of its largest value
+    (rows 4, 5: ``moe_checks``). Planted fault: the TP 16 rank reading KV
+    head 6 for 5 fails the row check on both paged kernels."""
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+    from mcp_context_forge_tpu_torch.tpu_local.models.llama import serving_layout
+    from mcp_context_forge_tpu_torch.tpu_local.ops import attention as att
+    from mcp_context_forge_tpu_torch.tpu_local.ops import grouped_moe as gm
+    from mcp_context_forge_tpu_torch.tpu_local.ops import paged_attention as paged
+    from mcp_context_forge_tpu_torch.tpu_local.parallel.moe import router_probs
+    from mcp_context_forge_tpu_torch.tpu_local.quantize import quantize_leaf
+
+    t0 = time.monotonic()
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf16)
+
+    B, S, page, ctx = 2, 256, 128, 1024
+    P = ctx // page
+    geometries, faults = [], {}
+    for model, tp, rank in (("llama3-8b", 2, 1), ("llama3-8b", 4, 3), ("llama3-8b", 8, 5),
+                            ("gemma-2b", 2, 1), ("llama3-8b", 16, 11)):
+        cfg = MODEL_CONFIGS[model]
+        replicated, kv_groups, offset = serving_layout(cfg, tp, rank)
+        hd, H = cfg.head_dim, cfg.n_heads // tp
+        G = H // kv_groups
+        pool_kv = cfg.n_kv_heads if replicated else cfg.n_kv_heads // tp
+        where = f"{model} TP {tp} rank {rank}"
+        row = {"model": model, "tp": tp, "rank": rank, "q_heads": H, "kv_groups": kv_groups,
+               "G": G, "pool_kv_heads": pool_kv, "kv_offset": offset, "hd": hd,
+               "replicated_pool": replicated}
+        # row 1: the prompt's own k/v, the rank's window of its KV heads
+        q, k, v = randn(B, S, H, hd), randn(B, S, kv_groups, hd), randn(B, S, kv_groups, hd)
+        valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+        valid[1, S - 37:] = False
+        out = att.flash_attention(q, k, v, valid)
+        ref = att.attention_reference(q, k, v, valid)
+        row["flash"] = compare_paged(torch, f"flash {where}", out, ref, valid)
+        # the pool: distinct pages per row, page 0 unused
+        tables = (torch.randperm(B * P, generator=torch.Generator().manual_seed(tp))
+                  .add(1).reshape(B, P).to(torch.int32).to(dev))
+        n_pages = B * P + 1
+        kp, vp = randn(n_pages, page, pool_kv, hd), randn(n_pages, page, pool_kv, hd)
+        k8, v8 = (torch.randint(-127, 128, (n_pages, page, pool_kv, hd), generator=gen,
+                                device=dev, dtype=torch.int8) for _ in range(2))
+        scales = tuple((torch.rand((n_pages, pool_kv), generator=gen, device=dev) + 0.5)
+                       .div(127).to(bf16) for _ in range(2))
+        pos = torch.arange(ctx - S, ctx, dtype=torch.int32, device=dev).repeat(B, 1)
+        pos[1, S // 2:] = -1
+        qc = randn(B, S, kv_groups, G, hd)
+        seq = torch.tensor([ctx, ctx - 300], dtype=torch.int32, device=dev)
+        qd = randn(B, kv_groups, G, hd)
+        every = torch.ones(B, dtype=torch.bool, device=dev)
+        for name, pages in (("chunk", (kp, vp)), ("chunk_q8", (k8, v8, *scales))):
+            kpp, vpp, *sc = pages
+            out = paged.paged_chunk_attention(qc, kpp, vpp, tables, pos, *sc, kv_offset=offset)
+            ref = paged.paged_chunk_attention_ref(qc, kpp, vpp, tables, pos, *sc,
+                                                  kv_offset=offset)
+            row[name] = compare_paged(torch, f"{name} {where}", out, ref, pos >= 0)
+            if replicated and pool_kv > 1:
+                faults[f"{name}: {where} reads KV head {offset + 1} for {offset}"] = (
+                    paged.paged_chunk_attention(qc, kpp, vpp, tables, pos, *sc,
+                                                kv_offset=offset + 1), ref, pos >= 0)
+        for name, pages in (("decode", (kp, vp)), ("decode_q8", (k8, v8, *scales))):
+            kpp, vpp, *sc = pages
+            out = paged.paged_decode_attention(qd, kpp, vpp, tables, seq, *sc, kv_offset=offset)
+            ref = paged.paged_decode_attention_ref(qd, kpp, vpp, tables, seq, *sc,
+                                                   kv_offset=offset)
+            row[name] = compare_paged(torch, f"{name} {where}", out, ref, every)
+            if replicated and pool_kv > 1:
+                faults[f"{name}: {where} reads KV head {offset + 1} for {offset}"] = (
+                    paged.paged_decode_attention(qd, kpp, vpp, tables, seq, *sc,
+                                                 kv_offset=offset + 1), ref, every)
+        torch.cuda.synchronize()
+        geometries.append(row)
+    check(len(faults) == 4, f"{len(faults)} planted faults")
+    planted = {}
+    for fault, (out, ref, rows) in faults.items():
+        planted.update(planted_faults(torch, fault, {fault: out}, ref, rows))
+
+    # rows 4, 5: each expert's hidden slice of one rank at TP 2
+    D, F, E, K, T, Bt = 4096, 14336 // 2, 8, 2, 512, 128
+    w1, w3 = randn(E, D, F, scale=D ** -0.5), randn(E, D, F, scale=D ** -0.5)
+    w2 = randn(E, F, D, scale=F ** -0.5)
+    x = randn(T, D)
+    plan = gm.route_sorted_blocks(router_probs(randn(D, E, scale=D ** -0.5), x), K, Bt)
+    be = plan["block_expert"]
+    NB = be.numel()
+    x_pad = (x[plan["sorted_token"].long()]
+             * plan["row_valid"][:, None].to(bf16)).reshape(NB, Bt, D)
+    rows = plan["row_valid"].reshape(NB, Bt) > 0
+    check(gm.moe_route(bf16, Bt, D, F) == "tc", "the per-rank F does not route to tc")
+    moe = {"D": D, "F_per_rank": F, "E": E, "tokens": T, "blocks": NB}
+    moe["expert_blocks_tc"] = moe_checks(torch, "expert_blocks_tc at F 7168",
+                                         gm.expert_blocks(x_pad, w1, w3, w2, be),
+                                         gm.expert_blocks_ref(x_pad, w1, w3, w2, be), rows)
+
+    def quantize(w):
+        leaves = [quantize_leaf(w[e], 0, bf16) for e in range(E)]
+        return {key: torch.stack([leaf[key] for leaf in leaves]) for key in ("q", "s")}
+
+    q1, q3, q2 = quantize(w1), quantize(w3), quantize(w2)
+    del w1, w3, w2
+    moe["expert_blocks_tc_q8"] = moe_checks(torch, "expert_blocks_tc_q8 at F 7168",
+                                            gm.expert_blocks_q8(x_pad, q1, q3, q2, be),
+                                            gm.expert_blocks_q8_ref(x_pad, q1, q3, q2, be),
+                                            rows)
+    torch.cuda.synchronize()
+    return {"tolerance": {"atol": TOL, "rtol": TOL, "row_relative": ROW_REL},
+            "attention": geometries, "planted_faults": planted, "moe_tp2": moe,
+            "seconds": time.monotonic() - t0}
+
+
+def rank1_phase(torch, dev, reference: dict) -> tuple[dict, dict]:
+    """``engine_llama3_8b_rank1``: the ``engine`` phase's llama3-8b (bf16,
+    full width, random weights from the same seed, each leaf drawn and kept
+    through the rank path's ``place``) at ``mesh_shape="1x1"``: the rank path
+    on a one-rank NCCL group, the forward's all-reduces and all-gathers and
+    the sampled tokens' broadcast inside every captured decode graph. Its
+    greedy streams must equal the ``engine`` phase's token for token (an
+    all-reduce over one rank changes no value). Reports the graphs'
+    captures, replays, launches and collectives per replay, and one fed
+    decode dispatch's device events beside the ``engine`` phase's
+    DECODE_REPLAY_EVENTS."""
+    from mcp_context_forge_tpu_torch.tpu_local.ranks import release_idle_group
+
+    t0 = time.monotonic()
+    events = {}
+
+    def after(engine):
+        check(engine._ranks is not None and engine.world == 1, "the 1x1 engine is not on the rank path")
+        check(all(bufs.collectives > 0 for bufs in engine._graphs.buffers.values()),
+              "a decode graph holds no collective")
+        events.update(replay_device_events(torch, engine, [300] * engine.config.max_batch))
+        return events
+
+    counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION, chat_requests("llama3-8b"),
+                                 hit=1, absent=NOT_BF16, mesh_shape="1x1", after=after)
+    release_idle_group()
+    check(stats["generated"] == reference["generated"],
+          "a 1x1 rank-path stream differs from the one-device engine's")
+    stats.update(streams_equal_engine=True, seconds=time.monotonic() - t0,
+                 replay_device_events=events, engine_replay_device_events=DECODE_REPLAY_EVENTS,
+                 engine_phase_decode_tokens_per_s=reference["decode_tokens_per_s"],
+                 engine_phase_ttft_p50_ms=reference["ttft_p50_ms"])
+    return counts, stats
+
+
+def sp1_phase(torch, dev, reference: list) -> tuple[dict, dict]:
+    """``engine_llama3_tiny_sp1``: llama3-tiny (f32) at ``mesh_shape="1x1"``
+    with ``sp_impl`` ring, then Ulysses, and ``sp_threshold`` 128: the
+    prompts of the 512 and 2048 buckets prefill with their attention
+    sequence-parallel over the one-rank NCCL group (the JAX package's
+    ``test_sp_serving`` case), the rest through the kernels. Each stream
+    must equal the f32 engine phase's (dense) one."""
+    from mcp_context_forge_tpu_torch.tpu_local.ranks import release_idle_group
+
+    t0 = time.monotonic()
+    out, counts = {}, dict.fromkeys(REPLACES, 0)
+    for impl in ("ring", "ulysses"):
+        launched, stats = engine_phase(
+            torch, dev, "llama3-tiny", ATTENTION_MMA[1:], chat_requests("llama3-tiny"), hit=1,
+            absent=TC_ATTENTION, dtype="float32", mesh_shape="1x1", sp_impl=impl,
+            sp_threshold=128)
+        release_idle_group()
+        free_device(torch)
+        check(stats["sequence_parallel_prefills"] > 0, f"no {impl} prefill ran")
+        check(stats["generated"] == reference,
+              f"an sp_impl={impl} stream differs from the dense engine's")
+        for name in counts:
+            counts[name] += launched[name]
+        out[impl] = {key: stats[key] for key in (
+            "world", "buckets", "sequence_parallel_prefills", "prefills", "history_prefills",
+            "ttft_ms", "decode_tokens_per_s", "graph_captures", "graph_replays",
+            "engine_build_s", "total_s")}
+        out[impl]["streams_equal_dense"] = True
+    return counts, {**out, "sp_threshold": 128, "seconds": time.monotonic() - t0}
 
 
 def free_local_port() -> int:

@@ -26,6 +26,15 @@ engine's dtype.
 holding ``params.pt``, one ``torch.save`` of the tree (full precision or
 quantized), restored memory-mapped onto the engine's device. A quantized
 tree saved once restores without requantizing at every boot.
+
+``shard`` (both loaders): a tensor-parallel rank keeps only its block of
+each leaf, ``shard(leaf, logical_name)`` (a copy, where the leaf lies), as
+the JAX loader places each leaf under its sharding. A full-precision HF
+leaf and every ``params.pt`` leaf (from the memory-mapped file) are cut on
+the host, so only the block is uploaded. An int8 HF leaf is quantized
+whole on the device first (each scale reads its whole channel) and then
+cut, and an expert stack is cut once its last expert arrived: no device
+holds more than one whole leaf (three expert stacks) at a time.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ import torch
 from .models.configs import LlamaConfig
 from .models.convert import F32_LEAVES
 from .models.llama import params_logical
-from .quantize import quantize_leaf, reduction_axis
+from .quantize import is_quant, map_tree, quantize_leaf, quantize_logical, reduction_axis
 
 PARAMS_FILE = "params.pt"
 # elements quantized at once: bounds the f32 temporaries of one weight
@@ -176,16 +185,23 @@ def _walk(tree: Any, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
 
 
 def _place(tensor: torch.Tensor, transpose: bool, tree_path: tuple,
-           axis: int | None, device: torch.device, dtype: torch.dtype) -> Any:
+           axis: int | None, device: torch.device, dtype: torch.dtype,
+           shard=None, name: str = "") -> Any:
     """One host tensor -> its leaf on ``device``: transposed to [in, out]
     and made contiguous there, then quantized over ``axis`` (scales in
-    ``dtype``) or cast (norm weights to f32, the rest to ``dtype``)."""
+    ``dtype``) or cast (norm weights to f32, the rest to ``dtype``). With
+    ``shard``, the leaf's block under its logical ``name``: cut on the
+    host when full precision, after the quantization when int8."""
+    cast = torch.float32 if tree_path[-1] in F32_LEAVES else dtype
+    if shard is not None and axis is None:
+        block = shard(tensor.T if transpose else tensor, name)
+        return block.to(device).contiguous().to(cast)
     w = tensor.to(device)
     if transpose:
         w = w.T.contiguous()
     if axis is not None:
-        return _quantize(w, axis, dtype)
-    return w.to(torch.float32 if tree_path[-1] in F32_LEAVES else dtype)
+        return _kept(_quantize(w, axis, dtype), name, shard)
+    return w.to(cast)
 
 
 def _quantize(w: torch.Tensor, axis: int, dtype: torch.dtype) -> dict[str, torch.Tensor]:
@@ -207,10 +223,18 @@ def _quantize(w: torch.Tensor, axis: int, dtype: torch.dtype) -> dict[str, torch
     return {"q": q, "s": s}
 
 
+def _kept(leaf: Any, name: str, shard) -> Any:
+    """``shard``'s block of a placed leaf (int8: under its
+    ``quantize_logical`` names), or the leaf."""
+    if shard is None:
+        return leaf
+    return shard(leaf, quantize_logical(name) if is_quant(leaf) else name)
+
+
 def load_hf_llama(path: str, config: LlamaConfig,
                   device: torch.device | str = "cuda",
                   dtype: torch.dtype = torch.bfloat16,
-                  quant: str = "") -> dict[str, Any]:
+                  quant: str = "", shard=None) -> dict[str, Any]:
     """Every ``*.safetensors`` shard of ``path`` (in name order) into the
     port's tree on ``device``; ``quant="int8"`` quantizes on the way in.
     Tensors the config does not name are skipped; a tensor it names that
@@ -235,8 +259,9 @@ def load_hf_llama(path: str, config: LlamaConfig,
             tree_path, transpose = entry[0], entry[1]
             axis = reduction_axis(_get_path(logical, tree_path)) if quant else None
             if len(entry) == 2:
-                _set_path(params, tree_path,
-                          _place(tensor, transpose, tree_path, axis, device, dtype))
+                _set_path(params, tree_path, _place(
+                    tensor, transpose, tree_path, axis, device, dtype, shard,
+                    _get_path(logical, tree_path)))
                 continue
             expert = entry[2]
             # within one expert the stack's reduction axis is one lower
@@ -250,7 +275,8 @@ def load_hf_llama(path: str, config: LlamaConfig,
             written[expert] = True
             del leaf
             if all(written):
-                _set_path(params, tree_path, stack)
+                _set_path(params, tree_path,
+                          _kept(stack, _get_path(logical, tree_path), shard))
                 del staged[tree_path]
     if staged:
         raise ValueError(f"Checkpoint has incomplete expert stacks for: "
@@ -259,6 +285,12 @@ def load_hf_llama(path: str, config: LlamaConfig,
     if missing:
         raise ValueError(f"Checkpoint missing tensors for: {missing[:5]}…")
     return params
+
+
+def _to_device(leaf: Any, device: torch.device) -> Any:
+    if isinstance(leaf, dict):
+        return {k: v.to(device) for k, v in leaf.items()}
+    return leaf.to(device)
 
 
 def _map_none(logical: Any) -> Any:
@@ -295,7 +327,7 @@ def save_params(path: str, params: dict[str, Any]) -> None:
 def load_params(path: str, config: LlamaConfig,
                 device: torch.device | str = "cuda",
                 dtype: torch.dtype = torch.bfloat16,
-                quant: str = "") -> dict[str, Any]:
+                quant: str = "", shard=None) -> dict[str, Any]:
     """Restore from an HF safetensors directory (quantized on the way in
     under ``quant="int8"``) or from the port's own checkpoint, which must
     already hold the tree ``quant`` asks for: a full-precision tree
@@ -304,16 +336,22 @@ def load_params(path: str, config: LlamaConfig,
         raise ValueError(f"unsupported quant mode {quant!r}")
     if os.path.isdir(path) and any(f.endswith(".safetensors")
                                    for f in os.listdir(path)):
-        return load_hf_llama(path, config, device, dtype, quant=quant)
+        return load_hf_llama(path, config, device, dtype, quant=quant, shard=shard)
     file = os.path.join(path, PARAMS_FILE)
     if not os.path.isfile(file):
         raise FileNotFoundError(f"{path} holds neither *.safetensors nor "
                                 f"{PARAMS_FILE}")
     device = torch.device(device)
     skeleton = expected_tree(config, dtype, quant)
-    tree = torch.load(file, map_location=device, weights_only=True, mmap=True)
+    tree = torch.load(file, map_location="cpu" if shard else device,
+                      weights_only=True, mmap=True)
     try:
-        return _restore(tree, skeleton)
+        restored = _restore(tree, skeleton)
+        if shard is None:
+            return restored
+        # the blocks of the mapped file, cut on the host, then uploaded
+        return map_tree(lambda leaf, name: _to_device(_kept(leaf, name, shard), device),
+                        restored, params_logical(config))
     except ValueError as exc:
         if quant:
             raise ValueError(

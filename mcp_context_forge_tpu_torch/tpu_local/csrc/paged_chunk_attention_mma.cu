@@ -51,14 +51,17 @@ template <typename T>
 struct ChunkParams {
   const T* q;               // [B, S, KV*G, hd]
   T* out;                   // [B, S, KV*G, hd]
-  const void* k;            // pages [N, page, KV, hd] in T, or int8
+  const void* k;            // pages [N, page, pool_kv, hd] in T, or int8
   const void* v;
-  const T* k_scales;        // int8 pages: [N, KV]
+  const T* k_scales;        // int8 pages: [N, pool_kv]
   const T* v_scales;
   const int32_t* tables;    // [B, P]
   const int32_t* q_pos;     // [B, S], -1 = padding
   int B, S, KV, G, hd, page_size, P;
   float scale_log2;         // log2(e) / sqrt(hd)
+  // the pool's kv heads and the first one q's kv head 0 reads (a tensor-
+  // parallel rank's query heads over a replicated pool)
+  int pool_kv, kv_off;
 };
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -173,8 +176,8 @@ __global__ void __launch_bounds__(32 * kWarps) chunk_mma_kernel(ChunkParams<T> p
     const int page = p.tables[(long long)b * p.P + i];
     pages[i] = page;
     if (Q8) {
-      page_ks[i] = to_f32(p.k_scales[(long long)page * KV + kvh]);
-      page_vs[i] = to_f32(p.v_scales[(long long)page * KV + kvh]);
+      page_ks[i] = to_f32(p.k_scales[(long long)page * p.pool_kv + p.kv_off + kvh]);
+      page_vs[i] = to_f32(p.v_scales[(long long)page * p.pool_kv + p.kv_off + kvh]);
     }
   }
   __syncthreads();
@@ -192,7 +195,8 @@ __global__ void __launch_bounds__(32 * kWarps) chunk_mma_kernel(ChunkParams<T> p
       long long off = 0;
       if (ok) {
         const int slot = c / page_size;
-        off = (((long long)pages[slot] * page_size + (c - slot * page_size)) * KV + kvh) * hd + col;
+        off = (((long long)pages[slot] * page_size + (c - slot * page_size)) * p.pool_kv +
+               p.kv_off + kvh) * hd + col;
       }
       if constexpr (Q8) {
         int8_t* kd = raw + buf * 2 * TKM * HD;
@@ -309,55 +313,61 @@ int launch_hd(const ChunkParams<T>& p, cudaStream_t s) {
 template <typename T, bool Q8>
 int chunk_typed(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
                 const void* v_scales, const void* tables, const void* q_positions, void* out,
-                int B, int S, int KV, int G, int hd, int page_size, int P, cudaStream_t s) {
+                int B, int S, int KV, int G, int hd, int page_size, int P, int pool_kv,
+                int kv_off, cudaStream_t s) {
   ChunkParams<T> p{static_cast<const T*>(q), static_cast<T*>(out), k_pages, v_pages,
                    static_cast<const T*>(k_scales), static_cast<const T*>(v_scales),
                    static_cast<const int32_t*>(tables), static_cast<const int32_t*>(q_positions),
-                   B, S, KV, G, hd, page_size, P, 1.4426950408889634f / sqrtf((float)hd)};
+                   B, S, KV, G, hd, page_size, P, 1.4426950408889634f / sqrtf((float)hd),
+                   pool_kv, kv_off};
   return launch_hd<T, Q8>(p, s);
 }
 
 template <bool Q8>
 int chunk(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
           const void* v_scales, const void* tables, const void* q_positions, void* out, int B,
-          int S, int KV, int G, int hd, int page_size, int P, int dtype, void* stream) {
+          int S, int KV, int G, int hd, int page_size, int P, int pool_kv, int kv_off,
+          int dtype, void* stream) {
   if (KV <= 0 || G <= 0 || P <= 0 || page_size <= 0 || hd <= 0 || hd > 256 ||
-      hd % (Q8 ? 16 : 8) != 0)
+      hd % (Q8 ? 16 : 8) != 0 || kv_off < 0 || kv_off + KV > pool_kv)
     return (int)cudaErrorInvalidValue;
   if (Q8 && (k_scales == nullptr || v_scales == nullptr)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || S <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return chunk_typed<__nv_bfloat16, Q8>(q, k_pages, v_pages, k_scales, v_scales, tables,
-                                          q_positions, out, B, S, KV, G, hd, page_size, P, s);
+                                          q_positions, out, B, S, KV, G, hd, page_size, P,
+                                          pool_kv, kv_off, s);
   if (dtype == 1)
     return chunk_typed<float, Q8>(q, k_pages, v_pages, k_scales, v_scales, tables, q_positions,
-                                  out, B, S, KV, G, hd, page_size, P, s);
+                                  out, B, S, KV, G, hd, page_size, P, pool_kv, kv_off, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, out: [B, S, KV, G, hd]; pages: [num_pages, page_size, KV, hd], all in
-// dtype (the wrappers' code: bf16 0, f32 1); tables: [B, P] int32;
-// q_positions: [B, S] int32. hd % 8 == 0 up to 256; any page size.
+// q, out: [B, S, KV, G, hd]; pages: [num_pages, page_size, pool_kv, hd], all
+// in dtype (the wrappers' code: bf16 0, f32 1); q's kv head j reads pool
+// head kv_off + j; tables: [B, P] int32; q_positions: [B, S] int32.
+// hd % 8 == 0 up to 256; any page size.
 extern "C" int mcf_paged_chunk_attention_mma(const void* q, const void* k_pages,
                                              const void* v_pages, const void* tables,
                                              const void* q_positions, void* out, int B, int S,
                                              int KV, int G, int hd, int page_size, int P,
-                                             int dtype, void* stream) {
+                                             int pool_kv, int kv_off, int dtype, void* stream) {
   return chunk<false>(q, k_pages, v_pages, nullptr, nullptr, tables, q_positions, out, B, S, KV,
-                      G, hd, page_size, P, dtype, stream);
+                      G, hd, page_size, P, pool_kv, kv_off, dtype, stream);
 }
 
 // The same over int8 pages (hd % 16 == 0); k_scales, v_scales: [num_pages,
-// KV] in dtype.
+// pool_kv] in dtype.
 extern "C" int mcf_paged_chunk_attention_mma_q8(const void* q, const void* k_pages,
                                                 const void* v_pages, const void* k_scales,
                                                 const void* v_scales, const void* tables,
                                                 const void* q_positions, void* out, int B, int S,
                                                 int KV, int G, int hd, int page_size, int P,
-                                                int dtype, void* stream) {
+                                                int pool_kv, int kv_off, int dtype,
+                                                void* stream) {
   return chunk<true>(q, k_pages, v_pages, k_scales, v_scales, tables, q_positions, out, B, S,
-                     KV, G, hd, page_size, P, dtype, stream);
+                     KV, G, hd, page_size, P, pool_kv, kv_off, dtype, stream);
 }

@@ -53,10 +53,13 @@ struct ChunkParams {
   __nv_bfloat16* out;              // [B, S, KV*G, hd]
   const int32_t* tables;           // [B, P]
   const int32_t* q_pos;            // [B, S], -1 = padding
-  const __nv_bfloat16* k_scales;   // int8 pages: [N, KV]
+  const __nv_bfloat16* k_scales;   // int8 pages: [N, pool_kv]
   const __nv_bfloat16* v_scales;
   int B, S, KV, G, page_size, P;
   float scale_log2;                // log2(e) / sqrt(hd)
+  // the pool's kv heads and the first one q's kv head 0 reads (a tensor-
+  // parallel rank's query heads over a replicated pool)
+  int pool_kv, kv_off;
 };
 
 // Shared memory, from a 1024-byte-aligned base: Q; the TMA ring (bf16:
@@ -239,8 +242,8 @@ __global__ void __launch_bounds__(NT, 1)
     const int page = p.tables[(long long)b * p.P + i];
     pages[i] = page;
     if (Q8) {
-      ks[i] = __bfloat162float(p.k_scales[(long long)page * KV + kvh]);
-      vs[i] = __bfloat162float(p.v_scales[(long long)page * KV + kvh]);
+      ks[i] = __bfloat162float(p.k_scales[(long long)page * p.pool_kv + p.kv_off + kvh]);
+      vs[i] = __bfloat162float(p.v_scales[(long long)page * p.pool_kv + p.kv_off + kvh]);
     }
   }
   load_q<HD>(smem, p.q, b, S, H, G, kvh, r0);
@@ -248,8 +251,8 @@ __global__ void __launch_bounds__(NT, 1)
   fence_proxy_async();
   __syncthreads();
 
-  const Ring ring{&tm_k, &tm_v, base + Tiles<HD>::kQ, bar_full, released, kvh, b, pages,
-                  p.page_size};
+  const Ring ring{&tm_k, &tm_v, base + Tiles<HD>::kQ, bar_full, released, kvh + p.kv_off, b,
+                  pages, p.page_size};
   if (tid == 0) {  // the first stages; the rest are refilled as they are released
     for (int t = 0; t < min(n_tiles, STAGES); ++t) {
       if (Q8) load_raw<HD, Q8>(ring, t);
@@ -284,13 +287,14 @@ __global__ void __launch_bounds__(NT, 1)
 template <int HD, bool Q8>
 int launch(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
            const void* v_scales, const void* tables, const void* q_positions, void* out, int B,
-           int S, int KV, int G, int page_size, int P, int num_pages, cudaStream_t stream) {
-  // one layer's pool [N, page, KV, hd]: bf16 boxes of 64 columns x TK rows
-  // (swizzled operands), int8 boxes of the whole head x TK rows (staged)
+           int S, int KV, int G, int page_size, int P, int num_pages, int pool_kv, int kv_off,
+           cudaStream_t stream) {
+  // one layer's pool [N, page, pool_kv, hd]: bf16 boxes of 64 columns x TK
+  // rows (swizzled operands), int8 boxes of the whole head x TK rows (staged)
   CUtensorMap tm_k, tm_v;
   const int box0 = Q8 ? HD : 64;
-  if (!map_4d(&tm_k, k_pages, Q8, num_pages, page_size, KV, HD, box0) ||
-      !map_4d(&tm_v, v_pages, Q8, num_pages, page_size, KV, HD, box0))
+  if (!map_4d(&tm_k, k_pages, Q8, num_pages, page_size, pool_kv, HD, box0) ||
+      !map_4d(&tm_v, v_pages, Q8, num_pages, page_size, pool_kv, HD, box0))
     return (int)cudaErrorInvalidValue;
   ChunkParams p{static_cast<const __nv_bfloat16*>(q),
                 static_cast<__nv_bfloat16*>(out),
@@ -299,7 +303,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const void* 
                 static_cast<const __nv_bfloat16*>(k_scales),
                 static_cast<const __nv_bfloat16*>(v_scales),
                 B, S, KV, G, page_size, P,
-                1.4426950408889634f / sqrtf((float)HD)};
+                1.4426950408889634f / sqrtf((float)HD), pool_kv, kv_off};
   const size_t smem = Layout<HD, Q8>::bytes(P, B);
   cudaError_t err = cudaFuncSetAttribute(chunk_tc_kernel<HD, Q8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -312,44 +316,47 @@ int launch(const void* q, const void* k_pages, const void* v_pages, const void* 
 template <bool Q8>
 int chunk(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
           const void* v_scales, const void* tables, const void* q_positions, void* out, int B,
-          int S, int KV, int G, int hd, int page_size, int P, int num_pages, int dtype,
-          void* stream) {
+          int S, int KV, int G, int hd, int page_size, int P, int num_pages, int pool_kv,
+          int kv_off, int dtype, void* stream) {
   if (dtype != 0 || KV <= 0 || G <= 0 || P <= 0 || num_pages <= 0 || page_size <= 0 ||
-      page_size % TK != 0)
+      page_size % TK != 0 || kv_off < 0 || kv_off + KV > pool_kv)
     return (int)cudaErrorInvalidValue;
   if (Q8 && (k_scales == nullptr || v_scales == nullptr)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || S <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 128)
     return launch<128, Q8>(q, k_pages, v_pages, k_scales, v_scales, tables, q_positions, out, B,
-                           S, KV, G, page_size, P, num_pages, s);
+                           S, KV, G, page_size, P, num_pages, pool_kv, kv_off, s);
   if (hd == 64)
     return launch<64, Q8>(q, k_pages, v_pages, k_scales, v_scales, tables, q_positions, out, B,
-                          S, KV, G, page_size, P, num_pages, s);
+                          S, KV, G, page_size, P, num_pages, pool_kv, kv_off, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, out: [B, S, KV, G, hd] bf16; pages: [num_pages, page_size, KV, hd]
-// bf16; tables: [B, P] int32; q_positions: [B, S] int32. hd 64 or 128,
-// page_size a multiple of 64; dtype is the wrappers' code, bf16 (0) only.
+// q, out: [B, S, KV, G, hd] bf16; pages: [num_pages, page_size, pool_kv,
+// hd] bf16, q's kv head j reading pool head kv_off + j; tables: [B, P]
+// int32; q_positions: [B, S] int32. hd 64 or 128, page_size a multiple of
+// 64; dtype is the wrappers' code, bf16 (0) only.
 extern "C" int mcf_paged_chunk_attention_tc(const void* q, const void* k_pages,
                                             const void* v_pages, const void* tables,
                                             const void* q_positions, void* out, int B, int S,
                                             int KV, int G, int hd, int page_size, int P,
-                                            int num_pages, int dtype, void* stream) {
+                                            int num_pages, int pool_kv, int kv_off,
+                                            int dtype, void* stream) {
   return chunk<false>(q, k_pages, v_pages, nullptr, nullptr, tables, q_positions, out, B, S, KV,
-                      G, hd, page_size, P, num_pages, dtype, stream);
+                      G, hd, page_size, P, num_pages, pool_kv, kv_off, dtype, stream);
 }
 
-// The same over int8 pages; k_scales, v_scales: [num_pages, KV] bf16.
+// The same over int8 pages; k_scales, v_scales: [num_pages, pool_kv] bf16.
 extern "C" int mcf_paged_chunk_attention_tc_q8(const void* q, const void* k_pages,
                                                const void* v_pages, const void* k_scales,
                                                const void* v_scales, const void* tables,
                                                const void* q_positions, void* out, int B, int S,
                                                int KV, int G, int hd, int page_size, int P,
-                                               int num_pages, int dtype, void* stream) {
+                                               int num_pages, int pool_kv, int kv_off,
+                                               int dtype, void* stream) {
   return chunk<true>(q, k_pages, v_pages, k_scales, v_scales, tables, q_positions, out, B, S,
-                     KV, G, hd, page_size, P, num_pages, dtype, stream);
+                     KV, G, hd, page_size, P, num_pages, pool_kv, kv_off, dtype, stream);
 }

@@ -58,9 +58,9 @@ constexpr int kF32 = 1;
 
 struct DecodeParams {
   const void* q;            // [B, KV, G, hd]
-  const void* k;            // pages [N, page, KV, hd]
+  const void* k;            // pages [N, page, pool_kv, hd]
   const void* v;
-  const void* k_scales;     // int8 pages: [N, KV] in the query's type
+  const void* k_scales;     // int8 pages: [N, pool_kv] in the query's type
   const void* v_scales;
   const int32_t* tables;    // [B, P]
   const int32_t* seq_lens;  // [B]
@@ -70,6 +70,9 @@ struct DecodeParams {
   int B, KV, G, hd, page_size, P, pps, splits, tile_keys;
   int key_threads;          // threads that share a key's scores (a power of 2 <= 32)
   float scale_log2;         // log2(e) / sqrt(hd)
+  // the pool's kv heads and the first one q's kv head 0 reads: a tensor-
+  // parallel rank's query heads over a replicated pool read a window of it
+  int pool_kv, kv_off;
 };
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
@@ -178,8 +181,9 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeParams p) {
     const int page = p.tables[(long long)b * p.P + key_begin / PS + i];
     pages[i] = page;
     if (Q8) {
-      page_ks[i] = to_float(static_cast<const T*>(p.k_scales)[(long long)page * p.KV + kvh]);
-      page_vs[i] = to_float(static_cast<const T*>(p.v_scales)[(long long)page * p.KV + kvh]);
+      const long long at = (long long)page * p.pool_kv + p.kv_off + kvh;
+      page_ks[i] = to_float(static_cast<const T*>(p.k_scales)[at]);
+      page_vs[i] = to_float(static_cast<const T*>(p.v_scales)[at]);
     }
   }
   __syncthreads();
@@ -189,7 +193,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeParams p) {
   const int tpp = (PS + TKY - 1) / TKY;
   const int last_keys = key_end - key_begin - (pages_in - 1) * PS;
   const int n_tiles = (pages_in - 1) * tpp + (last_keys + TKY - 1) / TKY;
-  const long long kv_stride = (long long)p.KV * hd * sizeof(KT);  // bytes from key to key
+  const long long kv_stride = (long long)p.pool_kv * hd * sizeof(KT);  // bytes from key to key
 
   auto tile_keys = [&](int t) {
     const int off = (t % tpp) * TKY;
@@ -198,7 +202,8 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(DecodeParams p) {
   auto load = [&](int t, int buf) {
     const int n = tile_keys(t), sub = t % tpp;
     const int page = pages[t / tpp];
-    const long long off = (((long long)page * PS + sub * TKY) * p.KV + kvh) * hd * sizeof(KT);
+    const long long off =
+        (((long long)page * PS + sub * TKY) * p.pool_kv + p.kv_off + kvh) * hd * sizeof(KT);
     const char* ksrc = static_cast<const char*>(p.k) + off;
     const char* vsrc = static_cast<const char*>(p.v) + off;
     const uint32_t kdst = static_cast<uint32_t>(__cvta_generic_to_shared(kbuf + buf * TKY * pitch));
@@ -388,7 +393,7 @@ __global__ void __launch_bounds__(NT) decode_combine_kernel(DecodeParams p) {
 bool shape_ok(const DecodeParams& p, int elem_bytes) {
   return p.G >= 1 && p.G <= GMAX && p.hd > 0 && p.hd <= 2 * NT && p.hd % 8 == 0 &&
          (p.hd * elem_bytes) % 16 == 0 && p.page_size > 0 && p.pps > 0 &&
-         (long long)p.splits * p.pps >= p.P;
+         (long long)p.splits * p.pps >= p.P && p.kv_off >= 0 && p.kv_off + p.KV <= p.pool_kv;
 }
 
 template <typename T>
@@ -434,13 +439,13 @@ template <bool Q8>
 int decode(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
            const void* v_scales, const void* tables, const void* seq_lens, void* part_ml,
            void* part_o, void* out, int B, int KV, int G, int hd, int page_size, int P, int pps,
-           int splits, int dtype, void* stream) {
+           int splits, int pool_kv, int kv_off, int dtype, void* stream) {
   if (Q8 && (k_scales == nullptr || v_scales == nullptr)) return (int)cudaErrorInvalidValue;
   DecodeParams p{q, k_pages, v_pages, k_scales, v_scales,
                  static_cast<const int32_t*>(tables), static_cast<const int32_t*>(seq_lens),
                  static_cast<float2*>(part_ml), static_cast<float*>(part_o), out,
                  B, KV, G, hd, page_size, P, pps, splits, 0, 1,
-                 1.4426950408889634f / sqrtf((float)hd)};
+                 1.4426950408889634f / sqrtf((float)hd), pool_kv, kv_off};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using KB = typename std::conditional<Q8, int8_t, __nv_bfloat16>::type;
   using KF = typename std::conditional<Q8, int8_t, float>::type;
@@ -453,27 +458,31 @@ int decode(const void* q, const void* k_pages, const void* v_pages, const void* 
 
 // part_ml: [B, KV, splits, G, 2] f32, part_o: [B, KV, splits, G, hd] f32
 // workspaces; split s covers table slots [s*pps, (s+1)*pps), splits*pps >= P.
+// Pages hold pool_kv >= kv_off + KV heads; q's kv head j reads pool head
+// kv_off + j.
 extern "C" int mcf_paged_decode_attention(const void* q, const void* k_pages,
                                           const void* v_pages, const void* tables,
                                           const void* seq_lens, void* part_ml, void* part_o,
                                           void* out, int B, int KV, int G, int hd,
-                                          int page_size, int P, int pps, int splits, int dtype,
-                                          void* stream) {
+                                          int page_size, int P, int pps, int splits,
+                                          int pool_kv, int kv_off, int dtype, void* stream) {
   return decode<false>(q, k_pages, v_pages, nullptr, nullptr, tables, seq_lens, part_ml, part_o,
-                       out, B, KV, G, hd, page_size, P, pps, splits, dtype, stream);
+                       out, B, KV, G, hd, page_size, P, pps, splits, pool_kv, kv_off, dtype,
+                       stream);
 }
 
 // Replaces: mcp_context_forge_tpu/tpu_local/ops/paged_attention.py:199 with
-// k_scales/v_scales (int8 pages). k_scales, v_scales: [N, KV] in dtype.
+// k_scales/v_scales (int8 pages). k_scales, v_scales: [N, pool_kv] in dtype.
 extern "C" int mcf_paged_decode_attention_q8(const void* q, const void* k_pages,
                                              const void* v_pages, const void* k_scales,
                                              const void* v_scales, const void* tables,
                                              const void* seq_lens, void* part_ml, void* part_o,
                                              void* out, int B, int KV, int G, int hd,
                                              int page_size, int P, int pps, int splits,
-                                             int dtype, void* stream) {
+                                             int pool_kv, int kv_off, int dtype, void* stream) {
   return decode<true>(q, k_pages, v_pages, k_scales, v_scales, tables, seq_lens, part_ml, part_o,
-                      out, B, KV, G, hd, page_size, P, pps, splits, dtype, stream);
+                      out, B, KV, G, hd, page_size, P, pps, splits, pool_kv, kv_off, dtype,
+                      stream);
 }
 
 // The combine launch alone, over partials already in the workspaces.
@@ -483,7 +492,7 @@ extern "C" int mcf_paged_decode_combine(const void* seq_lens, void* part_ml, voi
   DecodeParams p{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                  static_cast<const int32_t*>(seq_lens), static_cast<float2*>(part_ml),
                  static_cast<float*>(part_o), out, B, KV, G, hd, page_size, P, pps, splits, 0, 1,
-                 0.f};
+                 0.f, KV, 0};
   if (!shape_ok(p, 2)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) return combine<__nv_bfloat16>(p, s);

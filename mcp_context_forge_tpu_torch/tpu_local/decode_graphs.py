@@ -46,6 +46,13 @@ Python wrappers, so the wrappers' ``launches`` counts would read wrong both
 ways: each capture's launches count apart (``ops.capturing``), are kept
 per key as the graph's launches, and every replay adds them once.
 
+On a multi-rank engine (``ranks.py``) the bodies hold the forward's
+collectives and the sampled tokens' broadcast (NCCL on the card), captured
+on every rank for the same keys; each graph keeps how many it holds
+(``collectives``, from ``parallel.collectives.SERVING_CALLS``). A follower
+replays without reading its outputs back, so ``stage`` first waits on the
+event of the slot it reuses: its staged inputs may still be in flight.
+
 Each key's warm-up and capture is one ``graph_capture`` event
 (``compile_events``) of the building thread. A ``timed`` launch brackets
 the replay with two CUDA events on the same stream (outside the graph: a
@@ -65,6 +72,7 @@ import torch
 
 from .compile_events import record_event
 from .ops import capturing, kernel_wrappers
+from .parallel.collectives import SERVING_CALLS
 from .sampling import SamplingParams
 
 # rows of the int32 input pack
@@ -129,6 +137,7 @@ class DecodeBuffers:
     events: list[Any]                   # 2 CUDA events (none on the CPU)
     graph: Any = None
     launches: dict[str, int] = field(default_factory=dict)   # per replay
+    collectives: int = 0                # per replay (a multi-rank engine's)
     replays: int = 0                    # graph replays (none on the CPU)
     slot: int = 0                       # the staging slot of the next dispatch
 
@@ -238,6 +247,7 @@ class DecodeGraphs:
                 # sibling one workspace allocation at its next eager GEMM
                 # (its graphs keep the workspaces their captures took)
                 torch._C._cuda_clearCublasWorkspaces()
+                collectives = SERVING_CALLS["count"]
                 with capturing() as counts, torch.cuda.graph(
                         graph, pool=pool, stream=stream,
                         capture_error_mode="thread_local"):
@@ -245,6 +255,7 @@ class DecodeGraphs:
                 torch._C._cuda_clearCublasWorkspaces()
                 upload_graph(graph, stream)
                 bufs.launches = counts
+                bufs.collectives = SERVING_CALLS["count"] - collectives
                 bufs.graph = graph
                 self.captures += 1
                 record_event("graph_capture", time.monotonic() - t0)
@@ -256,6 +267,13 @@ class DecodeGraphs:
             seg["total_size"] for seg in torch.cuda.memory._snapshot()["segments"]
             if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
+    def release(self) -> None:
+        """Drop every captured graph (a stopped multi-rank engine's): NCCL
+        tears a communicator down only once no graph holds its collectives.
+        A launch afterwards raises."""
+        for bufs in self.buffers.values():
+            bufs.graph = None
+
     def get(self, key: GraphKey) -> DecodeBuffers:
         bufs = self.buffers.get(key)
         if bufs is None:
@@ -266,6 +284,8 @@ class DecodeGraphs:
         """The host input pack of ``key``'s next dispatch, reset to
         inactive columns, for the caller to fill."""
         bufs = self.get(key)
+        if bufs.events:
+            bufs.events[bufs.slot].synchronize()   # its last upload has landed
         pack = bufs.staging_in[bufs.slot].numpy()
         pack[:] = neutral_inputs(key)
         return pack

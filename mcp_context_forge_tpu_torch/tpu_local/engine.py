@@ -76,6 +76,25 @@ stall the caller's event loop; tokens hop back with one
   barrier with the pipeline drained); ``probe_devices`` finds the devices
   a pool places its replicas on.
 
+- Multi-rank serving (``mesh_shape`` "DxM"): M-way Megatron tensor
+  parallelism over the ``model`` axis and D data replicas, which compute
+  the same thing (the JAX engine's data axis shards no state either). One
+  process per device (``ranks.py``, which has no JAX counterpart): this
+  engine is rank 0, whose scheduler drives every rank; the followers it
+  starts build the same weights shard (``parallel/sharding.py``'s rules,
+  cut on the host or drawn leaf by leaf, so that no device holds the whole
+  tree), KV shard (the pages' kv-head dim over ``model`` when it splits,
+  ``kv_pages_spec``, else replicated) and decode graphs (with the
+  collectives inside), and run each device call rank 0 announces. Rank 0
+  alone holds the page allocator; each call carries the block-table rows
+  it changed. Every rank samples, and rank 0's tokens are broadcast inside
+  the step, so every rank writes the KV of the same tokens. Prefill buckets
+  above ``sp_threshold`` run their attention sequence-parallel
+  (``sp_impl`` ring or Ulysses) over the ``model`` axis. The roofline
+  divides by the world's peak. The spill tiers (and so migration) and
+  ``request_chain_export`` are not carried over more than one rank and
+  raise.
+
 Prefill, chunk rounds and prefix hits run eagerly. The engine runs on
 ``config.device`` ("cuda" by default) and raises at construction when
 that device is absent; it never moves to the CPU by itself. Weights come
@@ -117,8 +136,14 @@ from .kv import (PageAllocator, SpilledPage, TierClient, TieredPageStore,
                  init_kv_state, kv_page_bytes, num_pages_for_budget)
 from .kv.fabric import object_store_or_none
 from .models import MODEL_CONFIGS, LlamaConfig
-from .models.llama import decode_step, init_params, prefill, prefill_with_history
-from .quantize import kv_dequantize, kv_quantize
+from .models.llama import (decode_step, init_params, params_logical, prefill,
+                           prefill_with_history, serving_layout)
+from .parallel.collectives import broadcast_
+from .parallel.mesh import mesh_shape_from_string, parse_mesh_shape
+from .parallel.sharding import kv_pages_spec, shard_leaf
+from .quantize import (is_quant, kv_dequantize, kv_quantize, map_tree,
+                       quantize_logical)
+from .ranks import RankGroup, group_timeout
 from .roofline import (H100_HBM_GBPS, H100_PEAK_BF16_TFLOPS, CostEntry,
                        CostRegistry, roofline_fractions, step_cost)
 from .sampling import SamplingParams, sample_tokens
@@ -143,8 +168,20 @@ class EngineConfig:
     num_pages: int = 512
     prefill_buckets: tuple[int, ...] = (128, 512, 2048)
     prefill_max_batch: int = 4      # admissions fused into one prefill call
+    # the device mesh "DxM": M-way tensor parallelism over the model axis
+    # and D data replicas; "" = (1, every device the engine is given: a
+    # standalone CUDA engine takes every visible card). One process per
+    # device (ranks.py). A world of one device runs in this process with
+    # no process group, unless mesh_shape is given ("1x1" runs the rank
+    # path on a one-rank group) or sp_impl is set
+    mesh_shape: str = ""
     dtype: str = "bfloat16"
     max_queue: int = 1024
+    # sequence-parallel long prefill: prompts in buckets above sp_threshold
+    # tokens run their attention as ring or Ulysses over the mesh's model
+    # axis (none|ring|ulysses)
+    sp_impl: str = "none"
+    sp_threshold: int = 1024
     # prefix cache: reuse resident KV pages for shared full-page prompt
     # prefixes; only each request's suffix pays prefill
     prefix_cache: bool = True
@@ -172,7 +209,9 @@ class EngineConfig:
     tier_object_url: str = ""
     fabric_namespace: str = "shared"
     device: str = "cuda"
-    # the watchdog of device discovery (probe_devices) when a pool builds
+    # the watchdog of device discovery (probe_devices) when a pool builds;
+    # on the rank path also the groups' rendezvous and collective timeout
+    # (a rank that stalls a collective this long fails it; 0 = 30 minutes)
     init_timeout_s: float = 120.0
     seed: int = 0                   # random weights and the sampler
     # weight-only quantization: "" (full precision) or "int8" (quantize.py;
@@ -253,10 +292,10 @@ class EngineConfig:
     def from_settings(cls, settings) -> "EngineConfig":
         """The config from the gateway's ``tpu_local_*`` settings (duck-
         typed), with the JAX engine's fallbacks for absent fields. Settings
-        of what the port does not have (the mesh, sequence parallelism,
-        warm-up modes, the compile cache) are not read, and neither are the
-        roofline peaks, whose settings describe a TPU chip: the port keeps
-        the H100's. ``device`` and ``seed`` keep their defaults."""
+        of what the port does not have (warm-up modes, the compile cache)
+        are not read, and neither are the roofline peaks, whose settings
+        describe a TPU chip: the port keeps the H100's. ``device`` and
+        ``seed`` keep their defaults."""
         return cls(
             model=settings.tpu_local_model,
             checkpoint=settings.tpu_local_checkpoint,
@@ -266,7 +305,10 @@ class EngineConfig:
             num_pages=settings.tpu_local_num_pages,
             prefill_buckets=tuple(settings.tpu_local_prefill_buckets),
             prefill_max_batch=getattr(settings, "tpu_local_prefill_max_batch", 4),
+            mesh_shape=getattr(settings, "tpu_local_mesh_shape", ""),
             dtype=settings.tpu_local_dtype,
+            sp_impl=getattr(settings, "tpu_local_sp_impl", "none"),
+            sp_threshold=getattr(settings, "tpu_local_sp_threshold", 1024),
             decode_block=getattr(settings, "tpu_local_decode_block", 1),
             superstep=getattr(settings, "tpu_local_superstep", 1),
             decode_overlap=getattr(settings, "tpu_local_decode_overlap", True),
@@ -442,6 +484,41 @@ def _resolve_device(name: str) -> torch.device:
     return device
 
 
+def _to(tree: Any, device: torch.device) -> Any:
+    """A param tree's leaves on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _shard_tree(params: Any, logical: Any, sizes: dict[str, int],
+                coords: dict[str, int]) -> Any:
+    """The blocks of a whole tree (full precision or int8 leaves) that the
+    rank at ``coords`` holds, cut where the leaves lie."""
+    return map_tree(lambda leaf, name: shard_leaf(
+        leaf, quantize_logical(name) if is_quant(leaf) else name, sizes, coords),
+        params, logical)
+
+
+def engine_devices(config: EngineConfig, devices: list | None = None) -> list[torch.device]:
+    """The devices an engine of ``config`` serves on, one rank each:
+    ``devices`` when given (a pool's replica subset); on the CPU, as many
+    as an explicit ``mesh_shape`` names (else one); a CUDA device with an
+    index, that one; else every visible card (``probe_devices``), as the
+    JAX engine takes every chip."""
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    device = torch.device(config.device)
+    if device.type == "cpu":
+        data, model = parse_mesh_shape(config.mesh_shape) if config.mesh_shape else (1, 1)
+        return [device] * (data * model)
+    if device.type == "cuda" and device.index is None:
+        return probe_devices(config.init_timeout_s)
+    return [device]
+
+
 class TorchEngine:
     """Owns params + the KV pool on one device; device work runs on the
     dispatch thread, token emission hops back to the asyncio loop.
@@ -458,18 +535,50 @@ class TorchEngine:
     check per site.
     ``tier_store`` and ``prefix_index``: a spill store and a prefix index
     shared with other engines (a pool's); without them an engine with
-    ``prefix_tiers`` owns a private store, which ``stop`` closes."""
+    ``prefix_tiers`` owns a private store, which ``stop`` closes.
+    ``devices``: the devices to serve on, one rank each (``engine_devices``
+    by default); more than one, an explicit ``mesh_shape`` or an
+    ``sp_impl`` makes this engine rank 0 of a multi-rank group
+    (``ranks.py``). ``params`` may then be a whole tree, whose blocks rank
+    0 cuts on the host and sends. ``_rank``: a follower's (rank, port,
+    mesh shape, how it gets its weights), set by ``ranks.follower_main``."""
 
     def __init__(self, config: EngineConfig,
                  params: dict[str, Any] | None = None, tracer=None,
                  metrics=None, signals=None, ledger=None,
-                 tier_store: TieredPageStore | None = None, prefix_index=None):
+                 tier_store: TieredPageStore | None = None, prefix_index=None,
+                 devices: list | None = None, _rank: tuple | None = None):
         self.tracer = tracer
         self.metrics = metrics
         self.signals = signals
         self.ledger = ledger
         self.config = config
-        self.device = _resolve_device(config.device)
+        self.devices = engine_devices(config, devices)
+        data, model = mesh_shape_from_string(config.mesh_shape, len(self.devices))
+        self.world = data * model
+        rank = 0 if _rank is None else _rank[0]
+        self.device = _resolve_device(str(self.devices[rank]))
+        # the rank path: a process group over the world, this engine its rank
+        self._ranks: RankGroup | None = None
+        self._mesh = None
+        rank_path = (_rank is not None or self.world > 1 or bool(config.mesh_shape)
+                     or config.sp_impl != "none")
+        self._params_mode = None if _rank is None else _rank[3]
+        if config.sp_impl not in ("none", "ring", "ulysses"):
+            raise ValueError(f"sp_impl must be none|ring|ulysses, got {config.sp_impl!r}")
+        if config.sp_impl != "none":
+            # the sequence (bucket) must divide the axis; refused here, not
+            # on the first long prefill
+            bad = [b for b in config.prefill_buckets
+                   if b > config.sp_threshold and b % model != 0]
+            if bad:
+                raise ValueError(
+                    f"sp_impl={config.sp_impl!r}: prefill buckets {bad} not"
+                    f" divisible by mesh model axis {model}")
+        if self.world > 1 and (config.prefix_tiers or tier_store is not None):
+            raise NotImplementedError(
+                f"the spill tiers (prefix_tiers, a shared tier store) are not carried "
+                f"over a multi-rank engine yet (mesh {data}x{model})")
         if config.dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {config.dtype!r}")
         self.dtype = _DTYPES[config.dtype]
@@ -542,6 +651,17 @@ class TorchEngine:
         if overrides:
             self.model_config = dataclasses.replace(self.model_config,
                                                     **overrides)
+        if rank_path:
+            # heads that do not split raise here, before any process starts
+            serving_layout(self.model_config, model, 0)
+            if _rank is None:
+                mode = ("checkpoint" if config.checkpoint else
+                        "shipped" if params is not None else "seed")
+                self._ranks = RankGroup.lead(config, self.model_config, self.devices, mode)
+            else:
+                self._ranks = RankGroup.follow(rank, self.world, _rank[2], _rank[1],
+                                               self.device, group_timeout(config))
+            self._mesh = self._ranks.mesh
         self.tokenizer = load_tokenizer(config.checkpoint,
                                         vocab_size=self.model_config.vocab_size)
         self.stats = EngineStats()
@@ -567,6 +687,12 @@ class TorchEngine:
         token = track_thread(self.compile_tracker, "warmup")
         try:
             self._build_device_state(params)
+            if self._ranks is not None:
+                self._ranks.ready()
+        except BaseException:
+            if self._ranks is not None:
+                self._ranks.abort()
+            raise
         finally:
             restore_thread(token)
         self._work: queue.Queue[GenRequest] = queue.Queue(maxsize=config.max_queue)
@@ -598,21 +724,16 @@ class TorchEngine:
         # liveness: bumped once per dispatch-loop iteration (the idle wait
         # is bounded at 50 ms, so a healthy loop beats at >= 20 Hz)
         self._heartbeat_ts = time.monotonic()
+        # a multi-rank engine's digests of the tokens each rank wrote, in
+        # rank order, once stop() ended the group (equal on every rank)
+        self.rank_digests: list[int] | None = None
 
     def _build_device_state(self, params: dict[str, Any] | None) -> None:
         """Params, the KV pool and the decode graphs of every (kind, K
         rung, width, greedy-only or sampling): the construction's device
         work, attributed to the "warmup" stage."""
         config = self.config
-        if config.checkpoint:
-            params = load_params(config.checkpoint, self.model_config,
-                                 self.device, self.dtype, quant=config.quant)
-        elif params is None:
-            init_gen = torch.Generator(device=self.device)
-            init_gen.manual_seed(config.seed)
-            params = init_params(self.model_config, init_gen, self.dtype,
-                                 self.device, quant=config.quant)
-        self.params = params
+        self.params = self._place_params(params)
         max_pages_per_slot = config.max_seq_len // config.page_size
         self.num_kv_pages = config.num_pages
         if config.kv_quant:
@@ -624,10 +745,20 @@ class TorchEngine:
         # bytes one page costs in the pool's storage (the KV byte gauges)
         self._kv_page_bytes = kv_page_bytes(self.model_config, config.page_size,
                                             self.dtype, config.kv_quant)
+        kv_heads = self.model_config.n_kv_heads
+        if self._mesh is not None and kv_pages_spec(self._mesh, kv_heads):
+            # this rank's shard of the kv heads (and of their int8 scales,
+            # kv_scales_spec); else every rank holds them all
+            kv_heads //= self._ranks.shape[1]
         self.kv = init_kv_state(self.model_config, self.num_kv_pages,
                                 config.page_size, config.max_batch,
                                 max_pages_per_slot, dtype=self.dtype,
-                                device=self.device, quant=config.kv_quant)
+                                device=self.device, quant=config.kv_quant,
+                                kv_heads=kv_heads)
+        # a multi-rank engine's hash of the tokens each rank wrote
+        self._digest = (torch.zeros((), dtype=torch.int64, device=self.device)
+                        if self.world > 1 else None)
+        self._table_rows: dict[int, np.ndarray] = {}
         if self._tier_client is not None:
             # a new pool holds none of the pages a shared index may still
             # place on this replica id (a pool's reload rebuilds the
@@ -672,6 +803,40 @@ class TorchEngine:
         # refused by request_knobs, never captured while serving
         self._warmed_k: set[int] = set(rungs)
         self._warmed_widths: set[int] = set(widths)
+
+    def _place_params(self, params: dict[str, Any] | None) -> dict[str, Any]:
+        """This engine's weights: ``params`` as given, else the checkpoint,
+        else drawn from ``seed``. On the rank path each rank keeps only its
+        block of every leaf: a checkpoint's leaves are cut as they are read,
+        seeded leaves as they are drawn (every rank draws the whole tree,
+        one leaf at a time), and a given tree is cut on rank 0, which sends
+        every follower its blocks."""
+        config = self.config
+        place = None
+        if self._ranks is not None:
+            sizes, coords = self._ranks.coords
+
+            def place(leaf: Any, name: Any) -> Any:
+                return shard_leaf(leaf, name, sizes, coords)
+
+        if config.checkpoint:
+            return load_params(config.checkpoint, self.model_config, self.device,
+                               self.dtype, quant=config.quant, shard=place)
+        if params is None and self._params_mode == "shipped":
+            return _to(self._ranks.receive_params(), self.device)
+        if params is None:
+            init_gen = torch.Generator(device=self.device)
+            init_gen.manual_seed(config.seed)
+            return init_params(self.model_config, init_gen, self.dtype,
+                               self.device, quant=config.quant, place=place)
+        if place is None:
+            return params
+        logical = params_logical(self.model_config)
+        model = self._ranks.shape[1]
+        for rank in range(1, self.world):
+            at = {"data": rank // model, "model": rank % model}
+            self._ranks.send_params(_shard_tree(params, logical, sizes, at), rank)
+        return _to(_shard_tree(params, logical, sizes, coords), self.device)
 
     def _new_allocator(self) -> PageAllocator:
         config = self.config
@@ -768,6 +933,7 @@ class TorchEngine:
 
     async def stop(self) -> None:
         if not self._started:
+            self._close_ranks()
             return
         self._started = False
         self._stop_event.set()
@@ -780,6 +946,26 @@ class TorchEngine:
                 return  # keep self._thread so start() refuses a double start
         self._thread = None
         self._close_owned_tiers()
+
+    def _close_ranks(self) -> None:
+        """End a multi-rank engine's followers (rank 0; once): each rank's
+        digest of the tokens it wrote lands in ``rank_digests``, and digests
+        that differ (ranks that diverged) are logged as an error. Over more
+        than one rank the decode graphs go first (``DecodeGraphs.release``)."""
+        if self._ranks is not None and self._ranks.leader:
+            try:
+                digest = self._digest_value()
+                if self.world > 1:
+                    self._graphs.release()
+                digests = self._ranks.close(digest)
+            except Exception:
+                logger.exception("torch engine: closing the rank group failed")
+                digests = None
+            if digests is not None:
+                self.rank_digests = digests
+                if len(set(digests)) > 1:
+                    logger.error("torch engine: the ranks wrote the KV of different "
+                                 "tokens (digests %s)", digests)
 
     def spill_prefix_pages(self) -> int:
         """Spill on drain: copy every ref==0 resident prefix page into the
@@ -832,7 +1018,8 @@ class TorchEngine:
         """True while the dispatch thread runs and has not crashed for good
         (the crash half of a health check)."""
         return bool(self._started and not self._dead and self._thread is not None
-                    and self._thread.is_alive())
+                    and self._thread.is_alive()
+                    and (self._ranks is None or self._ranks.failure() is None))
 
     @property
     def warmed(self) -> bool:
@@ -942,6 +1129,8 @@ class TorchEngine:
                     torch.cuda.set_device(self.device)
                 while not self._stop_event.is_set():
                     self._heartbeat_ts = time.monotonic()
+                    if self._ranks is not None:
+                        self._ranks.check()   # a dead follower ends the loop
                     # fault point engine.dispatch, scope = replica id: a
                     # latency fault is a slow replica (the heartbeat still
                     # beats), an error one a dispatch-thread crash through
@@ -1008,12 +1197,14 @@ class TorchEngine:
             try:
                 if (crashed and self.config.auto_restart
                         and not self._stop_event.is_set()
-                        and self.stats.engine_restarts < self.config.auto_restart_max):
+                        and self.stats.engine_restarts < self.config.auto_restart_max
+                        and (self._ranks is None or self._ranks.failure(wait_s=1.0) is None)):
                     self._restart_after_crash()
                 else:
                     self._dead = crashed
                     self._fail_outstanding("cancelled" if self._stop_event.is_set()
                                            else "error")
+                    self._close_ranks()
             finally:
                 restore_thread(token)
 
@@ -1084,12 +1275,10 @@ class TorchEngine:
                   if self.device.type == "cuda" else None)
         if stream is not None:
             stream.synchronize()    # raises on a poisoned context
-        kv = self.kv
-        with torch.inference_mode():
-            for t in (kv.k_pages, kv.v_pages, kv.k_scales, kv.v_scales,
-                      kv.block_tables):
-                if t is not None:
-                    t.zero_()
+        if self._ranks is not None:
+            self._ranks.check()     # no restart over a dead follower
+        self._table_rows = {}
+        self._device_call("reset")
         if self._tier_client is not None:
             # every resident page is gone: stale HBM locations would
             # mis-route, and the new allocator's hit counts start at zero
@@ -1099,6 +1288,16 @@ class TorchEngine:
         self._last_step_done_ts = None
         if stream is not None:
             stream.synchronize()
+
+    def _reset_pool(self) -> None:
+        """Zero the pool's pages, scales and block table in place (the
+        graphs hold their addresses)."""
+        kv = self.kv
+        with torch.inference_mode():
+            for t in (kv.k_pages, kv.v_pages, kv.k_scales, kv.v_scales,
+                      kv.block_tables):
+                if t is not None:
+                    t.zero_()
 
     def _wait_for_work(self) -> None:
         self._wake.clear()
@@ -1235,8 +1434,12 @@ class TorchEngine:
         barrier; the pages stay resident. Staged like ``request_knobs``,
         since only the dispatch thread touches device state. Returns a
         future of the number of pages now in the store, which fails if the
-        engine dies first. Thread-safe."""
+        engine dies first. Thread-safe. A multi-rank engine, which has no
+        spill tiers, raises."""
         self._check_alive()
+        if self.world > 1:
+            raise NotImplementedError("request_chain_export (a migration's chain "
+                                      "export) is not carried over a multi-rank engine")
         fut: Future = Future()
         with self._export_lock:
             self._pending_exports.append((tuple(prompt_ids), fut))
@@ -1303,8 +1506,11 @@ class TorchEngine:
         if config.prefix_cache:
             hist = self.allocator.probe_prefix(ids)
             bucket = self._bucket_for(len(ids) - hist) if hist else None
+            # a sequence-parallel bucket never carries history: such a hit
+            # prefills the whole prompt, as the JAX engine does
             if hist and (bucket is None or dense_bucket is None
-                         or bucket < dense_bucket):
+                         or bucket < dense_bucket) and not (
+                             bucket is not None and self._sp_bucket(bucket)):
                 request.hist = hist
                 request.chunked = bucket is None
                 request.bucket = bucket or max(config.prefill_buckets)
@@ -1437,14 +1643,11 @@ class TorchEngine:
             return True   # the device work happens in _chunk_round
 
         started = time.monotonic()
-        tokens, positions, last_idx, slot_ids, sampling = self._pack_rows(
-            [(r, r.hist, len(r.prompt_ids)) for r in admitted], bucket)
-        step = prefill_with_history if with_hist else prefill
-        logits, self.kv = step(self.params, self.model_config, tokens,
-                               positions, self.kv, slot_ids,
-                               last_idx=last_idx)
-        first = sample_tokens(logits, sampling, self._sample_gen,
-                              any(r.temperature > 0 for r in admitted)).tolist()
+        first = self._device_call(
+            "prefill", rows=self._pack_rows([(r, r.hist, len(r.prompt_ids)) for r in admitted],
+                                            bucket),
+            hist=with_hist, sp=self._sp_bucket(bucket),
+            any_sampled=any(r.temperature > 0 for r in admitted))
         if config.prefix_cache:
             # register the full prompt pages for later prompts to share
             for request in admitted:
@@ -1481,13 +1684,8 @@ class TorchEngine:
             end = min(start + S, len(request.prompt_ids))
             rows.append((request, start, end))
             request.chunk_pos = end
-        tokens, positions, last_idx, slot_ids, sampling = self._pack_rows(
-            rows, S)
-        logits, self.kv = prefill_with_history(
-            self.params, self.model_config, tokens, positions, self.kv,
-            slot_ids, last_idx=last_idx)
-        sampled = sample_tokens(logits, sampling, self._sample_gen,
-                                any(r.temperature > 0 for r in batch)).tolist()
+        sampled = self._device_call("prefill", rows=self._pack_rows(rows, S), hist=True,
+                                    sp=False, any_sampled=any(r.temperature > 0 for r in batch))
         self._last_step_done_ts = time.monotonic()
         elapsed_ms = (self._last_step_done_ts - started) * 1000
         self.stats.prefill_ms_total += elapsed_ms
@@ -1510,10 +1708,12 @@ class TorchEngine:
             self._running[request.slot] = request
             self._emit(request, int(token))
 
-    def _pack_rows(self, rows: list[tuple[GenRequest, int, int]], S: int):
-        """Pack each (request, start, end) prompt span into [B, S] device
-        tensors at absolute positions, padded to S: padding has position -1
-        (its KV write goes to the trash page) and the pad token."""
+    def _pack_rows(self, rows: list[tuple[GenRequest, int, int]], S: int
+                   ) -> dict[str, np.ndarray]:
+        """Pack each (request, start, end) prompt span into [B, S] host
+        arrays at absolute positions, padded to S: padding has position -1
+        (its KV write goes to the trash page) and the pad token; with each
+        row's slot and sampling parameters."""
         B = len(rows)
         tokens = np.full((B, S), self.tokenizer.pad_id, dtype=np.int64)
         positions = np.full((B, S), -1, dtype=np.int32)
@@ -1523,19 +1723,111 @@ class TorchEngine:
             positions[i, :end - start] = np.arange(start, end)
             last_idx[i] = end - start - 1
         requests = [r for r, _, _ in rows]
-        return (self._to_device(tokens), self._to_device(positions),
-                self._to_device(last_idx),
-                self._to_device(np.array([r.slot for r in requests], np.int64)),
-                self._sampling(requests))
+        return {"tokens": tokens, "positions": positions, "last_idx": last_idx,
+                "slots": np.array([r.slot for r in requests], np.int64),
+                "temperature": np.array([r.temperature for r in requests], np.float32),
+                "top_k": np.array([r.top_k for r in requests], np.int32),
+                "top_p": np.array([r.top_p for r in requests], np.float32)}
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self.device)
 
-    def _sampling(self, rows: list[GenRequest]) -> SamplingParams:
-        return SamplingParams(
-            self._to_device(np.array([r.temperature for r in rows], np.float32)),
-            self._to_device(np.array([r.top_k for r in rows], np.int32)),
-            self._to_device(np.array([r.top_p for r in rows], np.float32)))
+    def _sp_bucket(self, bucket: int) -> bool:
+        """True when a cold prefill of ``bucket`` runs sequence-parallel."""
+        return self.config.sp_impl != "none" and bucket > self.config.sp_threshold
+
+    # ------------------------------------------------------- device calls
+
+    def _announce(self, op: str, **args: Any) -> None:
+        """A multi-rank engine's next device call (``_op_<op>(**args)``) to
+        its followers, with the block-table rows changed since the last."""
+        if self._ranks is not None and self.world > 1:
+            rows, self._table_rows = self._table_rows, {}
+            self._ranks.announce({"op": op, "args": args, "rows": rows})
+
+    def _device_call(self, op: str, **args: Any) -> Any:
+        """Run one device call (``_op_<op>``) on this rank, announced first."""
+        self._sync_tables()
+        self._announce(op, **args)
+        return getattr(self, f"_op_{op}")(**args)
+
+    def _op_prefill(self, rows: dict[str, np.ndarray], hist: bool, sp: bool,
+                    any_sampled: bool) -> list[int]:
+        """A packed prefill (``_pack_rows``): a cold one (sequence-parallel
+        when ``sp``), or through the history path (a prefix hit's suffix or a
+        chunk round); returns each row's sampled token."""
+        t = {name: self._to_device(a) for name, a in rows.items()}
+        if hist:
+            logits, self.kv = prefill_with_history(
+                self.params, self.model_config, t["tokens"], t["positions"], self.kv,
+                t["slots"], last_idx=t["last_idx"], mesh=self._mesh)
+        else:
+            logits, self.kv = prefill(
+                self.params, self.model_config, t["tokens"], t["positions"], self.kv,
+                t["slots"], attn_impl=self.config.sp_impl if sp else "auto",
+                mesh=self._mesh, last_idx=t["last_idx"])
+        self._note_written(t["tokens"], t["positions"], t["positions"] >= 0)
+        sampling = SamplingParams(t["temperature"], t["top_k"], t["top_p"])
+        return self._sample(logits, sampling, any_sampled).tolist()
+
+    def _op_launch(self, key: tuple, pack: np.ndarray, feed: tuple | None) -> tuple:
+        """A follower's decode or verify dispatch: ``pack`` staged and the
+        key's graph replayed (fed by ``feed``'s last tokens)."""
+        key = GraphKey(*key)
+        self._graphs.stage(key)[:] = pack
+        return self._graphs.launch(key, None if feed is None else (GraphKey(*feed), 0))
+
+    def _op_reset(self) -> None:
+        self._reset_pool()
+
+    def _launch(self, key: GraphKey, pack: np.ndarray, feed: tuple | None = None,
+                timed: bool = False) -> tuple:
+        """Rank 0's dispatch of a staged pack: announced to the followers,
+        then ``DecodeGraphs.launch``."""
+        self._announce("launch", key=tuple(key), pack=pack.copy(),
+                       feed=None if feed is None else tuple(feed[0]))
+        return self._graphs.launch(key, feed, timed=timed)
+
+    def _sample(self, logits: torch.Tensor, sampling: SamplingParams,
+                any_sampled: bool) -> torch.Tensor:
+        """``sample_tokens`` on this rank; on the rank path rank 0's tokens
+        are then broadcast, so that every rank writes the same ones."""
+        out = sample_tokens(logits, sampling, self._sample_gen, any_sampled)
+        if self._mesh is not None:
+            broadcast_(out, src=0)
+        return out
+
+    def _note_written(self, tokens: torch.Tensor, positions: torch.Tensor,
+                      mask: torch.Tensor) -> None:
+        """Fold the tokens whose KV this call wrote into the rank's digest
+        (a multi-rank engine only; ``rank_digests``)."""
+        if self._digest is None:
+            return
+        terms = (tokens.long() * 1_000_003 + positions.long() * 7_919 + 1) * mask.long()
+        self._digest.mul_(6_364_136_223_846_793_005).add_(terms.sum())
+
+    def follow(self) -> None:
+        """A follower's loop: run each device call rank 0 announces, until
+        its stop, which gathers every rank's digest; then leave the group."""
+        with torch.inference_mode():
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            while True:
+                message = self._ranks.receive()
+                if message["op"] == "stop":
+                    digest = self._digest_value()
+                    self._graphs.release()
+                    self._ranks.close(digest)
+                    return
+                rows = message.get("rows")
+                if rows:
+                    index = torch.tensor(sorted(rows), dtype=torch.long)
+                    values = torch.from_numpy(np.stack([rows[r] for r in sorted(rows)]))
+                    self.kv.block_tables[index.to(self.device)] = values.to(self.device)
+                getattr(self, f"_op_{message['op']}")(**message["args"])
+
+    def _digest_value(self) -> int | None:
+        return None if self._digest is None else int(self._digest.item())
 
     # ------------------------------------------------------ speculative step
 
@@ -1618,7 +1910,7 @@ class TorchEngine:
             self.stats.dispatch_gap_ms_total += max(
                 0.0, started - self._last_step_done_ts) * 1000
         graphs_before = self._graphs.replays
-        block = self._graphs.fetch_verify(self._graphs.launch(key))   # [B, K]
+        block = self._graphs.fetch_verify(self._launch(key, pack))   # [B, K]
         self.stats.graph_replays += self._graphs.replays - graphs_before
         done_ts = time.monotonic()
         self._last_step_done_ts = done_ts
@@ -1677,11 +1969,12 @@ class TorchEngine:
         model's next token given the chunk up to j. Returns ([B, K] tokens,
         [B, K, V] f32 logits)."""
         logits, self.kv = prefill_with_history(
-            self.params, self.model_config, tokens, positions, self.kv, slot_ids)
+            self.params, self.model_config, tokens, positions, self.kv, slot_ids,
+            mesh=self._mesh)
+        self._note_written(tokens, positions, positions >= 0)
         B, K, V = logits.shape
         flat = SamplingParams(*(p.repeat_interleave(K) for p in sampling))
-        out = sample_tokens(logits.reshape(B * K, V), flat, self._sample_gen,
-                            any_sampled)
+        out = self._sample(logits.reshape(B * K, V), flat, any_sampled)
         return out.reshape(B, K), logits
 
     # ----------------------------------------------------------------- decode
@@ -1928,8 +2221,7 @@ class TorchEngine:
             self.metrics.llm_dispatch_gap.labels(
                 replica=config.replica_id).observe(gap_s)
         graphs_before = self._graphs.replays
-        handle = self._graphs.launch(key, feed["handle"] if feed else None,
-                                     timed=sampled)
+        handle = self._launch(key, pack, feed["handle"] if feed else None, timed=sampled)
         self.stats.graph_replays += self._graphs.replays - graphs_before
         phases: dict[str, float] | None = None
         ready_ts = 0.0
@@ -2054,11 +2346,12 @@ class TorchEngine:
         for j in range(k):
             # iteration j writes the KV of its input token (sampled at j - 1,
             # or fed at j = 0): the write mask trails validity by one
+            write = active & prev_valid & ~done
             logits, self.kv = decode_step(
                 self.params, self.model_config, tokens, positions, self.kv,
-                slot_ids, seq_lens, write_mask=active & prev_valid & ~done)
-            sampled = sample_tokens(logits, sampling, self._sample_gen,
-                                    any_sampled)
+                slot_ids, seq_lens, write_mask=write, mesh=self._mesh)
+            self._note_written(tokens, positions, write)
+            sampled = self._sample(logits, sampling, any_sampled)
             valid = active & ~done & (j < budgets)
             done = done | (valid & (sampled[:, None] == stop_tbl).any(dim=1))
             positions = torch.where(valid, positions + 1, positions)
@@ -2076,9 +2369,11 @@ class TorchEngine:
         one, so eager prefill reuses the allocator's cached blocks as it
         did before decode moved to graphs.)"""
         if self.allocator.dirty:
-            self.kv.block_tables.copy_(
-                self.allocator.tables(pin=self.device.type == "cuda"),
-                non_blocking=True)
+            rows = self.allocator.dirty_rows() if self.world > 1 else ()
+            table = self.allocator.tables(pin=self.device.type == "cuda")
+            self.kv.block_tables.copy_(table, non_blocking=True)
+            for row in rows:   # for the followers, with the next call
+                self._table_rows[row] = table[row].numpy().copy()
 
     # -------------------------------------------------------------- telemetry
 
@@ -2132,7 +2427,7 @@ class TorchEngine:
         self.cost_registry.record(kind, width, ctx_pages, cost.flops,
                                   cost.bytes_accessed)
         dur_s = dur_ms / 1e3
-        mfu, frac = roofline_fractions(cost.flops, cost.bytes_accessed, dur_s, 1,
+        mfu, frac = roofline_fractions(cost.flops, cost.bytes_accessed, dur_s, self.world,
                                        self.config.peak_tflops_per_chip,
                                        self.config.hbm_gbps_per_chip)
         self._roofline_window.append((cost.flops, cost.bytes_accessed, dur_s))
@@ -2144,7 +2439,9 @@ class TorchEngine:
 
     def roofline_snapshot(self) -> dict[str, Any]:
         """The roofline over the recent decode and verify window: summed
-        FLOPs and bytes over summed step walls."""
+        FLOPs and bytes over summed step walls, against the world's peak
+        (``world`` devices x one H100's, the JAX engine's ``mesh.size``; a
+        multi-rank engine reports its ``world``)."""
         flops = byts = dur = 0.0
         window = list(self._roofline_window)
         for f, b, d in window:
@@ -2153,8 +2450,10 @@ class TorchEngine:
             dur += d
         out: dict[str, Any] = {"window_steps": len(window),
                                "cost_entries": self.cost_registry.counts()}
+        if self._ranks is not None:
+            out["world"] = self.world
         if dur > 0:
-            mfu, frac = roofline_fractions(flops, byts, dur, 1,
+            mfu, frac = roofline_fractions(flops, byts, dur, self.world,
                                            self.config.peak_tflops_per_chip,
                                            self.config.hbm_gbps_per_chip)
             out["mfu"] = round(mfu, 12)
@@ -2218,6 +2517,8 @@ class TorchEngine:
             "mfu": round(mfu, 12) if mfu is not None else None,
             "hbm_frac": round(hbm_frac, 12) if hbm_frac is not None else None,
         })
+        if self._ranks is not None:
+            self.step_log[-1]["world"] = self.world   # the devices the step ran on
         if kind in ("decode", "spec_decode") and superstep is not None and tokens:
             self._tpd_ewma = (float(tokens) if self._tpd_ewma is None
                               else _TPD_EWMA_ALPHA * tokens

@@ -66,12 +66,14 @@ def init_kv_state(config: LlamaConfig, num_pages: int, page_size: int,
                   max_slots: int, max_pages_per_slot: int,
                   dtype: torch.dtype = torch.bfloat16,
                   device: torch.device | str = "cuda",
-                  quant: str = "") -> PagedKVState:
+                  quant: str = "", kv_heads: int | None = None) -> PagedKVState:
     """A zeroed pool. ``quant="int8"`` stores int8 pages with scales in
-    ``dtype``; otherwise pages are ``dtype``."""
+    ``dtype``; otherwise pages are ``dtype``. ``kv_heads``: the heads this
+    pool holds (a tensor-parallel rank's shard of them, ``kv_pages_spec``);
+    by default all of the config's."""
     _check_quant(quant)
-    shape = (config.n_layers, num_pages, page_size, config.n_kv_heads,
-             config.head_dim)
+    kv_heads = config.n_kv_heads if kv_heads is None else kv_heads
+    shape = (config.n_layers, num_pages, page_size, kv_heads, config.head_dim)
     page_dtype = torch.int8 if quant else dtype
     state = PagedKVState(
         k_pages=torch.zeros(shape, dtype=page_dtype, device=device),
@@ -79,7 +81,7 @@ def init_kv_state(config: LlamaConfig, num_pages: int, page_size: int,
         block_tables=torch.zeros((max_slots, max_pages_per_slot),
                                  dtype=torch.int32, device=device))
     if quant:
-        scale_shape = (config.n_layers, num_pages, config.n_kv_heads)
+        scale_shape = (config.n_layers, num_pages, kv_heads)
         state.k_scales = torch.zeros(scale_shape, dtype=dtype, device=device)
         state.v_scales = torch.zeros(scale_shape, dtype=dtype, device=device)
     return state
@@ -365,6 +367,10 @@ class PageAllocator:
     def dirty(self) -> bool:
         """True iff some block-table row changed since the last tables()."""
         return bool(self._dirty)
+
+    def dirty_rows(self) -> list[int]:
+        """The block-table rows changed since the last tables()."""
+        return sorted(self._dirty)
 
     @property
     def free_pages(self) -> int:

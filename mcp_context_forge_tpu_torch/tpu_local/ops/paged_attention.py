@@ -36,6 +36,12 @@ the Pallas kernels do).
 Layouts are the JAX package's: q [B, KV, G, hd] (decode) or
 [B, S, KV, G, hd] (chunk); pages [num_pages, page, KV, hd]; block tables
 [B, P] int32; seq_lens [B] and q_positions [B, S] int32.
+
+``kv_offset``: the pages may hold more KV heads than q has groups (a
+tensor-parallel rank's query heads over a replicated pool, where the KV
+heads do not split over the ranks); q's group j then reads the pool's
+head ``kv_offset + j``. The kernels take the pool's head count and the
+offset and index the whole pool, so no strided view of it is made.
 """
 
 from __future__ import annotations
@@ -65,10 +71,28 @@ def _gather_pages(pages: torch.Tensor, block_tables: torch.Tensor,
     return rows.reshape(B, P * pages.shape[1], *pages.shape[2:])
 
 
+def kv_window(q_kv: int, k_pages, v_pages, k_scales, v_scales,
+              kv_offset: int) -> tuple:
+    """The pool's heads [kv_offset, kv_offset + q_kv) (and their scales), as
+    the plain versions read them; raises when the window leaves the pool."""
+    pool_kv = k_pages.shape[-2]
+    if kv_offset < 0 or kv_offset + q_kv > pool_kv:
+        raise ValueError(f"kv heads [{kv_offset}, {kv_offset + q_kv}) are not in a "
+                         f"pool of {pool_kv}")
+    if q_kv == pool_kv:
+        return k_pages, v_pages, k_scales, v_scales
+    window = slice(kv_offset, kv_offset + q_kv)
+    return (k_pages[..., window, :], v_pages[..., window, :],
+            None if k_scales is None else k_scales[..., window],
+            None if v_scales is None else v_scales[..., window])
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens,
-                               k_scales=None, v_scales=None):
+                               k_scales=None, v_scales=None, kv_offset=0):
     """Plain version of the decode kernels: keys c < seq_lens[b] attend; a
     row with seq_len 0 gives zeros (as the kernels do)."""
+    k_pages, v_pages, k_scales, v_scales = kv_window(
+        q.shape[1], k_pages, v_pages, k_scales, v_scales, kv_offset)
     hd = q.shape[-1]
     keys = _gather_pages(k_pages, block_tables, k_scales)
     values = _gather_pages(v_pages, block_tables, v_scales)
@@ -83,9 +107,11 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, seq_lens,
 
 
 def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables,
-                              q_positions, k_scales=None, v_scales=None):
+                              q_positions, k_scales=None, v_scales=None, kv_offset=0):
     """Plain version of the chunk kernels: cache position c attends iff
     c <= q_positions[b, s]; padding rows (position -1) come out finite."""
+    k_pages, v_pages, k_scales, v_scales = kv_window(
+        q.shape[2], k_pages, v_pages, k_scales, v_scales, kv_offset)
     hd = q.shape[-1]
     keys = _gather_pages(k_pages, block_tables, k_scales)
     values = _gather_pages(v_pages, block_tables, v_scales)
@@ -223,20 +249,22 @@ def decode_combine_ref(ml, o, seq_lens, page_size, pps, P):
 
 def _checked(name: str, q: torch.Tensor, k_pages: torch.Tensor,
              v_pages: torch.Tensor, k_scales, v_scales, KV: int, hd: int,
-             ints: dict) -> tuple[list[int], int]:
-    """Validate a kernel's tensors; returns the data pointers of q, the
+             ints: dict, kv_offset: int = 0) -> tuple[list[int], int]:
+    """Validate a kernel's tensors (pages of any head count that holds q's
+    KV groups from ``kv_offset`` on); returns the data pointers of q, the
     pages and (int8) the scales, and the dtype code."""
     _build.check_head_dim(name, hd)
-    if (k_pages.dim() != 4 or k_pages.shape[2:] != (KV, hd)
-            or v_pages.shape != k_pages.shape):
-        raise ValueError(f"{name}: pages must be [num_pages, page, {KV}, {hd}]"
-                         f", got k {tuple(k_pages.shape)}, "
+    pool_kv = k_pages.shape[2] if k_pages.dim() == 4 else -1
+    if (k_pages.dim() != 4 or k_pages.shape[3] != hd or kv_offset < 0
+            or kv_offset + KV > pool_kv or v_pages.shape != k_pages.shape):
+        raise ValueError(f"{name}: pages must be [num_pages, page, >= "
+                         f"{kv_offset + KV}, {hd}], got k {tuple(k_pages.shape)}, "
                          f"v {tuple(v_pages.shape)}")
     pages = {"k_pages": k_pages, "v_pages": v_pages}
     if k_scales is None:
         dtype = _build.check_inputs(name, {"q": q, **pages}, ints)
         return [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()], dtype
-    want = (k_pages.shape[0], KV)
+    want = (k_pages.shape[0], pool_kv)
     if k_scales.shape != want or v_scales.shape != want:
         raise ValueError(f"{name}: scales must be {list(want)}, got k "
                          f"{tuple(k_scales.shape)}, v {tuple(v_scales.shape)}")
@@ -255,20 +283,20 @@ def _check_scale_pair(k_scales, v_scales) -> None:
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            seq_lens: torch.Tensor, k_scales=None,
-                           v_scales=None) -> torch.Tensor:
+                           v_scales=None, kv_offset: int = 0) -> torch.Tensor:
     """q: [B, KV, G, hd] -> [B, KV, G, hd]. With scales, int8 pages go to
     ``paged_decode_attention_q8``. CPU tensors run the plain version; CUDA
     tensors launch the kernel (or raise)."""
     _check_scale_pair(k_scales, v_scales)
     if k_scales is not None:
         return paged_decode_attention_q8(q, k_pages, v_pages, block_tables,
-                                         seq_lens, k_scales, v_scales)
+                                         seq_lens, k_scales, v_scales, kv_offset)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
-                                          seq_lens)
+                                          seq_lens, kv_offset=kv_offset)
     out, _ = _decode_launch("paged_decode_attention",
                             "mcf_paged_decode_attention", q, k_pages, v_pages,
-                            block_tables, seq_lens, None, None)
+                            block_tables, seq_lens, None, None, kv_offset)
     count_launch(paged_decode_attention)
     return out
 
@@ -276,15 +304,15 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_decode_attention_q8(q: torch.Tensor, k_pages: torch.Tensor,
                               v_pages: torch.Tensor, block_tables: torch.Tensor,
                               seq_lens: torch.Tensor, k_scales: torch.Tensor,
-                              v_scales: torch.Tensor) -> torch.Tensor:
+                              v_scales: torch.Tensor, kv_offset: int = 0) -> torch.Tensor:
     """Decode attention over int8 pages with [num_pages, KV] scales."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables,
-                                          seq_lens, k_scales, v_scales)
+                                          seq_lens, k_scales, v_scales, kv_offset)
     out, _ = _decode_launch("paged_decode_attention_q8",
                             "mcf_paged_decode_attention_q8", q, k_pages,
                             v_pages, block_tables, seq_lens, k_scales,
-                            v_scales)
+                            v_scales, kv_offset)
     count_launch(paged_decode_attention_q8)
     return out
 
@@ -306,7 +334,8 @@ def _sm_count(index: int) -> int:
 
 
 def _decode_launch(name, symbol, q, k_pages, v_pages, block_tables, seq_lens,
-                   k_scales, v_scales) -> tuple[torch.Tensor, DecodeWorkspace]:
+                   k_scales, v_scales, kv_offset: int = 0
+                   ) -> tuple[torch.Tensor, DecodeWorkspace]:
     """Both launches (split, combine) of one decode call; returns the output
     and the workspace that holds the partials."""
     B, KV, G, hd = q.shape
@@ -322,7 +351,7 @@ def _decode_launch(name, symbol, q, k_pages, v_pages, block_tables, seq_lens,
                          f"16-byte chunks (int8 pages need hd % 16 == 0)")
     ptrs, dtype = _checked(name, q, k_pages, v_pages, k_scales, v_scales, KV,
                            hd, {"block_tables": block_tables,
-                                "seq_lens": seq_lens})
+                                "seq_lens": seq_lens}, kv_offset)
     P, page = block_tables.shape[1], k_pages.shape[1]
     pps, splits = decode_split_plan(P, B, KV, _sm_count(q.device.index or 0))
     ws = DecodeWorkspace(
@@ -331,11 +360,11 @@ def _decode_launch(name, symbol, q, k_pages, v_pages, block_tables, seq_lens,
         page, P, pps)
     out = torch.empty_like(q)
     fn = _build.kernel_fn("paged_decode_attention", symbol,
-                          [_build.PTR] * (len(ptrs) + 5) + [_build.INT] * 9
+                          [_build.PTR] * (len(ptrs) + 5) + [_build.INT] * 11
                           + [_build.PTR])
     rc = fn(*ptrs, block_tables.data_ptr(), seq_lens.data_ptr(),
             ws.ml.data_ptr(), ws.o.data_ptr(), out.data_ptr(), B, KV, G, hd,
-            page, P, pps, splits, dtype,
+            page, P, pps, splits, k_pages.shape[2], kv_offset, dtype,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, name)
     return out, ws
@@ -376,36 +405,36 @@ def chunk_route(q_dtype: torch.dtype, hd: int, page_size: int) -> str:
 def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, block_tables: torch.Tensor,
                           q_positions: torch.Tensor, k_scales=None,
-                          v_scales=None) -> torch.Tensor:
+                          v_scales=None, kv_offset: int = 0) -> torch.Tensor:
     """q: [B, S, KV, G, hd] -> [B, S, KV, G, hd]. With scales, int8 pages
     go to ``paged_chunk_attention_q8``. CPU tensors run the plain version;
     CUDA tensors launch the kernel ``chunk_route`` names (or raise)."""
     _check_scale_pair(k_scales, v_scales)
     if k_scales is not None:
         return paged_chunk_attention_q8(q, k_pages, v_pages, block_tables,
-                                        q_positions, k_scales, v_scales)
+                                        q_positions, k_scales, v_scales, kv_offset)
     if q.device.type == "cpu":
         return paged_chunk_attention_ref(q, k_pages, v_pages, block_tables,
-                                         q_positions)
+                                         q_positions, kv_offset=kv_offset)
     kernel = (paged_chunk_attention_tc
               if chunk_route(q.dtype, q.shape[-1], k_pages.shape[1]) == "tc"
               else paged_chunk_attention_mma)
-    return kernel(q, k_pages, v_pages, block_tables, q_positions)
+    return kernel(q, k_pages, v_pages, block_tables, q_positions, kv_offset=kv_offset)
 
 
 def paged_chunk_attention_q8(q: torch.Tensor, k_pages: torch.Tensor,
                              v_pages: torch.Tensor, block_tables: torch.Tensor,
                              q_positions: torch.Tensor, k_scales: torch.Tensor,
-                             v_scales: torch.Tensor) -> torch.Tensor:
+                             v_scales: torch.Tensor, kv_offset: int = 0) -> torch.Tensor:
     """Chunk attention over int8 pages with [num_pages, KV] scales."""
     if q.device.type == "cpu":
         return paged_chunk_attention_ref(q, k_pages, v_pages, block_tables,
-                                         q_positions, k_scales, v_scales)
+                                         q_positions, k_scales, v_scales, kv_offset)
     kernel = (paged_chunk_attention_tc_q8
               if chunk_route(q.dtype, q.shape[-1], k_pages.shape[1]) == "tc"
               else paged_chunk_attention_mma_q8)
     return kernel(q, k_pages, v_pages, block_tables, q_positions, k_scales,
-                  v_scales)
+                  v_scales, kv_offset=kv_offset)
 
 
 def _check_tc(name: str, q: torch.Tensor, k_pages: torch.Tensor) -> None:
@@ -417,41 +446,42 @@ def _check_tc(name: str, q: torch.Tensor, k_pages: torch.Tensor) -> None:
 
 
 def paged_chunk_attention_tc(q, k_pages, v_pages, block_tables,
-                             q_positions) -> torch.Tensor:
+                             q_positions, kv_offset: int = 0) -> torch.Tensor:
     """The tensor-core kernel over bf16 pages (CUDA tensors)."""
     _check_tc("paged_chunk_attention_tc", q, k_pages)
     out = _chunk_launch("paged_chunk_attention_tc",
                         "mcf_paged_chunk_attention_tc", q, k_pages, v_pages,
-                        block_tables, q_positions, None, None)
+                        block_tables, q_positions, None, None, kv_offset)
     count_launch(paged_chunk_attention_tc)
     return out
 
 
 def paged_chunk_attention_tc_q8(q, k_pages, v_pages, block_tables,
                                 q_positions, k_scales,
-                                v_scales) -> torch.Tensor:
+                                v_scales, kv_offset: int = 0) -> torch.Tensor:
     """The tensor-core kernel over int8 pages (CUDA tensors)."""
     _check_tc("paged_chunk_attention_tc_q8", q, k_pages)
     out = _chunk_launch("paged_chunk_attention_tc",
                         "mcf_paged_chunk_attention_tc_q8", q, k_pages,
-                        v_pages, block_tables, q_positions, k_scales, v_scales)
+                        v_pages, block_tables, q_positions, k_scales, v_scales,
+                        kv_offset)
     count_launch(paged_chunk_attention_tc_q8)
     return out
 
 
 def paged_chunk_attention_mma(q, k_pages, v_pages, block_tables,
-                              q_positions) -> torch.Tensor:
+                              q_positions, kv_offset: int = 0) -> torch.Tensor:
     """The mma.sync kernel over bf16/f32 pages (CUDA tensors)."""
     out = _chunk_launch("paged_chunk_attention_mma",
                         "mcf_paged_chunk_attention_mma", q, k_pages, v_pages,
-                        block_tables, q_positions, None, None)
+                        block_tables, q_positions, None, None, kv_offset)
     count_launch(paged_chunk_attention_mma)
     return out
 
 
 def paged_chunk_attention_mma_q8(q, k_pages, v_pages, block_tables,
                                  q_positions, k_scales,
-                                 v_scales) -> torch.Tensor:
+                                 v_scales, kv_offset: int = 0) -> torch.Tensor:
     """The mma.sync kernel over int8 pages (CUDA tensors; hd % 16 == 0,
     whole 16-byte chunks of int8 keys)."""
     if q.shape[-1] % 16:
@@ -459,15 +489,17 @@ def paged_chunk_attention_mma_q8(q, k_pages, v_pages, block_tables,
                          f"hd % 16 == 0, got {q.shape[-1]}")
     out = _chunk_launch("paged_chunk_attention_mma",
                         "mcf_paged_chunk_attention_mma_q8", q, k_pages,
-                        v_pages, block_tables, q_positions, k_scales, v_scales)
+                        v_pages, block_tables, q_positions, k_scales, v_scales,
+                        kv_offset)
     count_launch(paged_chunk_attention_mma_q8)
     return out
 
 
 def _chunk_launch(lib, symbol, q, k_pages, v_pages, block_tables,
-                  q_positions, k_scales, v_scales) -> torch.Tensor:
+                  q_positions, k_scales, v_scales, kv_offset: int = 0) -> torch.Tensor:
     """One chunk launch of library ``lib``; the tensor-core entries also
-    take the pool's page count (their TMA maps span the layer's pool)."""
+    take the pool's page count (their TMA maps span the layer's pool);
+    every entry takes the pool's head count and ``kv_offset``."""
     B, S, KV, G, hd = q.shape
     name = symbol.removeprefix("mcf_")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
@@ -476,10 +508,11 @@ def _chunk_launch(lib, symbol, q, k_pages, v_pages, block_tables,
                          f"q_positions [B, S] for B={B}, S={S}")
     ptrs, dtype = _checked(name, q, k_pages, v_pages, k_scales, v_scales, KV,
                            hd, {"block_tables": block_tables,
-                                "q_positions": q_positions})
+                                "q_positions": q_positions}, kv_offset)
     ints = [B, S, KV, G, hd, k_pages.shape[1], block_tables.shape[1]]
     if lib == "paged_chunk_attention_tc":
         ints.append(k_pages.shape[0])
+    ints += [k_pages.shape[2], kv_offset]
     out = torch.empty_like(q)
     fn = _build.kernel_fn(lib, symbol,
                           [_build.PTR] * (len(ptrs) + 3)

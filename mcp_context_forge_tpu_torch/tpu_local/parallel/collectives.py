@@ -19,6 +19,12 @@ split (each rank holds its own part). The three crossings:
 batch (the MoE aux loss' token means): its identity backward sends the
 gradient to each rank's own tokens, and the data-parallel sum of the
 gradients adds them up.
+
+Serving runs under ``torch.inference_mode`` and needs none of that: its
+helpers (``all_reduce_``, ``all_gather_last``, ``broadcast_``) are the
+plain collectives, in place where they can be, with no copy that a CUDA
+graph would have to hold. Each adds one to ``SERVING_CALLS``, which a
+capture reads to count the collectives inside a graph.
 """
 
 from __future__ import annotations
@@ -77,3 +83,43 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
 
 def gather_from(x: torch.Tensor, group) -> torch.Tensor:
     return _GatherFrom.apply(x, group)
+
+
+
+# ------------------------------------------------------------------ serving
+
+SERVING_CALLS = {"count": 0}   # serving collectives called (captures read it)
+
+
+def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` over ``group``, in place; returns ``x``."""
+    SERVING_CALLS["count"] += 1
+    dist.all_reduce(x, group=group)
+    return x
+
+
+# the one-tensor all-gather: torch 2.13 names it all_gather_single and
+# deprecates all_gather_into_tensor (a FutureWarning on every call); older
+# releases have only all_gather_into_tensor. Same signature.
+_all_gather_one = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def all_gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along the last dim, in rank order
+    (vocab-split logits; projections cut mid-head). One all-gather into one
+    tensor, then a permute on this rank."""
+    SERVING_CALLS["count"] += 1
+    n = dist.get_world_size(group)
+    width = x.shape[-1]
+    flat = x.reshape(-1, width).contiguous()
+    out = torch.empty((n * flat.shape[0], width), dtype=x.dtype, device=x.device)
+    _all_gather_one(out, flat, group=group)
+    out = out.reshape(n, flat.shape[0], width).permute(1, 0, 2)
+    return out.reshape(*x.shape[:-1], n * width)
+
+
+def broadcast_(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """``x`` of global rank ``src`` on every rank of ``group``, in place."""
+    SERVING_CALLS["count"] += 1
+    dist.broadcast(x, src=src, group=group)
+    return x

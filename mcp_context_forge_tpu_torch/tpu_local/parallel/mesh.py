@@ -20,14 +20,19 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 
+def parse_mesh_shape(spec: str) -> tuple[int, int]:
+    """'1x8' -> (1, 8); raises on anything but two positive counts."""
+    parts = spec.lower().replace("x", " ").split()
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise ValueError(f"mesh shape spec must be 'DxM', got {spec!r}")
+    return int(parts[0]), int(parts[1])
+
+
 def mesh_shape_from_string(spec: str, n_devices: int) -> tuple[int, int]:
     """'1x8' -> (1, 8); '' -> (1, n_devices)."""
     if not spec:
         return (1, n_devices)
-    parts = spec.lower().replace("x", " ").split()
-    if len(parts) != 2:
-        raise ValueError(f"mesh shape spec must be 'DxM', got {spec!r}")
-    data, model = int(parts[0]), int(parts[1])
+    data, model = parse_mesh_shape(spec)
     if data * model != n_devices:
         raise ValueError(f"mesh {data}x{model} != {n_devices} devices")
     return data, model

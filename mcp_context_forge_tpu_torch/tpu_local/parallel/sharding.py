@@ -71,22 +71,38 @@ def kv_scales_spec(mesh: DeviceMesh, n_kv_heads: int) -> Spec:
     return ()
 
 
-def shard_tensor(x: torch.Tensor, spec: Spec, mesh: DeviceMesh) -> torch.Tensor:
-    """This rank's block of ``x`` under ``spec`` (a copy: the full tensor
-    can be freed). Raises when a split dim does not divide evenly."""
-    names = mesh.mesh_dim_names or ()
+def block_of(x: torch.Tensor, spec: Spec, sizes: dict[str, int],
+             coords: dict[str, int]) -> torch.Tensor:
+    """The block of ``x`` under ``spec`` that the rank at mesh coordinates
+    ``coords`` holds on a mesh of axis ``sizes`` (by axis name; an axis the
+    mesh lacks is whole): a view, no mesh or process group needed, so a
+    host can cut any rank's block. Raises when a split dim does not divide
+    evenly."""
     if len(spec) > x.dim():
         raise ValueError(f"spec {spec} has more dims than a {x.dim()}-d tensor")
     for dim, axis in enumerate(spec):
-        if axis is None or axis not in names:
+        if axis is None or axis not in sizes:
             continue
-        n = mesh.size(names.index(axis))
+        n = sizes[axis]
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split "
                              f"evenly over mesh axis {axis!r} ({n} ranks)")
         block = x.shape[dim] // n
-        x = x.narrow(dim, mesh.get_local_rank(axis) * block, block)
-    return x.clone()
+        x = x.narrow(dim, coords[axis] * block, block)
+    return x
+
+
+def mesh_sizes(mesh: DeviceMesh) -> tuple[dict[str, int], dict[str, int]]:
+    """(axis sizes, this rank's coordinates) of ``mesh``, by axis name."""
+    names = mesh.mesh_dim_names or ()
+    return ({a: mesh.size(i) for i, a in enumerate(names)},
+            {a: mesh.get_local_rank(a) for a in names})
+
+
+def shard_tensor(x: torch.Tensor, spec: Spec, mesh: DeviceMesh) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec`` (a copy: the full tensor
+    can be freed). Raises when a split dim does not divide evenly."""
+    return block_of(x, spec, *mesh_sizes(mesh)).clone()
 
 
 def shard_params(params: dict[str, Any], params_logical: dict[str, Any],
@@ -95,6 +111,16 @@ def shard_params(params: dict[str, Any], params_logical: dict[str, Any],
     same full tree), leaf by leaf under the logical names' rules."""
     return _tree_map(lambda x, name: shard_tensor(x, LOGICAL_RULES[name], mesh),
                      params, params_logical)
+
+
+def shard_leaf(x: Any, name: Any, sizes: dict[str, int],
+               coords: dict[str, int]) -> Any:
+    """One leaf's block (a copy) at ``coords``: a tensor under its logical
+    name's rule, or an int8 ``{"q", "s"}`` leaf under its
+    ``quantize_logical`` names, each scale with the channels it scales."""
+    if isinstance(x, dict):
+        return {k: shard_leaf(x[k], name[k], sizes, coords) for k in x}
+    return block_of(x, LOGICAL_RULES[name], sizes, coords).clone()
 
 
 def _tree_map(fn, tree: Any, *rest: Any) -> Any:

@@ -37,12 +37,17 @@ and liveness calls.
 
 Where the port differs from the reference:
 
-- an engine has one device and no mesh: the factory places each replica's
-  device in ``cfg.device``, ``partition_devices`` hands each replica one
-  device (every replica shares the device when there are fewer devices
-  than replicas, as on one card), and ``EngineReplica.status()`` reports
-  ``mesh_devices`` 1. The reference's fallback of an explicit mesh shape
-  to the automatic one per replica goes with the port's multi-GPU mesh;
+- ``partition_devices`` hands each replica its device subset (every
+  replica shares the whole list when there are fewer devices than
+  replicas, as on one card). An explicit ``mesh_shape`` sized for the
+  whole machine falls back to the automatic mesh per replica, with the
+  reference's warning. One process holds one multi-rank engine
+  (``ranks.py``), so only a pool of one replica serves on its whole
+  subset as a multi-rank engine (``EngineReplica.status()`` reports its
+  world as ``mesh_devices``); each replica of a larger pool serves on its
+  subset's first device, and a larger pool whose replicas would each take
+  the rank path (a ``mesh_shape`` that fits, an ``sp_impl``) refuses to
+  build;
 - replicas that share one card share its CUDA context: a sticky device
   error (an illegal address) poisons every replica of the process, so on
   one card failover covers host-side failures only (a dispatch-thread
@@ -67,6 +72,7 @@ from typing import Any, AsyncIterator, Callable, Sequence
 from ...observability import trace_extra
 from ...utils import new_id
 from ..engine import EngineConfig, EngineStats, GenRequest, TorchEngine, probe_devices
+from ..parallel.mesh import mesh_shape_from_string
 from .health import HealthMonitor
 from .router import ReplicaRouter
 
@@ -149,7 +155,7 @@ class EngineReplica:
             "role": self.role,
             "model": engine.config.model,
             "device": str(engine.device),
-            "mesh_devices": 1,
+            "mesh_devices": engine.world,
             "dispatch_alive": engine.dispatch_alive(),
             "heartbeat_age_s": round(engine.heartbeat_age(), 3),
             # occupancy: slots carrying work now against capacity
@@ -209,6 +215,33 @@ class EnginePool:
         if devices is None:
             devices = probe_devices(config.init_timeout_s, config.device)
         self._device_sets = partition_devices(devices, replicas)
+        # an explicit mesh_shape is sized for the WHOLE machine; replicas
+        # get a device subset, so the spec would fail every replica's mesh
+        # (e.g. "1x8" on a 2-replica pool of 8 cards, where each replica
+        # holds 4). Fall back to the auto mesh rather than refusing to
+        # boot: one device per replica, since one process holds one
+        # multi-rank engine.
+        self._mesh_shape = config.mesh_shape
+        per = len(self._device_sets[0])
+        if self._mesh_shape and replicas > 1:
+            try:
+                mesh_shape_from_string(self._mesh_shape, per)
+            except ValueError:
+                logger.warning(
+                    "engine pool: mesh shape %r does not fit the %d "
+                    "device(s) each of %d replicas receives — using the "
+                    "auto mesh per replica (one device each)",
+                    self._mesh_shape, per, replicas)
+                self._mesh_shape = ""
+        if replicas > 1 and (self._mesh_shape or config.sp_impl != "none"):
+            raise NotImplementedError(
+                f"several multi-rank replicas in one pool are not carried yet "
+                f"(mesh_shape {self._mesh_shape!r}, sp_impl {config.sp_impl!r} on "
+                f"{replicas} replicas): one process holds one multi-rank engine")
+        if replicas > 1 and per > 1:
+            logger.warning("engine pool: each of %d replicas serves on the first of "
+                           "its %d devices (one process holds one multi-rank engine)",
+                           replicas, per)
         # the pool-wide prefix plane: ONE index maps chain hashes to
         # (replica | tier) locations, which the router scores as affinity,
         # and with prefix_tiers ONE spill store serves every replica, so a
@@ -235,9 +268,9 @@ class EnginePool:
         self.requeue_max = max(0, requeue_max)
         self._factory = engine_factory or (
             lambda cfg, tracer, metrics, ledger=None, tier_store=None,
-            prefix_index=None: TorchEngine(
+            prefix_index=None, devices=None: TorchEngine(
                 cfg, tracer=tracer, metrics=metrics, ledger=ledger,
-                tier_store=tier_store, prefix_index=prefix_index))
+                tier_store=tier_store, prefix_index=prefix_index, devices=devices))
         # roles: static here (a comma string or a sequence), live through
         # set_role and the admin surface. Short lists pad with "any"; an
         # unknown role refuses to build rather than route everything
@@ -274,11 +307,17 @@ class EnginePool:
         self._set_up_gauges()
 
     def _build_engine(self, index: int) -> TorchEngine:
+        subset = self._device_sets[index]
         cfg = dataclasses.replace(self.config, replica_id=str(index),
-                                  device=str(self._device_sets[index][0]))
+                                  device=str(subset[0]), mesh_shape=self._mesh_shape)
+        # a pool of one replica serves on its whole subset (a multi-rank
+        # engine when it holds several devices); a larger pool's replica on
+        # its subset's first device, as cfg.device names it
+        extra = ({"devices": list(subset)}
+                 if len(self._device_sets) == 1 and len(subset) > 1 else {})
         engine = self._factory(cfg, self.tracer, self.metrics, ledger=self.ledger,
                                tier_store=self.tier_store,
-                               prefix_index=self.prefix_index)
+                               prefix_index=self.prefix_index, **extra)
         if self.signals is not None:
             engine.signals = self.signals
         return engine

@@ -39,14 +39,14 @@ _QUANT_RULES: dict[str, tuple[int, str]] = {
 }
 
 
-def _map_tree(fn, tree: Any, *rest: Any) -> Any:
+def map_tree(fn, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` to the leaves of a dict/list tree (and the matching
     leaves of ``rest``); a ``{"q","s"}`` dict counts as one leaf."""
     if isinstance(tree, dict) and not is_quant(tree):
-        return {k: _map_tree(fn, v, *(r[k] for r in rest))
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_map_tree(fn, v, *(r[i] for r in rest))
+        return [map_tree(fn, v, *(r[i] for r in rest))
                 for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
@@ -73,7 +73,7 @@ def quantize_logical(tree: Any) -> Any:
         rule = _QUANT_RULES.get(name)
         return name if rule is None else {"q": name, "s": rule[1]}
 
-    return _map_tree(one, tree)
+    return map_tree(one, tree)
 
 
 def quantize_leaf(w: torch.Tensor, axis: int,
@@ -97,7 +97,7 @@ def quantize_tree(params: Any, logical: Any,
         axis = reduction_axis(name)
         return w if axis is None else quantize_leaf(w, axis, scale_dtype)
 
-    return _map_tree(one, params, logical)
+    return map_tree(one, params, logical)
 
 
 def param_bytes(tree: Any) -> int:

@@ -18,7 +18,10 @@ actions): the middlewares of ``gateway/middleware.py`` (the ``http.request``
 span, the phase clock, error mapping, authentication, so that
 ``request["auth"]`` is always set), the overload shedder, the signal
 bus, the fault plane and, with ``controller_enabled``, the serving
-controller. Each app is a worker of the coordination layer (a bus RPC seam
+controller. ``tpu_local_mesh_shape`` (with ``tpu_local_sp_impl`` and
+``tpu_local_sp_threshold``) reaches the engine through
+``EngineConfig.from_settings``: "1xN" serves on N GPUs, one process each
+(``ranks.py``); a multi-rank owner of the shared plane is refused. Each app is a worker of the coordination layer (a bus RPC seam
 and a heartbeat lease): with ``tpu_local_pool_shared`` its engine is the
 shared engine plane's (one owner elected among the workers builds it, the
 others forward), and ``setup_fabric_routes`` serves the prefix-cache
@@ -40,6 +43,7 @@ from aiohttp import web
 from ..gateway.flight_recorder import (backpressure_headers, queue_state,
                                        retry_after_s)
 from ..gateway.serialize import SSE_DONE, sse_event
+from .parallel.mesh import parse_mesh_shape
 from .provider import LLMError, LLMProviderRegistry, LLMUnavailable
 
 
@@ -434,6 +438,17 @@ def setup_fabric_routes(app: web.Application) -> None:
     app.add_routes(routes)
 
 
+def _refuse_multi_rank_owner(mesh_shape: str) -> None:
+    """The shared engine plane (``pool_rpc.py``) does not carry a
+    multi-rank owner yet: raise for a mesh of more than one device."""
+    if mesh_shape:
+        data, model = parse_mesh_shape(mesh_shape)
+        if data * model > 1:
+            raise NotImplementedError(
+                f"a multi-rank engine (mesh {mesh_shape}) as the shared engine plane's "
+                "owner (tpu_local_pool_shared) is not carried yet")
+
+
 def build_pool(settings, config, tracer=None, signals=None, engine_factory=None):
     """An ``EnginePool`` of ``settings.tpu_local_replicas`` engines of
     ``config``, with the gateway's ``tpu_local_pool_*`` settings (the JAX
@@ -580,8 +595,15 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     plane = None
     provider = None
     if getattr(settings, "tpu_local_pool_shared", False):
+        _refuse_multi_rank_owner(getattr(settings, "tpu_local_mesh_shape", ""))
+
         async def build_owner_provider():
             provider = await asyncio.to_thread(make_provider, engine, pool)
+            for served in ([r.engine for r in live["pool"].replicas] if live["pool"]
+                           else [live["engine"]]):
+                if served.world > 1:
+                    await (live["pool"] or live["engine"]).stop()
+                    _refuse_multi_rank_owner(f"1x{served.world}")
             await (live["pool"] or live["engine"]).start()
             return provider
 

@@ -8,8 +8,10 @@ over the mesh's ``data`` axis, Megatron tensor parallel over its ``model``
 axis, with the JAX package's sharding rules for every parameter and both
 Adam moments.
 
-Attention trains through its plain version (``attn_impl="reference"``, as
-the JAX package trains): the hand-written kernels have no backward, and
+The blocks are the serving forward's (``models/llama.py`` ``PlainOps``
+and ``TensorParallelOps``, here with the collectives that carry
+gradients). Attention trains through its plain version
+(``attn_impl="reference"``, as the JAX package trains): the hand-written kernels have no backward, and
 their wrappers refuse to run where autograd would need one. A routed layer
 runs what the serving trunk runs for the config: the expert scan under the
 default ``moe_impl="dense"``; ``grouped`` (the plain grouped version on the
@@ -23,17 +25,12 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 
 from .models.configs import LlamaConfig
-from .models.llama import (_attention_block, _ffn_block, apply_rope, init_params,
-                           lm_logits, params_logical, rms_norm)
-from .ops.attention import causal_attention
-from .parallel.collectives import copy_to, gather_from, reduce_from
+from .models.llama import PlainOps, TensorParallelOps, init_params, params_logical, rms_norm
 from .parallel.mesh import axis_group
-from .parallel.moe import activation, router_probs, top_k_experts
+from .parallel.moe import router_probs
 from .parallel.sharding import shard_params
-from .quantize import embed_rows
 
 
 def leaves(tree: Any) -> list[torch.Tensor]:
@@ -59,39 +56,6 @@ def _switch_aux(n_experts: int, top1_count: torch.Tensor, prob_sum: torch.Tensor
     """E * sum_e f_e * P_e: f_e the share of tokens whose top-1 expert is
     e, P_e the mean router probability of e."""
     return n_experts * torch.sum((top1_count / n_tokens) * (prob_sum / n_tokens))
-
-
-def _top1_count(probs: torch.Tensor, n_experts: int) -> torch.Tensor:
-    return F.one_hot(probs.argmax(dim=-1), n_experts).float().sum(dim=0)
-
-
-class PlainOps:
-    """The pieces of the forward that tensor parallelism replaces (the
-    embedding, the attention and FFN blocks, the router's token statistics
-    and the head), here on one device's whole tensors."""
-
-    def __init__(self, config: LlamaConfig):
-        self.config = config
-
-    def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-        return embed_rows(table, tokens, self.config.embed_multiplier)
-
-    def attention(self, layer: dict[str, Any], h: torch.Tensor,
-                  positions: torch.Tensor, attn_impl: str) -> torch.Tensor:
-        q, k, v = _attention_block(layer, self.config, h, positions)
-        attn = causal_attention(q, k, v, impl=attn_impl)
-        return attn.reshape(*attn.shape[:2], -1) @ layer["wo"]
-
-    def ffn(self, layer: dict[str, Any], h: torch.Tensor) -> torch.Tensor:
-        return _ffn_block(layer, self.config, h)
-
-    def router_stats(self, probs: torch.Tensor
-                     ) -> tuple[torch.Tensor, torch.Tensor, int]:
-        """(top-1 counts [E], probability sums [E], tokens) of the batch."""
-        return _top1_count(probs, self.config.n_experts), probs.sum(dim=0), probs.shape[0]
-
-    def head(self, params: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-        return lm_logits(params, x)
 
 
 def layer_forward(layer: dict[str, Any], x: torch.Tensor, positions: torch.Tensor,
@@ -197,113 +161,6 @@ def train_step(state: TrainState, config: LlamaConfig, tokens: torch.Tensor,
 
 # ------------------------------------------------------------- DP x TP step
 
-class _TensorParallelOps(PlainOps):
-    """``forward_logits``' blocks on this rank's Megatron shards (the JAX
-    package's sharding rules: ``params_logical`` under ``LOGICAL_RULES``).
-
-    Column-parallel wq/wk/wv/w1/w3 and row-parallel wo/w2 with one
-    all-reduce per block; the embedding is split over vocab (each rank
-    looks up its rows, one all-reduce) and so is the head (its logits
-    all-gathered). A projection whose heads do not divide the axis (KV 2
-    at TP 4; one KV head) is cut mid-head by the flat column split, as in
-    JAX: it is all-gathered, and each rank takes the heads its slice of wo
-    needs. Routed layers run the expert scan with each expert's hidden dim
-    split, and the aux loss' token statistics are summed over the
-    ``data_group`` of ``n_data`` ranks."""
-
-    def __init__(self, config: LlamaConfig, group, index: int, size: int,
-                 data_group, n_data: int):
-        hd = config.head_dim
-        for what, n in (("vocab", config.vocab_size), ("ffn_hidden", config.ffn_hidden),
-                        ("q heads x head_dim", config.n_heads * hd),
-                        ("kv heads x head_dim", config.n_kv_heads * hd)):
-            if n % size:
-                raise ValueError(f"{config.name}: {what} {n} does not split over "
-                                 f"{size} model ranks")
-        super().__init__(config)
-        self.group, self.index, self.size = group, index, size
-        self.data_group, self.n_data = data_group, n_data
-        # the flat [H*hd] range of this rank's wo rows, and the heads it spans
-        width = config.n_heads * hd // size
-        self.rows = (index * width, (index + 1) * width)
-        self.heads = (self.rows[0] // hd, -(-self.rows[1] // hd))
-
-    def _project(self, hf: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
-                 n_heads: int) -> tuple[torch.Tensor, int]:
-        """[B,S,n_local,hd] and the index of its first head."""
-        g, hd = self.group, self.config.head_dim
-        y = hf @ w
-        if n_heads % self.size == 0:
-            first = self.index * n_heads // self.size
-        else:  # cut mid-head: every rank takes the whole projection
-            y, first = copy_to(gather_from(y, g), g), 0
-        if b is not None:
-            y = y + copy_to(b, g)[first * hd:first * hd + y.shape[-1]]
-        return y.reshape(*y.shape[:2], -1, hd), first
-
-    def attention(self, layer: dict[str, Any], h: torch.Tensor,
-                  positions: torch.Tensor, attn_impl: str) -> torch.Tensor:
-        cfg, g, hd = self.config, self.group, self.config.head_dim
-        hf = copy_to(h, g)
-        q, q0 = self._project(hf, layer["wq"], layer.get("bq"), cfg.n_heads)
-        k, k0 = self._project(hf, layer["wk"], layer.get("bk"), cfg.n_kv_heads)
-        v, _ = self._project(hf, layer["wv"], layer.get("bv"), cfg.n_kv_heads)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        lo, hi = self.heads
-        q = q[:, :, lo - q0:hi - q0]
-        G = cfg.n_heads // cfg.n_kv_heads
-        if cfg.n_heads % self.size or cfg.n_kv_heads % self.size:
-            # one kv head per query head, picked from the projection
-            pick = torch.tensor([h // G - k0 for h in range(lo, hi)], device=k.device)
-            k, v = k.index_select(2, pick), v.index_select(2, pick)
-        attn = causal_attention(q, k, v, impl=attn_impl)          # [B,S,hi-lo,hd]
-        flat = attn.reshape(*attn.shape[:2], -1)
-        flat = flat[..., self.rows[0] - lo * hd:self.rows[1] - lo * hd]
-        return reduce_from(flat @ layer["wo"], g)
-
-    def ffn(self, layer: dict[str, Any], h: torch.Tensor) -> torch.Tensor:
-        cfg, g = self.config, self.group
-        if "router" not in layer:
-            hf = copy_to(h, g)
-            gate = activation(hf @ layer["w1"], cfg.hidden_act)
-            return reduce_from((gate * (hf @ layer["w3"])) @ layer["w2"], g)
-        B, S, D = h.shape
-        flat = h.reshape(-1, D)
-        probs = router_probs(layer["router"], flat)
-        keep = F.one_hot(top_k_experts(probs, cfg.moe_top_k), cfg.n_experts).float().sum(1)
-        gates = probs * keep
-        gates = copy_to((gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-                         ).to(h.dtype), g)
-        hf = copy_to(flat, g)
-        acc = torch.zeros_like(flat)
-        for e in range(cfg.n_experts):
-            hidden = activation(hf @ layer["w1"][e], cfg.hidden_act) * (hf @ layer["w3"][e])
-            acc = acc + gates[:, e][:, None] * (hidden @ layer["w2"][e])
-        return reduce_from(acc, g).reshape(B, S, D)
-
-    def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-        """Each rank looks up the tokens of its vocab rows (zeros for the
-        others); the sum over ranks holds one nonzero term, so it is exact."""
-        rows = table.shape[0]
-        ids = tokens.long() - self.index * rows
-        inside = (ids >= 0) & (ids < rows)
-        x = embed_rows(table, ids.clamp(0, rows - 1), self.config.embed_multiplier)
-        return reduce_from(x * inside[..., None].to(x.dtype), self.group)
-
-    def router_stats(self, probs: torch.Tensor
-                     ) -> tuple[torch.Tensor, torch.Tensor, int]:
-        count = _top1_count(probs, self.config.n_experts)
-        dist.all_reduce(count, group=self.data_group)
-        return (count, reduce_from(probs.sum(dim=0), self.data_group),
-                probs.shape[0] * self.n_data)
-
-    def head(self, params: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-        head = params.get("lm_head")
-        head = params["embed"].T if head is None else head
-        return gather_from(copy_to(x, self.group) @ head, self.group).float()
-
-
 def build_sharded_train_step(mesh, config: LlamaConfig, lr: float = 1e-4):
     """The train step over ``mesh``: DP on the batch (``data``), TP on the
     params (``model``). Returns (step, init_state):
@@ -322,7 +179,7 @@ def build_sharded_train_step(mesh, config: LlamaConfig, lr: float = 1e-4):
     data_group, data_index, n_data = axis_group(mesh, "data")
     model_group, model_index, n_model = axis_group(mesh, "model")
     _check_moe_impl(config)
-    ops = _TensorParallelOps(config, model_group, model_index, n_model, data_group, n_data)
+    ops = TensorParallelOps(config, model_group, model_index, n_model, data_group, n_data)
     logical = params_logical(config)
     optimizer = make_optimizer(lr)
 

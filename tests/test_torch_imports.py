@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch port: no module of
 ``mcp_context_forge_tpu_torch`` (nor ``chip_smoke.py``,
-``profile_torch_engine.py`` or ``profile_torch_train.py``, which run on
-the card) imports JAX or
+``profile_torch_engine.py``, ``profile_torch_train.py`` or
+``multi_gpu_smoke.py``, which run on the card) imports JAX or
 anything of the JAX package, and the kernel modules import without
 ``nvcc`` or ``triton`` (kernels build at first launch, on the card)."""
 
@@ -17,7 +17,8 @@ from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "mcp_context_forge_tpu"}
 SOURCES = sorted((ROOT / "mcp_context_forge_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_torch_engine.py", ROOT / "profile_torch_train.py"]
+    ROOT / "chip_smoke.py", ROOT / "profile_torch_engine.py", ROOT / "profile_torch_train.py",
+    ROOT / "multi_gpu_smoke.py"]
 
 
 def _imported_roots(source: str) -> set[str]:
