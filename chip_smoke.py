@@ -306,8 +306,22 @@ kernels, ``tp_rank_geometries`` holds rows 1, 2, 2b, 3 and 3b at the
 per-rank head counts of llama3-8b at TP 2, 4, 8 and 16 (a replicated pool
 read at a KV-head offset) and gemma-2b at TP 2, and rows 4 and 5 at
 Mixtral's per-rank F at TP 2; a rank reading the wrong KV head of a
-replicated pool must fail its check. Each group is torn down before the
-next phase.
+replicated pool must fail its check. Each engine's groups are its own
+(``parallel/mesh.py`` ``ServingMesh``, no default group) and end with it.
+After the tier phases, ``engine_llama3_8b_rank1_tiers`` runs their 16-page
+eviction scenario (lossless and the int8 spill) at "1x1": spills gather
+the page's KV-head shards on the data plane, restores broadcast it and
+each rank keeps its heads; the restored hits' streams must equal
+``engine_llama3_8b_tiers``'s and each lossless chain payload the rank-less
+engine's, byte for byte; planted faults: a payload gathered in reversed
+head order, and, over the real page at a model axis of 2, 4 and 8, every
+rank given rank 0's heads. After the llama3-8b pool phase,
+``engine_llama3_8b_rank1_pool`` builds two replicas at "1x1", each on its
+own one-rank NCCL group in this process, roles ``prefill,decode``: a
+three-page prompt migrates from one to the other with the standalone
+engine's stream, 3 pages spilled and 3 restored; every graph of each holds
+collectives, and a fed dispatch of each runs the device events the 1x1
+rank path ran in ``engine_llama3_8b_rank1``.
 
 Then the card line, the kernel table (JSON), and last the contract line.
 Any failure raises: the exit code is non-zero and the last line is absent.
@@ -618,6 +632,7 @@ def main() -> int:
     counts, stats = pool_phase(torch, dev, "llama3-tiny", "float32", tiny_reference,
                                ATTENTION_MMA, TC_ATTENTION + INT8_WRITERS)
     count(counts)
+    stats.pop("migrate_reference")
     counts, stats["int8_migration"] = int8_pool_migration(torch, dev)
     emit({"phase": "engine_llama3_tiny_f32_pool", **stats})
     count(counts)
@@ -646,6 +661,7 @@ def main() -> int:
     emit({"phase": "engine_llama3_8b_rank1", **stats})
     count(counts)
     free_device(torch)
+    rank1_events = stats["replay_device_events"]["device_events"]
     counts, stats = sp1_phase(torch, dev, k1_tokens)
     emit({"phase": "engine_llama3_tiny_sp1", **stats})
     count(counts)
@@ -666,10 +682,15 @@ def main() -> int:
     emit({"phase": "engine_llama3_8b_spec", **stats})
     count(counts)
     free_device(torch)
-    counts, bf16_tiers, int8_tiers = tiers_phase(torch, dev)
+    counts, bf16_tiers, int8_tiers, tier_reference = tiers_phase(torch, dev)
     emit({"phase": "engine_llama3_8b_tiers", **bf16_tiers})
     emit({"phase": "engine_llama3_8b_int8_kv_tiers", **int8_tiers})
     count(counts)
+    free_device(torch)
+    counts, stats = rank1_tiers_phase(torch, dev, tier_reference)
+    emit({"phase": "engine_llama3_8b_rank1_tiers", **stats})
+    count(counts)
+    del tier_reference
     free_device(torch)
     counts, stats = pool_phase(torch, dev, "llama3-8b", "bfloat16", engine_reference, ATTENTION,
                                NOT_BF16 + INT8_WRITERS + ("paged_chunk_attention_tc_q8",
@@ -678,7 +699,12 @@ def main() -> int:
         check(events["device_events"] == DECODE_REPLAY_EVENTS,
               f"one fed decode dispatch of a replica ran {events['device_events']} device "
               f"events, not {DECODE_REPLAY_EVENTS}")
+    migrate_reference = stats.pop("migrate_reference")
     emit({"phase": "engine_llama3_8b_pool", **stats})
+    count(counts)
+    free_device(torch)
+    counts, stats = rank1_pool_phase(torch, dev, migrate_reference, rank1_events)
+    emit({"phase": "engine_llama3_8b_rank1_pool", **stats})
     count(counts)
     free_device(torch)
     # the shared engine plane and the object tier, on one coordination hub
@@ -2639,7 +2665,9 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
             return (replies, wall, counts, served_calls, replays, peak, served, delta, knob,
                     repeats)
         finally:
-            await engine.stop()
+            # a multi-rank engine keeps its group (and graphs) for the
+            # checks below; close_ranks ends it after them
+            await engine.stop(keep_group=True)
 
     with mock.patch.object(engine_module, "prefill_with_history",
                            counted("history", engine_module.prefill_with_history)), \
@@ -2653,9 +2681,12 @@ def engine_phase(torch, dev, model: str, kernels: tuple[str, ...],
             asyncio.run(run())
         compiles = engine.compile_stats()
         prefix_hits = engine.allocator.prefix_hits   # before ``after`` may restart it
-        after_result = after(engine) if after is not None else None
-        eager = graph_against_eager(torch, engine) if graph_check else None
-        verify = verify_against_eager(torch, engine) if spec else None
+        try:
+            after_result = after(engine) if after is not None else None
+            eager = graph_against_eager(torch, engine) if graph_check else None
+            verify = verify_against_eager(torch, engine) if spec else None
+        finally:
+            engine.close_ranks()
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     check(max(peak, build_peak) < card_bytes,
           f"peak memory {max(peak, build_peak)} exceeds the card's {card_bytes}")
@@ -3590,7 +3621,7 @@ TIER_INT8_BUDGET = 8
 
 
 # what a tier run's phase line leaves out (held by the checks)
-RUN_DETAIL = ("streams", "launches", "hit_launches")
+RUN_DETAIL = ("streams", "launches", "hit_launches", "payloads")
 
 
 def tier_requests(model: str) -> tuple[dict, list[dict]]:
@@ -3629,7 +3660,7 @@ def spread(values) -> dict:
             "max": max(values) if values else None}
 
 
-def tier_run(torch, engine, mode: str) -> dict:
+def tier_run(torch, engine, mode: str, after=None) -> dict:
     """Sequential chats through ``TorchLocalProvider.chat`` on a tier
     engine. ``mode`` "hbm" (a pool that never evicts): the system-prompt
     request cold, then again twice (resident hits: the second is the one
@@ -3644,7 +3675,11 @@ def tier_run(torch, engine, mode: str) -> dict:
     summary (its spills overflow to disk and fail). Spills and restores of
     the request's chain pages are held on the card: each restored page
     against a copy of the page taken when it spilled. Every kernel count
-    is reset when the engine starts and read when the chats end."""
+    is reset when the engine starts and read when the chats end. The host
+    tier's payload of each chain page, as it spilled, is kept
+    (``payloads``). ``after(engine)`` runs once the engine stopped, its
+    multi-rank group still open (``stop(keep_group=True)``); its result is
+    ``after``."""
     from mcp_context_forge_tpu_torch.observability import degradation, faults
     from mcp_context_forge_tpu_torch.tpu_local.kv.prefix_index import chain_hashes
     from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
@@ -3665,12 +3700,17 @@ def tier_run(torch, engine, mode: str) -> dict:
     watch: set = set()
     spilled: dict = {}
     restored: dict = {}
+    payloads: dict = {}
     real_spill, real_restore = client.spill, client.restore
 
     def spill(key_hash, parent, chunk, page):
-        if key_hash in watch and key_hash not in spilled:
+        first = key_hash in watch and key_hash not in spilled
+        if first:
             spilled[key_hash] = pool_page(engine, page)
-        return real_spill(key_hash, parent, chunk, page)
+        out = real_spill(key_hash, parent, chunk, page)
+        if first and key_hash in store._host:
+            payloads[key_hash] = store._host[key_hash]
+        return out
 
     def restore(key_hash, parent, chunk, page):
         tier = real_restore(key_hash, parent, chunk, page)
@@ -3750,9 +3790,15 @@ def tier_run(torch, engine, mode: str) -> dict:
             out["pinned_host_bytes"] = out["tier_stats"]["store"]["host_bytes"]
             return served
         finally:
-            await engine.stop()
+            await engine.stop(keep_group=after is not None)
 
     served = asyncio.run(run())
+    if after is not None:
+        try:
+            out["after"] = after(engine)
+        finally:
+            engine.close_ranks()
+    out["payloads"] = payloads
     engine.submit = submit
     out["streams"] = [r.generated for r in served]
     out["ttft_ms"] = [(r.first_token_ts - r.created) * 1e3 for r in served]
@@ -3849,7 +3895,7 @@ def check_tier_hit(run: dict, tier: str, pages: int, layers: int) -> None:
           f"the restored hit launched the chunk kernel {chunk} and flash {flash} times")
 
 
-def tiers_phase(torch, dev, model: str = "llama3-8b") -> tuple[dict, dict, dict]:
+def tiers_phase(torch, dev, model: str = "llama3-8b") -> tuple[dict, dict, dict, dict]:
     """``engine_llama3_8b_tiers`` and ``engine_llama3_8b_int8_kv_tiers``:
     llama3-8b at full width and depth, bf16 weights (one seeded draw for
     every engine here), ``prefix_tiers`` on, max_seq_len 2048, the
@@ -3865,7 +3911,10 @@ def tiers_phase(torch, dev, model: str = "llama3-8b") -> tuple[dict, dict, dict]
     matching are reported). Then the int8 pool (the long phase's storage,
     15 pages): its bytes and scales spill as they are; the restored hit
     runs row 2b and gives the resident hit's stream. Restored pages equal
-    the pages spilled, on the card, wherever the round trip is lossless."""
+    the pages spilled, on the card, wherever the round trip is lossless.
+    The fourth value is what ``rank1_tiers_phase`` holds the rank path to:
+    the restored hits' streams, the lossless run's chain payloads and the
+    spill and restore rates."""
     from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
     from mcp_context_forge_tpu_torch.tpu_local.models.llama import init_params
 
@@ -3965,7 +4014,9 @@ def tiers_phase(torch, dev, model: str = "llama3-8b") -> tuple[dict, dict, dict]
             "runs": {name: {k: v for k, v in r.items() if k not in RUN_DETAIL}
                      for name, r in int8_runs.items()}}
     del params
-    return counts, bf16, int8
+    reference = {"streams": {name: runs[name]["streams"] for name in ("host", "int8_spill")},
+                 "payloads": runs["host"]["payloads"], "rates": bf16["rates"]}
+    return counts, bf16, int8, reference
 
 
 def tiny_tiers_phase(torch, dev, reference: list) -> tuple[dict, dict]:
@@ -4564,6 +4615,7 @@ def pool_phase(torch, dev, model: str, dtype: str, reference: dict, kernels: tup
         replica.pop("roofline", None)
     out["parity"].pop("chat_stream_1")
     out["spill_on_drain"].pop("stream")
+    out["migrate_reference"] = standalone
     del pool, provider, rec
     free_device(torch)
     return launches, out
@@ -5206,14 +5258,15 @@ def spelled_ids(text: str) -> list[int]:
     return [int(i) for i in re.findall(r"⟨(\d+)⟩", text)]
 
 
-def plane_engine_config(model: str, dtype: str):
+def plane_engine_config(model: str, dtype: str, mesh_shape: str = ""):
     """``engine_phase``'s llama3-8b configuration (page 128, 512 pages,
-    buckets 128/512/2048, max_batch 8, seed 0)."""
+    buckets 128/512/2048, max_batch 8, seed 0), at ``mesh_shape``."""
     from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig
 
     return EngineConfig(model=model, dtype=dtype, device="cuda", max_batch=8,
                         max_seq_len=2048, page_size=128, num_pages=512,
-                        prefill_buckets=(128, 512, 2048), prefill_max_batch=4, seed=0)
+                        prefill_buckets=(128, 512, 2048), prefill_max_batch=4, seed=0,
+                        mesh_shape=mesh_shape)
 
 
 class PlaneWorker:
@@ -5228,14 +5281,18 @@ class PlaneWorker:
     (builds, the requests its engine served with their shapes and tokens,
     the chunk times it emitted, the ledger, kernel launches, compile
     events), a reset of the launch counts, and exit. Runs in a process of
-    its own (``--plane-worker``) or as a task of this script's loop."""
+    its own (``--plane-worker``) or as a task of this script's loop. With a
+    ``mesh_shape`` the owner's engine is a multi-rank one on the first
+    cards, its followers processes of this worker's."""
 
-    def __init__(self, worker_id: str, hub_port: int, secret: str, model: str, dtype: str):
+    def __init__(self, worker_id: str, hub_port: int, secret: str, model: str, dtype: str,
+                 mesh_shape: str = ""):
         self.worker_id = worker_id
         self.hub_port = hub_port
         self.secret = secret
         self.model = model
         self.dtype = dtype
+        self.mesh_shape = mesh_shape
         self.builds: list[dict] = []
         self.served: list = []          # GenRequests, in the order submitted
         self.emitted: list[list[float]] = []   # wall times of each stream's chunks
@@ -5304,8 +5361,13 @@ class PlaneWorker:
             await asyncio.sleep(0.05)
         free_before = torch.cuda.mem_get_info()[0]
         t0 = time.monotonic()
+        devices = None
+        if self.mesh_shape:
+            data, model = (int(n) for n in self.mesh_shape.split("x"))
+            devices = [torch.device("cuda", i) for i in range(data * model)]
         engine = await asyncio.to_thread(
-            TorchEngine, plane_engine_config(self.model, self.dtype), ledger=self.ledger)
+            TorchEngine, plane_engine_config(self.model, self.dtype, self.mesh_shape),
+            ledger=self.ledger, devices=devices)
         build_s = time.monotonic() - t0
         engine.tokenizer = SpelledTokenizer(engine.tokenizer)
         submit = engine.submit
@@ -5445,6 +5507,9 @@ class PlaneWorker:
                 "serving_events": engine.compile_stats()["serving"]["count"] if engine else None,
                 "cached_pages": engine.allocator.cached_pages if engine else None,
                 "max_queue": engine.config.max_queue if engine else None,
+                "world": engine.world if engine else None,
+                "follower_pids": ([p.pid for p in engine._ranks.procs]
+                                  if engine is not None and engine._ranks is not None else []),
                 "reserved_bytes": torch.cuda.memory_reserved()}
 
     async def _smoke_reset(self, params: dict) -> dict:
@@ -5464,13 +5529,14 @@ class PlaneWorker:
 
 
 def plane_worker_main(argv: list[str]) -> int:
-    """``chip_smoke.py --plane-worker ID HUB_PORT MODEL DTYPE``: one worker
-    process of the plane phase (the hub's secret in the environment). It
-    loads the kernel libraries this script built and builds none: a missing
-    one raises."""
+    """``chip_smoke.py --plane-worker ID HUB_PORT MODEL DTYPE [MESH]``: one
+    worker process of the plane phase (the hub's secret in the
+    environment). It loads the kernel libraries this script built and
+    builds none: a missing one raises."""
     import torch
 
     worker_id, hub_port, model, dtype = argv[0], int(argv[1]), argv[2], argv[3]
+    mesh_shape = argv[4] if len(argv) > 4 else ""
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from mcp_context_forge_tpu_torch.tpu_local.ops import _build
 
@@ -5480,7 +5546,8 @@ def plane_worker_main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
     torch.zeros(1, device="cuda")     # the context, before the worker contends
-    worker = PlaneWorker(worker_id, hub_port, os.environ[PLANE_SECRET_ENV], model, dtype)
+    worker = PlaneWorker(worker_id, hub_port, os.environ[PLANE_SECRET_ENV], model, dtype,
+                         mesh_shape)
     asyncio.run(worker.serve_until_exit())
     return 0
 
@@ -5521,8 +5588,10 @@ class PlaneConductor:
     workers' ``smoke.*`` methods and reads the owner lease; and the
     workers, as processes (``spawn``) or as tasks of this loop."""
 
-    def __init__(self, hub: HubThread, model: str, dtype: str, processes: bool):
+    def __init__(self, hub: HubThread, model: str, dtype: str, processes: bool,
+                 mesh_shape: str = ""):
         self.hub, self.model, self.dtype, self.processes = hub, model, dtype, processes
+        self.mesh_shape = mesh_shape
         self.procs: dict[str, subprocess.Popen] = {}
         self.tasks: dict[str, tuple] = {}
         self.logs = Path(__file__).resolve().parent / "build" / "plane"
@@ -5553,12 +5622,14 @@ class PlaneConductor:
             env = {**os.environ, PLANE_SECRET_ENV: self.hub.secret}
             self.procs[wid] = subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()), "--plane-worker", wid,
-                 str(self.hub.port), self.model, self.dtype],
+                 str(self.hub.port), self.model, self.dtype]
+                + ([self.mesh_shape] if self.mesh_shape else []),
                 cwd=str(Path(__file__).resolve().parent), env=env, stdout=log,
                 stderr=subprocess.STDOUT)
             log.close()
         else:
-            worker = PlaneWorker(wid, self.hub.port, self.hub.secret, self.model, self.dtype)
+            worker = PlaneWorker(wid, self.hub.port, self.hub.secret, self.model, self.dtype,
+                                 self.mesh_shape)
             self.tasks[wid] = (worker, asyncio.ensure_future(worker.serve_until_exit()))
 
     def log_tail(self, wid: str) -> str:
@@ -6545,9 +6616,7 @@ def rank1_phase(torch, dev, reference: dict) -> tuple[dict, dict]:
     all-reduce over one rank changes no value). Reports the graphs'
     captures, replays, launches and collectives per replay, and one fed
     decode dispatch's device events beside the ``engine`` phase's
-    DECODE_REPLAY_EVENTS."""
-    from mcp_context_forge_tpu_torch.tpu_local.ranks import release_idle_group
-
+    DECODE_REPLAY_EVENTS. The engine's group is its own and ends with it."""
     t0 = time.monotonic()
     events = {}
 
@@ -6560,7 +6629,6 @@ def rank1_phase(torch, dev, reference: dict) -> tuple[dict, dict]:
 
     counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION, chat_requests("llama3-8b"),
                                  hit=1, absent=NOT_BF16, mesh_shape="1x1", after=after)
-    release_idle_group()
     check(stats["generated"] == reference["generated"],
           "a 1x1 rank-path stream differs from the one-device engine's")
     stats.update(streams_equal_engine=True, seconds=time.monotonic() - t0,
@@ -6570,6 +6638,234 @@ def rank1_phase(torch, dev, reference: dict) -> tuple[dict, dict]:
     return counts, stats
 
 
+def payload_diff(a, b) -> list[str]:
+    """The fields in which two spill payloads differ, byte for byte."""
+    import numpy as np
+
+    return [name for name in ("k", "v", "k_scales", "v_scales")
+            if getattr(a, name).dtype != getattr(b, name).dtype
+            or not np.array_equal(getattr(a, name), getattr(b, name))]
+
+
+def head_faults(torch, engine, page: int, reference) -> dict:
+    """On a stopped 1x1 engine whose group is open, with ``reference`` the
+    rank-less engine's payload of ``page``'s chain key: the payload read
+    through the rank path's gather equals it byte for byte, and two planted
+    faults are rejected. (1) A payload gathered in the wrong head order
+    (``_join_heads`` reversing the KV heads): the read differs from the
+    reference. (2) A restore that uploads rank 0's heads to every rank: one
+    rank cannot show it, so on the card, over the real page, each rank's
+    slice of an upload (``_rank_heads``) at a model axis of 2, 4 and 8,
+    joined again in rank order (``_join_heads``), must give the page bit for
+    bit, and the same with every rank given rank 0's slice must not."""
+    from mcp_context_forge_tpu_torch.tpu_local import engine as engine_module
+
+    got = engine._read_page_payload(page)
+    check(not payload_diff(got, reference),
+          f"the rank path's payload differs from the rank-less engine's in "
+          f"{payload_diff(got, reference)}")
+    join = engine_module._join_heads
+
+    def reversed_heads(pieces):
+        return tuple(t.flip(2 if i < 2 else 1) for i, t in enumerate(join(pieces)))
+
+    engine_module._join_heads = reversed_heads
+    try:
+        wrong_order = payload_diff(engine._read_page_payload(page), reference)
+    finally:
+        engine_module._join_heads = join
+    check(bool(wrong_order), "a payload gathered in reversed head order passed the check")
+    whole = tuple(torch.from_numpy(getattr(got, name)).to(engine.device)
+                  for name in ("k", "v", "k_scales", "v_scales"))
+    kv = whole[0].shape[2]
+    slices = {}
+    axes = [m for m in (2, 4, 8) if kv % m == 0]
+    check(bool(axes), f"{kv} KV heads split over no model axis of 2, 4 or 8")
+    for m in axes:
+        n = kv // m
+        good = join([engine_module._rank_heads(whole, r * n, n) for r in range(m)])
+        check(all(torch.equal(a, b) for a, b in zip(good, whole)),
+              f"the per-rank slices of an upload at model axis {m} do not rejoin the page")
+        bad = join([engine_module._rank_heads(whole, 0, n) for _ in range(m)])
+        check(not all(torch.equal(a, b) for a, b in zip(bad, whole)),
+              f"rank 0's heads uploaded to every rank at model axis {m} passed the check")
+        slices[m] = {"heads_per_rank": n, "rejoined_equal": True, "rank0_heads_rejected": True}
+    return {"payload_equal_rankless": True, "wrong_head_order_rejected": wrong_order,
+            "upload_slices": slices}
+
+
+def rank1_tiers_phase(torch, dev, reference: dict, model: str = "llama3-8b"
+                      ) -> tuple[dict, dict]:
+    """``engine_llama3_8b_rank1_tiers``: ``tiers_phase``'s 16-page eviction
+    scenario (the same seeded weights) through the rank path at
+    ``mesh_shape="1x1"``: each spill an announced ``_op_read_page`` whose
+    shards are gathered on the data plane (a one-rank NCCL group), each
+    restore an ``_op_upload_page`` that broadcasts the page, every rank
+    keeping its heads. Lossless (``tier_spill_quant=""``, from host RAM,
+    with the planted collision) and the int8 spill: the restored hits'
+    streams must equal ``engine_llama3_8b_tiers``'s, token for token, and
+    each lossless chain payload must equal the rank-less engine's of the
+    same chain key, byte for byte; then ``head_faults``. Spill and restore
+    ms per page beside the rank-less phase's."""
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+    from mcp_context_forge_tpu_torch.tpu_local.models.llama import init_params
+
+    t0 = time.monotonic()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(MODEL_CONFIGS[model], gen, torch.bfloat16, dev)
+    layers = MODEL_CONFIGS[model].n_layers
+    counts = dict.fromkeys(REPLACES, 0)
+    out: dict = {"model": model, "layers": layers, "mesh_shape": "1x1", "dtype": "bfloat16",
+                 "pool_pages": TIER_POOL_PAGES, "hit_tokens": 384}
+    for name, kwargs in (("host", dict(tier_spill_quant="", tier_host_bytes=2**31)),
+                         ("int8_spill", dict(tier_host_bytes=2**31))):
+        engine = tier_engine(model, params, prefix_tiers=True, num_pages=TIER_POOL_PAGES,
+                             mesh_shape="1x1", **kwargs)
+        check(engine._ranks is not None and engine.world == 1 and engine._kv_sharded,
+              "the tier engine is not on the rank path")
+
+        def after(engine):
+            alloc = engine.allocator
+            pages = {h: p for p, (h, _) in alloc._page_hash.items() if p in alloc._page_key}
+            keys = [k for k in reference["payloads"] if k in pages]
+            check(bool(keys), "no chain page of the request is resident after the run")
+            return head_faults(torch, engine, pages[keys[0]], reference["payloads"][keys[0]])
+
+        run = tier_run(torch, engine, name, after=after if name == "host" else None)
+        del engine
+        free_device(torch)
+        for k in counts:
+            counts[k] += run["launches"][k]
+        check_tier_hit(run, "host", 3, layers)
+        check(run["streams"][1] == reference["streams"][name][1],
+              f"the {name} hit restored through the rank path gave another stream than "
+              f"engine_llama3_8b_tiers's")
+        if name == "host":
+            check(sorted(run["payloads"]) == sorted(reference["payloads"]),
+                  "the rank path spilled other chain pages than the rank-less engine")
+            diffs = {k.hex()[:12]: payload_diff(p, reference["payloads"][k])
+                     for k, p in run["payloads"].items()}
+            check(not any(diffs.values()),
+                  f"lossless chain payloads differ from the rank-less engine's: {diffs}")
+            collision = run["collision"]
+            check(collision["collisions"] == 1 and collision["hist"] == 0
+                  and run["streams"][2] == run["streams"][0],
+                  f"the planted collision was not a miss giving the cold stream: {collision}")
+            out["payloads_equal_rankless"] = len(diffs)
+            out["faults"] = run["after"]
+        int8 = name == "int8_spill"
+        out[name] = {"streams_equal_rankless": True, "ttft_ms": run["ttft_ms"],
+                     "hist": run["hist"], "hit_tokens": run["hit_tokens"],
+                     "hit_chunk_launches": run["hit_chunk_launches"],
+                     "rates": tier_rates(run, payload_bytes(model, int8)),
+                     "rankless_rates": reference["rates"][name],
+                     "restored_max_abs_diff": run["restored_max_abs_diff"],
+                     "peak_memory_bytes": run["peak_memory_bytes"]}
+    del params
+    out["seconds"] = time.monotonic() - t0
+    return counts, out
+
+
+def rank1_pool_phase(torch, dev, reference: dict, rank1_events: int,
+                     model: str = "llama3-8b") -> tuple[dict, dict]:
+    """``engine_llama3_8b_rank1_pool``: an ``EnginePool`` of two llama3-8b
+    replicas (``pool_config``: bf16, 256 pages, the lossless spill into one
+    shared host store) at ``mesh_shape="1x1"`` on the one card, roles
+    ``prefill,decode``: two multi-rank engines in this process, each on its
+    own one-rank NCCL group (``torch.distributed``'s default group never
+    initialized). The prompt with ``MIGRATE_SYSTEM`` (three full pages)
+    prefills on replica 0, its chain is exported through the rank path's
+    gather and restored into replica 1 through its upload: its first token
+    must be the cold run's and the rest the resident hit's of the pool
+    phase's ``standalone_reference``; ok, 3 pages spilled and 3 restored.
+    Each replica's decode graphs hold collectives, and one fed decode
+    dispatch of each runs the device events ``engine_llama3_8b_rank1``
+    measured for the 1x1 rank path (``rank1_events``; the rank-less
+    engine's DECODE_REPLAY_EVENTS beside it)."""
+    import torch.distributed as dist
+
+    from mcp_context_forge_tpu_torch.tpu_local.engine import GenRequest
+    from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
+    from mcp_context_forge_tpu_torch.tpu_local.pool import EnginePool
+    from mcp_context_forge_tpu_torch.tpu_local.tokenizer import load_tokenizer, render_chat
+
+    t0 = time.monotonic()
+    cfg = MODEL_CONFIGS[model]
+    tok = load_tokenizer(vocab_size=cfg.vocab_size)
+    ids = tok.encode(render_chat(chat(model, "Which servers answered today?",
+                                      MIGRATE_SYSTEM)["messages"]))
+    rec = PoolRecorder()
+    wrappers = kernel_wrappers()
+    pool = EnginePool(pool_config(model, "bfloat16", mesh_shape="1x1"), replicas=2,
+                      roles="prefill,decode", health_interval_s=0.1,
+                      heartbeat_timeout_s=POOL_HEARTBEAT_S, engine_factory=rec.factory)
+    engines = [r.engine for r in pool.replicas]
+    check(all(e._ranks is not None and e.world == 1 for e in engines),
+          "a replica is not on the rank path")
+    check(engines[0]._mesh.get_group("world") is not engines[1]._mesh.get_group("world"),
+          "the two replicas share a process group")
+    check(not dist.is_initialized(), "a replica initialized the default process group")
+    for engine in engines:
+        check(all(bufs.collectives > 0 for bufs in engine._graphs.buffers.values()),
+              f"a decode graph of replica {engine.config.replica_id} holds no collective")
+    out: dict = {"model": model, "layers": cfg.n_layers, "replicas": 2, "mesh_shape": "1x1",
+                 "pool_pages": POOL_PAGES, "build_s": [b["seconds"] for b in rec.builds],
+                 "collectives_per_replay": [sorted({b.collectives for b in
+                                                    e._graphs.buffers.values()})
+                                            for e in engines]}
+
+    async def run():
+        await pool.start()
+        try:
+            for fn in wrappers.values():
+                fn.launches = 0
+            request = GenRequest(request_id="migrate-rank1", prompt_ids=ids,
+                                 max_tokens=POOL_TOKENS)
+            sent = time.monotonic()
+            await pool.submit(request)
+            stamps = await timed_stream(request)
+            launches = {k: fn.launches for k, fn in wrappers.items()}
+            await pool.health.stop()
+            for engine in engines:      # the groups stay for the replays below
+                await engine.stop(keep_group=True)
+            events = [replay_device_events(torch, e, [300] * e.config.max_batch)
+                      for e in engines]
+            return request, [t for t, _ in stamps], (stamps[0][1] - sent) * 1e3, \
+                launches, events
+        finally:
+            await pool.stop()
+
+    request, tokens, ttft, launches, events = asyncio.run(run())
+    check(pool.migrations == {"ok": 1, "degraded": 0}
+          and pool.migration_pages == {"spilled": 3, "restored": 3, "degraded": 0},
+          f"the migration: {pool.migrations}, {pool.migration_pages}")
+    pages = pool.migration_pages
+    check(pages["spilled"] == pages["restored"] + pages["degraded"],
+          f"migration pages not conserved: {pages}")
+    check(tokens[0] == reference["cold"][0] and tokens[1:] == reference["hit"],
+          "the migrated stream differs from the standalone engine's")
+    check(rec.replica_of("migrate-rank1~r1") == engines[1].config.replica_id,
+          "the continuation did not reach the decode replica")
+    for e, ev in zip(engines, events):
+        check(ev["device_events"] == rank1_events,
+              f"one fed decode dispatch of replica {e.config.replica_id} ran "
+              f"{ev['device_events']} device events, not the 1x1 rank path's {rank1_events}")
+    for kernel in ATTENTION:
+        check(launches[kernel] > 0, f"{kernel} never launched on the rank-path pool")
+    out.update(stream_equal_standalone=True, migrations=dict(pool.migrations),
+               migration_pages=dict(pages), migration_bytes=pool.migration_bytes,
+               ttft_ms=ttft, replay_device_events=events,
+               rank1_replay_device_events=rank1_events,
+               engine_replay_device_events=DECODE_REPLAY_EVENTS,
+               default_group_initialized=dist.is_initialized(),
+               seconds=time.monotonic() - t0)
+    check(not out["default_group_initialized"], "the default process group was initialized")
+    del pool, engines, rec
+    free_device(torch)
+    return launches, out
+
+
 def sp1_phase(torch, dev, reference: list) -> tuple[dict, dict]:
     """``engine_llama3_tiny_sp1``: llama3-tiny (f32) at ``mesh_shape="1x1"``
     with ``sp_impl`` ring, then Ulysses, and ``sp_threshold`` 128: the
@@ -6577,8 +6873,6 @@ def sp1_phase(torch, dev, reference: list) -> tuple[dict, dict]:
     sequence-parallel over the one-rank NCCL group (the JAX package's
     ``test_sp_serving`` case), the rest through the kernels. Each stream
     must equal the f32 engine phase's (dense) one."""
-    from mcp_context_forge_tpu_torch.tpu_local.ranks import release_idle_group
-
     t0 = time.monotonic()
     out, counts = {}, dict.fromkeys(REPLACES, 0)
     for impl in ("ring", "ulysses"):
@@ -6586,7 +6880,6 @@ def sp1_phase(torch, dev, reference: list) -> tuple[dict, dict]:
             torch, dev, "llama3-tiny", ATTENTION_MMA[1:], chat_requests("llama3-tiny"), hit=1,
             absent=TC_ATTENTION, dtype="float32", mesh_shape="1x1", sp_impl=impl,
             sp_threshold=128)
-        release_idle_group()
         free_device(torch)
         check(stats["sequence_parallel_prefills"] > 0, f"no {impl} prefill ran")
         check(stats["generated"] == reference,

@@ -49,7 +49,8 @@ per key as the graph's launches, and every replay adds them once.
 On a multi-rank engine (``ranks.py``) the bodies hold the forward's
 collectives and the sampled tokens' broadcast (NCCL on the card), captured
 on every rank for the same keys; each graph keeps how many it holds
-(``collectives``, from ``parallel.collectives.SERVING_CALLS``). A follower
+(``collectives``, counted in ``ops.capturing()`` as its launches are, so
+that two engines' graphs coexist in one process). A follower
 replays without reading its outputs back, so ``stage`` first waits on the
 event of the slot it reuses: its staged inputs may still be in flight.
 
@@ -71,8 +72,7 @@ import numpy as np
 import torch
 
 from .compile_events import record_event
-from .ops import capturing, kernel_wrappers
-from .parallel.collectives import SERVING_CALLS
+from .ops import COLLECTIVES, capturing, kernel_wrappers
 from .sampling import SamplingParams
 
 # rows of the int32 input pack
@@ -247,15 +247,14 @@ class DecodeGraphs:
                 # sibling one workspace allocation at its next eager GEMM
                 # (its graphs keep the workspaces their captures took)
                 torch._C._cuda_clearCublasWorkspaces()
-                collectives = SERVING_CALLS["count"]
                 with capturing() as counts, torch.cuda.graph(
                         graph, pool=pool, stream=stream,
                         capture_error_mode="thread_local"):
                     self.body(bufs)
                 torch._C._cuda_clearCublasWorkspaces()
                 upload_graph(graph, stream)
+                bufs.collectives = counts.pop(COLLECTIVES, 0)
                 bufs.launches = counts
-                bufs.collectives = SERVING_CALLS["count"] - collectives
                 bufs.graph = graph
                 self.captures += 1
                 record_event("graph_capture", time.monotonic() - t0)

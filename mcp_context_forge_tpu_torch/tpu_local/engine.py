@@ -91,9 +91,12 @@ stall the caller's event loop; tokens hop back with one
   the step, so every rank writes the KV of the same tokens. Prefill buckets
   above ``sp_threshold`` run their attention sequence-parallel
   (``sp_impl`` ring or Ulysses) over the ``model`` axis. The roofline
-  divides by the world's peak. The spill tiers (and so migration) and
-  ``request_chain_export`` are not carried over more than one rank and
-  raise.
+  divides by the world's peak. The spill tiers and a migration's
+  ``request_chain_export`` work over ranks: a page's spill and restore
+  are announced device calls (``_op_read_page``, ``_op_upload_page``)
+  whose shards cross on the data plane, so the store holds whole pages,
+  the same bytes at any mesh. The groups are the engine's own
+  (``ranks.py``): one process can hold several multi-rank engines.
 
 Prefill, chunk rounds and prefix hits run eagerly. The engine runs on
 ``config.device`` ("cuda" by default) and raises at construction when
@@ -112,16 +115,19 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import logging
+import math
 import queue
 import threading
 import time
 from collections import deque
+from contextlib import nullcontext
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..observability import trace_extra
 from ..observability.faults import fault_point
@@ -428,6 +434,43 @@ def _spill_scale(pages: torch.Tensor) -> torch.Tensor:
     return amax * torch.full_like(amax, 1.0 / 127.0)
 
 
+def _pack(parts: tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """A page's parts as one flat byte tensor (one transfer on the data
+    plane)."""
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in parts])
+
+
+def _nbytes(shape: tuple[int, ...], dtype: torch.dtype) -> int:
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def _unpack(flat: torch.Tensor, layout: list[tuple[tuple[int, ...], torch.dtype]]
+            ) -> list[torch.Tensor]:
+    """The inverse of ``_pack`` for parts of ``layout``'s shapes and dtypes
+    (views of ``flat``)."""
+    parts, at = [], 0
+    for shape, dtype in layout:
+        n = _nbytes(shape, dtype)
+        parts.append(flat[at:at + n].view(dtype).reshape(shape))
+        at += n
+    return parts
+
+
+def _join_heads(pieces: list[list[torch.Tensor]]) -> tuple[torch.Tensor, ...]:
+    """A page's parts from the shards of ``model`` ranks 0.. in order: each
+    rank holds a contiguous block of KV heads (the pages' dim 2, the
+    scales' dim 1)."""
+    return tuple(torch.cat([p[i] for p in pieces], dim=2 if i < 2 else 1)
+                 for i in range(4))
+
+
+def _rank_heads(parts: list[torch.Tensor], offset: int, n: int) -> tuple[torch.Tensor, ...]:
+    """The ``n`` KV heads from ``offset`` of a whole page's parts: what one
+    rank's pool holds of it."""
+    return tuple(t[:, :, offset:offset + n] if i < 2 else t[:, offset:offset + n]
+                 for i, t in enumerate(parts))
+
+
 class EngineInitTimeout(RuntimeError):
     """Device discovery exceeded the watchdog budget (a hung driver)."""
 
@@ -575,10 +618,6 @@ class TorchEngine:
                 raise ValueError(
                     f"sp_impl={config.sp_impl!r}: prefill buckets {bad} not"
                     f" divisible by mesh model axis {model}")
-        if self.world > 1 and (config.prefix_tiers or tier_store is not None):
-            raise NotImplementedError(
-                f"the spill tiers (prefix_tiers, a shared tier store) are not carried "
-                f"over a multi-rank engine yet (mesh {data}x{model})")
         if config.dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype {config.dtype!r}")
         self.dtype = _DTYPES[config.dtype]
@@ -622,11 +661,12 @@ class TorchEngine:
                              f"{config.tier_spill_quant!r}")
         # the tiered prefix cache: bind to a shared store and index when
         # given, else own a private store. A client with only an index
-        # still publishes resident pages (a router's affinity).
+        # still publishes resident pages (a router's affinity). Rank 0's
+        # alone: a follower runs the page I/O rank 0 announces
         self._owned_tier_store: TieredPageStore | None = None
         self._tier_client: TierClient | None = None
-        if config.prefix_cache and (config.prefix_tiers or prefix_index is not None
-                                    or tier_store is not None):
+        if _rank is None and config.prefix_cache and (
+                config.prefix_tiers or prefix_index is not None or tier_store is not None):
             store = tier_store
             if store is None and config.prefix_tiers:
                 store = TieredPageStore(
@@ -689,6 +729,11 @@ class TorchEngine:
             self._build_device_state(params)
             if self._ranks is not None:
                 self._ranks.ready()
+            if self._tier_client is not None and self._tier_client.store is not None:
+                # one spill and one restore of the trash page (zeros either
+                # way), so the first of each while serving is steady state;
+                # on the rank path once every rank is built, as announced calls
+                self._upload_page(0, self._read_page_payload(0))
         except BaseException:
             if self._ranks is not None:
                 self._ranks.abort()
@@ -727,6 +772,8 @@ class TorchEngine:
         # a multi-rank engine's digests of the tokens each rank wrote, in
         # rank order, once stop() ended the group (equal on every rank)
         self.rank_digests: list[int] | None = None
+        # stop(keep_group=True): the group outlives the dispatch thread
+        self._keep_group = False
 
     def _build_device_state(self, params: dict[str, Any] | None) -> None:
         """Params, the KV pool and the decode graphs of every (kind, K
@@ -746,10 +793,13 @@ class TorchEngine:
         self._kv_page_bytes = kv_page_bytes(self.model_config, config.page_size,
                                             self.dtype, config.kv_quant)
         kv_heads = self.model_config.n_kv_heads
-        if self._mesh is not None and kv_pages_spec(self._mesh, kv_heads):
-            # this rank's shard of the kv heads (and of their int8 scales,
-            # kv_scales_spec); else every rank holds them all
+        # the pool's KV heads: this rank's shard from _kv_head_offset on
+        # (and of their int8 scales, kv_scales_spec), or all of them
+        self._kv_sharded = self._mesh is not None and bool(kv_pages_spec(self._mesh, kv_heads))
+        self._kv_head_offset = 0
+        if self._kv_sharded:
             kv_heads //= self._ranks.shape[1]
+            self._kv_head_offset = self._mesh.get_local_rank("model") * kv_heads
         self.kv = init_kv_state(self.model_config, self.num_kv_pages,
                                 config.page_size, config.max_batch,
                                 max_pages_per_slot, dtype=self.dtype,
@@ -768,9 +818,6 @@ class TorchEngine:
         if self._tier_client is not None and self._tier_client.store is not None:
             self._tier_client.read_fn = self._read_page_payload
             self._tier_client.write_fn = self._upload_page
-            # one spill and one restore of the trash page (zeros either
-            # way), so the first of each while serving is steady state
-            self._upload_page(0, self._read_page_payload(0))
         self._sample_gen = torch.Generator(device=self.device)
         self._sample_gen.manual_seed(config.seed + 1)
         # decode machinery (dispatch thread only after start)
@@ -873,23 +920,61 @@ class TorchEngine:
         engine's ``_tier_read_fn``: an int8 pool's bytes and scales as they
         are (a bit-exact round trip); with ``tier_spill_quant=""`` an f32
         container (lossless for bf16 and f32 pools); else int8 quantized
-        on spill with one f32 scale per (layer, KV head) (``_spill_scale``)."""
-        kv = self.kv
+        on spill with one f32 scale per (layer, KV head) (``_spill_scale``).
+        On the rank path an announced device call (``_op_read_page``) that
+        gathers the whole page on rank 0: the payload is the one a
+        one-device engine spills, whatever the mesh."""
         with torch.inference_mode():
-            k, v = kv.k_pages[:, page], kv.v_pages[:, page]
-            if kv.quantized:
-                parts = (k, v, kv.k_scales[:, page].float(), kv.v_scales[:, page].float())
-            elif self.config.tier_spill_quant == "":
-                ones = torch.ones((k.shape[0], k.shape[2]), dtype=torch.float32,
-                                  device=self.device)
-                parts = (k.float(), v.float(), ones, ones)
-            else:
-                k_scales, v_scales = _spill_scale(k), _spill_scale(v)
-                parts = (kv_quantize(k, k_scales[:, None, :, None]),
-                         kv_quantize(v, v_scales[:, None, :, None]), k_scales, v_scales)
+            self._announce("read_page", page=page)
+            parts = self._op_read_page(page)
             k, v, k_scales, v_scales = self._to_host(parts)
         return SpilledPage(chunk=(), parent=b"", k=k, v=v, k_scales=k_scales,
                            v_scales=v_scales)
+
+    def _page_parts(self, page: int) -> tuple[torch.Tensor, ...]:
+        """(k, v, k_scales, v_scales) of one page of this rank's pool, as
+        the spill stores them: k/v [L, page, KV, hd] and scales [L, KV]
+        over the pool's heads. Every rule is per (layer, KV head), so a
+        shard's parts are exactly the matching heads of the whole page's."""
+        kv = self.kv
+        k, v = kv.k_pages[:, page], kv.v_pages[:, page]
+        if kv.quantized:
+            return k, v, kv.k_scales[:, page].float(), kv.v_scales[:, page].float()
+        if self.config.tier_spill_quant == "":
+            ones = torch.ones((k.shape[0], k.shape[2]), dtype=torch.float32,
+                              device=self.device)
+            return k.float(), v.float(), ones, ones
+        k_scales, v_scales = _spill_scale(k), _spill_scale(v)
+        return (kv_quantize(k, k_scales[:, None, :, None]),
+                kv_quantize(v, v_scales[:, None, :, None]), k_scales, v_scales)
+
+    def _page_layout(self, kv_heads: int) -> list[tuple[tuple[int, ...], torch.dtype]]:
+        """Shapes and dtypes of a page's parts over ``kv_heads`` heads."""
+        cfg = self.model_config
+        L, page, hd = cfg.n_layers, self.config.page_size, cfg.head_dim
+        quant = self.kv.quantized or self.config.tier_spill_quant == "int8"
+        pages = ((L, page, kv_heads, hd), torch.int8 if quant else torch.float32)
+        scales = ((L, kv_heads), torch.float32)
+        return [pages, pages, scales, scales]
+
+    def _op_read_page(self, page: int) -> tuple[torch.Tensor, ...] | None:
+        """One page's parts on rank 0 (None on a follower). A sharded pool's
+        shards are gathered from the ranks of data row 0 over its ``model``
+        group (the data replicas hold the same pages) and joined in head
+        order; a replicated pool is read on rank 0 alone."""
+        if self._mesh is None or (self._ranks.leader and not self._kv_sharded):
+            return self._page_parts(page)
+        if not self._kv_sharded or self._mesh.get_local_rank("data") != 0:
+            return None
+        group = self._mesh.get_group("model")
+        flat = _pack(self._page_parts(page))
+        out = torch.empty(group.size() * flat.numel(), dtype=torch.uint8,
+                          device=self.device)
+        dist.all_gather_into_tensor(out, flat, group=group)
+        if not self._ranks.leader:
+            return None
+        layout = self._page_layout(self.kv.k_pages.shape[3])
+        return _join_heads([_unpack(piece, layout) for piece in out.chunk(group.size())])
 
     def _upload_page(self, page: int, payload: SpilledPage) -> None:
         """Host -> device upload of a restored page into this engine's
@@ -897,22 +982,41 @@ class TorchEngine:
         the inverse of ``_read_page_payload``, dequantizing an int8 spill
         of a full-precision pool. Written IN PLACE: the decode graphs hold
         the pool's addresses. On the card the host waits for the upload
-        (the payload may leave host memory once this returns)."""
+        (the payload may leave host memory once this returns). On the rank
+        path an announced device call (``_op_upload_page``)."""
         cuda = self.device.type == "cuda"
-        kv = self.kv
-        k, v, k_scales, v_scales = (
-            torch.from_numpy(np.asarray(a)).to(self.device, non_blocking=cuda)
-            for a in (payload.k, payload.v, payload.k_scales, payload.v_scales))
+        parts = tuple(torch.from_numpy(np.asarray(a)).to(self.device, non_blocking=cuda)
+                      for a in (payload.k, payload.v, payload.k_scales, payload.v_scales))
         with torch.inference_mode():
-            if kv.quantized:
-                kv.k_scales[:, page].copy_(k_scales)
-                kv.v_scales[:, page].copy_(v_scales)
-            elif self.config.tier_spill_quant == "int8":
-                k = kv_dequantize(k, k_scales[:, None, :, None], kv.k_pages.dtype)
-                v = kv_dequantize(v, v_scales[:, None, :, None], kv.v_pages.dtype)
-            kv.k_pages[:, page].copy_(k)
-            kv.v_pages[:, page].copy_(v)
+            self._announce("upload_page", page=page)
+            self._op_upload_page(page, parts)
         self._wait_stream()
+
+    def _op_upload_page(self, page: int, parts: tuple[torch.Tensor, ...] | None = None
+                        ) -> None:
+        """Write one page's parts into this rank's pool: on the rank path
+        rank 0 broadcasts the whole page over the world group (every data
+        replica is written), and each rank keeps its own heads
+        (``_rank_heads``; all of them over a replicated pool)."""
+        if self._mesh is not None:
+            group = self._mesh.get_group("world")
+            layout = self._page_layout(self.model_config.n_kv_heads)
+            flat = (_pack(parts) if self._ranks.leader else
+                    torch.empty(sum(_nbytes(*part) for part in layout), dtype=torch.uint8,
+                                device=self.device))
+            dist.broadcast(flat, group=group, group_src=0)
+            parts = _rank_heads(_unpack(flat, layout), self._kv_head_offset,
+                                self.kv.k_pages.shape[3])
+        kv = self.kv
+        k, v, k_scales, v_scales = parts
+        if kv.quantized:
+            kv.k_scales[:, page].copy_(k_scales)
+            kv.v_scales[:, page].copy_(v_scales)
+        elif self.config.tier_spill_quant == "int8":
+            k = kv_dequantize(k, k_scales[:, None, :, None], kv.k_pages.dtype)
+            v = kv_dequantize(v, v_scales[:, None, :, None], kv.v_pages.dtype)
+        kv.k_pages[:, page].copy_(k)
+        kv.v_pages[:, page].copy_(v)
 
     # ------------------------------------------------------------- lifecycle
 
@@ -931,9 +1035,15 @@ class TorchEngine:
                                         daemon=True)
         self._thread.start()
 
-    async def stop(self) -> None:
+    async def stop(self, *, keep_group: bool = False) -> None:
+        """Stop the dispatch thread; a multi-rank engine's followers end
+        with it, unless ``keep_group``: then the group stays for calls made
+        after the stop (a pool's spill on drain, ``spill_prefix_pages``)
+        until ``close_ranks``."""
+        self._keep_group = keep_group
         if not self._started:
-            self._close_ranks()
+            if not keep_group:
+                self.close_ranks()
             return
         self._started = False
         self._stop_event.set()
@@ -947,17 +1057,25 @@ class TorchEngine:
         self._thread = None
         self._close_owned_tiers()
 
-    def _close_ranks(self) -> None:
-        """End a multi-rank engine's followers (rank 0; once): each rank's
-        digest of the tokens it wrote lands in ``rank_digests``, and digests
-        that differ (ranks that diverged) are logged as an error. Over more
-        than one rank the decode graphs go first (``DecodeGraphs.release``)."""
+    def close_ranks(self) -> None:
+        """End a multi-rank engine's followers and groups (rank 0; once):
+        each rank's digest of the tokens it wrote lands in ``rank_digests``,
+        and digests that differ (ranks that diverged) are logged as an
+        error. The decode graphs go first (``DecodeGraphs.release``): they
+        hold the groups' communicators. While a wedged dispatch thread still
+        runs, the group is left to it: it closes it when it exits."""
+        thread = self._thread
+        if (thread is not None and thread.is_alive()
+                and thread is not threading.current_thread()):
+            self._keep_group = False
+            return
         if self._ranks is not None and self._ranks.leader:
             try:
-                digest = self._digest_value()
-                if self.world > 1:
+                with (torch.cuda.device(self.device) if self.device.type == "cuda"
+                      else nullcontext()):
+                    digest = self._digest_value()
                     self._graphs.release()
-                digests = self._ranks.close(digest)
+                    digests = self._ranks.close(digest)
             except Exception:
                 logger.exception("torch engine: closing the rank group failed")
                 digests = None
@@ -972,11 +1090,13 @@ class TorchEngine:
         spill store, so an engine rebuilt on the same store restores the
         corpus on a miss instead of losing it with the pool. The dispatch
         thread must be quiesced (``stop()`` returned): this reads device
-        pages from the calling thread."""
+        pages from the calling thread. A multi-rank engine reads them over
+        its group, so it must have stopped with ``keep_group=True``."""
         client = self._tier_client
         if client is None or not client.active:
             return 0
-        with torch.inference_mode():
+        with torch.inference_mode(), (torch.cuda.device(self.device)
+                                      if self.device.type == "cuda" else nullcontext()):
             spilled = self.allocator.spill_resident_prefix()
         if spilled:
             logger.info("torch engine: spilled %d resident prefix page(s) to the "
@@ -1204,7 +1324,8 @@ class TorchEngine:
                     self._dead = crashed
                     self._fail_outstanding("cancelled" if self._stop_event.is_set()
                                            else "error")
-                    self._close_ranks()
+                    if crashed or not self._keep_group:
+                        self.close_ranks()
             finally:
                 restore_thread(token)
 
@@ -1434,12 +1555,9 @@ class TorchEngine:
         barrier; the pages stay resident. Staged like ``request_knobs``,
         since only the dispatch thread touches device state. Returns a
         future of the number of pages now in the store, which fails if the
-        engine dies first. Thread-safe. A multi-rank engine, which has no
-        spill tiers, raises."""
+        engine dies first. Thread-safe. On a multi-rank engine each page's
+        read is the announced ``_op_read_page``: the store gets whole pages."""
         self._check_alive()
-        if self.world > 1:
-            raise NotImplementedError("request_chain_export (a migration's chain "
-                                      "export) is not carried over a multi-rank engine")
         fut: Future = Future()
         with self._export_lock:
             self._pending_exports.append((tuple(prompt_ids), fut))
@@ -1794,7 +1912,7 @@ class TorchEngine:
         are then broadcast, so that every rank writes the same ones."""
         out = sample_tokens(logits, sampling, self._sample_gen, any_sampled)
         if self._mesh is not None:
-            broadcast_(out, src=0)
+            broadcast_(out, self._mesh.get_group("world"))
         return out
 
     def _note_written(self, tokens: torch.Tensor, positions: torch.Tensor,

@@ -116,7 +116,11 @@ def pin_host(arr: np.ndarray, device: torch.device | str) -> np.ndarray:
     that already is such a view (a spill read straight into pinned
     memory) is returned as it is. If the memory cannot be pinned this
     raises: a CUDA engine's tiers never run on pageable memory
-    unnoticed. A CPU engine's array is returned unchanged."""
+    unnoticed. A CPU engine's array is returned unchanged. Only the
+    device's type matters: PyTorch pins through ``cudaHostAlloc``, whose
+    memory every card of the process maps (portable under unified
+    addressing), so a store pinned for one card stages the payloads of
+    an engine on another (a pool's replica on the next cards)."""
     if torch.device(device).type != "cuda":
         return arr
     base = arr.base
@@ -883,7 +887,10 @@ class TierClient:
     the admitting replica's HBM) — plus the spill/restore latency
     windows the stats surfaces report. The allocator calls ``spill`` at
     eviction and ``restore`` at match time; both run on the engine's
-    dispatch thread (the only thread allowed to touch device state)."""
+    dispatch thread (the only thread allowed to touch device state). On
+    a multi-rank engine the callbacks are rank 0's announced device calls,
+    so an eviction inside ``_take_page`` reaches every rank in call order,
+    and ``read_fn`` returns the whole page whatever the mesh."""
 
     def __init__(self, replica_id: str,
                  store: TieredPageStore | None = None,

@@ -23,10 +23,27 @@ def count_launch(wrapper: Callable) -> None:
         counts[wrapper.__name__] = counts.get(wrapper.__name__, 0) + 1
 
 
+#: the key under which ``capturing()`` counts the serving collectives
+COLLECTIVES = "collectives"
+
+
+def count_collective(counter: dict[str, int]) -> None:
+    """Count one serving collective (``parallel.collectives``): in
+    ``counter["count"]``, or, inside ``capturing()``, under that block's
+    ``COLLECTIVES`` (so that a capture counts its own graph's collectives,
+    whatever another engine's thread calls meanwhile)."""
+    counts = getattr(_local, "counts", None)
+    if counts is None:
+        counter["count"] += 1
+    else:
+        counts[COLLECTIVES] = counts.get(COLLECTIVES, 0) + 1
+
+
 @contextlib.contextmanager
 def capturing() -> Iterator[dict[str, int]]:
     """Launches on this thread inside the block count in the dict it
-    yields (by wrapper name), not in the wrappers' ``launches``."""
+    yields (by wrapper name), not in the wrappers' ``launches``; so do the
+    serving collectives (under ``COLLECTIVES``)."""
     previous = getattr(_local, "counts", None)
     _local.counts = counts = {}
     try:

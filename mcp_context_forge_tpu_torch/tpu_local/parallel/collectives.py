@@ -23,14 +23,19 @@ gradients adds them up.
 Serving runs under ``torch.inference_mode`` and needs none of that: its
 helpers (``all_reduce_``, ``all_gather_last``, ``broadcast_``) are the
 plain collectives, in place where they can be, with no copy that a CUDA
-graph would have to hold. Each adds one to ``SERVING_CALLS``, which a
-capture reads to count the collectives inside a graph.
+graph would have to hold. Each adds one to ``SERVING_CALLS``, or inside
+``ops.capturing()`` to the capture's own count of the collectives its
+graph holds. They take the
+engine's own groups (``mesh.ServingMesh``) and name ranks within them,
+so no serving call reaches the default group.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from ..ops import count_collective
 
 
 class _CopyTo(torch.autograd.Function):
@@ -88,12 +93,12 @@ def gather_from(x: torch.Tensor, group) -> torch.Tensor:
 
 # ------------------------------------------------------------------ serving
 
-SERVING_CALLS = {"count": 0}   # serving collectives called (captures read it)
+SERVING_CALLS = {"count": 0}   # serving collectives called outside captures
 
 
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` over ``group``, in place; returns ``x``."""
-    SERVING_CALLS["count"] += 1
+    count_collective(SERVING_CALLS)
     dist.all_reduce(x, group=group)
     return x
 
@@ -108,7 +113,7 @@ def all_gather_last(x: torch.Tensor, group) -> torch.Tensor:
     """Concatenate every rank's ``x`` along the last dim, in rank order
     (vocab-split logits; projections cut mid-head). One all-gather into one
     tensor, then a permute on this rank."""
-    SERVING_CALLS["count"] += 1
+    count_collective(SERVING_CALLS)
     n = dist.get_world_size(group)
     width = x.shape[-1]
     flat = x.reshape(-1, width).contiguous()
@@ -118,8 +123,9 @@ def all_gather_last(x: torch.Tensor, group) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], n * width)
 
 
-def broadcast_(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
-    """``x`` of global rank ``src`` on every rank of ``group``, in place."""
-    SERVING_CALLS["count"] += 1
-    dist.broadcast(x, src=src, group=group)
+def broadcast_(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """``x`` of ``group``'s rank ``src`` on every rank of ``group``, in
+    place."""
+    count_collective(SERVING_CALLS)
+    dist.broadcast(x, group=group, group_src=src)
     return x

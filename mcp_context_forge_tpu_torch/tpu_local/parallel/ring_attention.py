@@ -74,14 +74,19 @@ def _merge(acc_a, max_a, sum_a, acc_b, max_b, sum_b):
 
 def _rotate(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
     """Send each tensor to the next rank of the group and receive the
-    previous rank's, in one batch."""
-    n, idx = dist.get_world_size(group), dist.get_rank(group)
-    nxt, prv = dist.get_global_rank(group, (idx + 1) % n), dist.get_global_rank(group, (idx - 1) % n)
-    received = [torch.empty_like(t) for t in tensors]
-    ops = [dist.P2POp(dist.isend, t.contiguous(), nxt, group) for t in tensors]
-    ops += [dist.P2POp(dist.irecv, r, prv, group) for r in received]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
+    previous rank's: one all-to-all per tensor whose only non-empty splits
+    are those two (ranks named within ``group``, so an engine's private
+    groups serve as a ``DeviceMesh``'s do)."""
+    n, idx = dist.get_world_size(group), group.rank()
+    nxt, prv = (idx + 1) % n, (idx - 1) % n
+    received = []
+    for t in tensors:
+        flat = t.contiguous().reshape(-1)
+        send, recv = [0] * n, [0] * n
+        send[nxt] = recv[prv] = flat.numel()
+        out = torch.empty_like(flat)
+        dist.all_to_all_single(out, flat, recv, send, group=group)
+        received.append(out.view_as(t))
     return received
 
 
@@ -91,7 +96,7 @@ def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Per-rank body, sequence split over ``group``. q/k/v: local blocks
     [B, S_local, H|KV, hd]; k_valid: [B, S_local] padding mask rotating
     with k/v."""
-    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    n, idx = dist.get_world_size(group), group.rank()
     S_local = q.shape[1]
     q_offset = idx * S_local
     if k_valid is None:

@@ -37,17 +37,13 @@ and liveness calls.
 
 Where the port differs from the reference:
 
-- ``partition_devices`` hands each replica its device subset (every
-  replica shares the whole list when there are fewer devices than
-  replicas, as on one card). An explicit ``mesh_shape`` sized for the
-  whole machine falls back to the automatic mesh per replica, with the
-  reference's warning. One process holds one multi-rank engine
-  (``ranks.py``), so only a pool of one replica serves on its whole
-  subset as a multi-rank engine (``EngineReplica.status()`` reports its
-  world as ``mesh_devices``); each replica of a larger pool serves on its
-  subset's first device, and a larger pool whose replicas would each take
-  the rank path (a ``mesh_shape`` that fits, an ``sp_impl``) refuses to
-  build;
+- a replica of several devices is a multi-rank engine (``ranks.py``):
+  its rank 0 lives in the pool's process beside the shared store, index,
+  router and migration code, and its followers in processes of their own.
+  Each engine builds process groups of its own, so the replicas' groups
+  never meet (``EngineReplica.status()`` reports the world as
+  ``mesh_devices``). The factory takes the subset as ``devices=`` when it
+  holds more than one device; with one, ``cfg.device`` names it;
 - replicas that share one card share its CUDA context: a sticky device
   error (an illegal address) poisons every replica of the process, so on
   one card failover covers host-side failures only (a dispatch-thread
@@ -218,9 +214,8 @@ class EnginePool:
         # an explicit mesh_shape is sized for the WHOLE machine; replicas
         # get a device subset, so the spec would fail every replica's mesh
         # (e.g. "1x8" on a 2-replica pool of 8 cards, where each replica
-        # holds 4). Fall back to the auto mesh rather than refusing to
-        # boot: one device per replica, since one process holds one
-        # multi-rank engine.
+        # holds 4). Fall back to the auto mesh (1 x subset) rather than
+        # refusing to boot.
         self._mesh_shape = config.mesh_shape
         per = len(self._device_sets[0])
         if self._mesh_shape and replicas > 1:
@@ -230,18 +225,9 @@ class EnginePool:
                 logger.warning(
                     "engine pool: mesh shape %r does not fit the %d "
                     "device(s) each of %d replicas receives — using the "
-                    "auto mesh per replica (one device each)",
-                    self._mesh_shape, per, replicas)
+                    "auto (1, %d) mesh per replica",
+                    self._mesh_shape, per, replicas, per)
                 self._mesh_shape = ""
-        if replicas > 1 and (self._mesh_shape or config.sp_impl != "none"):
-            raise NotImplementedError(
-                f"several multi-rank replicas in one pool are not carried yet "
-                f"(mesh_shape {self._mesh_shape!r}, sp_impl {config.sp_impl!r} on "
-                f"{replicas} replicas): one process holds one multi-rank engine")
-        if replicas > 1 and per > 1:
-            logger.warning("engine pool: each of %d replicas serves on the first of "
-                           "its %d devices (one process holds one multi-rank engine)",
-                           replicas, per)
         # the pool-wide prefix plane: ONE index maps chain hashes to
         # (replica | tier) locations, which the router scores as affinity,
         # and with prefix_tiers ONE spill store serves every replica, so a
@@ -310,11 +296,9 @@ class EnginePool:
         subset = self._device_sets[index]
         cfg = dataclasses.replace(self.config, replica_id=str(index),
                                   device=str(subset[0]), mesh_shape=self._mesh_shape)
-        # a pool of one replica serves on its whole subset (a multi-rank
-        # engine when it holds several devices); a larger pool's replica on
-        # its subset's first device, as cfg.device names it
-        extra = ({"devices": list(subset)}
-                 if len(self._device_sets) == 1 and len(subset) > 1 else {})
+        # every replica serves on its whole subset: a multi-rank engine
+        # when it holds several devices
+        extra = {"devices": list(subset)} if len(subset) > 1 else {}
         engine = self._factory(cfg, self.tracer, self.metrics, ledger=self.ledger,
                                tier_store=self.tier_store,
                                prefix_index=self.prefix_index, **extra)
@@ -857,7 +841,8 @@ class EnginePool:
                     await self._requeue_batch(stragglers)
         replica.state = "reloading"
         try:
-            await replica.engine.stop()
+            # a multi-rank engine keeps its group for the spill below
+            await replica.engine.stop(keep_group=True)
         except Exception:
             logger.exception("engine pool: replica %s stop during reload failed "
                              "(rebuilding anyway)", rid)
@@ -887,6 +872,7 @@ class EnginePool:
             except Exception:
                 logger.exception("engine pool: spill on drain failed for replica %s "
                                  "(rebuilding anyway)", rid)
+        replica.engine.close_ranks()   # its followers and groups, before the rebuild
         try:
             # construction loads weights and captures graphs: off the loop
             engine = await asyncio.to_thread(self._build_engine, replica.index)

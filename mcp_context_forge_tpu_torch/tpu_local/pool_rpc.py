@@ -21,6 +21,11 @@ of the weights and split the KV budget. This module keeps ONE:
   retries onto the re-elected owner. A whole-process death is that
   503-and-retry path; a replica's death inside the owner's pool is the
   pool's own requeue.
+- the owner's engine may be a multi-rank one (``mesh_shape``, or a pool
+  of multi-rank replicas): its followers are processes of the owner's,
+  which exit once it is gone (``ranks.py``'s orphan watch, within half a
+  second, well inside a lease's lapse), so a survivor builds its own on
+  the same cards.
 
 Each worker that serves these methods must also hold its ``worker:<id>``
 heartbeat lease (``coordination/heartbeat.py``): a caller waiting on a

@@ -16,15 +16,23 @@ device:
   rank 0 announces, in the order rank 0 runs it (``TorchEngine.follow``):
   a prefill batch, a chunk round or a prefix hit, a decode dispatch or
   verify (a graph replay on the card), a KV reset.
+- **The groups are the engine's own.** Rank 0 hosts a private
+  ``TCPStore`` at a free port, and every rank builds the engine's process
+  groups on it (``parallel/mesh.py`` ``ServingMesh``, ``private_group``)
+  without ``init_process_group``: the default group is never touched, so
+  one process can hold several multi-rank engines (a pool's replicas, each
+  with its rank 0 in the pool's process).
 - **The data plane** is NCCL on CUDA devices and gloo on the CPU: the
-  forward's all-reduces and all-gathers, the sequence-parallel attention
-  and the sampled tokens' broadcast. On the card they run inside the
-  captured decode graphs.
+  forward's all-reduces and all-gathers, the sequence-parallel attention,
+  the sampled tokens' broadcast and the spill tiers' page transfers. On
+  the card the decode step's collectives run inside the captured decode
+  graphs.
 - **The control plane** is a gloo group over every rank. Rank 0 broadcasts
   one small descriptor per device call (``announce``): the call, its host
-  inputs (a staged input pack, a prefill's rows, the sampling rows) and the
-  block-table rows the allocator changed since the last call, which a
-  follower writes into its own table before it runs the call.
+  inputs (a staged input pack, a prefill's rows, the sampling rows, a
+  spilled or restored page's index) and the block-table rows the allocator
+  changed since the last call, which a follower writes into its own table
+  before it runs the call.
 - **The same tokens on every rank.** Every rank samples its own gathered
   logits with a generator seeded as rank 0's, and rank 0's tokens are then
   broadcast inside the step, so that every rank writes the KV of rank 0's
@@ -34,18 +42,15 @@ device:
   gloo collective it is blocked in does (a dead peer's socket closes), so
   its streams end with the engine's ``error`` terminal. Its
   ``dispatch_alive`` turns false at once, and no restart runs over the
-  dead rank. On the card the monitor also aborts the NCCL communicators,
-  meant to release a collective already running (inside a graph replay,
-  which no watchdog tracks); that case has not been seen on the card.
-  ``close`` ends every follower: a stop message, every rank leaving the
-  groups together (the engine drops its graphs first), then a wait of up
-  to the group timeout, then a kill.
-
-One process holds at most one multi-rank engine: the groups are built on
-``torch.distributed``'s default group. A one-rank group (``"1x1"``: the
-rank path on one device) outlives its engine's ``stop`` (its captured
-graphs hold its communicator, and a stopped engine may still replay them),
-until the next group is built or ``release_idle_group`` is called.
+  dead rank. On the card the monitor also aborts the engine's NCCL
+  communicators, meant to release a collective already running (inside a
+  graph replay, which no watchdog tracks); that case has not been seen on
+  the card. ``close`` ends every follower: a stop message, every rank
+  leaving the groups together (the engine drops its graphs first, which
+  hold the communicators), then a wait of up to the group timeout, then a
+  kill. A group lives exactly as long as its engine's serving: a one-rank
+  group (``"1x1"``: the rank path on one device) closes as a larger one
+  does.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ import dataclasses
 import json
 import logging
 import os
+import pickle
 import socket
 import subprocess
 import sys
@@ -66,30 +72,21 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from .parallel.mesh import make_mesh, mesh_shape_from_string
+from .parallel.mesh import ServingMesh, mesh_shape_from_string, private_group
 from .parallel.sharding import mesh_sizes
 
 logger = logging.getLogger(__name__)
 
 ROOT = 0
 CONTROL_TIMEOUT = timedelta(days=7)
-# a closed one-rank group whose teardown waits for the next group
-_IDLE: dict[str, Any] = {"group": None}
+_CPU = torch.device("cpu")
 
 
-def _abort_nccl() -> None:
+def _abort_nccl(mesh: ServingMesh) -> None:
     try:
-        dist.distributed_c10d._abort_process_group()
+        mesh.abort()
     except Exception:
         logger.exception("multi-rank engine: aborting NCCL failed")
-
-
-def release_idle_group() -> None:
-    """Tear down the default group a stopped one-rank engine left."""
-    if _IDLE["group"] is not None:
-        _IDLE["group"] = None
-        if dist.is_initialized():
-            dist.destroy_process_group()
 
 
 def group_timeout(config) -> float:
@@ -121,8 +118,9 @@ class RankGroup:
         self.device = device
         self.timeout_s = timeout_s
         self.procs = procs or []
-        self.mesh = None
-        self.ctrl = None
+        self.store: dist.Store | None = None
+        self.mesh: ServingMesh | None = None
+        self.ctrl: dist.ProcessGroup | None = None
         self._failure: str | None = None
         self._poll_lock = threading.Lock()   # the monitor's and the dispatch thread's polls
         self._stopping = False
@@ -187,22 +185,19 @@ class RankGroup:
         return group
 
     def _join(self, port: int) -> None:
-        cuda = self.device.type == "cuda"
-        release_idle_group()
-        if dist.is_initialized():
-            raise RuntimeError("this process already holds a torch.distributed group: "
-                               "one multi-rank engine per process")
-        if cuda:
+        """Build the engine's groups on the store rank 0 hosts at ``port``:
+        the mesh's data plane and the control group. A failure raises (the
+        engine never falls back to fewer devices)."""
+        if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
-        dist.init_process_group(
-            "nccl" if cuda else "gloo", init_method=f"tcp://127.0.0.1:{port}",
-            world_size=self.world, rank=self.rank,
-            timeout=timedelta(seconds=self.timeout_s))
+        timeout = timedelta(seconds=self.timeout_s)
+        self.store = dist.TCPStore("127.0.0.1", port, self.world, self.leader,
+                                   timeout=timeout, wait_for_workers=False)
+        self.mesh = ServingMesh(self.shape, self.rank, self.store, self.device, timeout)
         # a follower waits on the control group for as long as rank 0 is
         # idle; a dead peer still fails it at once (its socket closes)
-        self.ctrl = dist.new_group(backend="gloo", timeout=CONTROL_TIMEOUT)
-        self.mesh = make_mesh(f"{self.shape[0]}x{self.shape[1]}",
-                              device_type="cuda" if cuda else "cpu")
+        self.ctrl = private_group(self.store, "ctrl", self.rank, self.world, _CPU,
+                                  CONTROL_TIMEOUT)
 
     def ready(self) -> None:
         """Every rank built: a barrier on the control group, so that rank
@@ -227,7 +222,7 @@ class RankGroup:
                 logger.error("multi-rank engine: %s", self._failure)
                 if self.device.type == "cuda":
                     # on a thread of its own: an abort may itself wait
-                    self._aborting = threading.Thread(target=_abort_nccl,
+                    self._aborting = threading.Thread(target=_abort_nccl, args=(self.mesh,),
                                                       name="rank-nccl-abort", daemon=True)
                     self._aborting.start()
 
@@ -257,19 +252,40 @@ class RankGroup:
     def announce(self, message: dict[str, Any]) -> None:
         """Rank 0: one device call's descriptor to every follower."""
         self.check()
-        dist.broadcast_object_list([message], src=ROOT, group=self.ctrl)
+        dist.broadcast_object_list([message], group=self.ctrl, group_src=ROOT)
 
     def receive(self) -> dict[str, Any]:
         """A follower: the next descriptor rank 0 announces."""
         box = [None]
-        dist.broadcast_object_list(box, src=ROOT, group=self.ctrl)
+        dist.broadcast_object_list(box, group=self.ctrl, group_src=ROOT)
         return box[0]
 
     def gather(self, value: Any) -> list[Any] | None:
         """Every rank's ``value`` on rank 0 (None on a follower)."""
         out = [None] * self.world if self.leader else None
-        dist.gather_object(value, out, dst=ROOT, group=self.ctrl)
+        dist.gather_object(value, out, group=self.ctrl, group_dst=ROOT)
         return out
+
+    def _send(self, buf: torch.Tensor, rank: int) -> None:
+        """Host bytes to one rank over the control group (the group's own
+        ``send``: the module-level one names global ranks)."""
+        self.ctrl.send([buf], rank, 0).wait()
+
+    def _recv(self, buf: torch.Tensor) -> None:
+        self.ctrl.recv([buf], ROOT, 0).wait()
+
+    def _send_object(self, value: Any, rank: int) -> None:
+        data = torch.frombuffer(bytearray(pickle.dumps(value)), dtype=torch.uint8)
+        self._send(torch.tensor([data.numel()], dtype=torch.int64), rank)
+        self._send(data, rank)
+
+    def _recv_object(self) -> Any:
+        size = torch.empty(1, dtype=torch.int64)
+        self._recv(size)
+        data = torch.empty(int(size.item()), dtype=torch.uint8)
+        self._recv(data)
+        # bytes rank 0 of this engine pickled (_send_object)
+        return pickle.loads(data.numpy().tobytes())
 
     def send_params(self, tree: Any, rank: int) -> None:
         """Rank 0: a follower's weights (its blocks of every leaf) over the
@@ -285,17 +301,16 @@ class RankGroup:
             leaves.append(node)
             return (tuple(node.shape), str(node.dtype).removeprefix("torch."))
 
-        dist.send_object_list([skeleton(tree)], dst=rank, group=self.ctrl)
+        self._send_object(skeleton(tree), rank)
         for t in leaves:
             if t.numel():
-                dist.send(t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8),
-                          dst=rank, group=self.ctrl)
+                self._send(t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8),
+                           rank)
 
     def receive_params(self) -> Any:
         """A follower: its weights from rank 0 (``send_params``), in host
         memory."""
-        box = [None]
-        dist.recv_object_list(box, src=ROOT, group=self.ctrl)
+        skeleton = self._recv_object()
 
         def fill(node: Any) -> Any:
             if isinstance(node, dict):
@@ -306,11 +321,11 @@ class RankGroup:
             t = torch.empty(shape, dtype=getattr(torch, dtype))
             if t.numel():
                 buf = torch.empty(t.numel() * t.element_size(), dtype=torch.uint8)
-                dist.recv(buf, src=ROOT, group=self.ctrl)
+                self._recv(buf)
                 t = buf.view(t.dtype).reshape(shape)
             return t
 
-        return fill(box[0])
+        return fill(skeleton)
 
     # ------------------------------------------------------------ closing
 
@@ -323,12 +338,12 @@ class RankGroup:
     def close(self, digest: int | None = None) -> list[Any] | None:
         """End the group: rank 0 announces the stop, every rank's ``digest``
         is gathered (returned in rank order on rank 0, unless a follower
-        died), and every rank leaves the groups together (NCCL's teardown
-        waits for all of them); rank 0 then waits up to the group timeout
-        for the followers to exit, and kills what is left. After a failure
-        the followers are killed at once, and on the card the broken NCCL
-        group is left as it is (its teardown could wait on the dead rank).
-        Safe to call twice."""
+        died), and every rank shuts its groups down together (NCCL's
+        teardown waits for all of them); rank 0 then waits up to the group
+        timeout for the followers to exit, and kills what is left. After a
+        failure the followers are killed at once, and on the card the broken
+        NCCL communicators are aborted, not shut down (a shutdown could wait
+        on the dead rank). Safe to call twice."""
         if self._closed:
             return None
         self._stopping = self._closed = True
@@ -341,13 +356,14 @@ class RankGroup:
             except Exception:
                 logger.exception("multi-rank engine: the stop message failed")
                 self._failure = "the stop message failed"
-        if self.world == 1 and self._failure is None:
-            _IDLE["group"] = self   # torn down by the next group
-        elif self._failure is None or self.device.type != "cuda":
+        if self._failure is None or self.device.type != "cuda":
             try:
-                dist.destroy_process_group()
+                self.mesh.shutdown()
+                self.ctrl.shutdown()
             except Exception:
-                logger.exception("multi-rank engine: tearing the group down failed")
+                logger.exception("multi-rank engine: tearing the groups down failed")
+        elif self._aborting is None:
+            _abort_nccl(self.mesh)
         if self._aborting is not None:
             self._aborting.join(self.timeout_s)   # the NCCL abort, before an exit
         deadline = time.monotonic() + (0.0 if self._failure else self.timeout_s)
@@ -359,6 +375,7 @@ class RankGroup:
                     logger.error("multi-rank engine: killing a follower that did not stop")
                 proc.kill()
                 proc.wait()
+        self.store = None   # rank 0's hosts the rendezvous: after every follower left
         return digests
 
 
@@ -393,7 +410,15 @@ def follower_main(argv: list[str] | None = None) -> int:
     threading.Thread(target=orphaned, name="rank-orphan-watch", daemon=True).start()
     engine = TorchEngine(config, devices=devices,
                          _rank=(rank, args["port"], tuple(args["shape"]), args["params"]))
-    engine.follow()
+    try:
+        engine.follow()
+    except Exception:
+        # rank 0 is gone (its control socket closed): leave at once. An
+        # orderly exit would tear down NCCL communicators whose peer died,
+        # which can wait forever
+        logger.exception("rank %d: the control group failed; exiting", rank)
+        logging.shutdown()
+        os._exit(1)
     return 0
 
 

@@ -265,10 +265,12 @@ def test_dead_follower_ends_streams(llama, caplog):
      ValueError, "sp_impl='ring': prefill buckets [100] not divisible by mesh model axis 3"),
     (dict(mesh_shape="1x8"), ValueError,
      "llama3-test: 4 query heads do not split over 8 model ranks"),
-    (dict(mesh_shape="1x2", prefix_tiers=True), NotImplementedError, "prefix_tiers"),
+    (dict(mesh_shape="1x2", prefix_tiers=True, prefix_cache=False), ValueError,
+     "prefix_tiers requires prefix_cache"),
 ])
 def test_construction_errors(overrides, error, message):
-    """Raised before any process starts."""
+    """Raised before any process starts. (The spill tiers themselves are
+    carried over ranks: ``test_torch_rank_tiers.py``.)"""
     with pytest.raises(error) as info:
         _port(**overrides)
     assert message in str(info.value)
@@ -307,23 +309,39 @@ def test_full_machine_mesh_shape_falls_back_per_replica(caplog):
 
 def test_pool_of_several_replicas_serves_one_device_each(caplog):
     """Two replicas over four devices (the JAX pool builds this): each
-    replica serves on the first device of its subset, with no group."""
-    caplog.set_level(logging.WARNING)
+    replica spreads over its subset as a 1x2 engine of its own groups, both
+    held by this process, with no default group."""
     pool = EnginePool(EngineConfig(**SHAPE, device="cpu"), replicas=2,
                       devices=[torch.device("cpu")] * 4)
-    assert "serves on the first of its 2 devices" in caplog.text
-    for replica in pool.replicas:
-        assert replica.engine.world == 1 and replica.engine._ranks is None
-        assert replica.status()["mesh_devices"] == 1
+    try:
+        assert [r.status()["mesh_devices"] for r in pool.replicas] == [2, 2]
+        assert all(len(r.engine._ranks.procs) == 1 for r in pool.replicas)
+        assert pool.replicas[0].engine._mesh is not pool.replicas[1].engine._mesh
+        assert not torch.distributed.is_initialized()
+    finally:
+        asyncio.run(pool.stop())
+    assert all(p.poll() is not None for r in pool.replicas for p in r.engine._ranks.procs)
 
 
 @pytest.mark.parametrize("overrides", [dict(mesh_shape="1x2"), dict(sp_impl="ring")])
 def test_pool_of_several_rank_path_replicas_refuses(overrides):
-    """Replicas that would each take the rank path refuse at the pool's
-    construction, naming the feature, before any engine is built."""
-    with pytest.raises(NotImplementedError, match="several multi-rank replicas in one pool"):
-        EnginePool(EngineConfig(**{**SHAPE, **overrides}, device="cpu"), replicas=2,
-                   devices=[torch.device("cpu")] * 4)
+    """Replicas that each take the rank path (a mesh shape that fits the
+    subset, an ``sp_impl``) no longer refuse: the pool builds them on
+    their subsets, and they serve the stream the one-device engine does."""
+    pool = EnginePool(EngineConfig(**{**SHAPE, **overrides}, device="cpu"), replicas=2,
+                      devices=[torch.device("cpu")] * 4)
+    assert [r.engine.world for r in pool.replicas] == [2, 2]
+    assert all(r.engine._ranks is not None for r in pool.replicas)
+
+    async def main():
+        await pool.start()
+        try:
+            return [t async for t in pool.generate(PROMPTS["cold"], max_tokens=TOKENS)]
+        finally:
+            await pool.stop()
+
+    assert len(asyncio.run(main())) == TOKENS
+    assert all(p.poll() is not None for r in pool.replicas for p in r.engine._ranks.procs)
 
 
 def test_roofline_divides_by_the_world():
