@@ -121,15 +121,15 @@ construction's graph captures are warmup-stage events equal to
 serves. ``engine_llama3_8b_ops`` (after ``engine``) serves the ``engine``
 phase's requests on llama3-8b with decode graphs for K = 1 and 4
 (``k_ladder``), phase attribution every 4th decode dispatch and the
-telemetry handles (the port's own tracer and signal bus, recording
-stand-ins of the metrics registry and the ledger); once every request has
+telemetry handles (the port's own tracer, signal bus, metrics registry and
+tenant ledger); once every request has
 streamed its first token, ``request_knobs(superstep=4)`` must be accepted
 and land at a drain barrier. Its greedy streams must equal the ``engine`` phase's, its phase
 rows be complete and sum to their totals within 5 %, the median sampled
 K = 1 device compute be within 25 % of one K = 1 replay's CUDA-event time,
 the roofline over the decode window lie in (0, 1.05] for both mfu and
-hbm_roofline_frac, and the span names and metric families equal what the
-CPU tests pin. ``engine_restart`` (llama3-tiny, f32, ``auto_restart``,
+hbm_roofline_frac, and the span names and metric families (read from the
+registry's ``collect()``) equal what the CPU tests pin. ``engine_restart`` (llama3-tiny, f32, ``auto_restart``,
 one slot) plants a one-shot fault in ``DecodeGraphs.launch``: the victim
 ends "error", the queued request completes, one restart, no capture, the
 pool reset in place, the same tokens after it, no page in use.
@@ -164,6 +164,26 @@ and ``spec_steps`` stops rising once it lands; the streams' agreement with
 writes, drift from a decode step's, so a near-tie may flip even after
 drafting stops). The same toggle on llama3-tiny in f32 must leave every
 stream equal to ``engine_llama3_tiny_f32``'s.
+
+The observability plane (``engine_llama3_8b_metrics``, on the serving
+plane's engine once its controller run has stopped: no second build). The
+pool is reset in place (no resident prefix) and K set back to 1; the
+``engine`` phase's six requests go through the provider as ``team:alpha``
+and ``team:beta``, each under its ``llm.request`` trace, with the port's
+``PrometheusRegistry``, ``TenantLedger`` and a tracer feeding a
+``TraceStore``. The streams and prefix hits must equal ``engine``'s and
+rows 1, 2 and 3 launch; the registry's TTFT and TPOT counts and
+``llm_requests_total`` are the requests served; the ledger's requests,
+prompt and generated tokens per tenant are the streams'; the TTFT bucket of
+the ``SloEvaluator``'s p50 and p95 holds the phase's own nearest-rank p50
+and p95; every exemplar on a latency bucket line of the OpenMetrics render
+is a trace the store kept and pinned; a ``ServingController`` over the
+evaluator publishes ``slo.burn_rate`` and lowers ``shed_at`` under a tight
+TTFT objective and holds it under a loose one. It prints the us per
+``observe`` and per engine observe site (medians of 10^5), the ms and bytes of
+both renders, and decode tokens/s and TTFT p50 beside ``engine``'s. Each
+pool phase hands its pool a registry, whose ``llm_pool_*`` families must
+agree with ``status()``.
 
 Checkpoints (two phases; the files live under ``build/checkpoints/`` for
 the phase only, after ``shutil.disk_usage`` is printed): this script draws
@@ -471,7 +491,8 @@ SERVED_FAMILIES = {
     "llm_tokens_per_dispatch_ewma": {("replica",)},
     "llm_ttft": {("model", "replica", "tenant")}, "llm_tpot": {("model", "replica", "tenant")},
     "llm_queue_wait": {("tenant",)}, "llm_tokens": {("kind", "model")},
-    "llm_requests": {("model", "status")}}
+    "llm_requests": {("model", "status")}, "llm_tenant_tokens": {("kind", "tenant")},
+    "llm_tenant_kv_page_seconds": {("tenant",)}}
 # the construction's graph captures, on the card only (warmup-stage events)
 CAPTURE_FAMILIES = {"llm_xla_compiles": {("replica", "stage")},
                     "llm_xla_compile_time": {("replica",)}}
@@ -479,68 +500,40 @@ PHASE_KEYS = {"host_dispatch_ms", "table_sync_ms", "device_compute_ms", "readbac
               "emit_ms", "total_ms"}
 
 
-class RecordingMetrics:
-    """Stands in for the metrics registry: each ``llm_*`` family records the
-    label names it is given and its values; tenants are not clamped."""
-
-    class Family:
-        def __init__(self):
-            self.label_names: set[tuple] = set()
-            self.values: list[float] = []
-
-        def labels(self, **labels):
-            self.label_names.add(tuple(sorted(labels)))
-            return self
-
-        def inc(self, value=1.0):
-            self.values.append(value)
-
-        def set(self, value):
-            self.values.append(value)
-
-        def observe(self, value, exemplar=None):
-            self.values.append(value)
-
-    class Clamp:
-        @staticmethod
-        def label(tenant):
-            return tenant or "unattributed"
-
-    def __init__(self):
-        self.families: dict[str, RecordingMetrics.Family] = {}
-        self.tenant_clamp = self.Clamp()
-
-    def __getattr__(self, name):
-        if not name.startswith("llm_"):
-            raise AttributeError(name)
-        return self.families.setdefault(name, self.Family())
-
-    def exemplar(self, metric, value, trace_id, labels=()):
-        return None
-
-    def label_names(self) -> dict:
-        return {name: family.label_names for name, family in self.families.items()}
-
-
-class RecordingLedger:
-    def __init__(self):
-        self.totals: dict[str, dict[str, float]] = {}
-
-    def add(self, tenant, **counts):
-        row = self.totals.setdefault(tenant, {})
-        for key, value in counts.items():
-            row[key] = row.get(key, 0) + value
-
-
 def telemetry_handles() -> dict:
-    """The port's own tracer (memory exporter) and signal bus, with the
-    recording stand-ins of the metrics registry and the tenant ledger
-    (whose modules the port has not taken over yet)."""
+    """The port's own telemetry handles, wired as ``build_llm_app`` wires
+    them: a tracer (memory exporter), the signal bus, the metrics registry
+    and the tenant ledger (sharing the registry's tenant clamp, and feeding
+    its ``llm_tenant_*`` families)."""
+    from mcp_context_forge_tpu_torch.observability.metering import TenantLedger
+    from mcp_context_forge_tpu_torch.observability.metrics import PrometheusRegistry
     from mcp_context_forge_tpu_torch.observability.signals import SignalBus
     from mcp_context_forge_tpu_torch.observability.tracing import Tracer
 
-    return dict(tracer=Tracer(exporter="memory"), metrics=RecordingMetrics(),
-                signals=SignalBus(), ledger=RecordingLedger())
+    metrics = PrometheusRegistry()
+    return dict(tracer=Tracer(exporter="memory"), metrics=metrics, signals=SignalBus(),
+                ledger=TenantLedger(clamp=metrics.tenant_clamp, metrics=metrics))
+
+
+def label_names(metrics) -> dict:
+    """Each ``llm_*`` family of a registry that has a labelled child, with
+    the label names of its samples (``le`` aside), read from
+    ``collect()``."""
+    out = {}
+    for attr, family in metrics.families().items():
+        if attr.startswith("llm_"):
+            names = {tuple(sorted(k for k in s.labels if k != "le"))
+                     for f in family.collect() for s in f.samples} - {()}
+            if names:
+                out[attr] = names
+    return out
+
+
+def sample_values(family, suffix: str) -> list[tuple[dict, float]]:
+    """(labels, value) of each of a family's samples named with ``suffix``
+    (``_count``, ``_total``, "" for a gauge)."""
+    return [(s.labels, s.value) for f in family.collect() for s in f.samples
+            if s.name == f.name + suffix]
 
 
 def main() -> int:
@@ -666,9 +659,11 @@ def main() -> int:
     emit({"phase": "engine_llama3_tiny_sp1", **stats})
     count(counts)
     free_device(torch)
-    counts, admission, controller = serving_plane_phase(torch, dev, engine_tokens, k1_tokens)
+    counts, admission, controller, metrics = serving_plane_phase(torch, dev, engine_reference,
+                                                                 k1_tokens)
     emit({"phase": "engine_llama3_8b_admission", **admission})
     emit({"phase": "engine_llama3_8b_controller", **controller})
+    emit({"phase": "engine_llama3_8b_metrics", **metrics})
     count(counts)
     free_device(torch)
     counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION[:2],
@@ -2928,7 +2923,7 @@ def ops_phase(torch, dev, engine_tokens: list, prompt_tokens: list) -> tuple[dic
                 "phase_samples": engine.stats.phase_samples,
                 "replay_k1_device_ms": time_replay(torch, engine, lens),
                 "replay_k4_device_ms": time_replay(torch, engine, lens, K=4),
-                "replay_seq_lens": lens, "ledger": handles["ledger"].totals,
+                "replay_seq_lens": lens, "ledger": handles["ledger"].totals(),
                 "completion_tokens": engine.stats.completion_tokens,
                 "prompt_tokens": engine.stats.prompt_tokens}
 
@@ -2972,11 +2967,11 @@ def ops_phase(torch, dev, engine_tokens: list, prompt_tokens: list) -> tuple[dic
           f"roofline out of (0, 1.05]: {roof}")
     spans = {span.name for span in handles["tracer"].finished}
     check(spans == SERVED_SPANS, f"span names {sorted(spans)}")
-    families = handles["metrics"].label_names()
+    families = label_names(handles["metrics"])
     check(families == {**SERVED_FAMILIES, **CAPTURE_FAMILIES},
           f"metric families {sorted(families)}")
-    ledger = handles["ledger"].totals
-    check(sum(row.get("generated_tokens", 0) for row in ledger.values())
+    ledger = ops["ledger"]
+    check(sum(row["generated_tokens"] for row in ledger.values())
           == ops["completion_tokens"], "the ledger's tokens are not the engine's")
 
     def by_k(key):
@@ -3349,9 +3344,261 @@ def spec_toggle_phase(torch, dev, model: str, kernels: tuple, reference: list,
                     "first_diff": first_diff}
 
 
-def serving_plane_phase(torch, dev, engine_tokens: list, tiny_tokens: list,
-                        model: str = "llama3-8b") -> tuple[dict, dict, dict]:
-    """``engine_llama3_8b_admission`` and ``engine_llama3_8b_controller``:
+# ------------------------------------------------- the observability plane
+
+METRICS_TENANTS = ("team:alpha", "team:beta")
+OBSERVES = 100_000   # observe calls timed, per kind
+RENDERS = 25
+SLO_TARGET_MS = 2500.0   # the default slo_ttft_p95_ms; the bucket check ignores it
+
+
+def bucket_of(bounds: list[float], value_s: float) -> float:
+    """The upper bound of the histogram bucket ``value_s`` lands in."""
+    return next(b for b in bounds if value_s <= b)
+
+
+def nearest_rank(values: list[float], q: float) -> float:
+    """The smallest value with at least a share q of the values at or below
+    it: the observation in whose bucket the histogram's q-quantile
+    estimate interpolates."""
+    ordered = sorted(values)
+    return ordered[max(0, math.ceil(q * len(ordered)) - 1)]
+
+
+def observe_cost(model: str, replica: str) -> dict:
+    """Microseconds per observe on the calling thread, medians of OBSERVES
+    calls each, on a registry of their own: a TTFT child's bare
+    ``observe``, and the engine's whole observe site (the clamped tenant
+    label, the child's lookup, the exemplar and the observe)."""
+    from mcp_context_forge_tpu_torch.observability.metrics import PrometheusRegistry
+
+    scratch = PrometheusRegistry()
+    child = scratch.llm_ttft.labels(model=model, replica=replica, tenant=METRICS_TENANTS[0])
+    trace = "ab" * 16
+
+    def site():
+        tenant = scratch.tenant_clamp.label(METRICS_TENANTS[0])
+        scratch.llm_ttft.labels(model=model, replica=replica, tenant=tenant).observe(
+            0.05, exemplar=scratch.exemplar("llm_ttft", 0.05, trace, (model, replica, tenant)))
+
+    out = {}
+    for name, call in (("observe_us", lambda: child.observe(0.05)), ("observe_site_us", site)):
+        times = []
+        for _ in range(OBSERVES):
+            t0 = time.perf_counter_ns()
+            call()
+            times.append(time.perf_counter_ns() - t0)
+        out[name] = statistics.median(times) / 1e3
+    return out
+
+
+def burn_moves(metrics) -> dict:
+    """A ``ServingController`` over an ``OverloadShedder`` (``shed_at``
+    0.95) and an ``SloEvaluator`` of ``metrics`` with one TTFT p95
+    objective, ticked once: a tight target (1 ms) must publish a burn above
+    ``burn_high`` and lower ``shed_at``; a loose one (25 s, inside the
+    buckets) a burn under ``burn_low``, and the bar holds."""
+    from mcp_context_forge_tpu_torch.observability.degradation import OverloadShedder
+    from mcp_context_forge_tpu_torch.observability.signals import GATEWAY_REPLICA, SignalBus
+    from mcp_context_forge_tpu_torch.observability.slo import SloEvaluator, SloObjective
+    from mcp_context_forge_tpu_torch.tpu_local.controller import ServingController
+
+    out = {}
+    for name, target_ms in (("tight", 1.0), ("loose", 25_000.0)):
+        bus, shedder = SignalBus(), OverloadShedder(shed_at=0.95)
+        evaluator = SloEvaluator(metrics, [SloObjective("ttft_p95", "llm_ttft", 0.95, target_ms)])
+        controller = ServingController(bus, lambda: [], shedder=shedder, slo_evaluator=evaluator,
+                                       tick_s=0.05, cooldown_s=0.0)
+        rows = controller.tick()
+        view = bus.get("slo.burn_rate", GATEWAY_REPLICA)
+        check(view is not None, f"the {name} controller published no slo.burn_rate")
+        out[name] = {"target_ms": target_ms, "burn_rate": view["last"],
+                     "shed_at": shedder.shed_at, "decisions": [move_of(r) for r in rows]}
+    tight, loose = out["tight"], out["loose"]
+    check(tight["burn_rate"] > 1.0 and tight["shed_at"] < 0.95
+          and [d[1:3] for d in tight["decisions"]] == [("shed_bar", "down")],
+          f"a burning TTFT objective did not lower shed_at: {tight}")
+    check(loose["burn_rate"] < 0.25 and loose["shed_at"] == 0.95 and not loose["decisions"],
+          f"a met TTFT objective moved shed_at: {loose}")
+    return out
+
+
+def metrics_phase(torch, engine, model: str, reference: dict) -> tuple[dict, dict]:
+    """``engine_llama3_8b_metrics``, on the serving plane's llama3-8b engine
+    once it has stopped (no second build): its pool reset in place (no
+    resident prefix, so the first request prefills cold again) and K back
+    at 1, the ``engine`` phase's six requests go through
+    ``TorchLocalProvider.chat`` as in ``engine_phase`` (the first alone
+    until its prefix registers), alternately as ``team:alpha`` and
+    ``team:beta``, each under its ``llm.request`` trace, with the port's
+    ``PrometheusRegistry``, ``TenantLedger`` and a tracer whose sink is a
+    ``TraceStore`` on the registry's exemplars. Checks: the streams and
+    prefix hits equal the ``engine`` phase's; flash, the paged chunk kernel
+    and decode launch (rows 1, 2, 3); the registry's TTFT and TPOT counts
+    and ``llm_requests_total`` are the requests served; the ledger's
+    requests, prompt and generated tokens per tenant are the streams';
+    the TTFT bucket of the ``SloEvaluator``'s p50 and p95 holds the
+    phase's own nearest-rank p50 and p95 (``first_token_ts - created``);
+    every exemplar on a latency bucket line of the OpenMetrics render is
+    a trace the store kept and the ledger pins; ``burn_moves``. Readings:
+    the us per observe (``observe_cost``: the lock and dict code the
+    dispatch thread runs, timed on this thread), the ms and bytes of each
+    render, decode tokens/s and TTFT p50 beside the ``engine`` phase's."""
+    from mcp_context_forge_tpu_torch.observability import (reset_current_tenant,
+                                                           set_current_tenant)
+    from mcp_context_forge_tpu_torch.observability.slo import SloEvaluator, SloObjective
+    from mcp_context_forge_tpu_torch.observability.trace_store import TraceStore
+    from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
+
+    handles = telemetry_handles()
+    metrics, ledger, tracer = handles["metrics"], handles["ledger"], handles["tracer"]
+    # the app's default targets (slo_*_p95_ms)
+    store = TraceStore(exemplars=metrics.exemplars,
+                       slo_targets={"http": 1.0, "ttft": 2.5, "tpot": 0.25, "queue_wait": 1.5})
+    tracer.add_sink(store.sink)
+    saved = {name: getattr(engine, name) for name in ("tracer", "metrics", "ledger", "submit")}
+    engine._reset_device_state()
+    engine.tracer, engine.metrics, engine.ledger = tracer, metrics, ledger
+    provider = TorchLocalProvider("tpu_local", engine, tracer=tracer, metrics=metrics)
+    requests = chat_requests(model)
+    wrappers = kernel_wrappers()
+    seen: list = []
+
+    async def recording_submit(request):
+        seen.append(request)
+        return await saved["submit"](request)
+
+    def chat_as(request: dict, tenant: str):
+        # the task copies the context, tenant and all, where it is made
+        token = set_current_tenant(tenant)
+        try:
+            return asyncio.ensure_future(provider.chat(request))
+        finally:
+            reset_current_tenant(token)
+
+    async def run():
+        engine.submit = recording_submit
+        await engine.start()
+        try:
+            check(engine.request_knobs(superstep=1) == {"superstep": True}, "K = 1 refused")
+            deadline = time.monotonic() + 10
+            while engine.knob_state()["superstep"] != 1:
+                check(time.monotonic() < deadline, "K did not return to 1")
+                await asyncio.sleep(0.001)
+            for fn in wrappers.values():
+                fn.launches = 0
+            stats0 = dict(engine.stats.__dict__)
+            first = chat_as(requests[0], METRICS_TENANTS[0])
+            while engine.allocator.cached_pages == 0:   # its prefix registered
+                check(not first.done(), "the first request ended before its prefix registered")
+                await asyncio.sleep(0.005)
+            rest = [chat_as(r, METRICS_TENANTS[i % 2]) for i, r in enumerate(requests[1:], 1)]
+            await asyncio.wait_for(asyncio.gather(first, *rest), 600)
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            delta = {k: v - stats0[k] for k, v in engine.stats.__dict__.items()}
+            return counts, delta
+        finally:
+            await engine.stop()
+            for name, handle in saved.items():
+                setattr(engine, name, handle)
+
+    counts, delta = asyncio.run(run())
+    cost = observe_cost(engine.config.model, engine.config.replica_id)
+    served = seen[:len(requests)]
+    check(len(seen) == len(requests), f"{len(seen)} requests reached the engine")
+    check([r.generated for r in served] == reference["generated"],
+          "the registry, ledger or trace store changed a greedy stream of the engine phase")
+    check([r.hist for r in served] == reference["prefix_hit_tokens"],
+          f"prefix hits {[r.hist for r in served]}, not the engine phase's")
+    for kernel in ATTENTION:
+        check(counts[kernel] > 0, f"{kernel} never launched on the metrics path")
+    for kernel in NOT_BF16 + INT8_WRITERS:
+        check(counts[kernel] == 0, f"{kernel} launched on the metrics path")
+
+    n = len(served)
+    decoded = sum(len(r.generated) > 1 for r in served)
+    counted = {
+        "ttft_count": sum(v for _, v in sample_values(metrics.llm_ttft, "_count")),
+        "tpot_count": sum(v for _, v in sample_values(metrics.llm_tpot, "_count")),
+        "requests_total_ok": sum(v for labels, v in sample_values(metrics.llm_requests, "_total")
+                                 if labels["status"] == "ok")}
+    check(counted == {"ttft_count": n, "tpot_count": decoded, "requests_total_ok": n},
+          f"registry counts {counted} for {n} requests ({decoded} decoded)")
+    columns = ("requests", "prompt_tokens", "generated_tokens")
+    want: dict = {}
+    for r in served:
+        row = want.setdefault(r.tenant, dict.fromkeys(columns, 0))
+        row["requests"] += 1
+        row["prompt_tokens"] += len(r.prompt_ids)
+        row["generated_tokens"] += len(r.generated)
+    got = {tenant: {c: row[c] for c in columns} for tenant, row in ledger.totals().items()}
+    check(got == want and set(got) == set(METRICS_TENANTS), f"ledger {got}, streams {want}")
+
+    ttft_s = [r.first_token_ts - r.created for r in served]
+    bounds = metrics.llm_ttft._upper_bounds
+    evaluator = SloEvaluator(metrics, [
+        SloObjective(f"ttft_p{round(q * 100)}", "llm_ttft", q, SLO_TARGET_MS)
+        for q in (0.5, 0.95)])
+    percentiles = {}
+    for obj in evaluator.evaluate(consumer="chip_smoke")["objectives"]:
+        estimate = obj["cumulative_p_ms"] / 1e3
+        measured = nearest_rank(ttft_s, obj["percentile"])
+        percentiles[obj["name"]] = {
+            "evaluator_ms": obj["cumulative_p_ms"], "measured_ms": measured * 1e3,
+            "bucket_le_s": bucket_of(bounds, estimate),
+            "measured_bucket_le_s": bucket_of(bounds, measured)}
+        check(bucket_of(bounds, estimate) == bucket_of(bounds, measured),
+              f"{obj['name']}: the evaluator's {obj['cumulative_p_ms']} ms and the measured "
+              f"{measured * 1e3:.3f} ms lie in other buckets")
+    per_tenant = {tenant: evaluator.evaluate(consumer="chip_smoke", tenant=tenant)
+                  ["objectives"][0]["total_samples"] for tenant in METRICS_TENANTS}
+    check(per_tenant == {t: want[t]["requests"] for t in METRICS_TENANTS},
+          f"tenant slices hold {per_tenant} TTFT samples")
+
+    text = metrics.render("application/openmetrics-text")[0].decode()
+    exemplars = set(re.findall(
+        r'^mcpforge_llm_(?:ttft|tpot|queue_wait)_seconds_bucket\{[^}]*\} \S+ '
+        r'# \{trace_id="([0-9a-f]{32})"\}', text, re.M))
+    traces = {r.trace_ctx[0] for r in served}
+    kept = {tid for tid in exemplars if store.get(tid) is not None
+            and metrics.exemplars.pinned(tid)}
+    check(exemplars and exemplars <= traces and kept == exemplars,
+          f"exemplar traces {sorted(exemplars)}, kept and pinned {sorted(kept)}")
+
+    render = {}
+    for name, accept in (("text", ""), ("openmetrics", "application/openmetrics-text")):
+        times = []
+        for _ in range(RENDERS):
+            t0 = time.perf_counter()
+            body, content_type = metrics.render(accept)
+            times.append((time.perf_counter() - t0) * 1e3)
+        render[name] = {"ms": statistics.median(times), "bytes": len(body),
+                        "content_type": content_type}
+    ttft_ms = [v * 1e3 for v in ttft_s]
+    decode_tokens = sum(len(r.generated) - 1 for r in served)
+    snapshot = store.snapshot(limit=1)
+    snapshot.pop("traces")
+    stats = {
+        "model": model, "layers": engine.model_config.n_layers, "dtype": engine.config.dtype,
+        "weights": "random (seed 0)", "requests": n, "tenants": list(METRICS_TENANTS),
+        "tokens_equal_engine": True, "prefix_hit_tokens": [r.hist for r in served],
+        "launches": counts, "registry_counts": counted, "ledger": got,
+        "slo_ttft": percentiles, "slo_tenant_ttft_samples": per_tenant,
+        "exemplar_traces": len(exemplars), "exemplar_traces_kept": len(kept),
+        "trace_store": snapshot, "burn": burn_moves(metrics),
+        "host_cost": {**cost, "observes_each": OBSERVES, "render": render},
+        "ttft_ms": ttft_ms, "ttft_p50_ms": statistics.median(ttft_ms),
+        "engine_ttft_p50_ms": reference["ttft_p50_ms"],
+        "decode_tokens": decode_tokens,
+        "decode_tokens_per_s": decode_tokens / (delta["decode_wall_ms_total"] / 1e3),
+        "engine_decode_tokens_per_s": reference["decode_tokens_per_s"]}
+    return counts, stats
+
+
+def serving_plane_phase(torch, dev, engine_reference: dict, tiny_tokens: list,
+                        model: str = "llama3-8b") -> tuple[dict, dict, dict, dict]:
+    """``engine_llama3_8b_admission``, ``engine_llama3_8b_controller`` and
+    ``engine_llama3_8b_metrics``:
     llama3-8b at full width and depth in bf16, decode graphs for K = 1 and
     4 (``k_ladder``), ``auto_restart``, the port's signal bus as
     ``signals`` and its tracer (memory exporter).
@@ -3374,7 +3621,9 @@ def serving_plane_phase(torch, dev, engine_tokens: list, tiny_tokens: list,
     past ``eval_window_s`` settles the row's effect; every ring row carries
     RING_SCHEMA's keys. Then, with the fault plane disabled, arming is
     refused and one decode replay runs DECODE_REPLAY_EVENTS device events;
-    then ``fault_run``. A second build with ``spec_decode`` (no
+    then ``fault_run``, then ``metrics_phase`` on the same engine
+    (``engine_reference``: the ``engine`` phase's stats). A second build
+    with ``spec_decode`` (no
     ``k_ladder``): once a fresh ``llm.spec_accept`` is on the bus, a
     controller whose ``spec_accept_off`` (``spec_k``) is above any
     acceptance turns drafting off and ``spec_steps`` stops rising from the
@@ -3388,6 +3637,7 @@ def serving_plane_phase(torch, dev, engine_tokens: list, tiny_tokens: list,
     from mcp_context_forge_tpu_torch.observability.tracing import Tracer
     from mcp_context_forge_tpu_torch.tpu_local.controller import RING_SCHEMA
 
+    engine_tokens = engine_reference["generated"]
     settings = gateway_settings()
     faults.configure_fault_plane(False)
     bus, tracer = SignalBus(), Tracer(exporter="memory")
@@ -3481,11 +3731,13 @@ def serving_plane_phase(torch, dev, engine_tokens: list, tiny_tokens: list,
               f"one decode replay ran {events['device_events']} device events, "
               f"not {DECODE_REPLAY_EVENTS}")
         fault_counts, fault = fault_run(torch, engine)
+        spans = sorted({span.name for span in tracer.finished})
+        metrics_counts, metrics = metrics_phase(torch, engine, model, engine_reference)
         return {"effect": real.decisions()[0]["effect"], "k_sequence_tail": ks[-12:],
                 "ring": [move_of(r) + (r["actuated"],) for r in ring],
                 "disabled_plane_refused": refusal, "replay": events,
-                "fault_counts": fault_counts, "fault": fault,
-                "spans": sorted({span.name for span in tracer.finished})}
+                "fault_counts": fault_counts, "fault": fault, "spans": spans,
+                "metrics_counts": metrics_counts, "metrics": metrics}
 
     counts, stats = engine_phase(
         torch, dev, model, ATTENTION, chat_requests(model), hit=1,
@@ -3508,6 +3760,7 @@ def serving_plane_phase(torch, dev, engine_tokens: list, tiny_tokens: list,
             total[kernel] += n
 
     add(after.pop("fault_counts"))
+    add(after.pop("metrics_counts"))
     spec_counts, spec = spec_toggle_phase(torch, dev, model, ATTENTION[:2], engine_tokens,
                                           absent=NOT_BF16)
     add(spec_counts)
@@ -3532,7 +3785,7 @@ def serving_plane_phase(torch, dev, engine_tokens: list, tiny_tokens: list,
         "spec": spec, "spec_llama3_tiny_f32": spec_f32,
         "ttft_p50_ms": stats["ttft_p50_ms"], "decode_tokens_per_s": stats["decode_tokens_per_s"],
         "engine_build_s": stats["engine_build_s"], "tokens_equal_engine": True}
-    return total, admission, controller
+    return total, admission, controller, after["metrics"]
 
 
 def encoder_phase(torch, dev) -> dict:
@@ -4167,6 +4420,35 @@ def standalone_reference(torch, model: str, dtype: str, ids: list[int]) -> dict:
     return {"cold": cold, "hit": hit, "hit_tokens": hit_hist}
 
 
+def pool_registry(metrics, status: dict) -> dict:
+    """The pool's ``llm_pool_*`` families as the registry renders them,
+    each held to ``status()``: routed, requeued off and reloads per replica,
+    up (1 while ready, else 0) per replica, migration hops per outcome and
+    pages per stage."""
+    def by(family, suffix: str, label: str) -> dict:
+        out: dict = {}
+        for labels, value in sample_values(family, suffix):
+            out[labels[label]] = out.get(labels[label], 0.0) + value
+        return out
+
+    replicas = status["replicas"]
+    migrations = status["migrations"]
+    got = {"routed": by(metrics.llm_pool_routed, "_total", "replica"),
+           "requeued_off": by(metrics.llm_pool_requeues, "_total", "replica"),
+           "reloads": by(metrics.llm_pool_reloads, "_total", "replica"),
+           "replica_up": by(metrics.llm_pool_replica_up, "", "replica"),
+           "migrations": by(metrics.llm_pool_migrations, "_total", "outcome"),
+           "migration_pages": by(metrics.llm_pool_migration_pages, "_total", "stage")}
+    want = {**{key: {r["id"]: r[key] for r in replicas if r[key]}
+               for key in ("routed", "requeued_off", "reloads")},
+            "replica_up": {r["id"]: float(r["state"] == "ready") for r in replicas},
+            "migrations": {k: migrations[k] for k in ("ok", "degraded") if migrations[k]},
+            "migration_pages": {k: v for k, v in migrations["pages"].items() if v}}
+    check(got == want, f"the registry's llm_pool_* {got} are not status()'s {want}")
+    check(got["routed"] and got["migrations"], f"no routing or migration counted: {got}")
+    return got
+
+
 def pool_phase(torch, dev, model: str, dtype: str, reference: dict, kernels: tuple,
                absent: tuple) -> tuple[dict, dict]:
     """``engine_llama3_8b_pool`` / ``engine_llama3_tiny_f32_pool``: an
@@ -4209,8 +4491,12 @@ def pool_phase(torch, dev, model: str, dtype: str, reference: dict, kernels: tup
        flash on the decode leg. Then ``pool.migrate`` armed ``corrupt``:
        the hop degrades in place and the stream is whole.
     6. Capacity loss: with ``requeue_max`` 0 a killed replica's request ends
-       "unavailable" and the provider raises ``LLMUnavailable``."""
+       "unavailable" and the provider raises ``LLMUnavailable``.
+
+    The pool and its engines carry a ``PrometheusRegistry``; at the end its
+    ``llm_pool_*`` families must agree with ``status()`` (``pool_registry``)."""
     from mcp_context_forge_tpu_torch.observability import faults
+    from mcp_context_forge_tpu_torch.observability.metrics import PrometheusRegistry
     from mcp_context_forge_tpu_torch.observability.tracing import Tracer
     from mcp_context_forge_tpu_torch.tpu_local.engine import GenRequest
     from mcp_context_forge_tpu_torch.tpu_local.pool import EnginePool
@@ -4241,7 +4527,8 @@ def pool_phase(torch, dev, model: str, dtype: str, reference: dict, kernels: tup
     rec = PoolRecorder()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    pool = EnginePool(pool_config(model, dtype), replicas=2, tracer=tracer,
+    metrics = PrometheusRegistry()
+    pool = EnginePool(pool_config(model, dtype), replicas=2, tracer=tracer, metrics=metrics,
                       health_interval_s=0.1, heartbeat_timeout_s=POOL_HEARTBEAT_S,
                       engine_factory=rec.factory)
     torch.cuda.synchronize()
@@ -4587,6 +4874,7 @@ def pool_phase(torch, dev, model: str, dtype: str, reference: dict, kernels: tup
             out["steps_s"] = time.monotonic() - t_start
             out["launches"] = {k: fn.launches for k, fn in wrappers.items()}
             out["status"] = pool.status()
+            out["registry"] = pool_registry(metrics, out["status"])
         finally:
             await pool.stop()
 
@@ -5287,6 +5575,8 @@ class PlaneWorker:
 
     def __init__(self, worker_id: str, hub_port: int, secret: str, model: str, dtype: str,
                  mesh_shape: str = ""):
+        from mcp_context_forge_tpu_torch.observability.metering import TenantLedger
+
         self.worker_id = worker_id
         self.hub_port = hub_port
         self.secret = secret
@@ -5296,7 +5586,7 @@ class PlaneWorker:
         self.builds: list[dict] = []
         self.served: list = []          # GenRequests, in the order submitted
         self.emitted: list[list[float]] = []   # wall times of each stream's chunks
-        self.ledger = RecordingLedger()
+        self.ledger = TenantLedger()
         self.engine = None
         self.min_free_bytes = 0
         self.exit = None
@@ -5502,7 +5792,7 @@ class PlaneWorker:
         return {"worker": self.worker_id, "owner": self.plane.ready_local,
                 "plane": self.plane.stats(), "rpc": self.rpc.stats(),
                 "builds": self.builds, "served": served, "emitted": self.emitted,
-                "ledger": self.ledger.totals,
+                "ledger": self.ledger.totals(),
                 "launches": {k: fn.launches for k, fn in kernel_wrappers().items()},
                 "serving_events": engine.compile_stats()["serving"]["count"] if engine else None,
                 "cached_pages": engine.allocator.cached_pages if engine else None,

@@ -3,3 +3,5 @@
 It runs on an NVIDIA Hopper card through hand-written CUDA kernels, and
 imports nothing of the JAX package (``tests/test_torch_imports.py``).
 """
+
+__version__ = "0.1.0"   # the JAX package's version: app_info renders the same

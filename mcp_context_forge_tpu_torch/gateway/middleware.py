@@ -3,7 +3,9 @@ package's ``gateway/middleware.py`` chain that the /v1 surface needs, in
 the reference's order (``MIDDLEWARES``, outermost first):
 
 - ``observability_middleware``: a correlation id and the ``http.request``
-  span, through the app's tracer (``app["tracer"]``);
+  span, through the app's tracer (``app["tracer"]``); with a registry in
+  ``app["metrics"]``, ``http_requests`` counted and ``http_duration``
+  observed under the clamped tenant label, with the trace's exemplar;
 - ``flight_recorder_middleware``: a ``PhaseClock`` per request, whose
   vector (the ``handler`` or ``error`` residue included) sums to the
   request's wall and lands as a ``gw.phases`` event on the span;
@@ -44,24 +46,39 @@ PUBLIC_PATHS = {"/health", "/ready", "/version", "/auth/login", "/robots.txt",
 @web.middleware
 async def observability_middleware(request: web.Request,
                                    handler: Handler) -> web.StreamResponse:
-    """Correlation id and the ``http.request`` span of each request."""
+    """Correlation id, the ``http.request`` span and, with a registry, the
+    HTTP metrics of each request."""
     settings = request.app["settings"]
+    metrics = request.app.get("metrics")
     inbound = (request.headers.get(settings.correlation_id_header, "")
                if settings.correlation_id_preserve else "")
     correlation_id = inbound or uuid.uuid4().hex[:16]
     request["correlation_id"] = correlation_id
+    started = time.monotonic()
     route = request.match_info.route.resource
+    # the route template (bounded); unmatched paths are client-controlled and
+    # collapse to one label, so a scan of 404s adds no series
+    path_label = route.canonical if route is not None else "unmatched"
     attrs = {"http.method": request.method, "http.path": request.path,
              "correlation_id": correlation_id}
     with request.app["tracer"].span(
             "http.request", attrs,
             traceparent=request.headers.get("traceparent")) as span:
-        # the route template (bounded); unmatched paths are client-controlled
-        span.set_attribute("http.route",
-                           route.canonical if route is not None else "unmatched")
+        span.set_attribute("http.route", path_label)
         response = await handler(request)
         span.set_attribute("http.status_code", response.status)
-        span.set_attribute("gw.tenant", request.get("tenant") or ANONYMOUS)
+        tenant = request.get("tenant") or ANONYMOUS
+        span.set_attribute("gw.tenant", tenant)
+        if metrics is not None:
+            elapsed = time.monotonic() - started
+            metrics.http_requests.labels(request.method, path_label,
+                                         str(response.status)).inc()
+            # the tenant label is clamped; the observe carries the trace as
+            # its exemplar (the http_p95 objective reads this histogram)
+            label = metrics.tenant_clamp.label(tenant)
+            metrics.http_duration.labels(request.method, path_label, label).observe(
+                elapsed, exemplar=metrics.exemplar("http_duration", elapsed, span.trace_id,
+                                                   (request.method, path_label, label)))
         response.headers[settings.correlation_id_response_header] = correlation_id
         return response
 

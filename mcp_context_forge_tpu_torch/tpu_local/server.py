@@ -14,7 +14,10 @@ request's span or None).
 ``TorchEngine`` configured by the gateway's settings, or from an
 ``EnginePool`` of such engines when ``tpu_local_replicas`` > 1, as the JAX
 gateway does (with the pool, ``setup_pool_routes`` adds its admin card and
-actions): the middlewares of ``gateway/middleware.py`` (the ``http.request``
+actions): the observability plane (the metrics registry, the tenant clamp
+and ledger, the distributed tenant limiter, the SLO evaluator and its fleet
+twin, exemplars and the trace store; ``setup_observability_routes``), the
+middlewares of ``gateway/middleware.py`` (the ``http.request``
 span, the phase clock, error mapping, authentication, so that
 ``request["auth"]`` is always set), the overload shedder, the signal
 bus, the fault plane and, with ``controller_enabled``, the serving
@@ -43,6 +46,7 @@ from aiohttp import web
 from ..gateway.flight_recorder import (backpressure_headers, queue_state,
                                        retry_after_s)
 from ..gateway.serialize import SSE_DONE, sse_event
+from ..observability.trace_store import stitch_waterfall
 from .provider import LLMError, LLMProviderRegistry, LLMUnavailable
 
 
@@ -291,20 +295,6 @@ def setup_llm_routes(app: web.Application, registry: LLMProviderRegistry,
     app.add_routes(routes)
 
 
-def _tenant_classes(settings) -> dict[str, str]:
-    """``slo_tenant_classes`` (a JSON object: tenant id -> SLO class)."""
-    raw = getattr(settings, "slo_tenant_classes", "") or ""
-    if not raw:
-        return {}
-    try:
-        parsed = json.loads(raw)
-        if not isinstance(parsed, dict):
-            raise ValueError("must be a JSON object")
-        return {str(k): str(v) for k, v in parsed.items()}
-    except (json.JSONDecodeError, TypeError, ValueError) as exc:
-        raise ValueError(f"invalid slo_tenant_classes setting: {exc}") from exc
-
-
 def _shed_class_order(settings) -> list[str]:
     """``gw_shed_class_order`` (a JSON array of class names, lowest first)."""
     if not settings.gw_shed_class_order:
@@ -437,15 +427,114 @@ def setup_fabric_routes(app: web.Application) -> None:
     app.add_routes(routes)
 
 
-def build_pool(settings, config, tracer=None, signals=None, engine_factory=None):
+def setup_observability_routes(app: web.Application) -> None:
+    """The observability plane's routes (the JAX gateway's), each answering
+    ``{"detail": ...}`` with 404 where its piece is not wired:
+
+    - ``GET /metrics/prometheus``: ``app["metrics"]``'s exposition, OpenMetrics
+      when ``Accept`` names ``application/openmetrics-text``; ``?scope=fleet``
+      the merged exposition of every worker (``app["fleet_metrics"]``);
+    - ``GET /admin/slo`` (``observability.read``): the SLO evaluator's report
+      under the consumer window ``?window=`` (default "default"), for
+      ``?tenant=`` the tenant's class on its label slice, ``?scope=fleet``
+      over the fleet's summed histograms;
+    - ``GET /admin/tenants/usage`` (``observability.read``): the live
+      ``TenantLedger`` (``?limit=``, 422 when not an integer) and the interval
+      its window closes at; no rollup rows (the port has no database yet);
+    - ``GET /admin/trace/{trace_id}`` (``observability.read``): the stitched
+      waterfall of a trace the trace store kept, with its retention reasons."""
+    routes = web.RouteTableDef()
+
+    def _not_found(message: str) -> web.Response:
+        return web.json_response({"detail": message}, status=404)
+
+    def _limit(request: web.Request) -> int | None:
+        try:
+            return max(1, min(int(request.query.get("limit", "64")), 1024))
+        except ValueError:
+            return None
+
+    @routes.get("/metrics/prometheus")
+    async def prometheus(request: web.Request) -> web.Response:
+        if request.query.get("scope") == "fleet":
+            fleet = request.app.get("fleet_metrics")
+            if fleet is None:
+                return _not_found("fleet metrics aggregation is not enabled "
+                                  "(set MCPFORGE_GW_FLEET_METRICS=true)")
+            body, content_type = fleet.render_fleet()
+        else:
+            body, content_type = request.app["metrics"].render(
+                accept=request.headers.get("accept", ""))
+        return web.Response(body=body, headers={"Content-Type": content_type})
+
+    @routes.get("/admin/slo")
+    async def slo_status(request: web.Request) -> web.Response:
+        request["auth"].require("observability.read")
+        fleet = request.query.get("scope") == "fleet"
+        evaluator = request.app.get("slo_evaluator_fleet" if fleet else "slo_evaluator")
+        if evaluator is None:
+            return _not_found("fleet SLO evaluation needs MCPFORGE_GW_FLEET_METRICS" if fleet
+                              else "SLO evaluation is not enabled")
+        consumer = request.query.get("window", "default")[:64] or "default"
+        tenant = request.query.get("tenant") or None
+        report = evaluator.evaluate(consumer=consumer, tenant=tenant[:128] if tenant else None)
+        if fleet:
+            report["scope"] = "fleet"
+        return web.json_response(report)
+
+    @routes.get("/admin/tenants/usage")
+    async def tenant_usage(request: web.Request) -> web.Response:
+        request["auth"].require("observability.read")
+        ledger = request.app.get("tenant_ledger")
+        if ledger is None:
+            return _not_found("tenant metering is disabled "
+                              "(set MCPFORGE_TENANT_METERING_ENABLED=true)")
+        limit = _limit(request)
+        if limit is None:
+            return web.json_response({"detail": "limit must be an integer"}, status=422)
+        payload = ledger.snapshot(limit=limit)
+        payload["rollups"] = []
+        roller = request.app.get("tenant_window_roller")
+        payload["rollup_interval_s"] = roller.interval_s if roller is not None else None
+        return web.json_response(payload)
+
+    @routes.get("/admin/trace/{trace_id}")
+    async def trace_waterfall(request: web.Request) -> web.Response:
+        request["auth"].require("observability.read")
+        store = request.app.get("trace_store")
+        if store is None:
+            return _not_found("request forensics trace store is disabled "
+                              "(set MCPFORGE_TRACE_STORE_ENABLED=true)")
+        trace_id = request.match_info["trace_id"]
+        entry = store.get(trace_id)
+        if entry is None:
+            return _not_found(
+                f"trace {trace_id} is not retained (tail sampling keeps errors, SLO "
+                f"breaches, slowest-N, exemplars, and a 1-in-{store.sample_every} sample)")
+        pool = request.app.get("tpu_engine_pool")
+        engine = request.app.get("tpu_engine")
+        if pool is not None:
+            engines = {r.id: r.engine for r in pool.replicas}
+        else:
+            engines = {engine.config.replica_id: engine} if engine is not None else {}
+        waterfall = stitch_waterfall(entry["spans"], engines=engines)
+        waterfall["retention"] = {k: entry[k] for k in ("reasons", "breaches", "route",
+                                                        "tenant", "status", "truncated")}
+        return web.json_response(waterfall)
+
+    app.add_routes(routes)
+
+
+def build_pool(settings, config, tracer=None, signals=None, engine_factory=None,
+               metrics=None, ledger=None):
     """An ``EnginePool`` of ``settings.tpu_local_replicas`` engines of
     ``config``, with the gateway's ``tpu_local_pool_*`` settings (the JAX
     gateway's wiring); ``engine_factory`` as ``EnginePool`` takes it."""
     from .pool import EnginePool
 
     return EnginePool(
-        config, replicas=settings.tpu_local_replicas, tracer=tracer, signals=signals,
-        engine_factory=engine_factory,
+        config, replicas=settings.tpu_local_replicas, tracer=tracer, metrics=metrics,
+        ledger=ledger, signals=signals, engine_factory=engine_factory,
         affinity_routing=getattr(settings, "tpu_local_pool_affinity_routing", True),
         health_interval_s=getattr(settings, "tpu_local_pool_health_interval_s", 0.5),
         heartbeat_timeout_s=getattr(settings, "tpu_local_pool_heartbeat_timeout_s", 10.0),
@@ -485,8 +574,11 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     one engine or a replica pool: ``pool``, or ``engine``, or, with
     ``tpu_local_replicas`` > 1, a pool (``build_pool``) and else one
     ``TorchEngine``, built from ``EngineConfig.from_settings(settings)``
-    (weights from ``tpu_local_checkpoint``). The app's tracer and signal
-    bus go to the engines (given ones keep handles they already have). With
+    (weights from ``tpu_local_checkpoint``). The app's tracer, signal bus,
+    metrics registry and tenant ledger go to the engines (given ones keep
+    handles they already have), the registry also to the provider, the
+    pool, the shedder, the degradation manager, the fault plane and the
+    controller, which evaluates SLO burn with ``app["slo_evaluator"]``. With
     a pool, ``app["tpu_engine_pool"]`` is set, ``app["tpu_engine"]`` is
     replica 0's engine at build time, the provider speaks to the pool, the
     controller steers every replica's current engine, and the pool's admin
@@ -506,14 +598,34 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     factory builds the engine or pool (or starts the given one), and the
     registry's provider is a ``SharedPoolProvider`` that forwards to the
     owner; ``app["tpu_engine"]`` and ``app["tpu_engine_pool"]`` stay None,
-    and the backpressure headers read the owner's queue through the plane."""
+    and the backpressure headers read the owner's queue through the plane.
+
+    Observability (the JAX gateway's settings and defaults, duck-typed):
+    ``app["metrics"]`` (a ``PrometheusRegistry`` whose tenant labels clamp
+    at ``tenant_label_clamp``, exemplars per ``metrics_exemplars``),
+    ``app["tenant_ledger"]`` (``tenant_metering_enabled``) and
+    ``app["tenant_window_roller"]``, which closes its quota window every
+    ``tenant_usage_rollup_interval_s``,
+    ``app["tenant_limiter"]`` (``gw_distributed_limiter`` with a
+    ``tenant_quota_tokens_per_window``, over the bus backend's shared
+    counter), ``app["slo_evaluator"]`` (always), ``app["fleet_metrics"]``
+    and ``app["slo_evaluator_fleet"]`` (``gw_fleet_metrics``) and
+    ``app["trace_store"]`` (``trace_store_enabled``, a tracer sink)."""
     from ..coordination.heartbeat import WorkerHeartbeat
+    from ..coordination.ratelimit import DistributedTenantLimiter, make_rate_counter
     from ..coordination.rpc import BusRpc
     from ..gateway.middleware import MIDDLEWARES
     from ..observability import phases
     from ..observability.degradation import OverloadShedder, configure_degradation
     from ..observability.faults import configure_fault_plane
+    from ..observability.fleet import FleetMetrics, FleetMetricsView
+    from ..observability.metering import TenantLedger, TenantWindowRoller
+    from ..observability.metrics import PrometheusRegistry
     from ..observability.signals import SignalBus
+    from ..observability.slo import (SloEvaluator, default_objectives, parse_slo_classes,
+                                     parse_tenant_classes)
+    from ..observability.tenant import TenantClamp
+    from ..observability.trace_store import ExemplarLedger, TraceStore
     from ..observability.tracing import Tracer, current_span
     from ..utils import new_id
     from .controller import ServingController
@@ -522,14 +634,47 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     from .pool_rpc import SharedEnginePlane, SharedPoolProvider
     from .tpu_provider import TorchLocalProvider
 
+    # one tenant clamp for the registry and the ledger: bounded tenant label
+    # cardinality, the same admission on both sides
+    tenant_clamp = TenantClamp(getattr(settings, "tenant_label_clamp", 8))
+    metrics = PrometheusRegistry(
+        tenant_clamp=tenant_clamp,
+        exemplars=ExemplarLedger(enabled=getattr(settings, "metrics_exemplars", True)))
     # the process's fault plane stays a no-op unless fault_injection_enabled
     # is set (then faults.get_fault_plane().arm(...) arms a rule)
-    configure_fault_plane(settings.fault_injection_enabled, rules_json=settings.fault_rules)
+    configure_fault_plane(settings.fault_injection_enabled, metrics=metrics,
+                          rules_json=settings.fault_rules)
     degradation = configure_degradation(
-        failure_threshold=settings.degradation_failure_threshold,
+        metrics=metrics, failure_threshold=settings.degradation_failure_threshold,
         cooldown_s=settings.degradation_cooldown_s)
     tracer = Tracer(service_name=settings.otel_service_name,
                     exporter=settings.otel_exporter if settings.otel_enable else "none")
+    trace_store = None
+    if getattr(settings, "trace_store_enabled", True):
+        # tail retention: errors, SLO breaches, slowest-N per route and
+        # tenant, exemplar-pinned traces and a 1-in-M sample
+        trace_store = TraceStore(
+            max_traces=getattr(settings, "trace_store_max_traces", 512),
+            max_spans_per_trace=getattr(settings, "trace_store_max_spans", 256),
+            sample_every=getattr(settings, "trace_store_sample_every", 32),
+            slowest_per_key=getattr(settings, "trace_store_slowest_per_key", 4),
+            idle_finalize_s=getattr(settings, "trace_store_idle_finalize_s", 30.0),
+            slo_targets={"http": getattr(settings, "slo_http_p95_ms", 1000.0) / 1e3,
+                         "ttft": settings.slo_ttft_p95_ms / 1e3,
+                         "tpot": settings.slo_tpot_p95_ms / 1e3,
+                         "queue_wait": settings.slo_queue_wait_p95_ms / 1e3},
+            exemplars=metrics.exemplars)
+        tracer.add_sink(trace_store.sink)
+    quota = getattr(settings, "tenant_quota_tokens_per_window", 0)
+    ledger = roller = None
+    if getattr(settings, "tenant_metering_enabled", True):
+        ledger = TenantLedger(clamp=tenant_clamp, metrics=metrics,
+                              max_tenants=getattr(settings, "tenant_ledger_max_tenants", 512),
+                              quota_tokens_per_window=quota)
+        # the ledger's quota window closes every rollup interval, as the JAX
+        # rollup drains it: a tenant over one window's quota is admitted again
+        roller = TenantWindowRoller(
+            ledger, interval_s=getattr(settings, "tenant_usage_rollup_interval_s", 60.0))
     signal_bus = SignalBus(window=settings.signal_window,
                            ewma_alpha=settings.signal_ewma_alpha)
     hub = hub_client = None
@@ -537,6 +682,32 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     if owns_bus:
         bus, leases, hub, hub_client = coordination_from_settings(settings)
     worker_id = worker_id or new_id()[:12]
+    # tenant quotas against ONE shared window counter: N workers admit the
+    # quota and one burst, never N quotas
+    limiter = None
+    if getattr(settings, "gw_distributed_limiter", True) and ledger is not None and quota > 0:
+        limiter = DistributedTenantLimiter(
+            make_rate_counter(getattr(settings, "bus_backend", "memory"),
+                              getattr(settings, "bus_dir", None), hub_client=hub_client),
+            ledger, quota_tokens=quota,
+            window_s=(getattr(settings, "tenant_quota_window_s", 0.0)
+                      or getattr(settings, "tenant_usage_rollup_interval_s", 60.0)),
+            burst_tokens=getattr(settings, "tenant_quota_burst_tokens", 2048),
+            sync_interval_s=getattr(settings, "tenant_limiter_sync_interval_s", 0.25))
+    fleet = None
+    if getattr(settings, "gw_fleet_metrics", False):
+        fleet = FleetMetrics(bus, worker_id, metrics,
+                             interval_s=getattr(settings, "gw_fleet_metrics_interval_s", 2.0))
+
+    def evaluator(source) -> SloEvaluator:
+        # SLO classes map tenants to target bundles, evaluated per tenant
+        # label slice (clamp peek: a probe never takes a slot)
+        return SloEvaluator(source, default_objectives(settings),
+                            error_budget=getattr(settings, "slo_error_budget", 0.05),
+                            slo_classes=parse_slo_classes(settings),
+                            tenant_classes=parse_tenant_classes(settings),
+                            tenant_label=tenant_clamp.peek)
+
     bus_rpc = BusRpc(bus, worker_id, leases=leases,
                      default_timeout_s=getattr(settings, "gw_rpc_timeout_s", 30.0),
                      idle_timeout_s=getattr(settings, "gw_stream_idle_timeout_s", 15.0))
@@ -549,26 +720,26 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
         none is given."""
         if pool is None and engine is None and getattr(settings, "tpu_local_replicas", 1) > 1:
             pool = build_pool(settings, EngineConfig.from_settings(settings),
-                              tracer=tracer, signals=signal_bus)
+                              tracer=tracer, signals=signal_bus, metrics=metrics,
+                              ledger=ledger)
+        handles = dict(tracer=tracer, signals=signal_bus, metrics=metrics, ledger=ledger)
         if pool is not None:
-            if pool.tracer is None:
-                pool.tracer = tracer
-            if pool.signals is None:
-                pool.signals = signal_bus
+            for name, handle in handles.items():
+                if getattr(pool, name) is None:
+                    setattr(pool, name, handle)
             engines = [r.engine for r in pool.replicas]
         else:
             if engine is None:
-                engine = TorchEngine(EngineConfig.from_settings(settings), tracer=tracer,
-                                     signals=signal_bus)
+                engine = TorchEngine(EngineConfig.from_settings(settings), **handles)
             engines = [engine]
         for served in engines:
-            if served.tracer is None:
-                served.tracer = tracer
-            if served.signals is None:
-                served.signals = signal_bus
+            for name, handle in handles.items():
+                if getattr(served, name) is None:
+                    setattr(served, name, handle)
         live.update(engine=engines[0], pool=pool)
         provider = TorchLocalProvider(
             "tpu_local", pool if pool is not None else engines[0], tracer=tracer,
+            metrics=metrics,
             embedding_model=settings.tpu_local_embedding_model,
             encoder_max_batch=settings.tpu_local_encoder_max_batch,
             encoder_max_wait_ms=settings.tpu_local_encoder_max_wait_ms,
@@ -615,11 +786,21 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     app["current_span"] = current_span
     app["phase_clock"] = phases   # phases.phase(name) charges the request's clock
     app["signal_bus"] = signal_bus
+    app["metrics"] = metrics
+    app["tenant_ledger"] = ledger
+    app["tenant_window_roller"] = roller
+    app["tenant_limiter"] = limiter
+    app["trace_store"] = trace_store
+    app["fleet_metrics"] = fleet
+    app["slo_evaluator"] = evaluator(metrics)
+    app["slo_evaluator_fleet"] = (evaluator(FleetMetricsView(metrics, fleet))
+                                  if fleet is not None else None)
     if settings.gw_shed_enabled:
         app["overload_shedder"] = OverloadShedder(
             shed_at=settings.gw_shed_saturation_at,
             class_order=_shed_class_order(settings),
-            tenant_classes=_tenant_classes(settings), degradation=degradation)
+            tenant_classes=parse_tenant_classes(settings), ledger=ledger,
+            degradation=degradation, metrics=metrics, limiter=limiter)
 
     def live_engines() -> list:
         # a pool's reload swaps engine objects: read the current ones
@@ -631,7 +812,7 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     if settings.controller_enabled:
         controller = ServingController(
             signal_bus, live_engines, shedder=app.get("overload_shedder"),
-            tracer=tracer, enabled=True,
+            slo_evaluator=app["slo_evaluator"], metrics=metrics, tracer=tracer, enabled=True,
             safe_mode=settings.controller_safe_mode,
             tick_s=settings.controller_tick_s,
             cooldown_s=settings.controller_cooldown_s,
@@ -697,11 +878,23 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
             await (live["pool"] or live["engine"]).start()
         if controller is not None:
             await controller.start()
+        if roller is not None:
+            await roller.start()
+        if limiter is not None:
+            await limiter.start()   # ledger -> the shared quota counter
+        if fleet is not None:
+            await fleet.start()
         if settings.tpu_local_tier_object_url:
             await fabric_publisher.start()
 
     async def stop(app: web.Application) -> None:
         await fabric_publisher.stop()
+        if fleet is not None:
+            await fleet.stop()
+        if limiter is not None:
+            await limiter.stop()
+        if roller is not None:
+            await roller.stop()
         if fabric_http:
             await fabric_http[0].close()
         if controller is not None:
@@ -721,4 +914,5 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     setup_llm_routes(app, registry, prefix=settings.llm_api_prefix)
     setup_pool_routes(app)
     setup_fabric_routes(app)
+    setup_observability_routes(app)
     return app

@@ -1,8 +1,9 @@
 """Import hygiene of the PyTorch port: no module of
 ``mcp_context_forge_tpu_torch`` (nor ``chip_smoke.py``,
 ``profile_torch_engine.py``, ``profile_torch_train.py`` or
-``multi_gpu_smoke.py``, which run on the card) imports JAX or
-anything of the JAX package, and the kernel modules import without
+``multi_gpu_smoke.py``, which run on the card) imports JAX, anything of
+the JAX package or ``prometheus_client`` (the card has none; the port's
+metrics registry is its own), and the kernel modules import without
 ``nvcc`` or ``triton`` (kernels build at first launch, on the card)."""
 
 import ast
@@ -15,7 +16,7 @@ import pytest
 from torch_jax_memo import jax_compile_memo  # noqa: F401  (autouse: one compile per program)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "mcp_context_forge_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "mcp_context_forge_tpu", "prometheus_client"}
 SOURCES = sorted((ROOT / "mcp_context_forge_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "profile_torch_engine.py", ROOT / "profile_torch_train.py",
     ROOT / "multi_gpu_smoke.py"]
@@ -43,6 +44,7 @@ def test_no_jax_imports(path):
     ("from mcp_context_forge_tpu.tpu_local import engine", True),
     ("import jax.numpy as jnp", True),
     ("from jaxlib import xla_client", True),
+    ("from prometheus_client import Counter", True),
 ])
 def test_root_comparison_is_exact(source, forbidden):
     assert bool(_imported_roots(source) & FORBIDDEN) is forbidden

@@ -197,11 +197,11 @@ def test_engine_without_handles_is_silent():
 
 def test_served_spans_and_families_pinned_for_the_card():
     """What ``chip_smoke.py`` holds the card's llama3-8b ops phase to, on
-    the CPU with its own telemetry handles (the port's tracer and signal
-    bus, recording metrics and ledger): chats through the provider
+    the CPU with its own telemetry handles (the port's tracer, signal bus,
+    metrics registry and tenant ledger): chats through the provider
     with phase sampling and a K move report exactly SERVED_SPANS and
-    SERVED_FAMILIES (the card adds the construction's capture events,
-    CAPTURE_FAMILIES)."""
+    SERVED_FAMILIES, read from the registry's ``collect()`` (the card adds
+    the construction's capture events, CAPTURE_FAMILIES)."""
     from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
 
     handles = chip_smoke.telemetry_handles()
@@ -230,12 +230,12 @@ def test_served_spans_and_families_pinned_for_the_card():
 
     replies = asyncio.run(main())
     assert len(replies) == 6
-    ledger = handles["ledger"].totals
-    assert set(ledger) == {"", "team:x"} and ledger["team:x"]["requests"] == 1
+    ledger = handles["ledger"].totals()
+    assert set(ledger) == {"unattributed", "team:x"} and ledger["team:x"]["requests"] == 1
     assert ledger["team:x"]["generated_tokens"] == \
         replies[1]["usage"]["completion_tokens"]
     assert {span.name for span in handles["tracer"].finished} == chip_smoke.SERVED_SPANS
-    assert handles["metrics"].label_names() == chip_smoke.SERVED_FAMILIES
+    assert chip_smoke.label_names(handles["metrics"]) == chip_smoke.SERVED_FAMILIES
     assert engine.stats.phase_samples > 0
     assert {k for row in engine.recent_steps() if row["kind"] == "decode"
             for k in [row["superstep"]]} == {1, 4}
