@@ -185,6 +185,31 @@ both renders, and decode tokens/s and TTFT p50 beside ``engine``'s. Each
 pool phase hands its pool a registry, whose ``llm_pool_*`` families must
 agree with ``status()``.
 
+The operator plane (``engine_llama3_8b_operator``, on the same engine after
+the metrics run, its pool reset before each run and K at 1): the port's
+``load_settings`` names the served config field by field and
+``validate_security`` refuses weak secrets in production; ``python3 -m
+mcp_context_forge_tpu_torch.cli`` prints its version, mints a JWT the
+port's ``utils/jwt`` verifies, and ``serve`` runs the /v1 app on llama3-tiny
+on the card in a process of its own (health, readiness, a chat, the
+engine's stats and the recorder's row, no JAX module, exit 0 on SIGTERM);
+a request under its own trace is failed in flight
+by an engine stop, and its incident line, JSON-formatted by the port's
+``init_logging(as_json=True)``, carries the trace and span ids there and in
+the log ring; a ``TorchProfilerCapture`` (CPU and CUDA activity) records
+the first two ``engine`` requests at 8 tokens (the cold prompt and the
+384-token hit), and its Chrome trace must hold each of flash, the wgmma
+chunk kernel and the split and combine decode kernels (TRACE_KERNELS) as
+often as their wrappers counted launches, with the streams the first 8
+tokens of ``engine``'s; the same window without the capture gives its
+TTFT and decode tokens/s; ``encode_spans`` over the window's spans gives one
+resource, every span and the requests' traces; then the six requests
+stream through ``chat_stream`` on this script's loop while a
+``LoopLagSampler`` (10 ms) samples it and a ``FlightRecorder`` records each
+stream: six rows, the slowest ring heading with the longest stream,
+``gw_request_phase`` counting six requests, ``gw_loop_lag`` counting every
+sample and ``gw.loop_lag_ms`` on the signal bus (lag p50/p99/max printed).
+
 Checkpoints (two phases; the files live under ``build/checkpoints/`` for
 the phase only, after ``shutil.disk_usage`` is printed): this script draws
 a seeded tree on the card and writes it in HF layout with its own
@@ -659,11 +684,12 @@ def main() -> int:
     emit({"phase": "engine_llama3_tiny_sp1", **stats})
     count(counts)
     free_device(torch)
-    counts, admission, controller, metrics = serving_plane_phase(torch, dev, engine_reference,
-                                                                 k1_tokens)
+    counts, admission, controller, metrics, operator = serving_plane_phase(
+        torch, dev, engine_reference, k1_tokens)
     emit({"phase": "engine_llama3_8b_admission", **admission})
     emit({"phase": "engine_llama3_8b_controller", **controller})
     emit({"phase": "engine_llama3_8b_metrics", **metrics})
+    emit({"phase": "engine_llama3_8b_operator", **operator})
     count(counts)
     free_device(torch)
     counts, stats = engine_phase(torch, dev, "llama3-8b", ATTENTION[:2],
@@ -3092,16 +3118,12 @@ RING_KEYS = {"schema", "seq", "ts", "replica", "knob", "direction", "from", "to"
 
 
 def gateway_settings():
-    """What admission reads of the gateway's settings, at their defaults but
-    the JWT secret (the card has no pydantic: duck-typed)."""
-    from types import SimpleNamespace
+    """The port's settings (``config.load_settings``) at their defaults but
+    the JWT secret."""
+    from mcp_context_forge_tpu_torch.config import load_settings
 
-    return SimpleNamespace(auth_required=True, basic_auth_user="admin",
-                           basic_auth_password="changeme",
-                           platform_admin_email="admin@example.com",
-                           jwt_secret_key="chip-smoke-secret-0123456789abcdef",
-                           jwt_algorithm="HS256", jwt_audience="mcpforge-api",
-                           jwt_issuer="mcpforge")
+    return load_settings({"JWT_SECRET_KEY": "chip-smoke-secret-0123456789abcdef"},
+                         env_file=None)
 
 
 def bearer(settings, claims: dict, **overrides) -> str:
@@ -3595,6 +3617,507 @@ def metrics_phase(torch, engine, model: str, reference: dict) -> tuple[dict, dic
     return counts, stats
 
 
+# each traced kernel of the profiled window: the C entry that launches it,
+# its __global__ name in the trace, and the wrapper that counts its launches
+TRACE_KERNELS = {"mcf_flash_attention_tc": ("flash_tc_kernel<", "flash_attention_tc"),
+                 "mcf_paged_chunk_attention_tc": ("chunk_tc_kernel<", "paged_chunk_attention_tc"),
+                 "mcf_paged_decode_attention": ("decode_split_kernel<", "paged_decode_attention"),
+                 "mcf_paged_decode_combine": ("decode_combine_kernel<", "paged_decode_attention")}
+WINDOW_TOKENS = 8          # each profiled request's tokens
+LOOP_LAG_INTERVAL_S = 0.01
+OPERATOR_ENV = {"TPU_LOCAL_MODEL": "llama3-8b", "TPU_LOCAL_DTYPE": "bfloat16",
+                "TPU_LOCAL_MAX_BATCH": "8", "TPU_LOCAL_MAX_SEQ_LEN": "2048",
+                "TPU_LOCAL_PAGE_SIZE": "128", "TPU_LOCAL_NUM_PAGES": "512",
+                "TPU_LOCAL_PREFILL_BUCKETS": "128,512,2048", "TPU_LOCAL_AUTO_RESTART": "true",
+                "CONTROLLER_ENABLED": "true", "CONTROLLER_K_LADDER": "1,4"}
+
+
+def settings_checks(engine) -> dict:
+    """The port's ``load_settings`` on OPERATOR_ENV gives, through
+    ``EngineConfig.from_settings`` and the CLI's device choice, the config
+    ``engine`` serves with, field by field; ``validate_security`` refuses
+    weak secrets in production and passes strong ones."""
+    from mcp_context_forge_tpu_torch.cli import torch_device
+    from mcp_context_forge_tpu_torch.config import load_settings
+    from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig
+
+    settings = load_settings(OPERATOR_ENV, env_file=None)
+    config = dataclasses.replace(EngineConfig.from_settings(settings), device=torch_device())
+    differ = {f.name: (getattr(config, f.name), getattr(engine.config, f.name))
+              for f in dataclasses.fields(config)
+              if getattr(config, f.name) != getattr(engine.config, f.name)}
+    check(not differ, f"EngineConfig.from_settings differs from the served config: {differ}")
+    weak = load_settings({"ENVIRONMENT": "production", "JWT_SECRET_KEY": "changeme"},
+                         env_file=None).validate_security()
+    check("jwt_secret_key is weak/default" in weak, f"production with weak secrets: {weak}")
+    strong = "chip-smoke-" + "0123456789abcdef" * 2
+    passed = load_settings({"ENVIRONMENT": "production", "JWT_SECRET_KEY": strong,
+                            "AUTH_ENCRYPTION_SECRET": strong, "BASIC_AUTH_PASSWORD": strong,
+                            "PLATFORM_ADMIN_PASSWORD": strong},
+                           env_file=None).validate_security()
+    check(passed == [], f"strong secrets refused: {passed}")
+    return {"env": OPERATOR_ENV, "fields_equal": len(dataclasses.fields(config)),
+            "weak_refused": weak, "strong_refused": passed}
+
+
+# runs the port's CLI as ``python -m`` would, then reports the modules of
+# JAX or of the JAX package that its process holds
+CLI_PROBE = ("import atexit, runpy, sys\n"
+             "def report():\n"
+             "    bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+             "                 ('jax', 'jaxlib', 'mcp_context_forge_tpu'))\n"
+             "    print('JAX_MODULES=' + ','.join(bad), flush=True)\n"
+             "atexit.register(report)\n"
+             "sys.argv = ['mcp_context_forge_tpu_torch.cli'] + sys.argv[1:]\n"
+             "runpy.run_module('mcp_context_forge_tpu_torch.cli', run_name='__main__')\n")
+SERVE_ENV = {"MCPFORGE_TPU_LOCAL_MODEL": "llama3-tiny", "MCPFORGE_TPU_LOCAL_MAX_BATCH": "2",
+             "MCPFORGE_TPU_LOCAL_NUM_PAGES": "64", "MCPFORGE_HOST": "127.0.0.1"}
+
+
+def http_json(port: int, path: str, body: dict | None = None) -> tuple[int, dict]:
+    """(status, JSON body) of one request to 127.0.0.1:``port`` with the
+    default Basic admin credentials."""
+    import base64
+    import urllib.error
+    import urllib.request
+
+    request = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode() if body else None,
+        headers={"content-type": "application/json",
+                 "authorization": "Basic " + base64.b64encode(b"admin:changeme").decode()})
+    try:
+        with urllib.request.urlopen(request, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read() or b"{}")
+
+
+def cli_checks() -> dict:
+    """``python3 -m mcp_context_forge_tpu_torch.cli``: ``version`` prints the
+    port's version; ``token`` prints a JWT the port's ``utils/jwt`` verifies
+    under the settings' secret, audience and issuer; ``serve`` (SERVE_ENV:
+    llama3-tiny on the card, ``MCPFORGE_TORCH_DEVICE`` unset, so cuda)
+    answers ``/health``, ``/ready``, ``/version`` and a greedy chat, whose
+    request ``/admin/engine/stats`` and ``/admin/gateway/requests`` then
+    show, holds no module of JAX or the JAX package, and exits 0 on
+    SIGTERM."""
+    import signal
+
+    from mcp_context_forge_tpu_torch import __version__
+    from mcp_context_forge_tpu_torch.utils import jwt
+
+    root = Path(__file__).resolve().parent
+    secret = "chip-smoke-cli-" + os.urandom(8).hex()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MCPFORGE_")}
+    env.update(PYTHONPATH=str(root), MCPFORGE_JWT_SECRET_KEY=secret)
+
+    def cli(*args):
+        t0 = time.monotonic()
+        out = subprocess.run([sys.executable, "-m", "mcp_context_forge_tpu_torch.cli", *args],
+                             cwd=root, env=env, capture_output=True, text=True, timeout=120)
+        return out, time.monotonic() - t0
+
+    version, version_s = cli("version")
+    check(version.returncode == 0 and version.stdout.strip() == __version__,
+          f"cli version: rc {version.returncode}, {version.stdout!r} {version.stderr[-500:]}")
+    token, _ = cli("token", "operator@example.com")
+    check(token.returncode == 0, f"cli token: rc {token.returncode}: {token.stderr[-500:]}")
+    claims = jwt.decode(token.stdout.strip(), secret, audience="mcpforge-api", issuer="mcpforge")
+    check(claims["sub"] == "operator@example.com", f"token claims {claims}")
+
+    port = free_local_port()
+    logs = root / "build" / "cli_serve"
+    logs.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
+    with open(logs / "stdout.log", "w") as out, open(logs / "stderr.log", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", CLI_PROBE, "serve", "--port", str(port)],
+                                cwd=root, env={**env, **SERVE_ENV}, stdout=out, stderr=err)
+        try:
+            while True:
+                check(proc.poll() is None, f"serve exited {proc.returncode} before it answered: "
+                      f"{(logs / 'stderr.log').read_text()[-1500:]}")
+                try:
+                    health = http_json(port, "/health")
+                    break
+                except OSError:
+                    check(time.monotonic() - t0 < 300, "serve did not answer /health in 300 s")
+                    time.sleep(0.25)
+            up_s = time.monotonic() - t0
+            chat_request = chat("llama3-tiny", "Which tools can read files?")
+            answers = {path: http_json(port, path) for path in ("/ready", "/version")}
+            answers["/v1/chat/completions"] = http_json(port, "/v1/chat/completions",
+                                                        chat_request)
+            for path in ("/admin/engine/stats", "/admin/gateway/requests"):
+                answers[path] = http_json(port, path)
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+    check(health == (200, {"status": "healthy"}), f"serve /health: {health}")
+    check(all(status == 200 for status, _ in answers.values()),
+          f"serve answered {({p: s for p, (s, _) in answers.items()})}")
+    reply = answers["/v1/chat/completions"][1]
+    stats = answers["/admin/engine/stats"][1]
+    rows = [r for r in answers["/admin/gateway/requests"][1]["recent"]
+            if r["route"] == "/v1/chat/completions"]
+    check(reply["usage"]["completion_tokens"] > 0 and stats["requests"] == 1
+          and stats["model"] == "llama3-tiny" and len(rows) == 1,
+          f"serve: usage {reply['usage']}, stats requests {stats['requests']}, rows {rows}")
+    check(answers["/version"][1] == {"version": __version__}, f"serve /version {answers}")
+    check(answers["/ready"][1]["status"] == "ready", f"serve /ready {answers['/ready']}")
+    printed = (logs / "stdout.log").read_text()
+    check(rc == 0 and "JAX_MODULES=\n" in printed,
+          f"serve ended rc {rc}; {printed[-500:]} {(logs / 'stderr.log').read_text()[-800:]}")
+    return {"version": version.stdout.strip(), "version_s": version_s,
+            "token_sub": claims["sub"], "serve_up_s": up_s, "serve_rc": rc,
+            "serve_ready": answers["/ready"][1], "serve_completion_tokens":
+            reply["usage"]["completion_tokens"], "serve_phases_ms": rows[0]["phases_ms"],
+            "serve_jax_modules": "none"}
+
+
+def trace_kernel_counts(path: Path) -> tuple[dict, int]:
+    """{C entry: kernel events of its __global__ in the Chrome trace}, and
+    the trace's count of kernel events."""
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return ({entry: sum(name in k for k in kernels) for entry, (name, _) in TRACE_KERNELS.items()},
+            len(kernels))
+
+
+def operator_window(torch, engine, provider, requests: list, seen: list) -> tuple[dict, dict]:
+    """The first two ``engine`` requests at WINDOW_TOKENS each on a cold pool
+    (the second sent once the first's prefix registered, as ``engine_phase``
+    does): (launches, timing) of that run."""
+    wrappers = kernel_wrappers()
+
+    async def run():
+        await engine.start()
+        try:
+            check(engine.request_knobs(superstep=1) == {"superstep": True}, "K = 1 refused")
+            deadline = time.monotonic() + 10
+            while engine.knob_state()["superstep"] != 1:
+                check(time.monotonic() < deadline, "K did not return to 1")
+                await asyncio.sleep(0.001)
+            torch.cuda._sleep(SPIN_CYCLES)   # a marker ahead of the counted work
+            torch.cuda.synchronize()
+            for fn in wrappers.values():
+                fn.launches = 0
+            stats0 = dict(engine.stats.__dict__)
+            start = len(seen)
+            first = asyncio.ensure_future(provider.chat(requests[0]))
+            while engine.allocator.cached_pages == 0:
+                check(not first.done(), "the first request ended before its prefix registered")
+                await asyncio.sleep(0.005)
+            second = asyncio.ensure_future(provider.chat(requests[1]))
+            await asyncio.wait_for(asyncio.gather(first, second), 600)
+            torch.cuda.synchronize()
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            delta = {k: v - stats0[k] for k, v in engine.stats.__dict__.items()}
+            return counts, delta, seen[start:]
+        finally:
+            await engine.stop()
+
+    engine._reset_device_state()
+    counts, delta, served = asyncio.run(run())
+    decode_tokens = sum(len(r.generated) - 1 for r in served)
+    return counts, {"streams": [r.generated for r in served],
+                    "hits": [r.hist for r in served],
+                    "ttft_ms": [(r.first_token_ts - r.created) * 1e3 for r in served],
+                    "decode_tokens": decode_tokens, "graph_replays": delta["graph_replays"],
+                    "decode_tokens_per_s": decode_tokens / (delta["decode_wall_ms_total"] / 1e3),
+                    "trace_ids": [r.trace_ctx[0] for r in served if r.trace_ctx]}
+
+
+def loop_lag_run(torch, engine, model: str, reference: dict) -> tuple[dict, dict]:
+    """The ``engine`` requests streamed through ``TorchLocalProvider
+    .chat_stream`` (each SSE-framed as the route does) on this script's
+    event loop, the first alone until its prefix registers, while a
+    ``LoopLagSampler`` (LOOP_LAG_INTERVAL_S) samples the loop and a
+    ``FlightRecorder`` takes each stream through the middleware's three
+    calls with the stream's ``PhaseClock``, under an ``http.request`` span."""
+    from mcp_context_forge_tpu_torch.gateway.flight_recorder import (FlightRecorder,
+                                                                      LoopLagSampler)
+    from mcp_context_forge_tpu_torch.gateway.serialize import sse_event
+    from mcp_context_forge_tpu_torch.observability import phases
+    from mcp_context_forge_tpu_torch.observability.metrics import PrometheusRegistry
+    from mcp_context_forge_tpu_torch.observability.signals import SignalBus
+    from mcp_context_forge_tpu_torch.observability.tracing import Tracer
+    from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
+
+    class RecordingSampler(LoopLagSampler):
+        lags: list = []
+
+        def _observe(self, lag: float) -> None:
+            self.lags.append(lag)
+            super()._observe(lag)
+
+    metrics, bus, tracer = PrometheusRegistry(), SignalBus(), Tracer(exporter="memory")
+    recorder = FlightRecorder(metrics, slow_request_s=60.0, worker="chip-smoke")
+    sampler = RecordingSampler(metrics, interval_s=LOOP_LAG_INTERVAL_S, recorder=recorder)
+    sampler.lags = []
+    sampler.signals = bus
+    provider = TorchLocalProvider("tpu_local", engine, tracer=tracer, metrics=metrics)
+    requests = chat_requests(model)
+    wrappers = kernel_wrappers()
+    seen: list = []
+    submit = engine.submit
+    path = "/v1/chat/completions"
+
+    async def recording_submit(request):
+        seen.append(request)
+        return await submit(request)
+
+    async def stream(request: dict) -> dict:
+        clock = phases.PhaseClock()
+        token = phases.set_phase_clock(clock)
+        chunks = provider.chat_stream(dict(request, stream=True)).__aiter__()
+        try:
+            with tracer.span("http.request", {"http.path": path}) as span:
+                rid = recorder.start_request(path, span.context())
+                t0 = time.perf_counter()
+                frames = 0
+                while True:
+                    with phases.phase("engine"):
+                        try:
+                            chunk = await chunks.__anext__()
+                        except StopAsyncIteration:
+                            break
+                    with phases.phase("serialize"):
+                        frames += len(sse_event(chunk))
+                wall = time.perf_counter() - t0
+                clock.add("handler", max(0.0, wall - clock.total()))
+                recorder.finish_request(rid)
+                recorder.record(method="POST", path=path, route=path, status=200,
+                                duration_s=wall, phases_ms=clock.vector_ms(),
+                                trace_id=span.trace_id, span_id=span.span_id,
+                                tenant="user:admin@example.com")
+                return {"trace_id": span.trace_id, "wall_s": wall, "sse_bytes": frames}
+        finally:
+            phases.reset_phase_clock(token)
+
+    async def run():
+        engine.submit = recording_submit
+        await engine.start()
+        await sampler.start()
+        try:
+            for fn in wrappers.values():
+                fn.launches = 0
+            first = asyncio.ensure_future(stream(requests[0]))
+            while engine.allocator.cached_pages == 0:
+                check(not first.done(), "the first request ended before its prefix registered")
+                await asyncio.sleep(0.005)
+            rest = [asyncio.ensure_future(stream(r)) for r in requests[1:]]
+            rows = await asyncio.wait_for(asyncio.gather(first, *rest), 600)
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            return rows, counts
+        finally:
+            await sampler.stop()
+            await engine.stop()
+            engine.submit = submit
+
+    engine._reset_device_state()
+    rows, counts = asyncio.run(run())
+    check([r.generated for r in seen] == reference["generated"],
+          "the streamed requests' tokens are not the engine phase's")
+    check(recorder.recorded == len(requests) and len(recorder.recent) == len(requests),
+          f"the recorder holds {recorder.recorded} rows for {len(requests)} streams")
+    longest = max(rows, key=lambda r: r["wall_s"])
+    check(recorder.slowest()[0]["trace_id"] == longest["trace_id"],
+          "the slowest ring does not head with the longest stream")
+    engine_counts = sum(v for labels, v in sample_values(metrics.gw_request_phase, "_count")
+                        if labels["phase"] == "engine")
+    check(engine_counts == len(requests), f"gw_request_phase counted {engine_counts} requests")
+    lag_count = sum(v for _, v in sample_values(metrics.gw_loop_lag, "_count"))
+    check(lag_count == sampler.samples > 0,
+          f"gw_loop_lag counted {lag_count} of {sampler.samples} samples")
+    view = bus.get("gw.loop_lag_ms")
+    check(view is not None, "gw.loop_lag_ms never reached the signal bus")
+    lags_ms = sorted(lag * 1e3 for lag in sampler.lags)
+    return counts, {
+        "requests": len(requests), "tokens_equal_engine": True,
+        "sampler": {**sampler.snapshot(), "p50_lag_ms": nearest_rank(lags_ms, 0.5),
+                    "p99_lag_ms": nearest_rank(lags_ms, 0.99)},
+        "gw_loop_lag_count": lag_count, "signal_view": view,
+        "recorder": {"recorded": recorder.recorded,
+                     "slowest_ms": recorder.slowest()[0]["duration_ms"],
+                     "longest_stream_trace": longest["trace_id"],
+                     "phases_ms": recorder.slowest()[0]["phases_ms"]},
+        "gw_request_phase_engine_count": engine_counts,
+        "stream_wall_s": [r["wall_s"] for r in rows]}
+
+
+def operator_phase(torch, engine, model: str, reference: dict) -> tuple[dict, dict]:
+    """``engine_llama3_8b_operator``, on the serving plane's llama3-8b engine
+    once it has stopped (no second build), its pool reset in place before
+    each run and K back at 1: the settings and CLI checks; a
+    ``TorchProfilerCapture`` (CPU and CUDA activity) around the window of
+    ``operator_window``, whose Chrome trace must name rows 1, 2 and 3
+    (TRACE_KERNELS) as often as their wrappers counted launches in it,
+    with both streams the first WINDOW_TOKENS of the ``engine`` phase's and
+    the second a 384-token hit, and the same window without the capture
+    for its TTFT and decode tokens/s (the profiler's cost, a reading);
+    ``encode_spans`` over the window's spans; then ``loop_lag_run``."""
+    from mcp_context_forge_tpu_torch.observability.otlp import encode_spans
+    from mcp_context_forge_tpu_torch.observability.tracing import Tracer
+    from mcp_context_forge_tpu_torch.services.diagnostics_service import TorchProfilerCapture
+    from mcp_context_forge_tpu_torch.tpu_local.tpu_provider import TorchLocalProvider
+
+    stats = {"model": model, "layers": engine.model_config.n_layers,
+             "settings": settings_checks(engine), "cli": cli_checks()}
+    incident_counts, stats["logs"] = incident_log_run(torch, engine)
+    requests = [dict(r, max_tokens=WINDOW_TOKENS) for r in chat_requests(model)[:2]]
+    want = [g[:WINDOW_TOKENS] for g in reference["generated"][:2]]
+    saved_submit, saved_tracer = engine.submit, engine.tracer
+    seen: list = []
+
+    async def recording_submit(request):
+        seen.append(request)
+        return await saved_submit(request)
+
+    total = dict(incident_counts)
+
+    def add(more: dict) -> None:
+        for kernel, n in more.items():
+            total[kernel] += n
+
+    trace_dir = Path(__file__).resolve().parent / "build" / "operator_trace"
+    capture = TorchProfilerCapture(str(trace_dir), device=engine.device)
+    engine.submit = recording_submit
+    try:
+        engine.tracer = None
+        counts, plain = operator_window(torch, engine,
+                                        TorchLocalProvider("tpu_local", engine), requests, seen)
+        add(counts)
+        tracer = Tracer(exporter="memory")
+        engine.tracer = tracer
+        provider = TorchLocalProvider("tpu_local", engine, tracer=tracer)
+        started = capture.start()["started_at"]
+        try:
+            window_counts, window = operator_window(torch, engine, provider, requests, seen)
+        finally:
+            stopped = capture.stop(expect_started_at=started)
+        add(window_counts)
+    finally:
+        engine.submit, engine.tracer = saved_submit, saved_tracer
+    for run in (plain, window):
+        check(run["streams"] == want, f"the window's streams {run['streams']} are not the first "
+              f"{WINDOW_TOKENS} tokens of the engine phase's")
+        check(run["hits"][1] == reference["prefix_hit_tokens"][1] and run["hits"][0] == 0,
+              f"window prefix hits {run['hits']}")
+    path = Path(stopped["trace_file"])
+    traced, kernel_events = trace_kernel_counts(path)
+    expected = {entry: window_counts[wrapper] for entry, (_, wrapper) in TRACE_KERNELS.items()}
+    check(all(v > 0 for v in expected.values()), f"a row did not launch in the window: {expected}")
+    check(traced == expected, f"trace kernel events {traced}, launches counted {expected}")
+    payload = encode_spans(tracer.finished, "mcpforge")
+    resources = payload["resourceSpans"]
+    spans = [s for rs in resources for ss in rs["scopeSpans"] for s in ss["spans"]]
+    service = resources[0]["resource"]["attributes"]
+    check(len(resources) == 1 and service == [{"key": "service.name",
+                                               "value": {"stringValue": "mcpforge"}}]
+          and len(spans) == len(tracer.finished) > 0
+          and {s["traceId"] for s in spans} == set(window["trace_ids"]),
+          f"encode_spans: {len(resources)} resources, {len(spans)} spans of "
+          f"{len(tracer.finished)}, traces {sorted({s['traceId'] for s in spans})}")
+    trace_bytes = path.stat().st_size
+    path.unlink()
+    stats.update({
+        "window_tokens": WINDOW_TOKENS, "tokens_equal_engine": True,
+        "prefix_hit_tokens": window["hits"],
+        "profiler": {"trace_bytes": trace_bytes, "kernel_events": kernel_events,
+                     "traced": traced, "launches": expected,
+                     "capture_ms": stopped["duration_ms"],
+                     "graph_replays": window["graph_replays"]},
+        "ttft_ms": {"plain": plain["ttft_ms"], "profiled": window["ttft_ms"]},
+        "decode_tokens_per_s": {"plain": plain["decode_tokens_per_s"],
+                                "profiled": window["decode_tokens_per_s"]},
+        "otlp": {"resources": len(resources), "spans": len(spans),
+                 "traces": len({s["traceId"] for s in spans}),
+                 "span_names": sorted({s["name"] for s in spans})}})
+    counts, stats["loop_lag"] = loop_lag_run(torch, engine, model, reference)
+    add(counts)
+    for kernel in ATTENTION:
+        check(total.get(kernel, 0) > 0, f"{kernel} never launched on the operator path")
+    for kernel in NOT_BF16 + INT8_WRITERS:
+        check(total.get(kernel, 0) == 0, f"{kernel} launched on the operator path")
+    stats["launches"] = total
+    return total, stats
+
+
+@contextlib.contextmanager
+def json_logging():
+    """The port's ``init_logging(as_json=True)`` on the root logger, and the
+    JSON lines it formats (a list), until the block ends; the root logger's
+    handlers and level are restored after."""
+    import logging
+
+    from mcp_context_forge_tpu_torch.observability.logging import JsonFormatter, init_logging
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            lines.append(self.format(record))
+
+    lines: list[str] = []
+    root = logging.getLogger()
+    saved = (root.level, list(root.handlers))
+    init_logging("WARNING", as_json=True)
+    handler = Lines()
+    handler.setFormatter(JsonFormatter())
+    root.addHandler(handler)
+    try:
+        yield lines
+    finally:
+        for h in list(root.handlers):
+            if h not in saved[1]:
+                root.removeHandler(h)
+        root.setLevel(saved[0])
+
+
+def incident_log_run(torch, engine) -> tuple[dict, dict]:
+    """The engine's incident line under ``json_logging``: a request under a
+    trace of its own decodes until the engine stops under it, and the
+    dispatch loop fails it in flight (``_fail_outstanding``), logging with
+    ``trace_extra``. The JSON line and the log ring's row of it both carry
+    the request's trace and span ids. Returns (launches, the readings)."""
+    from mcp_context_forge_tpu_torch.observability.logging import ring_buffer
+    from mcp_context_forge_tpu_torch.tpu_local.engine import GenRequest
+
+    wrappers = kernel_wrappers()
+    victim_trace = (os.urandom(16).hex(), os.urandom(8).hex())
+    victim = GenRequest(request_id="victim", max_tokens=256, trace_ctx=victim_trace,
+                        prompt_ids=engine.tokenizer.encode("Which tools can read files?"))
+
+    async def run():
+        await engine.start()
+        try:
+            for fn in wrappers.values():
+                fn.launches = 0
+            await engine.submit(victim)
+            await asyncio.wait_for(victim.stream.get(), 60)   # it decodes
+        finally:
+            await engine.stop()   # the loop fails it in flight
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    engine._reset_device_state()
+    with json_logging() as lines:
+        counts = asyncio.run(run())
+    check(victim.finish_reason == "cancelled", f"the victim ended {victim.finish_reason!r}")
+    needle = "failing in-flight request victim"
+    rows = ring_buffer.search(needle)
+    parsed = [json.loads(line) for line in lines if needle in line]
+    check(len(rows) == 1 and len(parsed) == 1,
+          f"{len(rows)} ring rows and {len(parsed)} JSON lines of the failed request")
+    for record in rows[:1] + parsed[:1]:
+        check((record.get("trace_id"), record.get("span_id")) == victim_trace,
+              f"the failed request's log record {record} misses its trace {victim_trace}")
+    return counts, {"json_line": parsed[:1], "ring_row": rows[:1],
+                    "victim_finish": victim.finish_reason,
+                    "victim_tokens": len(victim.generated)}
+
+
 def serving_plane_phase(torch, dev, engine_reference: dict, tiny_tokens: list,
                         model: str = "llama3-8b") -> tuple[dict, dict, dict, dict]:
     """``engine_llama3_8b_admission``, ``engine_llama3_8b_controller`` and
@@ -3733,11 +4256,13 @@ def serving_plane_phase(torch, dev, engine_reference: dict, tiny_tokens: list,
         fault_counts, fault = fault_run(torch, engine)
         spans = sorted({span.name for span in tracer.finished})
         metrics_counts, metrics = metrics_phase(torch, engine, model, engine_reference)
+        operator_counts, operator = operator_phase(torch, engine, model, engine_reference)
         return {"effect": real.decisions()[0]["effect"], "k_sequence_tail": ks[-12:],
                 "ring": [move_of(r) + (r["actuated"],) for r in ring],
                 "disabled_plane_refused": refusal, "replay": events,
                 "fault_counts": fault_counts, "fault": fault, "spans": spans,
-                "metrics_counts": metrics_counts, "metrics": metrics}
+                "metrics_counts": metrics_counts, "metrics": metrics,
+                "operator_counts": operator_counts, "operator": operator}
 
     counts, stats = engine_phase(
         torch, dev, model, ATTENTION, chat_requests(model), hit=1,
@@ -3761,6 +4286,7 @@ def serving_plane_phase(torch, dev, engine_reference: dict, tiny_tokens: list,
 
     add(after.pop("fault_counts"))
     add(after.pop("metrics_counts"))
+    add(after.pop("operator_counts"))
     spec_counts, spec = spec_toggle_phase(torch, dev, model, ATTENTION[:2], engine_tokens,
                                           absent=NOT_BF16)
     add(spec_counts)
@@ -3785,7 +4311,7 @@ def serving_plane_phase(torch, dev, engine_reference: dict, tiny_tokens: list,
         "spec": spec, "spec_llama3_tiny_f32": spec_f32,
         "ttft_p50_ms": stats["ttft_p50_ms"], "decode_tokens_per_s": stats["decode_tokens_per_s"],
         "engine_build_s": stats["engine_build_s"], "tokens_equal_engine": True}
-    return total, admission, controller, after["metrics"]
+    return total, admission, controller, after["metrics"], after["operator"]
 
 
 def encoder_phase(torch, dev) -> dict:

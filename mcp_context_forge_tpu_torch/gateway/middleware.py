@@ -8,7 +8,8 @@ the reference's order (``MIDDLEWARES``, outermost first):
   observed under the clamped tenant label, with the trace's exemplar;
 - ``flight_recorder_middleware``: a ``PhaseClock`` per request, whose
   vector (the ``handler`` or ``error`` residue included) sums to the
-  request's wall and lands as a ``gw.phases`` event on the span;
+  request's wall and lands as a ``gw.phases`` event on the span and, with
+  ``app["flight_recorder"]``, as a row of the recorder's rings;
   X-Queue-Depth and Retry-After on the unary /v1 responses;
 - ``error_middleware``: ``AuthError`` -> 401 with ``www-authenticate:
   Bearer``, ``PermissionDenied`` -> 403, ``ValueError`` -> 422, anything
@@ -88,26 +89,52 @@ async def flight_recorder_middleware(request: web.Request,
                                      handler: Handler) -> web.StreamResponse:
     """A ``PhaseClock`` for the request: the layers below charge auth,
     routing, engine and serialize time to it; the residue is ``handler``,
-    or ``error`` when an exception passed through."""
+    or ``error`` when an exception passed through. With a recorder in
+    ``app["flight_recorder"]``, the request is registered in flight while it
+    runs and then recorded (phase vector, status, route, trace ids, tenant;
+    499 for a client that went away, 500 for an exception), as the JAX
+    middleware does."""
+    recorder = request.app.get("flight_recorder")
     clock = request_phases.PhaseClock()
     token = request_phases.set_phase_clock(clock)
     span = current_span()
+    trace = span.context() if span is not None else None
+    rid = recorder.start_request(request.path, trace) if recorder is not None else None
     started = time.perf_counter()
     response: web.StreamResponse | None = None
-    error = False
+    error: str | None = None
+    disconnected = False
     try:
         response = await handler(request)
         return response
     except web.HTTPException as exc:
         response = exc  # an HTTPException is its response
         raise
-    except (asyncio.CancelledError, Exception):
-        error = True
+    except asyncio.CancelledError:
+        error, disconnected = "CancelledError", True
+        raise
+    except Exception as exc:
+        error = type(exc).__name__
         raise
     finally:
         request_phases.reset_phase_clock(token)
         wall = time.perf_counter() - started
         clock.add("error" if error else "handler", max(0.0, wall - clock.total()))
+        if recorder is not None:
+            recorder.finish_request(rid)
+            status = (response.status if response is not None
+                      else 499 if disconnected else 500)
+            route = request.match_info.route.resource
+            if error is None and status >= 500:
+                # the handler's exception was mapped to a 5xx below us
+                error = f"http_{status}"
+            recorder.record(
+                method=request.method, path=request.path,
+                route=route.canonical if route is not None else "unmatched",
+                status=status, duration_s=wall, phases_ms=clock.vector_ms(),
+                trace_id=trace[0] if trace else None, span_id=trace[1] if trace else None,
+                correlation_id=request.get("correlation_id"), tenant=request.get("tenant"),
+                error=error, client_disconnected=disconnected)
         if span is not None:
             span.add_event("gw.phases", {"duration_ms": round(wall * 1e3, 3),
                                          **clock.vector_ms()})

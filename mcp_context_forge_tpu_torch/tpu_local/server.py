@@ -30,15 +30,25 @@ shared engine plane's (one owner elected among the workers builds it, the
 others forward), and ``setup_fabric_routes`` serves the prefix-cache
 fabric's ``/admin/fabric/adverts`` exchange.
 
-aiohttp is imported here and in ``gateway/middleware.py``, nowhere else in
-the port.
+``setup_operator_routes`` serves the JAX gateway's operator routes
+(health, readiness, version, the log ring, the engine's stats and steps,
+the flight recorder's rings and the profiler capture). ``run`` serves the
+app on a port (``cli.py serve``).
+
+aiohttp is imported here and in ``gateway/middleware.py`` (and, when they
+post, by the OTLP exporter's ``aiohttp_post`` and the fabric publisher's
+peer client), nowhere else in the port.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import json
+import logging
+import os
+import tempfile
 from typing import Any
 
 from aiohttp import web
@@ -380,6 +390,18 @@ def setup_pool_routes(app: web.Application) -> None:
     app.add_routes(routes)
 
 
+def _detail(message: str, status: int) -> web.Response:
+    return web.json_response({"detail": message}, status=status)
+
+
+def _query_limit(request: web.Request, default: str) -> int | None:
+    """``?limit=`` clamped to 1..1024; None when it is not an integer."""
+    try:
+        return max(1, min(int(request.query.get("limit", default)), 1024))
+    except ValueError:
+        return None
+
+
 def setup_fabric_routes(app: web.Application) -> None:
     """The prefix-cache fabric's HTTP peer exchange (the JAX gateway's
     ``routers_extra.py`` routes) over ``app["fabric_publisher"]``:
@@ -389,9 +411,6 @@ def setup_fabric_routes(app: web.Application) -> None:
     ``GET /admin/fabric/adverts`` (needs ``observability.read``) answers
     the publisher's counters and the tier store's stats."""
     routes = web.RouteTableDef()
-
-    def _detail(message: str, status: int) -> web.Response:
-        return web.json_response({"detail": message}, status=status)
 
     @routes.post("/admin/fabric/adverts")
     async def fabric_adverts_exchange(request: web.Request) -> web.Response:
@@ -445,22 +464,13 @@ def setup_observability_routes(app: web.Application) -> None:
       waterfall of a trace the trace store kept, with its retention reasons."""
     routes = web.RouteTableDef()
 
-    def _not_found(message: str) -> web.Response:
-        return web.json_response({"detail": message}, status=404)
-
-    def _limit(request: web.Request) -> int | None:
-        try:
-            return max(1, min(int(request.query.get("limit", "64")), 1024))
-        except ValueError:
-            return None
-
     @routes.get("/metrics/prometheus")
     async def prometheus(request: web.Request) -> web.Response:
         if request.query.get("scope") == "fleet":
             fleet = request.app.get("fleet_metrics")
             if fleet is None:
-                return _not_found("fleet metrics aggregation is not enabled "
-                                  "(set MCPFORGE_GW_FLEET_METRICS=true)")
+                return _detail("fleet metrics aggregation is not enabled "
+                               "(set MCPFORGE_GW_FLEET_METRICS=true)", 404)
             body, content_type = fleet.render_fleet()
         else:
             body, content_type = request.app["metrics"].render(
@@ -473,8 +483,8 @@ def setup_observability_routes(app: web.Application) -> None:
         fleet = request.query.get("scope") == "fleet"
         evaluator = request.app.get("slo_evaluator_fleet" if fleet else "slo_evaluator")
         if evaluator is None:
-            return _not_found("fleet SLO evaluation needs MCPFORGE_GW_FLEET_METRICS" if fleet
-                              else "SLO evaluation is not enabled")
+            return _detail("fleet SLO evaluation needs MCPFORGE_GW_FLEET_METRICS" if fleet
+                           else "SLO evaluation is not enabled", 404)
         consumer = request.query.get("window", "default")[:64] or "default"
         tenant = request.query.get("tenant") or None
         report = evaluator.evaluate(consumer=consumer, tenant=tenant[:128] if tenant else None)
@@ -487,11 +497,11 @@ def setup_observability_routes(app: web.Application) -> None:
         request["auth"].require("observability.read")
         ledger = request.app.get("tenant_ledger")
         if ledger is None:
-            return _not_found("tenant metering is disabled "
-                              "(set MCPFORGE_TENANT_METERING_ENABLED=true)")
-        limit = _limit(request)
+            return _detail("tenant metering is disabled "
+                           "(set MCPFORGE_TENANT_METERING_ENABLED=true)", 404)
+        limit = _query_limit(request, "64")
         if limit is None:
-            return web.json_response({"detail": "limit must be an integer"}, status=422)
+            return _detail("limit must be an integer", 422)
         payload = ledger.snapshot(limit=limit)
         payload["rollups"] = []
         roller = request.app.get("tenant_window_roller")
@@ -503,14 +513,14 @@ def setup_observability_routes(app: web.Application) -> None:
         request["auth"].require("observability.read")
         store = request.app.get("trace_store")
         if store is None:
-            return _not_found("request forensics trace store is disabled "
-                              "(set MCPFORGE_TRACE_STORE_ENABLED=true)")
+            return _detail("request forensics trace store is disabled "
+                           "(set MCPFORGE_TRACE_STORE_ENABLED=true)", 404)
         trace_id = request.match_info["trace_id"]
         entry = store.get(trace_id)
         if entry is None:
-            return _not_found(
+            return _detail(
                 f"trace {trace_id} is not retained (tail sampling keeps errors, SLO "
-                f"breaches, slowest-N, exemplars, and a 1-in-{store.sample_every} sample)")
+                f"breaches, slowest-N, exemplars, and a 1-in-{store.sample_every} sample)", 404)
         pool = request.app.get("tpu_engine_pool")
         engine = request.app.get("tpu_engine")
         if pool is not None:
@@ -521,6 +531,234 @@ def setup_observability_routes(app: web.Application) -> None:
         waterfall["retention"] = {k: entry[k] for k in ("reasons", "breaches", "route",
                                                         "tenant", "status", "truncated")}
         return web.json_response(waterfall)
+
+    app.add_routes(routes)
+
+
+class _NotFound(Exception):
+    """An operator route's 404, with its detail."""
+
+
+def _profiler_or_404(request: web.Request):
+    """The gate of every profiling route: ``torch_profile_enabled`` first,
+    then the app's capture (made only beside a local engine)."""
+    if not getattr(request.app["settings"], "torch_profile_enabled", False):
+        raise _NotFound("profiler capture is disabled "
+                        "(set MCPFORGE_TORCH_PROFILE_ENABLED=true)")
+    profiler = request.app.get("torch_profiler")
+    if profiler is None:
+        raise _NotFound("tpu_local engine is not enabled")
+    return profiler
+
+
+async def _serving_ready(app: web.Application) -> tuple[bool, bool, str]:
+    """(ready, leader, detail) without a database: a local engine whose
+    dispatch thread runs, a pool with a ready replica, or a shared plane
+    with an elected owner. ``leader`` is whether this worker owns
+    the engine it serves (the plane's owner; always, for a local engine)."""
+    plane = app.get("engine_plane")
+    if plane is not None:
+        owner = await plane.owner()
+        return owner is not None, plane.is_owner, "no engine-pool owner is elected"
+    pool = app.get("tpu_engine_pool")
+    if pool is not None:
+        ready = any(r.state == "ready" and r.engine.dispatch_alive() for r in pool.replicas)
+        return ready, True, "no replica of the pool is serving"
+    engine = app.get("tpu_engine")
+    return (engine is not None and engine.dispatch_alive(), True,
+            "the engine's dispatch thread is not running")
+
+
+def setup_operator_routes(app: web.Application) -> None:
+    """The JAX gateway's operator routes, each with its permission, query
+    clamps and 404 texts (``{"detail": ...}``):
+
+    - ``GET /health``, ``GET /ready`` (no database: ``_serving_ready``; 503
+      ``{"status": "not ready", "detail"}`` until then) and ``GET /version``
+      (the port's ``__version__``), public;
+    - ``GET /admin/logs`` (``observability.read``): the log ring's
+      ``search`` under ``?q=``, ``?level=``, ``?limit=`` (default 200);
+    - ``GET /admin/engine/stats`` and ``GET /admin/engine/steps``
+      (``observability.read``; ``?limit=`` 1..1024, default 64): the live
+      engine's counters and ``engine_introspection``; 404 without an engine;
+    - ``GET /admin/gateway/requests`` (``observability.read``; ``?limit=``
+      1..1024, default 32, ``?tenant=``): the flight recorder's rings, the
+      loop sampler's snapshot, the backpressure state, the degradation
+      ladder's components and the shedder's total; 404 without a recorder;
+    - ``POST /admin/engine/profile`` (``admin.all``; body ``{"duration_ms":
+      n}``, at most 30 s): a timed capture that stops only itself;
+      ``GET /admin/engine/profile/status`` (``observability.read``),
+      ``POST /admin/engine/profile/start`` and ``/stop`` (``admin.all``):
+      all 404 unless ``torch_profile_enabled``, 409 on a transition the
+      capture refuses; start and stop run in ``asyncio.to_thread``.
+
+    A malformed ``limit`` answers 422."""
+    from .. import __version__
+    from ..gateway.flight_recorder import queue_state
+    from ..observability.degradation import get_degradation
+    from ..observability.logging import ring_buffer
+    from ..services.diagnostics_service import (ConflictError, engine_introspection,
+                                                live_tpu_engine)
+    from .parallel.mesh import mesh_shape_from_string
+
+    routes = web.RouteTableDef()
+
+    def _engine(request: web.Request):
+        engine = live_tpu_engine(request.app)
+        if engine is None:
+            raise _NotFound("tpu_local engine is not enabled")
+        return engine
+
+    def operator_route(handler):
+        async def guarded(request: web.Request) -> web.StreamResponse:
+            try:
+                return await handler(request)
+            except _NotFound as exc:
+                return _detail(str(exc), 404)
+            except ConflictError as exc:
+                return _detail(str(exc), 409)
+        return guarded
+
+    @routes.get("/health")
+    async def health(request: web.Request) -> web.Response:
+        return web.json_response({"status": "healthy"})
+
+    @routes.get("/ready")
+    async def ready(request: web.Request) -> web.Response:
+        serving, leader, detail = await _serving_ready(request.app)
+        if not serving:
+            return web.json_response({"status": "not ready", "detail": detail}, status=503)
+        return web.json_response({"status": "ready", "worker_id": request.app["worker_id"],
+                                  "leader": leader})
+
+    @routes.get("/version")
+    async def version(request: web.Request) -> web.Response:
+        return web.json_response({"version": __version__})
+
+    @routes.get("/admin/logs")
+    async def admin_logs(request: web.Request) -> web.Response:
+        request["auth"].require("observability.read")
+        return web.json_response(ring_buffer.search(
+            query=request.query.get("q", ""), level=request.query.get("level"),
+            limit=int(request.query.get("limit", "200"))))
+
+    @routes.get("/admin/engine/stats")
+    @operator_route
+    async def engine_stats(request: web.Request) -> web.Response:
+        request["auth"].require("observability.read")
+        engine = _engine(request)
+        stats, alloc = engine.stats, engine.allocator
+        data, model = mesh_shape_from_string(engine.config.mesh_shape, len(engine.devices))
+        return web.json_response({
+            "model": engine.config.model,
+            "mesh": {"data": data, "model": model},
+            "requests": stats.requests,
+            "prompt_tokens": stats.prompt_tokens,
+            "completion_tokens": stats.completion_tokens,
+            "decode_steps": stats.decode_steps,
+            "decode_dispatches": stats.decode_dispatches,
+            "superstep": engine.config.fused_steps,
+            "prefill_batches": stats.prefill_batches,
+            "prefill_requests": stats.prefill_requests,
+            "queue_depth": stats.queue_depth,
+            "kv_pages_in_use": alloc.pages_in_use,
+            "kv_pages_free": alloc.free_pages,
+            "kv_quant": engine.config.kv_quant or "off",
+            "kv_bytes_in_use": engine.kv_bytes_in_use(),
+            "prefill_ms_total": round(stats.prefill_ms_total, 1),
+            "decode_ms_total": round(stats.decode_ms_total, 1),
+            "engine_restarts": stats.engine_restarts,
+            "chunking": stats.chunking,
+            "prefix_cache": {
+                "enabled": engine.config.prefix_cache,
+                "cached_pages": alloc.cached_pages,
+                "hits": alloc.prefix_hits,
+                "hit_tokens": alloc.prefix_hit_tokens,
+                "tiers": engine.tier_stats(),
+            },
+            "tier_hits_host": alloc.tier_hits["host"],
+            "tier_hits_disk": alloc.tier_hits["disk"],
+            "tier_hits_object": alloc.tier_hits.get("object", 0),
+            "tier_hit_tokens_spilled": (alloc.tier_hit_tokens["host"]
+                                        + alloc.tier_hit_tokens["disk"]
+                                        + alloc.tier_hit_tokens.get("object", 0)),
+            "spec_decode": {"enabled": engine.config.spec_decode,
+                            "steps": stats.spec_steps, "extra_tokens": stats.spec_tokens},
+        })
+
+    @routes.get("/admin/engine/steps")
+    @operator_route
+    async def engine_steps(request: web.Request) -> web.Response:
+        request["auth"].require("observability.read")
+        engine = _engine(request)
+        limit = _query_limit(request, "64")
+        if limit is None:
+            return _detail("limit must be an integer", 422)
+        return web.json_response(engine_introspection(engine, limit=limit))
+
+    @routes.get("/admin/gateway/requests")
+    @operator_route
+    async def gateway_requests(request: web.Request) -> web.Response:
+        request["auth"].require("observability.read")
+        recorder = request.app.get("flight_recorder")
+        if recorder is None:
+            raise _NotFound("gateway flight recorder is disabled "
+                            "(set MCPFORGE_GW_FLIGHT_RECORDER_ENABLED=true)")
+        limit = _query_limit(request, "32")
+        if limit is None:
+            return _detail("limit must be an integer", 422)
+        snapshot = recorder.snapshot(limit=limit, tenant=request.query.get("tenant"))
+        sampler = request.app.get("loop_lag_sampler")
+        snapshot["loop"] = sampler.snapshot() if sampler is not None else None
+        snapshot["backpressure"] = queue_state(request.app)
+        snapshot["degradation"] = get_degradation().status()["components"]
+        shedder = request.app.get("overload_shedder")
+        snapshot["shed_total"] = shedder.shed_total if shedder is not None else None
+        return web.json_response(snapshot)
+
+    @routes.post("/admin/engine/profile")
+    @operator_route
+    async def engine_profile(request: web.Request) -> web.Response:
+        request["auth"].require("admin.all")
+        profiler = _profiler_or_404(request)
+        engine = _engine(request)
+        body = await request.json() if request.can_read_body else {}
+        duration_ms = min(float(body.get("duration_ms", 1000.0)), 30_000.0)
+        started = (await asyncio.to_thread(profiler.start))["started_at"]
+        try:
+            await asyncio.sleep(duration_ms / 1000.0)
+        finally:
+            try:
+                # stop this capture only: one an operator stopped and
+                # restarted in the window is theirs
+                result = await asyncio.to_thread(profiler.stop, expect_started_at=started)
+            except ConflictError:
+                result = {"active": profiler.active, "trace_dir": profiler.trace_dir,
+                          "detail": "capture was stopped externally"}
+        result.update({"duration_ms": duration_ms,
+                       "decode_steps": engine.stats.decode_steps,
+                       "prefill_batches": engine.stats.prefill_batches})
+        return web.json_response(result)
+
+    @routes.get("/admin/engine/profile/status")
+    @operator_route
+    async def profile_status(request: web.Request) -> web.Response:
+        request["auth"].require("observability.read")
+        return web.json_response(_profiler_or_404(request).status())
+
+    @routes.post("/admin/engine/profile/start")
+    @operator_route
+    async def profile_start(request: web.Request) -> web.Response:
+        request["auth"].require("admin.all")
+        profiler = _profiler_or_404(request)
+        return web.json_response(await asyncio.to_thread(profiler.start))
+
+    @routes.post("/admin/engine/profile/stop")
+    @operator_route
+    async def profile_stop(request: web.Request) -> web.Response:
+        request["auth"].require("admin.all")
+        profiler = _profiler_or_404(request)
+        return web.json_response(await asyncio.to_thread(profiler.stop))
 
     app.add_routes(routes)
 
@@ -569,7 +807,7 @@ def coordination_from_settings(settings) -> tuple[Any, Any, Any, Any]:
 
 
 def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
-                  worker_id: str | None = None) -> web.Application:
+                  worker_id: str | None = None, device: str | None = None) -> web.Application:
     """An app serving the /v1 surface under ``settings.llm_api_prefix`` from
     one engine or a replica pool: ``pool``, or ``engine``, or, with
     ``tpu_local_replicas`` > 1, a pool (``build_pool``) and else one
@@ -610,7 +848,19 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     ``tenant_quota_tokens_per_window``, over the bus backend's shared
     counter), ``app["slo_evaluator"]`` (always), ``app["fleet_metrics"]``
     and ``app["slo_evaluator_fleet"]`` (``gw_fleet_metrics``) and
-    ``app["trace_store"]`` (``trace_store_enabled``, a tracer sink)."""
+    ``app["trace_store"]`` (``trace_store_enabled``, a tracer sink).
+
+    The operator plane: the root logger gets the log ring and the settings'
+    format and file sink (``init_logging``); insecure settings refuse to
+    build (``validate_security``); with ``otel_otlp_endpoint`` an
+    ``OTLPExporter`` is a tracer sink (``app["otlp_exporter"]``); with
+    ``gw_flight_recorder_enabled`` a ``FlightRecorder`` and a
+    ``LoopLagSampler`` on the signal bus (``app["flight_recorder"]``,
+    ``app["loop_lag_sampler"]``); beside a local engine a
+    ``TorchProfilerCapture`` into ``torch_profile_dir``
+    (``app["torch_profiler"]``); ``setup_operator_routes`` serves them.
+    ``device`` (e.g. "cpu") replaces the engine config's device for the
+    engines the app builds."""
     from ..coordination.heartbeat import WorkerHeartbeat
     from ..coordination.ratelimit import DistributedTenantLimiter, make_rate_counter
     from ..coordination.rpc import BusRpc
@@ -618,15 +868,20 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     from ..observability import phases
     from ..observability.degradation import OverloadShedder, configure_degradation
     from ..observability.faults import configure_fault_plane
+    from ..config import validate_security
+    from ..gateway.flight_recorder import FlightRecorder, LoopLagSampler
     from ..observability.fleet import FleetMetrics, FleetMetricsView
+    from ..observability.logging import init_logging
     from ..observability.metering import TenantLedger, TenantWindowRoller
     from ..observability.metrics import PrometheusRegistry
     from ..observability.signals import SignalBus
     from ..observability.slo import (SloEvaluator, default_objectives, parse_slo_classes,
                                      parse_tenant_classes)
     from ..observability.tenant import TenantClamp
+    from ..observability.otlp import OTLPExporter, aiohttp_post
     from ..observability.trace_store import ExemplarLedger, TraceStore
     from ..observability.tracing import Tracer, current_span
+    from ..services.diagnostics_service import TorchProfilerCapture
     from ..utils import new_id
     from .controller import ServingController
     from .engine import EngineConfig, TorchEngine
@@ -634,6 +889,17 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     from .pool_rpc import SharedEnginePlane, SharedPoolProvider
     from .tpu_provider import TorchLocalProvider
 
+    init_logging(getattr(settings, "log_level", "INFO"), getattr(settings, "log_json", False),
+                 buffer_capacity=getattr(settings, "log_buffer_capacity", 5000),
+                 file_path=(os.path.join(getattr(settings, "log_folder", "logs"),
+                                         getattr(settings, "log_file", "mcpforge.log"))
+                            if getattr(settings, "log_to_file", False) else None),
+                 rotation=getattr(settings, "log_rotation_enabled", False),
+                 max_mb=getattr(settings, "log_max_size_mb", 1.0),
+                 backup_count=getattr(settings, "log_backup_count", 5))
+    problems = validate_security(settings)
+    if problems:
+        raise RuntimeError(f"Refusing to start with insecure configuration: {problems}")
     # one tenant clamp for the registry and the ledger: bounded tenant label
     # cardinality, the same admission on both sides
     tenant_clamp = TenantClamp(getattr(settings, "tenant_label_clamp", 8))
@@ -665,6 +931,16 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
                          "queue_wait": settings.slo_queue_wait_p95_ms / 1e3},
             exemplars=metrics.exemplars)
         tracer.add_sink(trace_store.sink)
+    otlp = otlp_close = None
+    if settings.otel_enable and getattr(settings, "otel_otlp_endpoint", ""):
+        # OTLP/HTTP export beside the memory sink and the trace store
+        headers = (json.loads(settings.otel_otlp_headers)
+                   if getattr(settings, "otel_otlp_headers", "") else None)
+        post, otlp_close = aiohttp_post()
+        otlp = OTLPExporter(post, settings.otel_otlp_endpoint, settings.otel_service_name,
+                            headers, metrics=metrics,
+                            max_retries=getattr(settings, "otel_otlp_retry_max", 3))
+        tracer.add_sink(otlp.sink)
     quota = getattr(settings, "tenant_quota_tokens_per_window", 0)
     ledger = roller = None
     if getattr(settings, "tenant_metering_enabled", True):
@@ -708,6 +984,18 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
                             tenant_classes=parse_tenant_classes(settings),
                             tenant_label=tenant_clamp.peek)
 
+    recorder = sampler = None
+    if getattr(settings, "gw_flight_recorder_enabled", True):
+        # per-request phase rows behind /admin/gateway/requests, and the
+        # loop's lag, pushed onto the signal bus as gw.loop_lag_ms
+        recorder = FlightRecorder(
+            metrics, ring_size=getattr(settings, "gw_flight_ring_size", 256),
+            slowest_size=getattr(settings, "gw_flight_slowest_size", 32),
+            slow_request_s=settings.gw_slow_request_s, worker=worker_id)
+        sampler = LoopLagSampler(
+            metrics, interval_s=getattr(settings, "gw_loop_lag_interval_s", 0.25),
+            warn_s=getattr(settings, "gw_loop_lag_warn_ms", 250.0) / 1e3, recorder=recorder)
+        sampler.signals = signal_bus
     bus_rpc = BusRpc(bus, worker_id, leases=leases,
                      default_timeout_s=getattr(settings, "gw_rpc_timeout_s", 30.0),
                      idle_timeout_s=getattr(settings, "gw_stream_idle_timeout_s", 15.0))
@@ -715,11 +1003,15 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     # the engines that serve on this worker (none on a plane's non-owner)
     live = {"engine": None, "pool": None}
 
+    def engine_config() -> EngineConfig:
+        config = EngineConfig.from_settings(settings)
+        return dataclasses.replace(config, device=device) if device else config
+
     def make_provider(engine, pool):
         """The engines' provider, building the pool or the engine first when
         none is given."""
         if pool is None and engine is None and getattr(settings, "tpu_local_replicas", 1) > 1:
-            pool = build_pool(settings, EngineConfig.from_settings(settings),
+            pool = build_pool(settings, engine_config(),
                               tracer=tracer, signals=signal_bus, metrics=metrics,
                               ledger=ledger)
         handles = dict(tracer=tracer, signals=signal_bus, metrics=metrics, ledger=ledger)
@@ -730,7 +1022,7 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
             engines = [r.engine for r in pool.replicas]
         else:
             if engine is None:
-                engine = TorchEngine(EngineConfig.from_settings(settings), **handles)
+                engine = TorchEngine(engine_config(), **handles)
             engines = [engine]
         for served in engines:
             for name, handle in handles.items():
@@ -792,6 +1084,14 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     app["tenant_limiter"] = limiter
     app["trace_store"] = trace_store
     app["fleet_metrics"] = fleet
+    app["otlp_exporter"] = otlp
+    app["flight_recorder"] = recorder
+    app["loop_lag_sampler"] = sampler
+    served = live["engine"]
+    app["torch_profiler"] = (
+        TorchProfilerCapture(getattr(settings, "torch_profile_dir", os.path.join(
+            tempfile.gettempdir(), "mcpforge-torchprof")), device=served.device)
+        if served is not None else None)
     app["slo_evaluator"] = evaluator(metrics)
     app["slo_evaluator_fleet"] = (evaluator(FleetMetricsView(metrics, fleet))
                                   if fleet is not None else None)
@@ -865,6 +1165,10 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     bus_rpc.register(ADVERT_METHOD, fabric_publisher.handle_advert)
 
     async def start(app: web.Application) -> None:
+        if sampler is not None:
+            await sampler.start()
+        if otlp is not None:
+            await otlp.start()
         if hub is not None:
             await hub.start()
             hub_client.port = hub.bound_port   # a hub on port 0 took a free one
@@ -908,6 +1212,11 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
             await bus.stop()
         if hub is not None:
             await hub.stop()
+        if otlp is not None:
+            await otlp.stop()   # after the engines: their last spans go out
+            await otlp_close()
+        if sampler is not None:
+            await sampler.stop()
 
     app.on_startup.append(start)
     app.on_cleanup.append(stop)
@@ -915,4 +1224,43 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     setup_pool_routes(app)
     setup_fabric_routes(app)
     setup_observability_routes(app)
+    setup_operator_routes(app)
     return app
+
+
+def install_event_loop(policy_name: str) -> str:
+    """Install the ``gw_event_loop`` policy; returns the loop installed:
+    ``uvloop`` only when asked for and importable, else asyncio's, with a
+    warning when uvloop was asked for (the knob is never a boot error)."""
+    if policy_name != "uvloop":
+        return "asyncio"
+    try:
+        import uvloop  # type: ignore[import-not-found]
+    except ImportError:
+        logging.getLogger(__name__).warning(
+            "gw_event_loop=uvloop but uvloop is not installed; falling back to asyncio")
+        return "asyncio"
+    asyncio.set_event_loop_policy(uvloop.EventLoopPolicy())
+    return "uvloop"
+
+
+def run(settings=None, device: str | None = None) -> None:
+    """Serve ``build_llm_app(settings, device=device)`` on ``settings.host``
+    and ``settings.port`` until SIGINT or SIGTERM (the port's settings from
+    the environment by default): TLS with ``ssl_enabled``, one shared
+    SO_REUSEPORT socket with ``gw_reuse_port``, ``gw_listen_backlog``. The
+    engine is built before the port binds; a build that fails (no card for a
+    ``cuda`` device) raises out of here."""
+    from ..config import get_settings
+    from ..utils.sslctx import serving_ssl
+
+    settings = settings or get_settings()
+    install_event_loop(getattr(settings, "gw_event_loop", ""))
+
+    async def factory() -> web.Application:
+        return build_llm_app(settings, device=device)
+
+    web.run_app(factory(), host=settings.host, port=settings.port,
+                reuse_port=getattr(settings, "gw_reuse_port", False) or None,
+                backlog=getattr(settings, "gw_listen_backlog", 1024),
+                ssl_context=serving_ssl(settings))
