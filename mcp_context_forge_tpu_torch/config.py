@@ -48,6 +48,9 @@ _FLOAT_TEXT = re.compile(
     r"|inf|infinity|nan)", re.ASCII | re.IGNORECASE)
 
 
+_DB_SCHEMES = ("sqlite:///", "sqlite+aiosqlite:///", "postgres://", "postgresql://")
+
+
 class SettingsError(ValueError):
     """A value that the field's type refuses."""
 
@@ -62,6 +65,12 @@ class Settings:
     port: int = 4444
     environment: Literal["development", "production"] = "development"
     dev_mode: bool = True
+    # --- persistence (``database_url``: sqlite:/// or postgresql://) ---
+    database_url: str = "sqlite:///./mcpforge.db"
+    db_pool_size: int = 8
+    db_sqlite_busy_timeout_ms: int = 10000
+    db_max_retries: int = 3               # on SQLITE_BUSY/locked
+    db_retry_interval_ms: float = 50.0
     # --- coordination: the bus and leases of the gateway's workers ---
     bus_backend: Literal["memory", "file", "tcp"] = "memory"
     bus_dir: str = "/tmp/mcpforge-bus"
@@ -111,12 +120,24 @@ class Settings:
     log_rotation_enabled: bool = False
     log_max_size_mb: float = 1.0
     log_backup_count: int = 5
+    # --- outbound HTTP (the services' shared clients) ---
+    tool_timeout: float = 60.0
+    outbound_pool_limit: int = 1024
+    outbound_pool_limit_per_host: int = 0
+    skip_ssl_verify: bool = False
+    http_max_connections: int = 512
+    http_max_keepalive: int = 128
+    http_connect_timeout: float = 10.0
     # --- TLS: serving + outbound contexts ---
     ssl_enabled: bool = False     # serve HTTPS (cert+key below)
     ssl_cert_file: str = ""
     ssl_key_file: str = ""
+    ssl_ca_bundle: str = ""       # custom CA bundle for OUTBOUND verification
     # --- admin log search ring buffer ---
     log_buffer_capacity: int = 5000
+    # --- plugins ---
+    plugins_enabled: bool = True
+    plugin_config_file: str = "plugins/config.yaml"
     # --- observability ---
     otel_enable: bool = True
     otel_exporter: Literal["none", "console", "otlp", "memory"] = "memory"
@@ -207,6 +228,8 @@ class Settings:
     tenant_ledger_max_tenants: int = 512
     tenant_usage_rollup_interval_s: float = 60.0
     tenant_quota_tokens_per_window: int = 0
+    # windows a database outage could not flush; past it the oldest drops
+    tenant_rollup_pending_max: int = 8
     # --- gateway flight recorder & loop health ---
     gw_flight_recorder_enabled: bool = True
     gw_flight_ring_size: int = 256
@@ -261,6 +284,14 @@ class Settings:
     def __post_init__(self) -> None:
         for name, annotation in _field_types().items():
             object.__setattr__(self, name, _coerce(name, annotation, getattr(self, name)))
+        if not self.database_url.startswith(_DB_SCHEMES):
+            raise SettingsError(
+                "database_url: database URL must be sqlite:/// or postgresql:// "
+                "(reference config.py:14 dual-DB support)")
+
+    @property
+    def is_postgres(self) -> bool:
+        return self.database_url.startswith(("postgres://", "postgresql://"))
 
     @property
     def gw_slow_request_s(self) -> float:

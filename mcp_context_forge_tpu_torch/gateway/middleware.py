@@ -11,12 +11,15 @@ the reference's order (``MIDDLEWARES``, outermost first):
   request's wall and lands as a ``gw.phases`` event on the span and, with
   ``app["flight_recorder"]``, as a row of the recorder's rings;
   X-Queue-Depth and Retry-After on the unary /v1 responses;
-- ``error_middleware``: ``AuthError`` -> 401 with ``www-authenticate:
-  Bearer``, ``PermissionDenied`` -> 403, ``ValueError`` -> 422, anything
-  else -> 500 without a trace;
-- ``auth_middleware``: ``request["auth"]`` from the Authorization header
-  (``gateway/auth.py``); public paths and OPTIONS pass as anonymous; the
-  rest of the chain runs under the principal's tenant
+- ``error_middleware``: ``NotFoundError`` -> 404, ``ConflictError`` -> 409,
+  ``ValidationFailure`` and ``ValueError`` -> 422, ``AuthError`` -> 401 with
+  ``www-authenticate: Bearer``, ``PermissionDenied`` -> 403, anything else
+  -> 500 without a trace;
+- ``auth_middleware``: ``request["auth"]`` from the plugins'
+  ``http_auth_resolve_user`` hooks when ``app["plugin_manager"]`` is set,
+  else from the Authorization header (``gateway/auth.py``), then the
+  plugins' ``http_pre_request`` hooks; public paths and OPTIONS pass as
+  anonymous; the rest of the chain runs under the principal's tenant
   (``request["tenant"]`` and the port's ``set_current_tenant``).
 
 ``request.app["settings"]`` is duck-typed as the gateway's settings.
@@ -35,6 +38,7 @@ from ..observability import (ANONYMOUS, reset_current_tenant, resolve_tenant,
                              set_current_tenant)
 from ..observability import phases as request_phases
 from ..observability.tracing import current_span
+from ..services.base import ConflictError, NotFoundError, ValidationFailure
 from .auth import AuthContext, AuthError, PermissionDenied, resolve_header
 from .flight_recorder import backpressure_headers, queue_state
 
@@ -159,7 +163,11 @@ async def error_middleware(request: web.Request, handler: Handler) -> web.Stream
         return await handler(request)
     except web.HTTPException:
         raise
-    except ValueError as exc:
+    except NotFoundError as exc:
+        return web.json_response({"detail": str(exc)}, status=404)
+    except ConflictError as exc:
+        return web.json_response({"detail": str(exc)}, status=409)
+    except (ValidationFailure, ValueError) as exc:
         return web.json_response({"detail": str(exc)}, status=422)
     except AuthError as exc:
         return web.json_response({"detail": str(exc)}, status=401,
@@ -185,15 +193,25 @@ async def _handle_as_tenant(request: web.Request, handler: Handler) -> web.Strea
 
 @web.middleware
 async def auth_middleware(request: web.Request, handler: Handler) -> web.StreamResponse:
-    """``request["auth"]`` from a Bearer JWT or Basic credentials; an
-    anonymous admin when ``auth_required`` is off; else ``AuthError``."""
+    """``request["auth"]`` from the plugins' ``http_auth_resolve_user``
+    hooks, else a Bearer JWT or Basic credentials; an anonymous admin when
+    ``auth_required`` is off; else ``AuthError``. The plugins'
+    ``http_pre_request`` hooks run after it."""
     if request.method == "OPTIONS" or request.path in PUBLIC_PATHS:
         request["auth"] = AuthContext(user="anonymous", via="anonymous")
         return await _handle_as_tenant(request, handler)
     settings = request.app["settings"]
+    pm = request.app.get("plugin_manager")
+    # the plugin hooks inside charge "plugins" (self time), the rest "auth"
     with request_phases.phase("auth"):
-        request["auth"] = resolve_header(
-            settings, request.headers.get(settings.auth_header_name, ""))
+        auth = (await pm.http_auth_resolve_user(dict(request.headers))
+                if pm is not None else None)
+        if auth is None:
+            auth = resolve_header(settings, request.headers.get(settings.auth_header_name, ""))
+        request["auth"] = auth
+    if pm is not None:
+        await pm.http_pre_request(request.method, request.path, dict(request.headers),
+                                  user=auth.user)
     return await _handle_as_tenant(request, handler)
 
 

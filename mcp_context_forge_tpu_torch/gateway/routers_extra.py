@@ -1,0 +1,130 @@
+"""The JAX gateway's LLM-admin and plugin routes (``gateway/routers_extra.py``
+there), with its permissions, status codes and bodies. Handlers raise the
+services' domain errors; ``error_middleware`` maps them (404, 409, 422).
+
+- ``GET``/``POST /llm/providers``, ``DELETE /llm/providers/{provider_id}``,
+  ``GET /llm/models``, ``POST /llm/providers/{provider_id}/models``
+  (``llm.admin``) over ``app["llm_provider_service"]``;
+- ``GET /plugins`` (the loaded plugins, ``[]`` without a manager),
+  ``POST /plugins/{name}/mode`` (over the ``plugins.control`` topic; a
+  binding's mode is stored), ``GET``/``POST /plugins/bindings`` and
+  ``DELETE /plugins/bindings/{binding_id}`` (rows of ``plugin_bindings``;
+  a change publishes ``plugins.bindings.changed``), all ``plugins.manage``,
+  over ``app["ctx"]``."""
+
+from __future__ import annotations
+
+from aiohttp import web
+
+from ..db.core import to_json
+from ..plugins.framework import PluginMode
+from ..services.base import ValidationFailure, now
+from ..utils.ids import new_id
+
+
+def setup_routes(app: web.Application) -> None:
+    routes = web.RouteTableDef()
+
+    # ------------------------------------------------------------- LLM admin
+    @routes.get("/llm/providers")
+    async def list_providers(request: web.Request) -> web.Response:
+        request["auth"].require("llm.admin")
+        return web.json_response(await request.app["llm_provider_service"].list_providers())
+
+    @routes.post("/llm/providers")
+    async def create_provider(request: web.Request) -> web.Response:
+        request["auth"].require("llm.admin")
+        body = await request.json()
+        provider = await request.app["llm_provider_service"].create_provider(
+            name=body.get("name", ""), provider_type=body.get("provider_type", ""),
+            api_base=body.get("api_base", ""), config=body.get("config"))
+        return web.json_response(provider, status=201)
+
+    @routes.delete("/llm/providers/{provider_id}")
+    async def delete_provider(request: web.Request) -> web.Response:
+        request["auth"].require("llm.admin")
+        await request.app["llm_provider_service"].delete_provider(
+            request.match_info["provider_id"])
+        return web.Response(status=204)
+
+    @routes.get("/llm/models")
+    async def list_models(request: web.Request) -> web.Response:
+        request["auth"].require("llm.admin")
+        return web.json_response(await request.app["llm_provider_service"].list_models())
+
+    @routes.post("/llm/providers/{provider_id}/models")
+    async def add_model(request: web.Request) -> web.Response:
+        request["auth"].require("llm.admin")
+        body = await request.json()
+        model = await request.app["llm_provider_service"].add_model(
+            request.match_info["provider_id"], model_id=body.get("model_id", ""),
+            alias=body.get("alias", ""),
+            supports_chat=bool(body.get("supports_chat", True)),
+            supports_embeddings=bool(body.get("supports_embeddings", False)))
+        return web.json_response(model, status=201)
+
+    # ---------------------------------------------------------------- plugins
+    @routes.get("/plugins")
+    async def list_plugins(request: web.Request) -> web.Response:
+        request["auth"].require("plugins.manage")
+        pm = request.app.get("plugin_manager")
+        if pm is None:
+            return web.json_response([])
+        return web.json_response([{
+            "name": p.config.name, "kind": p.config.kind,
+            "mode": p.config.mode.value, "priority": p.config.priority,
+            "tools": p.config.tools,
+        } for p in pm.plugins])
+
+    @routes.post("/plugins/{name}/mode")
+    async def set_plugin_mode(request: web.Request) -> web.Response:
+        request["auth"].require("plugins.manage")
+        body = await request.json()
+        ctx = request.app["ctx"]
+        name = request.match_info["name"]
+        mode = body.get("mode", "enforce")
+        if mode not in {m.value for m in PluginMode}:
+            raise ValidationFailure(
+                f"mode must be one of {sorted(m.value for m in PluginMode)}")
+        # a binding's mode is stored, so that a reload cannot revert it
+        if name.startswith("binding:"):
+            await ctx.db.execute("UPDATE plugin_bindings SET mode=? WHERE id=?",
+                                 (mode, name.split(":", 1)[1]))
+        # every worker's manager applies it (this one by local delivery)
+        await ctx.bus.publish("plugins.control", {"name": name, "mode": mode})
+        return web.Response(status=204)
+
+    @routes.post("/plugins/bindings")
+    async def create_binding(request: web.Request) -> web.Response:
+        request["auth"].require("plugins.manage")
+        body = await request.json()
+        ctx = request.app["ctx"]
+        binding_id = new_id()
+        await ctx.db.execute(
+            "INSERT INTO plugin_bindings (id, plugin_name, scope_type, scope_id,"
+            " mode, config, enabled, created_at) VALUES (?,?,?,?,?,?,?,?)",
+            (binding_id, body.get("plugin_name", ""),
+             body.get("scope_type", "tool"), body.get("scope_id"),
+             body.get("mode", "enforce"),
+             to_json(body.get("config", {})), 1, now()))
+        await ctx.bus.publish("plugins.bindings.changed", {"id": binding_id})
+        return web.json_response({"id": binding_id}, status=201)
+
+    @routes.get("/plugins/bindings")
+    async def list_bindings(request: web.Request) -> web.Response:
+        request["auth"].require("plugins.manage")
+        rows = await request.app["ctx"].db.fetchall(
+            "SELECT * FROM plugin_bindings ORDER BY created_at")
+        return web.json_response(rows)
+
+    @routes.delete("/plugins/bindings/{binding_id}")
+    async def delete_binding(request: web.Request) -> web.Response:
+        request["auth"].require("plugins.manage")
+        await request.app["ctx"].db.execute(
+            "DELETE FROM plugin_bindings WHERE id=?",
+            (request.match_info["binding_id"],))
+        await request.app["ctx"].bus.publish("plugins.bindings.changed",
+                                             {"id": request.match_info["binding_id"]})
+        return web.Response(status=204)
+
+    app.add_routes(routes)

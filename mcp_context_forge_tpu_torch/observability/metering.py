@@ -1,5 +1,6 @@
 """Per-tenant usage metering (a copy of the JAX package's
-``observability/metering.py`` ``TenantLedger``; stdlib only).
+``observability/metering.py``: ``TenantLedger``, ``TenantUsageRollup``;
+stdlib only).
 
 ``TenantLedger`` says whose tokens the engine served: prompt tokens,
 generated tokens, prefix-cache-hit tokens and KV-page-seconds of device
@@ -12,9 +13,9 @@ engine's untagged total. The ledger keeps exact rows per tenant (bounded at
 ``TenantClamp`` lets the metric labels show. Each row has cumulative totals
 (``GET /admin/tenants/usage``) and a window since the last ``take_window``,
 which feeds ``mcpforge_gw_tenant_quota_used_ratio`` and the shedder's and
-limiter's quota checks. ``TenantWindowRoller`` drains that window every
-rollup interval, as the JAX package's ``TenantUsageRollup`` does; writing the
-drained rows to a database table waits for the port's database.
+limiter's quota checks. ``TenantUsageRollup`` (the JAX package's) drains
+that window every rollup interval into the ``tenant_usage`` table, each
+window under its own stamps.
 
 Thread-safety: ``add()`` runs on engine dispatch threads and the event
 loop; everything mutates under one lock (counter adds, no I/O).
@@ -67,7 +68,7 @@ class TenantLedger:
         self._label_cache: dict[str, str] = {}
         self._child_cache: dict[tuple, Any] = {}
         self._window_started = time.time()
-        self.rollups_written = 0   # no rollup in the port yet; a snapshot key
+        self.rollups_written = 0
 
     def _key(self, tenant: str) -> str:
         """Exact tenant key, overflowing into ``other`` only past the
@@ -178,8 +179,8 @@ class TenantLedger:
 
     def take_window(self) -> tuple[float, dict[str, dict[str, float]]]:
         """Drain the rollup window: returns (window_start_ts, rows) and
-        resets the window counters + quota ratios (the JAX package's rollup
-        task drains it); the cumulative totals are untouched."""
+        resets the window counters + quota ratios. Called by the rollup
+        task; the cumulative totals are untouched."""
         with self._lock:
             started = self._window_started
             rows = {t: dict(row) for t, row in self._window.items()
@@ -229,24 +230,50 @@ class TenantLedger:
         }
 
 
-class TenantWindowRoller:
-    """The database-free part of the JAX package's ``TenantUsageRollup``:
-    every ``interval_s`` it drains the ledger's window (``take_window``), so
-    each window's quota ratios, ``mcpforge_gw_tenant_quota_used_ratio`` and
-    the shedder's quota verdict start again from zero. The drained rows are
-    dropped (the cumulative totals keep every token) until the port has the
-    database the rollup writes them to. Runs on the gateway loop."""
+class TenantUsageRollup:
+    """Periodic async drain of the ledger's rollup window into the
+    ``tenant_usage`` DB table (schema v9). Runs on the gateway loop.
 
-    def __init__(self, ledger: TenantLedger, interval_s: float = 60.0) -> None:
+    DB-outage behavior: a window whose write fails
+    parks in a BOUNDED pending buffer carrying its ORIGINAL
+    ``(window_start, window_end)`` stamps — a retried flush writes the
+    usage against the window it was actually consumed in, not the
+    post-recovery clock. Under a sustained outage the buffer never
+    grows past ``pending_max`` windows: the OLDEST drops with its loss
+    COUNTED (``windows_dropped`` / ``tokens_dropped`` — reported, never
+    hidden) instead of unbounded memory growth. Repeated failures open
+    the ``ledger.rollup`` breaker, which skips DB attempts until the
+    cooldown admits a half-open probe (no retry storm against a dead
+    DB); the ledger's cumulative per-tenant totals are untouched
+    throughout, so token conservation holds across the whole outage.
+    The DB write rides the ``ledger.rollup.flush`` fault point."""
+
+    def __init__(self, db: Any, ledger: TenantLedger,
+                 interval_s: float = 60.0, pending_max: int = 8) -> None:
+        self.db = db
         self.ledger = ledger
         self.interval_s = max(0.05, float(interval_s))
-        self.windows_rolled = 0
+        self.pending_max = max(1, int(pending_max))
+        # failed-but-unflushed windows, oldest first:
+        # (window_start, window_end, rows)
+        self._pending: list[tuple[float, float, dict[str, dict[str, float]]]] = []
+        # reentrancy guard (plain flag: all callers share the gateway
+        # loop): two overlapping flushes — the interval task racing a
+        # scenario/shutdown flush suspended at the DB await — would both
+        # write pending[0] and then double-pop, silently losing a window
+        # the loss counters never saw
+        self._flushing = False
+        self.windows_dropped = 0
+        self.tokens_dropped = 0
+        self.consecutive_failures = 0
+        from .degradation import get_degradation
+        self._breaker = get_degradation().breaker("ledger.rollup")
         self._task: asyncio.Task | None = None
 
     async def start(self) -> None:
         if self._task is None:
             self._task = asyncio.get_running_loop().create_task(
-                self._run(), name="tenant-window-roller")
+                self._run(), name="tenant-usage-rollup")
 
     async def stop(self) -> None:
         task, self._task = self._task, None
@@ -256,16 +283,108 @@ class TenantWindowRoller:
                 await task
             except asyncio.CancelledError:
                 pass
-
-    def roll(self) -> None:
-        """Close the ledger's current window."""
-        self.ledger.take_window()
-        self.windows_rolled += 1
+        # final flush so the last window's usage survives shutdown —
+        # forced past an open breaker (one last attempt beats certain loss)
+        try:
+            await self.flush(force=True)
+        except Exception:
+            logger.exception("tenant usage final flush failed")
 
     async def _run(self) -> None:
         while True:
             await asyncio.sleep(self.interval_s)
             try:
-                self.roll()
+                await self.flush()
             except Exception:
-                logger.exception("tenant window roll failed")
+                logger.exception("tenant usage rollup failed")
+
+    def _trim_pending(self) -> None:
+        """Bound the outage buffer: drop the OLDEST windows past
+        ``pending_max``, counting exactly what was lost."""
+        while len(self._pending) > self.pending_max:
+            started, ended, rows = self._pending.pop(0)
+            self.windows_dropped += 1
+            lost = sum(int(r["prompt_tokens"] + r["generated_tokens"])
+                       for r in rows.values())
+            self.tokens_dropped += lost
+            logger.error(
+                "tenant usage rollup: dropped window [%0.1f, %0.1f] "
+                "(%d tenant rows, %d tokens) — pending buffer full at "
+                "%d windows during DB outage", started, ended, len(rows),
+                lost, self.pending_max)
+
+    async def flush(self, force: bool = False) -> int:
+        """Drain the live window into the pending buffer, then write
+        every pending window (oldest first, original stamps). Raises on
+        the first write failure with everything unwritten still parked
+        (bounded); returns rows written."""
+        from .faults import fault_point
+        started, rows = self.ledger.take_window()
+        if rows:
+            self._pending.append((started, time.time(), rows))
+            self._trim_pending()
+        if self._flushing:
+            # another flush is mid-write: the fresh window is parked
+            # above and the running flush (or the next tick) drains it —
+            # overlapping writers would double-insert one window and
+            # silently lose another
+            return 0
+        if not self._pending:
+            return 0
+        if not self._breaker.allow() and not force:
+            # breaker open, cooldown pending: don't hammer the dead DB;
+            # windows stay parked for the half-open probe
+            return 0
+        self._flushing = True
+        written = 0
+        try:
+            while self._pending:
+                w_started, w_ended, w_rows = self._pending[0]
+                try:
+                    act = fault_point("ledger.rollup.flush", scope="flush")
+                    if act is not None:
+                        await act.async_apply()
+                    await self.db.executemany(
+                        "INSERT INTO tenant_usage (tenant, window_start,"
+                        " window_end, requests, prompt_tokens,"
+                        " generated_tokens, cache_hit_tokens,"
+                        " kv_page_seconds)"
+                        " VALUES (?,?,?,?,?,?,?,?)",
+                        [(tenant, w_started, w_ended, int(row["requests"]),
+                          int(row["prompt_tokens"]),
+                          int(row["generated_tokens"]),
+                          int(row["cache_hit_tokens"]),
+                          round(row["kv_page_seconds"], 6))
+                         for tenant, row in sorted(w_rows.items())])
+                except Exception:
+                    self.consecutive_failures += 1
+                    self._breaker.record_failure("rollup flush")
+                    raise
+                self._pending.pop(0)
+                written += len(w_rows)
+                self.ledger.rollups_written += len(w_rows)
+        finally:
+            self._flushing = False
+        self.consecutive_failures = 0
+        self._breaker.record_success()
+        return written
+
+    def outage_stats(self) -> dict[str, Any]:
+        """The degradation surface's view of the rollup path."""
+        return {
+            "pending_windows": len(self._pending),
+            "pending_max": self.pending_max,
+            "windows_dropped": self.windows_dropped,
+            "tokens_dropped": self.tokens_dropped,
+            "consecutive_failures": self.consecutive_failures,
+            "breaker": self._breaker.snapshot(),
+        }
+
+    async def recent(self, limit: int = 100) -> list[dict[str, Any]]:
+        rows = await self.db.fetchall(
+            "SELECT tenant, window_start, window_end, requests,"
+            " prompt_tokens, generated_tokens, cache_hit_tokens,"
+            " kv_page_seconds FROM tenant_usage"
+            " ORDER BY window_end DESC, tenant LIMIT ?",
+            (max(1, min(int(limit), 1000)),))
+        return [dict(r) for r in rows]

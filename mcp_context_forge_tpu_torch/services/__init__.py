@@ -1,3 +1,4 @@
-"""Operator services of the port (the engine half of the JAX package's
-``services/``): ``diagnostics_service`` reads a live engine's state and
-captures a ``torch.profiler`` trace of it."""
+"""Services of the port: ``base`` (``AppContext``, the domain errors),
+``diagnostics_service`` (a live engine's state and its ``torch.profiler``
+capture) and ``llm_provider_service`` (the ``llm_providers`` table wired
+into the app's provider registry)."""

@@ -14,10 +14,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
-
-class ConflictError(Exception):
-    """A profiler transition that the capture's state refuses (the routes
-    answer 409)."""
+from .base import ConflictError   # a transition the capture refuses (409)
 
 
 def live_tpu_engine(container: Any) -> Any:

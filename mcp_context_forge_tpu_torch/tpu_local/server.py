@@ -57,6 +57,7 @@ from ..gateway.flight_recorder import (backpressure_headers, queue_state,
                                        retry_after_s)
 from ..gateway.serialize import SSE_DONE, sse_event
 from ..observability.trace_store import stitch_waterfall
+from ..services.base import NotFoundError
 from .provider import LLMError, LLMProviderRegistry, LLMUnavailable
 
 
@@ -458,8 +459,8 @@ def setup_observability_routes(app: web.Application) -> None:
       ``?tenant=`` the tenant's class on its label slice, ``?scope=fleet``
       over the fleet's summed histograms;
     - ``GET /admin/tenants/usage`` (``observability.read``): the live
-      ``TenantLedger`` (``?limit=``, 422 when not an integer) and the interval
-      its window closes at; no rollup rows (the port has no database yet);
+      ``TenantLedger`` (``?limit=``, 422 when not an integer), the newest
+      ``tenant_usage`` rows of the rollup (``rollups``) and its interval;
     - ``GET /admin/trace/{trace_id}`` (``observability.read``): the stitched
       waterfall of a trace the trace store kept, with its retention reasons."""
     routes = web.RouteTableDef()
@@ -499,13 +500,15 @@ def setup_observability_routes(app: web.Application) -> None:
         if ledger is None:
             return _detail("tenant metering is disabled "
                            "(set MCPFORGE_TENANT_METERING_ENABLED=true)", 404)
-        limit = _query_limit(request, "64")
-        if limit is None:
+        try:
+            limit = int(request.query.get("limit", "64"))
+        except ValueError:
             return _detail("limit must be an integer", 422)
-        payload = ledger.snapshot(limit=limit)
-        payload["rollups"] = []
-        roller = request.app.get("tenant_window_roller")
-        payload["rollup_interval_s"] = roller.interval_s if roller is not None else None
+        payload = ledger.snapshot(limit=max(1, min(limit, 1024)))
+        rollup = request.app.get("tenant_usage_rollup")
+        payload["rollups"] = (await rollup.recent(limit=min(limit * 2, 200))
+                              if rollup is not None else [])
+        payload["rollup_interval_s"] = rollup.interval_s if rollup is not None else None
         return web.json_response(payload)
 
     @routes.get("/admin/trace/{trace_id}")
@@ -535,19 +538,15 @@ def setup_observability_routes(app: web.Application) -> None:
     app.add_routes(routes)
 
 
-class _NotFound(Exception):
-    """An operator route's 404, with its detail."""
-
-
 def _profiler_or_404(request: web.Request):
     """The gate of every profiling route: ``torch_profile_enabled`` first,
     then the app's capture (made only beside a local engine)."""
     if not getattr(request.app["settings"], "torch_profile_enabled", False):
-        raise _NotFound("profiler capture is disabled "
-                        "(set MCPFORGE_TORCH_PROFILE_ENABLED=true)")
+        raise NotFoundError("profiler capture is disabled "
+                            "(set MCPFORGE_TORCH_PROFILE_ENABLED=true)")
     profiler = request.app.get("torch_profiler")
     if profiler is None:
-        raise _NotFound("tpu_local engine is not enabled")
+        raise NotFoundError("tpu_local engine is not enabled")
     return profiler
 
 
@@ -597,8 +596,8 @@ def setup_operator_routes(app: web.Application) -> None:
     from ..gateway.flight_recorder import queue_state
     from ..observability.degradation import get_degradation
     from ..observability.logging import ring_buffer
-    from ..services.diagnostics_service import (ConflictError, engine_introspection,
-                                                live_tpu_engine)
+    from ..services.base import ConflictError
+    from ..services.diagnostics_service import engine_introspection, live_tpu_engine
     from .parallel.mesh import mesh_shape_from_string
 
     routes = web.RouteTableDef()
@@ -606,18 +605,8 @@ def setup_operator_routes(app: web.Application) -> None:
     def _engine(request: web.Request):
         engine = live_tpu_engine(request.app)
         if engine is None:
-            raise _NotFound("tpu_local engine is not enabled")
+            raise NotFoundError("tpu_local engine is not enabled")
         return engine
-
-    def operator_route(handler):
-        async def guarded(request: web.Request) -> web.StreamResponse:
-            try:
-                return await handler(request)
-            except _NotFound as exc:
-                return _detail(str(exc), 404)
-            except ConflictError as exc:
-                return _detail(str(exc), 409)
-        return guarded
 
     @routes.get("/health")
     async def health(request: web.Request) -> web.Response:
@@ -643,7 +632,6 @@ def setup_operator_routes(app: web.Application) -> None:
             limit=int(request.query.get("limit", "200"))))
 
     @routes.get("/admin/engine/stats")
-    @operator_route
     async def engine_stats(request: web.Request) -> web.Response:
         request["auth"].require("observability.read")
         engine = _engine(request)
@@ -687,7 +675,6 @@ def setup_operator_routes(app: web.Application) -> None:
         })
 
     @routes.get("/admin/engine/steps")
-    @operator_route
     async def engine_steps(request: web.Request) -> web.Response:
         request["auth"].require("observability.read")
         engine = _engine(request)
@@ -697,13 +684,12 @@ def setup_operator_routes(app: web.Application) -> None:
         return web.json_response(engine_introspection(engine, limit=limit))
 
     @routes.get("/admin/gateway/requests")
-    @operator_route
     async def gateway_requests(request: web.Request) -> web.Response:
         request["auth"].require("observability.read")
         recorder = request.app.get("flight_recorder")
         if recorder is None:
-            raise _NotFound("gateway flight recorder is disabled "
-                            "(set MCPFORGE_GW_FLIGHT_RECORDER_ENABLED=true)")
+            raise NotFoundError("gateway flight recorder is disabled "
+                                "(set MCPFORGE_GW_FLIGHT_RECORDER_ENABLED=true)")
         limit = _query_limit(request, "32")
         if limit is None:
             return _detail("limit must be an integer", 422)
@@ -717,7 +703,6 @@ def setup_operator_routes(app: web.Application) -> None:
         return web.json_response(snapshot)
 
     @routes.post("/admin/engine/profile")
-    @operator_route
     async def engine_profile(request: web.Request) -> web.Response:
         request["auth"].require("admin.all")
         profiler = _profiler_or_404(request)
@@ -741,20 +726,17 @@ def setup_operator_routes(app: web.Application) -> None:
         return web.json_response(result)
 
     @routes.get("/admin/engine/profile/status")
-    @operator_route
     async def profile_status(request: web.Request) -> web.Response:
         request["auth"].require("observability.read")
         return web.json_response(_profiler_or_404(request).status())
 
     @routes.post("/admin/engine/profile/start")
-    @operator_route
     async def profile_start(request: web.Request) -> web.Response:
         request["auth"].require("admin.all")
         profiler = _profiler_or_404(request)
         return web.json_response(await asyncio.to_thread(profiler.start))
 
     @routes.post("/admin/engine/profile/stop")
-    @operator_route
     async def profile_stop(request: web.Request) -> web.Response:
         request["auth"].require("admin.all")
         profiler = _profiler_or_404(request)
@@ -842,8 +824,8 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     ``app["metrics"]`` (a ``PrometheusRegistry`` whose tenant labels clamp
     at ``tenant_label_clamp``, exemplars per ``metrics_exemplars``),
     ``app["tenant_ledger"]`` (``tenant_metering_enabled``) and
-    ``app["tenant_window_roller"]``, which closes its quota window every
-    ``tenant_usage_rollup_interval_s``,
+    ``app["tenant_usage_rollup"]``, which drains its window into the
+    ``tenant_usage`` table every ``tenant_usage_rollup_interval_s``,
     ``app["tenant_limiter"]`` (``gw_distributed_limiter`` with a
     ``tenant_quota_tokens_per_window``, over the bus backend's shared
     counter), ``app["slo_evaluator"]`` (always), ``app["fleet_metrics"]``
@@ -860,7 +842,18 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     ``TorchProfilerCapture`` into ``torch_profile_dir``
     (``app["torch_profiler"]``); ``setup_operator_routes`` serves them.
     ``device`` (e.g. "cpu") replaces the engine config's device for the
-    engines the app builds."""
+    engines the app builds.
+
+    The gateway's database and what reads it, as the JAX gateway wires them:
+    ``make_database(database_url)`` (connected and migrated when the app
+    starts, closed last at its cleanup; tier-1 sets ``:memory:``, and
+    anything else names its own file), an ``AppContext`` in ``app["ctx"]``
+    (its ``llm_registry`` the app's registry), with ``plugins_enabled`` a
+    ``PluginManager`` (``app["plugin_manager"]``, also ``ctx.plugin_manager``;
+    loaded at startup, then its ``plugin_bindings``), and
+    ``app["llm_provider_service"]``, whose ``rewire`` wires the
+    ``llm_providers`` rows into the registry at startup;
+    ``gateway/routers_extra.py`` serves the provider and plugin routes."""
     from ..coordination.heartbeat import WorkerHeartbeat
     from ..coordination.ratelimit import DistributedTenantLimiter, make_rate_counter
     from ..coordination.rpc import BusRpc
@@ -869,10 +862,13 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     from ..observability.degradation import OverloadShedder, configure_degradation
     from ..observability.faults import configure_fault_plane
     from ..config import validate_security
+    from ..db import MIGRATIONS
+    from ..db.pg import make_database
+    from ..gateway import routers_extra
     from ..gateway.flight_recorder import FlightRecorder, LoopLagSampler
     from ..observability.fleet import FleetMetrics, FleetMetricsView
     from ..observability.logging import init_logging
-    from ..observability.metering import TenantLedger, TenantWindowRoller
+    from ..observability.metering import TenantLedger, TenantUsageRollup
     from ..observability.metrics import PrometheusRegistry
     from ..observability.signals import SignalBus
     from ..observability.slo import (SloEvaluator, default_objectives, parse_slo_classes,
@@ -881,7 +877,10 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     from ..observability.otlp import OTLPExporter, aiohttp_post
     from ..observability.trace_store import ExemplarLedger, TraceStore
     from ..observability.tracing import Tracer, current_span
+    from ..plugins.framework import PluginManager
+    from ..services.base import AppContext
     from ..services.diagnostics_service import TorchProfilerCapture
+    from ..services.llm_provider_service import LLMProviderService
     from ..utils import new_id
     from .controller import ServingController
     from .engine import EngineConfig, TorchEngine
@@ -941,16 +940,23 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
                             headers, metrics=metrics,
                             max_retries=getattr(settings, "otel_otlp_retry_max", 3))
         tracer.add_sink(otlp.sink)
+    # the gateway's database: statements run on its own threads, the
+    # connection and the migrations at startup
+    db = make_database(settings.database_url, settings.db_pool_size,
+                       busy_timeout_ms=settings.db_sqlite_busy_timeout_ms,
+                       max_retries=settings.db_max_retries,
+                       retry_interval_ms=settings.db_retry_interval_ms)
     quota = getattr(settings, "tenant_quota_tokens_per_window", 0)
-    ledger = roller = None
+    ledger = rollup = None
     if getattr(settings, "tenant_metering_enabled", True):
         ledger = TenantLedger(clamp=tenant_clamp, metrics=metrics,
                               max_tenants=getattr(settings, "tenant_ledger_max_tenants", 512),
                               quota_tokens_per_window=quota)
-        # the ledger's quota window closes every rollup interval, as the JAX
-        # rollup drains it: a tenant over one window's quota is admitted again
-        roller = TenantWindowRoller(
-            ledger, interval_s=getattr(settings, "tenant_usage_rollup_interval_s", 60.0))
+        # each rollup interval closes the ledger's quota window (a tenant
+        # over one window's quota is admitted again) and writes its rows
+        rollup = TenantUsageRollup(
+            db, ledger, interval_s=getattr(settings, "tenant_usage_rollup_interval_s", 60.0),
+            pending_max=settings.tenant_rollup_pending_max)
     signal_bus = SignalBus(window=settings.signal_window,
                            ewma_alpha=settings.signal_ewma_alpha)
     hub = hub_client = None
@@ -1064,8 +1070,14 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
         provider = make_provider(engine, pool)
         registry.register(provider, [settings.tpu_local_model, "tpu_local"],
                           default_chat=True, default_embed=True)
+    ctx = AppContext(settings=settings, db=db, bus=bus, leases=leases, tracer=tracer,
+                     metrics=metrics, llm_registry=registry, worker_id=worker_id)
+    llm_provider_service = LLMProviderService(ctx)
     app = web.Application(middlewares=MIDDLEWARES)
     app["settings"] = settings
+    app["ctx"] = ctx
+    app["plugin_manager"] = None   # set at startup with plugins_enabled
+    app["llm_provider_service"] = llm_provider_service
     app["llm_registry"] = registry
     app["tpu_engine"] = live["engine"]
     app["tpu_engine_pool"] = live["pool"]
@@ -1080,7 +1092,7 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     app["signal_bus"] = signal_bus
     app["metrics"] = metrics
     app["tenant_ledger"] = ledger
-    app["tenant_window_roller"] = roller
+    app["tenant_usage_rollup"] = rollup
     app["tenant_limiter"] = limiter
     app["trace_store"] = trace_store
     app["fleet_metrics"] = fleet
@@ -1165,6 +1177,10 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     bus_rpc.register(ADVERT_METHOD, fabric_publisher.handle_advert)
 
     async def start(app: web.Application) -> None:
+        await db.connect()
+        await db.migrate(MIGRATIONS)
+        if settings.plugins_enabled:
+            ctx.plugin_manager = app["plugin_manager"] = await PluginManager.load(ctx)
         if sampler is not None:
             await sampler.start()
         if otlp is not None:
@@ -1182,8 +1198,11 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
             await (live["pool"] or live["engine"]).start()
         if controller is not None:
             await controller.start()
-        if roller is not None:
-            await roller.start()
+        await llm_provider_service.rewire()   # external providers from the table
+        if ctx.plugin_manager is not None:
+            await ctx.plugin_manager.load_bindings()
+        if rollup is not None:
+            await rollup.start()
         if limiter is not None:
             await limiter.start()   # ledger -> the shared quota counter
         if fleet is not None:
@@ -1197,8 +1216,6 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
             await fleet.stop()
         if limiter is not None:
             await limiter.stop()
-        if roller is not None:
-            await roller.stop()
         if fabric_http:
             await fabric_http[0].close()
         if controller is not None:
@@ -1206,6 +1223,10 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
             # stopping dispatch loop
             await controller.stop()
         await registry.shutdown()
+        if rollup is not None:
+            # after the engines (their last retires are in the ledger), before
+            # the database closes: the last window's rows are written
+            await rollup.stop()
         await heartbeat.stop()
         await bus_rpc.stop()
         if owns_bus:
@@ -1217,6 +1238,8 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
             await otlp_close()
         if sampler is not None:
             await sampler.stop()
+        await ctx.close_http_client()
+        await db.close()
 
     app.on_startup.append(start)
     app.on_cleanup.append(stop)
@@ -1225,6 +1248,7 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     setup_fabric_routes(app)
     setup_observability_routes(app)
     setup_operator_routes(app)
+    routers_extra.setup_routes(app)
     return app
 
 

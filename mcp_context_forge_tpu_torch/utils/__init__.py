@@ -1,9 +1,7 @@
-"""Identifiers."""
+"""Identifiers (``new_id`` also stays importable from here)."""
 
 from __future__ import annotations
 
-import uuid
+from .ids import new_id
 
-
-def new_id() -> str:
-    return uuid.uuid4().hex
+__all__ = ["new_id"]

@@ -32,6 +32,7 @@ from mcp_context_forge_tpu_torch.tpu_local.server import build_llm_app
 
 ROOT = Path(__file__).resolve().parents[1]
 SERVE_ENV = {
+    "MCPFORGE_DATABASE_URL": "sqlite:///:memory:",
     "MCPFORGE_TPU_LOCAL_MODEL": "llama3-test",
     "MCPFORGE_TPU_LOCAL_MAX_BATCH": "2",
     "MCPFORGE_TPU_LOCAL_MAX_SEQ_LEN": "128",

@@ -32,6 +32,7 @@ JAX_FIELDS = jax_config.Settings.model_fields
 # the port's own pair: the torch.profiler counterparts of jax_profile_*
 RENAMED = {"torch_profile_dir": "jax_profile_dir", "torch_profile_enabled": "jax_profile_enabled"}
 SEEDS = range(8)
+DB_SCHEMES = ["sqlite:///", "sqlite+aiosqlite:///", "postgres://", "postgresql://"]
 
 
 def _default(name: str):
@@ -174,6 +175,8 @@ def test_seeded_env_loads_equal(seed):
     env = {}
     for name, annotation in TYPES.items():
         text = _good(rng, annotation)
+        if name == "database_url":   # validated: a scheme both packages accept
+            text = str(rng.choice(DB_SCHEMES)) + text.strip()
         if name in RENAMED:
             env[f"MCPFORGE_{name.upper()}"] = env[f"MCPFORGE_{RENAMED[name].upper()}"] = text
         else:
@@ -196,6 +199,14 @@ def test_seeded_refusals_agree(seed):
             config.load_settings(env=env, env_file=None)
         with pytest.raises(ValueError):
             jax_config.load_settings(env=env, env_file=None)
+
+
+@pytest.mark.parametrize("url", ["mysql://db", "sqlite://rel.db", "", "file:x.db",
+                                 "SQLITE:///x.db", " sqlite:///x.db"])
+def test_database_url_refusals_agree(url):
+    for package in (config, jax_config):
+        with pytest.raises(ValueError):
+            package.load_settings(env={"database_url": url}, env_file=None)
 
 
 @pytest.mark.parametrize("value", [1, 0, 1.0, True, 7, 2.5, None, "x", (1,)])

@@ -279,16 +279,16 @@ def test_quota_refusal_lifts_when_the_window_closes():
     async def run():
         client = TestClient(TestServer(app))
         await client.start_server()
-        roller = app["tenant_window_roller"]
+        ledger = app["tenant_ledger"]
 
         async def post():
             resp = await client.post("/v1/chat/completions", json=chat, headers=headers)
             return resp.status, await resp.json()
 
         async def next_window():
-            seen = roller.windows_rolled
+            seen = ledger.snapshot()["window_started"]
             for _ in range(2000):
-                if roller.windows_rolled > seen:
+                if ledger.snapshot()["window_started"] != seen:
                     return
                 await asyncio.sleep(0.01)
             raise AssertionError("the ledger's window never closed")
@@ -327,7 +327,8 @@ def test_app_wires_the_handles(chatted):
     assert app["overload_shedder"].ledger is app["tenant_ledger"]
     assert app["overload_shedder"].limiter is app["tenant_limiter"]
     assert app["tenant_limiter"].enabled and app["tenant_ledger"].clamp is metrics.tenant_clamp
-    assert app["tenant_window_roller"].ledger is app["tenant_ledger"]
+    assert app["tenant_usage_rollup"].ledger is app["tenant_ledger"]
+    assert app["tenant_usage_rollup"].db is app["ctx"].db
     assert app["slo_evaluator"].metrics is metrics
 
 
