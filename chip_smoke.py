@@ -4120,12 +4120,322 @@ class RaisingClassify:
         raise RuntimeError("planted fault: classify is unavailable")
 
 
+# the MCP tools/call leg of the gateway phase (steps 8-12)
+TEXT_TOOLS = ["case", "checksum", "dedent_trim", "extract", "word_count"]
+MCP_OUTPUT_CHARS = 2400    # the case tool's output: past the summarizer's 2000-character bar
+CANCEL_TOKENS = 256        # the cancelled call's summary budget
+HIT_TOKENS = 24            # the second call's max_tokens: a prefix hit
+
+
+def word_count_answer(text: str) -> dict:
+    """The text server's ``word_count`` result, computed here (the
+    script imports none of the sample servers)."""
+    counts = {"words": len(text.split()), "lines": text.count("\n") + (1 if text else 0),
+              "chars": len(text)}
+    return {"content": [{"type": "text", "text": json.dumps(counts)}], "isError": False}
+
+
+def check_word_count(answer: dict, text: str) -> None:
+    check(answer.get("result") == word_count_answer(text),
+          f"word_count through the gateway answered {answer}")
+
+
+def check_summary(result: dict, direct: dict, engine_requests: int) -> None:
+    """A tools/call result is the summary: the direct chat's text, from one
+    engine request, marked summarized."""
+    text = (result.get("content") or [{}])[0].get("text")
+    check(result.get("_summarized") is True and engine_requests == 1
+          and text == direct["choices"][0]["message"]["content"],
+          f"the tools/call result is not the engine's summary ({engine_requests} engine "
+          f"requests): {str(text)[:80]!r}")
+
+
+async def mcp_path_steps(app, engine, settings, port: int, http, admin: dict, seen: list,
+                         launches, delta, binding_ids: dict) -> dict:
+    """Steps 8-12 of ``gateway_phase``: the MCP tools/call path over the app
+    (a ``python -m mcp_servers.text_server`` behind the port's ``translate``
+    bridge, federated by ``POST /gateways``; the summarizer bound to its
+    ``case`` tool). Returns each step's readings: wall, engine requests and
+    their TTFTs, launches per kernel row and the loop sampler's max lag."""
+    from aiohttp import web
+
+    from mcp_context_forge_tpu_torch.translate import StdioServerBridge, build_bridge_app
+
+    base = f"http://127.0.0.1:{port}"
+    sampler = app["loop_lag_sampler"]
+    pm = app["plugin_manager"]
+    steps: dict = {}
+
+    async def post(path, body, headers=None, status=200):
+        async with http.post(base + path, json=body, headers=headers or admin) as resp:
+            payload = await resp.json() if resp.content_type == "application/json" else None
+            check(resp.status == status, f"POST {path}: {resp.status} {payload}")
+            return payload, resp.headers
+
+    async def rpc(method, params=None, rid=1, path="/rpc", headers=None):
+        body = {"jsonrpc": "2.0", "id": rid, "method": method}
+        if params is not None:
+            body["params"] = params
+        return (await post(path, body, headers))[0]
+
+    @contextlib.asynccontextmanager
+    async def step(name: str):
+        requests0, before = len(seen), launches()
+        sampler.max_lag_s = 0.0
+        t_step = time.perf_counter()
+        row: dict = {}
+        yield row
+        served = seen[requests0:]
+        row.update({
+            "wall_ms": round((time.perf_counter() - t_step) * 1e3, 3),
+            "engine_requests": len(served),
+            "ttft_ms": [round((r.first_token_ts - r.created) * 1e3, 3) for r in served
+                        if r.first_token_ts],
+            "launches": delta(before),
+            "loop_lag_max_ms": round(sampler.max_lag_s * 1e3, 3)})
+        steps[name] = row
+
+    # the step-1 bindings go: only the summarizer of step 9 acts on these tools
+    for binding in binding_ids.values():
+        async with http.delete(f"{base}/plugins/bindings/{binding}", headers=admin) as resp:
+            check(resp.status == 204, f"DELETE binding {binding}: {resp.status}")
+    check(not [p for p in pm.plugins if p.config.name.startswith("binding:")],
+          "the deleted bindings are still loaded")
+
+    bridge = StdioServerBridge(f"{sys.executable} -m mcp_servers.text_server")
+    await bridge.start()
+    runner = web.AppRunner(build_bridge_app(bridge), access_log=None)
+    try:
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        bridge_url = f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}/mcp"
+
+        # 8. federate the sample server
+        async with step("8_federate") as row:
+            t_register = time.perf_counter()
+            gateway, _ = await post("/gateways", {"name": "text", "url": bridge_url}, status=201)
+            row["register_ms"] = round((time.perf_counter() - t_register) * 1e3, 3)
+            check(gateway["state"] == "active" and gateway["reachable"],
+                  f"the federated gateway is {gateway['state']}")
+            async with http.get(base + "/tools", headers=admin) as resp:
+                tools = sorted(t["name"] for t in await resp.json())
+            check(tools == TEXT_TOOLS, f"GET /tools lists {tools}")
+            listed = await rpc("tools/list")
+            stateless = await rpc("tools/list", path="/mcp")
+            check(listed["result"] == stateless["result"]
+                  and sorted(t["name"] for t in listed["result"]["tools"]) == TEXT_TOOLS,
+                  f"tools/list through /rpc and /mcp differ: {listed} {stateless}")
+            row.update({"gateway_state": gateway["state"], "tools": tools,
+                        "bridge_pid": bridge._process.pid})
+        check(bridge._process.returncode is None, "the stdio server exited")
+
+        # 9. a tools/call condensed by the summarizer binding
+        made, _ = await post("/plugins/bindings", {
+            "plugin_name": "summarizer", "scope_type": "tool", "scope_id": "case",
+            "config": {"threshold_chars": 2000, "max_tokens": 32, "prompt": SUMMARY_PROMPT}},
+            status=201)
+        summarizer = next(p for p in pm.plugins if p.config.name == f"binding:{made['id']}")
+        text = tool_output(3, MCP_OUTPUT_CHARS)
+        args = {"text": text, "mode": "upper"}
+        async with step("9_cold") as row:
+            cold = await rpc("tools/call", {"name": "case", "arguments": args}, rid=91)
+        cold_request = seen[-1]
+        # the same chat, straight to the registry: cold too (no prefix lookup)
+        requests0 = len(seen)
+        engine.config.prefix_cache = False
+        try:
+            direct = await app["llm_registry"].chat({
+                "model": None, "messages": [{"role": "system", "content": SUMMARY_PROMPT},
+                                            {"role": "user", "content": text.upper()}],
+                "max_tokens": 32, "temperature": 0.0, "priority": "batch"})
+        finally:
+            engine.config.prefix_cache = True
+        check(len(seen) - requests0 == 1, "the direct chat did not reach the engine once")
+        check_summary(cold["result"], direct, steps["9_cold"]["engine_requests"])
+        check(cold_request.generated == seen[-1].generated,
+              "the summary's tokens differ from the direct chat's")
+        check(engine.device.type == "cuda", f"the engine runs on {engine.device}")
+        rows = steps["9_cold"]["launches"]
+        check(rows.get("flash_attention_tc", 0) > 0 and rows.get("paged_decode_attention", 0) > 0,
+              f"the cold summary launched {rows}")
+        steps["9_cold"].update({"prompt_tokens": len(cold_request.prompt_ids),
+                                "bucket": cold_request.bucket,
+                                "decode_tokens": len(cold_request.generated),
+                                "tokens_equal_direct_chat": True})
+        # planted: a summarizer stub that runs the engine's summary as the
+        # real one does, then hands back the raw output; only the text
+        # comparison can catch it
+        saved = summarizer._summarize, summarizer.config.config.get("cache", True)
+
+        async def raw(registry, prompt, text, max_tokens):
+            await saved[0](registry, prompt, text, max_tokens)
+            return text
+
+        summarizer._summarize, summarizer.config.config["cache"] = raw, False
+        try:
+            requests0 = len(seen)
+            stub = await rpc("tools/call", {"name": "case", "arguments": args}, rid=92)
+            stub_requests = len(seen) - requests0
+            check(stub_requests == 1, f"the stub reached the engine {stub_requests} times")
+            try:
+                check_summary(stub["result"], direct, stub_requests)
+            except SmokeFailure as exc:
+                steps["9_cold"]["planted_raw_summary_caught"] = str(exc)[:120]
+            else:
+                raise SmokeFailure("a summarizer returning the raw output passed the check")
+        finally:
+            summarizer._summarize, summarizer.config.config["cache"] = saved
+        summarizer.config.config["max_tokens"] = HIT_TOKENS
+        async with step("9_other_max_tokens") as row:
+            hit = await rpc("tools/call", {"name": "case", "arguments": args}, rid=93)
+        hit_request = seen[-1]
+        rows = row["launches"]
+        check(row["engine_requests"] == 1 and hit["result"].get("_summarized")
+              and hit_request.hist >= len(hit_request.prompt_ids) - engine.config.page_size,
+              f"the other max_tokens: {row['engine_requests']} requests, history "
+              f"{hit_request.hist} of {len(hit_request.prompt_ids)}")
+        check(rows.get("paged_chunk_attention_tc", 0) > 0 and not rows.get("flash_attention_tc"),
+              f"the prefix hit launched {rows}")
+        row.update({"history_tokens": hit_request.hist,
+                    "decode_tokens": len(hit_request.generated)})
+        summarizer.config.config["max_tokens"] = 32
+        async with step("9_cached_via_mcp") as row:
+            again = await rpc("tools/call", {"name": "case", "arguments": args}, rid=94,
+                              path="/mcp")
+        check(row["engine_requests"] == 0 and again["result"] == cold["result"],
+              f"the repeat through /mcp: {row['engine_requests']} engine requests")
+        async with step("9_word_count") as row:
+            counted = await rpc("tools/call", {"name": "word_count",
+                                               "arguments": {"text": text}}, rid=95)
+            own = await bridge.request({"jsonrpc": "2.0", "id": 1, "method": "tools/call",
+                                        "params": {"name": "word_count",
+                                                   "arguments": {"text": text}}})
+        check(row["engine_requests"] == 0 and counted["result"] == own["result"]
+              and not counted["result"].get("_summarized"),
+              f"word_count: {counted} against the bridge's {own}")
+        check_word_count(counted, text)
+        # planted: a bridge whose word_count answer is altered
+        forward = bridge.request
+
+        async def altered(message, timeout=60.0):
+            answer = await forward(message, timeout)
+            if (message.get("params") or {}).get("name") == "word_count":
+                answer["result"]["content"][0]["text"] = json.dumps({"words": 0})
+            return answer
+
+        bridge.request = altered
+        try:
+            wrong = await rpc("tools/call", {"name": "word_count", "arguments": {"text": text}},
+                              rid=96)
+            try:
+                check_word_count(wrong, text)
+            except SmokeFailure as exc:
+                row["planted_altered_bridge_caught"] = str(exc)[:120]
+            else:
+                raise SmokeFailure("an altered word_count answer passed the check")
+        finally:
+            bridge.request = forward
+
+        # 10. a stateful session: list_changed on its stream, then DELETE
+        settings.streamable_http_stateful = True
+        try:
+            async with step("10_stateful") as row:
+                _, headers = await post("/mcp", {"jsonrpc": "2.0", "id": 1,
+                                                 "method": "initialize", "params": {}})
+                sid = headers.get("mcp-session-id")
+                check(bool(sid), "initialize minted no Mcp-Session-Id")
+                session = {**admin, "mcp-session-id": sid}
+
+                async def first_event():
+                    async with http.get(base + "/mcp", headers=session) as resp:
+                        check(resp.status == 200, f"GET /mcp: {resp.status}")
+                        async for line in resp.content:
+                            if line.startswith(b"data: "):
+                                return json.loads(line[6:])
+
+                reader = asyncio.ensure_future(first_event())
+                await asyncio.sleep(0.2)
+                rest, _ = await post("/tools", {"name": "rest_version",
+                                                "url": f"{base}/version",
+                                                "request_type": "GET"}, status=201)
+                event = await asyncio.wait_for(reader, 30)
+                check(event == {"jsonrpc": "2.0",
+                                "method": "notifications/tools/list_changed"},
+                      f"the session's stream got {event}")
+                async with http.delete(base + "/mcp", headers=session) as resp:
+                    check(resp.status == 204, f"DELETE /mcp: {resp.status}")
+                gone = await post("/mcp", {"jsonrpc": "2.0", "id": 2, "method": "ping"},
+                                  headers=session, status=404)
+                row.update({"event": event["method"], "after_delete": gone[0]["error"]})
+        finally:
+            settings.streamable_http_stateful = False
+
+        # 11. cancellation of a summarized call in flight
+        cancel_binding, _ = await post("/plugins/bindings", {
+            "plugin_name": "summarizer", "scope_type": "tool", "scope_id": "dedent_trim",
+            "config": {"threshold_chars": 2000, "max_tokens": CANCEL_TOKENS,
+                       "prompt": SUMMARY_PROMPT}}, status=201)
+        free0 = engine.allocator.free_pages
+        async with step("11_cancel") as row:
+            requests0 = len(seen)
+            call = asyncio.ensure_future(rpc("tools/call", {
+                "name": "dedent_trim", "arguments": {"text": tool_output(5, MCP_OUTPUT_CHARS)}},
+                rid=99))
+            deadline = time.monotonic() + 120
+            while not (len(seen) > requests0 and seen[-1].generated):
+                check(time.monotonic() < deadline and not call.done(),
+                      "the summarized call never started decoding")
+                await asyncio.sleep(0.005)
+            victim = seen[-1]
+            t_notify = time.perf_counter()
+            await post("/rpc", {"jsonrpc": "2.0", "method": "notifications/cancelled",
+                                "params": {"requestId": 99}}, status=202)
+            answer = await asyncio.wait_for(call, 60)
+            row["answer_after_notify_ms"] = round((time.perf_counter() - t_notify) * 1e3, 3)
+            answered_at = len(victim.generated)
+            check(answer.get("error", {}).get("code") == -32800,
+                  f"the cancelled call answered {answer}")
+            while victim.finish_reason is None:
+                check(time.monotonic() < deadline, "the cancelled call's engine request "
+                                                   "never ended")
+                await asyncio.sleep(0.01)
+            await asyncio.sleep(0.05)
+        check(engine.allocator.pages_in_use == 0 and engine.allocator.free_pages == free0
+              and engine.stats.queue_depth == 0,
+              f"after the cancel: {engine.allocator.pages_in_use} pages in use, "
+              f"{engine.allocator.free_pages} free of {free0}")
+        row.update({"answer_code": -32800, "tokens_at_answer": answered_at,
+                    "tokens_at_end": len(victim.generated), "finish_reason": victim.finish_reason,
+                    "engine_aborted": victim.finish_reason == "cancelled",
+                    "pages_in_use_after": 0, "binding": cancel_binding["id"]})
+        async with http.delete(f"{base}/tools/{rest['id']}", headers=admin) as resp:
+            check(resp.status == 204, f"DELETE /tools: {resp.status}")
+    finally:
+        await runner.cleanup()
+        await bridge.stop()
+
+    # 12. readiness follows the database
+    async with http.get(base + "/ready") as resp:
+        ready = (resp.status, await resp.json())
+    check(ready[0] == 200 and ready[1]["status"] == "ready", f"/ready: {ready}")
+    await app["tenant_usage_rollup"].flush()
+    await app["ctx"].db.close()
+    async with http.get(base + "/ready") as resp:
+        closed = (resp.status, await resp.json())
+    check(closed[0] == 503 and set(closed[1]) == {"status", "detail"} and closed[1]["detail"],
+          f"/ready with the database closed: {closed}")
+    steps["12_ready"] = {"open": ready[0], "closed": closed[0], "detail": closed[1]["detail"]}
+    return steps
+
+
 def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
                   max_seq_len: int = 4096, output_chars: int = 2000) -> tuple[dict, dict]:
     """``engine_llama3_8b_gateway``: the gateway's database and plugins on a
     ``build_llm_app`` over llama3-8b at full width and depth (bf16, the
-    ``EngineConfig`` defaults but ``max_seq_len`` 4096, so that the
-    summarizer's ~2030-token prompt and its reply fit: no earlier engine has
+    ``EngineConfig`` defaults but ``max_seq_len`` 4096 and a 4096 prefill
+    bucket, so that the summarizer's ~2030- and ~2440-token prompts and
+    their replies fit, each in one cold flash prefill: no earlier engine has
     room for them),
     served on 127.0.0.1 through aiohttp's ``TCPSite``; the database is
     ``sqlite:///<tmpdir>/gateway.db``, metering on, the rollup every 5 s, the
@@ -4158,7 +4468,40 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
        ``/admin/tenants/usage`` lists it.
     7. Every plugin call's text is among the encoder's rows of that call,
        or its chat among the engine's requests; a registry whose
-       ``classify`` raises (``RaisingClassify``) must fail that check."""
+       ``classify`` raises (``RaisingClassify``) must fail that check.
+
+    Step 5 also reads the loop sampler (every 20 ms) across the provider
+    row's first post: its max lag must stay under 50 ms. Steps 8-12 are
+    ``mcp_path_steps``: the step-1 bindings are deleted, then
+
+    8. the port's ``translate`` bridge over ``python -m
+       mcp_servers.text_server`` on 127.0.0.1 is federated (``POST
+       /gateways``: 201, ``active``); ``GET /tools`` lists its five tools, and
+       ``tools/list`` through ``/rpc`` and stateless ``/mcp`` agree;
+    9. a summarizer bound to ``case`` (``threshold_chars`` 2000): the
+       tools/call over a MCP_OUTPUT_CHARS-character text answers the summary,
+       which equals a direct greedy ``registry.chat`` of the same prompt
+       (made cold: the prefix cache off for it) token for token, from one
+       engine request with flash and decode launches; a summarizer stub that
+       returns the raw output must fail that check; the same call at
+       HIT_TOKENS ``max_tokens`` is a prefix hit (chunk, no flash); the first
+       call again through ``/mcp`` comes from the summarizer's cache; a
+       ``word_count`` call passes through unsummarized and equals the
+       bridge's own answer and ``word_count_answer``, and a bridge that alters
+       that answer must fail the check;
+    10. a stateful session (``streamable_http_stateful`` on for the step):
+        ``initialize`` mints ``Mcp-Session-Id``, its GET stream receives
+        ``notifications/tools/list_changed`` when ``POST /tools`` adds a REST
+        tool, DELETE ends it (then 404);
+    11. a summarized call (CANCEL_TOKENS) is cancelled by
+        ``notifications/cancelled`` once it decodes: it answers -32800; as in
+        the JAX package, the provider does not abort the engine request, which
+        runs to its end, after which no page is in use and the free pool is
+        whole;
+    12. ``/ready`` answers 200, then 503 with ``detail`` once the rollup has
+        flushed and the database is closed.
+    Each step's wall, engine requests, TTFTs, launches per row and the loop
+    sampler's max lag are in ``mcp``."""
     import sqlite3
     import tempfile
 
@@ -4177,10 +4520,16 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
     secret = "chip-smoke-secret-0123456789abcdef"
     settings = load_settings({"JWT_SECRET_KEY": secret, "DATABASE_URL": f"sqlite:///{db_path}",
                               "TPU_LOCAL_MODEL": model, "TENANT_USAGE_ROLLUP_INTERVAL_S": "5",
-                              "FAULT_INJECTION_ENABLED": "true"}, env_file=None)
+                              "FAULT_INJECTION_ENABLED": "true",
+                              "GW_LOOP_LAG_INTERVAL_S": "0.02",
+                              "SSE_KEEPALIVE_INTERVAL": "1"}, env_file=None)
     t0 = time.monotonic()
+    # a 4096 bucket beside the defaults: step 9's ~2440-token prompt then
+    # prefills cold in one flash call (a chunked prompt's rounds would all
+    # take the chunk kernel)
     engine = TorchEngine(EngineConfig(model=model, dtype=dtype, device=dev.type,
-                                      max_seq_len=max_seq_len, seed=0))
+                                      max_seq_len=max_seq_len, seed=0,
+                                      prefill_buckets=(128, 512, 2048, max_seq_len)))
     build_s = time.monotonic() - t0
     app = build_llm_app(settings, engine=engine)
     provider, registry, ctx = app["tpu_provider"], app["llm_registry"], app["ctx"]
@@ -4401,9 +4750,16 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
                         "max_tokens": 32, "temperature": 0}
         requests0 = len(seen)
         local = await registry.chat({**chat_request, "model": "tpu_local"})
+        sampler = app["loop_lag_sampler"]
+        sampler.max_lag_s = 0.0
         t_loop = time.perf_counter()
         looped = await loop_provider.chat({**chat_request, "model": model})
         loop_ms = (time.perf_counter() - t_loop) * 1e3
+        # the provider loaded httpx and its SSL context when rewire built it
+        # (in a worker thread): its first post must not stall the loop
+        loop_lag_ms = sampler.max_lag_s * 1e3
+        check(loop_lag_ms < 50.0, f"the loop lagged {loop_lag_ms:.1f} ms across the "
+                                  f"provider row's first post")
         texts = [r["choices"][0]["message"]["content"] for r in (local, looped)]
         check(len(seen) - requests0 == 2, "the loop chat did not reach the engine once")
         streams = [r.generated for r in seen[-2:]]
@@ -4412,6 +4768,7 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
         out["provider_table"] = {
             "alias": LOOP_ALIAS, "provider": type(loop_provider).__name__,
             "llm_providers_wired": wired, "loop_ms": round(loop_ms, 3),
+            "loop_lag_max_ms": round(loop_lag_ms, 3),
             "crypto_mode": "aes-gcm" if crypto.AESGCM is not None else "hmac-stream",
             "tokens_equal_tpu_local": True, "tokens": len(streams[1])}
 
@@ -4464,6 +4821,9 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
                                                            "consecutive_failures")},
                          "restamped_rows": len(restamped), "listed": len(usage["rollups"]),
                          "rollups_written": ledger.rollups_written}
+        # 8-12. the MCP tools/call path
+        out["mcp"] = await mcp_path_steps(app, engine, settings, port, http, admin, seen,
+                                          launches, delta, ids)
         out["loop_lag"] = app["loop_lag_sampler"].snapshot()
         out["launches"] = launches()
         return out
@@ -4496,7 +4856,8 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
     finally:
         engine.submit = submit
         workdir.cleanup()
-    check(on_disk >= stats["rollup"]["table"]["rows"] and bindings == len(GATEWAY_KINDS),
+    # the step-1 bindings were deleted in step 8; steps 9 and 11 added one each
+    check(on_disk >= stats["rollup"]["table"]["rows"] and bindings == 2,
           f"the file holds {on_disk} usage rows and {bindings} bindings")
     counts = stats.pop("launches")
     cold, hit = stats["summarizer"]["cold"]["launches"], stats["summarizer"]["other_max_tokens"][

@@ -61,6 +61,7 @@ class Settings:
     Construction coerces and validates every field (``_coerce``)."""
 
     # --- identity / serving ---
+    app_name: str = "MCP Context Forge TPU"
     host: str = "0.0.0.0"
     port: int = 4444
     environment: Literal["development", "production"] = "development"
@@ -120,10 +121,39 @@ class Settings:
     log_rotation_enabled: bool = False
     log_max_size_mb: float = 1.0
     log_backup_count: int = 5
-    # --- outbound HTTP (the services' shared clients) ---
+    # --- MCP protocol and the streamable-HTTP transport ---
+    protocol_version: str = "2025-06-18"
+    streamable_http_stateful: bool = False
+    sse_keepalive_interval: float = 30.0
+    session_ttl: int = 3600
+    max_request_size_bytes: int = 8 * 1024 * 1024
+    # --- entity field limits of the catalog's create and update bodies ---
+    validation_max_name_length: int = 255
+    validation_max_description_length: int = 8192
+    validation_max_url_length: int = 2048
+    validation_max_tag_length: int = 64
+    validation_max_tags: int = 32
+    # --- the SSRF guard of catalog URLs (off: localhost upstreams are the
+    # common single-host posture) ---
+    ssrf_protection_enabled: bool = False
+    ssrf_allow_localhost: bool = True
+    ssrf_allow_private_networks: bool = True
+    ssrf_blocked_hosts_csv: str = ""
+    ssrf_allowed_networks_csv: str = ""    # an explicit allow beats every block
+    ssrf_blocked_networks_csv: str = ""
+    ssrf_dns_fail_closed: bool = True
+    # --- outbound HTTP (the services' shared clients) and federation ---
     tool_timeout: float = 60.0
     outbound_pool_limit: int = 1024
     outbound_pool_limit_per_host: int = 0
+    max_tool_retries: int = 3
+    retry_base_delay: float = 0.25
+    retry_max_delay: float = 8.0
+    gateway_health_interval: float = 60.0
+    gateway_failure_threshold: int = 3
+    max_concurrent_health_checks: int = 10  # the health loop's fan-out bound
+    federation_timeout: float = 30.0
+    gateway_validation_timeout: float = 10.0  # the registration wizard's probe
     skip_ssl_verify: bool = False
     http_max_connections: int = 512
     http_max_keepalive: int = 128
@@ -133,6 +163,15 @@ class Settings:
     ssl_cert_file: str = ""
     ssl_key_file: str = ""
     ssl_ca_bundle: str = ""       # custom CA bundle for OUTBOUND verification
+    # --- pooled upstream MCP sessions ---
+    upstream_max_sessions: int = 128
+    upstream_idle_ttl: float = 300.0
+    # --- header passthrough onto upstream calls (off; credentials never
+    # ride the global default list unless the sensitive flag is on) ---
+    enable_header_passthrough: bool = False
+    default_passthrough_headers: str = "x-tenant-id,x-trace-id"
+    enable_overwrite_base_headers: bool = False
+    enable_sensitive_header_passthrough: bool = False
     # --- admin log search ring buffer ---
     log_buffer_capacity: int = 5000
     # --- plugins ---

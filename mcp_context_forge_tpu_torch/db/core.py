@@ -164,6 +164,7 @@ class Database:
         self._retry_interval_s = max(0.0, retry_interval_ms) / 1000.0
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="db")
         self._conn: sqlite3.Connection | None = None
+        self._closed = False
         self._lock = threading.Lock()
         # reader lanes: file-backed WAL databases only — an in-memory DB
         # (and the URI forms) needs exactly one connection, and readers
@@ -205,6 +206,12 @@ class Database:
         await self._run(self.connect_sync)
 
     async def close(self) -> None:
+        """Close the connections and their threads; a second close is a
+        no-op (the app's cleanup closes a database an operator closed)."""
+        if self._closed:
+            return
+        self._closed = True
+
         def _close() -> None:
             if self._conn is not None:
                 self._conn.close()

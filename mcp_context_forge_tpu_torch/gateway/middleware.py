@@ -1,4 +1,4 @@
-"""The aiohttp middlewares of the port's /v1 app: the part of the JAX
+"""The aiohttp middlewares of the port's app: the part of the JAX
 package's ``gateway/middleware.py`` chain that the /v1 surface needs, in
 the reference's order (``MIDDLEWARES``, outermost first):
 
@@ -18,7 +18,8 @@ the reference's order (``MIDDLEWARES``, outermost first):
 - ``auth_middleware``: ``request["auth"]`` from the plugins'
   ``http_auth_resolve_user`` hooks when ``app["plugin_manager"]`` is set,
   else from the Authorization header (``gateway/auth.py``), then the
-  plugins' ``http_pre_request`` hooks; public paths and OPTIONS pass as
+  plugins' ``http_pre_request`` hooks; public paths (``/.well-known/*``
+  and a server's ``/.well-known/mcp`` among them) and OPTIONS pass as
   anonymous; the rest of the chain runs under the principal's tenant
   (``request["tenant"]`` and the port's ``set_current_tenant``).
 
@@ -197,7 +198,12 @@ async def auth_middleware(request: web.Request, handler: Handler) -> web.StreamR
     hooks, else a Bearer JWT or Basic credentials; an anonymous admin when
     ``auth_required`` is off; else ``AuthError``. The plugins'
     ``http_pre_request`` hooks run after it."""
-    if request.method == "OPTIONS" or request.path in PUBLIC_PATHS:
+    if (request.method == "OPTIONS" or request.path in PUBLIC_PATHS
+            # well-known files are public discovery surface, the gateway's
+            # and each virtual server's
+            or request.path.startswith("/.well-known/")
+            or (request.path.startswith("/servers/")
+                and request.path.endswith("/.well-known/mcp"))):
         request["auth"] = AuthContext(user="anonymous", via="anonymous")
         return await _handle_as_tenant(request, handler)
     settings = request.app["settings"]

@@ -51,18 +51,20 @@ class AppContext:
     @property
     def http_client(self):
         """The shared outbound httpx pool: one SSL context and connection
-        pool for every upstream call (a client per call costs ~25 ms)."""
+        pool for every upstream call (a client per call costs ~25 ms). The
+        app builds it at startup, in a worker thread (``utils/outbound.py``:
+        httpx's import and the CA bundle's load stay off the loop)."""
         if self._http_client is None:
-            import httpx
-
+            from ..utils.outbound import httpx_module, verified_context
             from ..utils.sslctx import outbound_ssl
 
+            httpx = httpx_module()
             ssl_ctx = outbound_ssl(self.settings)
             self._http_client = httpx.AsyncClient(
                 timeout=httpx.Timeout(
                     self.settings.tool_timeout,
                     connect=self.settings.http_connect_timeout),
-                verify=ssl_ctx if ssl_ctx is not None else True,
+                verify=ssl_ctx if ssl_ctx is not None else verified_context(),
                 limits=httpx.Limits(
                     max_connections=self.settings.http_max_connections,
                     max_keepalive_connections=self.settings.http_max_keepalive),

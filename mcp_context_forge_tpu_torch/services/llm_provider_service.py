@@ -13,12 +13,15 @@ Supported types:
 
 Configs are sealed at rest (``utils/crypto.py``) and redacted on read.
 Creating a provider wires it at once; adding a model rewires, so the alias
-resolves without a restart. Deleting a provider does not rewire (as in the
+resolves without a restart. Providers are built in a worker thread: each
+loads httpx and its SSL context then. Deleting a provider does not rewire (as in the
 JAX package): its aliases resolve until the next rewire.
 """
 
 from __future__ import annotations
 
+import asyncio
+import functools
 from typing import Any
 
 from ..tpu_local.provider import (DialectProvider, LLMProviderRegistry,
@@ -140,16 +143,18 @@ class LLMProviderService:
         if isinstance(config, str):
             config = {}
         if row["provider_type"] in DIALECT_TYPES:
-            provider: Any = DialectProvider(
-                name=row["name"], dialect=row["provider_type"],
+            build: Any = functools.partial(
+                DialectProvider, name=row["name"], dialect=row["provider_type"],
                 api_base=row["api_base"] or "",
                 api_key=config.get("api_key", ""), config=config,
                 timeout=float(config.get("timeout", 120.0)))
         else:
-            provider = OpenAICompatProvider(
-                name=row["name"], api_base=row["api_base"] or "",
+            build = functools.partial(
+                OpenAICompatProvider, name=row["name"], api_base=row["api_base"] or "",
                 api_key=config.get("api_key", ""),
                 timeout=float(config.get("timeout", 120.0)))
+        # off the loop: a provider loads httpx and its SSL context when built
+        provider = await asyncio.to_thread(build)
         models = await self.ctx.db.fetchall(
             "SELECT alias FROM llm_models WHERE provider_id=? AND enabled=1",
             (row["id"],))

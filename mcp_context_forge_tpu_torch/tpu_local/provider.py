@@ -6,9 +6,12 @@ Bedrock, Vertex and watsonx families, with each family's request builder
 and response and stream translation), the registry that resolves a model
 alias to its provider, and the OpenAI wire shapes the providers share.
 
-The outbound providers import httpx only in the methods that post (the
-card has none), and nothing registers them by default: their wiring from
-the provider table waits for the port's database."""
+The outbound providers load httpx and one verifying SSL context when they
+are built (``utils/outbound.py``), as the JAX package imports httpx at
+module load: the methods that post only make a client from them, so a
+provider's first post pays no import and no CA-bundle load on the event
+loop. ``services/llm_provider_service.py`` builds them from the provider
+table off the loop."""
 
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from abc import ABC, abstractmethod
 from typing import Any, AsyncIterator
 
 from ..utils import new_id
+from ..utils.outbound import httpx_module, verified_context
 
 
 class LLMError(Exception):
@@ -69,7 +73,20 @@ class LLMProvider(ABC):
         return None
 
 
-class OpenAICompatProvider(LLMProvider):
+class _OutboundProvider(LLMProvider):
+    """A provider that posts over httpx: the module and the SSL context are
+    loaded at construction, each post makes a client from them."""
+
+    def __init__(self, timeout: float) -> None:
+        self.timeout = timeout
+        self._httpx = httpx_module()
+        self._verify = verified_context()
+
+    def _client(self):
+        return self._httpx.AsyncClient(timeout=self.timeout, verify=self._verify)
+
+
+class OpenAICompatProvider(_OutboundProvider):
     """Passthrough to an external OpenAI-compatible endpoint (openai,
     ollama's OpenAI route, groq, together, ...)."""
 
@@ -77,10 +94,10 @@ class OpenAICompatProvider(LLMProvider):
 
     def __init__(self, name: str, api_base: str, api_key: str = "",
                  timeout: float = 120.0):
+        super().__init__(timeout)
         self.name = name
         self.api_base = api_base.rstrip("/")
         self.api_key = api_key
-        self.timeout = timeout
 
     def _headers(self) -> dict[str, str]:
         headers = {"content-type": "application/json"}
@@ -89,9 +106,7 @@ class OpenAICompatProvider(LLMProvider):
         return headers
 
     async def chat(self, request: dict[str, Any]) -> dict[str, Any]:
-        import httpx
-
-        async with httpx.AsyncClient(timeout=self.timeout) as client:
+        async with self._client() as client:
             resp = await client.post(f"{self.api_base}/chat/completions",
                                      json={**request, "stream": False},
                                      headers=self._headers())
@@ -99,9 +114,7 @@ class OpenAICompatProvider(LLMProvider):
             return resp.json()
 
     async def embed(self, texts: list[str], model: str | None = None) -> list[list[float]]:
-        import httpx
-
-        async with httpx.AsyncClient(timeout=self.timeout) as client:
+        async with self._client() as client:
             resp = await client.post(f"{self.api_base}/embeddings",
                                      json={"input": texts, "model": model or "default"},
                                      headers=self._headers())
@@ -110,7 +123,7 @@ class OpenAICompatProvider(LLMProvider):
             return [d["embedding"] for d in data]
 
 
-class DialectProvider(LLMProvider):
+class DialectProvider(_OutboundProvider):
     """Per-family request translation onto non-OpenAI provider APIs, and
     of their responses back (the gateway's own surface stays OpenAI-shaped
     either way).
@@ -133,13 +146,13 @@ class DialectProvider(LLMProvider):
         if dialect not in ("azure_openai", "anthropic", "ollama", "bedrock",
                           "google_vertex", "watsonx"):
             raise LLMError(f"unknown provider dialect {dialect!r}")
+        super().__init__(timeout)
         self.name = name
         self.provider_type = dialect
         self.dialect = dialect
         self.api_base = api_base.rstrip("/")
         self.api_key = api_key
         self.config = config or {}
-        self.timeout = timeout
 
     # ------------------------------------------------------------- builders
 
@@ -321,10 +334,8 @@ class DialectProvider(LLMProvider):
         raise LLMError(f"no transform for dialect {self.dialect!r}")
 
     async def chat(self, request: dict[str, Any]) -> dict[str, Any]:
-        import httpx
-
         url, headers, body = self.build_request(request)
-        async with httpx.AsyncClient(timeout=self.timeout) as client:
+        async with self._client() as client:
             resp = await client.post(url, json=body, headers=headers)
             resp.raise_for_status()
             return self.transform_response(request.get("model", ""), resp.json())
@@ -372,8 +383,6 @@ class DialectProvider(LLMProvider):
 
     async def _dispatch_stream(self, request: dict[str, Any]
                                ) -> AsyncIterator[dict[str, Any]]:
-        import httpx
-
         if self.dialect == "bedrock":
             async for chunk in self._bedrock_stream(request):
                 yield chunk
@@ -389,7 +398,7 @@ class DialectProvider(LLMProvider):
             url = url.replace("/ml/v1/text/chat?", "/ml/v1/text/chat_stream?")
         body["stream"] = True
         chunk_id = f"chatcmpl-{new_id()[:24]}"
-        async with httpx.AsyncClient(timeout=self.timeout) as client:
+        async with self._client() as client:
             async with client.stream("POST", url, json=body,
                                      headers=headers) as resp:
                 resp.raise_for_status()
@@ -449,15 +458,13 @@ class DialectProvider(LLMProvider):
         answers application/vnd.amazon.eventstream binary frames; event
         payloads are JSON keyed by ``:event-type`` (contentBlockDelta /
         messageStop / metadata; exceptions ride ``:message-type``)."""
-        import httpx
-
         from ..utils.eventstream import iter_frames
 
         model = request.get("model", "")
         url, headers, body = self.build_request(request)
         url = url.replace("/converse", "/converse-stream")
         chunk_id = f"chatcmpl-{new_id()[:24]}"
-        async with httpx.AsyncClient(timeout=self.timeout) as client:
+        async with self._client() as client:
             async with client.stream("POST", url, json=body,
                                      headers=headers) as resp:
                 resp.raise_for_status()
@@ -484,14 +491,12 @@ class DialectProvider(LLMProvider):
                              ) -> AsyncIterator[dict[str, Any]]:
         """Vertex ``streamGenerateContent?alt=sse``: SSE lines each holding
         a GenerateContentResponse with incremental candidate parts."""
-        import httpx
-
         model = request.get("model", "")
         url, headers, body = self.build_request(request)
         url = url.replace(":generateContent", ":streamGenerateContent")
         url += ("&" if "?" in url else "?") + "alt=sse"
         chunk_id = f"chatcmpl-{new_id()[:24]}"
-        async with httpx.AsyncClient(timeout=self.timeout) as client:
+        async with self._client() as client:
             async with client.stream("POST", url, json=body,
                                      headers=headers) as resp:
                 resp.raise_for_status()

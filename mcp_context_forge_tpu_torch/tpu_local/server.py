@@ -32,12 +32,15 @@ fabric's ``/admin/fabric/adverts`` exchange.
 
 ``setup_operator_routes`` serves the JAX gateway's operator routes
 (health, readiness, version, the log ring, the engine's stats and steps,
-the flight recorder's rings and the profiler capture). ``run`` serves the
-app on a port (``cli.py serve``).
+the flight recorder's rings and the profiler capture). ``setup_mcp_routes``
+serves the MCP tools/call path: ``POST /rpc``, the streamable-HTTP ``/mcp``
+and ``/servers/{server_id}/mcp``, beside the catalog routes of
+``gateway/routers.py``. ``run`` serves the app on a port (``cli.py serve``).
 
-aiohttp is imported here and in ``gateway/middleware.py`` (and, when they
-post, by the OTLP exporter's ``aiohttp_post`` and the fabric publisher's
-peer client), nowhere else in the port.
+aiohttp is imported here, by the gateway's routers, middlewares and
+transport, by ``translate.py`` (and, when they post, by the OTLP exporter's
+``aiohttp_post``, the fabric publisher's peer client and the REST tools'
+shared session), nowhere else in the port.
 """
 
 from __future__ import annotations
@@ -551,7 +554,7 @@ def _profiler_or_404(request: web.Request):
 
 
 async def _serving_ready(app: web.Application) -> tuple[bool, bool, str]:
-    """(ready, leader, detail) without a database: a local engine whose
+    """(ready, leader, detail) of the engine: a local engine whose
     dispatch thread runs, a pool with a ready replica, or a shared plane
     with an elected owner. ``leader`` is whether this worker owns
     the engine it serves (the plane's owner; always, for a local engine)."""
@@ -572,9 +575,11 @@ def setup_operator_routes(app: web.Application) -> None:
     """The JAX gateway's operator routes, each with its permission, query
     clamps and 404 texts (``{"detail": ...}``):
 
-    - ``GET /health``, ``GET /ready`` (no database: ``_serving_ready``; 503
-      ``{"status": "not ready", "detail"}`` until then) and ``GET /version``
-      (the port's ``__version__``), public;
+    - ``GET /health``, ``GET /ready`` and ``GET /version`` (the port's
+      ``__version__``), public. ``/ready`` runs ``SELECT 1`` on the app's
+      database first, as the JAX gateway does, then asks the engine
+      (``_serving_ready``): either failing answers 503
+      ``{"status": "not ready", "detail"}``;
     - ``GET /admin/logs`` (``observability.read``): the log ring's
       ``search`` under ``?q=``, ``?level=``, ``?limit=`` (default 200);
     - ``GET /admin/engine/stats`` and ``GET /admin/engine/steps``
@@ -614,6 +619,10 @@ def setup_operator_routes(app: web.Application) -> None:
 
     @routes.get("/ready")
     async def ready(request: web.Request) -> web.Response:
+        try:
+            await request.app["ctx"].db.execute("SELECT 1")
+        except Exception as exc:
+            return web.json_response({"status": "not ready", "detail": str(exc)}, status=503)
         serving, leader, detail = await _serving_ready(request.app)
         if not serving:
             return web.json_response({"status": "not ready", "detail": detail}, status=503)
@@ -745,6 +754,44 @@ def setup_operator_routes(app: web.Application) -> None:
     app.add_routes(routes)
 
 
+def setup_mcp_routes(app: web.Application) -> None:
+    """The MCP surface over ``app["dispatcher"]`` and
+    ``app["streamable_transport"]``, as the JAX gateway mounts it:
+    ``POST /rpc`` (one JSON-RPC request, at most ``max_request_size_bytes``;
+    a refusal is a JSON-RPC error with status 200, a notification 202),
+    ``POST``/``GET``/``DELETE /mcp`` and ``POST``/``GET
+    /servers/{server_id}/mcp`` (the transport, mounted directly: the JAX
+    gateway's swappable ingress is not ported). Every path is behind the
+    auth middleware."""
+    from ..jsonrpc import JSONRPCError, RPCRequest, parse_body
+
+    transport = app["streamable_transport"]
+    max_size = app["settings"].max_request_size_bytes
+
+    async def handle_rpc(request: web.Request) -> web.Response:
+        raw = await request.read()
+        headers = {k.lower(): v for k, v in request.headers.items()}
+        payload: object = None
+        try:
+            payload = parse_body(raw, max_size)
+            rpc_request = RPCRequest.parse(payload)
+            body = await request.app["dispatcher"].dispatch_bytes(
+                rpc_request, request["auth"], headers=headers)
+        except JSONRPCError as exc:
+            rid = payload.get("id") if isinstance(payload, dict) else None
+            return web.json_response(exc.to_dict(rid))
+        if body is None:
+            return web.Response(status=202)
+        return web.Response(body=body, content_type="application/json")
+
+    app.router.add_post("/rpc", handle_rpc)
+    app.router.add_post("/mcp", transport.handle_post)
+    app.router.add_get("/mcp", transport.handle_get)
+    app.router.add_delete("/mcp", transport.handle_delete)
+    app.router.add_post("/servers/{server_id}/mcp", transport.handle_post)
+    app.router.add_get("/servers/{server_id}/mcp", transport.handle_get)
+
+
 def build_pool(settings, config, tracer=None, signals=None, engine_factory=None,
                metrics=None, ledger=None):
     """An ``EnginePool`` of ``settings.tpu_local_replicas`` engines of
@@ -853,7 +900,20 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     loaded at startup, then its ``plugin_bindings``), and
     ``app["llm_provider_service"]``, whose ``rewire`` wires the
     ``llm_providers`` rows into the registry at startup;
-    ``gateway/routers_extra.py`` serves the provider and plugin routes."""
+    ``gateway/routers_extra.py`` serves the provider and plugin routes.
+
+    The MCP tools/call path, under the JAX gateway's keys in ``app`` and
+    ``ctx.extras``: ``upstream_sessions`` (its sweeper runs from startup),
+    ``cancellation_service``, ``tool_service`` (whose ``invoke_tool`` fires
+    the plugins' tool hooks), ``gateway_service`` (its health loop runs from
+    startup, gated by the ``gateway-leader`` lease of
+    ``ctx.extras["leader_elector"]``), ``server_service``, ``dispatcher``
+    (``RPCDispatcher``) and ``streamable_transport``, to whose stateful
+    sessions each ``tools.changed`` on the bus broadcasts
+    ``notifications/tools/list_changed``; ``gateway/routers.py`` and
+    ``setup_mcp_routes`` serve them. ``ctx.http_client`` is built at startup
+    in a worker thread; at cleanup the loops stop and the upstream sessions
+    close first."""
     from ..coordination.heartbeat import WorkerHeartbeat
     from ..coordination.ratelimit import DistributedTenantLimiter, make_rate_counter
     from ..coordination.rpc import BusRpc
@@ -877,8 +937,17 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     from ..observability.otlp import OTLPExporter, aiohttp_post
     from ..observability.trace_store import ExemplarLedger, TraceStore
     from ..observability.tracing import Tracer, current_span
+    from ..coordination.leases import LeaderElector
+    from ..gateway import routers
+    from ..gateway.rpc import RPCDispatcher
+    from ..gateway.transports.streamable_http import StreamableHTTPTransport
     from ..plugins.framework import PluginManager
     from ..services.base import AppContext
+    from ..services.cancellation_service import CancellationService
+    from ..services.gateway_service import GatewayService
+    from ..services.server_service import ServerService
+    from ..services.tool_service import ToolService
+    from ..services.upstream_sessions import UpstreamSessionRegistry
     from ..services.diagnostics_service import TorchProfilerCapture
     from ..services.llm_provider_service import LLMProviderService
     from ..utils import new_id
@@ -1073,7 +1142,35 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     ctx = AppContext(settings=settings, db=db, bus=bus, leases=leases, tracer=tracer,
                      metrics=metrics, llm_registry=registry, worker_id=worker_id)
     llm_provider_service = LLMProviderService(ctx)
+    ctx.extras.update(tpu_engine=live["engine"], tpu_engine_pool=live["pool"],
+                      engine_plane=plane)
+    # the MCP tools/call path, under the JAX gateway's keys
+    upstream_sessions = UpstreamSessionRegistry(
+        ctx, max_sessions=settings.upstream_max_sessions, idle_ttl=settings.upstream_idle_ttl)
+    tool_service, server_service = ToolService(ctx), ServerService(ctx)
+    gateway_service = GatewayService(ctx)
+    dispatcher = RPCDispatcher(ctx, tool_service, server_service)
+    transport = StreamableHTTPTransport(dispatcher, settings)
+    transport.sessions.metrics = metrics   # the mcpforge_sessions_active gauge
+    mcp_services = {
+        "upstream_sessions": upstream_sessions, "cancellation_service": CancellationService(ctx),
+        "tool_service": tool_service, "gateway_service": gateway_service,
+        "server_service": server_service, "dispatcher": dispatcher,
+        "streamable_transport": transport}
+    ctx.extras.update(mcp_services)
+
+    async def tools_changed(topic, message):
+        # catalog changes fan out to every stateful /mcp session
+        await transport.sessions.broadcast(
+            {"jsonrpc": "2.0", "method": "notifications/tools/list_changed"})
+
+    bus.subscribe("tools.changed", tools_changed)
+    elector = LeaderElector(leases, "gateway-leader", worker_id,
+                            ttl=getattr(settings, "leader_lease_ttl", 15.0))
+    ctx.extras["leader_elector"] = elector   # gates the gateway health loop
     app = web.Application(middlewares=MIDDLEWARES)
+    for key, service in mcp_services.items():
+        app[key] = service
     app["settings"] = settings
     app["ctx"] = ctx
     app["plugin_manager"] = None   # set at startup with plugins_enabled
@@ -1209,8 +1306,19 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
             await fleet.start()
         if settings.tpu_local_tier_object_url:
             await fabric_publisher.start()
+        # the shared outbound pool, built off the loop: httpx's import and
+        # the CA bundle's load would stall it for most of a second
+        await asyncio.to_thread(lambda: ctx.http_client)
+        await transport.sessions.start_sweeper()
+        await upstream_sessions.start()
+        await elector.start()
+        await gateway_service.start_health_loop()
 
     async def stop(app: web.Application) -> None:
+        await gateway_service.stop_health_loop()
+        await elector.stop()
+        await transport.sessions.stop_sweeper()
+        await upstream_sessions.stop()
         await fabric_publisher.stop()
         if fleet is not None:
             await fleet.stop()
@@ -1249,6 +1357,8 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     setup_observability_routes(app)
     setup_operator_routes(app)
     routers_extra.setup_routes(app)
+    routers.setup_routes(app)
+    setup_mcp_routes(app)
     return app
 
 

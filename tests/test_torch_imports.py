@@ -123,3 +123,22 @@ def test_chip_smoke_plane_worker_entry_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     assert "kernel libraries not built" in out or "CUDA is not available" in out, out
+
+
+MCP_PATH_MODULES = [
+    "jsonrpc", "schemas", "utils.retry", "utils.ssrf", "utils.outbound", "clients.mcp_client",
+    "services.upstream_sessions", "services.tool_service", "services.gateway_service",
+    "services.server_service", "services.cancellation_service", "gateway.rpc",
+    "gateway.routers", "gateway.transports.streamable_http", "translate"]
+
+
+@pytest.mark.parametrize("module", MCP_PATH_MODULES)
+def test_mcp_path_module_imports_no_jax_pydantic_or_httpx(module):
+    """Each module of the MCP tools/call path imports alone, with nothing of
+    JAX, pydantic or the JAX package, and without httpx, which the outbound
+    clients load when they are built."""
+    code = (f"import sys\nimport mcp_context_forge_tpu_torch.{module}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'mcp_context_forge_tpu', 'pydantic', 'httpx')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

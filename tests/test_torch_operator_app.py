@@ -333,6 +333,34 @@ def test_ready_without_a_running_engine_is_503(bare_apps):
         loop.run_until_complete(engine.start())
 
 
+def test_ready_with_the_database_closed_is_503(bare_apps):
+    """Readiness runs ``SELECT 1`` on the app's database first, as the JAX
+    gateway's does: with a closed database in its place both answer 503
+    with the JAX keys and the database's error."""
+    from mcp_context_forge_tpu.db.core import Database as JaxDatabase
+    from mcp_context_forge_tpu_torch.db.core import Database
+
+    loop, _, clients, _ = bare_apps
+    saved = []
+    for client, cls in zip(clients, (JaxDatabase, Database)):
+        closed = cls(":memory:")
+        loop.run_until_complete(closed.connect())
+        loop.run_until_complete(closed.close())
+        ctx = client.app["ctx"]
+        saved.append((ctx, ctx.db))
+        ctx.db = closed
+    try:
+        (js, jbody), (ps, pbody) = _call(bare_apps, "/ready", headers={})
+    finally:
+        for ctx, db in saved:
+            ctx.db = db
+    assert js == ps == 503
+    assert set(jbody) == set(pbody) == {"status", "detail"}
+    assert pbody["status"] == jbody["status"] == "not ready"
+    assert pbody["detail"] == jbody["detail"] != ""
+    assert [s for s, _ in _call(bare_apps, "/ready", headers={})] == [200, 200]
+
+
 def test_cpu_profiler_capture(apps):
     loop, settings, _, port_app = apps
     (status, body), = _call(apps, "/admin/engine/profile/start", method="post", which=(1,))

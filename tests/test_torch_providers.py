@@ -253,3 +253,78 @@ def test_eventstream_frames_agree(chunk):
         theirs = asyncio.run(decode(jax_eventstream, payload))
         assert ours == theirs
     assert asyncio.run(decode(port_eventstream, data)) == frames
+
+
+LAG_PROBE = """
+import asyncio, json, ssl, sys, threading
+from aiohttp import web
+from mcp_context_forge_tpu_torch.gateway.flight_recorder import LoopLagSampler
+from mcp_context_forge_tpu_torch.tpu_local.provider import OpenAICompatProvider
+
+REPLY = json.loads(sys.argv[1])
+HEAVY = ("httpx", "httpcore", "h11", "anyio", "certifi")
+ca_loads = []
+load_verify_locations = ssl.SSLContext.load_verify_locations
+
+
+def counted(self, *args, **kwargs):
+    ca_loads.append(threading.current_thread().name)
+    return load_verify_locations(self, *args, **kwargs)
+
+
+ssl.SSLContext.load_verify_locations = counted
+
+
+async def main():
+    async def completions(request):
+        return web.json_response(REPLY)
+
+    app = web.Application()
+    app.router.add_post("/v1/chat/completions", completions)
+    runner = web.AppRunner(app, access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    port = site._server.sockets[0].getsockname()[1]
+    loaded = "httpx" in sys.modules
+    # built as the provider table's rewire builds it: in a worker thread
+    provider = await asyncio.to_thread(OpenAICompatProvider, "up", f"http://127.0.0.1:{port}/v1")
+    sampler = LoopLagSampler(interval_s=0.01, warn_s=0.0)
+    await sampler.start()
+    await asyncio.sleep(0.1)
+    sampler.max_lag_s = 0.0
+    modules, loads = set(sys.modules), len(ca_loads)
+    reply = await provider.chat({"model": "m", "messages": [{"role": "user", "content": "hi"}]})
+    imported = sorted(m for m in set(sys.modules) - modules if m.split(".")[0] in HEAVY)
+    await asyncio.sleep(0.05)
+    await sampler.stop()
+    await runner.cleanup()
+    print(json.dumps({"httpx_before": loaded, "imported_at_post": imported,
+                      "ca_loads_at_post": ca_loads[loads:], "max_lag_ms": sampler.max_lag_s * 1e3,
+                      "samples": sampler.samples, "text": reply["choices"][0]["message"]["content"]}))
+
+
+asyncio.run(main())
+"""
+
+
+def test_first_post_does_not_stall_the_loop():
+    """A provider's first post in a fresh process (httpx not yet imported)
+    imports nothing of httpx's stack and loads no CA bundle on the event
+    loop: the provider did both when it was built, off the loop. Those two
+    are what stalled the loop for ~0.9 s at the first post; the loop-lag
+    sampler's max lag across the post is read and reported, not bounded,
+    since a wall-clock bound fails whenever the host is loaded."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = subprocess.run([sys.executable, "-c", LAG_PROBE, json.dumps(OPENAI_REPLY)],
+                         cwd=Path(__file__).resolve().parents[1], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    reading = json.loads(out.strip().splitlines()[-1])
+    print(reading)
+    assert reading["httpx_before"] is False and reading["text"] == "ok"
+    assert reading["samples"] >= 5
+    assert reading["imported_at_post"] == [], reading
+    assert reading["ca_loads_at_post"] == [], reading
