@@ -4150,6 +4150,374 @@ def check_summary(result: dict, direct: dict, engine_requests: int) -> None:
           f"requests): {str(text)[:80]!r}")
 
 
+# the services that call the engine (steps 13-17 of the gateway phase)
+CHAT_TURNS = ("Which of these tools would upper-case a log line?",
+              "And which one counts its words?", "Name the third tool, then stop.")
+AGENT_TOKENS = 32          # the A2A agents' max_tokens
+AGENT_CANCEL_TOKENS = 256  # the cancelled task's agent: it decodes on after the cancel
+
+
+def sse_events(raw: bytes) -> list:
+    """The ``data:`` events of an SSE body that ends ``data: [DONE]``."""
+    lines = raw.decode().splitlines()
+    check("data: [DONE]" in lines, f"the SSE body did not end [DONE]: {raw[-80:]!r}")
+    return [json.loads(line[6:]) for line in lines
+            if line.startswith("data: ") and line != "data: [DONE]"]
+
+
+async def engine_service_steps(app, engine, settings, base: str, http, admin: dict, seen: list,
+                               step, post, rpc, steps: dict) -> None:
+    """Steps 13-17 of ``gateway_phase`` (after step 11, with the step-9
+    sample server still federated): the services that call the engine.
+    Each engine-backed reply is held against a direct greedy chat of the
+    same messages, made cold (the prefix cache off for it) as step 9's is,
+    token for token."""
+    from mcp_context_forge_tpu_torch.services.chat_service import SYSTEM_PROMPT, ChatService
+    from mcp_context_forge_tpu_torch.services.toolops_service import generate_cases
+    from mcp_context_forge_tpu_torch.utils import jwt
+
+    registry, user = app["llm_registry"], settings.platform_admin_email
+    page = engine.config.page_size
+
+    async def direct(body: dict, route: bool = False):
+        """One greedy chat with the prefix cache off: (its request, its text)."""
+        requests0 = len(seen)
+        engine.config.prefix_cache = False
+        try:
+            if route:
+                reply, _ = await post(settings.llm_api_prefix + "/chat/completions", body)
+            else:
+                reply = await registry.chat(body)
+        finally:
+            engine.config.prefix_cache = True
+        check(len(seen) - requests0 == 1, "the direct chat did not reach the engine once")
+        return seen[-1], reply["choices"][0]["message"]["content"]
+
+    def same_tokens(request, reference, what: str) -> None:
+        differ = next((i for i, (a, b) in enumerate(zip(request.generated, reference.generated))
+                       if a != b), None)
+        check(request.generated == reference.generated and request.generated,
+              f"{what}: {len(request.generated)} tokens against the direct chat's "
+              f"{len(reference.generated)}, first difference at {differ}; prompts equal "
+              f"{request.prompt_ids == reference.prompt_ids}, history {request.hist} and "
+              f"{reference.hist}")
+
+    async def chat_turn(sid: str, message: str) -> list:
+        async with http.post(f"{base}/llmchat/{sid}/chat", headers=admin,
+                             json={"message": message, "stream": True}) as resp:
+            check(resp.status == 200 and resp.headers["content-type"] == "text/event-stream",
+                  f"POST /llmchat/{sid}/chat: {resp.status}")
+            events = sse_events(await resp.read())
+        answer = events[-1] if events else {}
+        check(answer.get("type") == "answer" and answer["text"] == "".join(
+            e["text"] for e in events if e["type"] == "token")
+              and not [e for e in events if e["type"] != "token"][:-1],
+              f"the turn's events end {answer.get('type')}: the tokens do not join into the "
+              f"answer, or the seeded weights called a tool")
+        return events
+
+    # 13. /llmchat: the agent offered the text server's tools
+    async with http.get(base + "/tools", headers=admin) as resp:
+        catalog = {t["name"]: t for t in await resp.json()}
+    server, _ = await post("/servers", {"name": "text-tools", "associated_tools": [
+        catalog[name]["id"] for name in TEXT_TOOLS]}, status=201)
+    connected, _ = await post("/llmchat/connect", {"server_id": server["id"]}, status=201)
+    sid = connected["session_id"]
+    service = app["chat_service"]
+    turns = []
+    for i, message in enumerate(CHAT_TURNS[:2]):
+        async with step(f"13_llmchat_turn{i + 1}") as row:
+            events = await chat_turn(sid, message)
+        check(row["engine_requests"] == 1, f"turn {i + 1} made {row['engine_requests']} "
+                                           f"engine requests")
+        turns.append(seen[-1])
+        row.update({"prompt_tokens": len(seen[-1].prompt_ids), "history_tokens": seen[-1].hist,
+                    "decode_tokens": len(seen[-1].generated),
+                    "finish_reason": seen[-1].finish_reason, "events": len(events)})
+    session = await service.get_session(sid, user)
+    tools = await service._tool_defs(session, [])
+    check(sorted(t["function"]["name"] for t in tools) == TEXT_TOOLS,
+          f"the session offered {[t['function']['name'] for t in tools]}")
+    reference, text = await direct({"messages": [{"role": "system", "content": SYSTEM_PROMPT},
+                                                 {"role": "user", "content": CHAT_TURNS[0]}],
+                                    "tools": tools, "max_tokens": 512, "temperature": 0.0},
+                                   route=True)
+    same_tokens(turns[0], reference, "the cold /llmchat turn")
+    # the stream holds back a trailing run that decodes to an incomplete
+    # UTF-8 sequence, which the one-shot decode of the reply keeps
+    check((text or "").startswith(session.messages[1]["content"]),
+          "the turn's answer is not the start of the /v1 reply's text")
+    cold, hit = steps["13_llmchat_turn1"], steps["13_llmchat_turn2"]
+    check(cold["history_tokens"] == 0, f"turn one was not cold: history "
+                                       f"{cold['history_tokens']}")
+    check(cold["launches"].get("flash_attention_tc", 0) > 0,
+          f"the cold turn launched {cold['launches']}")
+    check(hit["history_tokens"] >= cold["prompt_tokens"] - page,
+          f"turn two's prefix hit covers {hit['history_tokens']} of turn one's "
+          f"{cold['prompt_tokens']} prompt tokens")
+    check(hit["launches"].get("paged_chunk_attention_tc", 0) > 0
+          and hit["launches"].get("paged_decode_attention", 0) > 0,
+          f"turn two's prefix hit launched {hit['launches']}")
+    cold["tokens_equal_direct_chat"] = True
+    # turn three on a second service over the same KV store: a second worker
+    other = ChatService(app["ctx"], app["tool_service"], app["server_service"],
+                        kv=app["kv_store"], session_ttl=settings.session_ttl)
+    async with step("13_llmchat_turn3_second_worker") as row:
+        events = [e async for e in other.chat(sid, user, CHAT_TURNS[2])]
+    session = await service.get_session(sid, user)
+    check(events[-1]["type"] == "answer" and row["engine_requests"] == 1
+          and [m["content"] for m in session.messages[::2]] == list(CHAT_TURNS)
+          and seen[-1].hist >= len(turns[1].prompt_ids) - page,
+          f"the second worker's turn: {row['engine_requests']} requests, history "
+          f"{seen[-1].hist}, stored {[m['role'] for m in session.messages]}")
+    row.update({"history_tokens": seen[-1].hist, "decode_tokens": len(seen[-1].generated)})
+    # a session whose history holds a real tools/call of `case`
+    arguments = {"text": "tool history at full width", "mode": "upper"}
+    called = await rpc("tools/call", {"name": "case", "arguments": arguments}, rid=131)
+    observation = "\n".join(item["text"] for item in called["result"]["content"]
+                            if item.get("type") == "text")
+    check(observation == arguments["text"].upper(), f"case answered {called}")
+    made, _ = await post("/llmchat/connect", {"server_id": server["id"]}, status=201)
+    stored = await app["kv_store"].get(ChatService._key(made["session_id"]))
+    history = [{"role": "user", "content": "Upper-case my note."},
+               {"role": "assistant", "content": None, "tool_calls": [{
+                   "id": "call_case_0", "type": "function",
+                   "function": {"name": "case", "arguments": json.dumps(arguments)}}]},
+               {"role": "tool", "tool_call_id": "call_case_0", "content": observation}]
+    # a copy: the memory store hands the stored object itself to the service
+    await app["kv_store"].set(ChatService._key(made["session_id"]),
+                              {**stored, "messages": json.loads(json.dumps(history))},
+                              ttl=settings.session_ttl)
+    # cold, as the direct chat is: its tools-and-system head is the first
+    # turn's, which a prefix hit would take from the chunk kernel instead.
+    # Spelled: the byte tokenizer prints the seeded weights' ids as nothing,
+    # so the earlier turns stream no token event; here each id is one
+    # (this session takes no later turn, whose prompt the spelled answer
+    # would push past max_seq_len)
+    byte_tokenizer = engine.tokenizer
+    engine.config.prefix_cache = False
+    engine.tokenizer = SpelledTokenizer(byte_tokenizer)
+    try:
+        async with step("13_llmchat_tool_history") as row:
+            events = await chat_turn(made["session_id"], "What did the tool return?")
+        turn = seen[-1]
+        reference, text = await direct({
+            "messages": [{"role": "system", "content": SYSTEM_PROMPT}, *history,
+                         {"role": "user", "content": "What did the tool return?"}],
+            "tools": tools, "max_tokens": 512, "temperature": 0.0}, route=True)
+    finally:
+        engine.config.prefix_cache = True
+        engine.tokenizer = byte_tokenizer
+    same_tokens(turn, reference, "the turn over tool history")
+    check([e["text"] for e in events[:-1]] == [f"⟨{i}⟩" for i in turn.generated]
+          and events[-1]["text"] == text,
+          "the turn's token events are not its tokens, one each, or its answer is not "
+          "the direct /v1 reply's text")
+    row.update({"prompt_tokens": len(turn.prompt_ids), "history_tokens": turn.hist,
+                "decode_tokens": len(turn.generated), "token_events": len(events) - 1,
+                "tokens_equal_direct_chat": True})
+
+    # 14. sampling/createMessage over /rpc and a stateful /mcp session
+    settings.streamable_http_stateful = True
+    try:
+        _, headers = await post("/mcp", {"jsonrpc": "2.0", "id": 1, "method": "initialize",
+                                         "params": {}})
+        session_headers = {**admin, "mcp-session-id": headers["mcp-session-id"]}
+        for name, path, text, hdrs in (
+                ("14_sampling_rpc", "/rpc", "Sample one line about gateways.", None),
+                ("14_sampling_mcp", "/mcp", "Sample one line about kernels.", session_headers)):
+            params = {"messages": [{"role": "user", "content": {"type": "text", "text": text}}],
+                      "systemPrompt": "You are terse.", "maxTokens": 48}
+            async with step(name) as row:
+                sampled = await rpc("sampling/createMessage", params, rid=141, path=path,
+                                    headers=hdrs)
+            request = seen[-1]
+            result = sampled.get("result", {})
+            reference, text_ref = await direct({
+                "messages": [{"role": "system", "content": "You are terse."},
+                             {"role": "user", "content": text}],
+                "max_tokens": 48, "temperature": 0.0})
+            same_tokens(request, reference, f"sampling over {path}")
+            stop = "endTurn" if request.finish_reason == "stop" else "maxTokens"
+            check(row["engine_requests"] == 1 and request.hist == 0
+                  and result.get("content", {}).get("text") == text_ref
+                  and result.get("stopReason") == stop and result.get("role") == "assistant",
+                  f"sampling over {path} answered {sampled}")
+            row.update({"stop_reason": stop, "decode_tokens": len(request.generated),
+                        "tokens_equal_direct_chat": True})
+    finally:
+        settings.streamable_http_stateful = False
+
+    # 15. A2A: an engine agent, an openai-typed agent posting back into this
+    # app, an A2A tool, a task polled to completion and a cancelled one
+    secret = settings.jwt_secret_key
+    token = jwt.create_token({"sub": "a2a@example.com"}, secret,
+                             audience=settings.jwt_audience, issuer=settings.jwt_issuer)
+    for agent in ({"name": "engine-agent", "endpoint_url": "local://engine",
+                   "agent_type": "tpu_local", "config": {"max_tokens": AGENT_TOKENS}},
+                  {"name": "loop-agent", "agent_type": "openai",
+                   "endpoint_url": f"{base}{settings.llm_api_prefix}/chat/completions",
+                   "config": {"model": "tpu_local", "max_tokens": AGENT_TOKENS},
+                   "auth_value": {"api_key": token}},
+                  {"name": "slow-agent", "endpoint_url": "local://engine",
+                   "agent_type": "tpu_local", "config": {"max_tokens": AGENT_CANCEL_TOKENS}}):
+        await post("/a2a", agent, status=201)
+    sealed = (await app["ctx"].db.fetchone(
+        "SELECT auth_value FROM a2a_agents WHERE name='loop-agent'"))["auth_value"]
+    check(sealed.startswith("enc:v1:") and token not in sealed, "the agent's key is not sealed")
+
+    def reply_text(reply: dict) -> str:
+        return "".join(p.get("text", "") for p in reply["message"]["parts"])
+
+    async def agent_check(name: str, text: str, request, got: str) -> None:
+        reference, text_ref = await direct({"messages": [{"role": "user", "content": text}],
+                                            "max_tokens": AGENT_TOKENS, "temperature": 0.0})
+        same_tokens(request, reference, name)
+        check(got == text_ref, f"{name} answered {got!r}, the direct chat {text_ref!r}")
+
+    text = "Plan a rollout in three steps."
+    async with step("15_a2a_engine_agent") as row:
+        reply, _ = await post("/a2a/engine-agent/invoke", {"message": {
+            "role": "user", "parts": [{"kind": "text", "text": text}]}})
+    await agent_check("the engine agent", text, seen[-1], reply_text(reply))
+    row["tokens_equal_direct_chat"] = True
+    text = "List two risks of that rollout."
+    async with step("15_a2a_openai_agent") as row:
+        reply, _ = await post("/a2a/loop-agent/invoke", {"message": text})
+    check(row["engine_requests"] == 1 and row["loop_lag_max_ms"] < 50.0,
+          f"the openai-typed agent: {row['engine_requests']} engine requests, the loop lagged "
+          f"{row['loop_lag_max_ms']} ms")
+    await agent_check("the openai-typed agent", text, seen[-1], reply_text(reply))
+    row["tokens_equal_direct_chat"] = True
+    await post("/tools", {"name": "ask_engine_agent", "integration_type": "A2A",
+                          "annotations": {"a2a_agent": "engine-agent"}}, status=201)
+    text = "Summarize the plan in one line."
+    async with step("15_a2a_tool") as row:
+        called = await rpc("tools/call", {"name": "ask_engine_agent", "arguments": {
+            "role": "user", "parts": [{"kind": "text", "text": text}]}}, rid=151)
+    result = called.get("result", {})
+    check(not result.get("isError") and row["engine_requests"] == 1,
+          f"the A2A tool answered {called}")
+    await agent_check("the A2A tool", text, seen[-1],
+                      reply_text(json.loads(result["content"][0]["text"])))
+    row["tokens_equal_direct_chat"] = True
+    text = "Write the rollback note."
+    async with step("15_a2a_task") as row:
+        task, _ = await post("/a2a/engine-agent/tasks", {"message": text}, status=201)
+        polls, deadline = 0, time.monotonic() + 120
+        while task["state"] not in ("completed", "failed", "cancelled"):
+            check(time.monotonic() < deadline, f"the task stayed {task['state']}")
+            await asyncio.sleep(0.02)
+            async with http.get(f"{base}/a2a/tasks/{task['id']}", headers=admin) as resp:
+                task = await resp.json()
+            polls += 1
+    check(task["state"] == "completed", f"the task ended {task['state']}: {task.get('error')}")
+    await agent_check("the task", text, seen[-1], reply_text(task["output"]))
+    row.update({"polls": polls, "tokens_equal_direct_chat": True})
+    free0 = engine.allocator.free_pages
+    async with step("15_a2a_task_cancel") as row:
+        requests0 = len(seen)
+        task, _ = await post("/a2a/slow-agent/tasks", {"message": "Explain paging at length."},
+                             status=201)
+        deadline = time.monotonic() + 120
+        while not (len(seen) > requests0 and seen[-1].generated):
+            check(time.monotonic() < deadline, "the task never started decoding")
+            await asyncio.sleep(0.005)
+        victim = seen[-1]
+        cancelled, _ = await post(f"/a2a/tasks/{task['id']}/cancel", {})
+        at_cancel = len(victim.generated)
+        while victim.finish_reason is None:
+            check(time.monotonic() < deadline, "the cancelled task's engine request never ended")
+            await asyncio.sleep(0.01)
+        await asyncio.sleep(0.05)
+    async with http.get(f"{base}/a2a/tasks/{task['id']}", headers=admin) as resp:
+        after = await resp.json()
+    check(cancelled["state"] == "cancelled" and after["state"] == "cancelled"
+          and after["output"] is None, f"the cancelled task: {cancelled['state']}, then {after}")
+    check(engine.allocator.pages_in_use == 0 and engine.allocator.free_pages == free0
+          and engine.stats.queue_depth == 0,
+          f"after the cancelled task: {engine.allocator.pages_in_use} pages in use, "
+          f"{engine.allocator.free_pages} free of {free0}")
+    row.update({"tokens_at_cancel": at_cancel, "tokens_at_end": len(victim.generated),
+                "finish_reason": victim.finish_reason,
+                "engine_aborted": victim.finish_reason == "cancelled", "pages_in_use_after": 0})
+
+    # 16. toolops over the case tool
+    schema = catalog["case"]["input_schema"]
+    async with step("16_toolops_cases") as row:
+        async with http.get(f"{base}/toolops/case/cases?use_llm=true", headers=admin) as resp:
+            check(resp.status == 200, f"GET /toolops/case/cases: {resp.status}")
+            cases = (await resp.json())["cases"]
+    base_cases = generate_cases(schema)
+    check(row["engine_requests"] == 1 and cases[:len(base_cases)] == base_cases,
+          f"toolops cases: {row['engine_requests']} engine requests, {len(cases)} cases")
+    row.update({"cases": len(cases), "llm_cases": len(cases) - len(base_cases)})
+    async with step("16_toolops_run") as row:
+        report, _ = await post("/toolops/case/run", {})
+    check(report["total"] == len(base_cases) and row["engine_requests"] == 0
+          and report["passed"] == sum(r["pass"] for r in report["results"]),
+          f"toolops run: {report['total']} results, {report['passed']} passed")
+    row.update({"total": report["total"], "passed": report["passed"]})
+
+    # 17. elicitation over a stateful session's GET stream
+    settings.streamable_http_stateful = True
+    elicitation = app["elicitation_service"]
+    try:
+        async with step("17_elicitation") as row:
+            _, headers = await post("/mcp", {"jsonrpc": "2.0", "id": 1, "method": "initialize",
+                                             "params": {}})
+            elicit_sid = headers["mcp-session-id"]
+            session_headers = {**admin, "mcp-session-id": elicit_sid}
+            async with http.get(base + "/mcp", headers=session_headers) as stream:
+                check(stream.status == 200, f"GET /mcp: {stream.status}")
+                asked = asyncio.ensure_future(post(f"/sessions/{elicit_sid}/elicit", {
+                    "message": "Confirm the rollout?", "requestedSchema": {
+                        "type": "object", "properties": {"ok": {"type": "boolean"}}}}))
+                pushed = None
+                while pushed is None:
+                    line = await asyncio.wait_for(stream.content.readline(), 30)
+                    if line.startswith(b"data: "):
+                        pushed = json.loads(line[6:])
+                check(pushed.get("method") == "elicitation/create"
+                      and pushed["params"]["message"] == "Confirm the rollout?",
+                      f"the stream carried {pushed}")
+                answer = {"action": "accept", "content": {"ok": True}}
+                await post("/mcp", {"jsonrpc": "2.0", "id": pushed["id"], "result": answer},
+                           headers=session_headers, status=202)
+                accepted, _ = await asyncio.wait_for(asked, 30)
+                check(accepted == answer, f"the elicit route answered {accepted}")
+                t_timeout = time.perf_counter()
+                silent, _ = await post(f"/sessions/{elicit_sid}/elicit",
+                                       {"message": "Still there?", "timeout": 1})
+                timeout_ms = (time.perf_counter() - t_timeout) * 1e3
+            check(silent == {"action": "cancel", "reason": "timeout"},
+                  f"an unanswered elicit answered {silent}")
+            unknown, _ = await post("/sessions/unknown-session/elicit", {"message": "x"},
+                                    status=404)
+            leases = app["ctx"].leases
+            await leases.acquire("session-owner:elsewhere", "another-worker", 60)
+            try:
+                owned, _ = await post("/sessions/elsewhere/elicit", {"message": "x"}, status=409)
+            finally:
+                await leases.release("session-owner:elsewhere", "another-worker")
+            async with http.delete(base + "/mcp", headers=session_headers) as resp:
+                check(resp.status == 204, f"DELETE /mcp: {resp.status}")
+        check(elicitation.pending_count == 0, f"{elicitation.pending_count} elicitations pending")
+        row.update({"accepted": accepted, "timeout": silent, "timeout_ms": round(timeout_ms, 3),
+                    "unknown_session": 404, "owned_elsewhere": 409,
+                    "detail_409": owned["detail"]})
+    finally:
+        settings.streamable_http_stateful = False
+    rows: dict = {}
+    for name, row in steps.items():
+        if name[:2] in ("13", "14", "15", "16", "17"):
+            for kernel, count in row["launches"].items():
+                rows[kernel] = rows.get(kernel, 0) + count
+    for kernel in ATTENTION:
+        check(rows.get(kernel, 0) > 0, f"{kernel} never launched in steps 13-17: {rows}")
+    steps["13_17_launches"] = rows
+
+
 async def mcp_path_steps(app, engine, settings, port: int, http, admin: dict, seen: list,
                          launches, delta, binding_ids: dict) -> dict:
     """Steps 8-12 of ``gateway_phase``: the MCP tools/call path over the app
@@ -4411,6 +4779,12 @@ async def mcp_path_steps(app, engine, settings, port: int, http, admin: dict, se
                     "pages_in_use_after": 0, "binding": cancel_binding["id"]})
         async with http.delete(f"{base}/tools/{rest['id']}", headers=admin) as resp:
             check(resp.status == 204, f"DELETE /tools: {resp.status}")
+
+        # 13-17. the services that call the engine (step 12 closes the database)
+        t_services = time.perf_counter()
+        await engine_service_steps(app, engine, settings, base, http, admin, seen, step, post,
+                                   rpc, steps)
+        steps["13_17_wall_ms"] = round((time.perf_counter() - t_services) * 1e3, 3)
     finally:
         await runner.cleanup()
         await bridge.stop()
@@ -4499,7 +4873,19 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
         runs to its end, after which no page is in use and the free pool is
         whole;
     12. ``/ready`` answers 200, then 503 with ``detail`` once the rollup has
-        flushed and the database is closed.
+        flushed and the database is closed (run last: it closes the
+        database that steps 13-17 read);
+    13-17. ``engine_service_steps``, after step 11 with the bridge still up:
+        ``/llmchat`` turns over the text server's tools (a cold turn whose
+        tokens equal a direct ``/v1`` chat's, a prefix-hit turn, a turn on a
+        second ``ChatService`` over the same KV store, a turn over a real
+        ``case`` tools/call in the history), ``sampling/createMessage`` over
+        ``/rpc`` and a stateful ``/mcp`` session, A2A (an engine agent, an
+        ``openai`` agent posting back into the app with a sealed bearer, an
+        A2A tool, a task polled to completion, a cancelled task after which
+        no page is in use), toolops (the cases with the engine's, a run) and
+        elicitation (accepted over the session's stream, a timeout, 404 and
+        409).
     Each step's wall, engine requests, TTFTs, launches per row and the loop
     sampler's max lag are in ``mcp``."""
     import sqlite3

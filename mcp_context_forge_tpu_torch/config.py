@@ -133,6 +133,10 @@ class Settings:
     validation_max_url_length: int = 2048
     validation_max_tag_length: int = 64
     validation_max_tags: int = 32
+    # --- the services that call the engine: the chat agent's steps per turn,
+    # the A2A registry's cap (0 = unlimited) ---
+    llmchat_max_steps: int = 6
+    a2a_max_agents: int = 100
     # --- the SSRF guard of catalog URLs (off: localhost upstreams are the
     # common single-host posture) ---
     ssrf_protection_enabled: bool = False

@@ -1,7 +1,20 @@
-"""The JAX gateway's LLM-admin and plugin routes (``gateway/routers_extra.py``
-there), with its permissions, status codes and bodies. Handlers raise the
-services' domain errors; ``error_middleware`` maps them (404, 409, 422).
+"""The JAX gateway's A2A, LLM-admin and plugin routes
+(``gateway/routers_extra.py`` there) and its toolops routes (mounted by its
+``gateway/app.py``), with its permissions, status codes and bodies. Handlers
+raise the services' domain errors; ``error_middleware`` maps them (404, 409,
+422).
 
+- ``GET /a2a`` (``a2a.read``; the whole list: the JAX gateway's cursor
+  pages are not ported yet), ``POST /a2a`` (``a2a.create``, 201; a body the
+  schema refuses is a 422 in pydantic's layout), ``DELETE /a2a/{agent_id}``
+  (``a2a.delete``, 204) and ``POST /a2a/{name}/invoke`` (``a2a.invoke``; the
+  inbound ``x-contextforge-uaid-hop`` is the hop) over ``app["a2a_service"]``;
+- ``POST``/``GET /a2a/{name}/tasks``, ``GET /a2a/tasks/{task_id}`` (an
+  unknown id that names an agent lists that agent's tasks) and
+  ``POST /a2a/tasks/{task_id}/cancel``;
+- ``GET /toolops/{name}/cases`` (``tools.read``; ``?use_llm=true`` adds the
+  engine's cases) and ``POST /toolops/{name}/run`` (``tools.invoke``; the
+  body's ``cases``, else the generated ones) over ``app["toolops_service"]``;
 - ``GET``/``POST /llm/providers``, ``DELETE /llm/providers/{provider_id}``,
   ``GET /llm/models``, ``POST /llm/providers/{provider_id}/models``
   (``llm.admin``) over ``app["llm_provider_service"]``;
@@ -14,16 +27,115 @@ services' domain errors; ``error_middleware`` maps them (404, 409, 422).
 
 from __future__ import annotations
 
+import json
+
 from aiohttp import web
 
 from ..db.core import to_json
 from ..plugins.framework import PluginMode
-from ..services.base import ValidationFailure, now
+from ..schemas import A2AAgentCreate, SchemaError
+from ..services.base import NotFoundError, ValidationFailure, now
 from ..utils.ids import new_id
 
 
 def setup_routes(app: web.Application) -> None:
     routes = web.RouteTableDef()
+
+    # ------------------------------------------------------------------- A2A
+    @routes.get("/a2a")
+    async def list_agents(request: web.Request) -> web.Response:
+        request["auth"].require("a2a.read")
+        agents = await request.app["a2a_service"].list_agents(
+            request.query.get("include_inactive") == "true")
+        return web.json_response([a.model_dump() for a in agents])
+
+    @routes.post("/a2a")
+    async def register_agent(request: web.Request) -> web.Response:
+        request["auth"].require("a2a.create")
+        try:
+            agent = A2AAgentCreate.model_validate(await request.json())
+        except (json.JSONDecodeError, SchemaError) as exc:
+            raise ValidationFailure(str(exc)) from exc
+        created = await request.app["a2a_service"].register_agent(agent)
+        return web.json_response(created.model_dump(), status=201)
+
+    @routes.delete("/a2a/{agent_id}")
+    async def delete_agent(request: web.Request) -> web.Response:
+        request["auth"].require("a2a.delete")
+        await request.app["a2a_service"].delete_agent(request.match_info["agent_id"])
+        return web.Response(status=204)
+
+    @routes.post("/a2a/{name}/invoke")
+    async def invoke_agent(request: web.Request) -> web.Response:
+        request["auth"].require("a2a.invoke")
+        try:
+            payload = await request.json()
+        except Exception:
+            payload = {}
+        hop = int(request.headers.get("x-contextforge-uaid-hop", "0"))
+        result = await request.app["a2a_service"].invoke_agent(
+            request.match_info["name"], payload, user=request["auth"].user, hop=hop)
+        return web.json_response(result)
+
+    @routes.post("/a2a/{name}/tasks")
+    async def create_task(request: web.Request) -> web.Response:
+        request["auth"].require("a2a.invoke")
+        try:
+            payload = await request.json()
+        except Exception:
+            payload = {}
+        task = await request.app["a2a_service"].create_task(
+            request.match_info["name"], payload, user=request["auth"].user)
+        return web.json_response(task, status=201)
+
+    @routes.get("/a2a/{name}/tasks")
+    async def list_tasks(request: web.Request) -> web.Response:
+        request["auth"].require("a2a.read")
+        return web.json_response(
+            await request.app["a2a_service"].list_tasks(request.match_info["name"]))
+
+    @routes.get("/a2a/tasks/{task_id}")
+    async def get_task(request: web.Request) -> web.Response:
+        request["auth"].require("a2a.read")
+        task_id = request.match_info["task_id"]
+        service = request.app["a2a_service"]
+        try:
+            return web.json_response(await service.get_task(task_id))
+        except NotFoundError:
+            # this route also matches /a2a/{name}/tasks for an agent named
+            # "tasks": an unknown task id that names an agent lists its tasks
+            agent = await request.app["ctx"].db.fetchone(
+                "SELECT id FROM a2a_agents WHERE name=? OR slug=?", (task_id, task_id))
+            if agent:
+                return web.json_response(await service.list_tasks(task_id))
+            raise
+
+    @routes.post("/a2a/tasks/{task_id}/cancel")
+    async def cancel_task(request: web.Request) -> web.Response:
+        request["auth"].require("a2a.invoke")
+        return web.json_response(
+            await request.app["a2a_service"].cancel_task(request.match_info["task_id"]))
+
+    # --------------------------------------------------------------- toolops
+    @routes.get("/toolops/{name}/cases")
+    async def toolops_generate(request: web.Request) -> web.Response:
+        request["auth"].require("tools.read")
+        cases = await request.app["toolops_service"].generate(
+            request.match_info["name"], use_llm=request.query.get("use_llm") == "true")
+        return web.json_response({"cases": cases})
+
+    @routes.post("/toolops/{name}/run")
+    async def toolops_run(request: web.Request) -> web.Response:
+        request["auth"].require("tools.invoke")
+        try:
+            body = await request.json()
+        except Exception:
+            body = {}
+        if not isinstance(body, dict):
+            return web.json_response({"detail": "body must be a JSON object"}, status=422)
+        report = await request.app["toolops_service"].run(
+            request.match_info["name"], cases=body.get("cases"), user=request["auth"].user)
+        return web.json_response(report)
 
     # ------------------------------------------------------------- LLM admin
     @routes.get("/llm/providers")

@@ -5,9 +5,11 @@ which scope the catalog to a virtual server.
 
 The resource and prompt services are not ported yet: ``resources/*`` and
 ``prompts/*`` get what the JAX dispatcher answers to a known method it does
-not implement (METHOD_NOT_FOUND, "Method ... not implemented"). Without a
-completion service or a sampling handler, ``completion/complete`` and
-``sampling/createMessage`` take the JAX dispatcher's fallbacks.
+not implement (METHOD_NOT_FOUND, "Method ... not implemented").
+``completion/complete`` and ``sampling/createMessage`` go to the completion
+service and the sampling handler (``services/sampling_service.py``, which
+``build_llm_app`` passes); a dispatcher built without them takes the JAX
+dispatcher's fallbacks.
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ package's ``gateway/transports/streamable_http.py``):
 
 Sessions live in this worker alone: the cross-worker session owner (the
 JAX package's ``affinity``) is not ported yet. ``elicitation`` stays None
-until the app sets it; the port's app does not set it yet.
+until the app sets it (``build_llm_app`` sets its ``ElicitationService``,
+which then receives the clients' responses).
 """
 
 from __future__ import annotations

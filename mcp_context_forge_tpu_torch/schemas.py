@@ -1,5 +1,6 @@
-"""The catalog's request and response schemas for gateways, tools and virtual
-servers (the JAX package's ``schemas.py`` triples), on the standard library:
+"""The catalog's request and response schemas for gateways, tools, virtual
+servers and A2A agents (the JAX package's ``schemas.py`` triples and the A2A
+pair), on the standard library:
 the card's Python has pydantic, but the port imports none of it.
 
 Each schema is a dataclass with the JAX model's fields, defaults and
@@ -324,5 +325,35 @@ class ServerRead(_Entity):
     associated_resources: list[str] = field(default_factory=list)
     associated_prompts: list[str] = field(default_factory=list)
     enabled: bool = True
+    created_at: float = 0.0
+    updated_at: float = 0.0
+
+
+# ---------------------------------------------------------------- A2A agents
+
+@dataclass(kw_only=True)
+class A2AAgentCreate(_Entity):
+    name: str
+    endpoint_url: str
+    agent_type: Literal["jsonrpc", "openai", "anthropic", "custom", "tpu_local"] = "jsonrpc"
+    protocol_version: str = "1.0"
+    capabilities: dict[str, Any] = field(default_factory=dict)
+    config: dict[str, Any] = field(default_factory=dict)
+    auth_type: str | None = None
+    auth_value: dict[str, Any] | None = None
+    enabled: bool = True
+
+
+@dataclass(kw_only=True)
+class A2AAgentRead(_Entity):
+    id: str
+    name: str
+    slug: str
+    endpoint_url: str
+    agent_type: str = "jsonrpc"
+    protocol_version: str = "1.0"
+    capabilities: dict[str, Any] = field(default_factory=dict)
+    enabled: bool = True
+    reachable: bool = True
     created_at: float = 0.0
     updated_at: float = 0.0

@@ -6,8 +6,9 @@ span, the ``tool_invocations``/``tool_duration`` metrics and a
 session, path templating, retries), the MCP branch (pooled upstream
 sessions, the federation breaker, the ``federation.peer.request`` fault
 point), header passthrough, the ``jsonpath_filter`` and the output-schema
-check. An A2A or gRPC tool answers the JAX package's "not initialized"
-error until those services are ported.
+check. An A2A tool goes to ``ctx.extras["a2a_service"]`` (the app sets it);
+a gRPC tool answers the JAX package's "not initialized" error until that
+service is ported.
 """
 
 from __future__ import annotations

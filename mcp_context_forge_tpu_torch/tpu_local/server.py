@@ -34,8 +34,11 @@ fabric's ``/admin/fabric/adverts`` exchange.
 (health, readiness, version, the log ring, the engine's stats and steps,
 the flight recorder's rings and the profiler capture). ``setup_mcp_routes``
 serves the MCP tools/call path: ``POST /rpc``, the streamable-HTTP ``/mcp``
-and ``/servers/{server_id}/mcp``, beside the catalog routes of
-``gateway/routers.py``. ``run`` serves the app on a port (``cli.py serve``).
+and ``/servers/{server_id}/mcp`` (with sampling and completion) and the
+elicit route, beside the catalog routes of ``gateway/routers.py``, the
+``/llmchat`` agent of ``gateway/routers_chat.py`` and the ``/a2a`` and
+``/toolops`` routes of ``gateway/routers_extra.py``. ``run`` serves the app
+on a port (``cli.py serve``).
 
 aiohttp is imported here, by the gateway's routers, middlewares and
 transport, by ``translate.py`` (and, when they post, by the OTLP exporter's
@@ -50,6 +53,7 @@ import contextlib
 import dataclasses
 import json
 import logging
+import math
 import os
 import tempfile
 from typing import Any
@@ -761,8 +765,14 @@ def setup_mcp_routes(app: web.Application) -> None:
     a refusal is a JSON-RPC error with status 200, a notification 202),
     ``POST``/``GET``/``DELETE /mcp`` and ``POST``/``GET
     /servers/{server_id}/mcp`` (the transport, mounted directly: the JAX
-    gateway's swappable ingress is not ported). Every path is behind the
-    auth middleware."""
+    gateway's swappable ingress is not ported), and ``POST
+    /sessions/{session_id}/elicit`` (``tools.invoke``; ``{"message",
+    "requestedSchema", "timeout"}`` over ``app["elicitation_service"]``: the
+    client's answer, ``{"action": "cancel", "reason": "timeout"}`` after
+    ``timeout`` seconds, 422 for a timeout that is not a finite number, 404
+    for a session with no stream here, and 409 for a session that another
+    worker owns, as the JAX gateway answers when its handoff to the owner
+    is off). Every path is behind the auth middleware."""
     from ..jsonrpc import JSONRPCError, RPCRequest, parse_body
 
     transport = app["streamable_transport"]
@@ -784,7 +794,32 @@ def setup_mcp_routes(app: web.Application) -> None:
             return web.Response(status=202)
         return web.Response(body=body, content_type="application/json")
 
+    async def elicit(request: web.Request) -> web.Response:
+        # the JAX route's local case: the cross-worker handoff is not
+        # ported, so a session another worker owns is refused with its 409
+        request["auth"].require("tools.invoke")
+        body = await request.json()
+        session_id = request.match_info["session_id"]
+        try:
+            timeout = float(body.get("timeout", 120.0))
+        except (TypeError, ValueError):
+            return web.json_response({"detail": "timeout must be a number"}, status=422)
+        if not math.isfinite(timeout):
+            return web.json_response({"detail": "timeout must be finite"}, status=422)
+        ctx = request.app["ctx"]
+        if transport.sessions.get(session_id) is None and \
+                (await ctx.leases.holder(f"session-owner:{session_id}")) not in (
+                    None, ctx.worker_id):
+            return web.json_response(
+                {"detail": "Session is owned by another worker; "
+                           "elicit on the owning worker"}, status=409)
+        result = await request.app["elicitation_service"].elicit(
+            session_id, body.get("message", ""),
+            requested_schema=body.get("requestedSchema"), timeout=timeout)
+        return web.json_response(result)
+
     app.router.add_post("/rpc", handle_rpc)
+    app.router.add_post("/sessions/{session_id}/elicit", elicit)
     app.router.add_post("/mcp", transport.handle_post)
     app.router.add_get("/mcp", transport.handle_get)
     app.router.add_delete("/mcp", transport.handle_delete)
@@ -913,7 +948,16 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     ``notifications/tools/list_changed``; ``gateway/routers.py`` and
     ``setup_mcp_routes`` serve them. ``ctx.http_client`` is built at startup
     in a worker thread; at cleanup the loops stop and the upstream sessions
-    close first."""
+    close first.
+
+    The services that call the engine, as the JAX gateway wires them:
+    ``a2a_service`` (also ``ctx.extras``: the A2A tools' route), the
+    dispatcher's ``SamplingHandler`` and ``CompletionService``,
+    ``chat_service`` over ``app["kv_store"]`` (a ``TcpKVStore`` on the hub
+    for a tcp bus, else ``make_kv`` of the bus backend; its expired entries
+    are purged every 600 s), ``toolops_service`` and
+    ``elicitation_service`` (also ``ctx.extras`` and the transport's
+    ``elicitation``)."""
     from ..coordination.heartbeat import WorkerHeartbeat
     from ..coordination.ratelimit import DistributedTenantLimiter, make_rate_counter
     from ..coordination.rpc import BusRpc
@@ -938,15 +982,22 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     from ..observability.trace_store import ExemplarLedger, TraceStore
     from ..observability.tracing import Tracer, current_span
     from ..coordination.leases import LeaderElector
-    from ..gateway import routers
+    from ..coordination.hub import TcpEventBus
+    from ..coordination.kv import TcpKVStore, make_kv
+    from ..gateway import routers, routers_chat
     from ..gateway.rpc import RPCDispatcher
     from ..gateway.transports.streamable_http import StreamableHTTPTransport
     from ..plugins.framework import PluginManager
     from ..services.base import AppContext
+    from ..services.a2a_service import A2AService
     from ..services.cancellation_service import CancellationService
+    from ..services.chat_service import ChatService
+    from ..services.elicitation_service import ElicitationService
     from ..services.gateway_service import GatewayService
+    from ..services.sampling_service import CompletionService, SamplingHandler
     from ..services.server_service import ServerService
     from ..services.tool_service import ToolService
+    from ..services.toolops_service import ToolOpsService
     from ..services.upstream_sessions import UpstreamSessionRegistry
     from ..services.diagnostics_service import TorchProfilerCapture
     from ..services.llm_provider_service import LLMProviderService
@@ -1149,15 +1200,26 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
         ctx, max_sessions=settings.upstream_max_sessions, idle_ttl=settings.upstream_idle_ttl)
     tool_service, server_service = ToolService(ctx), ServerService(ctx)
     gateway_service = GatewayService(ctx)
-    dispatcher = RPCDispatcher(ctx, tool_service, server_service)
+    dispatcher = RPCDispatcher(ctx, tool_service, server_service,
+                               completion_service=CompletionService(ctx),
+                               sampling_handler=SamplingHandler(ctx))
     transport = StreamableHTTPTransport(dispatcher, settings)
     transport.sessions.metrics = metrics   # the mcpforge_sessions_active gauge
+    elicitation_service = ElicitationService(ctx, transport.sessions)
+    transport.elicitation = elicitation_service
     mcp_services = {
         "upstream_sessions": upstream_sessions, "cancellation_service": CancellationService(ctx),
         "tool_service": tool_service, "gateway_service": gateway_service,
         "server_service": server_service, "dispatcher": dispatcher,
-        "streamable_transport": transport}
+        "streamable_transport": transport, "a2a_service": A2AService(ctx),
+        "elicitation_service": elicitation_service}
     ctx.extras.update(mcp_services)
+    # chat sessions in the coordination KV store: any worker continues one
+    if hub_client is not None or isinstance(bus, TcpEventBus):
+        kv_store = TcpKVStore(hub_client or bus._client)
+    else:
+        kv_store = make_kv(getattr(settings, "bus_backend", "memory"),
+                           getattr(settings, "bus_dir", None))
 
     async def tools_changed(topic, message):
         # catalog changes fan out to every stateful /mcp session
@@ -1171,6 +1233,10 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     app = web.Application(middlewares=MIDDLEWARES)
     for key, service in mcp_services.items():
         app[key] = service
+    app["kv_store"] = kv_store
+    app["chat_service"] = ChatService(ctx, tool_service, server_service, kv=kv_store,
+                                      session_ttl=settings.session_ttl)
+    app["toolops_service"] = ToolOpsService(ctx, tool_service)
     app["settings"] = settings
     app["ctx"] = ctx
     app["plugin_manager"] = None   # set at startup with plugins_enabled
@@ -1313,8 +1379,25 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
         await upstream_sessions.start()
         await elector.start()
         await gateway_service.start_health_loop()
+        kv_sweeper.append(asyncio.create_task(purge_kv()))
+
+    kv_sweeper: list = []
+
+    async def purge_kv() -> None:
+        # chat sessions expire by the KV ttl; the purge drops the entries of
+        # abandoned ones, which no get() reaches again
+        while True:
+            await asyncio.sleep(600)
+            try:
+                await kv_store.purge_expired()
+            except Exception:
+                logging.getLogger(__name__).exception("kv purge failed")
 
     async def stop(app: web.Application) -> None:
+        for task in kv_sweeper:
+            task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await task
         await gateway_service.stop_health_loop()
         await elector.stop()
         await transport.sessions.stop_sweeper()
@@ -1358,6 +1441,7 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     setup_operator_routes(app)
     routers_extra.setup_routes(app)
     routers.setup_routes(app)
+    routers_chat.setup_routes(app)
     setup_mcp_routes(app)
     return app
 

@@ -14,7 +14,9 @@ and ports masked):
   ``tools/list``, ``tools/call`` of every federated tool, batches,
   notifications, malformed bodies, unknown and not-yet-ported methods
   (``resources/*``, ``prompts/*``: METHOD_NOT_FOUND), ``completion/complete``
-  and ``sampling/createMessage``;
+  over a prompt row inserted into both databases, ``sampling/createMessage``
+  served by each app's engine (the same greedy text), and the fallbacks of a
+  dispatcher built without those two services;
 - a stateful session: ``initialize`` mints ``Mcp-Session-Id``, its GET
   stream receives ``notifications/tools/list_changed`` when ``POST /tools``
   adds a tool, DELETE ends it;
@@ -366,24 +368,77 @@ def test_resources_and_prompts_answer_not_implemented(loop, pair):
 
 
 def test_completion_and_sampling_take_the_none_fallbacks(loop, pair):
-    """The port has no completion service and no sampling handler yet: it
-    answers as a JAX dispatcher built without them does."""
+    """A dispatcher built without a completion service and a sampling
+    handler answers as a JAX dispatcher built without them does."""
     from mcp_context_forge_tpu.gateway.rpc import RPCDispatcher as JaxDispatcher
     from mcp_context_forge_tpu.services.auth_service import AuthContext as JaxAuth
+    from mcp_context_forge_tpu_torch.gateway.auth import AuthContext
+    from mcp_context_forge_tpu_torch.gateway.rpc import RPCDispatcher
+    from mcp_context_forge_tpu_torch.jsonrpc import JSONRPCError, RPCRequest
 
-    ref = pair["clients"][0].app
+    ref, app = pair["clients"][0].app, pair["clients"][1].app
     bare = JaxDispatcher(ref["ctx"], ref["tool_service"], ref["resource_service"],
                          ref["prompt_service"], ref["server_service"])
-    admin = JaxAuth(user="admin@example.com", is_admin=True)
+    ours = RPCDispatcher(app["ctx"], app["tool_service"], app["server_service"])
     for rid, (method, params) in enumerate((("completion/complete", {"ref": {}}),
                                             ("sampling/createMessage", {"messages": []}))):
         message = {"jsonrpc": "2.0", "id": rid, "method": method, "params": params}
         try:
-            want = _run(loop, bare.dispatch(jax_rpc.RPCRequest.parse(message), admin))
+            want = _run(loop, bare.dispatch(jax_rpc.RPCRequest.parse(message),
+                                            JaxAuth(user="admin@example.com", is_admin=True)))
         except jax_rpc.JSONRPCError as exc:
             want = exc.to_dict(rid)
-        resp = _run(loop, pair["clients"][1].post("/rpc", headers=BASIC, json=message))
-        assert _run(loop, resp.json()) == want
+        try:
+            got = _run(loop, ours.dispatch(RPCRequest.parse(message),
+                                           AuthContext(user="admin@example.com", is_admin=True)))
+        except JSONRPCError as exc:
+            got = exc.to_dict(rid)
+        assert got == want
+
+
+async def _completion(s: Session):
+    await s.client.app["ctx"].db.execute(
+        "INSERT INTO prompts (id, name, template, arguments, enabled, created_at, updated_at)"
+        " VALUES (?,?,?,?,?,?,?)", ("p-ask", "ask", "Ask {topic}", json.dumps(
+            [{"name": "topic", "suggestions": ["gateways", "galaxies", "tools"]}]), 1, 0, 0))
+    for rid, params in enumerate((
+            {"ref": {}}, {"ref": {"type": "ref/prompt", "name": "ask"},
+                          "argument": {"name": "topic", "value": "ga"}},
+            {"ref": {"type": "ref/resource"}, "argument": {"value": "file://"}})):
+        await s.rpc("completion/complete", params, rid=rid)
+        await s.rpc("completion/complete", params, rid=rid, path="/mcp",
+                    headers={**BASIC, "mcp-session-id": s.state["sid"]})
+
+
+def test_completion_agrees(loop, pair):
+    """``completion/complete`` reaches the completion service in both."""
+    _both(loop, pair, _init)
+    logs = _both(loop, pair, _completion)
+    _assert_same(logs)
+    assert logs[1][2][3]["result"]["completion"]["values"] == ["gateways", "galaxies"]
+
+
+async def _sampling(s: Session):
+    before = await _stats(s)
+    params = {"messages": [{"role": "user", "content": {"type": "text", "text": "Count to 3."}}],
+              "systemPrompt": "Be brief.", "maxTokens": 6}
+    await s.rpc("sampling/createMessage", params, rid=21)
+    await s.rpc("sampling/createMessage", {**params, "maxTokens": 4}, rid=22, path="/mcp",
+                headers={**BASIC, "mcp-session-id": s.state["sid"]})
+    await s.rpc("sampling/createMessage", {"messages": []}, rid=23)
+    after = await _stats(s)
+    s.log.append(("engine", after["requests"] - before["requests"],
+                  after["completion_tokens"] - before["completion_tokens"]))
+
+
+def test_sampling_agrees(loop, pair):
+    """``sampling/createMessage`` is served by each app's engine: the same
+    greedy text, model and ``stopReason``."""
+    _both(loop, pair, _init)
+    logs = _both(loop, pair, _sampling)
+    _assert_same(logs)
+    assert logs[1][0][3]["result"]["stopReason"] == "maxTokens"
+    assert logs[1][-1] == ("engine", 2, 10)
 
 
 async def _stateful(s: Session):
@@ -440,6 +495,11 @@ def test_refusals_agree(loop, pair):
     _assert_same(_both(loop, pair, _refusals))
 
 
+async def _init(s: Session):
+    await s.rpc("initialize", {}, path="/mcp")
+    s.state["sid"] = s.last_headers["mcp-session-id"]
+
+
 # -- the summarizer over tools/call, and cancellation -----------------------------------
 
 
@@ -481,12 +541,7 @@ async def _summaries(s: Session):
 def test_summarizer_over_tools_call_agrees(loop, pair):
     if "text" not in pair["state"].get("port", {}):
         _both(loop, pair, _federate)
-
-    async def init(s: Session):
-        await s.rpc("initialize", {}, path="/mcp")
-        s.state["sid"] = s.last_headers["mcp-session-id"]
-
-    _both(loop, pair, init)
+    _both(loop, pair, _init)
     logs = _both(loop, pair, _summaries)
     _assert_same(logs)
     requests, tokens, hit_tokens = logs[1][-1][1][:3], logs[1][-1][1][3], logs[1][-1][1][4]
