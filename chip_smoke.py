@@ -223,8 +223,13 @@ cached repeat (no engine request) and four coalesced calls (one request);
 a provider row posted to ``/llm/providers`` pointing back at the app,
 whose greedy reply equals ``tpu_local``'s; the rollup's ``tenant_usage``
 sums equal the ledger's and the engine's, and a window parked by the armed
-``ledger.rollup.flush`` fault point lands under its own stamps. The phase
-prints sqlite's version and the crypto mode that sealed the provider row.
+``ledger.rollup.flush`` fault point lands under its own stamps. Later
+steps drive the MCP path (8-12), the services that call the engine
+(13-17), and the resource and prompt catalog, cursor pages, the registry
+cache and the HTTP middleware chain on ``/v1`` and ``/mcp`` (18-20: a
+prompt over a resource sampled by the engine, gzip, a rate limit, a
+client's close, the chain's share of TTFT). The phase prints sqlite's and
+jinja2's versions and the crypto mode that sealed the provider row.
 
 Checkpoints (two phases; the files live under ``build/checkpoints/`` for
 the phase only, after ``shutil.disk_usage`` is printed): this script draws
@@ -4150,6 +4155,29 @@ def check_summary(result: dict, direct: dict, engine_requests: int) -> None:
           f"requests): {str(text)[:80]!r}")
 
 
+async def cold_chat(engine, seen: list, send, body: dict) -> tuple:
+    """One greedy chat through ``send`` (the registry's ``chat``, or a post
+    to /v1) with the prefix cache off: (its engine request, its text)."""
+    requests0 = len(seen)
+    engine.config.prefix_cache = False
+    try:
+        reply = await send(body)
+    finally:
+        engine.config.prefix_cache = True
+    check(len(seen) - requests0 == 1, "the direct chat did not reach the engine once")
+    return seen[-1], reply["choices"][0]["message"]["content"]
+
+
+def check_same_tokens(request, reference, what: str) -> None:
+    differ = next((i for i, (a, b) in enumerate(zip(request.generated, reference.generated))
+                   if a != b), None)
+    check(request.generated == reference.generated and request.generated,
+          f"{what}: {len(request.generated)} tokens against the direct chat's "
+          f"{len(reference.generated)}, first difference at {differ}; prompts equal "
+          f"{request.prompt_ids == reference.prompt_ids}, history {request.hist} and "
+          f"{reference.hist}")
+
+
 # the services that call the engine (steps 13-17 of the gateway phase)
 CHAT_TURNS = ("Which of these tools would upper-case a log line?",
               "And which one counts its words?", "Name the third tool, then stop.")
@@ -4179,28 +4207,11 @@ async def engine_service_steps(app, engine, settings, base: str, http, admin: di
     registry, user = app["llm_registry"], settings.platform_admin_email
     page = engine.config.page_size
 
-    async def direct(body: dict, route: bool = False):
-        """One greedy chat with the prefix cache off: (its request, its text)."""
-        requests0 = len(seen)
-        engine.config.prefix_cache = False
-        try:
-            if route:
-                reply, _ = await post(settings.llm_api_prefix + "/chat/completions", body)
-            else:
-                reply = await registry.chat(body)
-        finally:
-            engine.config.prefix_cache = True
-        check(len(seen) - requests0 == 1, "the direct chat did not reach the engine once")
-        return seen[-1], reply["choices"][0]["message"]["content"]
+    async def v1(body: dict) -> dict:
+        return (await post(settings.llm_api_prefix + "/chat/completions", body))[0]
 
-    def same_tokens(request, reference, what: str) -> None:
-        differ = next((i for i, (a, b) in enumerate(zip(request.generated, reference.generated))
-                       if a != b), None)
-        check(request.generated == reference.generated and request.generated,
-              f"{what}: {len(request.generated)} tokens against the direct chat's "
-              f"{len(reference.generated)}, first difference at {differ}; prompts equal "
-              f"{request.prompt_ids == reference.prompt_ids}, history {request.hist} and "
-              f"{reference.hist}")
+    async def direct(body: dict, route: bool = False):
+        return await cold_chat(engine, seen, v1 if route else registry.chat, body)
 
     async def chat_turn(sid: str, message: str) -> list:
         async with http.post(f"{base}/llmchat/{sid}/chat", headers=admin,
@@ -4242,7 +4253,7 @@ async def engine_service_steps(app, engine, settings, base: str, http, admin: di
                                                  {"role": "user", "content": CHAT_TURNS[0]}],
                                     "tools": tools, "max_tokens": 512, "temperature": 0.0},
                                    route=True)
-    same_tokens(turns[0], reference, "the cold /llmchat turn")
+    check_same_tokens(turns[0], reference, "the cold /llmchat turn")
     # the stream holds back a trailing run that decodes to an incomplete
     # UTF-8 sequence, which the one-shot decode of the reply keeps
     check((text or "").startswith(session.messages[1]["content"]),
@@ -4308,7 +4319,7 @@ async def engine_service_steps(app, engine, settings, base: str, http, admin: di
     finally:
         engine.config.prefix_cache = True
         engine.tokenizer = byte_tokenizer
-    same_tokens(turn, reference, "the turn over tool history")
+    check_same_tokens(turn, reference, "the turn over tool history")
     check([e["text"] for e in events[:-1]] == [f"⟨{i}⟩" for i in turn.generated]
           and events[-1]["text"] == text,
           "the turn's token events are not its tokens, one each, or its answer is not "
@@ -4337,7 +4348,7 @@ async def engine_service_steps(app, engine, settings, base: str, http, admin: di
                 "messages": [{"role": "system", "content": "You are terse."},
                              {"role": "user", "content": text}],
                 "max_tokens": 48, "temperature": 0.0})
-            same_tokens(request, reference, f"sampling over {path}")
+            check_same_tokens(request, reference, f"sampling over {path}")
             stop = "endTurn" if request.finish_reason == "stop" else "maxTokens"
             check(row["engine_requests"] == 1 and request.hist == 0
                   and result.get("content", {}).get("text") == text_ref
@@ -4372,7 +4383,7 @@ async def engine_service_steps(app, engine, settings, base: str, http, admin: di
     async def agent_check(name: str, text: str, request, got: str) -> None:
         reference, text_ref = await direct({"messages": [{"role": "user", "content": text}],
                                             "max_tokens": AGENT_TOKENS, "temperature": 0.0})
-        same_tokens(request, reference, name)
+        check_same_tokens(request, reference, name)
         check(got == text_ref, f"{name} answered {got!r}, the direct chat {text_ref!r}")
 
     text = "Plan a rollout in three steps."
@@ -4785,6 +4796,11 @@ async def mcp_path_steps(app, engine, settings, port: int, http, admin: dict, se
         await engine_service_steps(app, engine, settings, base, http, admin, seen, step, post,
                                    rpc, steps)
         steps["13_17_wall_ms"] = round((time.perf_counter() - t_services) * 1e3, 3)
+        # 18-20. the rest of the catalog and the middleware chain
+        t_chain = time.perf_counter()
+        await catalog_chain_steps(app, engine, settings, base, http, admin, seen, step, post,
+                                  rpc, steps)
+        steps["18_20_wall_ms"] = round((time.perf_counter() - t_chain) * 1e3, 3)
     finally:
         await runner.cleanup()
         await bridge.stop()
@@ -4803,6 +4819,394 @@ async def mcp_path_steps(app, engine, settings, port: int, http, admin: dict, se
     return steps
 
 
+# the rest of the catalog and the HTTP chain (steps 18-20 of the gateway phase)
+RUNBOOK_TEMPLATE = ("Runbook:\n{{ runbook }}\n\nList the first three actions for the "
+                    "on-call team {{ team | default('platform') }}.")
+RUNBOOK_CHARS = 1800       # the resource's seeded text
+RUNBOOK_TOKENS = 48        # the sampled reply
+CHAIN_STREAMS = 8          # the streamed /v1 requests whose TTFT the chain's share is read from
+CLOSE_TOKENS = 256         # the stream the client closes after its first event
+SECURITY_HEADERS = {"x-content-type-options": "nosniff", "x-frame-options": "DENY",
+                    "referrer-policy": "no-referrer", "cache-control": "no-store"}
+
+
+def render_runbook(runbook: str, team: str = "platform") -> str:
+    """RUNBOOK_TEMPLATE rendered by this script, not by jinja2."""
+    return (f"Runbook:\n{runbook}\n\nList the first three actions for the on-call team "
+            f"{team}.")
+
+
+def check_rendered(result: dict, runbook: str, team: str) -> None:
+    messages = result.get("messages") or [{}]
+    check(len(messages) == 1 and messages[0].get("content", {}).get("text")
+          == render_runbook(runbook, team),
+          f"prompts/get rendered {str(messages)[:120]!r}, not the script's own render")
+
+
+async def catalog_chain_steps(app, engine, settings, base: str, http, admin: dict, seen: list,
+                              step, post, rpc, steps: dict) -> None:
+    """Steps 18-20 of ``gateway_phase`` (after step 17, before step 12):
+    the resource and prompt catalog, cursor pages and the registry cache,
+    a prompt over a resource's text sampled by the engine, and the HTTP
+    middleware chain in front of ``/v1`` and ``/mcp``."""
+    import gzip
+
+    import aiohttp
+
+    cache, recorder = app["registry_cache"], app["flight_recorder"]
+    page = engine.config.page_size
+    metrics = app["metrics"]
+
+    async def v1(body: dict) -> dict:
+        return (await post(settings.llm_api_prefix + "/chat/completions", body))[0]
+
+    def counted(counter) -> float:
+        return sum(s.value for f in counter.collect() for s in f.samples
+                   if s.name.endswith("_total"))
+
+    async def get(path: str):
+        async with http.get(base + path, headers=admin) as resp:
+            check(resp.status == 200, f"GET {path}: {resp.status}")
+            return await resp.json(), resp.headers
+
+    # 18. the catalog: a prompt and resources, listed, paged and cached
+    settings.streamable_http_stateful = True
+    try:
+        async with step("18_catalog") as row:
+            _, headers = await post("/mcp", {"jsonrpc": "2.0", "id": 1, "method": "initialize",
+                                             "params": {}})
+            session = {**admin, "mcp-session-id": headers["mcp-session-id"]}
+            events: list = []
+            listening = asyncio.Event()
+
+            async def listen():
+                async with http.get(base + "/mcp", headers=session) as stream:
+                    listening.set()
+                    async for line in stream.content:
+                        if line.startswith(b"data: "):
+                            events.append(json.loads(line[6:])["method"])
+
+            reader = asyncio.ensure_future(listen())
+            await asyncio.wait_for(listening.wait(), 30)
+            prompt, _ = await post("/prompts", {
+                "name": "runbook-actions", "description": "First actions from a runbook",
+                "template": RUNBOOK_TEMPLATE,
+                "arguments": [{"name": "runbook", "required": True}, {"name": "team"}]},
+                status=201)
+            runbook = tool_output(7, RUNBOOK_CHARS)
+            resource, _ = await post("/resources", {
+                "uri": "file:///runbooks/gateway.md", "name": "gateway runbook",
+                "mime_type": "text/markdown", "content": runbook}, status=201)
+            await post("/resources", {"uri": "file:///runbooks/{service}.md",
+                                      "name": "service runbooks",
+                                      "uri_template": "file:///runbooks/{service}.md",
+                                      "content": "see the gateway runbook"}, status=201)
+            for path, hdrs in (("/rpc", None), ("/mcp", session)):
+                prompts = (await rpc("prompts/list", path=path, headers=hdrs))["result"]
+                resources = (await rpc("resources/list", path=path, headers=hdrs))["result"]
+                templates = (await rpc("resources/templates/list", path=path,
+                                       headers=hdrs))["result"]
+                check([p for p in prompts["prompts"] if p["name"] == "runbook-actions"]
+                      == [{"name": "runbook-actions", "description": prompt["description"],
+                           "arguments": [{"name": "runbook", "required": True},
+                                         {"name": "team", "required": False}]}]
+                      and [r["uri"] for r in resources["resources"]] == [resource["uri"]]
+                      and [t["uriTemplate"] for t in templates["resourceTemplates"]]
+                      == ["file:///runbooks/{service}.md"],
+                      f"the catalog over {path}: {prompts} {resources} {templates}")
+            for _ in range(300):
+                if len(events) >= 3:
+                    break
+                await asyncio.sleep(0.01)
+            reader.cancel()
+            check(events == ["notifications/prompts/list_changed"]
+                  + ["notifications/resources/list_changed"] * 2,
+                  f"the session's stream got {events}")
+            # the registry cache: a miss after a flush reads the database
+            # (X-DB-Query-Count), the repeat and every page come from the cache
+            cache.invalidate("tools")
+            hits, misses = cache.hits, cache.misses
+            whole, miss_headers = await get("/tools")
+            again, hit_headers = await get("/tools")
+            check("X-DB-Query-Count" in miss_headers and "X-DB-Query-Count" not in hit_headers
+                  and again == whole and (cache.hits, cache.misses) == (hits + 1, misses + 1),
+                  f"GET /tools after a flush: miss header {miss_headers.get('X-DB-Query-Count')},"
+                  f" hit header {hit_headers.get('X-DB-Query-Count')}, hits "
+                  f"{cache.hits - hits}, misses {cache.misses - misses}")
+            walked, cursor, pages = [], None, 0
+            while True:
+                body, headers = await get("/tools?limit=2" + (f"&cursor={cursor}"
+                                                              if cursor else ""))
+                check("X-DB-Query-Count" not in headers and len(body["items"]) <= 2
+                      and body["total"] == len(whole), f"a page of /tools: {body}")
+                walked += [t["name"] for t in body["items"]]
+                pages += 1
+                cursor = body["next_cursor"]
+                if cursor is None:
+                    break
+            check(sorted(walked) == sorted(t["name"] for t in whole) and len(set(walked))
+                  == len(walked) and set(TEXT_TOOLS) <= set(walked),
+                  f"the pages list {walked}, the whole list {[t['name'] for t in whole]}")
+            check(cache.misses == misses + 1, "a page missed the registry cache")
+            made, _ = await post("/tools", {"name": "rest_health", "url": f"{base}/health",
+                                            "request_type": "GET"}, status=201)
+            fresh, fresh_headers = await get("/tools")
+            check("rest_health" in [t["name"] for t in fresh]
+                  and "X-DB-Query-Count" in fresh_headers,
+                  "POST /tools did not flush the registry cache")
+            async with http.delete(f"{base}/tools/{made['id']}", headers=admin) as resp:
+                check(resp.status == 204, f"DELETE /tools: {resp.status}")
+            row.update({"events": events, "tools": len(whole), "pages": pages,
+                        "cache": {"hits": cache.hits - hits, "misses": cache.misses - misses},
+                        "db_queries_on_miss": int(miss_headers["X-DB-Query-Count"]),
+                        "resource_chars": len(runbook)})
+
+        # 19. read the resource, render the prompt over it, sample a reply
+        async with step("19_prompt_render") as row:
+            read = await rpc("resources/read", {"uri": resource["uri"]}, path="/mcp",
+                             headers=session)
+            text = read["result"]["contents"][0]["text"]
+            rendered = await rpc("prompts/get", {"name": "runbook-actions", "arguments": {
+                "runbook": text, "team": "gateway"}}, path="/mcp", headers=session)
+        check(text == runbook and row["engine_requests"] == 0,
+              f"resources/read answered {len(text)} characters")
+        check_rendered(rendered.get("result", {}), runbook, "gateway")
+        # planted: a prompt service whose render drops the runbook
+        prompts = app["dispatcher"].prompts
+
+        class DroppingRunbook:
+            def __getattr__(self, name):
+                return getattr(prompts, name)
+
+            async def render_prompt(self, name, arguments=None):
+                return await prompts.render_prompt(name, {**(arguments or {}), "runbook": ""})
+
+        app["dispatcher"].prompts = DroppingRunbook()
+        try:
+            dropped = await rpc("prompts/get", {"name": "runbook-actions", "arguments": {
+                "runbook": text, "team": "gateway"}}, path="/mcp", headers=session)
+            try:
+                check_rendered(dropped.get("result", {}), runbook, "gateway")
+            except SmokeFailure as exc:
+                row["planted_dropped_runbook_caught"] = str(exc)[:120]
+            else:
+                raise SmokeFailure("a render that drops the runbook passed the check")
+        finally:
+            app["dispatcher"].prompts = prompts
+        messages = rendered["result"]["messages"]
+        async with step("19_sampling") as row:
+            sampled = await rpc("sampling/createMessage", {
+                "messages": messages, "maxTokens": RUNBOOK_TOKENS}, rid=191, path="/mcp",
+                headers=session)
+        request = seen[-1]
+        reference, reply_text = await cold_chat(engine, seen, v1, {
+            "messages": [{"role": "user", "content": messages[0]["content"]["text"]}],
+            "max_tokens": RUNBOOK_TOKENS, "temperature": 0.0})
+        check_same_tokens(request, reference, "the sampled runbook reply")
+        launched = row["launches"]
+        check(row["engine_requests"] == 1 and request.hist == 0
+              and sampled["result"]["content"]["text"] == reply_text
+              and launched.get("flash_attention_tc", 0) > 0
+              and launched.get("paged_decode_attention", 0) > 0,
+              f"the sampled reply: {row['engine_requests']} requests, history {request.hist},"
+              f" launches {launched}")
+        row.update({"prompt_tokens": len(request.prompt_ids), "bucket": request.bucket,
+                    "decode_tokens": len(request.generated), "tokens_equal_direct_chat": True})
+        async with step("19_other_team_hit") as row:
+            other = await rpc("prompts/get", {"name": "runbook-actions", "arguments": {
+                "runbook": text, "team": "storage"}}, path="/mcp", headers=session)
+            check_rendered(other.get("result", {}), runbook, "storage")
+            await rpc("sampling/createMessage", {"messages": other["result"]["messages"],
+                                                 "maxTokens": RUNBOOK_TOKENS},
+                      rid=192, path="/mcp", headers=session)
+        hit = seen[-1]
+        common = next((i for i, (a, b) in enumerate(zip(request.prompt_ids, hit.prompt_ids))
+                       if a != b), len(hit.prompt_ids))
+        launched = row["launches"]
+        check(row["engine_requests"] == 1 and common - page <= hit.hist <= common
+              and hit.hist > 0 and launched.get("paged_chunk_attention_tc", 0) > 0
+              and not launched.get("flash_attention_tc"),
+              f"the other team: history {hit.hist} of a {common}-token common prefix, "
+              f"launches {launched}")
+        row.update({"history_tokens": hit.hist, "common_prefix_tokens": common,
+                    "prompt_tokens": len(hit.prompt_ids)})
+        async with step("19_missing_runbook") as row:
+            missing = await rpc("prompts/get", {"name": "runbook-actions", "arguments": {
+                "team": "gateway"}}, rid=193, path="/mcp", headers=session)
+        check(missing.get("error") == {"code": -32602, "message":
+                                       "Missing required prompt arguments: ['runbook']"}
+              and row["engine_requests"] == 0, f"a missing runbook answered {missing}")
+        row["error"] = missing["error"]
+        async with http.delete(base + "/mcp", headers=session) as resp:
+            check(resp.status == 204, f"DELETE /mcp: {resp.status}")
+    finally:
+        settings.streamable_http_stateful = False
+
+    # 20. the middleware chain on /v1 (spelled: each token is one SSE event)
+    byte_tokenizer = engine.tokenizer
+    engine.tokenizer = SpelledTokenizer(byte_tokenizer)
+    limiter = app["rate_limiter"]
+    min_bytes = settings.compression_min_bytes
+    try:
+        chat_body = {"messages": [{"role": "user", "content": "Name two gateway layers."}],
+                     "max_tokens": RUNBOOK_TOKENS, "temperature": 0.0}
+        # the spelled 48-token reply's JSON is ~700 bytes, under the 1024
+        # default: the step lowers the bar in place, the layer reads it per request
+        settings.compression_min_bytes = 256
+        async with step("20_compression_unary") as row, \
+                aiohttp.ClientSession(auto_decompress=False) as raw:
+            answers = []
+            for encoding in ("gzip", "identity"):
+                engine.config.prefix_cache = False   # both cold: the same tokens
+                try:
+                    async with raw.post(f"{base}{settings.llm_api_prefix}/chat/completions",
+                                        json=chat_body, headers={
+                                            **admin, "accept-encoding": encoding}) as resp:
+                        check(resp.status == 200, f"/v1 under {encoding}: {resp.status}")
+                        answers.append((resp.headers.get("content-encoding"),
+                                        await resp.read(),
+                                        {k.lower(): v for k, v in resp.headers.items()}))
+                finally:
+                    engine.config.prefix_cache = True
+        (gz_encoding, gz_body, gz_headers), (id_encoding, id_body, id_headers) = answers
+        unpacked = json.loads(gzip.decompress(gz_body)) if gz_encoding == "gzip" else None
+        identity = json.loads(id_body)
+        for body in (unpacked, identity):
+            if body is not None:
+                body.pop("id"), body.pop("created")
+        check(gz_encoding == "gzip" and id_encoding is None and unpacked == identity
+              and len(id_body) >= settings.compression_min_bytes,
+              f"/v1 under gzip: {gz_encoding}, {len(gz_body)} bytes; identity {id_encoding}, "
+              f"{len(id_body)} bytes; equal {unpacked == identity}")
+        for headers in (gz_headers, id_headers):
+            check(all(headers.get(k) == v for k, v in SECURITY_HEADERS.items()),
+                  f"a unary /v1 answer lacks the security headers: {headers}")
+        row.update({"gzip_bytes": len(gz_body), "identity_bytes": len(id_body),
+                    "compression_min_bytes": settings.compression_min_bytes})
+        settings.compression_min_bytes = min_bytes
+
+        async def stream(body: dict, close_after_first: bool = False) -> dict:
+            """A streamed /v1 request: the first event's arrival after the
+            send, the answer's headers, and the events (or only the first)."""
+            t_send = time.perf_counter()
+            async with http.post(f"{base}{settings.llm_api_prefix}/chat/completions",
+                                 json={**body, "stream": True},
+                                 headers={**admin, "accept-encoding": "gzip"}) as resp:
+                check(resp.status == 200, f"a streamed /v1 request: {resp.status}")
+                lines = []
+                async for line in resp.content:
+                    if line.startswith(b"data: "):
+                        if not lines:
+                            first_s = time.perf_counter() - t_send
+                            first_request = seen[-1]
+                            ended_at_first = first_request.finish_reason is not None
+                        lines.append(line)
+                        if close_after_first:
+                            resp.close()
+                            break
+                return {"first_s": first_s, "lines": lines, "request": first_request,
+                        "headers": {k.lower(): v for k, v in resp.headers.items()},
+                        "ended_at_first": ended_at_first}
+
+        async with step("20_compression_streamed") as row:
+            streamed = await stream({**chat_body, "max_tokens": 64})
+        check(streamed["headers"].get("content-type") == "text/event-stream"
+              and "content-encoding" not in streamed["headers"]
+              and not streamed["ended_at_first"] and row["engine_requests"] == 1
+              and streamed["lines"][-1].strip() == b"data: [DONE]",
+              f"the streamed /v1 answer: {streamed['headers']}, ended at its first event "
+              f"{streamed['ended_at_first']}")
+        row["events"] = len(streamed["lines"])
+
+        # the rate limit, in place: rps 1, burst 2, then 0 again
+        limiter.rps, limiter.burst, limiter._buckets = 1, 2, {}
+        try:
+            async with step("20_rate_limit") as row:
+                statuses = []
+                for _ in range(3):
+                    async with http.post(f"{base}{settings.llm_api_prefix}/chat/completions",
+                                         json={**chat_body, "max_tokens": 8},
+                                         headers=admin) as resp:
+                        statuses.append((resp.status, resp.headers.get("retry-after"),
+                                         all(resp.headers.get(k) == v
+                                             for k, v in SECURITY_HEADERS.items())))
+                        await resp.read()
+        finally:
+            limiter.rps, limiter.burst, limiter._buckets = (settings.rate_limit_rps,
+                                                            settings.rate_limit_burst, {})
+        check([s[:2] for s in statuses] == [(200, None), (200, None), (429, "1")]
+              and row["engine_requests"] == 2 and all(s[2] for s in statuses),
+              f"three posts at rps 1, burst 2: {statuses}, {row['engine_requests']} "
+              f"engine requests")
+        row["statuses"] = [s[0] for s in statuses]
+
+        async with step("20_protocol_version") as row:
+            async with http.post(base + "/mcp", json={
+                    "jsonrpc": "2.0", "id": 201, "method": "sampling/createMessage",
+                    "params": {"messages": [{"role": "user", "content": {
+                        "type": "text", "text": "x"}}], "maxTokens": 8}},
+                    headers={**admin, "mcp-protocol-version": "1999-01-01"}) as resp:
+                refused = (resp.status, await resp.json())
+        check(refused[0] == 400 and "1999-01-01" in refused[1]["detail"]
+              and row["engine_requests"] == 0, f"an unsupported protocol version: {refused}")
+        row["status"] = refused[0]
+
+        # the client goes away after the first event of a long stream
+        free0 = engine.allocator.free_pages
+        disconnects0 = counted(metrics.client_disconnects)
+        async with step("20_client_close") as row:
+            closed = await stream({**chat_body, "max_tokens": CLOSE_TOKENS},
+                                  close_after_first=True)
+            victim, deadline = closed["request"], time.monotonic() + 120
+            at_close = len(victim.generated)
+            while victim.finish_reason is None:
+                check(time.monotonic() < deadline, "the closed stream's request never ended")
+                await asyncio.sleep(0.01)
+            await asyncio.sleep(0.2)
+        check(engine.allocator.pages_in_use == 0 and engine.allocator.free_pages == free0
+              and engine.stats.queue_depth == 0 and len(victim.generated) == CLOSE_TOKENS,
+              f"after the client closed: {len(victim.generated)} tokens, "
+              f"{engine.allocator.pages_in_use} pages in use, {engine.allocator.free_pages} "
+              f"free of {free0}")
+        disconnects = counted(metrics.client_disconnects) - disconnects0
+        close_row = next(r for r in reversed(recorder.recent)
+                         if r["path"] == f"{settings.llm_api_prefix}/chat/completions")
+        row.update({"tokens_at_close": at_close, "tokens_at_end": len(victim.generated),
+                    "finish_reason": victim.finish_reason, "disconnects_counted": disconnects,
+                    "recorder_row": {k: close_row.get(k) for k in (
+                        "status", "error", "client_disconnected")},
+                    "pages_in_use_after": 0})
+
+        # the chain's share of TTFT: the client's first event against the engine's
+        async with step("20_chain_ttft") as row:
+            shares, headers_seen = [], []
+            for i in range(CHAIN_STREAMS):
+                got = await stream({"messages": [{"role": "user", "content":
+                                                  f"Give reason {i} to cache a tool list."}],
+                                    "max_tokens": 16, "temperature": 0.0})
+                request = got["request"]
+                shares.append((got["first_s"] - (request.first_token_ts - request.created))
+                              * 1e3)
+                headers_seen.append(sorted(k for k in got["headers"] if k in SECURITY_HEADERS))
+        check(row["engine_requests"] == CHAIN_STREAMS, f"{row['engine_requests']} engine "
+                                                       f"requests for {CHAIN_STREAMS} streams")
+        row.update({"chain_ms": [round(v, 3) for v in shares],
+                    "chain_ms_p50": round(statistics.median(shares), 3),
+                    "chain_ms_max": round(max(shares), 3),
+                    "security_headers_on_streams": headers_seen[0]})
+    finally:
+        engine.tokenizer = byte_tokenizer
+        settings.compression_min_bytes = min_bytes
+    rows: dict = {}
+    for name, row in steps.items():
+        if name[:2] in ("18", "19", "20"):
+            for kernel, count in row["launches"].items():
+                rows[kernel] = rows.get(kernel, 0) + count
+    for kernel in ATTENTION:
+        check(rows.get(kernel, 0) > 0, f"{kernel} never launched in steps 18-20: {rows}")
+    steps["18_20_launches"] = rows
+
+
 def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
                   max_seq_len: int = 4096, output_chars: int = 2000) -> tuple[dict, dict]:
     """``engine_llama3_8b_gateway``: the gateway's database and plugins on a
@@ -4813,7 +5217,10 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
     room for them),
     served on 127.0.0.1 through aiohttp's ``TCPSite``; the database is
     ``sqlite:///<tmpdir>/gateway.db``, metering on, the rollup every 5 s, the
-    fault plane enabled and unarmed.
+    fault plane enabled and unarmed, the registry cache and the query
+    logging layer on (``registry_cache_enabled``, ``db_query_logging``),
+    compression at its default (on, 1024 bytes) and the rate limit off
+    (``rate_limit_rps`` 0).
 
     1. Four global bindings (``GATEWAY_KINDS``, ``use_engine``) go in by
        ``POST /plugins/bindings``; ``GET /plugins`` lists them.
@@ -4874,7 +5281,7 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
         whole;
     12. ``/ready`` answers 200, then 503 with ``detail`` once the rollup has
         flushed and the database is closed (run last: it closes the
-        database that steps 13-17 read);
+        database that steps 13-20 read);
     13-17. ``engine_service_steps``, after step 11 with the bridge still up:
         ``/llmchat`` turns over the text server's tools (a cold turn whose
         tokens equal a direct ``/v1`` chat's, a prefix-hit turn, a turn on a
@@ -4885,13 +5292,52 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
         A2A tool, a task polled to completion, a cancelled task after which
         no page is in use), toolops (the cases with the engine's, a run) and
         elicitation (accepted over the session's stream, a timeout, 404 and
-        409).
+        409);
+    18-20. ``catalog_chain_steps``, after step 17:
+    18. ``catalog``: a prompt (RUNBOOK_TEMPLATE: a required ``runbook``, a
+        ``team`` at the end) by ``POST /prompts``, a RUNBOOK_CHARS-character
+        text resource and a template resource by ``POST /resources``; the
+        ``prompts/list``, ``resources/list`` and ``resources/templates/list``
+        answers over ``/rpc`` and a stateful ``/mcp`` session list them, and
+        that session's stream receives ``notifications/prompts/list_changed``
+        and two ``notifications/resources/list_changed``; after a flush of the
+        registry cache the first ``GET /tools`` is a miss (it carries
+        X-DB-Query-Count), the repeat a hit (none); ``GET /tools?limit=2``
+        walks the catalog by cursor, every page from the cache, and the pages'
+        union is the whole list; ``POST /tools`` flushes the cache;
+    19. ``prompt_to_sampling``: ``resources/read`` of the resource and
+        ``prompts/get`` over it through ``/mcp``, the rendered text equal to
+        the script's own render (``render_runbook``; a prompt service whose
+        render drops the runbook must fail that check); ``sampling/
+        createMessage`` of the rendered messages (RUNBOOK_TOKENS, greedy)
+        equals a direct cold ``/v1`` chat of them token for token, from one
+        cold engine request (flash and decode); the same prompt for another
+        team is a prefix hit (chunk, no flash); a missing runbook answers
+        -32602 with no engine request;
+    20. ``chain_on_v1`` (the engine's tokenizer spelled: one SSE event a
+        token): a unary ``/v1`` answer under ``Accept-Encoding: gzip`` is
+        gzip-encoded and decodes to the ``identity`` answer's JSON (both cold;
+        the step lowers ``compression_min_bytes`` to 256 in place for it: the
+        spelled 48-token reply's JSON is ~700 bytes), with the security
+        headers; a streamed answer is ``text/event-stream`` without
+        Content-Encoding, its first event before its request ends; the app's
+        ``RateLimiter`` set in place to rps 1, burst 2 answers three posts
+        200, 200, 429 (``retry-after: 1``) for two engine requests, then back
+        to rps 0; ``MCP-Protocol-Version: 1999-01-01`` on ``/mcp`` is a 400
+        with no engine request; a CLOSE_TOKENS stream closed by its client
+        after the first event decodes on to its end, then no page is in use
+        (the disconnect counter's change and the recorder's row are read);
+        CHAIN_STREAMS streamed 16-token requests give the chain's share of
+        TTFT: the client's first event less the engine's ``first_token_ts -
+        created``, p50 and max (a reading, no bar).
     Each step's wall, engine requests, TTFTs, launches per row and the loop
-    sampler's max lag are in ``mcp``."""
+    sampler's max lag are in ``mcp``; steps 13-17's and 18-20's launches are
+    summed in ``13_17_launches`` and ``18_20_launches``."""
     import sqlite3
     import tempfile
 
     import aiohttp
+    import jinja2
     from aiohttp import web
 
     from mcp_context_forge_tpu_torch.config import load_settings
@@ -4908,7 +5354,8 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
                               "TPU_LOCAL_MODEL": model, "TENANT_USAGE_ROLLUP_INTERVAL_S": "5",
                               "FAULT_INJECTION_ENABLED": "true",
                               "GW_LOOP_LAG_INTERVAL_S": "0.02",
-                              "SSE_KEEPALIVE_INTERVAL": "1"}, env_file=None)
+                              "SSE_KEEPALIVE_INTERVAL": "1", "REGISTRY_CACHE_ENABLED": "true",
+                              "DB_QUERY_LOGGING": "true"}, env_file=None)
     t0 = time.monotonic()
     # a 4096 bucket beside the defaults: step 9's ~2440-token prompt then
     # prefills cold in one flash call (a chunked prompt's rounds would all
@@ -5259,6 +5706,7 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
     stats.update({"model": model, "layers": engine.model_config.n_layers,
                   "max_seq_len": max_seq_len, "engine_build_s": round(build_s, 3),
                   "sqlite_version": sqlite3.sqlite_version,
+                  "jinja2_version": jinja2.__version__,
                   "crypto_mode": stats["provider_table"]["crypto_mode"],
                   "database_rows_on_disk": on_disk, "launches": counts})
     del engine, app

@@ -121,12 +121,53 @@ class Settings:
     log_rotation_enabled: bool = False
     log_max_size_mb: float = 1.0
     log_backup_count: int = 5
+    # --- the HTTP edge: the middleware chain's own settings ---
+    trust_proxy_headers: bool = False     # honor X-Forwarded-For from the LB
+    cors_allowed_origins: str = ""        # csv; "*" = any; "" = CORS off
+    cors_allowed_methods_csv: str = "GET,POST,PUT,DELETE,OPTIONS"
+    cors_allowed_headers_csv: str = ("authorization,content-type,"
+                                     "mcp-protocol-version,mcp-session-id,"
+                                     "x-correlation-id,x-csrf-token")
+    cors_max_age_s: int = 600
+    cors_allow_credentials: bool = False
+    allowed_hosts: str = ""               # csv of allowed Host headers; "" = any
+    # the JAX Settings declares max_header_bytes twice; pydantic keeps the
+    # second declaration, 64 KiB (0 = unlimited)
+    max_header_bytes: int = 64 * 1024
+    max_header_count: int = 128           # 431 past this many fields
+    max_header_field_bytes: int = 16384   # 431 past this per-field size
+    rate_limit_rps: int = 0               # 0 = disabled
+    rate_limit_burst: int = 200
+    compression_enabled: bool = True
+    compression_min_bytes: int = 1024
+    deprecated_path_prefixes_csv: str = ""
+    legacy_api_sunset_date: str = ""      # RFC 8594 Sunset, e.g. an HTTP date
+    db_query_logging: bool = False
+    db_query_logging_slow_ms: float = 100.0  # WARN above this per query
+    db_query_n1_threshold: int = 3           # same-shape repeats => suspect
     # --- MCP protocol and the streamable-HTTP transport ---
     protocol_version: str = "2025-06-18"
+    supported_protocol_versions_csv: str = "2025-06-18,2025-03-26,2024-11-05"
     streamable_http_stateful: bool = False
     sse_keepalive_interval: float = 30.0
     session_ttl: int = 3600
     max_request_size_bytes: int = 8 * 1024 * 1024
+    # --- the resource and prompt catalog ---
+    max_resource_size: int = 4 * 1024 * 1024
+    allowed_resource_mime_types_csv: str = ""  # "" = any
+    max_prompt_size: int = 1024 * 1024
+    # --- cursor pages and the registry's TTL cache of the list routes ---
+    pagination_default_page_size: int = 50
+    pagination_max_page_size: int = 500
+    pagination_min_page_size: int = 1
+    pagination_include_links: bool = False  # RFC 8288-style next link
+    registry_cache_enabled: bool = False
+    registry_cache_default_ttl_s: float = 30.0
+    registry_cache_tools_ttl_s: float = 30.0
+    registry_cache_resources_ttl_s: float = 30.0
+    registry_cache_prompts_ttl_s: float = 30.0
+    registry_cache_servers_ttl_s: float = 30.0
+    registry_cache_gateways_ttl_s: float = 30.0
     # --- entity field limits of the catalog's create and update bodies ---
     validation_max_name_length: int = 255
     validation_max_description_length: int = 8192
@@ -342,6 +383,43 @@ class Settings:
         HTTP threshold of the performance tracker when unset."""
         ms = self.gw_slow_request_ms or self.performance_threshold_http_request_ms
         return max(0.0, ms) / 1e3
+
+    @staticmethod
+    def _csv(raw: str) -> tuple[str, ...]:
+        return tuple(v.strip() for v in raw.split(",") if v.strip())
+
+    @property
+    def cors_origins(self) -> set[str]:
+        return set(self._csv(self.cors_allowed_origins))
+
+    @property
+    def cors_allowed_methods(self) -> str:
+        return ", ".join(self._csv(self.cors_allowed_methods_csv))
+
+    @property
+    def cors_allowed_headers(self) -> str:
+        """The configured headers and the two the protocol needs, once each."""
+        merged = list(self._csv(self.cors_allowed_headers_csv))
+        for required in ("mcp-session-id", "last-event-id"):
+            if required not in merged:
+                merged.append(required)
+        return ", ".join(merged)
+
+    @property
+    def allowed_host_set(self) -> set[str]:
+        return {h.lower() for h in self._csv(self.allowed_hosts)}
+
+    @property
+    def deprecated_path_prefixes(self) -> tuple[str, ...]:
+        return self._csv(self.deprecated_path_prefixes_csv)
+
+    @property
+    def supported_protocol_versions(self) -> set[str]:
+        return set(self._csv(self.supported_protocol_versions_csv))
+
+    @property
+    def allowed_resource_mime_types(self) -> tuple[str, ...]:
+        return self._csv(self.allowed_resource_mime_types_csv)
 
     def validate_security(self) -> list[str]:
         return validate_security(self)

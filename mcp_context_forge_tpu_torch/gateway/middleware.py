@@ -1,6 +1,7 @@
-"""The aiohttp middlewares of the port's app: the part of the JAX
-package's ``gateway/middleware.py`` chain that the /v1 surface needs, in
-the reference's order (``MIDDLEWARES``, outermost first):
+"""The aiohttp middlewares of the port's app: the JAX package's
+``gateway/middleware.py`` chain in its order (``MIDDLEWARES``, outermost
+first), but for the three layers that need the database's users, tokens
+and roles (``token_usage``, ``csrf``, ``password_change``):
 
 - ``observability_middleware``: a correlation id and the ``http.request``
   span, through the app's tracer (``app["tracer"]``); with a registry in
@@ -11,17 +12,49 @@ the reference's order (``MIDDLEWARES``, outermost first):
   request's wall and lands as a ``gw.phases`` event on the span and, with
   ``app["flight_recorder"]``, as a row of the recorder's rings;
   X-Queue-Depth and Retry-After on the unary /v1 responses;
+- ``client_disconnect_middleware``: a ``CancelledError`` out of the handler
+  counts ``client_disconnects`` and marks the request. aiohttp cancels a
+  handler whose peer went away only when the server runs with
+  ``handler_cancellation=True``, which neither package sets: a client that
+  closes mid-stream shows as a failed write instead, and this counter does
+  not move, in either package;
+- ``forwarded_middleware``: ``request["client_ip"]``, the rightmost
+  X-Forwarded-For entry with ``trust_proxy_headers``, else the peer;
+- ``host_validation_middleware``: 421 for a Host outside ``allowed_hosts``;
+- ``cors_middleware``: with ``cors_allowed_origins``, a 204 preflight and
+  the allow-origin headers on the answer;
+- ``compression_middleware``: a unary body of ``compression_min_bytes`` or
+  more compressed as Accept-Encoding allows; event streams and streamed
+  answers untouched;
+- ``security_headers_middleware``: nosniff, DENY, no-referrer, no-store,
+  each unless the handler set it (a streamed answer has sent its headers
+  before this layer runs);
+- ``deprecation_middleware``: Deprecation, X-Deprecated-Endpoint and Sunset
+  on the ``deprecated_path_prefixes``;
+- ``header_size_middleware``: 431 past ``max_header_bytes``,
+  ``max_header_count`` or ``max_header_field_bytes``;
 - ``error_middleware``: ``NotFoundError`` -> 404, ``ConflictError`` -> 409,
   ``ValidationFailure`` and ``ValueError`` -> 422, ``AuthError`` -> 401 with
   ``www-authenticate: Bearer``, ``PermissionDenied`` -> 403, anything else
   -> 500 without a trace;
+- ``protocol_version_middleware``: 400 for an ``MCP-Protocol-Version``
+  outside ``supported_protocol_versions`` on ``/mcp``, ``/servers`` and
+  ``/rpc``;
+- ``rate_limit_middleware``: 429 (``retry-after: 1``) when
+  ``app["rate_limiter"]`` (a ``RateLimiter``, per client ip) refuses;
 - ``auth_middleware``: ``request["auth"]`` from the plugins'
   ``http_auth_resolve_user`` hooks when ``app["plugin_manager"]`` is set,
   else from the Authorization header (``gateway/auth.py``), then the
   plugins' ``http_pre_request`` hooks; public paths (``/.well-known/*``
   and a server's ``/.well-known/mcp`` among them) and OPTIONS pass as
   anonymous; the rest of the chain runs under the principal's tenant
-  (``request["tenant"]`` and the port's ``set_current_tenant``).
+  (``request["tenant"]`` and the port's ``set_current_tenant``);
+- ``request_logging_middleware``: at DEBUG, each request's body masked by
+  ``utils/masking.py`` and each status (the JAX layer's audit-trail rows
+  wait for the audit service);
+- ``db_query_logging_middleware``: with ``db_query_logging``, the handler's
+  statements (``db/core.py`` ``query_log_capture``) as X-DB-Query-Count and
+  X-DB-Query-Time-MS, a warning per slow statement and per repeated shape.
 
 ``request.app["settings"]`` is duck-typed as the gateway's settings.
 """
@@ -29,6 +62,7 @@ the reference's order (``MIDDLEWARES``, outermost first):
 from __future__ import annotations
 
 import asyncio
+import logging
 import time
 import uuid
 from typing import Awaitable, Callable
@@ -139,7 +173,8 @@ async def flight_recorder_middleware(request: web.Request,
                 status=status, duration_s=wall, phases_ms=clock.vector_ms(),
                 trace_id=trace[0] if trace else None, span_id=trace[1] if trace else None,
                 correlation_id=request.get("correlation_id"), tenant=request.get("tenant"),
-                error=error, client_disconnected=disconnected)
+                error=error, client_disconnected=(
+                    disconnected or bool(request.get("client_disconnected"))))
         if span is not None:
             span.add_event("gw.phases", {"duration_ms": round(wall * 1e3, 3),
                                          **clock.vector_ms()})
@@ -155,6 +190,148 @@ def _apply_backpressure(request: web.Request, response: web.StreamResponse,
             or not request.path.startswith(settings.llm_api_prefix + "/")):
         return
     response.headers.update(backpressure_headers(queue_state(request.app), settings))
+
+
+@web.middleware
+async def client_disconnect_middleware(request: web.Request,
+                                       handler: Handler) -> web.StreamResponse:
+    """Count a cancelled handler (a client that went away, when the server
+    cancels handlers) and mark the request, instead of logging a naked
+    ``CancelledError``."""
+    try:
+        return await handler(request)
+    except asyncio.CancelledError:
+        metrics = request.app.get("metrics")
+        if metrics is not None:
+            metrics.client_disconnects.inc()
+        request["client_disconnected"] = True
+        raise
+
+
+@web.middleware
+async def forwarded_middleware(request: web.Request, handler: Handler) -> web.StreamResponse:
+    """The client's address: X-Forwarded-For only from a trusted edge
+    (``trust_proxy_headers``); a client-supplied header would otherwise mint
+    a fresh rate-limit identity per request."""
+    client_ip = request.remote or "unknown"
+    if request.app["settings"].trust_proxy_headers:
+        forwarded = request.headers.get("x-forwarded-for", "")
+        if forwarded:
+            # the rightmost entry is the one the trusted edge appended
+            client_ip = forwarded.split(",")[-1].strip() or client_ip
+    request["client_ip"] = client_ip
+    return await handler(request)
+
+
+@web.middleware
+async def host_validation_middleware(request: web.Request,
+                                     handler: Handler) -> web.StreamResponse:
+    """421 for a Host header outside ``allowed_hosts`` ("" allows any)."""
+    allowed = request.app["settings"].allowed_host_set
+    if allowed:
+        host = (request.host or "").split(":", 1)[0].lower()
+        if host not in allowed:
+            return web.json_response({"detail": f"Host {host!r} not allowed"}, status=421)
+    return await handler(request)
+
+
+@web.middleware
+async def cors_middleware(request: web.Request, handler: Handler) -> web.StreamResponse:
+    """CORS for browser-based MCP clients, on with ``cors_allowed_origins``
+    ("*" allows any origin)."""
+    settings = request.app["settings"]
+    allowed = settings.cors_origins
+    origin = request.headers.get("origin", "")
+    grant = origin if (allowed and origin and ("*" in allowed or origin in allowed)) else ""
+    if request.method == "OPTIONS" and grant:
+        headers = {
+            "access-control-allow-origin": grant,
+            "access-control-allow-methods": settings.cors_allowed_methods,
+            "access-control-allow-headers": settings.cors_allowed_headers,
+            "access-control-max-age": str(settings.cors_max_age_s),
+            "vary": "origin",
+        }
+        if settings.cors_allow_credentials:
+            headers["access-control-allow-credentials"] = "true"
+        return web.Response(status=204, headers=headers)
+    response = await handler(request)
+    if grant:
+        response.headers["access-control-allow-origin"] = grant
+        response.headers.setdefault("vary", "origin")
+        response.headers["access-control-expose-headers"] = "mcp-session-id, x-correlation-id"
+        if settings.cors_allow_credentials:
+            response.headers["access-control-allow-credentials"] = "true"
+    return response
+
+
+@web.middleware
+async def compression_middleware(request: web.Request,
+                                 handler: Handler) -> web.StreamResponse:
+    """Negotiated compression of unary bodies; an event stream, a streamed
+    answer and a small body are left as they are (compressing an SSE
+    answer would buffer it)."""
+    response = await handler(request)
+    settings = request.app["settings"]
+    if not settings.compression_enabled:
+        return response
+    if not isinstance(response, web.Response) or response.body is None:
+        return response
+    if response.content_type == "text/event-stream":
+        return response
+    if "content-encoding" in response.headers:
+        return response
+    if len(response.body) < settings.compression_min_bytes:
+        return response
+    response.enable_compression()  # negotiates via Accept-Encoding
+    return response
+
+
+@web.middleware
+async def security_headers_middleware(request: web.Request,
+                                      handler: Handler) -> web.StreamResponse:
+    response = await handler(request)
+    response.headers.setdefault("x-content-type-options", "nosniff")
+    response.headers.setdefault("x-frame-options", "DENY")
+    response.headers.setdefault("referrer-policy", "no-referrer")
+    response.headers.setdefault("cache-control", "no-store")
+    return response
+
+
+@web.middleware
+async def deprecation_middleware(request: web.Request, handler: Handler) -> web.StreamResponse:
+    """RFC 8594 Deprecation and Sunset headers on the configured legacy path
+    prefixes."""
+    response = await handler(request)
+    settings = request.app["settings"]
+    prefixes = settings.deprecated_path_prefixes
+    if prefixes and any(request.path.startswith(p) for p in prefixes):
+        response.headers["Deprecation"] = "true"
+        response.headers["X-Deprecated-Endpoint"] = request.path
+        if settings.legacy_api_sunset_date:
+            response.headers["Sunset"] = settings.legacy_api_sunset_date
+    return response
+
+
+@web.middleware
+async def header_size_middleware(request: web.Request, handler: Handler) -> web.StreamResponse:
+    """431 for an oversized header block, before any work below."""
+    settings = request.app["settings"]
+    limit = settings.max_header_bytes
+    if limit:
+        total = sum(len(k) + len(v) for k, v in request.raw_headers)
+        if total > limit:
+            return web.json_response({"detail": f"Request headers exceed {limit} bytes"},
+                                     status=431)
+    if settings.max_header_count and len(request.raw_headers) > settings.max_header_count:
+        return web.json_response(
+            {"detail": f"More than {settings.max_header_count} header fields"}, status=431)
+    if settings.max_header_field_bytes:
+        for key, value in request.raw_headers:
+            if len(key) + len(value) > settings.max_header_field_bytes:
+                return web.json_response(
+                    {"detail": f"Header field exceeds {settings.max_header_field_bytes} bytes"},
+                    status=431)
+    return await handler(request)
 
 
 @web.middleware
@@ -179,6 +356,70 @@ async def error_middleware(request: web.Request, handler: Handler) -> web.Stream
         request.app.logger.exception("Unhandled error on %s", request.path)
         return web.json_response({"detail": f"Internal error: {type(exc).__name__}"},
                                  status=500)
+
+
+@web.middleware
+async def protocol_version_middleware(request: web.Request,
+                                      handler: Handler) -> web.StreamResponse:
+    """400 for an ``MCP-Protocol-Version`` the gateway does not speak, on the
+    MCP surfaces, instead of undefined behaviour deeper in."""
+    version = request.headers.get("mcp-protocol-version")
+    if version and request.path.startswith(("/mcp", "/servers", "/rpc")):
+        supported = request.app["settings"].supported_protocol_versions
+        if version not in supported:
+            return web.json_response(
+                {"detail": f"Unsupported MCP protocol version {version!r};"
+                           f" supported: {sorted(supported)}"}, status=400)
+    return await handler(request)
+
+
+class RateLimiter:
+    """A token bucket per client. The bucket dict is kept in recency order
+    (``allow`` re-inserts the key), so overflow eviction pops from the front
+    in O(evictions)."""
+
+    # a bucket that would refill to full is the same as a fresh one, so it
+    # can be pruned without loss: address churn cannot grow the dict
+    _SWEEP_INTERVAL = 60.0
+
+    def __init__(self, rps: int, burst: int, max_buckets: int = 100_000) -> None:
+        self.rps = rps
+        self.burst = burst
+        self.max_buckets = max_buckets
+        self._buckets: dict[str, tuple[float, float]] = {}  # key -> (tokens, last)
+        self._next_sweep = time.monotonic() + self._SWEEP_INTERVAL
+
+    def _sweep(self, now: float) -> None:
+        self._buckets = {
+            k: (tokens, last) for k, (tokens, last) in self._buckets.items()
+            if tokens + (now - last) * self.rps < self.burst}
+        self._next_sweep = now + self._SWEEP_INTERVAL
+
+    def allow(self, key: str) -> bool:
+        if self.rps <= 0:
+            return True
+        now = time.monotonic()
+        if now >= self._next_sweep:
+            self._sweep(now)
+        entry = self._buckets.pop(key, None)  # re-insert: recency order
+        tokens, last = entry if entry is not None else (float(self.burst), now)
+        tokens = min(self.burst, tokens + (now - last) * self.rps)
+        allowed = tokens >= 1.0
+        self._buckets[key] = (tokens - 1.0 if allowed else tokens, now)
+        while len(self._buckets) > self.max_buckets:
+            # oldest first: iteration order is recency order here
+            del self._buckets[next(iter(self._buckets))]
+        return allowed
+
+
+@web.middleware
+async def rate_limit_middleware(request: web.Request, handler: Handler) -> web.StreamResponse:
+    limiter: RateLimiter = request.app["rate_limiter"]
+    key = request.get("client_ip") or request.remote or "unknown"
+    if not limiter.allow(key):
+        return web.json_response({"detail": "Rate limit exceeded"}, status=429,
+                                 headers={"retry-after": "1"})
+    return await handler(request)
 
 
 async def _handle_as_tenant(request: web.Request, handler: Handler) -> web.StreamResponse:
@@ -221,11 +462,80 @@ async def auth_middleware(request: web.Request, handler: Handler) -> web.StreamR
     return await _handle_as_tenant(request, handler)
 
 
-# outermost first: observability sees every response (errors included),
-# and error_middleware sits outside auth so AuthError maps to a status
+@web.middleware
+async def request_logging_middleware(request: web.Request,
+                                     handler: Handler) -> web.StreamResponse:
+    """At DEBUG, each request's body with its sensitive values masked, and
+    each answer's status."""
+    logger = request.app.logger
+    if logger.isEnabledFor(logging.DEBUG):
+        from ..utils.masking import mask_text
+        body = await request.text() if request.can_read_body else ""
+        logger.debug("req %s %s %s", request.method, request.path,
+                     mask_text(body[:4096]) if body else "")
+    response = await handler(request)
+    if logger.isEnabledFor(logging.DEBUG):
+        logger.debug("resp %s %s -> %s", request.method, request.path, response.status)
+    return response
+
+
+@web.middleware
+async def db_query_logging_middleware(request: web.Request,
+                                      handler: Handler) -> web.StreamResponse:
+    """With ``db_query_logging``, the statements the handler ran (innermost:
+    the layers above are not counted): X-DB-Query-Count and
+    X-DB-Query-Time-MS, a warning per statement slower than
+    ``db_query_logging_slow_ms`` and one for each statement shape repeated
+    ``db_query_n1_threshold`` times or more (a possible N+1)."""
+    settings = request.app["settings"]
+    if not settings.db_query_logging:
+        return await handler(request)
+    from ..db.core import query_log_capture
+    with query_log_capture() as queries:
+        response = await handler(request)
+    if not queries:
+        return response
+    logger = request.app.logger
+    total_ms = sum(ms for _, ms in queries)
+    response.headers["X-DB-Query-Count"] = str(len(queries))
+    response.headers["X-DB-Query-Time-MS"] = f"{total_ms:.2f}"
+    for sql, ms in queries:
+        if ms >= settings.db_query_logging_slow_ms:
+            logger.warning("slow query (%.1f ms) on %s %s: %s",
+                           ms, request.method, request.path, sql[:300])
+    shapes: dict[str, int] = {}
+    for sql, _ in queries:
+        shapes[sql] = shapes.get(sql, 0) + 1
+    suspects = {sql: n for sql, n in shapes.items() if n >= settings.db_query_n1_threshold}
+    if suspects:
+        logger.warning("possible N+1 on %s %s: %s", request.method, request.path,
+                       "; ".join(f"{n}x {sql[:160]}" for sql, n in suspects.items()))
+    else:
+        logger.debug("%s %s ran %d queries in %.2f ms", request.method,
+                     request.path, len(queries), total_ms)
+    return response
+
+
+# outermost first: observability sees every response (errors included); the
+# recorder sits just inside it, so a disconnect's CancelledError, re-raised
+# one layer down, still gets a row; error_middleware sits outside the rate
+# limit and auth, so AuthError maps to a status; db_query_logging is
+# innermost, so it counts the handler's statements only
 MIDDLEWARES = [
     observability_middleware,
     flight_recorder_middleware,
+    client_disconnect_middleware,
+    forwarded_middleware,
+    host_validation_middleware,
+    cors_middleware,
+    compression_middleware,
+    security_headers_middleware,
+    deprecation_middleware,
+    header_size_middleware,
     error_middleware,
+    protocol_version_middleware,
+    rate_limit_middleware,
     auth_middleware,
+    request_logging_middleware,
+    db_query_logging_middleware,
 ]

@@ -1,5 +1,5 @@
-"""The catalog routes of the JAX gateway's ``gateway/routers.py`` that the
-tools/call path needs, with its permissions, status codes and bodies:
+"""The catalog routes of the JAX gateway's ``gateway/routers.py``, with its
+permissions, status codes and bodies:
 
 - ``GET /.well-known/mcp`` (public: the auth middleware passes
   ``/.well-known/*``);
@@ -11,12 +11,21 @@ tools/call path needs, with its permissions, status codes and bodies:
 - ``/gateways``: list, create (201: the peer's catalog is synced before the
   answer), ``POST /gateways/test`` (the wizard's dry run, never a 500), get,
   put, delete, ``POST /gateways/{gateway_id}/refresh``;
+- ``/resources``: list, create (201), put, delete, and ``POST
+  /resources/read`` (``{"uri"}``; local or federated);
+- ``/prompts``: list, create (201), put, delete, and ``POST
+  /prompts/{name}/render`` (the body is the arguments);
 - ``/servers``: list, create (201), get, put, delete.
 
 A body the schema refuses answers 422 with the schema's error text under
 ``detail`` (``ValidationFailure``), as does one past the ``validation_max_*``
-field limits. Lists answer the whole list: the JAX gateway's cursor pages
-(``?limit``/``?cursor``) and its registry cache are not ported yet."""
+field limits. Every list answers through ``paginate`` (``gateway/
+pagination.py``: the whole list without ``limit`` and ``cursor``, else a
+keyset page) over ``_cached_list``: with ``app["registry_cache"]`` the
+loaded list is cached under a key of the query's flags (and, for tools, the
+viewer's teams), never of ``limit`` or ``cursor``, so every page is cut from
+one cached list. The auth, users, tokens, metrics and admin routes of the
+JAX module are not ported."""
 
 from __future__ import annotations
 
@@ -25,15 +34,33 @@ from typing import Any
 
 from aiohttp import web
 
-from ..schemas import (GatewayCreate, GatewayUpdate, SchemaError, ServerCreate, ServerUpdate,
-                       ToolCreate, ToolUpdate)
+from ..schemas import (GatewayCreate, GatewayUpdate, PromptCreate, PromptUpdate, ResourceCreate,
+                       ResourceUpdate, SchemaError, ServerCreate, ServerUpdate, ToolCreate,
+                       ToolUpdate)
 from ..services.base import ValidationFailure
+from .pagination import paginate
 
 
 def _dump(model) -> Any:
     if isinstance(model, list):
         return [_dump(m) for m in model]
     return model.model_dump()
+
+
+async def _cached_list(request: web.Request, entity: str, key: str, loader):
+    """The list of ``entity`` from the registry cache, or ``loader``'s on a
+    miss; without a cache, always the loader's."""
+    cache = request.app.get("registry_cache")
+    if cache is None:
+        return await loader()
+    items = cache.get(entity, key)
+    if items is None:
+        # the generation before the load: an invalidation that fires while
+        # the read runs makes this snapshot stale, and put() then drops it
+        generation = cache.generation(entity)
+        items = await loader()
+        cache.put(entity, key, items, generation)
+    return items
 
 
 async def _body(request: web.Request, schema):
@@ -88,9 +115,14 @@ def setup_routes(app: web.Application) -> None:
     @routes.get("/tools")
     async def list_tools(request: web.Request) -> web.Response:
         request["auth"].require("tools.read")
-        tools = await request.app["tool_service"].list_tools(
-            include_inactive=_include_inactive(request), team_ids=request["auth"].teams)
-        return web.json_response(_dump(tools))
+        include_inactive = _include_inactive(request)
+        # the tool list is team-scoped: the key carries the viewer's teams
+        teams = ",".join(sorted(request["auth"].teams or []))
+        tools = await _cached_list(
+            request, "tools", f"{include_inactive}:{teams}",
+            lambda: request.app["tool_service"].list_tools(
+                include_inactive=include_inactive, team_ids=request["auth"].teams))
+        return paginate(request, tools, _dump)
 
     @routes.post("/tools")
     async def create_tool(request: web.Request) -> web.Response:
@@ -142,9 +174,11 @@ def setup_routes(app: web.Application) -> None:
     @routes.get("/gateways")
     async def list_gateways(request: web.Request) -> web.Response:
         request["auth"].require("gateways.read")
-        gateways = await request.app["gateway_service"].list_gateways(
-            _include_inactive(request))
-        return web.json_response(_dump(gateways))
+        include_inactive = _include_inactive(request)
+        gateways = await _cached_list(
+            request, "gateways", str(include_inactive),
+            lambda: request.app["gateway_service"].list_gateways(include_inactive))
+        return paginate(request, gateways, _dump)
 
     @routes.post("/gateways")
     async def register_gateway(request: web.Request) -> web.Response:
@@ -194,12 +228,96 @@ def setup_routes(app: web.Application) -> None:
             request.match_info["gateway_id"])
         return web.json_response(_dump(gateway))
 
+    # ------------------------------------------------------------- resources
+    @routes.get("/resources")
+    async def list_resources(request: web.Request) -> web.Response:
+        request["auth"].require("resources.read")
+        include_inactive = _include_inactive(request)
+        resources = await _cached_list(
+            request, "resources", str(include_inactive),
+            lambda: request.app["resource_service"].list_resources(include_inactive))
+        return paginate(request, resources, _dump)
+
+    @routes.post("/resources")
+    async def create_resource(request: web.Request) -> web.Response:
+        request["auth"].require("resources.create")
+        resource = await _body(request, ResourceCreate)
+        created = await request.app["resource_service"].register_resource(resource)
+        return web.json_response(_dump(created), status=201)
+
+    @routes.put("/resources/{resource_id}")
+    async def update_resource(request: web.Request) -> web.Response:
+        request["auth"].require("resources.update")
+        update = await _body(request, ResourceUpdate)
+        resource = await request.app["resource_service"].update_resource(
+            request.match_info["resource_id"], update)
+        return web.json_response(_dump(resource))
+
+    @routes.delete("/resources/{resource_id}")
+    async def delete_resource(request: web.Request) -> web.Response:
+        request["auth"].require("resources.delete")
+        await request.app["resource_service"].delete_resource(
+            request.match_info["resource_id"])
+        return web.Response(status=204)
+
+    @routes.post("/resources/read")
+    async def read_resource(request: web.Request) -> web.Response:
+        request["auth"].require("resources.read")
+        body = await request.json()
+        result = await request.app["resource_service"].read_resource(body.get("uri", ""))
+        return web.json_response(result)
+
+    # --------------------------------------------------------------- prompts
+    @routes.get("/prompts")
+    async def list_prompts(request: web.Request) -> web.Response:
+        request["auth"].require("prompts.read")
+        include_inactive = _include_inactive(request)
+        prompts = await _cached_list(
+            request, "prompts", str(include_inactive),
+            lambda: request.app["prompt_service"].list_prompts(include_inactive))
+        return paginate(request, prompts, _dump)
+
+    @routes.post("/prompts")
+    async def create_prompt(request: web.Request) -> web.Response:
+        request["auth"].require("prompts.create")
+        prompt = await _body(request, PromptCreate)
+        created = await request.app["prompt_service"].register_prompt(prompt)
+        return web.json_response(_dump(created), status=201)
+
+    @routes.put("/prompts/{prompt_id}")
+    async def update_prompt(request: web.Request) -> web.Response:
+        request["auth"].require("prompts.update")
+        update = await _body(request, PromptUpdate)
+        prompt = await request.app["prompt_service"].update_prompt(
+            request.match_info["prompt_id"], update)
+        return web.json_response(_dump(prompt))
+
+    @routes.delete("/prompts/{prompt_id}")
+    async def delete_prompt(request: web.Request) -> web.Response:
+        request["auth"].require("prompts.delete")
+        await request.app["prompt_service"].delete_prompt(request.match_info["prompt_id"])
+        return web.Response(status=204)
+
+    @routes.post("/prompts/{name}/render")
+    async def render_prompt(request: web.Request) -> web.Response:
+        request["auth"].require("prompts.read")
+        try:
+            args = await request.json()
+        except Exception:
+            args = {}
+        result = await request.app["prompt_service"].render_prompt(
+            request.match_info["name"], args)
+        return web.json_response(result)
+
     # --------------------------------------------------------------- servers
     @routes.get("/servers")
     async def list_servers(request: web.Request) -> web.Response:
         request["auth"].require("servers.read")
-        servers = await request.app["server_service"].list_servers(_include_inactive(request))
-        return web.json_response(_dump(servers))
+        include_inactive = _include_inactive(request)
+        servers = await _cached_list(
+            request, "servers", str(include_inactive),
+            lambda: request.app["server_service"].list_servers(include_inactive))
+        return paginate(request, servers, _dump)
 
     @routes.post("/servers")
     async def create_server(request: web.Request) -> web.Response:

@@ -4,9 +4,10 @@
 raise the services' domain errors; ``error_middleware`` maps them (404, 409,
 422).
 
-- ``GET /a2a`` (``a2a.read``; the whole list: the JAX gateway's cursor
-  pages are not ported yet), ``POST /a2a`` (``a2a.create``, 201; a body the
-  schema refuses is a 422 in pydantic's layout), ``DELETE /a2a/{agent_id}``
+- ``GET /a2a`` (``a2a.read``; through ``paginate``: the whole list, or a
+  cursor page with ``limit``/``cursor``), ``POST /a2a`` (``a2a.create``,
+  201; a body the schema refuses is a 422 in pydantic's layout),
+  ``DELETE /a2a/{agent_id}``
   (``a2a.delete``, 204) and ``POST /a2a/{name}/invoke`` (``a2a.invoke``; the
   inbound ``x-contextforge-uaid-hop`` is the hop) over ``app["a2a_service"]``;
 - ``POST``/``GET /a2a/{name}/tasks``, ``GET /a2a/tasks/{task_id}`` (an
@@ -36,6 +37,7 @@ from ..plugins.framework import PluginMode
 from ..schemas import A2AAgentCreate, SchemaError
 from ..services.base import NotFoundError, ValidationFailure, now
 from ..utils.ids import new_id
+from .pagination import paginate
 
 
 def setup_routes(app: web.Application) -> None:
@@ -47,7 +49,7 @@ def setup_routes(app: web.Application) -> None:
         request["auth"].require("a2a.read")
         agents = await request.app["a2a_service"].list_agents(
             request.query.get("include_inactive") == "true")
-        return web.json_response([a.model_dump() for a in agents])
+        return paginate(request, agents, lambda page: [a.model_dump() for a in page])
 
     @routes.post("/a2a")
     async def register_agent(request: web.Request) -> web.Response:

@@ -3,13 +3,15 @@
 /rpc``, the ``/mcp`` streamable-HTTP transport and the per-server mounts,
 which scope the catalog to a virtual server.
 
-The resource and prompt services are not ported yet: ``resources/*`` and
-``prompts/*`` get what the JAX dispatcher answers to a known method it does
-not implement (METHOD_NOT_FOUND, "Method ... not implemented").
-``completion/complete`` and ``sampling/createMessage`` go to the completion
-service and the sampling handler (``services/sampling_service.py``, which
-``build_llm_app`` passes); a dispatcher built without them takes the JAX
-dispatcher's fallbacks.
+``resources/list``, ``resources/templates/list``, ``resources/read``,
+``resources/subscribe`` and ``resources/unsubscribe`` go to the resource
+service, ``prompts/list`` and ``prompts/get`` to the prompt service, with
+the plugins' ``resource_pre_fetch``/``resource_post_fetch`` and
+``prompt_pre_fetch``/``prompt_post_fetch`` hooks around a read and a
+render. ``completion/complete`` and ``sampling/createMessage`` go to the
+completion service and the sampling handler
+(``services/sampling_service.py``, which ``build_llm_app`` passes); a
+dispatcher built without them takes the JAX dispatcher's fallbacks.
 """
 
 from __future__ import annotations
@@ -36,10 +38,13 @@ logger = logging.getLogger(__name__)
 
 
 class RPCDispatcher:
-    def __init__(self, ctx: AppContext, tool_service, server_service,
-                 completion_service=None, sampling_handler=None):
+    def __init__(self, ctx: AppContext, tool_service, resource_service,
+                 prompt_service, server_service, completion_service=None,
+                 sampling_handler=None):
         self.ctx = ctx
         self.tools = tool_service
+        self.resources = resource_service
+        self.prompts = prompt_service
         self.servers = server_service
         self.completion = completion_service
         self.sampling = sampling_handler
@@ -150,6 +155,59 @@ class RPCDispatcher:
                 # propagate, and don't leak the still-running tool task
                 run.cancel()
                 raise
+        if method == "resources/list":
+            auth.require("resources.read")
+            resources = await self.resources.list_resources()
+            return {"resources": [{
+                "uri": r.uri, "name": r.name,
+                **({"description": r.description} if r.description else {}),
+                **({"mimeType": r.mime_type} if r.mime_type else {}),
+            } for r in resources if not r.uri_template]}
+        if method == "resources/templates/list":
+            auth.require("resources.read")
+            return {"resourceTemplates": await self.resources.list_templates()}
+        if method == "resources/read":
+            auth.require("resources.read")
+            uri = params.get("uri")
+            if not uri:
+                raise JSONRPCError(INVALID_PARAMS, "resources/read requires 'uri'")
+            pm = self.ctx.plugin_manager
+            if pm is not None:
+                uri = await pm.resource_pre_fetch(uri, user=auth.user)
+            result = await self.resources.read_resource(uri, request_headers=headers)
+            if pm is not None:
+                result = await pm.resource_post_fetch(uri, result, user=auth.user)
+            return result
+        if method == "resources/subscribe":
+            auth.require("resources.read")
+            await self.resources.subscribe(params.get("uri", ""),
+                                           headers.get("mcp-session-id", "anonymous"))
+            return {}
+        if method == "resources/unsubscribe":
+            await self.resources.unsubscribe(params.get("uri", ""),
+                                             headers.get("mcp-session-id", "anonymous"))
+            return {}
+        if method == "prompts/list":
+            auth.require("prompts.read")
+            prompts = await self.prompts.list_prompts()
+            return {"prompts": [{
+                "name": p.name,
+                **({"description": p.description} if p.description else {}),
+                "arguments": [a.model_dump(exclude_none=True) for a in p.arguments],
+            } for p in prompts]}
+        if method == "prompts/get":
+            auth.require("prompts.read")
+            name = params.get("name")
+            if not name:
+                raise JSONRPCError(INVALID_PARAMS, "prompts/get requires 'name'")
+            pm = self.ctx.plugin_manager
+            args = params.get("arguments", {}) or {}
+            if pm is not None:
+                name, args = await pm.prompt_pre_fetch(name, args, user=auth.user)
+            result = await self.prompts.render_prompt(name, args)
+            if pm is not None:
+                result = await pm.prompt_post_fetch(name, result, user=auth.user)
+            return result
         if method == "roots/list":
             return {"roots": []}
         if method == "completion/complete":

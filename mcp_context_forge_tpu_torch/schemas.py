@@ -1,14 +1,17 @@
-"""The catalog's request and response schemas for gateways, tools, virtual
-servers and A2A agents (the JAX package's ``schemas.py`` triples and the A2A
-pair), on the standard library:
+"""The catalog's request and response schemas for gateways, tools,
+resources, prompts, virtual servers and A2A agents (the JAX package's
+``schemas.py`` triples, ``PromptArgument`` and the A2A pair), on the
+standard library:
 the card's Python has pydantic, but the port imports none of it.
 
 Each schema is a dataclass with the JAX model's fields, defaults and
 validators. ``model_validate`` reads a JSON body as pydantic's lax mode
 does for these field types (unknown keys ignored; a ``bool`` from the
 usual words, ``0``/``1`` or a bool; nothing coerced into a string, list or
-dictionary) and raises ``SchemaError``, whose text has pydantic's layout:
-a count line, then each error's location and ``<message> [type=<kind>]``.
+dictionary; a nested model from a dictionary) and raises ``SchemaError``,
+whose text has pydantic's layout: a count line, then each error's location
+(``arguments.0.name`` inside a list of nested models) and ``<message>
+[type=<kind>]``, every list item's and nested field's error in order.
 ``model_dump(exclude_unset=True)`` gives the keys the body carried, as an
 update needs."""
 
@@ -45,8 +48,23 @@ class SchemaError(ValueError):
 
 
 class _Invalid(Exception):
-    def __init__(self, loc: str, message: str, kind: str):
-        self.loc, self.message, self.kind = loc, message, kind
+    """One error at ``loc``, or, with ``errors``, those of a list's items or
+    a nested model's fields."""
+
+    def __init__(self, loc: str, message: str = "", kind: str = "",
+                 errors: list[tuple[str, str, str]] | None = None):
+        self.errors = errors if errors is not None else [(loc, message, kind)]
+
+
+def _each(checks) -> tuple[list, list]:
+    """The values of ``checks`` (thunks), and every error they raised."""
+    values, errors = [], []
+    for check in checks:
+        try:
+            values.append(check())
+        except _Invalid as exc:
+            errors.extend(exc.errors)
+    return values, errors
 
 
 def _literal_message(options: tuple) -> str:
@@ -91,11 +109,28 @@ def _check(loc: str, annotation: Any, value: Any) -> Any:
     if origin is dict:
         if not isinstance(value, dict):
             raise _Invalid(loc, "Input should be a valid dictionary", "dict_type")
-        return {k: _check(f"{loc}.{k}", args[1], v) for k, v in value.items()}
+        checked, errors = _each(
+            lambda k=k, v=v: (k, _check(f"{loc}.{k}", args[1], v)) for k, v in value.items())
+        if errors:
+            raise _Invalid(loc, errors=errors)
+        return dict(checked)
     if origin is list:
         if not isinstance(value, list):
             raise _Invalid(loc, "Input should be a valid list", "list_type")
-        return [_check(f"{loc}.{i}", args[0], v) for i, v in enumerate(value)]
+        checked, errors = _each(lambda i=i, v=v: _check(f"{loc}.{i}", args[0], v)
+                                for i, v in enumerate(value))
+        if errors:
+            raise _Invalid(loc, errors=errors)
+        return checked
+    if isinstance(annotation, type) and issubclass(annotation, _Model):
+        # a nested model: its errors under this location
+        if isinstance(value, annotation):
+            return value
+        try:
+            return annotation.model_validate(value)
+        except SchemaError as exc:
+            raise _Invalid(loc, errors=[(f"{loc}.{sub}" if sub else loc, message, kind)
+                                        for sub, message, kind in exc.errors]) from exc
     return value
 
 
@@ -135,25 +170,30 @@ class _Model:
                         raise _Invalid(f.name, f"Value error, {exc}", "value_error") from exc
                 values[f.name] = value
             except _Invalid as exc:
-                errors.append((exc.loc, exc.message, exc.kind))
+                errors.extend(exc.errors)
         if errors:
             raise SchemaError(cls.__name__, errors)
         model = cls(**values)
         model._fields_set = set(values)
         return model
 
-    def model_dump(self, exclude_unset: bool = False) -> dict[str, Any]:
+    def model_dump(self, exclude_unset: bool = False,
+                   exclude_none: bool = False) -> dict[str, Any]:
         names = [f.name for f in dataclasses.fields(self) if not f.name.startswith("_")]
         if exclude_unset:
             names = [n for n in names if n in self._fields_set]
-        return {n: _plain(getattr(self, n)) for n in names}
+        out = {n: _plain(getattr(self, n), exclude_unset, exclude_none) for n in names}
+        return {n: v for n, v in out.items() if v is not None} if exclude_none else out
 
 
-def _plain(value: Any) -> Any:
+def _plain(value: Any, exclude_unset: bool = False, exclude_none: bool = False) -> Any:
+    """``value`` as plain data; a nested model dumps under the same flags."""
+    if isinstance(value, _Model):
+        return value.model_dump(exclude_unset=exclude_unset, exclude_none=exclude_none)
     if isinstance(value, dict):
-        return {k: _plain(v) for k, v in value.items()}
+        return {k: _plain(v, exclude_unset, exclude_none) for k, v in value.items()}
     if isinstance(value, list):
-        return [_plain(v) for v in value]
+        return [_plain(v, exclude_unset, exclude_none) for v in value]
     return value
 
 
@@ -287,6 +327,86 @@ class ToolRead(_Entity):
     gateway_id: str | None = None
     enabled: bool = True
     reachable: bool = True
+    created_at: float = 0.0
+    updated_at: float = 0.0
+
+
+# ----------------------------------------------------------------- resources
+
+@dataclass(kw_only=True)
+class ResourceCreate(_Entity):
+    uri: str
+    name: str
+    mime_type: str | None = None
+    uri_template: str | None = None
+    content: str | None = None
+    is_binary: bool = False
+    gateway_id: str | None = None
+    enabled: bool = True
+
+
+@dataclass(kw_only=True)
+class ResourceUpdate(_Update):
+    name: str | None = None
+    description: str | None = None
+    mime_type: str | None = None
+    content: str | None = None
+    enabled: bool | None = None
+    tags: list[str] | None = None
+    visibility: Visibility | None = None
+
+
+@dataclass(kw_only=True)
+class ResourceRead(_Entity):
+    id: str
+    uri: str
+    name: str
+    mime_type: str | None = None
+    uri_template: str | None = None
+    size: int | None = None
+    gateway_id: str | None = None
+    enabled: bool = True
+    created_at: float = 0.0
+    updated_at: float = 0.0
+
+
+# ------------------------------------------------------------------- prompts
+
+@dataclass(kw_only=True)
+class PromptArgument(_Model):
+    name: str
+    description: str | None = None
+    required: bool = False
+    _fields_set: set = field(default_factory=set, repr=False, compare=False)
+
+
+@dataclass(kw_only=True)
+class PromptCreate(_Entity):
+    name: str
+    template: str
+    arguments: list[PromptArgument] = field(default_factory=list)
+    gateway_id: str | None = None
+    enabled: bool = True
+
+
+@dataclass(kw_only=True)
+class PromptUpdate(_Update):
+    description: str | None = None
+    template: str | None = None
+    arguments: list[PromptArgument] | None = None
+    enabled: bool | None = None
+    tags: list[str] | None = None
+    visibility: Visibility | None = None
+
+
+@dataclass(kw_only=True)
+class PromptRead(_Entity):
+    id: str
+    name: str
+    template: str
+    arguments: list[PromptArgument] = field(default_factory=list)
+    gateway_id: str | None = None
+    enabled: bool = True
     created_at: float = 0.0
     updated_at: float = 0.0
 

@@ -957,11 +957,24 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     for a tcp bus, else ``make_kv`` of the bus backend; its expired entries
     are purged every 600 s), ``toolops_service`` and
     ``elicitation_service`` (also ``ctx.extras`` and the transport's
-    ``elicitation``)."""
+    ``elicitation``).
+
+    The rest of the MCP catalog and the HTTP edge, as the JAX gateway wires
+    them: ``resource_service`` and ``prompt_service`` (also the
+    dispatcher's), whose ``resources.changed`` and ``prompts.changed`` on
+    the bus broadcast ``notifications/resources/list_changed`` and
+    ``notifications/prompts/list_changed`` to the stateful sessions; with
+    ``registry_cache_enabled`` a ``RegistryCache`` (``app["registry_cache"]``,
+    also ``ctx.extras``) that the ``<entity>.changed`` topics flush;
+    ``app["rate_limiter"]``, a ``RateLimiter`` at ``rate_limit_rps`` and
+    ``rate_limit_burst`` (0 rps admits everything) for ``MIDDLEWARES``; and
+    at startup, in a worker thread, the native log-masking library's build
+    (``utils/masking.py``)."""
     from ..coordination.heartbeat import WorkerHeartbeat
     from ..coordination.ratelimit import DistributedTenantLimiter, make_rate_counter
     from ..coordination.rpc import BusRpc
-    from ..gateway.middleware import MIDDLEWARES
+    from ..gateway.middleware import MIDDLEWARES, RateLimiter
+    from ..gateway.registry_cache import RegistryCache
     from ..observability import phases
     from ..observability.degradation import OverloadShedder, configure_degradation
     from ..observability.faults import configure_fault_plane
@@ -1001,7 +1014,10 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     from ..services.upstream_sessions import UpstreamSessionRegistry
     from ..services.diagnostics_service import TorchProfilerCapture
     from ..services.llm_provider_service import LLMProviderService
+    from ..services.prompt_service import PromptService
+    from ..services.resource_service import ResourceService
     from ..utils import new_id
+    from ..utils.masking import native_available
     from .controller import ServingController
     from .engine import EngineConfig, TorchEngine
     from .kv.fabric.publisher import ADVERT_METHOD, FabricIndexPublisher
@@ -1199,9 +1215,10 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     upstream_sessions = UpstreamSessionRegistry(
         ctx, max_sessions=settings.upstream_max_sessions, idle_ttl=settings.upstream_idle_ttl)
     tool_service, server_service = ToolService(ctx), ServerService(ctx)
+    resource_service, prompt_service = ResourceService(ctx), PromptService(ctx)
     gateway_service = GatewayService(ctx)
-    dispatcher = RPCDispatcher(ctx, tool_service, server_service,
-                               completion_service=CompletionService(ctx),
+    dispatcher = RPCDispatcher(ctx, tool_service, resource_service, prompt_service,
+                               server_service, completion_service=CompletionService(ctx),
                                sampling_handler=SamplingHandler(ctx))
     transport = StreamableHTTPTransport(dispatcher, settings)
     transport.sessions.metrics = metrics   # the mcpforge_sessions_active gauge
@@ -1210,6 +1227,7 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     mcp_services = {
         "upstream_sessions": upstream_sessions, "cancellation_service": CancellationService(ctx),
         "tool_service": tool_service, "gateway_service": gateway_service,
+        "resource_service": resource_service, "prompt_service": prompt_service,
         "server_service": server_service, "dispatcher": dispatcher,
         "streamable_transport": transport, "a2a_service": A2AService(ctx),
         "elicitation_service": elicitation_service}
@@ -1221,12 +1239,14 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
         kv_store = make_kv(getattr(settings, "bus_backend", "memory"),
                            getattr(settings, "bus_dir", None))
 
-    async def tools_changed(topic, message):
+    def notify(method: str):
         # catalog changes fan out to every stateful /mcp session
-        await transport.sessions.broadcast(
-            {"jsonrpc": "2.0", "method": "notifications/tools/list_changed"})
+        async def handler(topic, message):
+            await transport.sessions.broadcast({"jsonrpc": "2.0", "method": method})
+        return handler
 
-    bus.subscribe("tools.changed", tools_changed)
+    for entity in ("tools", "resources", "prompts"):
+        bus.subscribe(f"{entity}.changed", notify(f"notifications/{entity}/list_changed"))
     elector = LeaderElector(leases, "gateway-leader", worker_id,
                             ttl=getattr(settings, "leader_lease_ttl", 15.0))
     ctx.extras["leader_elector"] = elector   # gates the gateway health loop
@@ -1234,6 +1254,11 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     for key, service in mcp_services.items():
         app[key] = service
     app["kv_store"] = kv_store
+    app["rate_limiter"] = RateLimiter(settings.rate_limit_rps, settings.rate_limit_burst)
+    if settings.registry_cache_enabled:
+        registry_cache = RegistryCache(ctx)
+        registry_cache.wire()   # flushed by the <entity>.changed topics
+        app["registry_cache"] = ctx.extras["registry_cache"] = registry_cache
     app["chat_service"] = ChatService(ctx, tool_service, server_service, kv=kv_store,
                                       session_ttl=settings.session_ttl)
     app["toolops_service"] = ToolOpsService(ctx, tool_service)
@@ -1375,6 +1400,7 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
         # the shared outbound pool, built off the loop: httpx's import and
         # the CA bundle's load would stall it for most of a second
         await asyncio.to_thread(lambda: ctx.http_client)
+        await asyncio.to_thread(native_available)   # g++ off the loop
         await transport.sessions.start_sweeper()
         await upstream_sessions.start()
         await elector.start()

@@ -308,6 +308,36 @@ def test_slow_request_bar_agrees(slow_ms, http_ms):
             == jax_config.load_settings(env=env, env_file=None).gw_slow_request_s)
 
 
+EDGE_PROPERTIES = ("cors_origins", "cors_allowed_methods", "cors_allowed_headers",
+                   "allowed_host_set", "deprecated_path_prefixes", "supported_protocol_versions",
+                   "allowed_resource_mime_types")
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_edge_properties_agree(seed):
+    """The properties the middleware chain and the catalog read over the
+    csv fields: the same values over seeded lists (blanks, spaces, case,
+    repeats and the protocol's own CORS headers among them)."""
+    rng = np.random.default_rng(300 + seed)
+    words = ["https://a.example", " *", "", "GET", "post ", "Host.Example", "mcp-session-id",
+             "last-event-id", "x-a", "/legacy", "2025-06-18", "1999-01-01", "text/plain"]
+
+    def csv() -> str:
+        return str(rng.choice([",", ", ", " ,"])).join(
+            str(w) for w in rng.choice(words, size=int(rng.integers(0, 6))))
+
+    env = {name: csv() for name in ("CORS_ALLOWED_ORIGINS", "CORS_ALLOWED_METHODS_CSV",
+                                    "CORS_ALLOWED_HEADERS_CSV", "ALLOWED_HOSTS",
+                                    "DEPRECATED_PATH_PREFIXES_CSV",
+                                    "SUPPORTED_PROTOCOL_VERSIONS_CSV",
+                                    "ALLOWED_RESOURCE_MIME_TYPES_CSV")}
+    port = config.load_settings(env=env, env_file=None)
+    ref = jax_config.load_settings(env={f"MCPFORGE_{k}": v for k, v in env.items()},
+                                   env_file=None)
+    for name in EDGE_PROPERTIES:
+        assert getattr(port, name) == getattr(ref, name), name
+
+
 @pytest.mark.parametrize("seed", SEEDS[:4])
 def test_engine_config_from_either_settings(seed):
     """``EngineConfig.from_settings`` reads the port's settings as it reads

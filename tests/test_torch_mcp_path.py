@@ -12,11 +12,18 @@ and ports masked):
   count, locations, messages and kinds);
 - ``/rpc`` and stateless ``/mcp``: ``initialize``, ``ping``,
   ``tools/list``, ``tools/call`` of every federated tool, batches,
-  notifications, malformed bodies, unknown and not-yet-ported methods
-  (``resources/*``, ``prompts/*``: METHOD_NOT_FOUND), ``completion/complete``
+  notifications, malformed bodies, unknown methods, ``completion/complete``
   over a prompt row inserted into both databases, ``sampling/createMessage``
   served by each app's engine (the same greedy text), and the fallbacks of a
   dispatcher built without those two services;
+- the resource and prompt catalog: ``/resources`` and ``/prompts`` (create,
+  list, cursor pages, update, delete, read and render, with their 404, 409,
+  422 and 500 answers), and ``resources/*`` and ``prompts/*`` over ``/rpc``
+  and a stateful ``/mcp`` session, whose GET stream receives
+  ``notifications/prompts/list_changed`` and
+  ``notifications/resources/list_changed`` for each write; ``prompts/get``
+  of a prompt over a resource's text, then ``sampling/createMessage`` of
+  the rendered messages, gives the JAX app's greedy text;
 - a stateful session: ``initialize`` mints ``Mcp-Session-Id``, its GET
   stream receives ``notifications/tools/list_changed`` when ``POST /tools``
   adds a tool, DELETE ends it;
@@ -32,6 +39,7 @@ and ports masked):
   runs to its end in both (the same tokens), after which no page is held."""
 
 import asyncio
+import base64
 import dataclasses
 import json
 import re
@@ -76,6 +84,7 @@ SERVERS = ("text_server", "time_server")
 HEX = re.compile(r"[0-9a-f]{32}")
 PORT = re.compile(r"127\.0\.0\.1:\d+")
 TIMES = {"created_at", "updated_at", "last_seen", "latency_ms", "worker_id"}
+CURSOR = re.compile(r"cursor=[^&]+")
 # a seeded ~200-character tool output: the summarizer's bar is 150
 TEXT = " ".join(f"node-{i:02d} status={'ok' if i % 3 else 'degraded'}" for i in range(9))
 SUMMARY = {"threshold_chars": 150, "max_tokens": 8, "prompt": "Summarize:"}
@@ -145,11 +154,19 @@ def _mask(value, ids: dict):
     if isinstance(value, list):
         return [_mask(v, ids) for v in value]
     if isinstance(value, dict):
-        return {k: ("<t>" if k in TIMES else _mask(v, ids)) for k, v in value.items()}
+        return {k: ("<t>" if k in TIMES else _mask(_cursor(v) if k == "next_cursor" else v, ids))
+                for k, v in value.items()}
     if isinstance(value, str):
         value = PORT.sub("127.0.0.1:<port>", value)
         return HEX.sub(lambda m: ids.setdefault(m.group(0), f"<id{len(ids)}>"), value)
     return value
+
+
+def _cursor(cursor):
+    """A page cursor's anchor (its ids are masked like any other)."""
+    if not cursor:
+        return cursor
+    return "cursor:" + json.loads(base64.urlsafe_b64decode(cursor + "=" * (-len(cursor) % 4)))
 
 
 def _detail(body):
@@ -183,7 +200,7 @@ class Session:
         raw = await resp.read()
         body = json.loads(raw) if resp.content_type == "application/json" and raw else (
             raw.decode() if raw else None)
-        self.log.append((method, HEX.sub("<id>", path), resp.status,
+        self.log.append((method, CURSOR.sub("cursor=<c>", HEX.sub("<id>", path)), resp.status,
                          _mask(_detail(body), self.ids)))
         if expect is not None:
             assert resp.status == expect, (self.package, path, resp.status, body)
@@ -346,25 +363,130 @@ def test_rpc_and_stateless_mcp_agree(loop, pair):
     _assert_same(_both(loop, pair, _rpc_methods))
 
 
-NOT_PORTED = ("resources/list", "resources/read", "resources/templates/list",
-              "resources/subscribe", "resources/unsubscribe", "prompts/list", "prompts/get")
+PROMPT = {"name": "triage", "description": "Triage a log",
+          "template": "Runbook:\n{{ runbook }}\nTeam: {{ team | default('ops') }}",
+          "arguments": [{"name": "runbook", "required": True}, {"name": "team"}]}
+RESOURCE = {"uri": "file:///logs/gw.txt", "name": "gw log", "mime_type": "text/plain",
+            "content": TEXT}
 
 
-def test_resources_and_prompts_answer_not_implemented(loop, pair):
-    """Until the resource and prompt services are ported, the port answers
-    their methods as the JAX dispatcher answers a known method it does not
-    implement (a temporary difference: the JAX gateway serves them)."""
-    client = pair["clients"][1]
-    init = _run(loop, client.post("/mcp", headers=BASIC, json={
-        "jsonrpc": "2.0", "id": 0, "method": "initialize", "params": {}}))
-    session = {**BASIC, "mcp-session-id": init.headers["mcp-session-id"]}
-    for rid, method in enumerate(NOT_PORTED):
-        for path in ("/rpc", "/mcp"):
-            resp = _run(loop, client.post(path, headers=session, json={
-                "jsonrpc": "2.0", "id": rid, "method": method, "params": {"uri": "x"}}))
-            assert jax_rpc.method_registry.is_known(method)
-            assert _run(loop, resp.json()) == jax_rpc.error_response(
-                rid, jax_rpc.METHOD_NOT_FOUND, f"Method {method!r} not implemented")
+async def _listen(s: Session, headers: dict, events: list, ready: asyncio.Event):
+    """Collect the data events of the session's GET stream."""
+    resp = await s.client.get("/mcp", headers=headers)
+    ready.set()
+    async for line in resp.content:
+        if line.startswith(b"data: "):
+            events.append(json.loads(line[6:]))
+
+
+async def _catalog(s: Session):
+    await _init(s)
+    session = {**BASIC, "mcp-session-id": s.state["sid"]}
+    events: list = []
+    ready = asyncio.Event()
+    reader = asyncio.ensure_future(_listen(s, session, events, ready))
+    await asyncio.wait_for(ready.wait(), 10)
+    made = await s.call("post", "/prompts", json=PROMPT, expect=201)
+    s.state["prompt"] = made["id"]
+    await s.call("post", "/prompts", json=PROMPT)
+    await s.call("post", "/prompts", json={"name": "bad", "template": 3, "arguments": [
+        {"description": "no name"}, 5, {"name": "x", "required": "maybe"}]})
+    await s.call("post", "/prompts", json={"name": "broken", "template": "{{ x"})
+    await s.call("post", "/prompts", json={"name": "escape", "template": "{{ ''.__class__ }}"})
+    made = await s.call("post", "/resources", json=RESOURCE, expect=201)
+    s.state["resource"] = made["id"]
+    await s.call("post", "/resources", json=RESOURCE)
+    await s.call("post", "/resources", json={"uri": 1, "is_binary": "x"})
+    await s.call("post", "/resources", json={"uri": "file:///logs/{day}.txt", "name": "daily",
+                                             "uri_template": "file:///logs/{day}.txt",
+                                             "content": "daily log"}, expect=201)
+    await s.call("post", "/resources", json={"uri": "mem://blob", "name": "blob",
+                                             "is_binary": True, "content": "raw bytes"})
+    await s.call("get", "/prompts")
+    await s.call("get", "/resources")
+    first = await s.call("get", "/resources?limit=2")
+    await s.call("get", f"/resources?limit=2&cursor={first['next_cursor']}")
+    await s.call("get", "/resources?cursor=!!")
+    await s.call("get", "/prompts?limit=x")
+    for rid, (path, headers) in enumerate((("/rpc", None), ("/mcp", session))):
+        for method, params in (
+                ("resources/list", {}), ("resources/templates/list", {}),
+                ("resources/read", {"uri": RESOURCE["uri"]}),
+                ("resources/read", {"uri": "file:///logs/2026-10-18.txt"}),
+                ("resources/read", {"uri": "mem://blob"}),
+                ("resources/read", {"uri": "file:///missing"}), ("resources/read", {}),
+                ("resources/subscribe", {"uri": RESOURCE["uri"]}),
+                ("resources/unsubscribe", {"uri": RESOURCE["uri"]}),
+                ("prompts/list", {}),
+                ("prompts/get", {"name": "triage", "arguments": {"runbook": "restart gw"}}),
+                ("prompts/get", {"name": "triage", "arguments": {"runbook": "r", "team": "db"}}),
+                ("prompts/get", {"name": "triage", "arguments": {"team": "db"}}),
+                ("prompts/get", {"name": "escape"}), ("prompts/get", {"name": "nope"}),
+                ("prompts/get", {})):
+            await s.rpc(method, params, rid=rid, path=path, headers=headers)
+    await s.call("post", "/resources/read", json={"uri": RESOURCE["uri"]})
+    await s.call("post", "/resources/read", json={"uri": "file:///missing"})
+    await s.call("post", "/prompts/triage/render", json={"runbook": "r"})
+    await s.call("post", "/prompts/triage/render", data="not json")
+    await s.call("post", "/prompts/nope/render", json={})
+    await s.call("put", "/prompts/{prompt}", json={"description": "Triage", "arguments": [
+        {"name": "runbook", "required": True}]})
+    await s.call("put", "/prompts/{prompt}", json={"template": "{% if %}"})
+    await s.call("put", "/prompts/missing", json={"description": "x"})
+    await s.call("put", "/resources/{resource}", json={"content": "short", "tags": ["a"]})
+    await s.call("put", "/resources/{resource}", json={"visibility": "x"})
+    await s.call("get", "/prompts?include_inactive=true")
+    await s.call("delete", "/prompts/{prompt}")
+    await s.call("delete", "/prompts/{prompt}")
+    await s.call("delete", "/resources/{resource}")
+    await s.call("delete", "/resources/{resource}")
+    await s.rpc("prompts/list")
+    await s.rpc("resources/list")
+    # nine writes went in: each broadcast one list_changed to the session
+    for _ in range(500):
+        if len(events) >= 9:
+            break
+        await asyncio.sleep(0.01)
+    reader.cancel()
+    s.log.append(("events", [e["method"] for e in events]))
+    await s.call("delete", "/mcp", headers=session)
+
+
+def test_resources_and_prompts_agree(loop, pair):
+    """``/resources``, ``/prompts``, ``resources/*`` and ``prompts/*`` answer
+    as the JAX gateway's: the same statuses, bodies and error codes, the
+    same ``list_changed`` notifications on a stateful session."""
+    logs = _both(loop, pair, _catalog)
+    _assert_same(logs)
+    prompts, resources = ("notifications/prompts/list_changed",
+                          "notifications/resources/list_changed")
+    assert ("events", [prompts] * 2 + [resources] * 3
+            + [prompts, resources] * 2) in logs[1]
+
+
+async def _prompt_to_sampling(s: Session):
+    await s.call("post", "/resources", json={**RESOURCE, "uri": "file:///logs/sample.txt"},
+                 expect=201)
+    await s.call("post", "/prompts", json={**PROMPT, "name": "sampled"}, expect=201)
+    before = await _stats(s)
+    read = await s.rpc("resources/read", {"uri": "file:///logs/sample.txt"})
+    text = read["result"]["contents"][0]["text"]
+    got = await s.rpc("prompts/get", {"name": "sampled", "arguments": {"runbook": text}})
+    await s.rpc("sampling/createMessage", {"messages": got["result"]["messages"],
+                                           "maxTokens": 6}, rid=31)
+    after = await _stats(s)
+    s.log.append(("engine", after["requests"] - before["requests"],
+                  after["completion_tokens"] - before["completion_tokens"]))
+
+
+def test_prompt_to_sampling_agrees(loop, pair):
+    """A resource's text rendered through ``prompts/get`` and sampled by
+    ``sampling/createMessage``: the JAX app's greedy text, one engine
+    request of six tokens in each."""
+    logs = _both(loop, pair, _prompt_to_sampling)
+    _assert_same(logs)
+    assert logs[1][-2][3]["result"]["stopReason"] == "maxTokens"
+    assert logs[1][-1] == ("engine", 1, 6)
 
 
 def test_completion_and_sampling_take_the_none_fallbacks(loop, pair):
@@ -379,7 +501,8 @@ def test_completion_and_sampling_take_the_none_fallbacks(loop, pair):
     ref, app = pair["clients"][0].app, pair["clients"][1].app
     bare = JaxDispatcher(ref["ctx"], ref["tool_service"], ref["resource_service"],
                          ref["prompt_service"], ref["server_service"])
-    ours = RPCDispatcher(app["ctx"], app["tool_service"], app["server_service"])
+    ours = RPCDispatcher(app["ctx"], app["tool_service"], app["resource_service"],
+                         app["prompt_service"], app["server_service"])
     for rid, (method, params) in enumerate((("completion/complete", {"ref": {}}),
                                             ("sampling/createMessage", {"messages": []}))):
         message = {"jsonrpc": "2.0", "id": rid, "method": method, "params": params}
