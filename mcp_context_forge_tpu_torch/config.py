@@ -211,6 +211,8 @@ class Settings:
     # --- pooled upstream MCP sessions ---
     upstream_max_sessions: int = 128
     upstream_idle_ttl: float = 300.0
+    # --- external (out-of-process) plugin servers: a hook call's timeout ---
+    external_plugin_timeout: float = 10.0
     # --- header passthrough onto upstream calls (off; credentials never
     # ride the global default list unless the sensitive flag is on) ---
     enable_header_passthrough: bool = False

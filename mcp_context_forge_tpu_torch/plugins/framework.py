@@ -157,13 +157,6 @@ class Plugin:
 
 # Built-in plugin registry: short name -> import path (filled by builtin pkg)
 BUILTIN_PLUGINS: dict[str, str] = {}
-# builtin kinds of the JAX package that the port has not ported yet: each
-# refuses to load, by name, and never resolves to another kind
-UNPORTED_BUILTINS: set[str] = set()
-
-
-class PluginKindNotPorted(LookupError):
-    """A builtin kind of the JAX package that this package does not have yet."""
 
 
 def register_builtin(name: str, path: str) -> None:
@@ -171,9 +164,6 @@ def register_builtin(name: str, path: str) -> None:
 
 
 def _resolve_class(kind: str):
-    if kind in UNPORTED_BUILTINS:
-        raise PluginKindNotPorted(
-            f"plugin kind {kind!r} is a builtin of the JAX package that is not ported yet")
     path = BUILTIN_PLUGINS.get(kind, kind)
     module_name, _, class_name = path.rpartition(".")
     module = importlib.import_module(module_name)

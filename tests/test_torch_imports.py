@@ -4,7 +4,9 @@
 ``multi_gpu_smoke.py``, which run on the card) imports JAX, anything of
 the JAX package or ``prometheus_client`` (the card has none; the port's
 metrics registry is its own), and the kernel modules import without
-``nvcc`` or ``triton`` (kernels build at first launch, on the card)."""
+``nvcc`` or ``triton`` (kernels build at first launch, on the card); the
+plugin kinds, the external plugin host and the plugin servers import
+neither torch nor httpx."""
 
 import ast
 import os
@@ -140,5 +142,26 @@ def test_mcp_path_module_imports_no_jax_pydantic_or_httpx(module):
     code = (f"import sys\nimport mcp_context_forge_tpu_torch.{module}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mcp_context_forge_tpu', 'pydantic', 'httpx')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+PLUGIN_MODULES = [
+    "utils.paths", "plugins.builtin.filters", "plugins.builtin.transformers",
+    "plugins.builtin.resilience", "plugins.builtin.content_plugins",
+    "plugins.builtin.security_plugins", "plugins.builtin.validation_plugins",
+    "plugins.external", "plugins.servers.sdk", "plugins.servers.opa_policy",
+    "plugins.servers.prompt_guard", "plugins.servers.content_scanner"]
+
+
+@pytest.mark.parametrize("module", PLUGIN_MODULES)
+def test_plugin_module_imports_no_torch_jax_or_httpx(module):
+    """Each module of the builtin kinds, the external plugin host and the
+    plugin servers (each of which runs as ``python -m`` in a process of its
+    own) imports alone, with nothing of torch, JAX, the JAX package, numpy
+    or httpx."""
+    code = (f"import sys\nimport mcp_context_forge_tpu_torch.{module}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'mcp_context_forge_tpu', 'numpy', 'httpx')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

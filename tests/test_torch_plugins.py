@@ -6,8 +6,8 @@ JAX package's, on the CPU.
   four modes, enforce against permissive, tool scoping, a pre-hook's
   short-circuit, every hook's payload policy, a mode change over the bus,
   bindings loaded from each package's database) give the same results,
-  violations and ``plugin_duration`` series. A builtin kind the port has
-  not ported refuses to load, by name.
+  violations and ``plugin_duration`` series. The registry holds the JAX
+  package's 42 kinds, each at a class of the port's own.
 - The four plugins over the same stub registries: the same outputs, and
   the summarizer's cache, singleflight, TTL and LRU cases of JAX's
   ``tests/unit/test_summarizer_cache.py``; the fallbacks when the registry
@@ -47,7 +47,6 @@ from mcp_context_forge_tpu_torch.coordination.bus import make_bus
 from mcp_context_forge_tpu_torch.db import MIGRATIONS, core
 from mcp_context_forge_tpu_torch.observability.metrics import PrometheusRegistry
 from mcp_context_forge_tpu_torch.plugins import framework as fw
-from mcp_context_forge_tpu_torch.plugins.builtin import UNPORTED
 from mcp_context_forge_tpu_torch.plugins.builtin import llm_plugins
 from mcp_context_forge_tpu_torch.tpu_local.engine import EngineConfig, TorchEngine
 from mcp_context_forge_tpu_torch.tpu_local.models import MODEL_CONFIGS
@@ -261,18 +260,20 @@ async def test_bindings_bus_and_metrics_equal_jax():
     assert got[3][:2] == ("raised", "PluginViolation")
 
 
-@pytest.mark.parametrize("kind", sorted(UNPORTED))
-async def test_unported_builtin_kinds_refuse_by_name(kind):
-    assert kind in jax_fw.BUILTIN_PLUGINS and kind not in fw.BUILTIN_PLUGINS
-    manager = fw.PluginManager()
-    with pytest.raises(fw.PluginKindNotPorted, match=kind):
-        await manager.add_plugin(fw.PluginConfig(name=kind, kind=kind))
-    assert manager.plugins == []
-
-
 def test_registry_covers_every_jax_kind():
-    assert set(fw.BUILTIN_PLUGINS) | UNPORTED == set(jax_fw.BUILTIN_PLUGINS)
-    assert len(UNPORTED) == 38 and not set(fw.BUILTIN_PLUGINS) & UNPORTED
+    """The port registers exactly the JAX package's 42 kinds, each at a
+    class of the port's own."""
+    # the test modules' own kinds (``test_*``) live in both registries too
+    port = {k for k, path in fw.BUILTIN_PLUGINS.items()
+            if path.startswith("mcp_context_forge_tpu_torch.")}
+    jax = {k for k, path in jax_fw.BUILTIN_PLUGINS.items()
+           if path.startswith("mcp_context_forge_tpu.")}
+    assert port == jax and len(port) == 42
+    for kind in port:
+        cls = fw._resolve_class(kind)
+        assert cls.__module__.startswith("mcp_context_forge_tpu_torch.plugins."), kind
+        assert issubclass(cls, fw.Plugin)
+        assert cls.__name__ == jax_fw._resolve_class(kind).__name__
 
 
 # ------------------------------------------------------ plugins over stubs
