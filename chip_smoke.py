@@ -234,8 +234,15 @@ a tools/call through eleven bindings, its summary's tokens equal to a cold
 ``/v1`` chat over the chain's expected text; the cached repeat; refusals,
 a circuit that opens, the ``prompt_guard`` server's redaction before a
 sampled reply, its restart after a SIGKILL, the ``opa_policy`` server's
-refusal, each hook's cost). The phase prints sqlite's and jinja2's versions
-and the crypto mode that sealed the provider row.
+refusal, each hook's cost), then the auth backed by the database (22: the
+admin's users row and the argon2id KDF, users, a team and a team-scoped
+role made over HTTP, Basic and Bearer chats whose tokens equal the admin's,
+the ``auth`` phase cold and warm and the loop's lag under logins, an API
+token's usage, revocation and scope, a team-visible tool in one user's
+``/llmchat`` prompt only, forced rotation, a lockout and the reset flow
+over an SMTP stub, CSRF, an ``oauth`` tool's summary, an OIDC login, the
+audit trail and a SOC 2 report). The phase prints sqlite's and jinja2's
+versions and the crypto mode that sealed the provider row.
 
 Checkpoints (two phases; the files live under ``build/checkpoints/`` for
 the phase only, after ``shutil.disk_usage`` is printed): this script draws
@@ -4812,6 +4819,10 @@ async def mcp_path_steps(app, engine, settings, port: int, http, admin: dict, se
         await plugin_chain_steps(app, engine, settings, base, http, admin, seen, step, post,
                                  rpc, steps, bridge)
         steps["21_wall_ms"] = round((time.perf_counter() - t_plugins) * 1e3, 3)
+        # 22. the auth backed by the database in front of the engine
+        t_auth = time.perf_counter()
+        await auth_steps(app, engine, settings, base, http, admin, seen, step, post, rpc, steps)
+        steps["22_wall_ms"] = round((time.perf_counter() - t_auth) * 1e3, 3)
     finally:
         await runner.cleanup()
         await bridge.stop()
@@ -5610,6 +5621,695 @@ async def plugin_chain_steps(app, engine, settings, base: str, http, admin: dict
     steps["21_loop_lag_max_ms"] = max(lags)
 
 
+# the auth backed by the database (step 22 of the gateway phase)
+AUTH_PROMPT_CHARS = 1450   # the Basic chats' text: ~1500 prompt tokens with the template
+AUTH_TOKENS = 32           # their greedy reply
+AUTH_STREAM_TOKENS = 256   # the stream that decodes while the cold logins run
+AUTH_LOGINS = 4            # the cold logins (one argon2 verify each) under that stream
+AUTH_TURN_TOKENS = 64      # each /llmchat turn's cap
+AUTH_SHORT_TOKENS = 8      # the admission checks' replies
+AUTH_TEAM = "smoke-team-22"
+AUTH_ROLE = "smoke-team-builders-22"
+AUTH_TEAM_TOOL = "smoke_team_release_notes"
+AUTH_TURN = "Which tools can you call for me?"
+OAUTH_TOOL = "smoke_oauth_report"
+OAUTH_OUTPUT_CHARS = 2400  # past the summarizer's 2000-character bar
+SSO_PROVIDER = "smoke-idp"
+AUTH_PEOPLE = {"a": ("smoke-a@corp.example", "Smoke-Passw0rd-A22"),
+               "b": ("smoke-b@corp.example", "Smoke-Passw0rd-B22"),
+               "c": ("smoke-c@corp.example", "Smoke-Passw0rd-C22")}
+B_ROTATED, B_RESET = "Smoke-Rotated-B22x", "Smoke-Reset-B22yz"
+SSO_EMAIL = "smoke-sso@corp.example"
+RESET_TOKEN = re.compile(r"[?&]token=([A-Za-z0-9_\-%]+)")
+
+
+class SmtpStub:
+    """An SMTP server on 127.0.0.1 that speaks enough of RFC 5321 for
+    ``smtplib`` (no STARTTLS, no auth) and keeps each message as
+    {from, to, data}."""
+
+    def __init__(self) -> None:
+        self.messages: list[dict] = []
+        self._server = None
+        self.port = 0
+
+    async def start(self) -> None:
+        self._server = await asyncio.start_server(self._handle, "127.0.0.1", 0)
+        self.port = self._server.sockets[0].getsockname()[1]
+
+    async def stop(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            await self._server.wait_closed()
+
+    async def wait(self, n: int, timeout_s: float = 30.0) -> None:
+        deadline = time.monotonic() + timeout_s
+        while len(self.messages) < n:
+            check(time.monotonic() < deadline, f"the SMTP stub got {len(self.messages)} "
+                                               f"messages, not {n}")
+            await asyncio.sleep(0.02)
+
+    def mails_to(self, address: str) -> list[tuple[str, str]]:
+        """(subject, decoded body) of each message to ``address``."""
+        import email as email_lib
+
+        out = []
+        for message in self.messages:
+            parsed = email_lib.message_from_string(message["data"])
+            if parsed["To"] == address:
+                out.append((parsed["Subject"], parsed.get_payload(decode=True).decode()))
+        return out
+
+    async def _handle(self, reader, writer) -> None:
+        message = {"from": "", "to": [], "data": ""}
+
+        async def say(line: str) -> None:
+            writer.write((line + "\r\n").encode())
+            await writer.drain()
+
+        await say("220 smtp-stub ready")
+        while True:
+            raw = await reader.readline()
+            if not raw:
+                break
+            line = raw.decode().strip()
+            verb = line.split(":", 1)[0].split(" ", 1)[0].upper()
+            if verb in ("EHLO", "HELO"):
+                await say("250 smtp-stub")
+            elif verb == "MAIL":
+                message["from"] = line.split(":", 1)[1].strip()
+                await say("250 ok")
+            elif verb == "RCPT":
+                message["to"].append(line.split(":", 1)[1].strip())
+                await say("250 ok")
+            elif verb == "DATA":
+                await say("354 go ahead")
+                body = []
+                while True:
+                    data_line = await reader.readline()
+                    if data_line.strip() == b".":
+                        break
+                    body.append(data_line.decode())
+                message["data"] = "".join(body)
+                self.messages.append(dict(message))
+                message = {"from": "", "to": [], "data": ""}
+                await say("250 accepted")
+            elif verb == "QUIT":
+                await say("221 bye")
+                break
+            else:
+                await say("250 ok")
+        writer.close()
+
+
+async def stub_site(routes: dict) -> tuple:
+    """An aiohttp app on 127.0.0.1 (``routes`` maps (method, path) to a
+    handler): its runner and base URL."""
+    from aiohttp import web
+
+    stub = web.Application()
+    for (method, path), handler in routes.items():
+        stub.router.add_route(method, path, handler)
+    runner = web.AppRunner(stub, access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    return runner, f"http://127.0.0.1:{site._server.sockets[0].getsockname()[1]}"
+
+
+def unsigned_id_token(claims: dict) -> str:
+    """An id_token carrying ``claims`` (the SSO service reads it unverified:
+    it fetched it itself from the IdP's token endpoint)."""
+    import base64
+
+    def part(obj) -> str:
+        return base64.urlsafe_b64encode(json.dumps(obj).encode()).rstrip(b"=").decode()
+
+    return f"{part({'alg': 'RS256'})}.{part(claims)}.sig"
+
+
+class CappedRegistry:
+    """The app's registry with each ``chat_stream``'s ``max_tokens`` capped
+    (the /llmchat agent asks for 512 a step); everything else is the app's
+    registry."""
+
+    def __init__(self, inner, cap: int):
+        self.inner, self.cap = inner, cap
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def chat_stream(self, request):
+        return self.inner.chat_stream({**request, "max_tokens": min(
+            request.get("max_tokens") or self.cap, self.cap)})
+
+
+async def auth_steps(app, engine, settings, base: str, http, admin: dict, seen: list,
+                     step, post, rpc, steps: dict) -> None:
+    """Step 22 of ``gateway_phase`` (after step 21, before step 12): the
+    auth backed by the database, over HTTP, in front of the engine. The
+    SMTP settings point at a ``SmtpStub`` and the reset and lockout mails
+    are on for the step; the IdP, the OAuth token endpoint and the OAuth
+    tool's upstream are aiohttp stubs on 127.0.0.1. Sub-steps a-k are in the
+    docstring of ``gateway_phase``. Everything the step adds is removed at its
+    end (users, tokens, usage and audit rows by SQL, the rest by the API),
+    and the settings it changed are restored."""
+    from urllib.parse import parse_qs, urlsplit
+
+    from mcp_context_forge_tpu_torch.services.chat_service import SYSTEM_PROMPT
+    from mcp_context_forge_tpu_torch.utils.passwords import PasswordHasher
+
+    auth_service, db, ctx = app["auth_service"], app["ctx"].db, app["ctx"]
+    recorder, registry, chats = app["flight_recorder"], app["llm_registry"], app["chat_service"]
+    chat_path = settings.llm_api_prefix + "/chat/completions"
+    page = engine.config.page_size
+    (a, pa), (b, pb), (c, pc) = (AUTH_PEOPLE[k] for k in "abc")
+
+    def creds(user: str, password: str) -> dict:
+        return {"Authorization": basic(user, password)}
+
+    def bearer(token: str) -> dict:
+        return {"Authorization": f"Bearer {token}"}
+
+    async def call(method: str, path: str, body=None, headers=None, status=None):
+        async with getattr(http, method)(base + path, json=body,
+                                         headers=admin if headers is None else headers) as resp:
+            payload = (await resp.json() if resp.content_type == "application/json"
+                       else await resp.text())
+            check(status is None or resp.status == status,
+                  f"{method.upper()} {path}: {resp.status} {str(payload)[:200]}")
+            return resp.status, payload
+
+    async def v1(body: dict) -> dict:
+        return (await post(chat_path, body))[0]
+
+    def short(text: str) -> dict:
+        return {"messages": [{"role": "user", "content": text}],
+                "max_tokens": AUTH_SHORT_TOKENS, "temperature": 0.0}
+
+    def auth_ms(path: str) -> float:
+        """The ``auth`` phase of the newest recorded request to ``path``."""
+        row = next(r for r in reversed(recorder.recent) if r["path"] == path)
+        return row["phases_ms"].get("auth", 0.0)
+
+    async def drained() -> None:
+        pending = list(app["_token_usage_tasks"])
+        if pending:
+            await asyncio.gather(*pending, return_exceptions=True)
+
+    async def counts() -> dict:
+        row = await db.fetchone(
+            "SELECT (SELECT count(*) FROM users) AS users, (SELECT count(*) FROM roles) AS roles,"
+            " (SELECT count(*) FROM api_tokens WHERE revoked_at IS NOT NULL) AS revoked,"
+            " (SELECT count(*) FROM token_usage_logs WHERE blocked=1) AS blocked,"
+            " (SELECT COALESCE(max(id), 0) FROM audit_trail) AS audit_id")
+        return dict(row)
+
+    saved = {name: getattr(settings, name) for name in (
+        "smtp_enabled", "smtp_host", "smtp_port", "smtp_use_tls", "password_reset_enabled",
+        "account_lockout_notification_enabled")}
+    smtp = SmtpStub()
+    await smtp.start()
+    for name, value in (("smtp_enabled", True), ("smtp_host", "127.0.0.1"),
+                        ("smtp_port", smtp.port), ("smtp_use_tls", False),
+                        ("password_reset_enabled", True),
+                        ("account_lockout_notification_enabled", True)):
+        setattr(settings, name, value)
+    made: dict = {"tools": [], "bindings": [], "runners": []}
+    baseline = await counts()
+    lags: list = []
+    try:
+        # 22a. the platform admin's users row, written at startup
+        async with step("22a_bootstrap") as row:
+            admin_row = await db.fetchone(
+                "SELECT is_admin, is_active, auth_provider, password_hash FROM users"
+                " WHERE email=?", (settings.platform_admin_email,))
+            t_boot = time.perf_counter()
+            await auth_service.bootstrap_admin()   # idempotent: one KDF and no new row
+            row["bootstrap_ms"] = round((time.perf_counter() - t_boot) * 1e3, 3)
+            hasher = PasswordHasher()
+            t_kdf = time.perf_counter()
+            hashed = await asyncio.to_thread(hasher.hash, settings.platform_admin_password)
+            row["kdf_hash_ms"] = round((time.perf_counter() - t_kdf) * 1e3, 3)
+            t_kdf = time.perf_counter()
+            await asyncio.to_thread(hasher.verify, admin_row["password_hash"],
+                                    settings.platform_admin_password)
+            row["kdf_verify_ms"] = round((time.perf_counter() - t_kdf) * 1e3, 3)
+        check(admin_row is not None and admin_row["is_admin"] == 1 and admin_row["is_active"] == 1
+              and admin_row["password_hash"].startswith("$argon2id$v=19$m=65536,t=3,p=4$")
+              and hashed.startswith("$argon2id$v=19$m=65536,t=3,p=4$")
+              and (await counts())["users"] == baseline["users"],
+              f"the admin's row after startup: {dict(admin_row or {})}")
+        row.update({"admin_row": {k: admin_row[k] for k in ("is_admin", "is_active",
+                                                            "auth_provider")}})
+
+        # 22b. the env Basic admin makes two users and a third, a team, a role
+        async with step("22b_admin_setup") as row:
+            for user, password in (AUTH_PEOPLE[k] for k in "abc"):
+                await call("post", "/admin/users", {"email": user, "password": password}, status=201)
+            _, team = await call("post", "/teams", {"name": AUTH_TEAM}, status=201)
+            await call("post", f"/teams/{team['id']}/members", {"email": a}, status=204)
+            _, role = await call("post", "/rbac/roles", {
+                "name": AUTH_ROLE, "scope": "team",
+                "permissions": ["tools.create", "tokens.manage"]}, status=201)
+            await call("post", f"/rbac/users/{a}/roles",
+                       {"role_id": role["id"], "scope_id": team["id"]}, status=201)
+            _, granted = await call("get", f"/rbac/permissions/user/{a}", status=200)
+        made.update(team=team["id"], role=role["id"])
+        check(row["engine_requests"] == 0
+              and {"tools.create", "tokens.manage"} <= set(granted["permissions"]),
+              f"A's permissions after the grant: {granted}")
+        row["a_permissions"] = len(granted["permissions"])
+
+        # 22c. a login, the Basic chats (cold, then a full-prefix hit), the
+        # auth phase cold and warm for Basic and Bearer, logins under a stream
+        body = {"messages": [{"role": "user", "content": tool_output(51, AUTH_PROMPT_CHARS)}],
+                "max_tokens": AUTH_TOKENS, "temperature": 0.0}
+        async with step("22c_login") as row:
+            t_login = time.perf_counter()
+            _, login = await call("post", "/auth/login", {"email": a, "password": pa},
+                                  headers={}, status=200)
+            row["login_ms"] = round((time.perf_counter() - t_login) * 1e3, 3)
+        check(login.get("token_type") == "bearer" and row["engine_requests"] == 0,
+              f"A's login answered {login}")
+        a_basic, a_bearer = creds(a, pa), bearer(login["access_token"])
+        async with step("22c_basic_cold") as row:
+            await call("post", chat_path, body, headers=a_basic, status=200)
+        cold = seen[-1]
+        row.update({"auth_ms": auth_ms(chat_path), "prompt_tokens": len(cold.prompt_ids),
+                    "bucket": cold.bucket, "decode_tokens": len(cold.generated)})
+        check(row["engine_requests"] == 1 and cold.hist == 0
+              and row["launches"].get("flash_attention_tc", 0) > 0
+              and row["launches"].get("paged_decode_attention", 0) > 0,
+              f"A's cold Basic chat: {row['engine_requests']} requests, history {cold.hist}, "
+              f"launches {row['launches']}")
+        async with step("22c_basic_warm") as row:
+            await call("post", chat_path, body, headers=a_basic, status=200)
+        hit = seen[-1]
+        row.update({"auth_ms": auth_ms(chat_path), "history_tokens": hit.hist,
+                    "decode_tokens": len(hit.generated)})
+        check(row["engine_requests"] == 1 and hit.hist >= len(hit.prompt_ids) - page
+              and row["launches"].get("paged_chunk_attention_tc", 0) > 0
+              and not row["launches"].get("flash_attention_tc"),
+              f"A's repeat: history {hit.hist} of {len(hit.prompt_ids)}, launches "
+              f"{row['launches']}")
+        # the env admin's same chat: cold (the prefix cache off), then as a hit
+        reference, _ = await cold_chat(engine, seen, v1, body)
+        check_same_tokens(cold, reference, "A's cold Basic chat against the admin's")
+        await v1(body)
+        admin_hit = seen[-1]
+        check(admin_hit.hist == hit.hist, f"the admin's hit took {admin_hit.hist} history "
+                                          f"tokens, A's {hit.hist}")
+        check_same_tokens(hit, admin_hit, "A's prefix-hit chat against the admin's")
+        steps["22c_basic_cold"]["tokens_equal_admin_chat"] = True
+        row["tokens_equal_admin_chat"] = True
+        row["tokens_equal_cold"] = hit.generated == cold.generated
+        row["first_difference_from_cold"] = next(
+            (i for i, (x, y) in enumerate(zip(hit.generated, cold.generated)) if x != y), None)
+        # the Bearer's first resolution reads the users row, teams and roles
+        auth_service.invalidate_user(a)
+        for name in ("22c_bearer_cold", "22c_bearer_warm"):
+            async with step(name) as row:
+                await call("get", "/tools", headers=a_bearer, status=200)
+            row["auth_ms"] = auth_ms("/tools")
+        # cold logins while a stream decodes: the KDF runs off the loop
+        stream = {"messages": [{"role": "user", "content": "Count slowly."}],
+                  "max_tokens": AUTH_STREAM_TOKENS, "temperature": 0.0, "stream": True}
+        async with step("22c_logins_under_stream") as row:
+            requests0 = len(seen)
+
+            async def streamed() -> list:
+                async with http.post(base + chat_path, json=stream, headers=admin) as resp:
+                    check(resp.status == 200, f"the stream answered {resp.status}")
+                    return sse_events(await resp.read())
+
+            reader = asyncio.ensure_future(streamed())
+            deadline = time.monotonic() + 120
+            while not (len(seen) > requests0 and seen[-1].generated):
+                check(time.monotonic() < deadline and not reader.done(),
+                      "the stream never started decoding")
+                await asyncio.sleep(0.005)
+            streaming = seen[-1]
+            sampler_lag = app["loop_lag_sampler"]
+            sampler_lag.max_lag_s = 0.0
+            decoded_at_start = len(streaming.generated)
+            login_ms = []
+            for i in range(AUTH_LOGINS):
+                user, password = (a, pa) if i % 2 == 0 else (b, pb)
+                t_login = time.perf_counter()
+                await call("post", "/auth/login", {"email": user, "password": password},
+                           headers={}, status=200)
+                login_ms.append(round((time.perf_counter() - t_login) * 1e3, 3))
+            lag_ms = round(sampler_lag.max_lag_s * 1e3, 3)
+            decoded_at_end = len(streaming.generated)
+            window_ms = round(sum(login_ms), 3)
+            events = await asyncio.wait_for(reader, 300)
+        check(decoded_at_end < len(streaming.generated) and events,
+              f"the logins did not overlap the stream's decode: {decoded_at_end} of "
+              f"{len(streaming.generated)} tokens when they ended")
+        # the stream's tokens over the logins' window against its whole decode:
+        # a KDF that holds the GIL stalls the dispatch thread as well as the loop
+        row.update({"login_ms": login_ms, "loop_lag_during_logins_ms": lag_ms,
+                    "stream_tokens_during_logins": decoded_at_end - decoded_at_start,
+                    "logins_window_ms": window_ms,
+                    "stream_decode_tokens": len(streaming.generated)})
+        b_jwt = (await call("post", "/auth/login", {"email": b, "password": pb}, headers={},
+                            status=200))[1]["access_token"]
+
+        # 22d. an API token: admitted, listed with its usage, revoked, scoped out
+        async with step("22d_api_token") as row:
+            _, token = await call("post", "/auth/tokens", {
+                "name": "smoke-chat", "permissions": ["llm.chat"]}, headers=a_basic, status=201)
+            async with http.post(base + chat_path, json={**short("Stream with a token."),
+                                                         "stream": True},
+                                 headers=bearer(token["token"])) as resp:
+                check(resp.status == 200
+                      and resp.headers["content-type"].startswith("text/event-stream"),
+                      f"the token's stream answered {resp.status}")
+                events = sse_events(await resp.read())
+            await drained()
+            _, usage = await call("get", f"/auth/tokens/{token['id']}/usage", headers=a_basic,
+                                  status=200)
+        check(row["engine_requests"] == 1 and events
+              and [(e["method"], e["path"], e["status"], e["blocked"]) for e in usage["entries"]]
+              == [("POST", chat_path, 200, 0)],
+              f"the token's chat: {row['engine_requests']} requests, usage {usage}")
+        async with step("22d_revoked") as row:
+            await call("delete", f"/auth/tokens/{token['id']}", headers=a_basic, status=204)
+            _, refused = await call("post", chat_path, short("After the revoke."),
+                                    headers=bearer(token["token"]), status=401)
+            await drained()
+            _, usage = await call("get", f"/auth/tokens/{token['id']}/usage", headers=a_basic,
+                                  status=200)
+        check(row["engine_requests"] == 0 and refused == {"detail": "Token revoked"}
+              and (usage["entries"][0]["status"], usage["entries"][0]["blocked"],
+                   usage["entries"][0]["block_reason"]) == (401, 1, "http_401"),
+              f"the revoked token: {refused}, {row['engine_requests']} requests, usage "
+              f"{usage['entries'][:1]}")
+        async with step("22d_scope_refused") as row:
+            _, reader_token = await call("post", "/auth/tokens", {
+                "name": "smoke-read", "permissions": ["tools.read"]}, headers=a_basic, status=201)
+            _, refused_scope = await call("post", chat_path, short("Out of scope."),
+                                          headers=bearer(reader_token["token"]), status=403)
+        check(row["engine_requests"] == 0
+              and refused_scope == {"detail": "Missing permission: llm.chat"},
+              f"the scoped-out token: {refused_scope}, {row['engine_requests']} requests")
+        row["refused"] = refused_scope
+
+        # 22e. a team-visible tool reaches A's /llmchat prompt, not B's
+        _, tool = await call("post", "/tools", {
+            "name": AUTH_TEAM_TOOL, "integration_type": "REST", "request_type": "GET",
+            "url": f"{base}/version", "description": "The team's release notes.",
+            "team_id": made["team"], "visibility": "team"}, headers=a_basic, status=201)
+        made["tools"].append(tool["id"])
+        ctx.llm_registry = CappedRegistry(registry, AUTH_TURN_TOKENS)
+        engine.config.prefix_cache = False   # each turn and its direct chat cold
+        turns = {}
+        try:
+            for who, (user, headers) in (("a", (a, a_basic)), ("b", (b, creds(b, pb)))):
+                _, connected = await call("post", "/llmchat/connect", {}, headers=headers,
+                                          status=201)
+                sid = connected["session_id"]
+                async with step(f"22e_llmchat_{who}") as row:
+                    async with http.post(f"{base}/llmchat/{sid}/chat", headers=headers,
+                                         json={"message": AUTH_TURN, "stream": True}) as resp:
+                        check(resp.status == 200, f"{who}'s turn answered {resp.status}")
+                        events = sse_events(await resp.read())
+                turn = seen[-1]
+                session = await chats.get_session(sid, user)
+                tools = await chats._tool_defs(session, await auth_service.user_teams(user))
+                names = sorted(t["function"]["name"] for t in tools)
+                check(row["engine_requests"] == 1 and events[-1].get("type") == "answer",
+                      f"{who}'s turn: {row['engine_requests']} requests, last event "
+                      f"{events[-1:]}")
+                requests0 = len(seen)
+                await v1({"messages": [{"role": "system", "content": SYSTEM_PROMPT},
+                                       {"role": "user", "content": AUTH_TURN}],
+                          "tools": tools, "max_tokens": AUTH_TURN_TOKENS, "temperature": 0.0})
+                check(len(seen) - requests0 == 1, "the direct chat did not reach the engine once")
+                direct = seen[-1]
+                check(len(turn.prompt_ids) == len(direct.prompt_ids) and turn.hist == 0,
+                      f"{who}'s turn prompt {len(turn.prompt_ids)} tokens (history {turn.hist}),"
+                      f" the direct chat's {len(direct.prompt_ids)}")
+                check_same_tokens(turn, direct, f"{who}'s /llmchat turn")
+                row.update({"catalog": len(names), "team_tool_offered": AUTH_TEAM_TOOL in names,
+                            "prompt_tokens": len(turn.prompt_ids),
+                            "decode_tokens": len(turn.generated),
+                            "tokens_equal_direct_chat": True})
+                turns[who] = (names, engine.tokenizer.decode(list(turn.prompt_ids)))
+                await call("delete", f"/llmchat/{sid}", headers=headers, status=204)
+        finally:
+            ctx.llm_registry = registry
+            engine.config.prefix_cache = True
+        check(AUTH_TEAM_TOOL in turns["a"][0] and AUTH_TEAM_TOOL in turns["a"][1]
+              and AUTH_TEAM_TOOL not in turns["b"][0] and AUTH_TEAM_TOOL not in turns["b"][1],
+              f"the team tool in A's catalog {AUTH_TEAM_TOOL in turns['a'][0]}, in B's "
+              f"{AUTH_TEAM_TOOL in turns['b'][0]}")
+
+        # 22f. forced rotation
+        async with step("22f_rotation") as row:
+            await call("post", f"/admin/users/{b}/require-password-change", status=200)
+            requests0 = len(seen)
+            _, refused = await call("post", chat_path, short("Before the rotation."),
+                                    headers=creds(b, pb), status=403)
+            refused_requests = len(seen) - requests0
+            await call("post", "/auth/password", {"old_password": pb, "new_password": B_ROTATED},
+                       headers=creds(b, pb), status=200)
+            await call("post", chat_path, short("After the rotation."),
+                       headers=creds(b, B_ROTATED), status=200)
+        check(refused.get("code") == "PASSWORD_CHANGE_REQUIRED" and refused_requests == 0
+              and row["engine_requests"] == 1, f"the rotation: {refused}, "
+                                               f"{row['engine_requests']} engine requests")
+        row["refused"] = refused["code"]
+
+        # 22g. the lockout and its mail; the reset flow kills B's older JWT
+        async with step("22g_lockout") as row:
+            mails0 = len(smtp.messages)
+            for _ in range(settings.auth_max_failed_attempts):
+                await call("post", "/auth/login", {"email": c, "password": "Wrong-Passw0rd-C"},
+                           headers={}, status=401)
+            await smtp.wait(mails0 + 1)
+            _, locked = await call("post", "/auth/login", {"email": c, "password": pc},
+                                   headers={}, status=401)
+        subjects = [s for s, _ in smtp.mails_to(c)]
+        check(locked == {"detail": "Account locked"} and len(subjects) == 1
+              and "locked" in subjects[0] and row["engine_requests"] == 0,
+              f"the lockout: {locked}, mails {subjects}")
+        row.update({"failed_attempts": settings.auth_max_failed_attempts,
+                    "mail_subject": subjects[0]})
+        # the JWT's iat is whole seconds, the reset's cutoff too
+        while int(time.time()) <= jwt_iat(b_jwt):
+            await asyncio.sleep(0.05)
+        async with step("22g_reset") as row:
+            mails0 = len(smtp.messages)
+            t_request = time.perf_counter()
+            await call("post", "/auth/password/reset-request", {"email": b}, headers={},
+                       status=202)
+            row["reset_request_ms"] = round((time.perf_counter() - t_request) * 1e3, 3)
+            await smtp.wait(mails0 + 1)
+            reset_token = RESET_TOKEN.search(smtp.mails_to(b)[-1][1]).group(1)
+            await call("post", "/auth/password/reset",
+                       {"token": reset_token, "new_password": B_RESET}, headers={}, status=200)
+            _, dead = await call("get", "/tools", headers=bearer(b_jwt), status=401)
+            await call("post", "/auth/login", {"email": b, "password": B_RESET}, headers={},
+                       status=200)
+        check(dead == {"detail": "Token invalidated by password reset"}
+              and row["engine_requests"] == 0, f"B's older JWT after the reset: {dead}")
+
+        # 22h. CSRF on the ambient credentials, not on a Bearer
+        async with step("22h_csrf") as row:
+            requests0 = len(seen)
+            _, refused = await call("post", chat_path, short("A cross-site post."),
+                                    headers={**a_basic, "Sec-Fetch-Site": "cross-site"},
+                                    status=403)
+            refused_requests = len(seen) - requests0
+            await call("post", chat_path, short("A cross-site post."),
+                       headers={**a_bearer, "Sec-Fetch-Site": "cross-site"}, status=200)
+        check(refused.get("code") == "CSRF_CROSS_SITE" and refused_requests == 0
+              and row["engine_requests"] == 1,
+              f"the CSRF check: {refused}, {row['engine_requests']} engine requests")
+        row["refused"] = refused["code"]
+
+        # 22i. an oauth tool: the issued Bearer reaches its upstream; the summary
+        issued, upstream = [], []
+        output = tool_output(52, OAUTH_OUTPUT_CHARS)
+
+        async def token_endpoint(request):
+            from aiohttp import web
+
+            form = await request.post()
+            if form.get("client_secret") != "smoke-secret":
+                return web.json_response({"error": "invalid_client"}, status=401)
+            issued.append(form.get("client_id"))
+            return web.json_response({"access_token": f"smoke-cc-{len(issued)}",
+                                      "expires_in": 3600})
+
+        async def api(request):
+            from aiohttp import web
+
+            upstream.append(request.headers.get("authorization", ""))
+            return web.Response(text=output)
+
+        runner, stub = await stub_site({("POST", "/token"): token_endpoint,
+                                        ("POST", "/api"): api})
+        made["runners"].append(runner)
+        _, oauth_tool = await call("post", "/tools", {
+            "name": OAUTH_TOOL, "integration_type": "REST", "request_type": "POST",
+            "url": stub + "/api", "auth_type": "oauth",
+            "auth_value": {"token_url": stub + "/token", "client_id": "smoke-client",
+                           "client_secret": "smoke-secret"}}, status=201)
+        made["tools"].append(oauth_tool["id"])
+        _, binding = await call("post", "/plugins/bindings", {
+            "plugin_name": "summarizer", "scope_type": "tool", "scope_id": OAUTH_TOOL,
+            "config": {"threshold_chars": 2000, "max_tokens": AUTH_TOKENS,
+                       "prompt": SUMMARY_PROMPT}}, status=201)
+        made["bindings"].append(binding["id"])
+        async with step("22i_oauth_tool") as row:
+            first = await rpc("tools/call", {"name": OAUTH_TOOL, "arguments": {"period": "q3"}},
+                              rid=2201)
+            summary_request = seen[-1]
+            second = await rpc("tools/call", {"name": OAUTH_TOOL, "arguments": {"period": "q3"}},
+                               rid=2202)
+        reference, reply_text = await cold_chat(engine, seen, registry.chat, {
+            "messages": [{"role": "system", "content": SUMMARY_PROMPT},
+                         {"role": "user", "content": output}],
+            "max_tokens": AUTH_TOKENS, "temperature": 0.0})
+        check_same_tokens(summary_request, reference, "the oauth tool's summary")
+        result = first.get("result") or {}
+        check(upstream == ["Bearer smoke-cc-1"] * 2 and issued == ["smoke-client"]
+              and row["engine_requests"] == 1 and result.get("_summarized") is True
+              and result["content"][0]["text"] == reply_text
+              and second.get("result") == result,
+              f"the oauth tool: upstream saw {upstream}, {len(issued)} issued, "
+              f"{row['engine_requests']} engine requests, answer {str(first)[:160]}")
+        row.update({"upstream_authorization": upstream, "tokens_issued": len(issued),
+                    "prompt_tokens": len(summary_request.prompt_ids),
+                    "decode_tokens": len(summary_request.generated),
+                    "tokens_equal_direct_chat": True})
+
+        # 22j. an OIDC login through a stub IdP provisions a user the engine admits
+        async def discovery(request):
+            from aiohttp import web
+
+            return web.json_response({"authorization_endpoint": f"http://{request.host}/authorize",
+                                      "token_endpoint": f"http://{request.host}/token"})
+
+        async def idp_token(request):
+            from aiohttp import web
+
+            form = await request.post()
+            if form.get("code") != "smoke-code":
+                return web.json_response({"error": "invalid_grant"}, status=400)
+            return web.json_response({"access_token": "at", "id_token": unsigned_id_token(
+                {"email": SSO_EMAIL, "name": "Smoke SSO"})})
+
+        runner, idp = await stub_site({("GET", "/.well-known/openid-configuration"): discovery,
+                                       ("POST", "/token"): idp_token})
+        made["runners"].append(runner)
+        app["sso_service"].register_provider(SSO_PROVIDER, idp, "smoke-client", "smoke-secret")
+        async with step("22j_sso") as row:
+            async with http.get(f"{base}/auth/sso/{SSO_PROVIDER}/login",
+                                allow_redirects=False) as resp:
+                location = resp.headers.get("location", "")
+                check(resp.status == 302 and location.startswith(idp + "/authorize"),
+                      f"the SSO login answered {resp.status} {location}")
+            state = parse_qs(urlsplit(location).query)["state"][0]
+            _, signed_in = await call(
+                "get", f"/auth/sso/{SSO_PROVIDER}/callback?state={state}&code=smoke-code",
+                headers={}, status=200)
+            await call("post", chat_path, short("Hello from SSO."),
+                       headers=bearer(signed_in["access_token"]), status=200)
+        provisioned = await db.fetchone("SELECT auth_provider, is_active FROM users WHERE email=?",
+                                        (SSO_EMAIL,))
+        check(signed_in.get("email") == SSO_EMAIL and provisioned is not None
+              and provisioned["auth_provider"] == SSO_PROVIDER and row["engine_requests"] == 1,
+              f"the SSO login: {signed_in.get('email')}, row {dict(provisioned or {})}, "
+              f"{row['engine_requests']} engine requests")
+
+        # 22k. the audit trail of step b; a SOC 2 report counts what step 22 made
+        async with step("22k_audit_compliance") as row:
+            _, trail = await call("get", "/admin/audit?limit=1000", status=200)
+            _, report = await call("post", "/compliance/reports", {"framework": "soc2_type2"},
+                                   status=201)
+        made["report"] = report["id"]
+        actions = {r["action"] for r in trail if r["id"] > baseline["audit_id"]}
+        wanted = {"POST /admin/users", "POST /teams", f"POST /teams/{made['team']}/members",
+                  "POST /rbac/roles", f"POST /rbac/users/{a}/roles"}
+        evidence = {e["source"]: e for control in report["controls"]
+                    for e in control["artifacts"]}
+        got = {"users": evidence["user_inventory"]["total_users"],
+               "roles": evidence["role_inventory"]["roles_defined"],
+               "revoked": evidence["token_hygiene"]["tokens_revoked"],
+               "blocked": evidence["token_hygiene"]["blocked_token_attempts"]}
+        want = {"users": baseline["users"] + 4, "roles": baseline["roles"] + 1,
+                "revoked": baseline["revoked"] + 1, "blocked": baseline["blocked"] + 2}
+        check(wanted <= actions and got == want and row["engine_requests"] == 0,
+              f"the audit trail lacks {sorted(wanted - actions)}; the report counts {got}, "
+              f"not {want}")
+        row.update({"audit_rows": len(actions), "report_counts": got,
+                    "compliance_pct": report["summary"]["compliance_pct"]})
+    finally:
+        for binding_id in made["bindings"]:
+            await call("delete", f"/plugins/bindings/{binding_id}", status=204)
+        for tool_id in made["tools"]:
+            await call("delete", f"/tools/{tool_id}", status=204)
+        if "role" in made:
+            await call("delete", f"/rbac/users/{a}/roles/{made['role']}"
+                                 f"?scope_id={made.get('team', '')}", status=204)
+            await call("delete", f"/rbac/roles/{made['role']}", status=204)
+        if "team" in made:
+            await call("delete", f"/teams/{made['team']}", status=204)
+        people = [a, b, c, SSO_EMAIL]
+        marks = ",".join("?" for _ in people)
+        for sql in (f"DELETE FROM token_usage_logs WHERE user_email IN ({marks})",
+                    f"DELETE FROM api_tokens WHERE user_email IN ({marks})",
+                    f"DELETE FROM password_reset_tokens WHERE user_email IN ({marks})",
+                    f"DELETE FROM team_members WHERE user_email IN ({marks})",
+                    f"DELETE FROM users WHERE email IN ({marks})"):
+            await db.execute(sql, people)
+        for person in people:
+            auth_service.invalidate_user(person)
+        await db.execute("DELETE FROM audit_trail WHERE id > ?", (baseline["audit_id"],))
+        if "report" in made:
+            await db.execute("DELETE FROM compliance_reports WHERE id=?", (made["report"],))
+        app["sso_service"]._providers.pop(SSO_PROVIDER, None)
+        for runner in made["runners"]:
+            await runner.cleanup()
+        for name, value in saved.items():
+            setattr(settings, name, value)
+        await smtp.stop()
+    after = await counts()
+    check({k: after[k] for k in ("users", "roles", "revoked", "blocked")}
+          == {k: baseline[k] for k in ("users", "roles", "revoked", "blocked")},
+          f"after step 22 the tables count {after}, not {baseline}")
+    rows = {}
+    for name, row in steps.items():
+        if name.startswith("22"):
+            lags.append(row["loop_lag_max_ms"])
+            for kernel, n in row["launches"].items():
+                rows[kernel] = rows.get(kernel, 0) + n
+            emit({"step": name, **{k: row[k] for k in ("wall_ms", "engine_requests", "ttft_ms",
+                                                        "launches", "loop_lag_max_ms")},
+                  **{k: v for k, v in row.items()
+                     if k in ("auth_ms", "login_ms", "kdf_hash_ms", "kdf_verify_ms",
+                              "bootstrap_ms", "loop_lag_during_logins_ms",
+                              "stream_tokens_during_logins", "logins_window_ms",
+                              "tokens_equal_cold", "first_difference_from_cold",
+                              "report_counts")}})
+    for kernel in ATTENTION:
+        check(rows.get(kernel, 0) > 0, f"{kernel} never launched in step 22: {rows}")
+    steps["22_launches"] = rows
+    steps["22_loop_lag_max_ms"] = max(lags)
+
+
+def jwt_iat(token: str) -> int:
+    """A JWT's ``iat``, read without verifying it."""
+    import base64
+
+    payload = token.split(".")[1]
+    return int(json.loads(base64.urlsafe_b64decode(payload + "=" * (-len(payload) % 4)))["iat"])
+
+
 def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
                   max_seq_len: int = 4096, output_chars: int = 2000) -> tuple[dict, dict]:
     """``engine_llama3_8b_gateway``: the gateway's database and plugins on a
@@ -5754,10 +6454,44 @@ def gateway_phase(torch, dev, model: str = "llama3-8b", dtype: str = "bfloat16",
         time each hook (count, p50 and max µs; the external round trip's ms)
         against ``plugin_duration``'s count. Everything it adds is removed,
         and no plugin server process is left.
+    22. ``auth_steps``, after step 21 (the SMTP settings on a ``SmtpStub``,
+        the reset and lockout mails on): a. the platform admin's users row
+        exists after startup (argon2id, admin, active); a second
+        ``bootstrap_admin`` (idempotent), one hash and one verify are
+        timed; b. the env Basic admin makes users A, B, C, a team with A as
+        a member and a team-scoped role (``tools.create``, ``tokens.manage``)
+        granted to A in it; c. A's login (one verify), A's Basic chat of
+        AUTH_PROMPT_CHARS (~1471 tokens, AUTH_TOKENS, cold: flash and
+        decode) equal to the admin's cold chat, its repeat (a full-prefix
+        hit: chunk, no flash) equal to the admin's hit (whether it equals
+        the cold tokens is read), the ``auth`` phase of a cold and a warm
+        Basic request and of A's Bearer cold (its cache dropped) and warm,
+        and the loop's max lag over AUTH_LOGINS cold logins while a
+        AUTH_STREAM_TOKENS stream decodes (the stream's tokens in their
+        window beside it); d. A's ``llm.chat`` token streams, its usage
+        lists the request, revoked it answers 401 "Token revoked" with no
+        engine request and a blocked row, a ``tools.read`` token 403;
+        e. a team-visible tool A registers is in A's ``/llmchat`` prompt and
+        not in B's (AUTH_TURN_TOKENS each, cold), each turn's tokens equal a
+        cold ``/v1`` chat over the same tools; f. B flagged answers 403
+        ``PASSWORD_CHANGE_REQUIRED`` with no engine request, rotates, chats;
+        g. ``auth_max_failed_attempts`` wrong logins lock C and mail the stub,
+        C's right password answers "Account locked"; the mailed reset kills
+        B's older JWT; h. a Basic ``/v1`` post declared cross-site is 403
+        ``CSRF_CROSS_SITE`` with no engine request, a Bearer one is served;
+        i. an ``oauth`` REST tool on a stub upstream and token endpoint,
+        called twice: the issued Bearer both times from one issue, its
+        OAUTH_OUTPUT_CHARS output summarized in one engine request equal to
+        a cold chat; j. an OIDC login through a stub IdP provisions a user
+        whose JWT a ``/v1`` chat admits; k. ``/admin/audit`` lists step b's
+        mutations and a ``soc2_type2`` report counts the users, the role,
+        the revoked token and the two blocked rows step 22 made. Rows 1-3
+        must launch in step 22; everything it made is removed after.
     Each step's wall, engine requests, TTFTs, launches per row and the loop
     sampler's max lag are in ``mcp``; steps 13-17's and 18-20's launches are
-    summed in ``13_17_launches`` and ``18_20_launches``, and step 21 prints
-    a line for each of its sub-steps."""
+    summed in ``13_17_launches`` and ``18_20_launches``, step 22's in
+    ``22_launches``, and steps 21 and 22 print a line for each of their
+    sub-steps."""
     import sqlite3
     import tempfile
 

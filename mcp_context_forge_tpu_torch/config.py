@@ -106,6 +106,81 @@ class Settings:
     platform_admin_email: str = "admin@example.com"
     platform_admin_password: str = "changeme"
     auth_encryption_secret: str = "dev-only-do-not-use"
+    app_domain: str = "http://localhost:4444"   # the base of mailed and SSO links
+    token_expiry: int = 10080  # minutes
+    # --- the password policy of local accounts ---
+    password_min_length: int = 12
+    password_require_uppercase: bool = True
+    password_require_lowercase: bool = True
+    password_require_digit: bool = True
+    password_require_special: bool = False
+    password_max_length: int = 256  # argon2 DoS guard
+    # --- the auth resolution cache: TTLs bound the staleness of the users,
+    # teams, roles and revocation reads; the writes that must show on the
+    # next request invalidate ---
+    auth_cache_enabled: bool = True
+    auth_cache_user_ttl: float = 30.0
+    auth_cache_teams_ttl: float = 30.0
+    auth_cache_role_ttl: float = 30.0
+    auth_cache_revocation_ttl: float = 30.0
+    auth_cache_max_entries: int = 4096
+    # --- CSRF and forced password rotation ---
+    csrf_enabled: bool = True
+    csrf_trusted_origins_csv: str = ""   # extra allowed Origin values
+    csrf_token_ttl_s: float = 8 * 3600.0
+    csrf_cookie_name: str = "csrf_token"
+    csrf_header_name: str = "X-CSRF-Token"
+    csrf_cookie_secure: bool = False     # set true behind TLS
+    csrf_exempt_paths_csv: str = ""      # exact-or-prefix exemptions
+    # fail-closed Origin/Referer requirement for ambient-credential
+    # mutations: off by default, it refuses Basic clients that send neither
+    csrf_check_referer: bool = False
+    password_change_enforcement_enabled: bool = True
+    admin_require_password_change_on_bootstrap: bool = False
+    # --- API token usage accounting ---
+    token_usage_logging_enabled: bool = True
+    token_usage_log_retention: int = 10000   # rows kept per maintenance pass
+    # --- teams (0 = unlimited caps) ---
+    allow_team_creation: bool = True
+    allow_team_invitations: bool = True
+    allow_public_visibility: bool = True
+    default_team_member_role: str = "member"
+    invitation_expiry_hours: float = 72.0
+    max_teams_per_user: int = 50
+    max_members_per_team: int = 100
+    # --- SSO provisioning (providers: a JSON list of {name, issuer,
+    # client_id, client_secret, ...}) ---
+    sso_providers: str = ""
+    sso_trusted_domains_csv: str = ""     # ""=any; else allowlist
+    sso_require_admin_approval: bool = False  # provision deactivated
+    sso_auto_admin_domains_csv: str = ""  # domains granted is_admin
+    api_token_max_lifetime_minutes: float = 0.0  # 0 = unlimited
+    # --- SMTP notifications ---
+    smtp_enabled: bool = False
+    smtp_host: str = ""
+    smtp_port: int = 587
+    smtp_user: str = ""
+    smtp_password: str = ""
+    smtp_from_email: str = "noreply@localhost"
+    smtp_from_name: str = "MCP Gateway"
+    smtp_use_tls: bool = True     # STARTTLS on a plain connection
+    smtp_use_ssl: bool = False    # implicit TLS (SMTPS, port 465)
+    smtp_timeout_seconds: float = 10.0
+    account_lockout_notification_enabled: bool = False
+    team_invitation_email_enabled: bool = True  # only fires when smtp is on
+    # --- password reset ---
+    password_reset_enabled: bool = False
+    password_reset_token_expiry_minutes: float = 60.0
+    password_reset_rate_limit: int = 3          # requests per window/email
+    password_reset_rate_window_minutes: float = 60.0
+    password_reset_min_response_ms: float = 100.0  # user-enumeration guard
+    password_reset_invalidate_sessions: bool = True
+    # --- account lockout ---
+    auth_max_failed_attempts: int = 5
+    auth_lockout_seconds: float = 300.0
+    # --- audit trail and its SIEM export ('' = no export) ---
+    siem_export_url: str = ""
+    audit_enabled: bool = True
     # --- outbound/identity plumbing ---
     auth_header_name: str = "authorization"  # custom ingress auth header
     # --- correlation ids ---
@@ -422,6 +497,22 @@ class Settings:
     @property
     def allowed_resource_mime_types(self) -> tuple[str, ...]:
         return self._csv(self.allowed_resource_mime_types_csv)
+
+    @property
+    def csrf_trusted_origins(self) -> tuple[str, ...]:
+        return self._csv(self.csrf_trusted_origins_csv)
+
+    @property
+    def csrf_exempt_paths(self) -> tuple[str, ...]:
+        return self._csv(self.csrf_exempt_paths_csv)
+
+    @property
+    def sso_trusted_domains(self) -> tuple[str, ...]:
+        return tuple(d.lower() for d in self._csv(self.sso_trusted_domains_csv))
+
+    @property
+    def sso_auto_admin_domains(self) -> tuple[str, ...]:
+        return tuple(d.lower() for d in self._csv(self.sso_auto_admin_domains_csv))
 
     def validate_security(self) -> list[str]:
         return validate_security(self)

@@ -1,27 +1,21 @@
-"""Request identity for the port's /v1 surface: the part of the JAX
-package's ``services/auth_service.py`` that needs no database (stdlib
-only, so it also runs on the card).
+"""The identity types of the port's gateway and the reading of an
+Authorization header that needs no database (stdlib only).
 
 - ``PERMISSIONS`` and ``DEFAULT_USER_PERMISSIONS``, the reference's matrix.
 - ``AuthContext`` with ``can``/``require``; ``AuthError`` (a 401) and
-  ``PermissionDenied`` (a 403).
-- ``resolve_basic``: the env credentials (``basic_auth_user``,
-  ``basic_auth_password``, compared in constant time) resolve to the
-  platform admin with every permission; anything else is
-  ``AuthError("Invalid credentials")``.
-- ``resolve_bearer``: a JWT decoded against ``jwt_secret_key``,
-  ``jwt_algorithm``, ``jwt_audience`` and ``jwt_issuer``, with a required
-  ``sub``. A scoped token keeps only its scopes that are permissions; any
-  other token gets ``DEFAULT_USER_PERMISSIONS``, which is what the
-  reference gives a subject with no users row and no roles.
-- ``resolve_header``: the auth middleware's reading of the Authorization
-  header (Bearer, Basic, anonymous admin when ``auth_required`` is off,
-  else ``AuthError("Authentication required")``).
-
-Left out, because each needs the gateway's database: JTI revocation and
-token last-use stamps; users rows (admin flags, deactivation,
-``tokens_valid_after``, forced password changes); teams and roles;
-plugin identity resolvers; and Basic logins of argon2-hashed users.
+  ``PermissionDenied`` (a 403). ``services/auth_service.py`` resolves
+  identities into these over the gateway's database (users, API tokens,
+  teams, roles), and the app's auth middleware goes through it.
+- ``resolve_basic``, ``resolve_bearer`` and ``resolve_header``: the same
+  readings from the settings alone, for a caller with no database: the env
+  credentials resolve to the platform admin with every permission; a JWT
+  decoded against ``jwt_secret_key``, ``jwt_algorithm``, ``jwt_audience``
+  and ``jwt_issuer``, with a required ``sub``, keeps its scopes that are
+  permissions, or else gets ``DEFAULT_USER_PERMISSIONS`` (what the database
+  path gives a subject with no users row and no roles); no header is an
+  anonymous admin when ``auth_required`` is off, else
+  ``AuthError("Authentication required")``. None of them reads revocations,
+  users rows, teams or roles.
 ``settings`` is duck-typed as the gateway's.
 """
 
@@ -74,6 +68,8 @@ class AuthContext:
     server_id: str | None = None  # server-scoped token restriction
     via: str = "jwt"  # jwt|basic|anonymous
     scoped: bool = False  # token carries explicit scopes: no admin shortcut
+    # the users row's forced-rotation flag (read by password_change_middleware)
+    password_change_required: bool = False
 
     def can(self, permission: str) -> bool:
         # a scoped token derives its power from its scopes alone: an

@@ -1,7 +1,6 @@
 """The aiohttp middlewares of the port's app: the JAX package's
 ``gateway/middleware.py`` chain in its order (``MIDDLEWARES``, outermost
-first), but for the three layers that need the database's users, tokens
-and roles (``token_usage``, ``csrf``, ``password_change``):
+first):
 
 - ``observability_middleware``: a correlation id and the ``http.request``
   span, through the app's tracer (``app["tracer"]``); with a registry in
@@ -33,6 +32,13 @@ and roles (``token_usage``, ``csrf``, ``password_change``):
   on the ``deprecated_path_prefixes``;
 - ``header_size_middleware``: 431 past ``max_header_bytes``,
   ``max_header_count`` or ``max_header_field_bytes``;
+- ``token_usage_middleware``: with ``token_usage_logging_enabled``, a
+  ``token_usage_logs`` row for every request made with an API token (a
+  jti-bearing JWT), 401/403/429 marked ``blocked``; a refused token's jti
+  is read from its unverified payload and kept only when the catalog has
+  it. The row is written off the answer's path, as a task in
+  ``app["_token_usage_tasks"]``, which the app drains before its database
+  closes. It sits outside ``error_middleware`` to see final statuses;
 - ``error_middleware``: ``NotFoundError`` -> 404, ``ConflictError`` -> 409,
   ``ValidationFailure`` and ``ValueError`` -> 422, ``AuthError`` -> 401 with
   ``www-authenticate: Bearer``, ``PermissionDenied`` -> 403, anything else
@@ -44,14 +50,27 @@ and roles (``token_usage``, ``csrf``, ``password_change``):
   ``app["rate_limiter"]`` (a ``RateLimiter``, per client ip) refuses;
 - ``auth_middleware``: ``request["auth"]`` from the plugins'
   ``http_auth_resolve_user`` hooks when ``app["plugin_manager"]`` is set,
-  else from the Authorization header (``gateway/auth.py``), then the
-  plugins' ``http_pre_request`` hooks; public paths (``/.well-known/*``
-  and a server's ``/.well-known/mcp`` among them) and OPTIONS pass as
-  anonymous; the rest of the chain runs under the principal's tenant
-  (``request["tenant"]`` and the port's ``set_current_tenant``);
+  else from the Authorization header through ``app["auth_service"]``
+  (``services/auth_service.py``: Bearer, Basic, an anonymous admin when
+  ``auth_required`` is off), then the plugins' ``http_pre_request`` hooks;
+  public paths (``/auth/sso/*``, ``/.well-known/*`` and a server's
+  ``/.well-known/mcp`` among them) and OPTIONS pass as anonymous; the rest
+  of the chain runs under the principal's tenant (``request["tenant"]``
+  and the port's ``set_current_tenant``);
+- ``csrf_middleware``: with ``csrf_enabled``, an unsafe method riding
+  ambient credentials (Basic, not Bearer) answers 403 ``CSRF_CROSS_SITE``
+  when the browser declares cross-site provenance, ``CSRF_NO_PROVENANCE``
+  under ``csrf_check_referer`` when it declares none, and
+  ``CSRF_TOKEN_INVALID`` when the ``csrf_token`` cookie is not echoed in
+  ``X-CSRF-Token`` (``services/csrf_service.py``);
+- ``password_change_middleware``: with
+  ``password_change_enforcement_enabled``, an interactive identity flagged
+  ``password_change_required`` answers 403 ``PASSWORD_CHANGE_REQUIRED``
+  anywhere but ``/auth/password`` (API tokens are exempt);
 - ``request_logging_middleware``: at DEBUG, each request's body masked by
-  ``utils/masking.py`` and each status (the JAX layer's audit-trail rows
-  wait for the audit service);
+  ``utils/masking.py`` and each status; with ``app["audit_service"]``, an
+  ``audit_trail`` row for each successful POST, PUT or DELETE outside the
+  MCP, /v1 and /llmchat surfaces;
 - ``db_query_logging_middleware``: with ``db_query_logging``, the handler's
   statements (``db/core.py`` ``query_log_capture``) as X-DB-Query-Count and
   X-DB-Query-Time-MS, a warning per slow statement and per repeated shape.
@@ -62,6 +81,9 @@ and roles (``token_usage``, ``csrf``, ``password_change``):
 from __future__ import annotations
 
 import asyncio
+import base64
+import binascii
+import hmac
 import logging
 import time
 import uuid
@@ -74,12 +96,14 @@ from ..observability import (ANONYMOUS, reset_current_tenant, resolve_tenant,
 from ..observability import phases as request_phases
 from ..observability.tracing import current_span
 from ..services.base import ConflictError, NotFoundError, ValidationFailure
-from .auth import AuthContext, AuthError, PermissionDenied, resolve_header
+from .auth import AuthContext, AuthError, PermissionDenied
 from .flight_recorder import backpressure_headers, queue_state
 
 Handler = Callable[[web.Request], Awaitable[web.StreamResponse]]
 
 PUBLIC_PATHS = {"/health", "/ready", "/version", "/auth/login", "/robots.txt",
+                # the reset flow is pre-auth by nature; its handlers are
+                # rate limited and answer alike for unknown accounts
                 "/auth/password/reset-request", "/auth/password/reset"}
 
 
@@ -436,10 +460,12 @@ async def _handle_as_tenant(request: web.Request, handler: Handler) -> web.Strea
 @web.middleware
 async def auth_middleware(request: web.Request, handler: Handler) -> web.StreamResponse:
     """``request["auth"]`` from the plugins' ``http_auth_resolve_user``
-    hooks, else a Bearer JWT or Basic credentials; an anonymous admin when
-    ``auth_required`` is off; else ``AuthError``. The plugins'
-    ``http_pre_request`` hooks run after it."""
+    hooks, else a Bearer JWT or Basic credentials through
+    ``app["auth_service"]``; an anonymous admin when ``auth_required`` is
+    off; else ``AuthError``. The plugins' ``http_pre_request`` hooks run
+    after it."""
     if (request.method == "OPTIONS" or request.path in PUBLIC_PATHS
+            or request.path.startswith("/auth/sso/")
             # well-known files are public discovery surface, the gateway's
             # and each virtual server's
             or request.path.startswith("/.well-known/")
@@ -448,13 +474,28 @@ async def auth_middleware(request: web.Request, handler: Handler) -> web.StreamR
         request["auth"] = AuthContext(user="anonymous", via="anonymous")
         return await _handle_as_tenant(request, handler)
     settings = request.app["settings"]
+    auth_service = request.app["auth_service"]
     pm = request.app.get("plugin_manager")
-    # the plugin hooks inside charge "plugins" (self time), the rest "auth"
+    # header parsing and the database-backed lookups charge "auth"; the
+    # plugin hooks inside charge "plugins" (self time)
     with request_phases.phase("auth"):
+        header = request.headers.get(settings.auth_header_name, "")
         auth = (await pm.http_auth_resolve_user(dict(request.headers))
                 if pm is not None else None)
         if auth is None:
-            auth = resolve_header(settings, request.headers.get(settings.auth_header_name, ""))
+            if header.lower().startswith("bearer "):
+                auth = await auth_service.resolve_bearer(header[7:].strip())
+            elif header.lower().startswith("basic "):
+                try:
+                    decoded = base64.b64decode(header[6:].strip()).decode()
+                except (binascii.Error, ValueError) as exc:
+                    raise AuthError("Malformed basic credentials") from exc
+                username, _, password = decoded.partition(":")
+                auth = await auth_service.resolve_basic(username, password)
+            elif not settings.auth_required:
+                auth = AuthContext(user="anonymous", is_admin=True, via="anonymous")
+            else:
+                raise AuthError("Authentication required")
         request["auth"] = auth
     if pm is not None:
         await pm.http_pre_request(request.method, request.path, dict(request.headers),
@@ -463,10 +504,130 @@ async def auth_middleware(request: web.Request, handler: Handler) -> web.StreamR
 
 
 @web.middleware
+async def csrf_middleware(request: web.Request, handler: Handler) -> web.StreamResponse:
+    """CSRF protection of the ambient-credential surface; runs after auth.
+    A Bearer request is exempt (a cross-site page cannot attach a token it
+    does not hold); Basic and cookie credentials ride along with any
+    browser request, so an unsafe method must prove same-origin provenance:
+    a declared cross-site browser request (``Sec-Fetch-Site``, a foreign
+    ``Origin``) is a 403, and with the ``csrf_token`` cookie present the
+    ``X-CSRF-Token`` header must echo it and verify (double submit)."""
+    from ..services import csrf_service
+
+    settings = request.app["settings"]
+    if (not settings.csrf_enabled or request.method in csrf_service.SAFE_METHODS
+            or request.path in PUBLIC_PATHS):
+        return await handler(request)
+    for exempt in settings.csrf_exempt_paths:
+        if request.path == exempt or request.path.startswith(exempt.rstrip("/") + "/"):
+            return await handler(request)
+    auth = request.get("auth")
+    header = request.headers.get(settings.auth_header_name, "")
+    if header.lower().startswith("bearer ") or auth is None or auth.via == "anonymous":
+        return await handler(request)
+    host = request.headers.get("host", "")
+    if csrf_service.browser_cross_site(request.headers, host, settings.csrf_trusted_origins):
+        return web.json_response(
+            {"detail": "CSRF validation failed", "code": "CSRF_CROSS_SITE"}, status=403)
+    if settings.csrf_check_referer and not (
+            request.headers.get("origin") or request.headers.get("referer")
+            or request.headers.get("sec-fetch-site")):
+        # fail closed: ambient-credential mutations must declare provenance
+        return web.json_response(
+            {"detail": "CSRF validation failed", "code": "CSRF_NO_PROVENANCE"}, status=403)
+    cookie = request.cookies.get(settings.csrf_cookie_name)
+    if cookie:
+        echoed = request.headers.get(settings.csrf_header_name, "")
+        if not echoed or not hmac.compare_digest(echoed, cookie) \
+                or not csrf_service.validate(echoed, auth.user, settings.jwt_secret_key):
+            return web.json_response(
+                {"detail": "CSRF validation failed", "code": "CSRF_TOKEN_INVALID"}, status=403)
+    return await handler(request)
+
+
+@web.middleware
+async def password_change_middleware(request: web.Request,
+                                     handler: Handler) -> web.StreamResponse:
+    """Forced password rotation: an interactive identity whose
+    ``password_change_required`` flag is set reaches only ``/auth/password``
+    until it rotates. API tokens are exempt. The flag rides ``AuthContext``
+    (read in resolve_*'s users row), so this layer runs no query."""
+    settings = request.app["settings"]
+    if not settings.password_change_enforcement_enabled:
+        return await handler(request)
+    auth = request.get("auth")
+    if (auth is None or auth.via == "anonymous" or auth.token_jti or auth.scoped
+            or request.path in PUBLIC_PATHS or request.path == "/auth/password"):
+        return await handler(request)
+    if auth.password_change_required:
+        return web.json_response(
+            {"detail": "Password change required before further access",
+             "code": "PASSWORD_CHANGE_REQUIRED", "change_url": "/auth/password"}, status=403)
+    return await handler(request)
+
+
+@web.middleware
+async def token_usage_middleware(request: web.Request, handler: Handler) -> web.StreamResponse:
+    """A ``token_usage_logs`` row for each request made with an API token:
+    endpoint, status, latency, client; 401/403/429 marked blocked. A
+    refused token's jti is read from its unverified payload and confirmed
+    against the catalog, so a forged token cannot write rows."""
+    settings = request.app["settings"]
+    if not settings.token_usage_logging_enabled:
+        return await handler(request)
+    started = time.monotonic()
+    response = await handler(request)
+    auth = request.get("auth")
+    jti = auth.token_jti if auth is not None else None
+    user_email = auth.user if auth is not None else None
+    if jti is None and response.status in (401, 403):
+        # refused before an identity existed: identify (not trust) the token
+        header = request.headers.get(settings.auth_header_name, "")
+        if header.lower().startswith("bearer "):
+            from ..utils import jwt as jwt_utils
+            payload = jwt_utils.decode_unverified(header[7:].strip())
+            candidate = (payload or {}).get("jti")
+            if candidate:
+                row = await request.app["ctx"].db.fetchone(
+                    "SELECT jti, user_email FROM api_tokens WHERE jti=?", (candidate,))
+                if row:
+                    # the catalog's owner: the unverified sub is the caller's
+                    jti = row["jti"]
+                    user_email = row["user_email"]
+    if jti is not None:
+        # "blocked" is a security denial; routine 404s and 400s are traffic
+        blocked = response.status in (401, 403, 429)
+        row_values = (
+            jti, user_email, time.time(), request.method, request.path, response.status,
+            round((time.monotonic() - started) * 1000, 2),
+            request.get("client_ip", request.remote),
+            request.headers.get("user-agent", "")[:256],
+            1 if blocked else 0, f"http_{response.status}" if blocked else None)
+
+        async def _record() -> None:
+            try:
+                await request.app["ctx"].db.execute(
+                    "INSERT INTO token_usage_logs (token_jti, user_email,"
+                    " ts, method, path, status, response_ms, client_ip,"
+                    " user_agent, blocked, block_reason)"
+                    " VALUES (?,?,?,?,?,?,?,?,?,?,?)", row_values)
+            except Exception:  # accounting never breaks serving
+                request.app.logger.debug("token usage write failed", exc_info=True)
+
+        # off the answer's path; the set (made before the app froze) holds
+        # the tasks and is drained before the database closes
+        tasks: set = request.app["_token_usage_tasks"]
+        task = asyncio.ensure_future(_record())
+        tasks.add(task)
+        task.add_done_callback(tasks.discard)
+    return response
+
+
+@web.middleware
 async def request_logging_middleware(request: web.Request,
                                      handler: Handler) -> web.StreamResponse:
     """At DEBUG, each request's body with its sensitive values masked, and
-    each answer's status."""
+    each answer's status; an audit row for each successful mutation."""
     logger = request.app.logger
     if logger.isEnabledFor(logging.DEBUG):
         from ..utils.masking import mask_text
@@ -476,6 +637,14 @@ async def request_logging_middleware(request: web.Request,
     response = await handler(request)
     if logger.isEnabledFor(logging.DEBUG):
         logger.debug("resp %s %s -> %s", request.method, request.path, response.status)
+    # the audit trail: successful mutations of the REST surface
+    audit = request.app.get("audit_service")
+    if (audit is not None and request.method in ("POST", "PUT", "DELETE")
+            and 200 <= response.status < 300
+            and not request.path.startswith(("/rpc", "/mcp", "/messages", "/v1/", "/llmchat"))):
+        auth = request.get("auth")
+        await audit.record(auth.user if auth else None, f"{request.method} {request.path}",
+                           details={"status": response.status})
     return response
 
 
@@ -518,8 +687,10 @@ async def db_query_logging_middleware(request: web.Request,
 
 # outermost first: observability sees every response (errors included); the
 # recorder sits just inside it, so a disconnect's CancelledError, re-raised
-# one layer down, still gets a row; error_middleware sits outside the rate
-# limit and auth, so AuthError maps to a status; db_query_logging is
+# one layer down, still gets a row; token_usage sits outside error
+# translation, so a refused token shows as a status; error_middleware sits
+# outside the rate limit and auth, so AuthError maps to a status; csrf and
+# password_change need the resolved identity; db_query_logging is
 # innermost, so it counts the handler's statements only
 MIDDLEWARES = [
     observability_middleware,
@@ -532,10 +703,13 @@ MIDDLEWARES = [
     security_headers_middleware,
     deprecation_middleware,
     header_size_middleware,
+    token_usage_middleware,
     error_middleware,
     protocol_version_middleware,
     rate_limit_middleware,
     auth_middleware,
+    csrf_middleware,
+    password_change_middleware,
     request_logging_middleware,
     db_query_logging_middleware,
 ]

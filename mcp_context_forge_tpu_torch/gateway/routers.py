@@ -15,7 +15,18 @@ permissions, status codes and bodies:
   /resources/read`` (``{"uri"}``; local or federated);
 - ``/prompts``: list, create (201), put, delete, and ``POST
   /prompts/{name}/render`` (the body is the arguments);
-- ``/servers``: list, create (201), get, put, delete.
+- ``/servers``: list, create (201), get, put, delete;
+- the auth surface over ``app["auth_service"]``: ``POST /auth/login``
+  (public; one argon2 verify, then a JWT), ``/auth/tokens`` (mint 201, list,
+  ``DELETE`` revokes, ``GET /auth/tokens/{id}/usage``: ``tokens.manage``),
+  ``POST /auth/password`` (rotation), ``POST /auth/password/reset-request``
+  (public, always 202 after ``password_reset_min_response_ms``, the mail
+  sent in the background), ``GET``/``POST /auth/password/reset`` (the page
+  and the reset; both 404 unless ``password_reset_enabled``);
+- the admin's users: ``POST``/``GET /admin/users``,
+  ``POST /admin/users/{email}/require-password-change``,
+  ``POST /admin/users/{email}/toggle`` (``admin.all``) and ``GET
+  /admin/config`` (the effective settings, secrets redacted).
 
 A body the schema refuses answers 422 with the schema's error text under
 ``detail`` (``ValidationFailure``), as does one past the ``validation_max_*``
@@ -24,12 +35,13 @@ pagination.py``: the whole list without ``limit`` and ``cursor``, else a
 keyset page) over ``_cached_list``: with ``app["registry_cache"]`` the
 loaded list is cached under a key of the query's flags (and, for tools, the
 viewer's teams), never of ``limit`` or ``cursor``, so every page is cut from
-one cached list. The auth, users, tokens, metrics and admin routes of the
-JAX module are not ported."""
+one cached list. The metrics routes of the JAX module are not ported."""
 
 from __future__ import annotations
 
+import asyncio
 import json
+import time
 from typing import Any
 
 from aiohttp import web
@@ -37,7 +49,8 @@ from aiohttp import web
 from ..schemas import (GatewayCreate, GatewayUpdate, PromptCreate, PromptUpdate, ResourceCreate,
                        ResourceUpdate, SchemaError, ServerCreate, ServerUpdate, ToolCreate,
                        ToolUpdate)
-from ..services.base import ValidationFailure
+from ..services.base import NotFoundError, ValidationFailure, now
+from .auth import AuthError, PermissionDenied
 from .pagination import paginate
 
 
@@ -110,6 +123,191 @@ def setup_routes(app: web.Application) -> None:
             "protocolVersion": settings.protocol_version,
             "endpoints": {"mcp": "/mcp", "rpc": "/rpc"},
         })
+
+    # ----------------------------------------------------------------- auth
+    @routes.post("/auth/login")
+    async def login(request: web.Request) -> web.Response:
+        body = await request.json()
+        auth_service = request.app["auth_service"]
+        email = body.get("email") or body.get("username") or ""
+        password = body.get("password") or ""
+        if not await auth_service.verify_password(email, password):
+            raise AuthError("Invalid credentials")
+        token = auth_service.issue_jwt(email)
+        return web.json_response({"access_token": token, "token_type": "bearer"})
+
+    @routes.post("/auth/tokens")
+    async def create_token(request: web.Request) -> web.Response:
+        auth = request["auth"]
+        auth.require("tokens.manage")
+        body = await request.json()
+        token, token_id = await request.app["auth_service"].create_api_token(
+            auth.user, body.get("name", "api-token"), server_id=body.get("server_id"),
+            permissions=body.get("permissions"), expires_minutes=body.get("expires_minutes"),
+            grantor=auth)
+        return web.json_response({"token": token, "id": token_id}, status=201)
+
+    @routes.get("/auth/tokens")
+    async def list_tokens(request: web.Request) -> web.Response:
+        auth = request["auth"]
+        auth.require("tokens.manage")
+        return web.json_response(await request.app["auth_service"].list_api_tokens(auth.user))
+
+    @routes.delete("/auth/tokens/{token_id}")
+    async def revoke_token(request: web.Request) -> web.Response:
+        request["auth"].require("tokens.manage")
+        await request.app["auth_service"].revoke_token(request.match_info["token_id"])
+        return web.Response(status=204)
+
+    @routes.get("/auth/tokens/{token_id}/usage")
+    async def token_usage(request: web.Request) -> web.Response:
+        """One API token's usage rows, to its owner or an admin."""
+        auth = request["auth"]
+        auth.require("tokens.manage")
+        db = request.app["ctx"].db
+        row = await db.fetchone("SELECT jti, user_email FROM api_tokens WHERE id=?",
+                                (request.match_info["token_id"],))
+        if row is None:
+            raise NotFoundError("Token not found")
+        if row["user_email"] != auth.user and not auth.can("admin.all"):
+            raise PermissionDenied("Not your token")
+        logs = await db.fetchall(
+            "SELECT ts, method, path, status, response_ms, client_ip,"
+            " user_agent, blocked, block_reason FROM token_usage_logs"
+            " WHERE token_jti=? ORDER BY ts DESC LIMIT 500", (row["jti"],))
+        return web.json_response({"token_id": request.match_info["token_id"], "entries": logs})
+
+    @routes.post("/auth/password")
+    async def change_password(request: web.Request) -> web.Response:
+        auth = request["auth"]
+        body = await request.json()
+        await request.app["auth_service"].change_password(
+            auth.user, body.get("old_password", ""), body.get("new_password", ""))
+        return web.json_response({"status": "changed"})
+
+    def _background(request: web.Request, coro) -> None:
+        # held in the app's drained task set: a mail must not outlive the db
+        tasks = request.app["_token_usage_tasks"]
+        task = asyncio.get_running_loop().create_task(coro)
+        tasks.add(task)
+        task.add_done_callback(tasks.discard)
+
+    @routes.post("/auth/password/reset-request")
+    async def password_reset_request(request: web.Request) -> web.Response:
+        """Always 202 with one body, no sooner than the minimum response
+        time, whether or not the account exists (no user enumeration)."""
+        settings = request.app["settings"]
+        if not settings.password_reset_enabled:
+            raise NotFoundError("password reset is disabled")
+        started = time.monotonic()
+
+        async def _floor() -> None:
+            # on every exit: a fast 400 beside a padded 202 would be a
+            # timing side channel of its own
+            remaining = (settings.password_reset_min_response_ms / 1e3
+                         - (time.monotonic() - started))
+            if remaining > 0:
+                await asyncio.sleep(remaining)
+
+        try:
+            body = await request.json()
+        except Exception:
+            await _floor()
+            return web.json_response({"detail": "Invalid JSON body"}, status=400)
+        if not isinstance(body, dict):
+            await _floor()
+            return web.json_response({"detail": "body must be a JSON object"}, status=400)
+        email = str(body.get("email", "")).strip().lower()
+        if email:
+            token = await request.app["auth_service"].request_password_reset(email)
+            email_service = request.app.get("email_service")
+            if token and email_service is not None:
+                # in the background: an inline send would make a real
+                # account answer slower than an unknown one
+                _background(request, email_service.send_password_reset(
+                    email, token, settings.password_reset_token_expiry_minutes))
+        await _floor()
+        return web.json_response(
+            {"status": "accepted", "detail": "If the account exists, a reset link was sent."},
+            status=202)
+
+    @routes.get("/auth/password/reset")
+    async def password_reset_page(request: web.Request) -> web.Response:
+        """The page the mailed link lands on: a form that POSTs the token
+        and the new password back here. The token is never put into the
+        page; its script reads it from the query."""
+        if not request.app["settings"].password_reset_enabled:
+            raise NotFoundError("password reset is disabled")
+        return web.Response(content_type="text/html", text=_RESET_PAGE)
+
+    @routes.post("/auth/password/reset")
+    async def password_reset(request: web.Request) -> web.Response:
+        if not request.app["settings"].password_reset_enabled:
+            raise NotFoundError("password reset is disabled")
+        try:
+            body = await request.json()
+        except Exception:
+            return web.json_response({"detail": "Invalid JSON body"}, status=400)
+        if not isinstance(body, dict):
+            return web.json_response({"detail": "body must be a JSON object"}, status=400)
+        email = await request.app["auth_service"].reset_password(
+            str(body.get("token", "")), str(body.get("new_password", "")))
+        email_service = request.app.get("email_service")
+        if email_service is not None:
+            _background(request, email_service.send_password_reset_confirmation(email))
+        audit = request.app.get("audit_service")
+        if audit is not None:
+            await audit.record(email, "auth.password_reset")
+        return web.json_response({"status": "reset"})
+
+    # ----------------------------------------------------- the admin's users
+    @routes.post("/admin/users")
+    async def create_user(request: web.Request) -> web.Response:
+        request["auth"].require("admin.all")
+        body = await request.json()
+        await request.app["auth_service"].create_user(
+            body.get("email", ""), body.get("password", ""),
+            full_name=body.get("full_name", ""), is_admin=bool(body.get("is_admin")),
+            enforce_policy=True,
+            require_password_change=bool(body.get("require_password_change")))
+        return web.json_response({"email": body.get("email")}, status=201)
+
+    @routes.get("/admin/config")
+    async def effective_config(request: web.Request) -> web.Response:
+        """The settings this worker runs with, secrets redacted."""
+        request["auth"].require("admin.all")
+        from ..utils.redact import redact_settings
+        return web.json_response(redact_settings(request.app["settings"]))
+
+    @routes.post("/admin/users/{email}/require-password-change")
+    async def require_password_change(request: web.Request) -> web.Response:
+        """Flag a user for forced rotation; ``/auth/password`` clears it."""
+        request["auth"].require("admin.all")
+        await request.app["auth_service"].set_password_change_required(
+            request.match_info["email"], True)
+        return web.json_response({"email": request.match_info["email"],
+                                  "password_change_required": True})
+
+    @routes.get("/admin/users")
+    async def list_users(request: web.Request) -> web.Response:
+        request["auth"].require("admin.all")
+        rows = await request.app["ctx"].db.fetchall(
+            "SELECT email, full_name, is_admin, is_active, auth_provider,"
+            " last_login, created_at FROM users ORDER BY email")
+        return paginate(request, rows, lambda page: list(page), key=lambda row: row["email"])
+
+    @routes.post("/admin/users/{email}/toggle")
+    async def toggle_user(request: web.Request) -> web.Response:
+        request["auth"].require("admin.all")
+        email = request.match_info["email"]
+        db = request.app["ctx"].db
+        await db.execute("UPDATE users SET is_active=1-is_active, updated_at=? WHERE email=?",
+                         (now(), email))
+        request.app["auth_service"].invalidate_user(email)
+        row = await db.fetchone("SELECT email, is_active FROM users WHERE email=?", (email,))
+        if row is None:
+            raise NotFoundError(f"User {email} not found")
+        return web.json_response(row)
 
     # ---------------------------------------------------------------- tools
     @routes.get("/tools")
@@ -347,3 +545,24 @@ def setup_routes(app: web.Application) -> None:
         return web.Response(status=204)
 
     app.add_routes(routes)
+
+
+_RESET_PAGE = """<!doctype html>
+<title>Password reset</title>
+<h3>Choose a new password</h3>
+<form id="f"><input type="password" id="p" placeholder="new password"
+  autocomplete="new-password" minlength="8" required>
+<button>Reset</button></form><p id="out"></p>
+<script>
+document.getElementById("f").onsubmit = async (e) => {
+  e.preventDefault();
+  const token = new URLSearchParams(location.search).get("token") || "";
+  const r = await fetch("/auth/password/reset", {method: "POST",
+    headers: {"content-type": "application/json"},
+    body: JSON.stringify({token, new_password:
+      document.getElementById("p").value})});
+  document.getElementById("out").textContent = r.ok
+    ? "Password reset. You can sign in now."
+    : "Reset failed: " + (await r.json()).detail;
+};
+</script>"""

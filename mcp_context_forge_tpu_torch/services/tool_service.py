@@ -467,10 +467,16 @@ def _text_result(text: str) -> dict[str, Any]:
 
 
 async def resolve_auth_headers(ctx, row: dict[str, Any]) -> dict[str, str]:
-    """Static auth headers — the one helper every outbound branch (REST /
-    MCP / federation) uses. OAuth client credentials add none until the
-    OAuth manager is ported."""
-    return _auth_headers(row, ctx.settings.auth_encryption_secret)
+    """Static auth headers, and for ``auth_type`` "oauth" a client-credentials
+    Bearer from ``ctx.extras["oauth_manager"]`` — the one helper every
+    outbound branch (REST / MCP / federation) uses."""
+    headers = _auth_headers(row, ctx.settings.auth_encryption_secret)
+    if row.get("auth_type") == "oauth":
+        oauth = ctx.extras.get("oauth_manager")
+        if oauth is not None:
+            value = decrypt_field(row.get("auth_value"), ctx.settings.auth_encryption_secret) or {}
+            headers.update(await oauth.headers_for(value))
+    return headers
 
 
 def _auth_headers(row: dict[str, Any], secret: str) -> dict[str, str]:

@@ -969,7 +969,23 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     ``app["rate_limiter"]``, a ``RateLimiter`` at ``rate_limit_rps`` and
     ``rate_limit_burst`` (0 rps admits everything) for ``MIDDLEWARES``; and
     at startup, in a worker thread, the native log-masking library's build
-    (``utils/masking.py``)."""
+    (``utils/masking.py``).
+
+    Auth backed by the database, as the JAX gateway wires it:
+    ``app["auth_service"]`` (``AuthService``, whose ``invalidate_user`` is
+    ``ctx.extras["auth_invalidate"]`` for the team writes), ``role_service``,
+    ``team_service``, ``email_service`` (also ``ctx.extras``: lockout and
+    invitation mails), ``compliance_service``, with ``audit_enabled``
+    ``audit_service`` (the request log's audit rows; its SIEM export runs
+    from startup with ``siem_export_url``), ``sso_service`` (the providers of
+    ``sso_providers``), ``dcr_service`` (also ``ctx.extras``) and
+    ``ctx.extras["oauth_manager"]`` (the client-credentials Bearer of an
+    ``oauth`` tool or gateway). At startup, after the migrations, the
+    platform admin's users row (``bootstrap_admin``: one argon2 hash in a
+    worker thread) and the system roles are seeded. ``app["_token_usage_tasks"]``
+    holds the token-usage and mail tasks, drained at cleanup before the
+    database closes. ``gateway/routers_rbac.py`` serves the RBAC,
+    compliance, SSO, DCR, token-exchange and audit routes."""
     from ..coordination.heartbeat import WorkerHeartbeat
     from ..coordination.ratelimit import DistributedTenantLimiter, make_rate_counter
     from ..coordination.rpc import BusRpc
@@ -1013,6 +1029,15 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     from ..services.toolops_service import ToolOpsService
     from ..services.upstream_sessions import UpstreamSessionRegistry
     from ..services.diagnostics_service import TorchProfilerCapture
+    from ..gateway.routers_rbac import (setup_compliance_routes, setup_identity_routes,
+                                        setup_rbac_routes)
+    from ..services.audit_service import AuditService
+    from ..services.auth_service import AuthService
+    from ..services.compliance_service import ComplianceService
+    from ..services.email_service import EmailNotificationService
+    from ..services.oauth_service import DCRService, OAuthManager, SSOService
+    from ..services.role_service import RoleService
+    from ..services.team_service import TeamService
     from ..services.llm_provider_service import LLMProviderService
     from ..services.prompt_service import PromptService
     from ..services.resource_service import ResourceService
@@ -1261,6 +1286,34 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
         app["registry_cache"] = ctx.extras["registry_cache"] = registry_cache
     app["chat_service"] = ChatService(ctx, tool_service, server_service, kv=kv_store,
                                       session_ttl=settings.session_ttl)
+    # auth backed by the database, under the JAX gateway's keys
+    auth_service = AuthService(ctx)
+    app["auth_service"] = auth_service
+    # membership and role writers bust the auth resolution cache through
+    # this hook (services do not import each other for it)
+    ctx.extras["auth_invalidate"] = auth_service.invalidate_user
+    app["role_service"] = RoleService(ctx)
+    app["team_service"] = TeamService(ctx)
+    app["email_service"] = ctx.extras["email_service"] = EmailNotificationService(ctx)
+    app["compliance_service"] = ComplianceService(ctx)
+    audit_service = AuditService(ctx, siem_url=settings.siem_export_url)
+    if settings.audit_enabled:
+        app["audit_service"] = audit_service
+    ctx.extras["oauth_manager"] = OAuthManager(ctx)
+    sso_service = SSOService(ctx, auth_service)
+    app["sso_service"] = sso_service
+    for entry in (json.loads(settings.sso_providers) if settings.sso_providers else []):
+        sso_service.register_provider(
+            entry["name"], entry["issuer"], entry["client_id"], entry.get("client_secret", ""),
+            authorization_endpoint=entry.get("authorization_endpoint", ""),
+            token_endpoint=entry.get("token_endpoint", ""),
+            dialect=entry.get("dialect", "oidc"),
+            userinfo_endpoint=entry.get("userinfo_endpoint", ""),
+            metadata=entry.get("metadata"))
+    dcr_service = DCRService(ctx)
+    app["dcr_service"] = ctx.extras["dcr_service"] = dcr_service
+    # made before the app freezes: a handler may not add keys to it
+    app["_token_usage_tasks"] = set()
     app["toolops_service"] = ToolOpsService(ctx, tool_service)
     app["settings"] = settings
     app["ctx"] = ctx
@@ -1367,6 +1420,8 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     async def start(app: web.Application) -> None:
         await db.connect()
         await db.migrate(MIGRATIONS)
+        await auth_service.bootstrap_admin()
+        await app["role_service"].bootstrap_system_roles()
         if settings.plugins_enabled:
             ctx.plugin_manager = app["plugin_manager"] = await PluginManager.load(ctx)
         if sampler is not None:
@@ -1406,6 +1461,7 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
         await elector.start()
         await gateway_service.start_health_loop()
         kv_sweeper.append(asyncio.create_task(purge_kv()))
+        await audit_service.start()
 
     kv_sweeper: list = []
 
@@ -1420,6 +1476,12 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
                 logging.getLogger(__name__).exception("kv purge failed")
 
     async def stop(app: web.Application) -> None:
+        # the last requests' token-usage rows (blocked denials among them,
+        # which compliance reports count) and mails land before the db closes
+        pending = app["_token_usage_tasks"]
+        if pending:
+            await asyncio.gather(*list(pending), return_exceptions=True)
+        await audit_service.stop()
         for task in kv_sweeper:
             task.cancel()
             with contextlib.suppress(asyncio.CancelledError):
@@ -1468,6 +1530,9 @@ def build_llm_app(settings, engine=None, pool=None, bus=None, leases=None,
     routers_extra.setup_routes(app)
     routers.setup_routes(app)
     routers_chat.setup_routes(app)
+    setup_rbac_routes(app)
+    setup_compliance_routes(app)
+    setup_identity_routes(app, sso_service, dcr_service, audit_service)
     setup_mcp_routes(app)
     return app
 

@@ -5,7 +5,11 @@ built from the same settings (the port's engine on the JAX engine's
 weights), give the same status, ``www-authenticate`` and body for: no
 credentials, a wrong Basic password, the right Basic credentials, a JWT for
 a subject with no users row, a JWT scoped without ``llm.chat``, a JWT
-minted for another audience, and ``auth_required`` off."""
+minted for another audience, and ``auth_required`` off. Through the
+database: a Bearer for the platform admin is the admin (an ``llm.admin``
+route answers 200), a revoked API token and a deactivated user answer 401,
+and a user made by ``POST /admin/users`` chats with Basic credentials and
+then with an API token it minted, the same tokens in both apps."""
 
 import asyncio
 import base64
@@ -200,3 +204,107 @@ def test_auth_required_off_admits_anonymous(loop, clients, monkeypatch):
     ref, port = _both(loop, clients, {})
     assert ref[0] == port[0] == 200
     assert port[2]["choices"] == ref[2]["choices"]
+
+
+# -- the database-backed resolution (fault 1 and the slice as a whole) -------
+
+
+def _admin():
+    return {"Authorization": aiohttp.BasicAuth(SETTINGS.basic_auth_user,
+                                               SETTINGS.basic_auth_password).encode()}
+
+
+def _each(loop, clients, sequence):
+    """``sequence(client)`` on the JAX app, then on the port's."""
+    return [_run(loop, sequence(client)) for client in clients]
+
+
+def test_admin_subject_bearer_is_admin(loop, clients):
+    """Fault 1: a Bearer JWT for the platform admin resolves to the admin's
+    users row (written at startup), so an ``llm.admin`` route answers 200 in
+    both apps; the parent port gave it the default user's permissions and a
+    403."""
+    async def sequence(client):
+        resp = await client.get("/llm/providers", headers=_bearer(
+            {"sub": SETTINGS.platform_admin_email}))
+        row = await client.server.app["ctx"].db.fetchone(
+            "SELECT is_admin, is_active, auth_provider FROM users WHERE email=?",
+            (SETTINGS.platform_admin_email,))
+        return resp.status, await resp.json(), dict(row)
+
+    ref, port = _each(loop, clients, sequence)
+    assert ref == port and port[0] == 200
+    assert port[2] == {"is_admin": 1, "is_active": 1, "auth_provider": "local"}
+
+
+def test_revoked_token_and_deactivated_user_refused(loop, clients):
+    """Fault 1: a revoked API token and a deactivated user's JWT answer 401
+    before the engine in both apps (the parent port admitted both)."""
+    email, password = "deactivated-76@corp.example", "Seeded-Passw0rd-76"
+
+    async def sequence(client):
+        out = []
+        resp = await client.post("/auth/tokens", json={"name": "chat",
+                                                       "permissions": ["llm.chat"]},
+                                 headers=_admin())
+        made = await resp.json()
+        out.append(resp.status)
+        resp = await client.delete(f"/auth/tokens/{made['id']}", headers=_admin())
+        out.append(resp.status)
+        resp = await client.post("/v1/chat/completions", json=CHAT,
+                                 headers={"Authorization": f"Bearer {made['token']}"})
+        out.append((resp.status, resp.headers.get("www-authenticate"), await resp.json()))
+        resp = await client.post("/admin/users", json={"email": email, "password": password},
+                                 headers=_admin())
+        out.append(resp.status)
+        resp = await client.post(f"/admin/users/{email}/toggle", headers=_admin())
+        out.append((resp.status, await resp.json()))
+        for headers in (_bearer({"sub": email}), {
+                "Authorization": aiohttp.BasicAuth(email, password).encode()}):
+            resp = await client.post("/v1/chat/completions", json=CHAT, headers=headers)
+            out.append((resp.status, await resp.json()))
+        return out
+
+    ref, port = _each(loop, clients, sequence)
+    assert port == ref
+    assert port[2] == (401, "Bearer", {"detail": "Token revoked"})
+    assert port[5] == (401, {"detail": "User deactivated"})
+    assert port[6] == (401, {"detail": "Invalid credentials"})
+
+
+def test_db_user_chat_through_both_apps(loop, clients):
+    """The slice as a whole: a user made by ``POST /admin/users`` chats on
+    /v1 with Basic credentials (one argon2 verify), then, granted
+    ``tokens.manage`` by a role, mints an ``llm.chat`` API token and chats
+    with it; both replies, in both apps, are the same tokens, and the token's
+    usage row lists the chat."""
+    email, password = "chatter-77@corp.example", "Seeded-Passw0rd-77"
+    chat = {**CHAT, "max_tokens": 6, "messages": [{"role": "user", "content": "name a tool"}]}
+
+    async def sequence(client):
+        admin = _admin()
+        await client.post("/admin/users", json={"email": email, "password": password},
+                          headers=admin)
+        me = {"Authorization": aiohttp.BasicAuth(email, password).encode()}
+        resp = await client.post("/v1/chat/completions", json=chat, headers=me)
+        by_basic = (resp.status, (await resp.json())["choices"])
+        role = await (await client.post("/rbac/roles", json={
+            "name": "token-makers-77", "permissions": ["tokens.manage"]}, headers=admin)).json()
+        await client.post(f"/rbac/users/{email}/roles", json={"role_id": role["id"]},
+                          headers=admin)
+        made = await (await client.post("/auth/tokens", json={
+            "name": "chat", "permissions": ["llm.chat"]}, headers=me)).json()
+        resp = await client.post("/v1/chat/completions", json=chat,
+                                 headers={"Authorization": f"Bearer {made['token']}"})
+        by_token = (resp.status, (await resp.json())["choices"])
+        for task in list(client.server.app["_token_usage_tasks"]):
+            await task
+        usage = await (await client.get(f"/auth/tokens/{made['id']}/usage",
+                                        headers=me)).json()
+        return by_basic, by_token, [(e["method"], e["path"], e["status"])
+                                    for e in usage["entries"]]
+
+    ref, port = _each(loop, clients, sequence)
+    assert port == ref
+    assert port[0][0] == port[1][0] == 200 and port[0][1] == port[1][1]
+    assert port[2] == [("POST", "/v1/chat/completions", 200)]

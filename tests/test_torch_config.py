@@ -6,7 +6,8 @@ field or property; seeded env dicts over every field type load to equal
 values in both packages, and the same malformed values are refused by both;
 the precedence of the explicit dict, the process environment and the
 ``.env`` file, the renamed-field alias, ``validate_security`` and
-``EngineConfig.from_settings`` agree. Exact equality throughout (floats
+``EngineConfig.from_settings`` agree; every field of the database-backed
+auth's families is ported, and their comma-list properties agree. Exact equality throughout (floats
 compared as values, nan as nan)."""
 
 import ast
@@ -185,6 +186,61 @@ def test_seeded_env_loads_equal(seed):
     ref = jax_config.load_settings(env=env, env_file=None)
     for name in TYPES:
         assert _same(getattr(port, name), _jax_value(ref, name)), name
+
+
+# the settings the database-backed auth reads (users, the password policy,
+# the resolution cache, CSRF, forced rotation, token usage, teams, SSO, SMTP,
+# resets, the lockout, the audit trail)
+AUTH_FIELDS = [
+    "app_domain", "token_expiry", "password_min_length", "password_require_uppercase",
+    "password_require_lowercase", "password_require_digit", "password_require_special",
+    "password_max_length", "auth_cache_enabled", "auth_cache_user_ttl", "auth_cache_teams_ttl",
+    "auth_cache_role_ttl", "auth_cache_revocation_ttl", "auth_cache_max_entries",
+    "csrf_enabled", "csrf_trusted_origins_csv", "csrf_token_ttl_s", "csrf_cookie_name",
+    "csrf_header_name", "csrf_cookie_secure", "csrf_exempt_paths_csv", "csrf_check_referer",
+    "password_change_enforcement_enabled", "admin_require_password_change_on_bootstrap",
+    "token_usage_logging_enabled", "token_usage_log_retention", "allow_team_creation",
+    "allow_team_invitations", "allow_public_visibility", "default_team_member_role",
+    "invitation_expiry_hours", "max_teams_per_user", "max_members_per_team", "sso_providers",
+    "sso_trusted_domains_csv", "sso_require_admin_approval", "sso_auto_admin_domains_csv",
+    "api_token_max_lifetime_minutes", "smtp_enabled", "smtp_host", "smtp_port", "smtp_user",
+    "smtp_password", "smtp_from_email", "smtp_from_name", "smtp_use_tls", "smtp_use_ssl",
+    "smtp_timeout_seconds", "account_lockout_notification_enabled",
+    "team_invitation_email_enabled", "password_reset_enabled",
+    "password_reset_token_expiry_minutes", "password_reset_rate_limit",
+    "password_reset_rate_window_minutes", "password_reset_min_response_ms",
+    "password_reset_invalidate_sessions", "auth_max_failed_attempts", "auth_lockout_seconds",
+    "siem_export_url", "audit_enabled"]
+CSV_PROPERTIES = ["csrf_trusted_origins", "csrf_exempt_paths", "sso_trusted_domains",
+                  "sso_auto_admin_domains"]
+
+
+@pytest.mark.parametrize("name", AUTH_FIELDS)
+def test_auth_field_is_ported(name):
+    """Each field of the auth families is a port field, read as JAX reads it
+    from the environment (its own text, then the default)."""
+    assert name in PORT_FIELDS
+    text = _good(np.random.default_rng(len(name)), TYPES[name])
+    env = {f"MCPFORGE_{name.upper()}": text}
+    assert _same(getattr(config.load_settings(env=env, env_file=None), name),
+                 getattr(jax_config.load_settings(env=env, env_file=None), name))
+    assert _same(getattr(config.load_settings(env={}, env_file=None), name),
+                 JAX_FIELDS[name].default)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_auth_csv_properties_agree(seed):
+    """The parsed forms of the comma lists (origins, exempt paths, SSO
+    domains, lower-cased) equal JAX's for seeded lists."""
+    rng = np.random.default_rng(200 + seed)
+    words = ["https://App.example", " /auth/sso ", "", "Corp.EXAMPLE", "x.io ", ",", "/v1/"]
+    env = {f"MCPFORGE_{prop.upper()}_CSV": ",".join(
+        str(w) for w in rng.choice(words, size=int(rng.integers(0, 6))))
+        for prop in CSV_PROPERTIES}
+    port = config.load_settings(env=env, env_file=None)
+    ref = jax_config.load_settings(env=env, env_file=None)
+    for prop in CSV_PROPERTIES:
+        assert getattr(port, prop) == getattr(ref, prop), prop
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -6,7 +6,8 @@ the JAX package or ``prometheus_client`` (the card has none; the port's
 metrics registry is its own), and the kernel modules import without
 ``nvcc`` or ``triton`` (kernels build at first launch, on the card); the
 plugin kinds, the external plugin host and the plugin servers import
-neither torch nor httpx."""
+neither torch nor httpx; the modules of the database-backed auth import
+neither JAX, pydantic, argon2-cffi nor httpx."""
 
 import ast
 import os
@@ -163,5 +164,26 @@ def test_plugin_module_imports_no_torch_jax_or_httpx(module):
     code = (f"import sys\nimport mcp_context_forge_tpu_torch.{module}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('torch', 'jax', 'jaxlib', 'mcp_context_forge_tpu', 'numpy', 'httpx')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+AUTH_MODULES = [
+    "config", "utils.passwords", "utils.redact", "services.auth_service",
+    "services.role_service", "services.team_service", "services.csrf_service",
+    "services.email_service", "services.audit_service", "services.compliance_service",
+    "services.oauth_service", "gateway.auth", "gateway.middleware", "gateway.routers",
+    "gateway.routers_chat", "gateway.routers_rbac"]
+
+
+@pytest.mark.parametrize("module", AUTH_MODULES)
+def test_auth_module_imports_no_jax_pydantic_argon2_or_httpx(module):
+    """Each module of the auth backed by the database imports alone, with
+    nothing of JAX, the JAX package or pydantic, without argon2-cffi (the
+    KDF is ``cryptography``'s) and without httpx (the OAuth and SSO calls go
+    through the app's client, built at startup)."""
+    code = (f"import sys\nimport mcp_context_forge_tpu_torch.{module}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'mcp_context_forge_tpu', 'pydantic', 'argon2', 'httpx')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -16,8 +16,8 @@ statuses, headers and bodies:
   ``db_query_logging`` (X-DB-Query-Count and the N+1 warning);
 - ``RateLimiter``: recency-ordered eviction past ``max_buckets`` and the
   sweep of full buckets, step for step as JAX's;
-- ``MIDDLEWARES``: JAX's names in JAX's order, less ``token_usage``,
-  ``csrf`` and ``password_change``;
+- ``MIDDLEWARES``: JAX's names in JAX's order, ``token_usage``, ``csrf``
+  and ``password_change`` included;
 - ``client_disconnect``: a handler that raises ``CancelledError`` counts a
   disconnect and leaves a 499 row flagged ``client_disconnected``; a client
   that closes a stream after its first event cancels no handler under
@@ -284,9 +284,11 @@ def test_request_and_db_logging_agree(caplog):
 
 
 def test_middlewares_are_jax_less_the_auth_bound_three():
-    want = [m.__name__ for m in jax_mw.MIDDLEWARES if m.__name__ not in AUTH_BOUND]
+    """Since the database-backed auth landed, the three auth-bound layers
+    are in the port too: the chain is JAX's, name for name and in order."""
+    want = [m.__name__ for m in jax_mw.MIDDLEWARES]
     assert [m.__name__ for m in mw.MIDDLEWARES] == want
-    assert set(TWELVE) <= set(want)
+    assert set(TWELVE) | AUTH_BOUND <= set(want)
 
 
 @pytest.mark.parametrize("seed", range(3))
